@@ -40,6 +40,11 @@ def pytest_configure(config):
         "fast: <5-minute tier covering every module's core invariants "
         "(auto-applied to everything not marked slow; run with -m fast)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (tpu3drecon_torch CUDA kernels); "
+        "skips where torch.cuda.is_available() is false",
+    )
 
 
 # Heavy tests (>=~15 s on the virtual CPU mesh, measured suite durations):

@@ -1,0 +1,158 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+The sources compile with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface, loaded with ``ctypes`` — no PyTorch headers, so
+a build takes seconds.  The library lands in ``tpu3drecon_torch/_build/``
+under a name keyed by a hash of the sources and flags, so a stale build is
+never loaded.  Nothing here runs at import time: ``library()`` builds at
+first use.
+
+Every C entry returns ``cudaGetLastError()`` after its launch (or a
+negative code for arguments the kernels do not take); ``check`` raises on
+anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+_CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+# --fmad=false: every product and sum is rounded on its own, as PyTorch's
+# elementwise ops round them, so a kernel and its plain version agree to
+# the last bits outside their reductions.  That matters for the closed-form
+# V^-1 of a point seen once: V = J^T J + lam diag is ill-conditioned
+# (~1/lam), and a fused multiply-add in its cofactors moves the inverse by
+# ~eps/lam relative.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# argtypes of every C entry of csrc/wtt_kernels.cu (pointers and the stream
+# as c_void_p: a plain int would be cut to 32 bits).
+_SIGNATURES = {
+    # dtype, np, wcam, tw, pts, uv, mask, lam, inv_w, rows, jc, jp, vinv,
+    # gpt, damp, G, Tb, Pc, W, use_sj, loss, focal, points, dist, pp, stream
+    "wtt_linearize": [_I, _I] + [_P] * 13 + [_I] * 9 + [_P],
+    # dtype, np, xw_t, wcam, jc, jp, vinv, out, G, Tb, Pc, W, stream
+    "wtt_coupling": [_I, _I] + [_P] * 6 + [_I] * 4 + [_P],
+    # dtype, np, xw_t, wcam, jc, jp, out, G, Tb, Pc, W, stream
+    "wtt_wt_planes": [_I, _I] + [_P] * 5 + [_I] * 4 + [_P],
+    # dtype, wcam, tw, pts, uv, mask, out, G, Tb, Pc, W, loss, stream
+    "wtt_cost": [_I] + [_P] * 6 + [_I] * 5 + [_P],
+}
+
+_LIB = []  # the loaded library, once per process (sources do not change under it)
+
+
+class LaunchCounter:
+    """Launch counts of one kernel wrapper: ``kernel`` grows where the
+    wrapper launches its CUDA kernel, ``plain`` where the plain PyTorch
+    version runs."""
+
+    def __init__(self):
+        self.kernel = 0
+        self.plain = 0
+
+    def reset(self):
+        self.kernel = 0
+        self.plain = 0
+
+
+def _sources():
+    return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
+
+
+def source_digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def nvcc() -> str:
+    """Path of nvcc: $CUDA_HOME/bin, then PATH, then /usr/local/cuda/bin."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    which = shutil.which("nvcc")
+    if which:
+        cands.append(which)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build() -> tuple[Path, str]:
+    """Compile ``csrc/*.cu`` unless a library with the current digest
+    exists.  Returns (library path, compiler output; empty when cached)."""
+    digest = source_digest()
+    out = BUILD_DIR / f"wtt_kernels_{digest}.so"
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out, proc.stdout + proc.stderr
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use, then cached: every
+    launch goes through here, so the cached path must cost nothing)."""
+    if _LIB:
+        return _LIB[0]
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.wtt_error_string.argtypes = [ctypes.c_int]
+    lib.wtt_error_string.restype = ctypes.c_char_p
+    _LIB.append(lib)
+    return lib
+
+
+def check(lib: ctypes.CDLL, name: str, code: int) -> None:
+    if code != 0:
+        msg = lib.wtt_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed ({code}): {msg}")
+
+
+def stream_ptr(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def dtype_code(dtype) -> int:
+    if dtype == torch.float32:
+        return 0
+    if dtype == torch.float64:
+        return 1
+    raise ValueError(f"the CUDA kernels take float32 or float64, not {dtype}")

@@ -1,0 +1,176 @@
+"""Kernel B1: the fully fused wtt linearization.
+
+Replaces ``tpu3drecon/ops/pallas/wtt_linearize.py:wtt_linearize_fused_idx``
+(body ``_lin_fused_kernel``).  Per bucket it selects each slot's camera row
+through ``wcam``, builds the residual and Jacobian planes
+(``ba_tt._tt_blocks``), the point normal (damped V^-1, g_pt, damp_pt), and
+reduces the window-camera rows (G, W, K) with columns
+
+    u (n_triu) | g (np) [| Schur-Jacobi coupling (n_triu)] | rhs = W V^-1 g_pt (np)
+
+in the diagonal-major ``_triu_pairs`` order.  jc/jp are written for the CG
+kernels.
+
+CUDA kernel (``csrc/wtt_kernels.cu:lin_kernel``): one thread per point
+column, two passes over the track (planes and point normal, then the K
+columns into a shared-memory (W, K) tile with atomics, flushed to the
+global rows with one atomic per nonzero entry).  On the H100 it is bound by
+the shared-memory atomics: K = 88 per slot at np = 8; warps whose live
+lanes share a window row reduce with shuffles first.  Row sums are
+atomic, so f32 rows vary in the last bits from run to run.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu3drecon_torch.geometry.losses import LOSS_CODES
+from tpu3drecon_torch.ops import _build
+from tpu3drecon_torch.ops._wtt_common import (
+    check_inputs,
+    check_shape,
+    is_cuda_call,
+    reduce_rows,
+    select_rows,
+)
+from tpu3drecon_torch.solvers.ba_tt import (
+    CAM_TABLE_DIM,
+    _sym3_inv_planes,
+    _sym3_matvec,
+    _tt_blocks,
+)
+
+COUNTS = _build.LaunchCounter()
+
+_SYM = ((0, 1, 2), (1, 3, 4), (2, 4, 5))
+
+
+def n_rows_cols(np_cam: int, use_sj: bool) -> int:
+    """K, the column count of the linearize rows."""
+    n_triu = np_cam * (np_cam + 1) // 2
+    return n_triu + np_cam + (n_triu if use_sj else 0) + np_cam
+
+
+def _check_config(blocks_config, np_cam: int, want_od: bool) -> None:
+    if want_od:
+        raise NotImplementedError(
+            "want_od (band preconditioner rows) belongs to the BAL-scale slice"
+        )
+    want = 8 + 2 * bool(blocks_config.optimize_dist) + 2 * bool(blocks_config.optimize_pp)
+    if np_cam != want:
+        raise ValueError(f"np_cam={np_cam} does not match the config's {want}")
+
+
+def wtt_linearize_fused_idx(
+    wcam, tw, pts, uv, mask, lam, inv_w, blocks_config, np_cam: int,
+    use_sj: bool, want_od: bool = False,
+):
+    """(rows (G, W, K), jc (2np, G, Tb, Pc), jp (6, G, Tb, Pc),
+    v_inv (6, G, Pc), g_pt (3, G, Pc), damp_pt (3, G, Pc)).
+
+    ``wcam`` (G, Tb*Pc) int16, ``tw`` (G, W, 19) window camera rows,
+    ``pts`` (3, G, Pc), ``uv`` (G, 2, Tb, Pc), ``mask`` (G, Tb, Pc);
+    ``lam``/``inv_w`` are 0-d tensors on the same device.  CPU tensors run
+    the plain version, CUDA tensors the kernel."""
+    _check_config(blocks_config, np_cam, want_od)
+    if not is_cuda_call(tw):
+        return wtt_linearize_fused_idx_plain(
+            wcam, tw, pts, uv, mask, lam, inv_w, blocks_config, np_cam, use_sj
+        )
+    return _launch(wcam, tw, pts, uv, mask, lam, inv_w, blocks_config, np_cam, use_sj)
+
+
+def wtt_linearize_fused_idx_plain(
+    wcam, tw, pts, uv, mask, lam, inv_w, blocks_config, np_cam: int,
+    use_sj: bool, want_od: bool = False,
+):
+    """Plain PyTorch version of ``wtt_linearize_fused_idx``."""
+    _check_config(blocks_config, np_cam, want_od)
+    COUNTS.plain += 1
+    g, _, tb, pc = uv.shape
+    window = tw.shape[1]
+    cp = select_rows(tw, wcam, tb, pc)  # (19, G, Tb, Pc)
+    blocks = _tt_blocks(
+        cp, pts[:, :, None, :], uv.permute(1, 0, 2, 3), mask, inv_w,
+        blocks_config,
+    )
+    jc, jp, r = blocks.jc, blocks.jp, blocks.r  # (k, G, Tb, Pc)
+
+    v6 = torch.stack([
+        torch.sum(jp[i] * jp[j] + jp[3 + i] * jp[3 + j], dim=1)
+        for (i, j) in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+    ])  # (6, G, Pc)
+    g_pt = torch.stack(
+        [torch.sum(jp[i] * r[0] + jp[3 + i] * r[1], dim=1) for i in range(3)]
+    )
+    damp = torch.stack([lam * torch.clamp(v6[k], min=1e-8) for k in (0, 3, 5)])
+    v6_d = torch.stack(
+        [v6[0] + damp[0], v6[1], v6[2], v6[3] + damp[1], v6[4], v6[5] + damp[2]]
+    )
+    v_inv = _sym3_inv_planes(v6_d)
+    vw = _sym3_matvec(v_inv, g_pt)  # V^-1 g_pt, (G, Pc) planes
+
+    jc0, jc1 = jc[:np_cam], jc[np_cam:]
+    parts = [
+        jc0[: np_cam - d] * jc0[d:] + jc1[: np_cam - d] * jc1[d:]
+        for d in range(np_cam)
+    ]
+    parts.append(jc0 * r[0][None] + jc1 * r[1][None])
+    if use_sj:
+        v = v_inv[:, :, None, :]  # broadcast over the track axis
+        w_l = [jc0 * jp[l][None] + jc1 * jp[3 + l][None] for l in range(3)]
+        wv_l = [
+            w_l[0] * v[_SYM[0][l]][None]
+            + w_l[1] * v[_SYM[1][l]][None]
+            + w_l[2] * v[_SYM[2][l]][None]
+            for l in range(3)
+        ]
+        parts.extend(
+            wv_l[0][: np_cam - d] * w_l[0][d:]
+            + wv_l[1][: np_cam - d] * w_l[1][d:]
+            + wv_l[2][: np_cam - d] * w_l[2][d:]
+            for d in range(np_cam)
+        )
+    vwb = [x[:, None, :] for x in vw]
+    s0r = jp[0] * vwb[0] + jp[1] * vwb[1] + jp[2] * vwb[2]
+    s1r = jp[3] * vwb[0] + jp[4] * vwb[1] + jp[5] * vwb[2]
+    parts.append(jc0 * s0r[None] + jc1 * s1r[None])
+    rows = reduce_rows(torch.cat(parts, dim=0), wcam, window)
+    return rows, jc, jp, v_inv, g_pt, damp
+
+
+def _launch(wcam, tw, pts, uv, mask, lam, inv_w, cfg, np_cam, use_sj):
+    name = "wtt_linearize_fused_idx"
+    g, _, tb, pc = uv.shape
+    window = tw.shape[1]
+    dtype, dev = tw.dtype, tw.device
+    lam = torch.as_tensor(lam, dtype=dtype, device=dev)
+    inv_w = torch.as_tensor(inv_w, dtype=dtype, device=dev)
+    check_inputs(name, dev, dtype, wcam=wcam, tw=tw, pts=pts, uv=uv,
+                 mask=mask, lam=lam, inv_w=inv_w)
+    check_shape(name, "wcam", wcam, (g, tb * pc))
+    check_shape(name, "tw", tw, (g, window, CAM_TABLE_DIM))
+    check_shape(name, "pts", pts, (3, g, pc))
+    check_shape(name, "mask", mask, (g, tb, pc))
+    check_shape(name, "lam", lam, ())
+    check_shape(name, "inv_w", inv_w, ())
+    k = n_rows_cols(np_cam, use_sj)
+    rows = torch.zeros((g, window, k), dtype=dtype, device=dev)
+    jc = torch.empty((2 * np_cam, g, tb, pc), dtype=dtype, device=dev)
+    jp = torch.empty((6, g, tb, pc), dtype=dtype, device=dev)
+    v_inv = torch.empty((6, g, pc), dtype=dtype, device=dev)
+    g_pt = torch.empty((3, g, pc), dtype=dtype, device=dev)
+    damp = torch.empty((3, g, pc), dtype=dtype, device=dev)
+    lib = _build.library()
+    code = lib.wtt_linearize(
+        _build.dtype_code(dtype), np_cam, wcam.data_ptr(), tw.data_ptr(),
+        pts.data_ptr(), uv.data_ptr(), mask.data_ptr(), lam.data_ptr(),
+        inv_w.data_ptr(), rows.data_ptr(), jc.data_ptr(), jp.data_ptr(),
+        v_inv.data_ptr(), g_pt.data_ptr(), damp.data_ptr(), g, tb, pc, window,
+        int(use_sj), LOSS_CODES[cfg.loss], int(cfg.optimize_focal),
+        int(cfg.optimize_points), int(cfg.optimize_dist), int(cfg.optimize_pp),
+        _build.stream_ptr(dev),
+    )
+    _build.check(lib, name, code)
+    COUNTS.kernel += 1
+    return rows, jc, jp, v_inv, g_pt, damp

@@ -1,0 +1,77 @@
+"""Carry problems and parameters across from the JAX package.
+
+The "weights" of a bundle-adjustment system are the packed problem and its
+camera/point parameters.  These functions take the fields of the JAX
+package's ``CameraParams`` / ``BAProblem`` / ``BAWTTProblem`` as numpy
+arrays and static ints (a dict per dataclass, nested for ``cameras`` and
+``buckets``) and build the port's objects on ``device``, so the same
+problem can be handed to both packages.  Nothing here imports jax.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpu3drecon_torch.problems.packing import BAProblem, CameraParams
+from tpu3drecon_torch.problems.wtt import BAWTTProblem, WTTBucket
+
+
+def _t(x, device):
+    return None if x is None else torch.as_tensor(np.array(x), device=device)
+
+
+def camera_params_from_numpy(d: dict, device="cpu") -> CameraParams:
+    """``CameraParams`` from the arrays ``rmats``, ``tvecs``, ``fx_fy``,
+    ``cx_cy_skew``, ``dist``."""
+    return CameraParams(**{
+        k: _t(d[k], device)
+        for k in ("rmats", "tvecs", "fx_fy", "cx_cy_skew", "dist")
+    })
+
+
+def ba_problem_from_numpy(d: dict, device="cpu") -> BAProblem:
+    """``BAProblem`` from ``cameras`` (a dict) and the arrays ``points3d``,
+    ``cam_idx``, ``pt_idx``, ``uv``, ``mask``, ``avg_cam_width``."""
+    return BAProblem(
+        cameras=camera_params_from_numpy(d["cameras"], device),
+        **{
+            k: _t(d[k], device)
+            for k in ("points3d", "cam_idx", "pt_idx", "uv", "mask", "avg_cam_width")
+        },
+    )
+
+
+def wtt_problem_from_numpy(d: dict, device="cpu") -> BAWTTProblem:
+    """``BAWTTProblem`` from ``cameras`` (a dict), ``buckets`` (a list of
+    dicts with the arrays ``uv``, ``mask``, ``cam_base``, ``wcam`` and the
+    ints ``window``, ``global_tiles``, ``global_tile0``; a dense ``onehot``
+    is ignored), the arrays ``points3d``, ``avg_cam_width``,
+    ``point_rows``, ``cam_rows`` (or None) and the static ints
+    ``n_real_points``, ``bucket_offsets``, ``window``, ``c_pad``."""
+    buckets = []
+    for b in d["buckets"]:
+        wcam = np.asarray(b["wcam"])
+        if wcam.dtype != np.int16:
+            raise ValueError(f"wcam must be int16, got {wcam.dtype}")
+        buckets.append(WTTBucket(
+            uv=_t(b["uv"], device),
+            mask=_t(b["mask"], device),
+            cam_base=_t(b["cam_base"], device),
+            wcam=_t(wcam, device),
+            window=int(b["window"]),
+            global_tiles=int(b["global_tiles"]),
+            global_tile0=int(b["global_tile0"]),
+        ))
+    return BAWTTProblem(
+        cameras=camera_params_from_numpy(d["cameras"], device),
+        points3d=_t(d["points3d"], device),
+        buckets=tuple(buckets),
+        avg_cam_width=_t(d["avg_cam_width"], device),
+        point_rows=_t(d["point_rows"], device),
+        cam_rows=_t(d.get("cam_rows"), device),
+        n_real_points=int(d["n_real_points"]),
+        bucket_offsets=tuple(int(o) for o in d["bucket_offsets"]),
+        window=int(d["window"]),
+        c_pad=int(d["c_pad"]),
+    )

@@ -1,0 +1,291 @@
+"""Windowed track-table bundle adjustment, fully indexed.
+
+Counterpart of ``tpu3drecon/solvers/ba_wtt.py`` on its production path
+(``matvec_kernel="index"``, ``linearize_kernel="index"``, deferred
+one-hots): the same LM / implicit-Schur algorithm and trust-region control,
+with every per-slot camera interaction in the four wtt kernels
+(ops/wtt_linearize.py, ops/wtt_matvec.py, ops/wtt_cost.py).  One LM
+iteration:
+
+  1. linearize: kernel B1 per bucket; its window rows tile-scatter to the
+     camera axis, and the 8x8 blocks get a guarded Cholesky factorization;
+  2. PCG on U x - sum W V^-1 W^T x, the coupling from kernel B2;
+  3. back-substitution: W^T dc from kernel B3, dp = V^-1 (-g_pt - W^T dc);
+  4. cost of the candidate: kernel B4;
+  5. SE(3) retraction and trust-region accept/reject.
+
+Window gathers and scatters move whole 128-row camera tiles
+(``_window_rows`` / ``_scatter_rows``, a tile gather and an ``index_add_``).
+The XLA one-hot paths, the reduced-fidelity ``index1``/``index2`` modes and
+the band preconditioners (``tridiag``/``ssor``, which need the linearize's
+``want_od`` rows) are not ported and raise.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from tpu3drecon_torch.ops.jacobians import apply_se3_retraction
+from tpu3drecon_torch.ops.wtt_cost import wtt_cost_cols_idx
+from tpu3drecon_torch.ops.wtt_linearize import wtt_linearize_fused_idx
+from tpu3drecon_torch.ops.wtt_matvec import wtt_coupling_rows_idx, wtt_wt_planes_idx
+from tpu3drecon_torch.problems.grid import unpermute_points
+from tpu3drecon_torch.problems.packing import CameraParams
+from tpu3drecon_torch.problems.wtt import BAWTTProblem, CAM_TILE, WTTBucket, unpermute_cameras
+from tpu3drecon_torch.solvers.ba_tt import (
+    _cam_table,
+    _sym3_matvec,
+    _triu_pairs,
+    _tt_state,
+    _unpack_sym,
+)
+from tpu3drecon_torch.solvers.bundle_adjust import BAConfig, BAState, n_cam_params
+from tpu3drecon_torch.solvers.pcg import cho_block_precond, guarded_block_cholesky, pcg
+from tpu3drecon_torch.solvers.trust_region import trust_region_solve
+
+
+def _window_idx(bucket: WTTBucket) -> torch.Tensor:
+    """(G, W/128) camera-TILE indices of each group's window; with global
+    tiles the last ones are the shared global region."""
+    base = bucket.cam_base.long()
+    wb = (bucket.window - CAM_TILE * bucket.global_tiles) // CAM_TILE
+    idx = base[:, None] // CAM_TILE + torch.arange(wb, device=base.device)[None, :]
+    if bucket.global_tiles:
+        gt = bucket.global_tile0 + torch.arange(bucket.global_tiles, device=base.device)
+        idx = torch.cat([idx, gt[None, :].expand(idx.shape[0], -1)], dim=1)
+    return idx
+
+
+def _window_rows(x: torch.Tensor, widx: torch.Tensor) -> torch.Tensor:
+    """Gather camera windows: (c_pad, d) -> (G, W, d) by tile gather."""
+    d = x.shape[-1]
+    g, wb = widx.shape
+    return x.reshape(-1, CAM_TILE, d)[widx].reshape(g, wb * CAM_TILE, d)
+
+
+def _scatter_rows(rows: torch.Tensor, widx: torch.Tensor, c_pad: int) -> torch.Tensor:
+    """Scatter-add camera windows: (G, W, d) -> (c_pad, d) by tile index_add_."""
+    g, w, d = rows.shape
+    out = rows.new_zeros(c_pad // CAM_TILE, CAM_TILE, d)
+    out.index_add_(0, widx.reshape(-1), rows.reshape(g * (w // CAM_TILE), CAM_TILE, d))
+    return out.reshape(c_pad, d)
+
+
+class WTTBucketNormal(NamedTuple):
+    jc: torch.Tensor  # (2*np, G, Tb, Pc)
+    jp: torch.Tensor  # (6, G, Tb, Pc)
+    v_inv: torch.Tensor  # (6, G, Pc) sym planes
+    g_pt: torch.Tensor  # (3, G, Pc)
+    damp_pt: torch.Tensor  # (3, G, Pc)
+
+
+class WTTNormal(NamedTuple):
+    u: torch.Tensor  # (c_pad, np, np) damped
+    u_chol: torch.Tensor  # (c_pad, np, np)
+    g_cam: torch.Tensor  # (c_pad, np)
+    damp_cam: torch.Tensor  # (c_pad, np)
+    buckets: Tuple[WTTBucketNormal, ...]
+    b_cam: torch.Tensor  # (c_pad, np) Schur rhs product W V^-1 g_pt
+
+
+def _padded_table(params, c_pad: int) -> torch.Tensor:
+    rmats, tvecs, fx_fy, dist, ccs, _ = params
+    table = _cam_table(rmats, tvecs, fx_fy, ccs, dist)
+    table_pad = table.new_zeros(c_pad, table.shape[1])
+    table_pad[: table.shape[0]] = table
+    return table_pad
+
+
+def _inv_w(problem: BAWTTProblem, dtype) -> torch.Tensor:
+    return (1.0 / problem.avg_cam_width).to(dtype)
+
+
+def _linearize(params, lam, problem: BAWTTProblem, config: BAConfig) -> WTTNormal:
+    pts_list = params[5]
+    c_pad = problem.c_pad
+    table_pad = _padded_table(params, c_pad)
+    dtype = table_pad.dtype
+    inv_w = _inv_w(problem, dtype)
+    np_cam = n_cam_params(config)
+    n_triu = len(_triu_pairs(np_cam))
+    use_sj = config.precond == "schur_jacobi"
+    u_cols = table_pad.new_zeros(c_pad, n_triu)
+    g_cols = table_pad.new_zeros(c_pad, np_cam)
+    coup_cols = table_pad.new_zeros(c_pad, n_triu)
+    b_cols = table_pad.new_zeros(c_pad, np_cam)
+    bucket_normals = []
+    for bucket, pts in zip(problem.buckets, pts_list):
+        widx = _window_idx(bucket)
+        tw = _window_rows(table_pad, widx)
+        rows, jc, jp, v_inv, g_pt, damp_pt = wtt_linearize_fused_idx(
+            bucket.wcam, tw, pts, bucket.uv, bucket.mask, lam, inv_w, config,
+            np_cam, use_sj,
+        )
+        reduced = _scatter_rows(rows, widx, c_pad)
+        u_cols = u_cols + reduced[:, :n_triu]
+        g_cols = g_cols + reduced[:, n_triu : n_triu + np_cam]
+        off = n_triu + np_cam + (n_triu if use_sj else 0)
+        if use_sj:
+            coup_cols = coup_cols + reduced[:, n_triu + np_cam : off]
+        b_cols = b_cols + reduced[:, off : off + np_cam]
+        bucket_normals.append(WTTBucketNormal(jc, jp, v_inv, g_pt, damp_pt))
+
+    u0 = _unpack_sym(u_cols, np_cam)
+    eye = torch.eye(np_cam, dtype=dtype, device=u0.device)
+    du = torch.clamp(torch.diagonal(u0, dim1=-2, dim2=-1), min=1e-8)
+    damp_cam = lam * du
+    u_d = u0 + damp_cam[..., None] * eye
+    if use_sj:
+        u_chol = guarded_block_cholesky(u_d - _unpack_sym(coup_cols, np_cam), u_d)
+    else:
+        # Padding cameras have u0 = 0 and damp = lam*1e-8: SPD, inert.
+        u_chol = torch.linalg.cholesky_ex(u_d).L
+    return WTTNormal(
+        u=u_d, u_chol=u_chol, g_cam=g_cols, damp_cam=damp_cam,
+        buckets=tuple(bucket_normals), b_cam=b_cols,
+    )
+
+
+def _xw_t(x_pad: torch.Tensor, bucket: WTTBucket) -> torch.Tensor:
+    """(G, np, W) transposed window rows of x, contiguous for the kernels."""
+    return _window_rows(x_pad, _window_idx(bucket)).transpose(1, 2).contiguous()
+
+
+def _schur_matvec(nb: WTTNormal, x_pad: torch.Tensor, problem: BAWTTProblem):
+    coup = torch.zeros_like(x_pad)
+    for bn, bucket in zip(nb.buckets, problem.buckets):
+        rows = wtt_coupling_rows_idx(
+            _xw_t(x_pad, bucket), bucket.wcam, bn.jc, bn.jp, bn.v_inv
+        )
+        coup = coup + _scatter_rows(
+            rows.transpose(1, 2), _window_idx(bucket), problem.c_pad
+        )
+    return torch.matmul(nb.u, x_pad[..., None])[..., 0] - coup
+
+
+def _cost(params, problem: BAWTTProblem, config: BAConfig) -> torch.Tensor:
+    pts_list = params[5]
+    table_pad = _padded_table(params, problem.c_pad)
+    inv_w = _inv_w(problem, table_pad.dtype)
+    total = table_pad.new_zeros(())
+    for bucket, pts in zip(problem.buckets, pts_list):
+        tw = _window_rows(table_pad, _window_idx(bucket))
+        cols = wtt_cost_cols_idx(bucket.wcam, tw, pts, bucket.uv, bucket.mask, config.loss)
+        total = total + 0.5 * (inv_w * inv_w) * torch.sum(cols)
+    return total
+
+
+def _check_config(problem: BAWTTProblem, config: BAConfig) -> None:
+    if config.matvec_kernel != "index" or config.linearize_kernel != "index":
+        raise NotImplementedError(
+            "only the fully indexed path is ported: matvec_kernel='index' and "
+            "linearize_kernel='index' (the XLA one-hot paths and the "
+            "reduced-fidelity index1/index2/fused modes are not)"
+        )
+    if config.precond not in ("schur_jacobi", "jacobi_u"):
+        raise NotImplementedError(
+            f"precond={config.precond!r} needs the band rows (want_od) of the "
+            "BAL-scale slice; use 'schur_jacobi' or 'jacobi_u'"
+        )
+    if config.matvec_bf16:
+        raise ValueError(
+            "matvec_bf16 applies to the XLA matvec path; disable matvec_kernel"
+        )
+
+
+def ba_solve_wtt(
+    problem: BAWTTProblem, config: BAConfig = BAConfig(), device=None
+) -> Tuple[CameraParams, torch.Tensor, BAState]:
+    """Windowed track-table BA solve on ``device`` (default: where the
+    problem lives); same outputs and trust-region trajectory as the JAX
+    ``ba_solve_wtt`` on the fully indexed path.  Returns (cameras in
+    original order, points in original order, final state)."""
+    _check_config(problem, config)
+    torch.set_float32_matmul_precision("highest")
+    if device is not None:
+        problem = problem.to(device)
+    dev = problem.points3d.device
+    pts_list = []
+    for bucket, off in zip(problem.buckets, problem.bucket_offsets):
+        g, _, _, pc = bucket.uv.shape
+        block = problem.points3d[off : off + g * pc]
+        pts_list.append(block.reshape(g, pc, 3).permute(2, 0, 1).contiguous())
+    cams, pts_out, final = _ba_solve_wtt_core(problem, tuple(pts_list), config, dev)
+    points3d = torch.cat([p.permute(1, 2, 0).reshape(-1, 3) for p in pts_out], dim=0)
+    pts = unpermute_points(points3d, problem)
+    cams = unpermute_cameras(cams, problem.cam_rows)
+    return cams, pts, _tt_state(cams, pts, final)
+
+
+def _ba_solve_wtt_core(problem: BAWTTProblem, pts_list, config: BAConfig, dev):
+    cams = problem.cameras
+    dtype = pts_list[0].dtype
+    n_cams = cams.rmats.shape[0]
+    params0 = (
+        cams.rmats, cams.tvecs, cams.fx_fy, cams.dist, cams.cx_cy_skew,
+        pts_list,
+    )
+
+    def propose(params, lam):
+        nb = _linearize(params, lam, problem, config)
+        gp_max = torch.zeros((), dtype=dtype, device=dev)
+        for bn in nb.buckets:
+            gp_max = torch.maximum(gp_max, torch.max(torch.abs(bn.g_pt)))
+        grad_norm = torch.max(torch.abs(nb.g_cam))
+        if config.optimize_points:
+            grad_norm = torch.maximum(grad_norm, gp_max)
+        else:
+            grad_norm = torch.clamp(grad_norm, min=0.0)
+
+        b = nb.b_cam - nb.g_cam
+        out = pcg(
+            lambda p: _schur_matvec(nb, p, problem),
+            cho_block_precond(nb.u_chol),
+            b, config.cg_maxiter, config.cg_rtol,
+        )
+        dc = out.x
+
+        dps = []
+        pred_pt = torch.zeros((), dtype=dtype, device=dev)
+        for bn, bucket in zip(nb.buckets, problem.buckets):
+            wtx = wtt_wt_planes_idx(_xw_t(dc, bucket), bucket.wcam, bn.jc, bn.jp)
+            dp = _sym3_matvec(bn.v_inv, -bn.g_pt - wtx)  # (3, G, Pc)
+            if not config.optimize_points:
+                dp = dp * 0.0
+            pred_pt = pred_pt + 0.5 * (
+                torch.sum(dp * (bn.damp_pt * dp)) - torch.sum(dp * bn.g_pt)
+            )
+            dps.append(dp)
+        pred = (
+            0.5 * (torch.sum(dc * (nb.damp_cam * dc)) - torch.sum(dc * nb.g_cam))
+            + pred_pt
+        )
+        return (dc, tuple(dps)), grad_norm, pred, out.iters
+
+    def apply_step(params, delta):
+        rmats, tvecs, fx_fy, dist, ccs, pts = params
+        dc_pad, dps = delta
+        dc = dc_pad[:n_cams]
+        new_r, new_t, new_f = apply_se3_retraction(rmats, tvecs, fx_fy, dc[:, :8])
+        off = 8
+        new_d = dist
+        if config.optimize_dist:
+            new_d = dist + dc[:, off : off + 2]
+            off += 2
+        new_c = ccs
+        if config.optimize_pp:
+            new_c = torch.cat([ccs[:, :2] + dc[:, off : off + 2], ccs[:, 2:]], dim=1)
+        new_pts = tuple(p + dp for p, dp in zip(pts, dps))
+        return (new_r, new_t, new_f, new_d, new_c, new_pts)
+
+    final = trust_region_solve(
+        propose, apply_step, lambda p: _cost(p, problem, config), params0,
+        config, dtype, dev,
+    )
+    rmats, tvecs, fx_fy, dist, ccs, pts_out = final.params
+    cameras_out = CameraParams(
+        rmats=rmats, tvecs=tvecs, fx_fy=fx_fy, cx_cy_skew=ccs, dist=dist,
+    )
+    return cameras_out, pts_out, final
