@@ -54,13 +54,15 @@ def _port_packed(dist):
     kw = seq_scene_kwargs(SEQ_DISTS[dist])
     scene = t_syn.make_sequential_scene(**kw)
     noisy = t_syn.perturb_scene(scene, seed=6, point2d_noise=0.0)
-    flat, _ = t_syn.scene_to_ba_problem(noisy, observed=scene, dtype=torch.float64)
+    flat, _ = t_syn.scene_to_ba_problem(noisy, observed=scene, dtype=torch.float64,
+                                        device="cpu")
     return flat, t_wtt(flat, point_chunk=64)
 
 
 def test_slice_matches_jax(reference):
     flat, packed, (jcams, jpts, jstate), _ = reference
-    cams, pts, state = t_solve(wtt_problem_from_numpy(np_fields(packed)), TConfig(**SOLVE))
+    cams, pts, state = t_solve(wtt_problem_from_numpy(np_fields(packed), device="cpu"),
+                               TConfig(**SOLVE))
     assert state.iter_num == int(jstate.iter_num) == 5
     assert int(state.accepted) == int(jstate.accepted)
     assert state.cg_iters == int(jstate.cg_iters)
@@ -71,7 +73,7 @@ def test_slice_matches_jax(reference):
                                    rtol=1e-7, atol=1e-9, err_msg=name)
     np.testing.assert_allclose(pts.numpy(), np.asarray(jpts), rtol=1e-7, atol=1e-9)
     # The evaluation metric on the flat problem, same cameras and points.
-    assert_close(t_rmse(ba_problem_from_numpy(np_fields(flat)), cams, pts),
+    assert_close(t_rmse(ba_problem_from_numpy(np_fields(flat), device="cpu"), cams, pts),
                  j_rmse(flat, jcams, jpts), 1e-6)
 
 
@@ -80,7 +82,7 @@ def test_converted_and_port_packed_solve_identically(reference):
     the same scene give bit-identical solves."""
     _, packed, _, dist = reference
     cfg = TConfig(**SOLVE)
-    c1, p1, s1 = t_solve(wtt_problem_from_numpy(np_fields(packed)), cfg)
+    c1, p1, s1 = t_solve(wtt_problem_from_numpy(np_fields(packed), device="cpu"), cfg)
     _, own = _port_packed(dist)
     c2, p2, s2 = t_solve(own, cfg)
     assert float(s1.loss) == float(s2.loss)
@@ -122,10 +124,14 @@ from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
 torch.set_num_threads(1)
 scene = make_sequential_scene(n_cameras=12, points_per_camera=20, track_span=3, seed=1)
 flat, _ = scene_to_ba_problem(perturb_scene(scene, seed=2, point2d_noise=0.0), observed=scene,
-                              dtype=torch.float64)
+                              dtype=torch.float64, device="cpu")
 cfg = BAConfig(maxiter=3, cg_maxiter=8, matvec_kernel="index", linearize_kernel="index")
 _, _, st = ba_solve_wtt(wtt_from_flat(flat, point_chunk=64), cfg)
 assert int(st.accepted) >= 1, st
+from tpu3drecon_torch.problems.grid import grid_bucketed_from_flat
+from tpu3drecon_torch.solvers.ba_pallas import ba_solve_pallas
+_, _, st_grid = ba_solve_pallas(grid_bucketed_from_flat(flat, point_block=64), cfg)
+assert int(st_grid.accepted) >= 1, st_grid
 assert not any(k == "jax" or k.startswith("jax.") for k, v in sys.modules.items() if v is not None)
 print("NO_JAX_OK", float(st.loss))
 """

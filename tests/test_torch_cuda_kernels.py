@@ -1,4 +1,5 @@
-"""The four CUDA wtt kernels vs their plain PyTorch versions, on the card.
+"""The CUDA kernels vs their plain PyTorch versions, on the card: the four
+wtt kernels (B1-B4) and the grid engine's three (B9-B11).
 
 Needs an NVIDIA GPU with nvcc (the kernels build at first use); skips where
 ``torch.cuda.is_available()`` is false.  Imports no jax, so on a machine
@@ -7,8 +8,9 @@ without it run it with the repo's conftest switched off:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
 Tolerances, relative to max|plain|: per-element outputs 1e-5 (f32) and
-1e-12 (f64); rows reduced with atomics (linearize rows, coupling rows)
-1e-4 and 1e-10, because the atomic summation order varies from run to run.
+1e-12 (f64); rows reduced with atomics (linearize rows, coupling rows) and
+the grid kernels' per-camera block sums (U, g, coupling) 1e-4 and 1e-10,
+because their summation order differs from the plain version's.
 """
 
 import numpy as np
@@ -16,7 +18,14 @@ import pytest
 import torch
 
 from tpu3drecon_torch.geometry.losses import RobustLoss
-from tpu3drecon_torch.ops import wtt_cost, wtt_linearize, wtt_matvec
+from tpu3drecon_torch.ops import (
+    cam_normal,
+    coupling,
+    point_normal,
+    wtt_cost,
+    wtt_linearize,
+    wtt_matvec,
+)
 from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
 
 pytestmark = pytest.mark.cuda
@@ -123,3 +132,86 @@ def test_bad_inputs_raise(dev):
         wtt_linearize.wtt_linearize_fused_idx(
             wide["wcam"], wide["tw"], wide["pts"], wide["uv"], wide["mask"],
             wide["lam"], wide["inv_w"], BAConfig(), 8, True)
+
+
+def _grid_inputs(dev, dtype, c, k, p, t2, seed):
+    """B9 inputs for C cameras near a pinhole looking down +z from z ~ 6
+    with 15 % masked lanes, and B10 track rows for P points (some rows
+    zero, as padded track entries are)."""
+    rng = np.random.default_rng(seed)
+    rmats = np.eye(3) + rng.normal(scale=0.05, size=(c, 3, 3))
+    tvecs = np.concatenate([rng.normal(scale=0.3, size=(c, 2)),
+                            rng.uniform(5.0, 7.0, size=(c, 1))], axis=1)
+    mask = (rng.random((c, k)) > 0.15).astype(np.float64)
+    jp_g = rng.normal(size=(p, t2, 3))
+    jp_g[rng.random((p, t2)) < 0.3] = 0.0
+
+    def t(x):
+        return torch.as_tensor(np.array(x), dtype=dtype, device=dev)
+
+    return dict(
+        cams=(t(rmats), t(tvecs), t(rng.uniform(1000, 1100, size=(c, 2))),
+              t(np.concatenate([rng.uniform(600, 680, size=(c, 2)),
+                                np.zeros((c, 1))], axis=1)),
+              t(np.stack([rng.uniform(-0.05, 0.0, c), rng.uniform(0.0, 0.01, c)], 1))),
+        x_w=t(rng.normal(size=(c, 3, k))),
+        uv=t(rng.uniform(300, 1000, size=(c, 2, k))),
+        mask=t(mask),
+        inv_w=torch.tensor(1.0 / 1280.0, dtype=dtype, device=dev),
+        jp_g=t(jp_g),
+        r_g=t(rng.normal(size=(p, t2))),
+        lam=torch.tensor(1e-4, dtype=dtype, device=dev),
+        vinv6=t(rng.normal(size=(c, 6, k))),
+    )
+
+
+GRID_CASES = [  # (dtype, loss, K, P, T2); K and P not multiples of 256
+    (torch.float32, "trivial", 300, 257, 4),
+    (torch.float64, "trivial", 2048, 600, 24),
+    (torch.float32, "cauchy", 1000, 513, 6),
+    (torch.float64, "huber", 300, 100, 16),
+]
+
+
+@pytest.mark.parametrize("dtype,loss,k,p,t2", GRID_CASES)
+def test_grid_kernels_match_plain(dev, dtype, loss, k, p, t2):
+    d = _grid_inputs(dev, dtype, 5, k, p, t2, seed=k + p + t2)
+    elem, reduced = TOL[dtype]
+    counts = (cam_normal.COUNTS, point_normal.COUNTS, coupling.COUNTS)
+    before = [c.kernel for c in counts]
+
+    cam_args = (*d["cams"], d["x_w"], d["uv"], d["mask"], d["inv_w"])
+    got = cam_normal.cam_normal_fused(*cam_args, loss=RobustLoss(loss))
+    want = cam_normal.cam_normal_fused_plain(*cam_args, loss=RobustLoss(loss))
+    for name, a, b in zip(("r", "jp", "jc", "u", "g"), got, want):
+        _close(a, b, reduced if name in ("u", "g") else elem, name)
+    pad = (d["mask"] == 0)[:, None, :]
+    for plane in got[:3]:
+        assert (plane.masked_select(pad.expand_as(plane)) == 0).all()
+    assert (got[2][:, 7] == 0).all() and (got[2][:, 14] == 0).all()
+
+    pn_args = (d["jp_g"], d["r_g"], d["lam"])
+    for name, a, b in zip(("v_inv", "g_pt", "damp_pt"),
+                          point_normal.point_normal_fused(*pn_args),
+                          point_normal.point_normal_fused_plain(*pn_args)):
+        _close(a, b, elem, name)
+
+    _, jp, jc, _, _ = want
+    _close(coupling.coupling_fused(jc, jp, d["vinv6"]),
+           coupling.coupling_fused_plain(jc, jp, d["vinv6"]), reduced, "coupling")
+    assert [c.kernel - b for c, b in zip(counts, before)] == [1, 1, 1]
+
+
+def test_grid_bad_inputs_raise(dev):
+    d = _grid_inputs(dev, torch.float32, 3, 256, 64, 4, seed=5)
+    cam_args = (*d["cams"], d["x_w"].transpose(1, 2).contiguous().transpose(1, 2),
+                d["uv"], d["mask"], d["inv_w"])
+    with pytest.raises(ValueError, match="contiguous"):
+        cam_normal.cam_normal_fused(*cam_args)
+    with pytest.raises(ValueError, match="dtype"):
+        point_normal.point_normal_fused(d["jp_g"], d["r_g"].double(), d["lam"])
+    jc = torch.zeros((3, 16, 256), device=dev)
+    with pytest.raises(ValueError, match="shape"):
+        coupling.coupling_fused(jc, d["vinv6"], d["vinv6"][:, :, :128].contiguous())
+    with pytest.raises(ValueError, match="float32 or float64"):
+        coupling.coupling_fused(jc.half(), d["vinv6"].half(), d["vinv6"].half())

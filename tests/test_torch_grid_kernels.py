@@ -1,0 +1,183 @@
+"""The grid engine's three kernels: plain PyTorch versions vs the JAX Pallas
+kernels.
+
+Inputs come from the fixture of tests/test_pallas_kernels.py (4 cameras,
+150 points, seed 61; pinhole and radial), packed by the JAX package's
+``grid_from_flat`` at f64, and cross as numpy arrays.  The JAX kernels run
+in interpret mode; the port's public functions get CPU tensors and so run
+their plain versions.  Tolerance: rtol 1e-10 with atol 1e-12 * max|ref|
+(the per-camera and per-point sums are taken in other orders, and a point
+seen once has V^-1 conditioned ~1/lam).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_ref import assert_close
+
+from tpu3drecon.dataset.synthetic import make_scene, perturb_scene, scene_to_ba_problem
+from tpu3drecon.geometry.losses import RobustLoss as JLoss
+from tpu3drecon.ops.pallas.cam_normal import cam_normal_fused as j_cam
+from tpu3drecon.ops.pallas.cam_normal import pack_camera_params as j_pack
+from tpu3drecon.ops.pallas.coupling import coupling_fused as j_coupling
+from tpu3drecon.ops.pallas.point_normal import point_normal_fused as j_point
+from tpu3drecon.problems.grid import grid_from_flat
+
+from tpu3drecon_torch.geometry.losses import RobustLoss as TLoss
+from tpu3drecon_torch.ops import cam_normal, coupling, point_normal
+
+RTOL, ATOL_REL = 1e-10, 1e-12
+LAM = 1e-4
+CAM_FIELDS = ("rmats", "tvecs", "fx_fy", "cx_cy_skew", "dist")
+
+
+@pytest.fixture(scope="module", params=[(0.0, 0.0), (-0.08, 0.012)],
+                ids=["pinhole", "radial"])
+def planes(request):
+    """numpy kernel inputs of B9: camera arrays, x_w (C,3,K), uv (C,2,K),
+    mask (C,K), inv_w, plus pt_idx and the track table."""
+    scene = make_scene(n_cameras=4, n_points=150, seed=61, dist=request.param)
+    noisy = perturb_scene(scene, seed=62, point2d_noise=0.5)
+    flat, _ = scene_to_ba_problem(noisy, observed=scene, dtype=jnp.float64)
+    grid = grid_from_flat(flat)
+    pts = np.asarray(grid.points3d)
+    pt_idx = np.asarray(grid.pt_idx)
+    return dict(
+        cams={k: np.asarray(getattr(grid.cameras, k)) for k in CAM_FIELDS},
+        x_w=np.ascontiguousarray(pts[pt_idx].transpose(0, 2, 1)),
+        uv=np.ascontiguousarray(np.asarray(grid.uv).transpose(0, 2, 1)),
+        mask=np.asarray(grid.mask),
+        inv_w=1.0 / float(grid.avg_cam_width),
+        pt_idx=pt_idx,
+        track_idx=np.asarray(grid.track_idx),
+        track_mask=np.asarray(grid.track_mask),
+    )
+
+
+def _t(x):
+    return torch.as_tensor(np.array(x))
+
+
+def _jax_cam(d, loss, mask=None):
+    c = d["cams"]
+    return j_cam(
+        jnp.asarray(c["rmats"]), jnp.asarray(c["tvecs"]), jnp.asarray(c["fx_fy"]),
+        jnp.asarray(c["cx_cy_skew"]), jnp.asarray(c["dist"]), jnp.asarray(d["x_w"]),
+        jnp.asarray(d["uv"]), jnp.asarray(d["mask"] if mask is None else mask),
+        jnp.asarray(d["inv_w"]), loss=JLoss(loss), interpret=True,
+    )
+
+
+def _port_cam(d, loss, mask=None):
+    c = d["cams"]
+    return cam_normal.cam_normal_fused(
+        *(_t(c[k]) for k in CAM_FIELDS), _t(d["x_w"]), _t(d["uv"]),
+        _t(d["mask"] if mask is None else mask),
+        torch.tensor(d["inv_w"], dtype=torch.float64), loss=TLoss(loss),
+    )
+
+
+def test_pack_camera_params_matches(planes):
+    c = planes["cams"]
+    want = j_pack(*(jnp.asarray(c[k]) for k in ("rmats", "tvecs", "fx_fy", "cx_cy_skew")),
+                  jnp.asarray(planes["inv_w"]), jnp.asarray(c["dist"]))
+    got = cam_normal.pack_camera_params(
+        *(_t(c[k]) for k in ("rmats", "tvecs", "fx_fy", "cx_cy_skew")),
+        torch.tensor(planes["inv_w"], dtype=torch.float64), _t(c["dist"]))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("loss", ["trivial", "cauchy", "huber"])
+def test_cam_normal_matches_pallas(planes, loss):
+    want = _jax_cam(planes, loss)
+    got = _port_cam(planes, loss)
+    for name, a, b in zip(("r", "jp", "jc", "u", "g"), got, want):
+        assert a.shape == b.shape, name
+        assert_close(a, b, RTOL, ATOL_REL, err_msg=name)
+    # Masked lanes (grid padding) give exact zeros in every plane.
+    pad = planes["mask"] == 0
+    assert pad.any()
+    for plane in got[:3]:
+        assert (plane.numpy().transpose(0, 2, 1)[pad] == 0).all()
+
+
+def test_cam_normal_masked_lanes_exact_zero(planes):
+    """With the whole mask zeroed every output is exactly 0, as the JAX
+    kernel gives (tests/test_pallas_kernels.py)."""
+    zero = np.zeros_like(planes["mask"])
+    want = _jax_cam(planes, "huber", zero)
+    got = _port_cam(planes, "huber", zero)
+    for a, b in zip(got, want):
+        assert float(np.abs(np.asarray(b)).max()) == 0.0
+        assert float(a.abs().max()) == 0.0
+
+
+def _track_rows(planes, loss="trivial"):
+    """(jp_g (P, 2T, 3), r_g (P, 2T)) from the JAX B9 planes through the
+    track table, plus one point seen once and all-zero padded rows."""
+    r, jp, jc, _, _ = (np.asarray(x) for x in _jax_cam(planes, loss))
+    c, _, k = jp.shape
+    jpr = np.concatenate([jp, r], axis=1).transpose(0, 2, 1).reshape(c * k, 8)
+    p, t = planes["track_idx"].shape
+    g = jpr[planes["track_idx"]] * planes["track_mask"][..., None]
+    jp_g, r_g = g[..., :6].reshape(p, 2 * t, 3), g[..., 6:].reshape(p, 2 * t)
+    once = np.zeros((1, 2 * t, 3))
+    once[0, :2] = jp_g[0, :2]  # the first observation of point 0 alone
+    once_r = np.zeros((1, 2 * t))
+    once_r[0, :2] = r_g[0, :2]
+    pad = (-(p + 1)) % 8 or 8  # at least one all-zero padded row
+    jp_g = np.concatenate([jp_g, once, np.zeros((pad, 2 * t, 3))])
+    r_g = np.concatenate([r_g, once_r, np.zeros((pad, 2 * t))])
+    return np.ascontiguousarray(jp_g), np.ascontiguousarray(r_g), (r, jp, jc)
+
+
+def test_point_normal_matches_pallas(planes):
+    jp_g, r_g, _ = _track_rows(planes)
+    n = jp_g.shape[0]
+    want = j_point(jnp.asarray(jp_g), jnp.asarray(r_g), jnp.asarray(LAM),
+                   block_points=n, interpret=True)
+    got = point_normal.point_normal_fused(_t(jp_g), _t(r_g),
+                                          torch.tensor(LAM, dtype=torch.float64))
+    for name, a, b in zip(("v_inv", "g_pt", "damp_pt"), got, want):
+        assert a.shape == b.shape, name
+        assert_close(a, b, RTOL, ATOL_REL, err_msg=name)
+    # The point seen once (row P) is ill-conditioned, ~1/lam, and matches.
+    once = planes["track_idx"].shape[0]
+    assert np.linalg.cond(got[0].numpy()[once]) > 0.1 / LAM
+    assert (got[1].numpy()[once + 1:] == 0).all()  # padded rows
+
+
+def test_coupling_matches_pallas(planes):
+    jp_g, r_g, (_, jp, jc) = _track_rows(planes)
+    p = planes["track_idx"].shape[0]
+    v_inv, _, _ = j_point(jnp.asarray(jp_g), jnp.asarray(r_g), jnp.asarray(LAM),
+                          block_points=jp_g.shape[0], interpret=True)
+    v = np.asarray(v_inv)[:p]
+    vinv6 = np.stack([v[:, 0, 0], v[:, 0, 1], v[:, 0, 2],
+                      v[:, 1, 1], v[:, 1, 2], v[:, 2, 2]], axis=1)
+    vinv6_g = np.ascontiguousarray(vinv6[planes["pt_idx"]].transpose(0, 2, 1))
+    want = j_coupling(jnp.asarray(jc), jnp.asarray(jp), jnp.asarray(vinv6_g),
+                      interpret=True)
+    got = coupling.coupling_fused(_t(jc), _t(jp), _t(vinv6_g))
+    assert got.shape == (jc.shape[0], 8, 8)
+    assert_close(got, want, RTOL, ATOL_REL)
+    np.testing.assert_array_equal(got.numpy(), got.numpy().transpose(0, 2, 1))
+
+
+def test_cpu_tensors_run_the_plain_versions(planes):
+    """A CPU call runs the plain version (its counter grows) and never the
+    kernel; an unsupported device raises instead of falling back."""
+    counters = (cam_normal.COUNTS, point_normal.COUNTS, coupling.COUNTS)
+    before = [(c.kernel, c.plain) for c in counters]
+    _port_cam(planes, "trivial")
+    jp_g, r_g, (_, jp, jc) = _track_rows(planes)
+    point_normal.point_normal_fused(_t(jp_g), _t(r_g), torch.tensor(LAM))
+    coupling.coupling_fused(_t(jc), _t(jp), _t(jp))
+    after = [(c.kernel, c.plain) for c in counters]
+    assert [a[0] - b[0] for a, b in zip(after, before)] == [0, 0, 0]
+    assert [a[1] - b[1] for a, b in zip(after, before)] == [1, 1, 1]
+    meta = torch.empty((1, 16, 8), device="meta")
+    with pytest.raises(ValueError, match="device"):
+        coupling.coupling_fused(meta, meta, meta)

@@ -14,13 +14,21 @@ from _torch_ref import SEQ_DISTS, np_fields, seq_scene_kwargs, to_np
 from tpu3drecon.dataset import synthetic as j_syn
 from tpu3drecon.problems import reorder as j_reorder
 from tpu3drecon.problems.grid import grid_bucketed_from_flat as j_grid
+from tpu3drecon.problems.grid import grid_from_flat as j_plain_grid
 from tpu3drecon.problems.grid import unpermute_points as j_unpermute
 from tpu3drecon.problems.wtt import wtt_from_flat as j_wtt
 
+from tpu3drecon_torch.benchmark import medium_config
 from tpu3drecon_torch.dataset import synthetic as t_syn
+from tpu3drecon_torch.problems import convert
 from tpu3drecon_torch.problems import reorder as t_reorder
-from tpu3drecon_torch.problems.convert import wtt_problem_from_numpy
+from tpu3drecon_torch.problems.convert import (
+    grid_bucketed_problem_from_numpy,
+    grid_problem_from_numpy,
+    wtt_problem_from_numpy,
+)
 from tpu3drecon_torch.problems.grid import grid_bucketed_from_flat as t_grid
+from tpu3drecon_torch.problems.grid import grid_from_flat as t_plain_grid
 from tpu3drecon_torch.problems.grid import unpermute_points as t_unpermute
 from tpu3drecon_torch.problems.wtt import wtt_from_flat as t_wtt
 
@@ -82,7 +90,7 @@ def test_scene_and_flat_problem_bit_equal(dtype):
     tn = t_syn.perturb_scene(ts, seed=4, point2d_noise=0.5)
     jn = j_syn.perturb_scene(js, seed=4, point2d_noise=0.5)
     _scenes_equal(tn, jn)
-    tp, tmeta = t_syn.scene_to_ba_problem(tn, observed=ts, dtype=dtype)
+    tp, tmeta = t_syn.scene_to_ba_problem(tn, observed=ts, dtype=dtype, device="cpu")
     jp, jmeta = j_syn.scene_to_ba_problem(jn, observed=js, dtype=JDT[dtype])
     _flat_equal(tp, jp)
     assert tmeta.n_real_obs == jmeta.n_real_obs
@@ -98,7 +106,7 @@ def _seq_flats(dist, **kw):
     ts, js = t_syn.make_sequential_scene(**kw), j_syn.make_sequential_scene(**kw)
     tn = t_syn.perturb_scene(ts, seed=6, point2d_noise=0.0)
     jn = j_syn.perturb_scene(js, seed=6, point2d_noise=0.0)
-    return (t_syn.scene_to_ba_problem(tn, observed=ts, dtype=torch.float64)[0],
+    return (t_syn.scene_to_ba_problem(tn, observed=ts, dtype=torch.float64, device="cpu")[0],
             j_syn.scene_to_ba_problem(jn, observed=js, dtype=jnp.float64)[0])
 
 
@@ -109,7 +117,7 @@ def test_wtt_from_flat_bit_equal(dist):
     jw = j_wtt(jf, point_chunk=64, defer_onehot=True)
     _wtt_equal(tw, jw)
     # The converters carry the JAX-packed problem across unchanged.
-    _wtt_equal(wtt_problem_from_numpy(np_fields(jw)), jw)
+    _wtt_equal(wtt_problem_from_numpy(np_fields(jw), device="cpu"), jw)
 
 
 def _shuffled(flat_t, flat_j, seed):
@@ -140,7 +148,7 @@ def test_wtt_hub_split_bit_equal():
                               hub_fraction=0.05, hub_obs=1000, seed=21)
     ts = t_syn.SyntheticScene(**{f.name: getattr(js, f.name)
                                  for f in dataclasses.fields(js)})
-    tf, _ = t_syn.scene_to_ba_problem(ts, dtype=torch.float64)
+    tf, _ = t_syn.scene_to_ba_problem(ts, dtype=torch.float64, device="cpu")
     jf, _ = j_syn.scene_to_ba_problem(js, dtype=jnp.float64)
     tw = t_wtt(tf, point_chunk=128, reorder_cameras="hub")
     jw = j_wtt(jf, point_chunk=128, reorder_cameras="hub", defer_onehot=True)
@@ -159,6 +167,59 @@ def test_grid_buckets_and_unpermute_match():
             _eq(getattr(tb, name), getattr(jb, name), name)
     _eq(t_unpermute(tg.points3d, tg), j_unpermute(jg.points3d, jg))
     _eq(t_unpermute(tg.points3d, tg), tf.points3d)
+
+
+GRID_FIELDS = ("points3d", "uv", "pt_idx", "mask", "avg_cam_width")
+
+
+def _grid_equal(tg, jg, names):
+    for name in names:
+        _eq(getattr(tg, name), getattr(jg, name), name)
+    _flat_equal_cams(tg.cameras, jg.cameras)
+
+
+@pytest.mark.parametrize("dist", list(SEQ_DISTS), ids=list(SEQ_DISTS))
+def test_grid_from_flat_bit_equal(dist):
+    tf, jf = _seq_flats(SEQ_DISTS[dist])
+    names = GRID_FIELDS + ("track_idx", "track_cam", "track_mask")
+    jg = j_plain_grid(jf)
+    _grid_equal(t_plain_grid(tf), jg, names)
+    # The converter carries the JAX-packed problem across unchanged.
+    _grid_equal(grid_problem_from_numpy(np_fields(jg), device="cpu"), jg, names)
+
+
+def test_grid_bucketed_problem_round_trips():
+    tf, jf = _seq_flats((0.0, 0.0))
+    jg = j_grid(jf, point_block=64)
+    tg = grid_bucketed_problem_from_numpy(np_fields(jg), device="cpu")
+    _grid_equal(tg, jg, GRID_FIELDS + ("point_rows",))
+    assert tg.n_real_points == jg.n_real_points
+    assert len(tg.buckets) == len(jg.buckets) >= 2
+    for tb, jb in zip(tg.buckets, jg.buckets):
+        for name in ("track_idx", "track_cam", "track_mask"):
+            _eq(getattr(tb, name), getattr(jb, name), name)
+    _eq(t_unpermute(tg.points3d, tg), tf.points3d)
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    """Called without ``device``, every entry point targets the CUDA card
+    and raises where there is none; it never drops to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scene = t_syn.make_scene(n_cameras=3, n_points=40, seed=1)
+    _, jf = _seq_flats((0.0, 0.0))
+    calls = [
+        lambda: t_syn.scene_to_ba_problem(scene),
+        lambda: medium_config.build_problem(),
+        lambda: medium_config.build_grid_problem(),
+        lambda: convert.camera_params_from_numpy(np_fields(jf.cameras)),
+        lambda: convert.ba_problem_from_numpy(np_fields(jf)),
+        lambda: convert.grid_problem_from_numpy(np_fields(j_plain_grid(jf))),
+        lambda: convert.grid_bucketed_problem_from_numpy(np_fields(j_grid(jf))),
+        lambda: convert.wtt_problem_from_numpy(np_fields(j_wtt(jf, point_chunk=64))),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_unsupported_packing_options_raise():

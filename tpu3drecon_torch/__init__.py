@@ -2,10 +2,13 @@
 
 The JAX package ``tpu3drecon`` is the reference; this package mirrors its
 module paths (``tpu3drecon_torch.solvers.ba_wtt`` is the counterpart of
-``tpu3drecon.solvers.ba_wtt``) and never imports jax.  The slice ported so
-far is the medium bundle-adjustment solve on the windowed track-table
-("wtt") engine, fully indexed, with its four kernels written by hand in
-CUDA C++ for ``sm_90a`` (``csrc/wtt_kernels.cu``).
+``tpu3drecon.solvers.ba_wtt``) and never imports jax.  Ported so far: the
+medium bundle-adjustment solve on the windowed track-table ("wtt")
+engine, fully indexed, and on the fused-kernel grid engine
+(``solvers/ba_pallas.py``), with their kernels written by hand in CUDA C++
+for ``sm_90a`` (``csrc/wtt_kernels.cu``, ``csrc/grid_kernels.cu``).  Entry
+points build on the CUDA card unless the caller passes ``device``
+(``tpu3drecon_torch.device``).
 
 Precision: float32 matmuls stay in full float32.  TF32 keeps ~3 decimal
 digits, the Hopper form of the TPU's bf16-matmul trap, and stalls the f32

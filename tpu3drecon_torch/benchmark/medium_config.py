@@ -3,7 +3,8 @@
 Counterpart of ``tpu3drecon/benchmark/medium_config.py``: the same scene
 (seed 42, 2,000 observations per camera, 0.5 px observation noise) and
 the same fixed-work solver config (30 LM iterations, no early stop,
-Schur-Jacobi preconditioner, 8 CG iterations).
+Schur-Jacobi preconditioner, 8 CG iterations).  Both builders put the
+problem on the CUDA card unless ``device`` says otherwise.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import time
 
 import torch
 
+from tpu3drecon_torch.device import resolve_device
 from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
 
 N_CAMERAS = 100
@@ -30,9 +32,11 @@ BENCH_CONFIG = BAConfig(
 )
 
 
-def build_problem(device="cpu", dtype: torch.dtype = torch.float32):
-    """The medium flat BAProblem on ``device``: perturbed parameters,
-    clean observations with 0.5 px noise on the perturbed copy."""
+def build_problem(device=None, dtype: torch.dtype = torch.float32):
+    """The medium flat BAProblem on ``device`` (default: the CUDA card):
+    perturbed parameters, clean observations with 0.5 px noise on the
+    perturbed copy."""
+    device = resolve_device(device)
     from tpu3drecon_torch.dataset.synthetic import (
         make_scene,
         perturb_scene,
@@ -46,6 +50,15 @@ def build_problem(device="cpu", dtype: torch.dtype = torch.float32):
     noisy = perturb_scene(scene, seed=SEED + 1, point2d_noise=0.5)
     problem, _ = scene_to_ba_problem(noisy, observed=scene, dtype=dtype, device=device)
     return problem
+
+
+def build_grid_problem(device=None, dtype: torch.dtype = torch.float32):
+    """The medium problem in bucketed grid layout on ``device`` (default:
+    the CUDA card), packed host-side by ``grid_bucketed_from_flat``."""
+    from tpu3drecon_torch.problems.grid import grid_bucketed_from_flat
+
+    device = resolve_device(device)
+    return grid_bucketed_from_flat(build_problem(device, dtype))
 
 
 def timed_solve_stats(solver, problem, repeats: int = 1):

@@ -42,42 +42,30 @@
 // multiply-add's rounding difference that much.
 //
 // Every C entry returns cudaGetLastError() after its launch, or a negative
-// code for arguments the kernels do not take (see wtt_error_string).  The
-// kernels allocate nothing; scalars that change every LM iteration (lam,
-// inv_w) are read from device memory, so no launch needs a host sync.
+// code for arguments the kernels do not take (common.cuh; named by
+// kernel_error_string in common.cu).  The kernels allocate nothing;
+// scalars that change every LM iteration (lam, inv_w) are read from device
+// memory, so no launch needs a host sync.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
+
+using namespace tpu3drecon;
 
 namespace {
 
 constexpr int kD = 19;        // camera table width: R(9) t(3) f(2) c(3) k(2)
 constexpr int kBlock = 256;   // threads per block = point columns per block
-constexpr unsigned kFull = 0xffffffffu;
-
-enum : int { kErrNp = -1, kErrSmem = -2, kErrDtype = -3 };
 
 struct LinFlags {
   int use_sj, loss, focal, points, dist, pp;
 };
 
-template <typename T>
-__device__ __forceinline__ T robust_weight(int loss, T s) {
-  if (loss == 1) return T(1) / (T(1) + s);                      // Cauchy
-  if (loss == 2) return s <= T(1) ? T(1) : T(1) / sqrt(s > T(1) ? s : T(1));  // Huber
-  return T(1);
-}
-
 // Plane index of entry (j, l) of a symmetric 3x3 packed (00 01 02 11 12 22).
 __device__ __forceinline__ constexpr int sym_idx(int j, int l) {
   return j == 0 ? l : (j == 1 ? (l == 0 ? 1 : l + 2) : (l == 0 ? 2 : l + 3));
-}
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
-  return v;
 }
 
 // Window-row target of one slot for the whole warp: this lane's row `w`
@@ -653,13 +641,6 @@ int wtt_cost(int dtype, const void* wcam, const void* tw, const void* pts,
     return cost_launch<double>(wcam, tw, pts, uv, mask, out, G, Tb, Pc, W,
                                loss, (cudaStream_t)stream);
   return kErrDtype;
-}
-
-const char* wtt_error_string(int code) {
-  if (code == kErrNp) return "unsupported camera block width (np must be 8, 10 or 12)";
-  if (code == kErrSmem) return "window too wide: shared memory exceeds the per-block limit";
-  if (code == kErrDtype) return "unsupported dtype (float32 or float64)";
-  return cudaGetErrorString((cudaError_t)code);
 }
 
 }  // extern "C"

@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from tpu3drecon_torch.device import resolve_device
 from tpu3drecon_torch.problems.packing import (
     BAProblem,
     CameraParams,
@@ -250,11 +251,13 @@ def scene_to_ba_problem(
     observed: Optional[SyntheticScene] = None,
     dtype: torch.dtype = torch.float32,
     pad_multiple: int = 1024,
-    device="cpu",
+    device=None,
 ) -> Tuple[BAProblem, ProblemMeta]:
-    """Packed BA problem on ``device``: parameters from ``scene`` (typically
+    """Packed BA problem on ``device`` (default: the CUDA card, see
+    ``tpu3drecon_torch.device``): parameters from ``scene`` (typically
     the perturbed initialization), observations from ``observed``
     (typically the clean ground truth)."""
+    device = resolve_device(device)
     obs = observed if observed is not None else scene
     n_obs = len(obs.uv)
     n_pad = bucket_size(max(n_obs, 1), pad_multiple)

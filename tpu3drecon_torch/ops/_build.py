@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources compile with ``nvcc`` for ``sm_90a`` into a shared library
+Each source compiles with ``nvcc`` for ``sm_90a`` into an object file, all
+of them at once in parallel, and the objects link into one shared library
 with a plain C interface, loaded with ``ctypes`` — no PyTorch headers, so
 a build takes seconds.  The library lands in ``tpu3drecon_torch/_build/``
 under a name keyed by a hash of the sources and flags, so a stale build is
@@ -9,7 +10,8 @@ first use.
 
 Every C entry returns ``cudaGetLastError()`` after its launch (or a
 negative code for arguments the kernels do not take); ``check`` raises on
-anything but 0.
+anything but 0, with the message of ``kernel_error_string``
+(``csrc/common.cu``).
 """
 
 from __future__ import annotations
@@ -35,13 +37,14 @@ BUILD_DIR = _PKG / "_build"
 # ~eps/lam relative.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# argtypes of every C entry of csrc/wtt_kernels.cu (pointers and the stream
-# as c_void_p: a plain int would be cut to 32 bits).
+_D = ctypes.c_double
+# argtypes of every C entry of csrc/*.cu (pointers and the stream as
+# c_void_p: a plain int would be cut to 32 bits).
 _SIGNATURES = {
     # dtype, np, wcam, tw, pts, uv, mask, lam, inv_w, rows, jc, jp, vinv,
     # gpt, damp, G, Tb, Pc, W, use_sj, loss, focal, points, dist, pp, stream
@@ -52,6 +55,12 @@ _SIGNATURES = {
     "wtt_wt_planes": [_I, _I] + [_P] * 5 + [_I] * 4 + [_P],
     # dtype, wcam, tw, pts, uv, mask, out, G, Tb, Pc, W, loss, stream
     "wtt_cost": [_I] + [_P] * 6 + [_I] * 5 + [_P],
+    # dtype, params, x_w, uv, mask, r, jp, jc, u, g, C, K, loss, stream
+    "grid_cam_normal": [_I] + [_P] * 9 + [_I] * 3 + [_P],
+    # dtype, jp_g, r_g, lam, v_inv, g, damp, P, T2, diag_floor, stream
+    "grid_point_normal": [_I] + [_P] * 6 + [_I, _I, _D, _P],
+    # dtype, jc, jp, vinv6, out, C, K, stream
+    "grid_coupling": [_I] + [_P] * 4 + [_I] * 2 + [_P],
 }
 
 _LIB = []  # the loaded library, once per process (sources do not change under it)
@@ -100,27 +109,42 @@ def nvcc() -> str:
 
 def build() -> tuple[Path, str]:
     """Compile ``csrc/*.cu`` unless a library with the current digest
-    exists.  Returns (library path, compiler output; empty when cached)."""
+    exists: one nvcc per source, all started together, then one link.
+    Returns (library path, compiler output; empty when cached)."""
     digest = source_digest()
-    out = BUILD_DIR / f"wtt_kernels_{digest}.so"
+    out = BUILD_DIR / f"kernels_{digest}.so"
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out, proc.stdout + proc.stderr
+    nv = nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        jobs = []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj, log = tmp / f"{src.stem}.o", tmp / f"{src.stem}.log"
+            with open(log, "w") as fh:
+                proc = subprocess.Popen(
+                    [nv, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                    stdout=fh, stderr=subprocess.STDOUT,
+                )
+            jobs.append((src, obj, log, proc))
+        logs = []
+        for src, _, log, proc in jobs:
+            proc.wait()
+            logs.append(f"{src.name}:\n{log.read_text()}")
+        failed = [(src.name, proc.returncode) for src, _, _, proc in jobs if proc.returncode]
+        if failed:
+            raise RuntimeError(f"nvcc failed {failed}:\n" + "".join(logs))
+        so = tmp / "kernels.so"
+        link = subprocess.run(
+            [nv, "-shared", "-o", str(so), *(str(obj) for _, obj, _, _ in jobs)],
+            capture_output=True, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+        os.replace(so, out)  # atomic: a concurrent build never sees half a file
+    return out, "".join(logs) + link.stdout + link.stderr
 
 
 def library() -> ctypes.CDLL:
@@ -134,15 +158,15 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.wtt_error_string.argtypes = [ctypes.c_int]
-    lib.wtt_error_string.restype = ctypes.c_char_p
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
     _LIB.append(lib)
     return lib
 
 
 def check(lib: ctypes.CDLL, name: str, code: int) -> None:
     if code != 0:
-        msg = lib.wtt_error_string(code).decode()
+        msg = lib.kernel_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({code}): {msg}")
 
 

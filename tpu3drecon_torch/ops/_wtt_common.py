@@ -1,5 +1,6 @@
-"""Shared plumbing of the wtt kernel wrappers: input checks, the window-row
-gather and scatter of the plain versions, and the device dispatch rule.
+"""Shared plumbing of the kernel wrappers: input checks and the device
+dispatch rule (all wrappers), and the window-row gather and scatter of the
+wtt plain versions.
 
 Dispatch rule of every public kernel function: a CPU tensor goes to the
 plain PyTorch version; a CUDA tensor launches the CUDA kernel or raises.

@@ -2,10 +2,12 @@
 
 The "weights" of a bundle-adjustment system are the packed problem and its
 camera/point parameters.  These functions take the fields of the JAX
-package's ``CameraParams`` / ``BAProblem`` / ``BAWTTProblem`` as numpy
-arrays and static ints (a dict per dataclass, nested for ``cameras`` and
-``buckets``) and build the port's objects on ``device``, so the same
-problem can be handed to both packages.  Nothing here imports jax.
+package's ``CameraParams`` / ``BAProblem`` / ``BAGridProblem`` /
+``BAGridBucketedProblem`` / ``BAWTTProblem`` as numpy arrays and static
+ints (a dict per dataclass, nested for ``cameras`` and ``buckets``) and
+build the port's objects on ``device`` (default: the CUDA card, see
+``tpu3drecon_torch.device``), so the same problem can be handed to both
+packages.  Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -13,6 +15,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpu3drecon_torch.device import resolve_device
+from tpu3drecon_torch.problems.grid import (
+    BAGridBucketedProblem,
+    BAGridProblem,
+    TrackBucket,
+)
 from tpu3drecon_torch.problems.packing import BAProblem, CameraParams
 from tpu3drecon_torch.problems.wtt import BAWTTProblem, WTTBucket
 
@@ -21,34 +29,76 @@ def _t(x, device):
     return None if x is None else torch.as_tensor(np.array(x), device=device)
 
 
-def camera_params_from_numpy(d: dict, device="cpu") -> CameraParams:
+def _arrays(d: dict, keys, device) -> dict:
+    return {k: _t(d[k], device) for k in keys}
+
+
+def camera_params_from_numpy(d: dict, device=None) -> CameraParams:
     """``CameraParams`` from the arrays ``rmats``, ``tvecs``, ``fx_fy``,
     ``cx_cy_skew``, ``dist``."""
-    return CameraParams(**{
-        k: _t(d[k], device)
-        for k in ("rmats", "tvecs", "fx_fy", "cx_cy_skew", "dist")
-    })
-
-
-def ba_problem_from_numpy(d: dict, device="cpu") -> BAProblem:
-    """``BAProblem`` from ``cameras`` (a dict) and the arrays ``points3d``,
-    ``cam_idx``, ``pt_idx``, ``uv``, ``mask``, ``avg_cam_width``."""
-    return BAProblem(
-        cameras=camera_params_from_numpy(d["cameras"], device),
-        **{
-            k: _t(d[k], device)
-            for k in ("points3d", "cam_idx", "pt_idx", "uv", "mask", "avg_cam_width")
-        },
+    device = resolve_device(device)
+    return CameraParams(
+        **_arrays(d, ("rmats", "tvecs", "fx_fy", "cx_cy_skew", "dist"), device)
     )
 
 
-def wtt_problem_from_numpy(d: dict, device="cpu") -> BAWTTProblem:
+def ba_problem_from_numpy(d: dict, device=None) -> BAProblem:
+    """``BAProblem`` from ``cameras`` (a dict) and the arrays ``points3d``,
+    ``cam_idx``, ``pt_idx``, ``uv``, ``mask``, ``avg_cam_width``."""
+    device = resolve_device(device)
+    return BAProblem(
+        cameras=camera_params_from_numpy(d["cameras"], device),
+        **_arrays(
+            d, ("points3d", "cam_idx", "pt_idx", "uv", "mask", "avg_cam_width"),
+            device,
+        ),
+    )
+
+
+def grid_problem_from_numpy(d: dict, device=None) -> BAGridProblem:
+    """``BAGridProblem`` from ``cameras`` (a dict) and the arrays
+    ``points3d``, ``uv``, ``pt_idx``, ``mask``, ``track_idx``,
+    ``track_cam``, ``track_mask``, ``avg_cam_width``."""
+    device = resolve_device(device)
+    return BAGridProblem(
+        cameras=camera_params_from_numpy(d["cameras"], device),
+        **_arrays(
+            d,
+            ("points3d", "uv", "pt_idx", "mask", "track_idx", "track_cam",
+             "track_mask", "avg_cam_width"),
+            device,
+        ),
+    )
+
+
+def grid_bucketed_problem_from_numpy(d: dict, device=None) -> BAGridBucketedProblem:
+    """``BAGridBucketedProblem`` from ``cameras`` (a dict), ``buckets`` (a
+    list of dicts with the arrays ``track_idx``, ``track_cam``,
+    ``track_mask``), the arrays ``points3d``, ``uv``, ``pt_idx``, ``mask``,
+    ``avg_cam_width``, ``point_rows`` and the static int ``n_real_points``."""
+    device = resolve_device(device)
+    return BAGridBucketedProblem(
+        cameras=camera_params_from_numpy(d["cameras"], device),
+        buckets=tuple(
+            TrackBucket(**_arrays(b, ("track_idx", "track_cam", "track_mask"), device))
+            for b in d["buckets"]
+        ),
+        n_real_points=int(d["n_real_points"]),
+        **_arrays(
+            d, ("points3d", "uv", "pt_idx", "mask", "avg_cam_width", "point_rows"),
+            device,
+        ),
+    )
+
+
+def wtt_problem_from_numpy(d: dict, device=None) -> BAWTTProblem:
     """``BAWTTProblem`` from ``cameras`` (a dict), ``buckets`` (a list of
     dicts with the arrays ``uv``, ``mask``, ``cam_base``, ``wcam`` and the
     ints ``window``, ``global_tiles``, ``global_tile0``; a dense ``onehot``
     is ignored), the arrays ``points3d``, ``avg_cam_width``,
     ``point_rows``, ``cam_rows`` (or None) and the static ints
     ``n_real_points``, ``bucket_offsets``, ``window``, ``c_pad``."""
+    device = resolve_device(device)
     buckets = []
     for b in d["buckets"]:
         wcam = np.asarray(b["wcam"])

@@ -1,10 +1,12 @@
-"""Bucketed grid layout: the intermediate the windowed track table packs from.
+"""Grid layout: the fused-kernel grid engine's problem, and the
+intermediate the windowed track table packs from.
 
-Counterpart of ``tpu3drecon/problems/grid.py:40-82, 181-347``.
-Observations sit on a dense (C, K) camera grid (camera-major, padded to K
-per camera with masks); points are permuted into track-length buckets, and
-each bucket's (Pb, T) track table indexes its points' observations in the
-flattened C*K grid.  Host-side numpy, then tensors on ``device``.
+Counterpart of ``tpu3drecon/problems/grid.py:40-347``.  Observations sit on
+a dense (C, K) camera grid (camera-major, padded to K per camera with
+masks); a (P, T) track table indexes each point's observations in the
+flattened C*K grid.  The bucketed form permutes points into track-length
+buckets, each with its own (Pb, T) table.  Host-side numpy, then tensors on
+``device``.
 
 Padding invariants: padded grid cells carry mask 0; padded track entries
 point at flat index 0 with their own 0 in ``track_mask``.
@@ -28,6 +30,29 @@ class TrackBucket:
     track_idx: torch.Tensor  # (Pb, T) int32 into flat C*K
     track_cam: torch.Tensor  # (Pb, T) int32
     track_mask: torch.Tensor  # (Pb, T)
+
+
+@dataclass(frozen=True)
+class BAGridProblem:
+    """BA problem in camera-grid + track-table layout."""
+
+    cameras: CameraParams
+    points3d: torch.Tensor  # (P, 3)
+    uv: torch.Tensor  # (C, K, 2)
+    pt_idx: torch.Tensor  # (C, K) int32
+    mask: torch.Tensor  # (C, K)
+    track_idx: torch.Tensor  # (P, T) int32 into flat C*K
+    track_cam: torch.Tensor  # (P, T) int32 camera row of each track entry
+    track_mask: torch.Tensor  # (P, T)
+    avg_cam_width: torch.Tensor  # ()
+
+    @property
+    def n_cameras(self) -> int:
+        return self.uv.shape[0]
+
+    @property
+    def n_points(self) -> int:
+        return self.points3d.shape[0]
 
 
 @dataclass(frozen=True)
@@ -100,6 +125,37 @@ def _grid_from_flat_np(problem: BAProblem, obs_pad_multiple: int = 128,
     tcam[p_of, plocal] = cam_sorted[porder].astype(np.int32)
     tmask[p_of, plocal] = 1.0
     return guv, gpt, gmask, tidx, tcam, tmask
+
+
+def grid_from_flat(
+    problem: BAProblem,
+    obs_pad_multiple: int = 128,
+    track_pad_multiple: int = 8,
+    device=None,
+) -> BAGridProblem:
+    """Repack a flat BAProblem into the grid layout on ``device`` (default:
+    the problem's device); parameters are kept as they are."""
+    if device is None:
+        device = problem.points3d.device
+    guv, gpt, gmask, tidx, tcam, tmask = _grid_from_flat_np(
+        problem, obs_pad_multiple, track_pad_multiple
+    )
+    dtype = problem.uv.dtype
+
+    def t_(x, dt=None):
+        return torch.as_tensor(x, dtype=dt, device=device)
+
+    return BAGridProblem(
+        cameras=problem.cameras.to(device),
+        points3d=problem.points3d.to(device),
+        uv=t_(guv, dtype),
+        pt_idx=t_(gpt),
+        mask=t_(gmask, dtype),
+        track_idx=t_(tidx),
+        track_cam=t_(tcam),
+        track_mask=t_(tmask, dtype),
+        avg_cam_width=problem.avg_cam_width.to(device),
+    )
 
 
 def grid_bucketed_from_flat(

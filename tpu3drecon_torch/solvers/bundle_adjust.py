@@ -4,7 +4,8 @@ Counterpart of ``tpu3drecon/solvers/bundle_adjust.py:35-228, 469-487``:
 ``BAConfig`` has the same fields and defaults (the option documentation
 lives with the JAX reference), ``BAState`` the same fields.  The flat
 engine itself is not ported yet; the windowed track-table engine
-(solvers/ba_wtt.py) returns these types.
+(solvers/ba_wtt.py) and the grid engine (solvers/ba_pallas.py) return
+these types.
 """
 
 from __future__ import annotations
