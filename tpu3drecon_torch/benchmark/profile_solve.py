@@ -1,7 +1,6 @@
 """Where the time of one medium solve goes on the card.
 
-    python -m tpu3drecon_torch.benchmark.profile_solve [--engine wtt|grid|both]
-                                                      [--trace-dir DIR]
+    python -m tpu3drecon_torch.benchmark.profile_solve [--trace-dir DIR]
 
 The Chrome traces are kept in ``--trace-dir`` (default: the ignored
 ``tpu3drecon_torch/_build/profile/``), one ``<engine>.json`` each.
@@ -108,7 +107,6 @@ def profile(solve, problem, trace_path: str) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--engine", choices=("wtt", "grid", "both"), default="both")
     ap.add_argument("--trace-dir", default=str(BUILD_DIR / "profile"),
                     help="where the Chrome traces are written")
     args = ap.parse_args()
@@ -124,14 +122,12 @@ def main() -> int:
     from tpu3drecon_torch.solvers.ba_pallas import ba_solve_pallas
     from tpu3drecon_torch.solvers.ba_wtt import ba_solve_wtt
 
-    runs = []
-    if args.engine in ("wtt", "both"):
-        cfg = BENCH_CONFIG._replace(matvec_kernel="index", linearize_kernel="index")
-        runs.append(("wtt", lambda p: ba_solve_wtt(p, cfg),
-                     lambda: wtt_from_flat(build_problem(), defer_onehot=True)))
-    if args.engine in ("grid", "both"):
-        runs.append(("grid", lambda p: ba_solve_pallas(p, BENCH_CONFIG),
-                     build_grid_problem))
+    cfg = BENCH_CONFIG._replace(matvec_kernel="index", linearize_kernel="index")
+    runs = (
+        ("wtt", lambda p: ba_solve_wtt(p, cfg),
+         lambda: wtt_from_flat(build_problem(), defer_onehot=True)),
+        ("grid", lambda p: ba_solve_pallas(p, BENCH_CONFIG), build_grid_problem),
+    )
     out_dir = Path(args.trace_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     for engine, solve, build in runs:

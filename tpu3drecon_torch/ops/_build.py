@@ -22,6 +22,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -107,44 +109,41 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _compile(nv: str, src: Path, obj: Path) -> tuple[subprocess.CompletedProcess, float]:
+    t0 = time.perf_counter()
+    proc = subprocess.run([nv, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                          capture_output=True, text=True)
+    return proc, time.perf_counter() - t0
+
+
 def build() -> tuple[Path, str]:
     """Compile ``csrc/*.cu`` unless a library with the current digest
     exists: one nvcc per source, all started together, then one link.
-    Returns (library path, compiler output; empty when cached)."""
+    Returns (library path, compiler output, each source's headed by
+    ``nvcc <source>: <seconds> s``; empty when cached)."""
     digest = source_digest()
     out = BUILD_DIR / f"kernels_{digest}.so"
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nv = nvcc()
+    srcs = [p for p in _sources() if p.suffix == ".cu"]
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        tmp = Path(tmp)
-        jobs = []
-        for src in (p for p in _sources() if p.suffix == ".cu"):
-            obj, log = tmp / f"{src.stem}.o", tmp / f"{src.stem}.log"
-            with open(log, "w") as fh:
-                proc = subprocess.Popen(
-                    [nv, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
-                    stdout=fh, stderr=subprocess.STDOUT,
-                )
-            jobs.append((src, obj, log, proc))
-        logs = []
-        for src, _, log, proc in jobs:
-            proc.wait()
-            logs.append(f"{src.name}:\n{log.read_text()}")
-        failed = [(src.name, proc.returncode) for src, _, _, proc in jobs if proc.returncode]
-        if failed:
-            raise RuntimeError(f"nvcc failed {failed}:\n" + "".join(logs))
-        so = tmp / "kernels.so"
-        link = subprocess.run(
-            [nv, "-shared", "-o", str(so), *(str(obj) for _, obj, _, _ in jobs)],
-            capture_output=True, text=True,
-        )
+        objs = [Path(tmp) / f"{src.stem}.o" for src in srcs]
+        with ThreadPoolExecutor(len(srcs)) as pool:
+            done = list(pool.map(_compile, [nv] * len(srcs), srcs, objs))
+        log = "".join(f"nvcc {src.name}: {secs:.1f} s\n{proc.stdout}{proc.stderr}"
+                      for src, (proc, secs) in zip(srcs, done))
+        if any(proc.returncode for proc, _ in done):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        so = Path(tmp) / "kernels.so"
+        link = subprocess.run([nv, "-shared", "-o", str(so), *map(str, objs)],
+                              capture_output=True, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
                                f"{link.stdout}{link.stderr}")
         os.replace(so, out)  # atomic: a concurrent build never sees half a file
-    return out, "".join(logs) + link.stdout + link.stderr
+    return out, log + link.stdout + link.stderr
 
 
 def library() -> ctypes.CDLL:
