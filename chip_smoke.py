@@ -23,22 +23,30 @@ Phases (any failure exits non-zero and prints no result line):
    float64, B9 under all three losses.
 5. The grid path: ``ba_solve_pallas`` on the same problem with the same
    config: one warm-up solve and 3 timed solves.
-6. Prints the kernel table as one JSON line, the ``nvidia-smi`` line, then
+6. The dense track-table kernels B12-B16 against their plain versions on
+   the card, on the five buckets of the medium problem in track-table
+   layout (``build_tt_problem``; initial parameters, lam = 1e-4), in
+   float32 and float64, B12 and B16 under all three losses.
+7. The tt path: ``ba_solve_tt`` (fully fused, kernels B12-B16) on the same
+   problem with the same config: one warm-up solve and 3 timed solves.
+8. Prints the kernel table as one JSON line, the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Tolerances, relative to max|plain|: per-element outputs 1e-5 (f32) and
-1e-12 (f64); summed outputs 1e-4 and 1e-10 (B1 rows and B2 rows are
-atomic sums whose order varies; B9's U and g and B11's blocks are block
-reductions in another order than the plain version's).  Kernel and plain
+1e-12 (f64); summed outputs 1e-4 and 1e-10 (B1 rows, B2 rows, B12's U|g
+columns, B13 and B15 are atomic sums whose order varies; B9's U and g and
+B11's blocks are block reductions in another order than the plain
+version's).  Kernel and plain
 times (``ms``, ``plain_ms``) are device times (``device_ms``): the median
 of 20 calls, each with a cold L2 and timed by a CUDA-event pair that sees
 none of the call's host time, summed over one pass of the solve (the five
 buckets, or one linearization).  ``ms`` covers all the device work of the
 wrapper: the kernel, and for B9 the packing of the camera rows (as in the
-JAX function).  Every count is set to 0
-just before each path's solves and read just after: each path must launch
-each of its kernels and call no plain version.  Each solve must reach a
-reprojection RMSE below 1e-3 px and a final loss below the initial one.
+JAX function), for B16 the sum of its per-point partials.  Every count is
+set to 0 just before each path's solves and read just after: each path
+must launch each of its kernels and call no plain version.  Each solve must
+reach a reprojection RMSE below 1e-3 px and a final loss below the initial
+one.
 
 ``bound_ms`` is the least time the card could take for the same work: the
 larger of the bytes the function must move (each input read once, each
@@ -60,6 +68,8 @@ import torch
 
 WTT_SRC = "tpu3drecon_torch/csrc/wtt_kernels.cu"
 GRID_SRC = "tpu3drecon_torch/csrc/grid_kernels.cu"
+TT_SRC = "tpu3drecon_torch/csrc/tt_kernels.cu"
+TT_PY = "tpu3drecon/ops/pallas/tt_linearize.py"
 # (module, counter attribute, kernel name, source, replaced TPU kernel, path)
 KERNELS = (
     ("wtt_linearize", "COUNTS", "wtt_linearize_fused_idx", WTT_SRC,
@@ -76,6 +86,11 @@ KERNELS = (
      "tpu3drecon/ops/pallas/point_normal.py:80", "grid"),
     ("coupling", "COUNTS", "coupling_fused", GRID_SRC,
      "tpu3drecon/ops/pallas/coupling.py:65", "grid"),
+    ("tt_linearize", "CAM_COUNTS", "tt_cam_normal_fused", TT_SRC, f"{TT_PY}:221", "tt"),
+    ("tt_linearize", "COUPLING_COUNTS", "tt_coupling_fused", TT_SRC, f"{TT_PY}:297", "tt"),
+    ("tt_linearize", "WT_COUNTS", "tt_wt_times_fused", TT_SRC, f"{TT_PY}:436", "tt"),
+    ("tt_linearize", "W_COUNTS", "tt_w_times_fused", TT_SRC, f"{TT_PY}:475", "tt"),
+    ("tt_linearize", "COST_COUNTS", "tt_cost_fused", TT_SRC, f"{TT_PY}:512", "tt"),
 )
 TOL = {  # (per-element, summed) bounds relative to max|plain|
     torch.float32: (1e-5, 1e-4),
@@ -84,13 +99,16 @@ TOL = {  # (per-element, summed) bounds relative to max|plain|
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12
 # Float operations per unit of work, counted from csrc/*.cu: per slot
-# (Tb * Pc per bucket) for B1-B4, per grid lane (C * K) for B9 and B11,
-# per track row (P * T2) plus per point for B10.
+# (Tb * Pc per bucket) for B1-B4 and B12-B16 (np = 8, atomic adds
+# included), per grid lane (C * K) for B9 and B11, per track row (P * T2)
+# plus per point for B10.
 FLOPS = {
     "wtt_linearize_fused_idx": 1000, "wtt_coupling_rows_idx": 80,
     "wtt_wt_planes_idx": 44, "wtt_cost_cols_idx": 45,
     "cam_normal_fused": 340, "point_normal_row": 18, "point_normal_point": 60,
     "coupling_fused": 408,
+    "tt_cam_normal_fused": 370, "tt_coupling_fused": 408, "tt_wt_times_fused": 44,
+    "tt_w_times_fused": 42, "tt_cost_fused": 51,
 }
 CAM_FIELDS = ("rmats", "tvecs", "fx_fy", "cx_cy_skew", "dist")
 
@@ -354,6 +372,105 @@ def check_grid_kernels(grid) -> None:
                     nbytes(jc, jp, vinv6_g, got), FLOPS["coupling_fused"] * c * k)
 
 
+def tt_kernel_inputs(problem, dtype, lam_value=1e-4):
+    """Per-bucket tt kernel inputs at the initial parameters, cast to dtype."""
+    from tpu3drecon_torch.solvers.ba_tt import _cam_table, _inv_w
+
+    cams = problem.cameras
+    dev = problem.points3d.device
+    table = _cam_table(*(getattr(cams, f) for f in CAM_FIELDS)).to(dtype).contiguous()
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    x = torch.randn(problem.n_cameras, 8, generator=gen, dtype=torch.float64)
+    out = []
+    for bucket, off in zip(problem.buckets, problem.bucket_offsets):
+        pb = bucket.mask.shape[1]
+        out.append(dict(
+            table=table, cam_ids=bucket.cam_ids,
+            pts=problem.points3d[off : off + pb].T.contiguous().to(dtype),
+            uv=bucket.uv.to(dtype), mask=bucket.mask.to(dtype),
+            inv_w=_inv_w(problem, dtype),
+            lam=torch.tensor(lam_value, dtype=dtype, device=dev),
+            x=x.to(dev, dtype),
+        ))
+    return out
+
+
+def check_tt_kernels(problem) -> None:
+    """Phase 6: B12-B16 against their plain versions, f32 and f64."""
+    from tpu3drecon_torch.geometry.losses import RobustLoss
+    from tpu3drecon_torch.ops import tt_linearize as tt
+    from tpu3drecon_torch.solvers.ba_tt import _sym3_inv_planes, _sym3_matvec
+    from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
+
+    c = problem.n_cameras
+    for dtype in (torch.float32, torch.float64):
+        elem, summed = TOL[dtype]
+        tag = "f32" if dtype == torch.float32 else "f64"
+        for bi, d in enumerate(tt_kernel_inputs(problem, dtype)):
+            tb, pb = d["mask"].shape
+            errs = {}
+            for loss in (RobustLoss.TRIVIAL, RobustLoss.CAUCHY, RobustLoss.HUBER):
+                cfg = BAConfig(loss=loss)
+                b12_args = (d["table"], d["cam_ids"], d["pts"], d["uv"], d["mask"],
+                            d["inv_w"], cfg, 8)
+                got = tt.tt_cam_normal_fused(*b12_args)
+                plain = tt.tt_cam_normal_fused_plain(*b12_args)
+                errs[f"B12 {loss.value}"] = max(
+                    compare("tt_cam_normal_fused", tag, name, a, b,
+                            summed if name == "ug" else elem)
+                    for name, a, b in zip(("jc", "jp", "v6", "g_pt", "ug"), got, plain))
+                b16_args = (d["table"], d["cam_ids"], d["pts"], d["uv"], d["mask"],
+                            d["inv_w"], cfg)
+                cost = tt.tt_cost_fused(*b16_args)
+                errs[f"B16 {loss.value}"] = compare(
+                    "tt_cost_fused", tag, "", cost, tt.tt_cost_fused_plain(*b16_args), elem)
+                if loss == RobustLoss.TRIVIAL:
+                    b12_cfg, out_b12, want, cost_b16 = b12_args, got, plain, cost
+            jc, jp, v6 = want[:3]
+            damp = torch.stack([d["lam"] * torch.clamp(v6[k], min=1e-8) for k in (0, 3, 5)])
+            v_inv = _sym3_inv_planes(torch.stack(
+                [v6[0] + damp[0], v6[1], v6[2], v6[3] + damp[1], v6[4], v6[5] + damp[2]]))
+            b13_args = (d["cam_ids"], d["mask"], jc, jp, v_inv, c)
+            b14_args = (d["x"], d["cam_ids"], d["mask"], jc, jp)
+            coup = tt.tt_coupling_fused(*b13_args)
+            errs["B13"] = compare("tt_coupling_fused", tag, "", coup,
+                                  tt.tt_coupling_fused_plain(*b13_args), summed)
+            wtx = tt.tt_wt_times_fused(*b14_args)
+            wtx_plain = tt.tt_wt_times_fused_plain(*b14_args)
+            errs["B14"] = compare("tt_wt_times_fused", tag, "", wtx, wtx_plain, elem)
+            b15_args = (_sym3_matvec(v_inv, wtx_plain).contiguous(), d["cam_ids"], d["mask"],
+                        jc, jp, c)
+            wy = tt.tt_w_times_fused(*b15_args)
+            errs["B15"] = compare("tt_w_times_fused", tag, "", wy,
+                                  tt.tt_w_times_fused_plain(*b15_args), summed)
+            log(f"check {tag} tt bucket {bi} (Tb={tb} Pb={pb}): "
+                + " ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+            if dtype != torch.float32:
+                continue
+            slots = tb * pb
+            account("tt_cam_normal_fused",
+                    lambda: tt.tt_cam_normal_fused(*b12_cfg),
+                    lambda: tt.tt_cam_normal_fused_plain(*b12_cfg),
+                    nbytes(*b12_cfg[:6], *out_b12), FLOPS["tt_cam_normal_fused"] * slots)
+            account("tt_coupling_fused",
+                    lambda: tt.tt_coupling_fused(*b13_args),
+                    lambda: tt.tt_coupling_fused_plain(*b13_args),
+                    nbytes(*b13_args[:5], coup), FLOPS["tt_coupling_fused"] * slots)
+            account("tt_wt_times_fused",
+                    lambda: tt.tt_wt_times_fused(*b14_args),
+                    lambda: tt.tt_wt_times_fused_plain(*b14_args),
+                    nbytes(*b14_args, wtx), FLOPS["tt_wt_times_fused"] * slots)
+            account("tt_w_times_fused",
+                    lambda: tt.tt_w_times_fused(*b15_args),
+                    lambda: tt.tt_w_times_fused_plain(*b15_args),
+                    nbytes(*b15_args[:5], wy), FLOPS["tt_w_times_fused"] * slots)
+            b16_args = b12_cfg[:7]
+            account("tt_cost_fused",
+                    lambda: tt.tt_cost_fused(*b16_args),
+                    lambda: tt.tt_cost_fused_plain(*b16_args),
+                    nbytes(*b16_args[:6], cost_b16), FLOPS["tt_cost_fused"] * slots)
+
+
 def drive(path: str, solve, problem, flat, repeats: int) -> dict:
     """One path's solves (1 warm-up + ``repeats``) with every count set to 0
     just before and read just after; returns its kernels' launch counts."""
@@ -400,10 +517,12 @@ def main() -> int:
         BENCH_CONFIG,
         build_grid_problem,
         build_problem,
+        build_tt_problem,
     )
     from tpu3drecon_torch.ops import _build
     from tpu3drecon_torch.problems.wtt import wtt_from_flat
     from tpu3drecon_torch.solvers.ba_pallas import ba_solve_pallas
+    from tpu3drecon_torch.solvers.ba_tt import ba_solve_tt
     from tpu3drecon_torch.solvers.ba_wtt import ba_solve_wtt
 
     smi = subprocess.run(
@@ -449,6 +568,16 @@ def main() -> int:
     launches.update(drive(
         "grid", lambda p, **kw: ba_solve_pallas(p, BENCH_CONFIG._replace(**kw)),
         grid, flat, 3,
+    ))
+
+    t0 = time.perf_counter()
+    tt = build_tt_problem(dev, torch.float32)
+    log(f"tt problem: C = {tt.n_cameras}, P_pad = {tt.points3d.shape[0]}, built and "
+        f"packed in {time.perf_counter() - t0:.1f} s; buckets (Tb, Pb): "
+        + str([tuple(b.mask.shape) for b in tt.buckets]))
+    check_tt_kernels(tt)
+    launches.update(drive(
+        "tt", lambda p, **kw: ba_solve_tt(p, BENCH_CONFIG._replace(**kw)), tt, flat, 3,
     ))
     log("worst max|diff| / max|plain|: "
         + ", ".join(f"{k} {v:.2e}" for k, v in sorted(WORST.items())))

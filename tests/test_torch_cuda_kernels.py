@@ -1,5 +1,6 @@
 """The CUDA kernels vs their plain PyTorch versions, on the card: the four
-wtt kernels (B1-B4) and the grid engine's three (B9-B11).
+wtt kernels (B1-B4), the grid engine's three (B9-B11) and the dense track
+table's five (B12-B16).
 
 Needs an NVIDIA GPU with nvcc (the kernels build at first use); skips where
 ``torch.cuda.is_available()`` is false.  Imports no jax, so on a machine
@@ -8,9 +9,10 @@ without it run it with the repo's conftest switched off:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
 Tolerances, relative to max|plain|: per-element outputs 1e-5 (f32) and
-1e-12 (f64); rows reduced with atomics (linearize rows, coupling rows) and
-the grid kernels' per-camera block sums (U, g, coupling) 1e-4 and 1e-10,
-because their summation order differs from the plain version's.
+1e-12 (f64); rows reduced with atomics (linearize rows, coupling rows, the
+tt kernels' camera columns) and the grid kernels' per-camera block sums
+(U, g, coupling) 1e-4 and 1e-10, because their summation order differs
+from the plain version's.
 """
 
 import numpy as np
@@ -22,6 +24,7 @@ from tpu3drecon_torch.ops import (
     cam_normal,
     coupling,
     point_normal,
+    tt_linearize,
     wtt_cost,
     wtt_linearize,
     wtt_matvec,
@@ -215,3 +218,91 @@ def test_grid_bad_inputs_raise(dev):
         coupling.coupling_fused(jc, d["vinv6"], d["vinv6"][:, :, :128].contiguous())
     with pytest.raises(ValueError, match="float32 or float64"):
         coupling.coupling_fused(jc.half(), d["vinv6"].half(), d["vinv6"].half())
+
+
+def _tt_inputs(dev, dtype, c, tb, pb, seed):
+    """tt kernel inputs: C cameras near a pinhole looking down +z from
+    z ~ 6, 15 % padded slots.  Padded slots carry camera 0, as the packer
+    writes them, and no real slot uses camera 0, whose row is NaN: a kernel
+    that read camera 0's row for a padded slot would give NaN."""
+    rng = np.random.default_rng(seed)
+    mask = rng.random((tb, pb)) > 0.15
+    cam_ids = np.where(mask, rng.integers(1, c, size=(tb, pb)), 0).astype(np.int32)
+    table = np.zeros((c, 19))
+    table[:, [0, 4, 8]] = 1.0
+    table[:, :9] += rng.normal(scale=0.05, size=(c, 9))
+    table[:, 9:11] = rng.normal(scale=0.3, size=(c, 2))
+    table[:, 11] = rng.uniform(5.0, 7.0, size=c)
+    table[:, 12:14] = rng.uniform(1000, 1100, size=(c, 2))
+    table[:, 14:16] = rng.uniform(600, 680, size=(c, 2))
+    table[:, 17] = rng.uniform(-0.05, 0.0, size=c)
+    table[:, 18] = rng.uniform(0.0, 0.01, size=c)
+    table[0] = np.nan
+
+    def t(x, dt=dtype):
+        return torch.as_tensor(np.array(x), dtype=dt, device=dev)
+
+    return dict(
+        table=t(table), cam_ids=t(cam_ids, torch.int32), pts=t(rng.normal(size=(3, pb))),
+        uv=t(rng.uniform(300, 1000, size=(2, tb, pb))), mask=t(mask),
+        inv_w=torch.tensor(1.0 / 1280.0, dtype=dtype, device=dev),
+        x=t(rng.normal(size=(c, 12))), y=t(rng.normal(size=(3, pb))),
+        v_inv=t(rng.normal(size=(6, pb))),
+    )
+
+
+TT_CASES = [  # (dtype, C, Tb, Pb, np, loss); Pb not a multiple of 256
+    (torch.float32, 100, 2, 300, 8, "trivial"),
+    (torch.float64, 100, 12, 300, 8, "trivial"),
+    (torch.float32, 37, 3, 1000, 10, "cauchy"),
+    (torch.float64, 100, 4, 513, 12, "huber"),
+]
+
+
+@pytest.mark.parametrize("dtype,c,tb,pb,np_cam,loss", TT_CASES)
+def test_tt_kernels_match_plain(dev, dtype, c, tb, pb, np_cam, loss):
+    d = _tt_inputs(dev, dtype, c, tb, pb, seed=c + tb + pb + np_cam)
+    elem, reduced = TOL[dtype]
+    cfg = BAConfig(loss=RobustLoss(loss), optimize_dist=np_cam >= 10,
+                   optimize_pp=np_cam == 12)
+    counts = (tt_linearize.CAM_COUNTS, tt_linearize.COUPLING_COUNTS,
+              tt_linearize.WT_COUNTS, tt_linearize.W_COUNTS, tt_linearize.COST_COUNTS)
+    before = [c_.kernel for c_ in counts]
+
+    b12 = (d["table"], d["cam_ids"], d["pts"], d["uv"], d["mask"], d["inv_w"], cfg, np_cam)
+    got = tt_linearize.tt_cam_normal_fused(*b12)
+    want = tt_linearize.tt_cam_normal_fused_plain(*b12)
+    for name, a, b in zip(("jc", "jp", "v6", "g_pt", "ug"), got, want):
+        assert torch.isfinite(a).all(), name
+        _close(a, b, reduced if name == "ug" else elem, name)
+    pad = d["mask"] == 0
+    assert (got[0][:, pad] == 0).all() and (got[1][:, pad] == 0).all()
+    assert (got[4][0] == 0).all()  # camera 0 has only padded slots
+
+    jc, jp = want[0], want[1]
+    slots = (d["cam_ids"], d["mask"], jc, jp)
+    x = d["x"][:, :np_cam].contiguous()
+    _close(tt_linearize.tt_coupling_fused(*slots, d["v_inv"], c),
+           tt_linearize.tt_coupling_fused_plain(*slots, d["v_inv"], c), reduced, "B13")
+    _close(tt_linearize.tt_wt_times_fused(x, *slots),
+           tt_linearize.tt_wt_times_fused_plain(x, *slots), elem, "B14")
+    _close(tt_linearize.tt_w_times_fused(d["y"], *slots, c),
+           tt_linearize.tt_w_times_fused_plain(d["y"], *slots, c), reduced, "B15")
+    b16 = b12[:7]
+    _close(tt_linearize.tt_cost_fused(*b16), tt_linearize.tt_cost_fused_plain(*b16),
+           elem, "B16")
+    assert [c_.kernel - b for c_, b in zip(counts, before)] == [1] * 5
+
+
+def test_tt_kernels_refuse_wide_camera_axes(dev):
+    """Above the card's shared memory per block the wrappers raise
+    ValueError naming the limit; they do not fall back."""
+    d = _tt_inputs(dev, torch.float64, 400, 2, 300, seed=8)
+    cfg = BAConfig(optimize_dist=True, optimize_pp=True)
+    with pytest.raises(ValueError, match="shared memory"):
+        tt_linearize.tt_cam_normal_fused(d["table"], d["cam_ids"], d["pts"], d["uv"],
+                                         d["mask"], d["inv_w"], cfg, 12)
+    with pytest.raises(ValueError, match="int32"):
+        tt_linearize.tt_wt_times_fused(d["x"][:, :8].contiguous(), d["cam_ids"].long(),
+                                       d["mask"], d["x"].new_zeros(16, 2, 300),
+                                       d["x"].new_zeros(6, 2, 300))

@@ -3,8 +3,9 @@
 Counterpart of ``tpu3drecon/benchmark/medium_config.py``: the same scene
 (seed 42, 2,000 observations per camera, 0.5 px observation noise) and
 the same fixed-work solver config (30 LM iterations, no early stop,
-Schur-Jacobi preconditioner, 8 CG iterations).  Both builders put the
-problem on the CUDA card unless ``device`` says otherwise.
+Schur-Jacobi preconditioner, 8 CG iterations).  The ``build_*``
+functions put the problem on the CUDA card unless ``device`` says
+otherwise.
 """
 
 from __future__ import annotations
@@ -59,6 +60,16 @@ def build_grid_problem(device=None, dtype: torch.dtype = torch.float32):
 
     device = resolve_device(device)
     return grid_bucketed_from_flat(build_problem(device, dtype))
+
+
+def build_tt_problem(device=None, dtype: torch.dtype = torch.float32):
+    """The medium problem in dense track-table layout on ``device``
+    (default: the CUDA card), packed host-side by ``tt_from_flat`` with the
+    grid layout's track buckets."""
+    from tpu3drecon_torch.problems.tt import tt_from_flat
+
+    device = resolve_device(device)
+    return tt_from_flat(build_problem(device, dtype))
 
 
 def timed_solve_stats(solver, problem, repeats: int = 1):

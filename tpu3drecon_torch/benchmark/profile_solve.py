@@ -6,8 +6,8 @@ The Chrome traces are kept in ``--trace-dir`` (default: the ignored
 ``tpu3drecon_torch/_build/profile/``), one ``<engine>.json`` each.
 
 For each engine (the windowed track table ``ba_solve_wtt``, fully indexed,
-and the fused-kernel grid engine ``ba_solve_pallas``) on the medium
-problem with ``BENCH_CONFIG``: two warm-up solves, then ``torch.profiler``
+the fused-kernel grid engine ``ba_solve_pallas`` and the dense track table
+``ba_solve_tt``, fully fused) on the medium problem with ``BENCH_CONFIG``: two warm-up solves, then ``torch.profiler``
 (CPU and CUDA activities) over one solve.  The Chrome trace it exports is
 read back, and one JSON line per engine gives
 
@@ -38,7 +38,9 @@ from tpu3drecon_torch.ops._build import BUILD_DIR
 
 # The port's kernels (csrc/*.cu) as named in a trace: "...::<name><...>(...)".
 PORT_KERNELS = ("lin_kernel", "coupling_kernel", "wt_planes_kernel", "cost_kernel",
-                "cam_normal_kernel", "point_normal_kernel")
+                "cam_normal_kernel", "point_normal_kernel", "tt_cam_normal_kernel",
+                "tt_coupling_kernel", "tt_wt_times_kernel", "tt_w_times_kernel",
+                "tt_cost_kernel")
 
 
 def _intervals_union(spans) -> float:
@@ -117,9 +119,11 @@ def main() -> int:
         BENCH_CONFIG,
         build_grid_problem,
         build_problem,
+        build_tt_problem,
     )
     from tpu3drecon_torch.problems.wtt import wtt_from_flat
     from tpu3drecon_torch.solvers.ba_pallas import ba_solve_pallas
+    from tpu3drecon_torch.solvers.ba_tt import ba_solve_tt
     from tpu3drecon_torch.solvers.ba_wtt import ba_solve_wtt
 
     cfg = BENCH_CONFIG._replace(matvec_kernel="index", linearize_kernel="index")
@@ -127,6 +131,7 @@ def main() -> int:
         ("wtt", lambda p: ba_solve_wtt(p, cfg),
          lambda: wtt_from_flat(build_problem(), defer_onehot=True)),
         ("grid", lambda p: ba_solve_pallas(p, BENCH_CONFIG), build_grid_problem),
+        ("tt", lambda p: ba_solve_tt(p, BENCH_CONFIG), build_tt_problem),
     )
     out_dir = Path(args.trace_dir)
     out_dir.mkdir(parents=True, exist_ok=True)

@@ -1,0 +1,215 @@
+// Device code shared by the track-table kernels (wtt_kernels.cu and
+// tt_kernels.cu): the per-slot residual/Jacobian formulas, the staged camera
+// table with its all-zero padding row, the warp-aggregated shared-memory
+// row reduction and its flush, and the host-side launch helpers.
+//
+// The track-table layouts keep one point's whole track in one thread: a
+// slot (t, p) reads its camera's row of a (rows + 1, 19) table staged in
+// shared memory, where the extra last row is all zero.  A padded slot reads
+// that zero row, exactly as the TPU kernels' empty one-hot column gives it:
+// z = 0 -> z_safe = 1, so every output of the slot is exactly 0.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "common.cuh"
+
+namespace tpu3drecon {
+
+constexpr int kD = 19;        // camera table width: R(9) t(3) f(2) c(3) k(2)
+constexpr int kBlock = 256;   // threads per block = point columns per block
+
+struct LinFlags {
+  int use_sj, loss, focal, points, dist, pp;
+};
+
+// Plane index of entry (j, l) of a symmetric 3x3 packed (00 01 02 11 12 22).
+__device__ __forceinline__ constexpr int sym_idx(int j, int l) {
+  return j == 0 ? l : (j == 1 ? (l == 0 ? 1 : l + 2) : (l == 0 ? 2 : l + 3));
+}
+
+// Target row of one slot for the whole warp: this lane's row `w`
+// (-1 = none) and, when every live lane shares one row, that row `w0`.
+struct WarpRow {
+  int w;
+  int w0;
+  bool uniform;
+  bool any;
+};
+
+__device__ __forceinline__ WarpRow warp_row(int w) {
+  WarpRow r;
+  r.w = w;
+  const unsigned valid = __ballot_sync(kFull, w >= 0);
+  r.any = valid != 0;
+  const int src = r.any ? __ffs(valid) - 1 : 0;
+  r.w0 = __shfl_sync(kFull, w, src);
+  r.uniform = __all_sync(kFull, w < 0 || w == r.w0);
+  return r;
+}
+
+// acc[idx] += val for this lane's row; all lanes of the warp call it.
+// `self` / `lead` are the element offsets for rows w and w0.
+template <typename T>
+__device__ __forceinline__ void row_add(T* acc, const WarpRow& wr, int self,
+                                        int lead, T val) {
+  if (wr.uniform) {
+    const T s = warp_sum(wr.w >= 0 ? val : T(0));
+    if ((threadIdx.x & 31) == 0) atomicAdd(acc + lead, s);
+  } else if (wr.w >= 0) {
+    atomicAdd(acc + self, val);
+  }
+}
+
+// One global atomic per nonzero entry of the block's shared tile.
+template <typename T>
+__device__ __forceinline__ void flush(const T* acc, T* out, int n) {
+  for (int i = threadIdx.x; i < n; i += kBlock) {
+    const T v = acc[i];
+    if (v != T(0)) atomicAdd(out + i, v);
+  }
+}
+
+// Residual and Jacobian planes of one slot: ba_tt._tt_blocks.
+template <typename T, int NP>
+struct Slot {
+  T jc[2 * NP];
+  T jp[6];
+  T r0, r1;
+};
+
+template <typename T, int NP>
+__device__ __forceinline__ void tt_blocks(const T* cp, T X, T Y, T Z, T u_obs,
+                                          T v_obs, T m, T inv_w,
+                                          const LinFlags& f, Slot<T, NP>& o) {
+  const T x = cp[0] * X + cp[1] * Y + cp[2] * Z + cp[9];
+  const T y = cp[3] * X + cp[4] * Y + cp[5] * Z + cp[10];
+  const T z = cp[6] * X + cp[7] * Y + cp[8] * Z + cp[11];
+  const T z_safe = fabs(z) < T(1e-12) ? T(1) : z;
+  const T iz = T(1) / z_safe;
+  const T fx = cp[12], fy = cp[13], cx = cp[14], cy = cp[15], sk = cp[16];
+  const T k1 = cp[17], k2 = cp[18];
+  const T mx = x * iz, my = y * iz;
+  const T r2 = mx * mx + my * my;
+  const T s_rad = T(1) + k1 * r2 + k2 * r2 * r2;
+  const T g_rad = T(2) * k1 + T(4) * k2 * r2;
+  const T mdx = s_rad * mx, mdy = s_rad * my;
+  const T u = fx * mdx + sk * mdy + cx;
+  const T v = fy * mdy + cy;
+  const T r0 = u - u_obs, r1 = v - v_obs;
+  const T s = r0 * r0 + r1 * r1;
+  const T scale = sqrt(robust_weight<T>(f.loss, s)) * m * inv_w;
+
+  const T axx = s_rad + g_rad * mx * mx;
+  const T axy = g_rad * mx * my;
+  const T ayy = s_rad + g_rad * my * my;
+  const T b00 = axx * iz, b01 = axy * iz, b02 = -(axx * mx + axy * my) * iz;
+  const T b10 = axy * iz, b11 = ayy * iz, b12 = -(axy * mx + ayy * my) * iz;
+  const T a11 = fx * b00 + sk * b10, a12 = fx * b01 + sk * b11;
+  const T a13 = fx * b02 + sk * b12;
+  const T a21 = fy * b10, a22 = fy * b11, a23 = fy * b12;
+
+  T* j0 = o.jc;
+  T* j1 = o.jc + NP;
+  j0[0] = -a12 * z + a13 * y;
+  j0[1] = a11 * z - a13 * x;
+  j0[2] = -a11 * y + a12 * x;
+  j0[3] = a11;
+  j0[4] = a12;
+  j0[5] = a13;
+  j0[6] = f.focal ? mdx : T(0);
+  j0[7] = T(0);
+  j1[0] = -a22 * z + a23 * y;
+  j1[1] = a21 * z - a23 * x;
+  j1[2] = -a21 * y + a22 * x;
+  j1[3] = a21;
+  j1[4] = a22;
+  j1[5] = a23;
+  j1[6] = T(0);
+  j1[7] = f.focal ? mdy : T(0);
+  // Columns 8.. : dist (k1, k2) then principal point (cx, cy), as enabled;
+  // NP == 8 + 2 * dist + 2 * pp (checked by the wrapper).
+  if constexpr (NP >= 10) {
+    const T du_ds = fx * mx + sk * my, dv_ds = fy * my;
+    if (f.dist) {
+      j0[8] = du_ds * r2;
+      j0[9] = du_ds * r2 * r2;
+      j1[8] = dv_ds * r2;
+      j1[9] = dv_ds * r2 * r2;
+    } else {
+      j0[8] = T(1);
+      j0[9] = T(0);
+      j1[8] = T(0);
+      j1[9] = T(1);
+    }
+  }
+  if constexpr (NP >= 12) {
+    j0[10] = T(1);
+    j0[11] = T(0);
+    j1[10] = T(0);
+    j1[11] = T(1);
+  }
+#pragma unroll
+  for (int k = 0; k < 2 * NP; ++k) o.jc[k] *= scale;
+  const T ps = f.points ? scale : T(0);
+  o.jp[0] = (a11 * cp[0] + a12 * cp[3] + a13 * cp[6]) * ps;
+  o.jp[1] = (a11 * cp[1] + a12 * cp[4] + a13 * cp[7]) * ps;
+  o.jp[2] = (a11 * cp[2] + a12 * cp[5] + a13 * cp[8]) * ps;
+  o.jp[3] = (a21 * cp[0] + a22 * cp[3] + a23 * cp[6]) * ps;
+  o.jp[4] = (a21 * cp[1] + a22 * cp[4] + a23 * cp[7]) * ps;
+  o.jp[5] = (a21 * cp[2] + a22 * cp[5] + a23 * cp[8]) * ps;
+  o.r0 = r0 * scale;
+  o.r1 = r1 * scale;
+}
+
+// Stage W camera rows (W, 19) plus one all-zero row W.
+template <typename T>
+__device__ __forceinline__ void stage_window(const T* tw, T* s_tw, int W) {
+  const int n = W * kD;
+  for (int i = threadIdx.x; i < n + kD; i += kBlock) s_tw[i] = i < n ? tw[i] : T(0);
+}
+
+// ---------------------------------------------------------------- host --
+inline int smem_limit() {
+  int dev = 0, limit = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return limit;
+}
+
+// Opt the kernel in to `smem` bytes of dynamic shared memory (kErrSmem
+// above the card's per-block limit).
+template <typename K>
+int prepare(K kernel, size_t smem) {
+  if (smem > (size_t)smem_limit()) return kErrSmem;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+inline dim3 grid_of(int Pc, int G) { return dim3((Pc + kBlock - 1) / kBlock, G); }
+
+}  // namespace tpu3drecon
+
+// Dispatch on (dtype code, np): 0 = float, 1 = double; np in {8, 10, 12}.
+#define NP_DISPATCH(DTYPE, NPV, CALL)                        \
+  do {                                                       \
+    if ((DTYPE) == 0) {                                      \
+      using T = float;                                       \
+      if ((NPV) == 8) { constexpr int NP = 8; return CALL; } \
+      if ((NPV) == 10) { constexpr int NP = 10; return CALL; } \
+      if ((NPV) == 12) { constexpr int NP = 12; return CALL; } \
+      return kErrNp;                                         \
+    }                                                        \
+    if ((DTYPE) == 1) {                                      \
+      using T = double;                                      \
+      if ((NPV) == 8) { constexpr int NP = 8; return CALL; } \
+      if ((NPV) == 10) { constexpr int NP = 10; return CALL; } \
+      if ((NPV) == 12) { constexpr int NP = 12; return CALL; } \
+      return kErrNp;                                         \
+    }                                                        \
+    return kErrDtype;                                        \
+  } while (0)

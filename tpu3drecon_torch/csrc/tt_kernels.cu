@@ -1,0 +1,441 @@
+// Dense track-table ("tt") bundle-adjustment kernels for Hopper (sm_90a).
+//
+// Hand-written CUDA C++ counterparts of the five Pallas kernels of the
+// fully fused tt engine (tpu3drecon/solvers/ba_tt.py, kernels="full"), all
+// in tpu3drecon/ops/pallas/tt_linearize.py:
+//
+//   tt_cam_normal <- tt_cam_normal_fused (_cam_kernel)       B12
+//   tt_coupling   <- tt_coupling_fused   (_coupling_kernel)  B13
+//   tt_wt_times   <- tt_wt_times_fused   (_wt_kernel)        B14
+//   tt_w_times    <- tt_w_times_fused    (_w_kernel)         B15
+//   tt_cost       <- tt_cost_fused       (_cost_kernel)      B16
+//
+// Layout: one track-length bucket at a time, plane-major with the slot
+// axes (Tb, Pb) last: cam_ids (Tb, Pb) int32, mask (Tb, Pb), uv (2, Tb, Pb),
+// pts (3, Pb), jc (2np, Tb, Pb), jp (6, Tb, Pb).  The TPU kernels select
+// each slot's camera row, and reduce per-slot values into camera rows, with
+// MXU dots against a dense {0,1} one-hot tile, because gathers are slow
+// there.  Here a slot reads its camera index directly: one thread owns one
+// point column p and walks its track t = 0..Tb-1, so per-point sums (V, g_pt,
+// W^T x, the cost lane) stay in registers and are taken in t order, as the
+// TPU kernels accumulate over their sequential t grid axis.
+//
+// Padded slots (mask 0) carry cam_ids 0.  They select the all-zero row C of
+// the staged camera table (or of x), never camera 0's row: the masked
+// one-hot gives them an all-zero camera column, so z = 0 -> z_safe = 1 and
+// every output of the slot is exactly 0, where camera 0's row could give
+// z ~ 0 and inf * 0 = NaN.  They add nothing to any camera row.
+//
+// Per-camera reductions (B12's U|g columns, B13's coupling columns, B15's
+// W y rows) go into a (C, cols) shared-memory tile with atomics, a warp
+// reducing with shuffles first when all its live lanes share a camera, and
+// each block flushes its nonzero entries with one global atomic each
+// (slot.cuh).  Their summation order varies from run to run.  The tile
+// grows with C: above the card's per-block shared memory the wrapper
+// raises (ops/tt_linearize.py), it never falls back.
+//
+// What bounds them on the H100: B14 and B16 stream their inputs once (jc/jp,
+// resp. uv/mask/cam_ids) and are bound by bytes; B12, B13 and B15 by the
+// shared-memory atomics of their reductions (44 columns per slot for B12 at
+// np = 8, 36 for B13, 8 for B15).
+//
+// Built with --fmad=false (ops/_build.py): each kernel's per-element
+// outputs match its plain version (ops/tt_linearize.py) to the last bits.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "common.cuh"
+#include "slot.cuh"
+
+using namespace tpu3drecon;
+
+namespace {
+
+// Camera of slot ts, or -1 for a padded slot or a lane past the edge.
+template <typename T>
+__device__ __forceinline__ int slot_cam(const int* cam_ids, const T* mask,
+                                        size_t ts, bool live) {
+  return (live && mask[ts] > T(0)) ? cam_ids[ts] : -1;
+}
+
+// ---------------------------------------------------------------- B12 ---
+template <typename T, int NP>
+__global__ void __launch_bounds__(kBlock)
+tt_cam_normal_kernel(const T* __restrict__ table, const int* __restrict__ cam_ids,
+                     const T* __restrict__ pts, const T* __restrict__ uv,
+                     const T* __restrict__ mask, const T* __restrict__ invw_p,
+                     T* __restrict__ jc_out, T* __restrict__ jp_out,
+                     T* __restrict__ v6_out, T* __restrict__ gpt_out,
+                     T* __restrict__ ug, int C, int Tb, int Pb, LinFlags f) {
+  constexpr int K = NP * (NP + 1) / 2 + NP;  // U upper triangle | g
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* s_tab = reinterpret_cast<T*>(smem);  // (C + 1, 19), row C all zero
+  T* s_acc = s_tab + (C + 1) * kD;        // (C, K)
+  const int p = blockIdx.x * kBlock + threadIdx.x;
+  const bool live = p < Pb;
+  stage_window(table, s_tab, C);
+  for (int i = threadIdx.x; i < C * K; i += kBlock) s_acc[i] = T(0);
+  __syncthreads();
+
+  const T inv_w = *invw_p;
+  const size_t TP = (size_t)Tb * Pb;
+  const T X = live ? pts[p] : T(0);
+  const T Y = live ? pts[(size_t)Pb + p] : T(0);
+  const T Z = live ? pts[2 * (size_t)Pb + p] : T(0);
+  T v6[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
+  T gp[3] = {T(0), T(0), T(0)};
+  for (int t = 0; t < Tb; ++t) {
+    const size_t ts = (size_t)t * Pb + p;
+    const int c = slot_cam(cam_ids, mask, ts, live);
+    const T* cp = s_tab + (c >= 0 ? c : C) * kD;
+    const T m = live ? mask[ts] : T(0);
+    const T u_obs = live ? uv[ts] : T(0);
+    const T v_obs = live ? uv[TP + ts] : T(0);
+    Slot<T, NP> o;
+    tt_blocks<T, NP>(cp, X, Y, Z, u_obs, v_obs, m, inv_w, f, o);
+    if (live) {
+#pragma unroll
+      for (int k = 0; k < 2 * NP; ++k) jc_out[k * TP + ts] = o.jc[k];
+#pragma unroll
+      for (int k = 0; k < 6; ++k) jp_out[k * TP + ts] = o.jp[k];
+    }
+    // Point-side partial sums, accumulated over t in order.
+    const T* q = o.jp;
+    v6[0] += q[0] * q[0] + q[3] * q[3];
+    v6[1] += q[0] * q[1] + q[3] * q[4];
+    v6[2] += q[0] * q[2] + q[3] * q[5];
+    v6[3] += q[1] * q[1] + q[4] * q[4];
+    v6[4] += q[1] * q[2] + q[4] * q[5];
+    v6[5] += q[2] * q[2] + q[5] * q[5];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) gp[i] += q[i] * o.r0 + q[3 + i] * o.r1;
+
+    // Camera-side columns (ba_tt._u_g_contribs) into the camera's row.
+    const WarpRow wr = warp_row(c);
+    if (!wr.any) continue;  // warp-uniform
+    const int self = (c >= 0 ? c : 0) * K;
+    const int lead = wr.w0 * K;
+    const T* j0 = o.jc;
+    const T* j1 = o.jc + NP;
+    int col = 0;
+#pragma unroll
+    for (int dd = 0; dd < NP; ++dd)
+#pragma unroll
+      for (int i = 0; i < NP - dd; ++i, ++col)
+        row_add(s_acc, wr, self + col, lead + col,
+                j0[i] * j0[i + dd] + j1[i] * j1[i + dd]);
+#pragma unroll
+    for (int i = 0; i < NP; ++i, ++col)
+      row_add(s_acc, wr, self + col, lead + col, j0[i] * o.r0 + j1[i] * o.r1);
+  }
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) v6_out[(size_t)k * Pb + p] = v6[k];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) gpt_out[(size_t)k * Pb + p] = gp[k];
+  }
+  __syncthreads();
+  flush(s_acc, ug, C * K);
+}
+
+// ---------------------------------------------------------------- B13 ---
+template <typename T, int NP>
+__global__ void __launch_bounds__(kBlock)
+tt_coupling_kernel(const int* __restrict__ cam_ids, const T* __restrict__ mask,
+                   const T* __restrict__ jc, const T* __restrict__ jp,
+                   const T* __restrict__ vinv, T* __restrict__ out, int C, int Tb,
+                   int Pb) {
+  constexpr int NT = NP * (NP + 1) / 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* s_acc = reinterpret_cast<T*>(smem);  // (C, NT)
+  const int p = blockIdx.x * kBlock + threadIdx.x;
+  const bool live = p < Pb;
+  for (int i = threadIdx.x; i < C * NT; i += kBlock) s_acc[i] = T(0);
+  __syncthreads();
+
+  const size_t TP = (size_t)Tb * Pb;
+  T vi[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) vi[k] = live ? vinv[(size_t)k * Pb + p] : T(0);
+  for (int t = 0; t < Tb; ++t) {
+    const size_t ts = (size_t)t * Pb + p;
+    const int c = slot_cam(cam_ids, mask, ts, live);
+    const WarpRow wr = warp_row(c);
+    if (!wr.any) continue;  // warp-uniform
+    T q[6], j[2 * NP];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) q[k] = c >= 0 ? jp[k * TP + ts] : T(0);
+#pragma unroll
+    for (int k = 0; k < 2 * NP; ++k) j[k] = c >= 0 ? jc[k * TP + ts] : T(0);
+    // W factor wl[l][i] = jc0[i] jp0[l] + jc1[i] jp1[l]; WV = W sym3(V^-1)
+    // (ba_tt._coupling_contribs).
+    T wl[3][NP], wv[3][NP];
+#pragma unroll
+    for (int l = 0; l < 3; ++l)
+#pragma unroll
+      for (int i = 0; i < NP; ++i) wl[l][i] = j[i] * q[l] + j[NP + i] * q[3 + l];
+#pragma unroll
+    for (int l = 0; l < 3; ++l)
+#pragma unroll
+      for (int i = 0; i < NP; ++i)
+        wv[l][i] = wl[0][i] * vi[sym_idx(0, l)] + wl[1][i] * vi[sym_idx(1, l)] +
+                   wl[2][i] * vi[sym_idx(2, l)];
+    const int self = (c >= 0 ? c : 0) * NT;
+    const int lead = wr.w0 * NT;
+    int col = 0;
+#pragma unroll
+    for (int dd = 0; dd < NP; ++dd)
+#pragma unroll
+      for (int i = 0; i < NP - dd; ++i, ++col)
+        row_add(s_acc, wr, self + col, lead + col,
+                wv[0][i] * wl[0][i + dd] + wv[1][i] * wl[1][i + dd] +
+                    wv[2][i] * wl[2][i + dd]);
+  }
+  __syncthreads();
+  flush(s_acc, out, C * NT);
+}
+
+// ---------------------------------------------------------------- B14 ---
+template <typename T, int NP>
+__global__ void __launch_bounds__(kBlock)
+tt_wt_times_kernel(const T* __restrict__ x, const int* __restrict__ cam_ids,
+                   const T* __restrict__ mask, const T* __restrict__ jc,
+                   const T* __restrict__ jp, T* __restrict__ out, int C, int Tb,
+                   int Pb) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* s_x = reinterpret_cast<T*>(smem);  // (C + 1, NP), row C all zero
+  for (int i = threadIdx.x; i < (C + 1) * NP; i += kBlock)
+    s_x[i] = i < C * NP ? x[i] : T(0);
+  __syncthreads();
+  const int p = blockIdx.x * kBlock + threadIdx.x;
+  if (p >= Pb) return;
+  const size_t TP = (size_t)Tb * Pb;
+  T wtx[3] = {T(0), T(0), T(0)};
+  for (int t = 0; t < Tb; ++t) {
+    const size_t ts = (size_t)t * Pb + p;
+    const int c = slot_cam(cam_ids, mask, ts, true);
+    const T* xr = s_x + (c >= 0 ? c : C) * NP;
+    T s0 = T(0), s1 = T(0);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      s0 += jc[i * TP + ts] * xr[i];
+      s1 += jc[(NP + i) * TP + ts] * xr[i];
+    }
+#pragma unroll
+    for (int l = 0; l < 3; ++l) {
+      const T part = jp[l * TP + ts] * s0 + jp[(3 + l) * TP + ts] * s1;
+      wtx[l] += part;
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < 3; ++l) out[(size_t)l * Pb + p] = wtx[l];
+}
+
+// ---------------------------------------------------------------- B15 ---
+template <typename T, int NP>
+__global__ void __launch_bounds__(kBlock)
+tt_w_times_kernel(const T* __restrict__ y, const int* __restrict__ cam_ids,
+                  const T* __restrict__ mask, const T* __restrict__ jc,
+                  const T* __restrict__ jp, T* __restrict__ out, int C, int Tb,
+                  int Pb) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* s_acc = reinterpret_cast<T*>(smem);  // (C, NP)
+  const int p = blockIdx.x * kBlock + threadIdx.x;
+  const bool live = p < Pb;
+  for (int i = threadIdx.x; i < C * NP; i += kBlock) s_acc[i] = T(0);
+  __syncthreads();
+  const size_t TP = (size_t)Tb * Pb;
+  const T y0 = live ? y[p] : T(0);
+  const T y1 = live ? y[(size_t)Pb + p] : T(0);
+  const T y2 = live ? y[2 * (size_t)Pb + p] : T(0);
+  for (int t = 0; t < Tb; ++t) {
+    const size_t ts = (size_t)t * Pb + p;
+    const int c = slot_cam(cam_ids, mask, ts, live);
+    const WarpRow wr = warp_row(c);
+    if (!wr.any) continue;  // warp-uniform
+    T q[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) q[k] = c >= 0 ? jp[k * TP + ts] : T(0);
+    const T s0 = q[0] * y0 + q[1] * y1 + q[2] * y2;
+    const T s1 = q[3] * y0 + q[4] * y1 + q[5] * y2;
+    const int self = (c >= 0 ? c : 0) * NP;
+    const int lead = wr.w0 * NP;
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const T a = c >= 0 ? jc[i * TP + ts] : T(0);
+      const T b = c >= 0 ? jc[(NP + i) * TP + ts] : T(0);
+      row_add(s_acc, wr, self + i, lead + i, a * s0 + b * s1);
+    }
+  }
+  __syncthreads();
+  flush(s_acc, out, C * NP);
+}
+
+// ---------------------------------------------------------------- B16 ---
+template <typename T>
+__global__ void __launch_bounds__(kBlock)
+tt_cost_kernel(const T* __restrict__ table, const int* __restrict__ cam_ids,
+               const T* __restrict__ pts, const T* __restrict__ uv,
+               const T* __restrict__ mask, const T* __restrict__ invw_p,
+               T* __restrict__ lane, int C, int Tb, int Pb, int loss) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* s_tab = reinterpret_cast<T*>(smem);  // (C + 1, 19), row C all zero
+  stage_window(table, s_tab, C);
+  __syncthreads();
+  const int p = blockIdx.x * kBlock + threadIdx.x;
+  if (p >= Pb) return;
+  const T inv_w = *invw_p;
+  const size_t TP = (size_t)Tb * Pb;
+  const T X = pts[p], Y = pts[(size_t)Pb + p], Z = pts[2 * (size_t)Pb + p];
+  // Only the whitened residual of the slot formulas is used; the compiler
+  // drops the Jacobian terms.
+  const LinFlags f{0, loss, 1, 1, 0, 0};
+  T total = T(0);
+  for (int t = 0; t < Tb; ++t) {
+    const size_t ts = (size_t)t * Pb + p;
+    const int c = slot_cam(cam_ids, mask, ts, true);
+    Slot<T, 8> o;
+    tt_blocks<T, 8>(s_tab + (c >= 0 ? c : C) * kD, X, Y, Z, uv[ts], uv[TP + ts],
+                    mask[ts], inv_w, f, o);
+    const T part = o.r0 * o.r0 + o.r1 * o.r1;
+    total += part;
+  }
+  lane[p] = total;
+}
+
+// ---------------------------------------------------------------- host --
+template <typename T, int NP>
+int cam_normal_launch(const void* table, const void* cam_ids, const void* pts,
+                      const void* uv, const void* mask, const void* inv_w,
+                      void* jc, void* jp, void* v6, void* gpt, void* ug, int C,
+                      int Tb, int Pb, LinFlags f, cudaStream_t stream) {
+  constexpr int K = NP * (NP + 1) / 2 + NP;
+  const size_t smem = sizeof(T) * ((size_t)(C + 1) * kD + (size_t)C * K);
+  const int err = prepare(tt_cam_normal_kernel<T, NP>, smem);
+  if (err) return err;
+  tt_cam_normal_kernel<T, NP><<<grid_of(Pb, 1), kBlock, smem, stream>>>(
+      (const T*)table, (const int*)cam_ids, (const T*)pts, (const T*)uv,
+      (const T*)mask, (const T*)inv_w, (T*)jc, (T*)jp, (T*)v6, (T*)gpt, (T*)ug,
+      C, Tb, Pb, f);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int NP>
+int coupling_launch(const void* cam_ids, const void* mask, const void* jc,
+                    const void* jp, const void* vinv, void* out, int C, int Tb,
+                    int Pb, cudaStream_t stream) {
+  const size_t smem = sizeof(T) * (size_t)C * (NP * (NP + 1) / 2);
+  const int err = prepare(tt_coupling_kernel<T, NP>, smem);
+  if (err) return err;
+  tt_coupling_kernel<T, NP><<<grid_of(Pb, 1), kBlock, smem, stream>>>(
+      (const int*)cam_ids, (const T*)mask, (const T*)jc, (const T*)jp,
+      (const T*)vinv, (T*)out, C, Tb, Pb);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int NP>
+int wt_times_launch(const void* x, const void* cam_ids, const void* mask,
+                    const void* jc, const void* jp, void* out, int C, int Tb,
+                    int Pb, cudaStream_t stream) {
+  const size_t smem = sizeof(T) * (size_t)(C + 1) * NP;
+  const int err = prepare(tt_wt_times_kernel<T, NP>, smem);
+  if (err) return err;
+  tt_wt_times_kernel<T, NP><<<grid_of(Pb, 1), kBlock, smem, stream>>>(
+      (const T*)x, (const int*)cam_ids, (const T*)mask, (const T*)jc,
+      (const T*)jp, (T*)out, C, Tb, Pb);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int NP>
+int w_times_launch(const void* y, const void* cam_ids, const void* mask,
+                   const void* jc, const void* jp, void* out, int C, int Tb,
+                   int Pb, cudaStream_t stream) {
+  const size_t smem = sizeof(T) * (size_t)C * NP;
+  const int err = prepare(tt_w_times_kernel<T, NP>, smem);
+  if (err) return err;
+  tt_w_times_kernel<T, NP><<<grid_of(Pb, 1), kBlock, smem, stream>>>(
+      (const T*)y, (const int*)cam_ids, (const T*)mask, (const T*)jc,
+      (const T*)jp, (T*)out, C, Tb, Pb);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int cost_launch(const void* table, const void* cam_ids, const void* pts,
+                const void* uv, const void* mask, const void* inv_w, void* lane,
+                int C, int Tb, int Pb, int loss, cudaStream_t stream) {
+  const size_t smem = sizeof(T) * (size_t)(C + 1) * kD;
+  const int err = prepare(tt_cost_kernel<T>, smem);
+  if (err) return err;
+  tt_cost_kernel<T><<<grid_of(Pb, 1), kBlock, smem, stream>>>(
+      (const T*)table, (const int*)cam_ids, (const T*)pts, (const T*)uv,
+      (const T*)mask, (const T*)inv_w, (T*)lane, C, Tb, Pb, loss);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared memory one block may opt in to on CUDA device `device` (bytes).
+int tt_smem_limit(int device) {
+  int limit = 0;
+  const cudaError_t e = cudaDeviceGetAttribute(
+      &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return e == cudaSuccess ? limit : -1;
+}
+
+int tt_cam_normal(int dtype, int np, const void* table, const void* cam_ids,
+                  const void* pts, const void* uv, const void* mask,
+                  const void* inv_w, void* jc, void* jp, void* v6, void* gpt,
+                  void* ug, int C, int Tb, int Pb, int loss, int focal,
+                  int points, int dist, int pp, void* stream) {
+  if (Pb == 0 || Tb == 0) return 0;
+  const LinFlags f{0, loss, focal, points, dist, pp};
+  NP_DISPATCH(dtype, np,
+              (cam_normal_launch<T, NP>(table, cam_ids, pts, uv, mask, inv_w,
+                                        jc, jp, v6, gpt, ug, C, Tb, Pb, f,
+                                        (cudaStream_t)stream)));
+}
+
+int tt_coupling(int dtype, int np, const void* cam_ids, const void* mask,
+                const void* jc, const void* jp, const void* vinv, void* out,
+                int C, int Tb, int Pb, void* stream) {
+  if (Pb == 0 || Tb == 0) return 0;
+  NP_DISPATCH(dtype, np,
+              (coupling_launch<T, NP>(cam_ids, mask, jc, jp, vinv, out, C, Tb,
+                                      Pb, (cudaStream_t)stream)));
+}
+
+int tt_wt_times(int dtype, int np, const void* x, const void* cam_ids,
+                const void* mask, const void* jc, const void* jp, void* out,
+                int C, int Tb, int Pb, void* stream) {
+  if (Pb == 0) return 0;
+  NP_DISPATCH(dtype, np,
+              (wt_times_launch<T, NP>(x, cam_ids, mask, jc, jp, out, C, Tb, Pb,
+                                      (cudaStream_t)stream)));
+}
+
+int tt_w_times(int dtype, int np, const void* y, const void* cam_ids,
+               const void* mask, const void* jc, const void* jp, void* out,
+               int C, int Tb, int Pb, void* stream) {
+  if (Pb == 0 || Tb == 0) return 0;
+  NP_DISPATCH(dtype, np,
+              (w_times_launch<T, NP>(y, cam_ids, mask, jc, jp, out, C, Tb, Pb,
+                                     (cudaStream_t)stream)));
+}
+
+int tt_cost(int dtype, const void* table, const void* cam_ids, const void* pts,
+            const void* uv, const void* mask, const void* inv_w, void* lane,
+            int C, int Tb, int Pb, int loss, void* stream) {
+  if (Pb == 0) return 0;
+  if (dtype == 0)
+    return cost_launch<float>(table, cam_ids, pts, uv, mask, inv_w, lane, C, Tb,
+                              Pb, loss, (cudaStream_t)stream);
+  if (dtype == 1)
+    return cost_launch<double>(table, cam_ids, pts, uv, mask, inv_w, lane, C,
+                               Tb, Pb, loss, (cudaStream_t)stream);
+  return kErrDtype;
+}
+
+}  // extern "C"

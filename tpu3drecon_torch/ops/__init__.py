@@ -1,3 +1,3 @@
 """Kernels and per-observation math: analytic Jacobian blocks, the four wtt
-kernels and the grid engine's three (CUDA on a GPU tensor, the plain
-PyTorch version on a CPU one)."""
+kernels, the grid engine's three and the dense track table's five (CUDA on
+a GPU tensor, the plain PyTorch version on a CPU one)."""

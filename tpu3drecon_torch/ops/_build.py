@@ -63,6 +63,19 @@ _SIGNATURES = {
     "grid_point_normal": [_I] + [_P] * 6 + [_I, _I, _D, _P],
     # dtype, jc, jp, vinv6, out, C, K, stream
     "grid_coupling": [_I] + [_P] * 4 + [_I] * 2 + [_P],
+    # dtype, np, table, cam_ids, pts, uv, mask, inv_w, jc, jp, v6, gpt, ug,
+    # C, Tb, Pb, loss, focal, points, dist, pp, stream
+    "tt_cam_normal": [_I, _I] + [_P] * 11 + [_I] * 8 + [_P],
+    # dtype, np, cam_ids, mask, jc, jp, vinv, out, C, Tb, Pb, stream
+    "tt_coupling": [_I, _I] + [_P] * 6 + [_I] * 3 + [_P],
+    # dtype, np, x, cam_ids, mask, jc, jp, out, C, Tb, Pb, stream
+    "tt_wt_times": [_I, _I] + [_P] * 6 + [_I] * 3 + [_P],
+    # dtype, np, y, cam_ids, mask, jc, jp, out, C, Tb, Pb, stream
+    "tt_w_times": [_I, _I] + [_P] * 6 + [_I] * 3 + [_P],
+    # dtype, table, cam_ids, pts, uv, mask, inv_w, lane, C, Tb, Pb, loss, stream
+    "tt_cost": [_I] + [_P] * 7 + [_I] * 4 + [_P],
+    # device -> opt-in shared memory per block (bytes)
+    "tt_smem_limit": [_I],
 }
 
 _LIB = []  # the loaded library, once per process (sources do not change under it)

@@ -23,9 +23,10 @@ def is_cuda_call(t: torch.Tensor) -> bool:
 
 def check_inputs(name: str, device, dtype, **tensors) -> None:
     """Raise unless every tensor lies on ``device``, is contiguous, and has
-    ``dtype`` (``wcam`` must be int16)."""
+    ``dtype`` (``wcam`` must be int16, ``cam_ids`` int32)."""
+    index_dtypes = {"wcam": torch.int16, "cam_ids": torch.int32}
     for key, t in tensors.items():
-        want = torch.int16 if key == "wcam" else dtype
+        want = index_dtypes.get(key, dtype)
         if t.device != device:
             raise ValueError(f"{name}: {key} is on {t.device}, expected {device}")
         if t.dtype != want:

@@ -1,2 +1,3 @@
-"""Packed problem containers and packers (flat, bucketed grid, windowed
-track table), camera reordering, and conversion from the JAX package."""
+"""Packed problem containers and packers (flat, bucketed grid, dense and
+windowed track table), camera reordering, and conversion from the JAX
+package."""

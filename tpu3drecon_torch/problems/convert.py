@@ -3,9 +3,9 @@
 The "weights" of a bundle-adjustment system are the packed problem and its
 camera/point parameters.  These functions take the fields of the JAX
 package's ``CameraParams`` / ``BAProblem`` / ``BAGridProblem`` /
-``BAGridBucketedProblem`` / ``BAWTTProblem`` as numpy arrays and static
-ints (a dict per dataclass, nested for ``cameras`` and ``buckets``) and
-build the port's objects on ``device`` (default: the CUDA card, see
+``BAGridBucketedProblem`` / ``BAWTTProblem`` / ``BATTProblem`` as numpy
+arrays and static ints (a dict per dataclass, nested for ``cameras`` and
+``buckets``) and build the port's objects on ``device`` (default: the CUDA card, see
 ``tpu3drecon_torch.device``), so the same problem can be handed to both
 packages.  Nothing here imports jax.
 """
@@ -22,6 +22,7 @@ from tpu3drecon_torch.problems.grid import (
     TrackBucket,
 )
 from tpu3drecon_torch.problems.packing import BAProblem, CameraParams
+from tpu3drecon_torch.problems.tt import BATTProblem, TTBucket
 from tpu3drecon_torch.problems.wtt import BAWTTProblem, WTTBucket
 
 
@@ -124,4 +125,29 @@ def wtt_problem_from_numpy(d: dict, device=None) -> BAWTTProblem:
         bucket_offsets=tuple(int(o) for o in d["bucket_offsets"]),
         window=int(d["window"]),
         c_pad=int(d["c_pad"]),
+    )
+
+
+def tt_problem_from_numpy(d: dict, device=None) -> BATTProblem:
+    """``BATTProblem`` from ``cameras`` (a dict), ``buckets`` (a list of dicts
+    with the arrays ``uv``, ``mask``, ``cam_ids``; the JAX one-hot
+    ``onehot`` is dropped: the port's kernels read ``cam_ids``), the arrays
+    ``points3d``, ``avg_cam_width``, ``point_rows`` and the static ints
+    ``n_real_points``, ``bucket_offsets``."""
+    device = resolve_device(device)
+    buckets = []
+    for b in d["buckets"]:
+        cam_ids = np.asarray(b["cam_ids"])
+        if cam_ids.dtype != np.int32:
+            raise ValueError(f"cam_ids must be int32, got {cam_ids.dtype}")
+        buckets.append(TTBucket(uv=_t(b["uv"], device), mask=_t(b["mask"], device),
+                                cam_ids=_t(cam_ids, device)))
+    return BATTProblem(
+        cameras=camera_params_from_numpy(d["cameras"], device),
+        points3d=_t(d["points3d"], device),
+        buckets=tuple(buckets),
+        avg_cam_width=_t(d["avg_cam_width"], device),
+        point_rows=_t(d["point_rows"], device),
+        n_real_points=int(d["n_real_points"]),
+        bucket_offsets=tuple(int(o) for o in d["bucket_offsets"]),
     )

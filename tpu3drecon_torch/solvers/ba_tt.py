@@ -1,22 +1,41 @@
-"""Track-table helpers shared by the windowed track-table engine.
+"""Dense track-table bundle adjustment, fully fused.
 
-Counterpart of the helpers in ``tpu3drecon/solvers/ba_tt.py:47-55,
-99-261, 411-419, 463-465, 771-778`` that ``solvers/ba_wtt.py`` imports:
-the packed camera table, the per-slot residual/Jacobian planes, the
-closed-form symmetric 3x3 inverse, the diagonal-major upper-triangle
-order and its unpacking.  The dense track-table engine itself is not
-ported yet.
+Counterpart of ``tpu3drecon/solvers/ba_tt.py`` on its ``kernels="full"``
+path: the same LM / implicit-Schur algorithm and trust-region control as
+the other engines, with every per-slot camera interaction in the five tt
+kernels (ops/tt_linearize.py).  One LM iteration, per track-length bucket:
+
+  1. linearize: kernel B12 gives the Jacobian planes, the point sums V and
+     g_pt, and the camera columns U | g; V is damped and inverted in closed
+     form here; kernel B13 gives the Schur-Jacobi columns (``schur_jacobi``
+     only), and the 8x8 blocks get a guarded Cholesky factorization;
+  2. PCG on U x - sum W V^-1 W^T x: W^T x from kernel B14, W y from B15;
+  3. Schur rhs (B15) and back-substitution (B14);
+  4. cost of the candidate: kernel B16;
+  5. SE(3) retraction and trust-region accept/reject.
+
+Also the helpers the windowed engine (solvers/ba_wtt.py) and the kernels'
+plain versions share: the packed camera table, the per-slot
+residual/Jacobian planes, the closed-form symmetric 3x3 inverse, the
+diagonal-major upper-triangle order and its unpacking.  The XLA one-hot
+paths (``kernels=False``, and ``kernels=True``, which leaves the matvecs
+and the cost to XLA) are not ported and raise.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
 from tpu3drecon_torch.geometry.losses import robust_weight
+from tpu3drecon_torch.ops.jacobians import apply_se3_retraction
+from tpu3drecon_torch.problems.grid import unpermute_points
 from tpu3drecon_torch.problems.packing import CameraParams
-from tpu3drecon_torch.solvers.bundle_adjust import BAConfig, BAState
+from tpu3drecon_torch.solvers.bundle_adjust import BAConfig, BAState, n_cam_params
+from tpu3drecon_torch.solvers.pcg import cho_block_precond, guarded_block_cholesky, pcg
+from tpu3drecon_torch.solvers.trust_region import trust_region_solve
 
 # Column layout of the packed per-camera parameter table:
 # rmat row-major (9) | tvec (3) | fx fy | cx cy skew | k1 k2.
@@ -172,6 +191,29 @@ def _triu_pairs(np_cam: int):
     return [(i, i + d) for d in range(np_cam) for i in range(np_cam - d)]
 
 
+def _u_g_contribs(jc, r, np_cam: int, triu) -> list:
+    """Per-slot U upper-triangle and gradient planes (the plain version of
+    kernel B12 uses them in this order)."""
+    contribs = [jc[i] * jc[j] + jc[np_cam + i] * jc[np_cam + j] for (i, j) in triu]
+    contribs += [jc[i] * r[0] + jc[np_cam + i] * r[1] for i in range(np_cam)]
+    return contribs
+
+
+def _coupling_contribs(jc, jp, vi_rows, np_cam: int, triu) -> list:
+    """Per-slot W v_inv W^T upper-triangle planes (the exact S-diagonal
+    contribution; ``vi_rows`` is the symmetric 3x3 of v_inv planes,
+    broadcastable against the slot shape)."""
+    w_slot = [
+        [jc[i] * jp[l] + jc[np_cam + i] * jp[3 + l] for l in range(3)]
+        for i in range(np_cam)
+    ]
+    wv = [
+        [sum(w_slot[i][j] * vi_rows[j][l] for j in range(3)) for l in range(3)]
+        for i in range(np_cam)
+    ]
+    return [sum(wv[i][l] * w_slot[j][l] for l in range(3)) for (i, j) in triu]
+
+
 def _unpack_sym(cols: torch.Tensor, np_cam: int) -> torch.Tensor:
     """(C, np(np+1)/2) upper-triangle columns -> (C, np, np) symmetric."""
     pairs = _triu_pairs(np_cam)
@@ -193,3 +235,223 @@ def _tt_state(cams: CameraParams, points3d: torch.Tensor, final) -> BAState:
         grad_norm=final.grad_norm, converged=final.converged,
         cg_iters=final.cg_iters, gain=final.gain,
     )
+
+
+class TTBucketNormal(NamedTuple):
+    jc: torch.Tensor  # (2*np, Tb, Pb)
+    jp: torch.Tensor  # (6, Tb, Pb)
+    v_inv: torch.Tensor  # (6, Pb) sym planes
+    g_pt: torch.Tensor  # (3, Pb)
+    damp_pt: torch.Tensor  # (3, Pb)
+
+
+class TTNormal(NamedTuple):
+    u: torch.Tensor  # (C, np, np) damped
+    u_chol: torch.Tensor  # (C, np, np) cholesky of the preconditioner
+    g_cam: torch.Tensor  # (C, np)
+    damp_cam: torch.Tensor  # (C, np)
+    buckets: Tuple[TTBucketNormal, ...]
+
+
+# The engine below imports ops/tt_linearize inside its functions, as the
+# JAX engine does: that module imports this one's slot formulas.
+
+
+def _inv_w(problem, dtype) -> torch.Tensor:
+    return (1.0 / problem.avg_cam_width).to(dtype)
+
+
+def _linearize(params, lam, problem, config: BAConfig) -> TTNormal:
+    from tpu3drecon_torch.ops.tt_linearize import tt_cam_normal_fused, tt_coupling_fused
+
+    rmats, tvecs, fx_fy, dist, ccs, pts_list = params
+    dtype = pts_list[0].dtype
+    n_cams = rmats.shape[0]
+    table = _cam_table(rmats, tvecs, fx_fy, ccs, dist)
+    inv_w = _inv_w(problem, dtype)
+    np_cam = n_cam_params(config)
+    n_triu = np_cam * (np_cam + 1) // 2
+    use_sj = config.precond == "schur_jacobi"
+    u_cols = table.new_zeros(n_cams, n_triu)
+    g_cols = table.new_zeros(n_cams, np_cam)
+    coup_cols = table.new_zeros(n_cams, n_triu)
+    bucket_normals = []
+    for bucket, pts in zip(problem.buckets, pts_list):
+        jc, jp, v6, g_pt, ug = tt_cam_normal_fused(
+            table, bucket.cam_ids, pts, bucket.uv, bucket.mask, inv_w, config, np_cam
+        )
+        damp_pt = torch.stack([lam * torch.clamp(v6[k], min=1e-8) for k in (0, 3, 5)])
+        v6_d = torch.stack(
+            [v6[0] + damp_pt[0], v6[1], v6[2], v6[3] + damp_pt[1], v6[4], v6[5] + damp_pt[2]]
+        )
+        v_inv = _sym3_inv_planes(v6_d)
+        u_cols = u_cols + ug[:, :n_triu]
+        g_cols = g_cols + ug[:, n_triu:]
+        if use_sj:
+            coup_cols = coup_cols + tt_coupling_fused(
+                bucket.cam_ids, bucket.mask, jc, jp, v_inv, n_cams
+            )
+        bucket_normals.append(TTBucketNormal(jc, jp, v_inv, g_pt, damp_pt))
+
+    u0 = _unpack_sym(u_cols, np_cam)
+    eye = torch.eye(np_cam, dtype=dtype, device=u0.device)
+    du = torch.clamp(torch.diagonal(u0, dim1=-2, dim2=-1), min=1e-8)
+    damp_cam = lam * du
+    u_d = u0 + damp_cam[..., None] * eye
+    if use_sj:
+        u_chol = guarded_block_cholesky(u_d - _unpack_sym(coup_cols, np_cam), u_d)
+    else:
+        u_chol = torch.linalg.cholesky_ex(u_d).L
+    return TTNormal(u=u_d, u_chol=u_chol, g_cam=g_cols, damp_cam=damp_cam,
+                    buckets=tuple(bucket_normals))
+
+
+def _w_times(nb: TTNormal, y_list, problem) -> torch.Tensor:
+    """sum over buckets of (W y_b), camera rows (C, np)."""
+    from tpu3drecon_torch.ops.tt_linearize import tt_w_times_fused
+
+    out = torch.zeros_like(nb.g_cam)
+    for bn, bucket, y in zip(nb.buckets, problem.buckets, y_list):
+        out = out + tt_w_times_fused(
+            y, bucket.cam_ids, bucket.mask, bn.jc, bn.jp, problem.n_cameras
+        )
+    return out
+
+
+def _schur_matvec(nb: TTNormal, x: torch.Tensor, problem) -> torch.Tensor:
+    from tpu3drecon_torch.ops.tt_linearize import tt_wt_times_fused
+
+    y_list = [
+        _sym3_matvec(bn.v_inv, tt_wt_times_fused(x, bucket.cam_ids, bucket.mask, bn.jc, bn.jp))
+        for bn, bucket in zip(nb.buckets, problem.buckets)
+    ]
+    return torch.einsum("cij,cj->ci", nb.u, x) - _w_times(nb, y_list, problem)
+
+
+def _cost(params, problem, config: BAConfig) -> torch.Tensor:
+    from tpu3drecon_torch.ops.tt_linearize import tt_cost_fused
+
+    rmats, tvecs, fx_fy, dist, ccs, pts_list = params
+    table = _cam_table(rmats, tvecs, fx_fy, ccs, dist)
+    inv_w = _inv_w(problem, table.dtype)
+    total = table.new_zeros(())
+    for bucket, pts in zip(problem.buckets, pts_list):
+        total = total + tt_cost_fused(
+            table, bucket.cam_ids, pts, bucket.uv, bucket.mask, inv_w, config
+        )
+    return total
+
+
+def _check_config(config: BAConfig, kernels) -> None:
+    if kernels != "full":
+        raise NotImplementedError(
+            f"kernels={kernels!r}: only the fully fused path (kernels='full') "
+            "is ported; the XLA one-hot paths (kernels=False, and kernels=True "
+            "with XLA matvecs and cost) are not (ROADMAP A10)"
+        )
+    if config.precond in ("tridiag", "ssor"):
+        raise ValueError(
+            f"precond={config.precond!r} is not fused; its XLA path "
+            "(kernels=False) is not ported"
+        )
+    if config.matvec_bf16:
+        raise ValueError("matvec_bf16 applies to the XLA matvec path (kernels=False)")
+
+
+def ba_solve_tt(
+    problem, config: BAConfig = BAConfig(), kernels="full"
+) -> Tuple[CameraParams, torch.Tensor, BAState]:
+    """Track-table BA solve where the problem lives; same outputs and
+    trust-region trajectory as the JAX ``ba_solve_tt(kernels="full")``.
+    Returns (cameras, points in original order, final state)."""
+    _check_config(config, kernels)
+    torch.set_float32_matmul_precision("highest")
+    pts_list = tuple(
+        problem.points3d[off : off + bucket.mask.shape[1]].T.contiguous()
+        for bucket, off in zip(problem.buckets, problem.bucket_offsets)
+    )
+    cams, pts_out, final = _ba_solve_tt_core(problem, pts_list, config)
+    points3d = torch.cat([p.T for p in pts_out], dim=0)
+    pts = unpermute_points(points3d, problem)
+    return cams, pts, _tt_state(cams, pts, final)
+
+
+def _ba_solve_tt_core(problem, pts_list, config: BAConfig):
+    from tpu3drecon_torch.ops.tt_linearize import tt_wt_times_fused
+
+    cams = problem.cameras
+    dtype = pts_list[0].dtype
+    dev = pts_list[0].device
+    params0 = (
+        cams.rmats, cams.tvecs, cams.fx_fy, cams.dist, cams.cx_cy_skew, pts_list,
+    )
+
+    def propose(params, lam):
+        nb = _linearize(params, lam, problem, config)
+        gp_max = torch.zeros((), dtype=dtype, device=dev)
+        for bn in nb.buckets:
+            gp_max = torch.maximum(gp_max, torch.max(torch.abs(bn.g_pt)))
+        grad_norm = torch.max(torch.abs(nb.g_cam))
+        if config.optimize_points:
+            grad_norm = torch.maximum(grad_norm, gp_max)
+        else:
+            grad_norm = torch.clamp(grad_norm, min=0.0)
+
+        vw = [_sym3_matvec(bn.v_inv, bn.g_pt) for bn in nb.buckets]
+        b = _w_times(nb, vw, problem) - nb.g_cam
+        out = pcg(
+            lambda p: _schur_matvec(nb, p, problem),
+            cho_block_precond(nb.u_chol),
+            b, config.cg_maxiter, config.cg_rtol,
+        )
+        dc = out.x
+
+        dps = []
+        pred_pt = torch.zeros((), dtype=dtype, device=dev)
+        for bn, bucket in zip(nb.buckets, problem.buckets):
+            wtx = tt_wt_times_fused(dc, bucket.cam_ids, bucket.mask, bn.jc, bn.jp)
+            dp = _sym3_matvec(bn.v_inv, -bn.g_pt - wtx)  # (3, Pb)
+            if not config.optimize_points:
+                dp = dp * 0.0
+            pred_pt = pred_pt + 0.5 * (
+                torch.sum(dp * (bn.damp_pt * dp)) - torch.sum(dp * bn.g_pt)
+            )
+            dps.append(dp)
+        pred = (
+            0.5 * (torch.sum(dc * (nb.damp_cam * dc)) - torch.sum(dc * nb.g_cam))
+            + pred_pt
+        )
+        return (dc, tuple(dps)), grad_norm, pred, out.iters
+
+    def apply_step(params, delta):
+        rmats, tvecs, fx_fy, dist, ccs, pts = params
+        dc, dps = delta
+        new_r, new_t, new_f = apply_se3_retraction(rmats, tvecs, fx_fy, dc[:, :8])
+        off = 8
+        new_d = dist
+        if config.optimize_dist:
+            new_d = dist + dc[:, off : off + 2]
+            off += 2
+        new_c = ccs
+        if config.optimize_pp:
+            new_c = torch.cat([ccs[:, :2] + dc[:, off : off + 2], ccs[:, 2:]], dim=1)
+        new_pts = tuple(p + dp for p, dp in zip(pts, dps))
+        return (new_r, new_t, new_f, new_d, new_c, new_pts)
+
+    final = trust_region_solve(
+        propose, apply_step, lambda p: _cost(p, problem, config), params0,
+        config, dtype, dev,
+    )
+    rmats, tvecs, fx_fy, dist, ccs, pts_out = final.params
+    cameras_out = CameraParams(
+        rmats=rmats, tvecs=tvecs, fx_fy=fx_fy, cx_cy_skew=ccs, dist=dist,
+    )
+    return cameras_out, pts_out, final
+
+
+def make_tt_ba_solver(config: BAConfig = BAConfig(), kernels="full"):
+    """``problem -> ba_solve_tt(problem, config, kernels)``; the JAX
+    package's jit and solver caches have no counterpart (PyTorch runs
+    eagerly)."""
+    _check_config(config, kernels)
+    return functools.partial(ba_solve_tt, config=config, kernels=kernels)
