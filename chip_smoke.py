@@ -17,36 +17,51 @@ Phases (any failure exits non-zero and prints no result line):
    observations, f32) packed with ``wtt_from_flat(defer_onehot=True)`` and
    solved by ``ba_solve_wtt`` (30 LM iterations, fully indexed): one
    warm-up solve and 5 timed solves.
-4. The grid kernels B9-B11 against their plain versions on the card, on
+4. The wtt route kernels B5-B8 against their plain versions on the same
+   buckets packed with their dense int8 one-hot
+   (``wtt_from_flat(defer_onehot=False)``), in float32 and float64: B7
+   bit-equal, B8 with and without the Schur-Jacobi columns, B6 with the
+   int8 one-hot and in float64 also with a float64 one-hot; then on the
+   first bucket with window row 0 set to NaN and used by padded slots only
+   (and NaN jc/jp/r on padded slots for B5 and B8), which must read exact
+   zeros.
+5. The wtt_unfused path (``linearize_kernel=False``,
+   ``matvec_kernel="index"``: B7, B8, B5, B2, B3) and the wtt_onehot path
+   (``linearize_kernel=False``, ``matvec_kernel="fused"``: B7, B8, B6) on
+   the one-hot packing: one warm-up solve and 3 timed solves each.
+6. The grid kernels B9-B11 against their plain versions on the card, on
    the linearization inputs of the medium problem in bucketed grid layout
    (``build_grid_problem``; initial parameters, lam = 1e-4), in float32 and
    float64, B9 under all three losses.
-5. The grid path: ``ba_solve_pallas`` on the same problem with the same
+7. The grid path: ``ba_solve_pallas`` on the same problem with the same
    config: one warm-up solve and 3 timed solves.
-6. The dense track-table kernels B12-B16 against their plain versions on
+8. The dense track-table kernels B12-B16 against their plain versions on
    the card, on the five buckets of the medium problem in track-table
    layout (``build_tt_problem``; initial parameters, lam = 1e-4), in
    float32 and float64, B12 and B16 under all three losses.
-7. The tt path: ``ba_solve_tt`` (fully fused, kernels B12-B16) on the same
+9. The tt path: ``ba_solve_tt`` (fully fused, kernels B12-B16) on the same
    problem with the same config: one warm-up solve and 3 timed solves.
-8. Prints the kernel table as one JSON line, the ``nvidia-smi`` line, then
-   ``{"ok": true, "device": {...}}`` as the last line.
+10. Prints the kernel table as one JSON line, the ``nvidia-smi`` line, then
+    ``{"ok": true, "device": {...}}`` as the last line.
 
 Tolerances, relative to max|plain|: per-element outputs 1e-5 (f32) and
-1e-12 (f64); summed outputs 1e-4 and 1e-10 (B1 rows, B2 rows, B12's U|g
-columns, B13 and B15 are atomic sums whose order varies; B9's U and g and
-B11's blocks are block reductions in another order than the plain
-version's).  Kernel and plain
+1e-12 (f64); summed outputs 1e-4 and 1e-10 (B1, B2, B5, B6 and B8 rows,
+B12's U|g columns, B13 and B15 are atomic sums whose order varies; B9's U
+and g and B11's blocks are block reductions in another order than the
+plain version's); B7 (a selection) exactly.  Kernel and plain
 times (``ms``, ``plain_ms``) are device times (``device_ms``): the median
 of 20 calls, each with a cold L2 and timed by a CUDA-event pair that sees
 none of the call's host time, summed over one pass of the solve (the five
 buckets, or one linearization).  ``ms`` covers all the device work of the
 wrapper: the kernel, and for B9 the packing of the camera rows (as in the
-JAX function), for B16 the sum of its per-point partials.  Every count is
+JAX function), for B16 the sum of its per-point partials.  B7's
+``library_ms`` is the same device time of the one ``torch.gather`` that
+computes its function; no other kernel has such a call.  Every count is
 set to 0 just before each path's solves and read just after: each path
-must launch each of its kernels and call no plain version.  Each solve must
-reach a reprojection RMSE below 1e-3 px and a final loss below the initial
-one.
+must launch each of its kernels and call no plain version.  A kernel on
+several paths takes its table ``launches`` from the first; every path's
+counts are on its ``solve`` line.  Each solve must reach a reprojection
+RMSE below 1e-3 px and a final loss below the initial one.
 
 ``bound_ms`` is the least time the card could take for the same work: the
 larger of the bytes the function must move (each input read once, each
@@ -67,30 +82,44 @@ import time
 import torch
 
 WTT_SRC = "tpu3drecon_torch/csrc/wtt_kernels.cu"
+ROUTE_SRC = "tpu3drecon_torch/csrc/wtt_route_kernels.cu"
 GRID_SRC = "tpu3drecon_torch/csrc/grid_kernels.cu"
 TT_SRC = "tpu3drecon_torch/csrc/tt_kernels.cu"
+LIN_PY = "tpu3drecon/ops/pallas/wtt_linearize.py"
+MV_PY = "tpu3drecon/ops/pallas/wtt_matvec.py"
 TT_PY = "tpu3drecon/ops/pallas/tt_linearize.py"
-# (module, counter attribute, kernel name, source, replaced TPU kernel, path)
+# The paths: wtt's fully indexed route, its unfused route (a) and its
+# one-hot route (c), the grid engine, the dense track table.
+WTT, UNFUSED, ONEHOT = "wtt", "wtt_unfused", "wtt_onehot"
+# (module, counter attribute, kernel name, source, replaced TPU kernel, paths)
 KERNELS = (
-    ("wtt_linearize", "COUNTS", "wtt_linearize_fused_idx", WTT_SRC,
-     "tpu3drecon/ops/pallas/wtt_linearize.py:554", "wtt"),
-    ("wtt_matvec", "COUPLING_COUNTS", "wtt_coupling_rows_idx", WTT_SRC,
-     "tpu3drecon/ops/pallas/wtt_matvec.py:215", "wtt"),
-    ("wtt_matvec", "WT_COUNTS", "wtt_wt_planes_idx", WTT_SRC,
-     "tpu3drecon/ops/pallas/wtt_matvec.py:405", "wtt"),
+    ("wtt_linearize", "COUNTS", "wtt_linearize_fused_idx", WTT_SRC, f"{LIN_PY}:554",
+     {WTT}),
+    ("wtt_matvec", "COUPLING_COUNTS", "wtt_coupling_rows_idx", WTT_SRC, f"{MV_PY}:215",
+     {WTT, UNFUSED}),
+    ("wtt_matvec", "WT_COUNTS", "wtt_wt_planes_idx", WTT_SRC, f"{MV_PY}:405",
+     {WTT, UNFUSED}),
     ("wtt_cost", "COUNTS", "wtt_cost_cols_idx", WTT_SRC,
-     "tpu3drecon/ops/pallas/wtt_cost.py:94", "wtt"),
+     "tpu3drecon/ops/pallas/wtt_cost.py:94", {WTT}),
+    ("wtt_matvec", "W_ROWS_COUNTS", "wtt_w_rows_idx", ROUTE_SRC, f"{MV_PY}:468",
+     {UNFUSED}),
+    ("wtt_matvec", "FUSED_COUNTS", "wtt_coupling_rows_fused", ROUTE_SRC, f"{MV_PY}:526",
+     {ONEHOT}),
+    ("wtt_linearize", "CAM_PLANES_COUNTS", "wtt_cam_planes_idx", ROUTE_SRC,
+     f"{LIN_PY}:229", {UNFUSED, ONEHOT}),
+    ("wtt_linearize", "CONTRIB_COUNTS", "wtt_contrib_rows_idx", ROUTE_SRC,
+     f"{LIN_PY}:286", {UNFUSED, ONEHOT}),
     ("cam_normal", "COUNTS", "cam_normal_fused", GRID_SRC,
-     "tpu3drecon/ops/pallas/cam_normal.py:205", "grid"),
+     "tpu3drecon/ops/pallas/cam_normal.py:205", {"grid"}),
     ("point_normal", "COUNTS", "point_normal_fused", GRID_SRC,
-     "tpu3drecon/ops/pallas/point_normal.py:80", "grid"),
+     "tpu3drecon/ops/pallas/point_normal.py:80", {"grid"}),
     ("coupling", "COUNTS", "coupling_fused", GRID_SRC,
-     "tpu3drecon/ops/pallas/coupling.py:65", "grid"),
-    ("tt_linearize", "CAM_COUNTS", "tt_cam_normal_fused", TT_SRC, f"{TT_PY}:221", "tt"),
-    ("tt_linearize", "COUPLING_COUNTS", "tt_coupling_fused", TT_SRC, f"{TT_PY}:297", "tt"),
-    ("tt_linearize", "WT_COUNTS", "tt_wt_times_fused", TT_SRC, f"{TT_PY}:436", "tt"),
-    ("tt_linearize", "W_COUNTS", "tt_w_times_fused", TT_SRC, f"{TT_PY}:475", "tt"),
-    ("tt_linearize", "COST_COUNTS", "tt_cost_fused", TT_SRC, f"{TT_PY}:512", "tt"),
+     "tpu3drecon/ops/pallas/coupling.py:65", {"grid"}),
+    ("tt_linearize", "CAM_COUNTS", "tt_cam_normal_fused", TT_SRC, f"{TT_PY}:221", {"tt"}),
+    ("tt_linearize", "COUPLING_COUNTS", "tt_coupling_fused", TT_SRC, f"{TT_PY}:297", {"tt"}),
+    ("tt_linearize", "WT_COUNTS", "tt_wt_times_fused", TT_SRC, f"{TT_PY}:436", {"tt"}),
+    ("tt_linearize", "W_COUNTS", "tt_w_times_fused", TT_SRC, f"{TT_PY}:475", {"tt"}),
+    ("tt_linearize", "COST_COUNTS", "tt_cost_fused", TT_SRC, f"{TT_PY}:512", {"tt"}),
 )
 TOL = {  # (per-element, summed) bounds relative to max|plain|
     torch.float32: (1e-5, 1e-4),
@@ -99,12 +128,16 @@ TOL = {  # (per-element, summed) bounds relative to max|plain|
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12
 # Float operations per unit of work, counted from csrc/*.cu: per slot
-# (Tb * Pc per bucket) for B1-B4 and B12-B16 (np = 8, atomic adds
-# included), per grid lane (C * K) for B9 and B11, per track row (P * T2)
-# plus per point for B10.
+# (Tb * Pc per bucket) for B1-B8 and B12-B16 (np = 8, atomic adds
+# included; B8 with the Schur-Jacobi columns: 108 u + 24 g + 72 W + 120 WV
+# + 180 coupling + 80 adds; B7 is a copy; B6's one-hot scan compares bytes,
+# no float operation), per grid lane (C * K) for B9 and B11, per track row
+# (P * T2) plus per point for B10.
 FLOPS = {
     "wtt_linearize_fused_idx": 1000, "wtt_coupling_rows_idx": 80,
     "wtt_wt_planes_idx": 44, "wtt_cost_cols_idx": 45,
+    "wtt_w_rows_idx": 42, "wtt_coupling_rows_fused": 80, "wtt_cam_planes_idx": 0,
+    "wtt_contrib_rows_idx": 584,
     "cam_normal_fused": 340, "point_normal_row": 18, "point_normal_point": 60,
     "coupling_fused": 408,
     "tt_cam_normal_fused": 370, "tt_coupling_fused": 408, "tt_wt_times_fused": 44,
@@ -164,7 +197,8 @@ def nbytes(*tensors) -> int:
 
 
 RESULTS = {  # kernel -> measured and counted figures of this run
-    name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0}
+    name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0,
+           "library_ms": None}
     for _, _, name, *_ in KERNELS
 }
 WORST = {}  # "kernel dtype [output]" -> largest max|diff| / max|plain|
@@ -186,13 +220,16 @@ def compare(kernel: str, tag: str, output: str, got, want, rel: float) -> float:
     return err
 
 
-def account(kernel: str, fn, plain, n_bytes: int, flops: int) -> None:
-    """Adds one f32 call of ``kernel`` to its pass: device times and work."""
+def account(kernel: str, fn, plain, n_bytes: int, flops: int, library=None) -> None:
+    """Adds one f32 call of ``kernel`` to its pass: device times and work
+    (and the time of ``library``, one PyTorch call of the same function)."""
     r = RESULTS[kernel]
     r["ms"] += device_ms(fn)
     r["plain_ms"] += device_ms(plain)
     r["bytes"] += n_bytes
     r["flops"] += flops
+    if library is not None:
+        r["library_ms"] = (r["library_ms"] or 0.0) + device_ms(library)
 
 
 def wtt_kernel_inputs(problem, dtype, lam_value=1e-4):
@@ -303,8 +340,111 @@ def check_wtt_kernels(problem) -> None:
             log(f"check {tag} {loss.value}: B1 and B4 agree")
 
 
+def route_planes(d, planes, cfg):
+    """jc, jp, r (Jacobian planes) and v_inv, g_pt (point normal) of one
+    bucket from its camera planes, as the unfused linearization forms them."""
+    from tpu3drecon_torch.ops.wtt_linearize import point_normal
+    from tpu3drecon_torch.solvers.ba_tt import _tt_blocks
+
+    blocks = _tt_blocks(planes.transpose(0, 1), d["pts"][:, :, None, :],
+                        d["uv"].transpose(0, 1), d["mask"], d["inv_w"], cfg)
+    v_inv, g_pt, _ = point_normal(blocks.jp, blocks.r, d["lam"])
+    return blocks.jc, blocks.jp, blocks.r, v_inv, g_pt
+
+
+def check_route_kernels(problem) -> None:
+    """Phase 4: B5-B8 against their plain versions, f32 and f64, on the
+    buckets with their dense one-hot; then padded slots against NaN."""
+    from tpu3drecon_torch.ops import wtt_linearize as lin
+    from tpu3drecon_torch.ops import wtt_matvec as mv
+    from tpu3drecon_torch.ops._wtt_common import slot_index
+    from tpu3drecon_torch.solvers.ba_tt import _sym3_matvec
+    from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
+
+    cfg = BAConfig()
+    for dtype in (torch.float32, torch.float64):
+        summed = TOL[dtype][1]
+        tag = "f32" if dtype == torch.float32 else "f64"
+        for bi, (d, bucket) in enumerate(zip(wtt_kernel_inputs(problem, dtype),
+                                             problem.buckets)):
+            g, tb, pc, w = d["shape"]
+            b7 = (d["wcam"], d["tw"], tb)
+            planes = lin.wtt_cam_planes_idx(*b7)
+            errs = {"B7": compare("wtt_cam_planes_idx", tag, "", planes,
+                                  lin.wtt_cam_planes_idx_plain(*b7), 0.0)}
+            jc, jp, r, v_inv, g_pt = route_planes(d, planes, cfg)
+            for use_sj in (True, False):
+                b8 = (d["wcam"], jc, jp, r, v_inv, 8, w, use_sj)
+                rows = lin.wtt_contrib_rows_idx(*b8)
+                errs[f"B8 sj={int(use_sj)}"] = compare(
+                    "wtt_contrib_rows_idx", tag, f"sj={int(use_sj)}", rows,
+                    lin.wtt_contrib_rows_idx_plain(*b8), summed)
+                if use_sj:
+                    b8_sj, rows_sj = b8, rows
+            b5 = (_sym3_matvec(v_inv, g_pt).contiguous(), d["wcam"], jc, jp, w)
+            rows_b5 = mv.wtt_w_rows_idx(*b5)
+            errs["B5"] = compare("wtt_w_rows_idx", tag, "", rows_b5,
+                                 mv.wtt_w_rows_idx_plain(*b5), summed)
+            onehots = [bucket.onehot] + ([bucket.onehot.to(dtype)] if tag == "f64" else [])
+            for oh in onehots:
+                b6 = (d["xw_t"], oh, jc, jp, v_inv)
+                out_b6 = mv.wtt_coupling_rows_fused(*b6)
+                errs[f"B6 {oh.dtype}"] = compare(
+                    "wtt_coupling_rows_fused", tag, str(oh.dtype), out_b6,
+                    mv.wtt_coupling_rows_fused_plain(*b6), summed)
+            log(f"check {tag} wtt route bucket {bi} (G={g} Tb={tb} Pc={pc} W={w}): "
+                + " ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+            if dtype != torch.float32:
+                continue
+            slots = g * tb * pc
+            b6 = (d["xw_t"], bucket.onehot, jc, jp, v_inv)
+            tw_t = torch.cat([d["tw"], d["tw"].new_zeros(g, 1, 19)], dim=1)
+            tw_t = tw_t.transpose(1, 2).contiguous()
+            idx = slot_index(d["wcam"], w)[:, None, :].expand(g, 19, tb * pc)
+            account("wtt_cam_planes_idx", lambda: lin.wtt_cam_planes_idx(*b7),
+                    lambda: lin.wtt_cam_planes_idx_plain(*b7),
+                    nbytes(d["wcam"], d["tw"], planes), 0,
+                    library=lambda: torch.gather(tw_t, 2, idx))
+            account("wtt_contrib_rows_idx", lambda: lin.wtt_contrib_rows_idx(*b8_sj),
+                    lambda: lin.wtt_contrib_rows_idx_plain(*b8_sj),
+                    nbytes(*b8_sj[:5], rows_sj), FLOPS["wtt_contrib_rows_idx"] * slots)
+            account("wtt_w_rows_idx", lambda: mv.wtt_w_rows_idx(*b5),
+                    lambda: mv.wtt_w_rows_idx_plain(*b5),
+                    nbytes(*b5[:4], rows_b5), FLOPS["wtt_w_rows_idx"] * slots)
+            account("wtt_coupling_rows_fused", lambda: mv.wtt_coupling_rows_fused(*b6),
+                    lambda: mv.wtt_coupling_rows_fused_plain(*b6),
+                    nbytes(*b6, out_b6), FLOPS["wtt_coupling_rows_fused"] * slots)
+
+        # Padded slots read exact zeros: window row 0 is NaN and only padded
+        # slots point at it; jc/jp/r of padded slots are NaN for B5 and B8.
+        d = wtt_kernel_inputs(problem, dtype)[0]
+        g, tb, pc, w = d["shape"]
+        wcam = torch.where(d["wcam"] == 0, torch.full_like(d["wcam"], -1), d["wcam"])
+        pad = (wcam < 0).reshape(g, tb, pc)
+        d = {**d, "wcam": wcam, "mask": d["mask"] * ~pad, "tw": d["tw"].clone()}
+        d["tw"][:, 0] = float("nan")
+        b7 = (wcam, d["tw"], tb)
+        planes = lin.wtt_cam_planes_idx(*b7)
+        compare("wtt_cam_planes_idx", tag, "poisoned", planes,
+                lin.wtt_cam_planes_idx_plain(*b7), 0.0)
+        jc, jp, r, v_inv, g_pt = (x.clone() for x in route_planes(d, planes, cfg))
+        for x in (jc, jp, r):
+            x[:, pad] = float("nan")
+        b8 = (wcam, jc, jp, r, v_inv, 8, w, True)
+        rows = lin.wtt_contrib_rows_idx(*b8)
+        compare("wtt_contrib_rows_idx", tag, "poisoned", rows,
+                lin.wtt_contrib_rows_idx_plain(*b8), summed)
+        b5 = (_sym3_matvec(v_inv, g_pt).contiguous(), wcam, jc, jp, w)
+        compare("wtt_w_rows_idx", tag, "poisoned", mv.wtt_w_rows_idx(*b5),
+                mv.wtt_w_rows_idx_plain(*b5), summed)
+        if not (torch.isfinite(planes).all() and torch.isfinite(rows).all()):
+            raise AssertionError(f"{tag}: a poisoned padded slot reached an output")
+        log(f"check {tag} wtt route: padded slots read exact zeros "
+            f"({int(pad.sum())} padded slots, window row 0 NaN)")
+
+
 def check_grid_kernels(grid) -> None:
-    """Phase 4: B9-B11 against their plain versions, f32 and f64."""
+    """Phase 6: B9-B11 against their plain versions, f32 and f64."""
     from tpu3drecon_torch.geometry.losses import RobustLoss
     from tpu3drecon_torch.ops import cam_normal, coupling, point_normal
     from tpu3drecon_torch.solvers.ba_pallas import (
@@ -396,7 +536,7 @@ def tt_kernel_inputs(problem, dtype, lam_value=1e-4):
 
 
 def check_tt_kernels(problem) -> None:
-    """Phase 6: B12-B16 against their plain versions, f32 and f64."""
+    """Phase 8: B12-B16 against their plain versions, f32 and f64."""
     from tpu3drecon_torch.geometry.losses import RobustLoss
     from tpu3drecon_torch.ops import tt_linearize as tt
     from tpu3drecon_torch.solvers.ba_tt import _sym3_inv_planes, _sym3_matvec
@@ -482,7 +622,7 @@ def drive(path: str, solve, problem, flat, repeats: int) -> dict:
     for cnt in counts.values():
         cnt.reset()
     warm_s, times, (cams, pts, state) = timed_solve_stats(solve, problem, repeats)
-    mine = {name for *_, name, _, _, p in KERNELS if p == path}
+    mine = {name for *_, name, _, _, paths in KERNELS if path in paths}
     launches = {n: cnt.kernel for n, cnt in counts.items() if n in mine}
     plain = {n: cnt.plain for n, cnt in counts.items() if cnt.plain}
     rmse = float(reprojection_rmse(flat, cams, pts))
@@ -555,8 +695,25 @@ def main() -> int:
     check_wtt_kernels(wtt)
     wtt_config = BENCH_CONFIG._replace(matvec_kernel="index", linearize_kernel="index")
     launches = drive(
-        "wtt", lambda p, **kw: ba_solve_wtt(p, wtt_config._replace(**kw)), wtt, flat, 5
+        WTT, lambda p, **kw: ba_solve_wtt(p, wtt_config._replace(**kw)), wtt, flat, 5
     )
+
+    def first_path(counts):
+        for name, n in counts.items():
+            launches.setdefault(name, n)
+
+    t0 = time.perf_counter()
+    wtt_oh = wtt_from_flat(flat, defer_onehot=False, device=dev)
+    log(f"wtt packed with its int8 one-hot in {time.perf_counter() - t0:.1f} s: "
+        + str([tuple(b.onehot.shape) for b in wtt_oh.buckets]))
+    check_route_kernels(wtt_oh)
+    for route, matvec in ((UNFUSED, "index"), (ONEHOT, "fused")):
+        cfg = BENCH_CONFIG._replace(matvec_kernel=matvec, linearize_kernel=False)
+        first_path(drive(
+            route, lambda p, cfg=cfg, **kw: ba_solve_wtt(p, cfg._replace(**kw)),
+            wtt_oh, flat, 3,
+        ))
+    del wtt_oh
 
     t0 = time.perf_counter()
     grid = build_grid_problem(dev, torch.float32)
@@ -565,7 +722,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s; track buckets (Pb, Tb): "
         + str([tuple(b.track_idx.shape) for b in grid.buckets]))
     check_grid_kernels(grid)
-    launches.update(drive(
+    first_path(drive(
         "grid", lambda p, **kw: ba_solve_pallas(p, BENCH_CONFIG._replace(**kw)),
         grid, flat, 3,
     ))
@@ -576,7 +733,7 @@ def main() -> int:
         f"packed in {time.perf_counter() - t0:.1f} s; buckets (Tb, Pb): "
         + str([tuple(b.mask.shape) for b in tt.buckets]))
     check_tt_kernels(tt)
-    launches.update(drive(
+    first_path(drive(
         "tt", lambda p, **kw: ba_solve_tt(p, BENCH_CONFIG._replace(**kw)), tt, flat, 3,
     ))
     log("worst max|diff| / max|plain|: "
@@ -592,7 +749,7 @@ def main() -> int:
             launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=max(bytes_ms, flops_ms),
             bound_by="bytes" if bytes_ms >= flops_ms else "operations",
-            library_ms=None,
+            library_ms=r["library_ms"],
         ))
         log(f"bound {name}: {r['bytes']} B -> {bytes_ms:.6f} ms, "
             f"{r['flops']} flop -> {flops_ms:.6f} ms")

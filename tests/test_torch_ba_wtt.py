@@ -100,7 +100,8 @@ def test_jacobi_u_preconditioner_descends():
 
 
 @pytest.mark.parametrize("change", [
-    {"matvec_kernel": False}, {"linearize_kernel": False},
+    {"matvec_kernel": "index1"}, {"linearize_kernel": "index2"},
+    {"matvec_kernel": False, "matvec_bf16": True},
     {"matvec_kernel": "index2"}, {"precond": "ssor"}, {"precond": "tridiag"},
 ])
 def test_unported_paths_raise(change):
@@ -126,8 +127,11 @@ scene = make_sequential_scene(n_cameras=12, points_per_camera=20, track_span=3, 
 flat, _ = scene_to_ba_problem(perturb_scene(scene, seed=2, point2d_noise=0.0), observed=scene,
                               dtype=torch.float64, device="cpu")
 cfg = BAConfig(maxiter=3, cg_maxiter=8, matvec_kernel="index", linearize_kernel="index")
-_, _, st = ba_solve_wtt(wtt_from_flat(flat, point_chunk=64), cfg)
+packed = wtt_from_flat(flat, point_chunk=64)
+_, _, st = ba_solve_wtt(packed, cfg)
 assert int(st.accepted) >= 1, st
+_, _, st_xla = ba_solve_wtt(packed, BAConfig(maxiter=3, cg_maxiter=8))  # route (d), the default
+assert int(st_xla.accepted) >= 1, st_xla
 from tpu3drecon_torch.problems.grid import grid_bucketed_from_flat
 from tpu3drecon_torch.solvers.ba_pallas import ba_solve_pallas
 _, _, st_grid = ba_solve_pallas(grid_bucketed_from_flat(flat, point_block=64), cfg)

@@ -1,6 +1,7 @@
 """The CUDA kernels vs their plain PyTorch versions, on the card: the four
-wtt kernels (B1-B4), the grid engine's three (B9-B11) and the dense track
-table's five (B12-B16).
+wtt kernels of the indexed route (B1-B4) and the four of its unfused and
+one-hot routes (B5-B8), the grid engine's three (B9-B11) and the dense
+track table's five (B12-B16).
 
 Needs an NVIDIA GPU with nvcc (the kernels build at first use); skips where
 ``torch.cuda.is_available()`` is false.  Imports no jax, so on a machine
@@ -12,7 +13,7 @@ Tolerances, relative to max|plain|: per-element outputs 1e-5 (f32) and
 1e-12 (f64); rows reduced with atomics (linearize rows, coupling rows, the
 tt kernels' camera columns) and the grid kernels' per-camera block sums
 (U, g, coupling) 1e-4 and 1e-10, because their summation order differs
-from the plain version's.
+from the plain version's.  B7 (a row selection) must be bit-equal.
 """
 
 import numpy as np
@@ -29,6 +30,7 @@ from tpu3drecon_torch.ops import (
     wtt_linearize,
     wtt_matvec,
 )
+from tpu3drecon_torch.solvers.ba_tt import _tt_blocks
 from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
 
 pytestmark = pytest.mark.cuda
@@ -135,6 +137,85 @@ def test_bad_inputs_raise(dev):
         wtt_linearize.wtt_linearize_fused_idx(
             wide["wcam"], wide["tw"], wide["pts"], wide["uv"], wide["mask"],
             wide["lam"], wide["inv_w"], BAConfig(), 8, True)
+
+
+ROUTE_CASES = [  # (dtype, G, W, Tb, np, use_sj)
+    (torch.float32, 1, 128, 2, 8, True),
+    (torch.float64, 1, 128, 12, 8, True),
+    (torch.float32, 2, 256, 3, 10, False),
+    (torch.float64, 2, 128, 4, 12, True),
+]
+
+
+@pytest.mark.parametrize("dtype,g,w,tb,np_cam,use_sj", ROUTE_CASES)
+def test_route_kernels_match_plain(dev, dtype, g, w, tb, np_cam, use_sj):
+    """B5-B8.  Window row 0 is NaN and only padded slots point at it (and
+    padded slots of jc/jp/r are NaN for B5 and B8): a kernel that read them
+    would give NaN where the plain version gives exact zeros."""
+    d = _inputs(dev, dtype, g, w, tb, np_cam, seed=2 * g + w + tb + np_cam)
+    elem, reduced = TOL[dtype]
+    counts = (wtt_linearize.CAM_PLANES_COUNTS, wtt_linearize.CONTRIB_COUNTS,
+              wtt_matvec.W_ROWS_COUNTS, wtt_matvec.FUSED_COUNTS)
+    before = [c.kernel for c in counts]
+    wcam = torch.where(d["wcam"] == 0, torch.full_like(d["wcam"], -1), d["wcam"])
+    pad = (wcam < 0).reshape(g, tb, PC)
+    tw = d["tw"].clone()
+    tw[:, 0] = float("nan")
+
+    planes = wtt_linearize.wtt_cam_planes_idx(wcam, tw, tb)
+    torch.cuda.synchronize()
+    assert torch.equal(planes, wtt_linearize.wtt_cam_planes_idx_plain(wcam, tw, tb)), "B7"
+    assert (planes.transpose(0, 1)[:, pad] == 0).all()
+
+    cfg = BAConfig(optimize_dist=np_cam >= 10, optimize_pp=np_cam == 12)
+    blocks = _tt_blocks(planes.transpose(0, 1), d["pts"][:, :, None, :],
+                        d["uv"].transpose(0, 1), (~pad).to(dtype), d["inv_w"], cfg)
+    v_inv = wtt_linearize.point_normal(blocks.jp, blocks.r, d["lam"])[0].contiguous()
+    jc, jp, r = blocks.jc.clone(), blocks.jp.clone(), blocks.r.clone()
+    for x in (jc, jp, r):
+        x[:, pad] = float("nan")
+    b8 = (wcam, jc, jp, r, v_inv, np_cam, w, use_sj)
+    rows = wtt_linearize.wtt_contrib_rows_idx(*b8)
+    assert torch.isfinite(rows).all()
+    _close(rows, wtt_linearize.wtt_contrib_rows_idx_plain(*b8), reduced, "B8")
+    y = torch.randn(3, g, PC, dtype=dtype, device=dev)
+    b5 = (y, wcam, jc, jp, w)
+    _close(wtt_matvec.wtt_w_rows_idx(*b5), wtt_matvec.wtt_w_rows_idx_plain(*b5), reduced, "B5")
+
+    jc, jp = blocks.jc, blocks.jp  # B6's plain version is the literal product
+    onehot = (wcam[:, None, :] == torch.arange(w, device=dev)[None, :, None]).to(torch.int8)
+    for oh in (onehot, onehot.to(dtype)):
+        b6 = (d["xw_t"], oh, jc, jp, v_inv)
+        _close(wtt_matvec.wtt_coupling_rows_fused(*b6),
+               wtt_matvec.wtt_coupling_rows_fused_plain(*b6), reduced, f"B6 {oh.dtype}")
+    _close(wtt_matvec.wtt_coupling_rows_fused(d["xw_t"], onehot, jc, jp, v_inv),
+           wtt_matvec.wtt_coupling_rows_idx_plain(d["xw_t"], wcam, jc, jp, v_inv),
+           reduced, "B6 vs B2")
+    # A malformed column (a second 1 below the slot's row): the kernel reads
+    # the first 1, the plain version sums both.
+    col = int(torch.nonzero((wcam[0] >= 0) & (wcam[0] < w - 1))[0])
+    bad = onehot.clone()
+    bad[0, int(wcam[0, col]) + 1, col] = 1
+    got = wtt_matvec.wtt_coupling_rows_fused(d["xw_t"], bad, jc, jp, v_inv)
+    _close(got, wtt_matvec.wtt_coupling_rows_fused_plain(d["xw_t"], onehot, jc, jp, v_inv),
+           reduced, "B6 malformed column")
+    assert not torch.allclose(
+        got, wtt_matvec.wtt_coupling_rows_fused_plain(d["xw_t"], bad, jc, jp, v_inv))
+    assert [c.kernel - b for c, b in zip(counts, before)] == [1, 1, 1, 4]
+
+
+def test_route_kernels_refuse_bad_inputs(dev):
+    """B8's (W, K) tile above the card's shared memory raises ValueError;
+    B6 takes an int8 or the data's float one-hot only."""
+    d = _inputs(dev, torch.float64, 1, 256, 2, 12, seed=9)
+    z = torch.zeros((24, 1, 2, PC), dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        wtt_linearize.wtt_contrib_rows_idx(d["wcam"], z, z[:6], z[:2],
+                                           z[:6, :, 0].contiguous(), 12, 256, True)
+    onehot = torch.zeros((1, 256, 2 * PC), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="onehot"):
+        wtt_matvec.wtt_coupling_rows_fused(d["xw_t"], onehot, z, z[:6],
+                                           z[:6, :, 0].contiguous())
 
 
 def _grid_inputs(dev, dtype, c, k, p, t2, seed):

@@ -16,6 +16,7 @@ from tpu3drecon.problems import reorder as j_reorder
 from tpu3drecon.problems.grid import grid_bucketed_from_flat as j_grid
 from tpu3drecon.problems.grid import grid_from_flat as j_plain_grid
 from tpu3drecon.problems.grid import unpermute_points as j_unpermute
+from tpu3drecon.problems.wtt import expand_onehots as j_expand
 from tpu3drecon.problems.wtt import wtt_from_flat as j_wtt
 
 from tpu3drecon_torch.benchmark import medium_config
@@ -30,6 +31,7 @@ from tpu3drecon_torch.problems.convert import (
 from tpu3drecon_torch.problems.grid import grid_bucketed_from_flat as t_grid
 from tpu3drecon_torch.problems.grid import grid_from_flat as t_plain_grid
 from tpu3drecon_torch.problems.grid import unpermute_points as t_unpermute
+from tpu3drecon_torch.problems.wtt import expand_onehots as t_expand
 from tpu3drecon_torch.problems.wtt import wtt_from_flat as t_wtt
 
 JDT = {torch.float32: jnp.float32, torch.float64: jnp.float64}
@@ -226,7 +228,34 @@ def test_unsupported_packing_options_raise():
     tf, _ = _seq_flats((0.0, 0.0))
     with pytest.raises(NotImplementedError, match="split_windows"):
         t_wtt(tf, point_chunk=64, split_windows=True)
-    with pytest.raises(NotImplementedError, match="defer_onehot"):
-        t_wtt(tf, point_chunk=64, defer_onehot=False)
     with pytest.raises(ValueError, match="one-hot"):
         t_wtt(tf, point_chunk=64, max_onehot_bytes=16)
+
+
+ONEHOT_DTYPES = {"int8": (torch.int8, jnp.int8), "float64": (torch.float64, jnp.float64)}
+
+
+@pytest.mark.parametrize("name", list(ONEHOT_DTYPES))
+def test_wtt_onehot_bit_equal(name):
+    """The dense one-hot, built by the packer (the default) or by
+    ``expand_onehots`` from a deferred packing, equals JAX's bit for bit
+    in its dtype; the size guard counts that dtype's bytes."""
+    tdt, jdt = ONEHOT_DTYPES[name]
+    tf, jf = _seq_flats(SEQ_DISTS["radial"])
+    jw = j_wtt(jf, point_chunk=64, onehot_dtype=jdt)
+    tw = t_wtt(tf, point_chunk=64, onehot_dtype=tdt)
+    _wtt_equal(tw, jw)
+    te = t_expand(t_wtt(tf, point_chunk=64, defer_onehot=True), onehot_dtype=tdt)
+    je = j_expand(j_wtt(jf, point_chunk=64, defer_onehot=True), onehot_dtype=jdt)
+    tc = wtt_problem_from_numpy(np_fields(jw), device="cpu")
+    for i, jb in enumerate(jw.buckets):
+        for got in (tw, te, tc):
+            _eq(got.buckets[i].onehot, jb.onehot, f"bucket {i} onehot")
+        _eq(te.buckets[i].onehot, je.buckets[i].onehot, f"bucket {i} expanded")
+    int8_bytes = sum(b.onehot.numel() for b in tw.buckets)
+    t_wtt(tf, point_chunk=64, max_onehot_bytes=int8_bytes, defer_onehot=True)
+    if tdt != torch.int8:
+        with pytest.raises(ValueError, match="one-hot"):
+            t_wtt(tf, point_chunk=64, max_onehot_bytes=int8_bytes, onehot_dtype=tdt)
+        with pytest.raises(ValueError, match="one-hot"):
+            j_wtt(jf, point_chunk=64, max_onehot_bytes=int8_bytes, onehot_dtype=jdt)

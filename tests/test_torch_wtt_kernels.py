@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_ref import assert_close
+from _torch_ref import assert_close, wtt_kernel_inputs
 
 from tpu3drecon.geometry.losses import RobustLoss as JLoss
 from tpu3drecon.ops.pallas.wtt_cost import wtt_cost_cols_idx as j_cost
@@ -33,34 +33,7 @@ PC = 128
 
 
 def _inputs(g, w, tb, np_cam, seed):
-    """wtt-layout kernel inputs with realistic geometry; wcam has -1 padding
-    (mask 0 there, as the packer emits)."""
-    rng = np.random.default_rng(seed)
-    n_slot = tb * PC
-    wcam = rng.integers(0, w, size=(g, n_slot)).astype(np.int16)
-    wcam[rng.random(wcam.shape) < 0.15] = -1
-    mask = (wcam >= 0).astype(np.float64).reshape(g, tb, PC)
-    # Camera window rows: R (small rotations) | t (z ~ 6) | f | c | k.
-    ang = rng.normal(scale=0.1, size=(g, w, 3))
-    th = np.linalg.norm(ang, axis=-1, keepdims=True)
-    k = ang / th
-    kx = np.zeros((g, w, 3, 3))
-    kx[..., 0, 1], kx[..., 0, 2], kx[..., 1, 2] = -k[..., 2], k[..., 1], -k[..., 0]
-    kx = kx - np.swapaxes(kx, -1, -2)
-    eye = np.eye(3)
-    rot = eye + np.sin(th)[..., None] * kx + (1 - np.cos(th))[..., None] * kx @ kx
-    t = np.concatenate([rng.normal(scale=0.3, size=(g, w, 2)),
-                        rng.uniform(5.0, 7.0, size=(g, w, 1))], axis=-1)
-    f = rng.uniform(1000, 1100, size=(g, w, 2))
-    c = np.concatenate([rng.uniform(600, 680, size=(g, w, 2)),
-                        np.zeros((g, w, 1))], axis=-1)
-    dist = np.stack([rng.uniform(-0.05, 0.0, size=(g, w)),
-                     rng.uniform(0.0, 0.01, size=(g, w))], axis=-1)
-    tw = np.concatenate([rot.reshape(g, w, 9), t, f, c, dist], axis=-1)
-    pts = rng.normal(size=(3, g, PC))
-    uv = rng.uniform(300, 1000, size=(g, 2, tb, PC))
-    xw_t = rng.normal(size=(g, np_cam, w))
-    return dict(wcam=wcam, tw=tw, pts=pts, uv=uv, mask=mask, xw_t=xw_t)
+    return wtt_kernel_inputs(g, w, tb, np_cam, seed, PC)
 
 
 def _j(x):

@@ -4,10 +4,11 @@ The JAX package ``tpu3drecon`` is the reference; this package mirrors its
 module paths (``tpu3drecon_torch.solvers.ba_wtt`` is the counterpart of
 ``tpu3drecon.solvers.ba_wtt``) and never imports jax.  Ported so far: the
 medium bundle-adjustment solve on the windowed track-table ("wtt")
-engine, fully indexed, on the fused-kernel grid engine
-(``solvers/ba_pallas.py``) and on the dense track-table engine, fully fused
-(``solvers/ba_tt.py``), with their kernels written by hand in CUDA C++ for
-``sm_90a`` (``csrc/{wtt,grid,tt}_kernels.cu``).  Entry
+engine, on its fully indexed, unfused and one-hot routes, on the
+fused-kernel grid engine (``solvers/ba_pallas.py``) and on the dense
+track-table engine, fully fused (``solvers/ba_tt.py``), with their kernels
+written by hand in CUDA C++ for ``sm_90a``
+(``csrc/{wtt,wtt_route,grid,tt}_kernels.cu``).  Entry
 points build on the CUDA card unless the caller passes ``device``
 (``tpu3drecon_torch.device``).
 

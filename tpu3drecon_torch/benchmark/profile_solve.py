@@ -7,9 +7,13 @@ The Chrome traces are kept in ``--trace-dir`` (default: the ignored
 
 For each engine (the windowed track table ``ba_solve_wtt``, fully indexed,
 the fused-kernel grid engine ``ba_solve_pallas`` and the dense track table
-``ba_solve_tt``, fully fused) on the medium problem with ``BENCH_CONFIG``: two warm-up solves, then ``torch.profiler``
+``ba_solve_tt``, fully fused), then for the wtt engine's unfused route
+(``wtt_unfused``: ``linearize_kernel=False``, ``matvec_kernel="index"``)
+and its one-hot route (``wtt_onehot``: ``linearize_kernel=False``,
+``matvec_kernel="fused"``, on the packing with its dense int8 one-hot), on
+the medium problem with ``BENCH_CONFIG``: two warm-up solves, then ``torch.profiler``
 (CPU and CUDA activities) over one solve.  The Chrome trace it exports is
-read back, and one JSON line per engine gives
+read back, and one JSON line per engine or route gives
 
   - ``wall_s``: host clock around the profiled solve (synchronized);
   - ``busy_s`` and ``busy_share``: the union of device kernel, memcpy and
@@ -38,9 +42,10 @@ from tpu3drecon_torch.ops._build import BUILD_DIR
 
 # The port's kernels (csrc/*.cu) as named in a trace: "...::<name><...>(...)".
 PORT_KERNELS = ("lin_kernel", "coupling_kernel", "wt_planes_kernel", "cost_kernel",
-                "cam_normal_kernel", "point_normal_kernel", "tt_cam_normal_kernel",
-                "tt_coupling_kernel", "tt_wt_times_kernel", "tt_w_times_kernel",
-                "tt_cost_kernel")
+                "w_rows_kernel", "onehot_coupling_kernel", "cam_planes_kernel",
+                "contrib_kernel", "cam_normal_kernel", "point_normal_kernel",
+                "tt_cam_normal_kernel", "tt_coupling_kernel", "tt_wt_times_kernel",
+                "tt_w_times_kernel", "tt_cost_kernel")
 
 
 def _intervals_union(spans) -> float:
@@ -127,11 +132,17 @@ def main() -> int:
     from tpu3drecon_torch.solvers.ba_wtt import ba_solve_wtt
 
     cfg = BENCH_CONFIG._replace(matvec_kernel="index", linearize_kernel="index")
+    cfg_a = BENCH_CONFIG._replace(matvec_kernel="index", linearize_kernel=False)
+    cfg_c = BENCH_CONFIG._replace(matvec_kernel="fused", linearize_kernel=False)
     runs = (
         ("wtt", lambda p: ba_solve_wtt(p, cfg),
          lambda: wtt_from_flat(build_problem(), defer_onehot=True)),
         ("grid", lambda p: ba_solve_pallas(p, BENCH_CONFIG), build_grid_problem),
         ("tt", lambda p: ba_solve_tt(p, BENCH_CONFIG), build_tt_problem),
+        ("wtt_unfused", lambda p: ba_solve_wtt(p, cfg_a),
+         lambda: wtt_from_flat(build_problem(), defer_onehot=False)),
+        ("wtt_onehot", lambda p: ba_solve_wtt(p, cfg_c),
+         lambda: wtt_from_flat(build_problem(), defer_onehot=False)),
     )
     out_dir = Path(args.trace_dir)
     out_dir.mkdir(parents=True, exist_ok=True)

@@ -1,7 +1,16 @@
-// The one error-string entry of the kernel library: every C entry returns
-// cudaGetLastError() after its launch, or a negative code of common.cuh.
+// The library-wide C entries: the error string of a return code (every C
+// entry returns cudaGetLastError() after its launch, or a negative code of
+// common.cuh) and the shared memory a block may use.
 
 #include "common.cuh"
+
+// Shared memory one block may opt in to on CUDA device `device` (bytes).
+extern "C" int kernel_smem_limit(int device) {
+  int limit = 0;
+  const cudaError_t e = cudaDeviceGetAttribute(
+      &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return e == cudaSuccess ? limit : -1;
+}
 
 extern "C" const char* kernel_error_string(int code) {
   using namespace tpu3drecon;

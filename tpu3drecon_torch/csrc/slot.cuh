@@ -1,7 +1,9 @@
-// Device code shared by the track-table kernels (wtt_kernels.cu and
-// tt_kernels.cu): the per-slot residual/Jacobian formulas, the staged camera
-// table with its all-zero padding row, the warp-aggregated shared-memory
-// row reduction and its flush, and the host-side launch helpers.
+// Device code shared by the track-table kernels (wtt_kernels.cu,
+// wtt_route_kernels.cu and tt_kernels.cu): the per-slot residual/Jacobian
+// formulas, the staged camera table and x window with their all-zero
+// padding row, the per-slot contribution columns and coupling-product
+// halves, the warp-aggregated shared-memory row reduction and its flush,
+// and the host-side launch helpers.
 //
 // The track-table layouts keep one point's whole track in one thread: a
 // slot (t, p) reads its camera's row of a (rows + 1, 19) table staged in
@@ -167,6 +169,96 @@ template <typename T>
 __device__ __forceinline__ void stage_window(const T* tw, T* s_tw, int W) {
   const int n = W * kD;
   for (int i = threadIdx.x; i < n + kD; i += kBlock) s_tw[i] = i < n ? tw[i] : T(0);
+}
+
+// Stage the group's x window rows (NP, W) transposed as (NP, W + 1) with a
+// zero column W for padding slots.
+template <typename T, int NP>
+__device__ __forceinline__ void stage_xw(const T* xw_t, T* s_xw, int W) {
+  for (int i = threadIdx.x; i < NP * (W + 1); i += kBlock) {
+    const int r = i / (W + 1), w = i % (W + 1);
+    s_xw[i] = w < W ? xw_t[r * W + w] : T(0);
+  }
+}
+
+// Contribution columns u (NT) | g (NP) [| Schur-Jacobi coupling (NT)] of one
+// slot (kernel B1's pass 2 and kernel B8), added into a (rows, K) tile at
+// element offsets `self` / `lead` (rows w / w0).  `j0`, `j1` are the two
+// camera-Jacobian rows, `q` the point-Jacobian planes, `vi` the point's
+// V^-1 (sym3 packing).  Returns the next free column.
+template <typename T, int NP>
+__device__ __forceinline__ int add_contribs(T* acc, const WarpRow& wr, int self,
+                                            int lead, const T* j0, const T* j1,
+                                            const T* q, T r0, T r1, const T* vi,
+                                            bool use_sj) {
+  int col = 0;
+#pragma unroll
+  for (int dd = 0; dd < NP; ++dd)
+#pragma unroll
+    for (int i = 0; i < NP - dd; ++i, ++col)
+      row_add(acc, wr, self + col, lead + col, j0[i] * j0[i + dd] + j1[i] * j1[i + dd]);
+#pragma unroll
+  for (int i = 0; i < NP; ++i, ++col)
+    row_add(acc, wr, self + col, lead + col, j0[i] * r0 + j1[i] * r1);
+  if (use_sj) {
+    // W factor w_l[i] = jc0[i] jp0[l] + jc1[i] jp1[l]; WV = W sym3(V^-1).
+    T wl[3][NP], wv[3][NP];
+#pragma unroll
+    for (int l = 0; l < 3; ++l)
+#pragma unroll
+      for (int i = 0; i < NP; ++i) wl[l][i] = j0[i] * q[l] + j1[i] * q[3 + l];
+#pragma unroll
+    for (int l = 0; l < 3; ++l)
+#pragma unroll
+      for (int i = 0; i < NP; ++i)
+        wv[l][i] = wl[0][i] * vi[sym_idx(0, l)] + wl[1][i] * vi[sym_idx(1, l)] +
+                   wl[2][i] * vi[sym_idx(2, l)];
+#pragma unroll
+    for (int dd = 0; dd < NP; ++dd)
+#pragma unroll
+      for (int i = 0; i < NP - dd; ++i, ++col)
+        row_add(acc, wr, self + col, lead + col,
+                wv[0][i] * wl[0][i + dd] + wv[1][i] * wl[1][i + dd] +
+                    wv[2][i] * wl[2][i + dd]);
+  }
+  return col;
+}
+
+// (W^T x) of one slot added to wtx[3]: x read from column `col` of the
+// staged (NP, W + 1) window; `ts` is the slot's (G, Tb, Pc) offset and GTP
+// the plane stride of jc/jp.
+template <typename T, int NP>
+__device__ __forceinline__ void wt_slot(const T* s_xw, int col, int W, const T* jc,
+                                        const T* jp, size_t ts, size_t GTP, T wtx[3]) {
+  T s0 = T(0), s1 = T(0);
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const T xg = s_xw[i * (W + 1) + col];
+    s0 += jc[i * GTP + ts] * xg;
+    s1 += jc[(NP + i) * GTP + ts] * xg;
+  }
+#pragma unroll
+  for (int l = 0; l < 3; ++l) wtx[l] += jp[l * GTP + ts] * s0 + jp[(3 + l) * GTP + ts] * s1;
+}
+
+// z = jc (jp y) of one slot reduced into the (NP, W) tile at row w (-1 =
+// none; the whole warp calls it).
+template <typename T, int NP>
+__device__ __forceinline__ void w_slot(T* acc, int w, int W, const T* jc, const T* jp,
+                                       size_t ts, size_t GTP, T y0, T y1, T y2) {
+  const WarpRow wr = warp_row(w);
+  if (!wr.any) return;  // warp-uniform
+  T q[6], j[2 * NP];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) q[k] = w >= 0 ? jp[k * GTP + ts] : T(0);
+#pragma unroll
+  for (int k = 0; k < 2 * NP; ++k) j[k] = w >= 0 ? jc[k * GTP + ts] : T(0);
+  const T s0p = q[0] * y0 + q[1] * y1 + q[2] * y2;
+  const T s1p = q[3] * y0 + q[4] * y1 + q[5] * y2;
+  const int ws = w >= 0 ? w : 0;
+#pragma unroll
+  for (int i = 0; i < NP; ++i)
+    row_add(acc, wr, i * W + ws, i * W + wr.w0, j[i] * s0p + j[NP + i] * s1p);
 }
 
 // ---------------------------------------------------------------- host --

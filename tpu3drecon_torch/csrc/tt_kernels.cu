@@ -377,14 +377,6 @@ int cost_launch(const void* table, const void* cam_ids, const void* pts,
 
 extern "C" {
 
-// Shared memory one block may opt in to on CUDA device `device` (bytes).
-int tt_smem_limit(int device) {
-  int limit = 0;
-  const cudaError_t e = cudaDeviceGetAttribute(
-      &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  return e == cudaSuccess ? limit : -1;
-}
-
 int tt_cam_normal(int dtype, int np, const void* table, const void* cam_ids,
                   const void* pts, const void* uv, const void* mask,
                   const void* inv_w, void* jc, void* jp, void* v6, void* gpt,

@@ -46,8 +46,10 @@
 // kernel_error_string in common.cu).  The kernels allocate nothing;
 // scalars that change every LM iteration (lam, inv_w) are read from device
 // memory, so no launch needs a host sync.  The slot formulas, the staged
-// window with its zero row and the warp-aggregated row reduction live in
-// slot.cuh, shared with the dense track-table kernels (tt_kernels.cu).
+// window with its zero row, the contribution columns, the two halves of the
+// coupling product and the warp-aggregated row reduction live in slot.cuh,
+// shared with the route kernels (wtt_route_kernels.cu) and the dense
+// track-table kernels (tt_kernels.cu).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -161,37 +163,8 @@ lin_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ tw,
     const int lead = wr.w0 * K;
     const T* j0 = o.jc;
     const T* j1 = o.jc + NP;
-    int col = 0;
-#pragma unroll
-    for (int dd = 0; dd < NP; ++dd)
-#pragma unroll
-      for (int i = 0; i < NP - dd; ++i, ++col)
-        row_add(s_acc, wr, self + col, lead + col,
-                j0[i] * j0[i + dd] + j1[i] * j1[i + dd]);
-#pragma unroll
-    for (int i = 0; i < NP; ++i, ++col)
-      row_add(s_acc, wr, self + col, lead + col, j0[i] * o.r0 + j1[i] * o.r1);
-    if (f.use_sj) {
-      // W factor w_l[i] = jc0[i] jp0[l] + jc1[i] jp1[l]; WV = W sym3(V^-1).
-      T wl[3][NP], wv[3][NP];
-#pragma unroll
-      for (int l = 0; l < 3; ++l)
-#pragma unroll
-        for (int i = 0; i < NP; ++i) wl[l][i] = j0[i] * o.jp[l] + j1[i] * o.jp[3 + l];
-#pragma unroll
-      for (int l = 0; l < 3; ++l)
-#pragma unroll
-        for (int i = 0; i < NP; ++i)
-          wv[l][i] = wl[0][i] * vi[sym_idx(0, l)] + wl[1][i] * vi[sym_idx(1, l)] +
-                     wl[2][i] * vi[sym_idx(2, l)];
-#pragma unroll
-      for (int dd = 0; dd < NP; ++dd)
-#pragma unroll
-        for (int i = 0; i < NP - dd; ++i, ++col)
-          row_add(s_acc, wr, self + col, lead + col,
-                  wv[0][i] * wl[0][i + dd] + wv[1][i] * wl[1][i + dd] +
-                      wv[2][i] * wl[2][i + dd]);
-    }
+    const int col = add_contribs<T, NP>(s_acc, wr, self, lead, j0, j1, o.jp, o.r0,
+                                        o.r1, vi, f.use_sj);
     const T s0r = o.jp[0] * vw0 + o.jp[1] * vw1 + o.jp[2] * vw2;
     const T s1r = o.jp[3] * vw0 + o.jp[4] * vw1 + o.jp[5] * vw2;
 #pragma unroll
@@ -218,24 +191,7 @@ __device__ __forceinline__ void wt_x(const T* s_xw, const int16_t* wcam,
   for (int t = 0; t < Tb; ++t) {
     const size_t ts = ((size_t)g * Tb + t) * Pc + p;
     const int w = wcam[ts];
-    const int col = w >= 0 ? w : W;
-    T s0 = T(0), s1 = T(0);
-#pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      const T xg = s_xw[i * (W + 1) + col];
-      s0 += jc[i * GTP + ts] * xg;
-      s1 += jc[(NP + i) * GTP + ts] * xg;
-    }
-#pragma unroll
-    for (int l = 0; l < 3; ++l) wtx[l] += jp[l * GTP + ts] * s0 + jp[(3 + l) * GTP + ts] * s1;
-  }
-}
-
-template <typename T, int NP>
-__device__ __forceinline__ void stage_xw(const T* xw_t, T* s_xw, int W) {
-  for (int i = threadIdx.x; i < NP * (W + 1); i += kBlock) {
-    const int r = i / (W + 1), w = i % (W + 1);
-    s_xw[i] = w < W ? xw_t[r * W + w] : T(0);
+    wt_slot<T, NP>(s_xw, w >= 0 ? w : W, W, jc, jp, ts, GTP, wtx);
   }
 }
 
@@ -268,20 +224,7 @@ coupling_kernel(const T* __restrict__ xw_t, const int16_t* __restrict__ wcam,
   // Phase 2: z = jc (jp y) reduced into the (NP, W) window rows.
   for (int t = 0; t < Tb; ++t) {
     const size_t ts = ((size_t)g * Tb + t) * Pc + p;
-    const int w = live ? int(wcam[ts]) : -1;
-    const WarpRow wr = warp_row(w);
-    if (!wr.any) continue;  // warp-uniform
-    T q[6], j[2 * NP];
-#pragma unroll
-    for (int k = 0; k < 6; ++k) q[k] = w >= 0 ? jp[k * GTP + ts] : T(0);
-#pragma unroll
-    for (int k = 0; k < 2 * NP; ++k) j[k] = w >= 0 ? jc[k * GTP + ts] : T(0);
-    const T s0p = q[0] * y0 + q[1] * y1 + q[2] * y2;
-    const T s1p = q[3] * y0 + q[4] * y1 + q[5] * y2;
-    const int ws = w >= 0 ? w : 0;
-#pragma unroll
-    for (int i = 0; i < NP; ++i)
-      row_add(s_acc, wr, i * W + ws, i * W + wr.w0, j[i] * s0p + j[NP + i] * s1p);
+    w_slot<T, NP>(s_acc, live ? int(wcam[ts]) : -1, W, jc, jp, ts, GTP, y0, y1, y2);
   }
   __syncthreads();
   flush(s_acc, out + (size_t)g * NP * W, NP * W);

@@ -74,8 +74,17 @@ _SIGNATURES = {
     "tt_w_times": [_I, _I] + [_P] * 6 + [_I] * 3 + [_P],
     # dtype, table, cam_ids, pts, uv, mask, inv_w, lane, C, Tb, Pb, loss, stream
     "tt_cost": [_I] + [_P] * 7 + [_I] * 4 + [_P],
+    # dtype, wcam, tw, out, G, N, W, stream
+    "wtt_cam_planes": [_I] + [_P] * 3 + [_I] * 3 + [_P],
+    # dtype, np, wcam, jc, jp, r, vinv, rows, G, Tb, Pc, W, use_sj, stream
+    "wtt_contrib": [_I, _I] + [_P] * 6 + [_I] * 5 + [_P],
+    # dtype, np, y, wcam, jc, jp, out, G, Tb, Pc, W, stream
+    "wtt_w_rows": [_I, _I] + [_P] * 5 + [_I] * 4 + [_P],
+    # dtype, np, onehot_float, xw_t, onehot, jc, jp, vinv, out, G, Tb, Pc, W,
+    # stream
+    "wtt_coupling_onehot": [_I, _I, _I] + [_P] * 6 + [_I] * 4 + [_P],
     # device -> opt-in shared memory per block (bytes)
-    "tt_smem_limit": [_I],
+    "kernel_smem_limit": [_I],
 }
 
 _LIB = []  # the loaded library, once per process (sources do not change under it)
@@ -174,6 +183,17 @@ def library() -> ctypes.CDLL:
     lib.kernel_error_string.restype = ctypes.c_char_p
     _LIB.append(lib)
     return lib
+
+
+_SMEM_LIMIT = {}  # CUDA device index -> opt-in shared memory per block
+
+
+def smem_limit(t: torch.Tensor) -> int:
+    """Shared memory (bytes) one block may use on the card that holds ``t``."""
+    dev = t.device.index if t.device.index is not None else torch.cuda.current_device()
+    if dev not in _SMEM_LIMIT:
+        _SMEM_LIMIT[dev] = library().kernel_smem_limit(dev)
+    return _SMEM_LIMIT[dev]
 
 
 def check(lib: ctypes.CDLL, name: str, code: int) -> None:

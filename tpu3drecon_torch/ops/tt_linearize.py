@@ -54,7 +54,6 @@ W_COUNTS = _build.LaunchCounter()  # B15
 COST_COUNTS = _build.LaunchCounter()  # B16
 
 _V6_PAIRS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
-_SMEM_LIMIT = {}  # CUDA device index -> opt-in shared memory per block
 
 
 def shared_memory_bytes(kernel: str, n_cams: int, np_cam: int, itemsize: int) -> int:
@@ -75,15 +74,13 @@ def shared_memory_bytes(kernel: str, n_cams: int, np_cam: int, itemsize: int) ->
 def _check_smem(name: str, n_cams: int, np_cam: int, t: torch.Tensor) -> None:
     """Raise ``ValueError`` when the kernel's tiles exceed the card's shared
     memory per block: the kernels take no wider camera axis."""
-    dev = t.device.index if t.device.index is not None else torch.cuda.current_device()
-    if dev not in _SMEM_LIMIT:
-        _SMEM_LIMIT[dev] = _build.library().tt_smem_limit(dev)
+    limit = _build.smem_limit(t)
     need = shared_memory_bytes(name, n_cams, np_cam, t.element_size())
-    if need > _SMEM_LIMIT[dev]:
+    if need > limit:
         raise ValueError(
             f"{name}: {n_cams} cameras at np={np_cam} in {t.dtype} need {need} "
             f"bytes of shared memory per block, above this card's limit of "
-            f"{_SMEM_LIMIT[dev]} bytes; the tt kernels take no more cameras"
+            f"{limit} bytes; the tt kernels take no more cameras"
         )
 
 

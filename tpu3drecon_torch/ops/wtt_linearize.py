@@ -1,6 +1,7 @@
-"""Kernel B1: the fully fused wtt linearization.
+"""Kernel B1, the fully fused wtt linearization, and kernels B7 and B8, the
+two halves of the unfused one.
 
-Replaces ``tpu3drecon/ops/pallas/wtt_linearize.py:wtt_linearize_fused_idx``
+B1 replaces ``tpu3drecon/ops/pallas/wtt_linearize.py:wtt_linearize_fused_idx``
 (body ``_lin_fused_kernel``).  Per bucket it selects each slot's camera row
 through ``wcam``, builds the residual and Jacobian planes
 (``ba_tt._tt_blocks``), the point normal (damped V^-1, g_pt, damp_pt), and
@@ -11,13 +12,24 @@ reduces the window-camera rows (G, W, K) with columns
 in the diagonal-major ``_triu_pairs`` order.  jc/jp are written for the CG
 kernels.
 
-CUDA kernel (``csrc/wtt_kernels.cu:lin_kernel``): one thread per point
-column, two passes over the track (planes and point normal, then the K
-columns into a shared-memory (W, K) tile with atomics, flushed to the
+B7 replaces ``wtt_cam_planes_idx`` (body ``_cam_planes_kernel``): the
+per-slot camera planes (G, 19, Tb, Pc), exact zeros on padded slots.  B8
+replaces ``wtt_contrib_rows_idx`` (body ``_contrib_kernel``): the rows
+(G, W, K) with columns u | g [| coupling] (B1's without the rhs) from jc,
+jp, r and v_inv in device memory.  The unfused linearization of
+``solvers/ba_wtt.py`` runs B7, the Jacobian planes and point normal in
+PyTorch, then B8: the JAX engine's XLA route, whose two one-hot einsums
+these kernels compute without the one-hot.
+
+CUDA kernels: B1 (``csrc/wtt_kernels.cu:lin_kernel``) takes one thread per
+point column, two passes over the track (planes and point normal, then the
+K columns into a shared-memory (W, K) tile with atomics, flushed to the
 global rows with one atomic per nonzero entry).  On the H100 it is bound by
 the shared-memory atomics: K = 88 per slot at np = 8; warps whose live
-lanes share a window row reduce with shuffles first.  Row sums are
-atomic, so f32 rows vary in the last bits from run to run.
+lanes share a window row reduce with shuffles first.  B8
+(``csrc/wtt_route_kernels.cu:contrib_kernel``) is B1's pass 2 alone and B7
+(``cam_planes_kernel``) a per-slot copy bound by the 19 planes it writes.
+Row sums are atomic, so f32 rows vary in the last bits from run to run.
 """
 
 from __future__ import annotations
@@ -40,22 +52,33 @@ from tpu3drecon_torch.solvers.ba_tt import (
     _tt_blocks,
 )
 
-COUNTS = _build.LaunchCounter()
+COUNTS = _build.LaunchCounter()  # B1
+CAM_PLANES_COUNTS = _build.LaunchCounter()  # B7
+CONTRIB_COUNTS = _build.LaunchCounter()  # B8
 
 _SYM = ((0, 1, 2), (1, 3, 4), (2, 4, 5))
 
 
-def n_rows_cols(np_cam: int, use_sj: bool) -> int:
-    """K, the column count of the linearize rows."""
+def n_contrib_cols(np_cam: int, use_sj: bool) -> int:
+    """K of the contribution rows: u | g [| coupling] (kernel B8)."""
     n_triu = np_cam * (np_cam + 1) // 2
-    return n_triu + np_cam + (n_triu if use_sj else 0) + np_cam
+    return n_triu + np_cam + (n_triu if use_sj else 0)
 
 
-def _check_config(blocks_config, np_cam: int, want_od: bool) -> None:
+def n_rows_cols(np_cam: int, use_sj: bool) -> int:
+    """K, the column count of the linearize rows (B8's and the rhs)."""
+    return n_contrib_cols(np_cam, use_sj) + np_cam
+
+
+def _refuse_od(want_od: bool) -> None:
     if want_od:
         raise NotImplementedError(
             "want_od (band preconditioner rows) belongs to the BAL-scale slice"
         )
+
+
+def _check_config(blocks_config, np_cam: int, want_od: bool) -> None:
+    _refuse_od(want_od)
     want = 8 + 2 * bool(blocks_config.optimize_dist) + 2 * bool(blocks_config.optimize_pp)
     if np_cam != want:
         raise ValueError(f"np_cam={np_cam} does not match the config's {want}")
@@ -96,6 +119,24 @@ def wtt_linearize_fused_idx_plain(
     )
     jc, jp, r = blocks.jc, blocks.jp, blocks.r  # (k, G, Tb, Pc)
 
+    v_inv, g_pt, damp = point_normal(jp, r, lam)
+    vw = _sym3_matvec(v_inv, g_pt)  # V^-1 g_pt, (G, Pc) planes
+
+    parts = _contrib_parts(jc, jp, r, v_inv, np_cam, use_sj)
+    vwb = [x[:, None, :] for x in vw]
+    s0r = jp[0] * vwb[0] + jp[1] * vwb[1] + jp[2] * vwb[2]
+    s1r = jp[3] * vwb[0] + jp[4] * vwb[1] + jp[5] * vwb[2]
+    parts.append(jc[:np_cam] * s0r[None] + jc[np_cam:] * s1r[None])
+    rows = reduce_rows(torch.cat(parts, dim=0), wcam, window)
+    return rows, jc, jp, v_inv, g_pt, damp
+
+
+def point_normal(jp, r, lam):
+    """(v_inv (6, G, Pc), g_pt (3, G, Pc), damp_pt (3, G, Pc)) from the
+    slot planes jp (6, G, Tb, Pc) and r (2, G, Tb, Pc): V and g_pt summed
+    over the track, the diagonal damped by lam * max(V_ii, 1e-8), then the
+    closed-form inverse (the JAX engine's unfused order,
+    ``ba_wtt.py:436-448``)."""
     v6 = torch.stack([
         torch.sum(jp[i] * jp[j] + jp[3 + i] * jp[3 + j], dim=1)
         for (i, j) in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
@@ -107,9 +148,12 @@ def wtt_linearize_fused_idx_plain(
     v6_d = torch.stack(
         [v6[0] + damp[0], v6[1], v6[2], v6[3] + damp[1], v6[4], v6[5] + damp[2]]
     )
-    v_inv = _sym3_inv_planes(v6_d)
-    vw = _sym3_matvec(v_inv, g_pt)  # V^-1 g_pt, (G, Pc) planes
+    return _sym3_inv_planes(v6_d), g_pt, damp
 
+
+def _contrib_parts(jc, jp, r, v_inv, np_cam: int, use_sj: bool) -> list:
+    """Per-slot contribution planes u | g [| Schur-Jacobi coupling], in the
+    diagonal-major ``_triu_pairs`` order (kernel B1's pass 2 and B8)."""
     jc0, jc1 = jc[:np_cam], jc[np_cam:]
     parts = [
         jc0[: np_cam - d] * jc0[d:] + jc1[: np_cam - d] * jc1[d:]
@@ -131,12 +175,7 @@ def wtt_linearize_fused_idx_plain(
             + wv_l[2][: np_cam - d] * w_l[2][d:]
             for d in range(np_cam)
         )
-    vwb = [x[:, None, :] for x in vw]
-    s0r = jp[0] * vwb[0] + jp[1] * vwb[1] + jp[2] * vwb[2]
-    s1r = jp[3] * vwb[0] + jp[4] * vwb[1] + jp[5] * vwb[2]
-    parts.append(jc0 * s0r[None] + jc1 * s1r[None])
-    rows = reduce_rows(torch.cat(parts, dim=0), wcam, window)
-    return rows, jc, jp, v_inv, g_pt, damp
+    return parts
 
 
 def _launch(wcam, tw, pts, uv, mask, lam, inv_w, cfg, np_cam, use_sj):
@@ -174,3 +213,90 @@ def _launch(wcam, tw, pts, uv, mask, lam, inv_w, cfg, np_cam, use_sj):
     _build.check(lib, name, code)
     COUNTS.kernel += 1
     return rows, jc, jp, v_inv, g_pt, damp
+
+
+# ------------------------------------------------------------------ B7 ---
+def wtt_cam_planes_idx_plain(wcam, tw, tb: int):
+    """Plain PyTorch version of ``wtt_cam_planes_idx``."""
+    CAM_PLANES_COUNTS.plain += 1
+    return select_rows(tw, wcam, tb, wcam.shape[1] // tb).transpose(0, 1)
+
+
+def wtt_cam_planes_idx(wcam, tw, tb: int):
+    """(G, 19, Tb, Pc) per-slot camera planes: ``tw[g, wcam[g, n]]`` for
+    every slot n = t * Pc + p of group g, exact zeros for padding (-1).
+
+    ``wcam`` (G, Tb*Pc) int16, ``tw`` (G, W, 19) window camera rows.  CPU
+    tensors run the plain version, CUDA tensors the kernel."""
+    if not is_cuda_call(tw):
+        return wtt_cam_planes_idx_plain(wcam, tw, tb)
+    name = "wtt_cam_planes_idx"
+    g, window, d = tw.shape
+    n = wcam.shape[1]
+    check_inputs(name, tw.device, tw.dtype, wcam=wcam, tw=tw)
+    check_shape(name, "wcam", wcam, (g, n))
+    check_shape(name, "tw", tw, (g, window, CAM_TABLE_DIM))
+    if n % tb:
+        raise ValueError(f"{name}: {n} slots per group is not a multiple of Tb={tb}")
+    out = torch.empty((g, d, tb, n // tb), dtype=tw.dtype, device=tw.device)
+    lib = _build.library()
+    code = lib.wtt_cam_planes(
+        _build.dtype_code(tw.dtype), wcam.data_ptr(), tw.data_ptr(), out.data_ptr(),
+        g, n, window, _build.stream_ptr(tw.device),
+    )
+    _build.check(lib, name, code)
+    CAM_PLANES_COUNTS.kernel += 1
+    return out
+
+
+# ------------------------------------------------------------------ B8 ---
+def wtt_contrib_rows_idx_plain(wcam, jc, jp, r, v_inv, np_cam: int, window: int,
+                               use_sj: bool, want_od: bool = False):
+    """Plain PyTorch version of ``wtt_contrib_rows_idx``."""
+    _refuse_od(want_od)
+    CONTRIB_COUNTS.plain += 1
+    return reduce_rows(
+        torch.cat(_contrib_parts(jc, jp, r, v_inv, np_cam, use_sj), dim=0),
+        wcam, window,
+    )
+
+
+def wtt_contrib_rows_idx(wcam, jc, jp, r, v_inv, np_cam: int, window: int,
+                         use_sj: bool, want_od: bool = False):
+    """Window-camera contribution rows (G, W, K), K = n_triu + np
+    [+ n_triu with ``use_sj``], columns u | g [| coupling] in the
+    diagonal-major ``_triu_pairs`` order.
+
+    ``wcam`` (G, Tb*Pc) int16, ``jc`` (2np, G, Tb, Pc), ``jp`` (6, G, Tb,
+    Pc), ``r`` (2, G, Tb, Pc), ``v_inv`` (6, G, Pc).  ``want_od`` (the band
+    preconditioner rows) raises, as B1's does.  CPU tensors run the plain
+    version, CUDA tensors the kernel; a (W, K) tile above the card's shared
+    memory per block raises ``ValueError``."""
+    _refuse_od(want_od)
+    if not is_cuda_call(jc):
+        return wtt_contrib_rows_idx_plain(wcam, jc, jp, r, v_inv, np_cam, window, use_sj)
+    name = "wtt_contrib_rows_idx"
+    _, g, tb, pc = jp.shape
+    check_inputs(name, jc.device, jc.dtype, wcam=wcam, jc=jc, jp=jp, r=r, v_inv=v_inv)
+    check_shape(name, "wcam", wcam, (g, tb * pc))
+    check_shape(name, "jc", jc, (2 * np_cam, g, tb, pc))
+    check_shape(name, "r", r, (2, g, tb, pc))
+    check_shape(name, "v_inv", v_inv, (6, g, pc))
+    k = n_contrib_cols(np_cam, use_sj)
+    need = window * k * jc.element_size()
+    limit = _build.smem_limit(jc)
+    if need > limit:
+        raise ValueError(
+            f"{name}: a ({window}, {k}) {jc.dtype} row tile needs {need} bytes of "
+            f"shared memory per block, above this card's limit of {limit} bytes"
+        )
+    rows = torch.zeros((g, window, k), dtype=jc.dtype, device=jc.device)
+    lib = _build.library()
+    code = lib.wtt_contrib(
+        _build.dtype_code(jc.dtype), np_cam, wcam.data_ptr(), jc.data_ptr(),
+        jp.data_ptr(), r.data_ptr(), v_inv.data_ptr(), rows.data_ptr(), g, tb, pc,
+        window, int(use_sj), _build.stream_ptr(jc.device),
+    )
+    _build.check(lib, name, code)
+    CONTRIB_COUNTS.kernel += 1
+    return rows

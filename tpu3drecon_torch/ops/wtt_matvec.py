@@ -1,11 +1,17 @@
-"""Kernels B2 and B3: the wtt Schur coupling product and its W^T x half.
+"""Kernels B2, B3, B5 and B6: the wtt Schur coupling product and its halves.
 
 B2 replaces ``tpu3drecon/ops/pallas/wtt_matvec.py:wtt_coupling_rows_idx``
 (body ``_matvec_kernel_idx``): the CG operator's rows (G, np, W) of
 W V^-1 W^T x in one pass — W^T x accumulated over each point's track,
 y = sym3(V^-1) W^T x, then z = jc (jp y) reduced into the window rows.
 B3 replaces ``wtt_wt_planes_idx`` (body ``_wt_kernel_idx``): the
-back-substitution's W^T x point planes (3, G, Pc).
+back-substitution's W^T x point planes (3, G, Pc).  B5 replaces
+``wtt_w_rows_idx`` (body ``_w_kernel_idx``): the W y rows (G, np, W), B2's
+second half, the Schur rhs when the linearization is unfused.  B6 replaces
+``wtt_coupling_rows_fused`` (body ``_matvec_kernel``): B2's rows with the
+slot's window row read from the dense one-hot (G, W, Tb*Pc) instead of
+``wcam`` (``matvec_kernel=True``/``"fused"``); its plain version is the
+literal one-hot product.
 
 CUDA kernels (``csrc/wtt_kernels.cu``): one thread per point column, the
 group's x window staged in shared memory.  B2 keeps W^T x and y in
@@ -13,7 +19,11 @@ registers and reduces only z across threads (shared-memory atomics into an
 (np, W) tile, one global atomic per nonzero entry); on the H100 it is
 bound by those atomics and the jc/jp stream (2 np + 6 planes per slot).
 B3 has no cross-thread reduction and is bound by the jc/jp bytes it reads.
-B2's rows are atomic sums, so f32 rows vary in the last bits.
+B5 and B6 (``csrc/wtt_route_kernels.cu``) reuse B2's per-slot halves; B6
+scans each slot's one-hot column and keeps its first nonzero row, so it
+agrees with the literal product on a one-hot with at most one 1 per column
+and reads the first 1 of a malformed column.  B2, B5 and B6 rows are atomic
+sums, so f32 rows vary in the last bits.
 """
 
 from __future__ import annotations
@@ -30,8 +40,10 @@ from tpu3drecon_torch.ops._wtt_common import (
 )
 from tpu3drecon_torch.solvers.ba_tt import _sym3_matvec
 
-COUPLING_COUNTS = _build.LaunchCounter()
-WT_COUNTS = _build.LaunchCounter()
+COUPLING_COUNTS = _build.LaunchCounter()  # B2
+WT_COUNTS = _build.LaunchCounter()  # B3
+W_ROWS_COUNTS = _build.LaunchCounter()  # B5
+FUSED_COUNTS = _build.LaunchCounter()  # B6
 
 
 def _wt_x(xw_t, wcam, jc, jp):
@@ -48,16 +60,21 @@ def _wt_x(xw_t, wcam, jc, jp):
     return [torch.sum(jp[l] * s0 + jp[3 + l] * s1, dim=1) for l in range(3)]
 
 
+def _w_z(y, jc, jp):
+    """z = jc (jp y) slot planes (np, G, Tb, Pc) of point planes y
+    [(G, Pc)] * 3: phase 2 of B2, B5 and B6 before the reduction."""
+    np_cam = jc.shape[0] // 2
+    yb = [t[:, None, :] for t in y]
+    s0p = jp[0] * yb[0] + jp[1] * yb[1] + jp[2] * yb[2]
+    s1p = jp[3] * yb[0] + jp[4] * yb[1] + jp[5] * yb[2]
+    return jc[:np_cam] * s0p[None] + jc[np_cam:] * s1p[None]
+
+
 def wtt_coupling_rows_idx_plain(xw_t, wcam, jc, jp, v_inv):
     """Plain PyTorch version of ``wtt_coupling_rows_idx``."""
     COUPLING_COUNTS.plain += 1
-    np_cam = jc.shape[0] // 2
-    window = xw_t.shape[2]
-    y = [t[:, None, :] for t in _sym3_matvec(v_inv, _wt_x(xw_t, wcam, jc, jp))]
-    s0p = jp[0] * y[0] + jp[1] * y[1] + jp[2] * y[2]
-    s1p = jp[3] * y[0] + jp[4] * y[1] + jp[5] * y[2]
-    z = jc[:np_cam] * s0p[None] + jc[np_cam:] * s1p[None]  # (np, G, Tb, Pc)
-    return reduce_rows(z, wcam, window).transpose(1, 2)
+    z = _w_z(_sym3_matvec(v_inv, _wt_x(xw_t, wcam, jc, jp)), jc, jp)
+    return reduce_rows(z, wcam, xw_t.shape[2]).transpose(1, 2)
 
 
 def wtt_wt_planes_idx_plain(xw_t, wcam, jc, jp):
@@ -121,4 +138,88 @@ def wtt_wt_planes_idx(xw_t, wcam, jc, jp):
     )
     _build.check(lib, name, code)
     WT_COUNTS.kernel += 1
+    return out
+
+
+# ------------------------------------------------------------------ B5 ---
+def wtt_w_rows_idx_plain(y, wcam, jc, jp, window: int):
+    """Plain PyTorch version of ``wtt_w_rows_idx``."""
+    W_ROWS_COUNTS.plain += 1
+    return reduce_rows(_w_z(y, jc, jp), wcam, window).transpose(1, 2)
+
+
+def wtt_w_rows_idx(y, wcam, jc, jp, window: int):
+    """(W y) camera rows (G, np, W) of the point planes ``y`` (3, G, Pc)
+    for one bucket (``wcam``, ``jc``, ``jp`` as ``wtt_coupling_rows_idx``).
+    CPU tensors run the plain version, CUDA tensors the kernel."""
+    if not is_cuda_call(y):
+        return wtt_w_rows_idx_plain(y, wcam, jc, jp, window)
+    name = "wtt_w_rows_idx"
+    np_cam = jc.shape[0] // 2
+    _, g, tb, pc = jp.shape
+    check_inputs(name, y.device, y.dtype, y=y, wcam=wcam, jc=jc, jp=jp)
+    check_shape(name, "y", y, (3, g, pc))
+    check_shape(name, "wcam", wcam, (g, tb * pc))
+    check_shape(name, "jc", jc, (2 * np_cam, g, tb, pc))
+    out = torch.zeros((g, np_cam, window), dtype=y.dtype, device=y.device)
+    lib = _build.library()
+    code = lib.wtt_w_rows(
+        _build.dtype_code(y.dtype), np_cam, y.data_ptr(), wcam.data_ptr(),
+        jc.data_ptr(), jp.data_ptr(), out.data_ptr(), g, tb, pc, window,
+        _build.stream_ptr(y.device),
+    )
+    _build.check(lib, name, code)
+    W_ROWS_COUNTS.kernel += 1
+    return out
+
+
+# ------------------------------------------------------------------ B6 ---
+def wtt_coupling_rows_fused_plain(xw_t, onehot, jc, jp, v_inv):
+    """Plain PyTorch version of ``wtt_coupling_rows_fused``: the literal
+    one-hot products (the one-hot cast to the data's dtype)."""
+    FUSED_COUNTS.plain += 1
+    np_cam = jc.shape[0] // 2
+    _, g, tb, pc = jp.shape
+    oh = onehot.to(xw_t.dtype)  # (G, W, Tb*Pc)
+    xg = torch.einsum("giw,gwn->ign", xw_t, oh).reshape(np_cam, g, tb, pc)
+    s0 = torch.sum(jc[:np_cam] * xg, dim=0)
+    s1 = torch.sum(jc[np_cam:] * xg, dim=0)
+    wtx = [torch.sum(jp[l] * s0 + jp[3 + l] * s1, dim=1) for l in range(3)]
+    z = _w_z(_sym3_matvec(v_inv, wtx), jc, jp)
+    return torch.einsum("kgn,gwn->gkw", z.reshape(np_cam, g, tb * pc), oh)
+
+
+def wtt_coupling_rows_fused(xw_t, onehot, jc, jp, v_inv):
+    """Coupling rows (G, np, W) of W V^-1 W^T x for one bucket, the slots'
+    window rows read from ``onehot`` (G, W, Tb*Pc), int8 or the data's
+    float dtype; other inputs as ``wtt_coupling_rows_idx``.  CPU tensors
+    run the plain version, CUDA tensors the kernel."""
+    if not is_cuda_call(xw_t):
+        return wtt_coupling_rows_fused_plain(xw_t, onehot, jc, jp, v_inv)
+    name = "wtt_coupling_rows_fused"
+    np_cam = jc.shape[0] // 2
+    _, g, tb, pc = jp.shape
+    window = xw_t.shape[2]
+    if onehot.dtype not in (torch.int8, xw_t.dtype):
+        raise ValueError(
+            f"{name}: onehot has dtype {onehot.dtype}, expected int8 or {xw_t.dtype}"
+        )
+    if window > 32767:
+        raise ValueError(f"{name}: window {window} exceeds 32767 rows")
+    check_inputs(name, xw_t.device, xw_t.dtype, xw_t=xw_t, jc=jc, jp=jp, v_inv=v_inv)
+    check_inputs(name, xw_t.device, onehot.dtype, onehot=onehot)
+    check_shape(name, "xw_t", xw_t, (g, np_cam, window))
+    check_shape(name, "onehot", onehot, (g, window, tb * pc))
+    check_shape(name, "jc", jc, (2 * np_cam, g, tb, pc))
+    check_shape(name, "v_inv", v_inv, (6, g, pc))
+    out = torch.zeros((g, np_cam, window), dtype=xw_t.dtype, device=xw_t.device)
+    lib = _build.library()
+    code = lib.wtt_coupling_onehot(
+        _build.dtype_code(xw_t.dtype), np_cam, int(onehot.dtype != torch.int8),
+        xw_t.data_ptr(), onehot.data_ptr(), jc.data_ptr(), jp.data_ptr(),
+        v_inv.data_ptr(), out.data_ptr(), g, tb, pc, window,
+        _build.stream_ptr(xw_t.device),
+    )
+    _build.check(lib, name, code)
+    FUSED_COUNTS.kernel += 1
     return out

@@ -94,9 +94,9 @@ def grid_bucketed_problem_from_numpy(d: dict, device=None) -> BAGridBucketedProb
 
 def wtt_problem_from_numpy(d: dict, device=None) -> BAWTTProblem:
     """``BAWTTProblem`` from ``cameras`` (a dict), ``buckets`` (a list of
-    dicts with the arrays ``uv``, ``mask``, ``cam_base``, ``wcam`` and the
-    ints ``window``, ``global_tiles``, ``global_tile0``; a dense ``onehot``
-    is ignored), the arrays ``points3d``, ``avg_cam_width``,
+    dicts with the arrays ``uv``, ``mask``, ``cam_base``, ``wcam``, the
+    dense ``onehot`` or None, and the ints ``window``, ``global_tiles``,
+    ``global_tile0``), the arrays ``points3d``, ``avg_cam_width``,
     ``point_rows``, ``cam_rows`` (or None) and the static ints
     ``n_real_points``, ``bucket_offsets``, ``window``, ``c_pad``."""
     device = resolve_device(device)
@@ -110,6 +110,7 @@ def wtt_problem_from_numpy(d: dict, device=None) -> BAWTTProblem:
             mask=_t(b["mask"], device),
             cam_base=_t(b["cam_base"], device),
             wcam=_t(wcam, device),
+            onehot=_t(b.get("onehot"), device),
             window=int(b["window"]),
             global_tiles=int(b["global_tiles"]),
             global_tile0=int(b["global_tile0"]),

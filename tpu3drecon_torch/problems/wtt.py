@@ -6,8 +6,10 @@ and chunked along the point axis, so each chunk's observations fall inside
 a narrow, 128-aligned camera WINDOW.  Each slot stores its
 window-relative camera index in ``wcam`` (int16, -1 = padding); the
 kernels gather the window camera row through it directly.  The dense
-(G, W, Tb*Pc) one-hot of the JAX layout is never built: on the GPU a
-gather is cheap, so the compact index is the whole encoding.
+(G, W, Tb*Pc) one-hot of the JAX layout is built on the target device
+from ``wcam`` unless deferred (``defer_onehot=True``); only the
+``matvec_kernel=True``/``"fused"`` route reads it (kernel B6), every
+other route reads ``wcam``.
 
 Packing is host-side numpy, identical to the JAX packer step for step, so
 both packages produce bit-equal arrays; ``device`` places the result.
@@ -26,9 +28,6 @@ from tpu3drecon_torch.problems.grid import grid_bucketed_from_flat
 from tpu3drecon_torch.problems.packing import BAProblem, CameraParams, _to
 
 CAM_TILE = 128
-# Bytes per dense one-hot entry in the JAX layout (int8); the size guard
-# below keeps the JAX packer's ValueError contract.
-_ONEHOT_ITEMSIZE = 1
 
 
 @dataclass(frozen=True)
@@ -42,12 +41,15 @@ class WTTBucket:
     ``global_tiles`` > 0 the last ``128 * global_tiles`` window rows address
     the shared global camera tiles starting at ``global_tile0``.
     ``window`` is the TOTAL window row count (local + global rows).
+    ``onehot[g, w, n]`` is 1 where ``wcam[g, n] == w`` (padding columns
+    are all zero); None while deferred.
     """
 
     uv: torch.Tensor  # (G, 2, Tb, Pc)
     mask: torch.Tensor  # (G, Tb, Pc)
     cam_base: torch.Tensor  # (G,) int32, multiples of 128
     wcam: torch.Tensor  # (G, Tb*Pc) int16, -1 = padding
+    onehot: torch.Tensor = None  # (G, W, Tb*Pc) {0, 1}; None while deferred
     window: int = CAM_TILE
     global_tiles: int = 0
     global_tile0: int = 0
@@ -87,6 +89,27 @@ class BAWTTProblem:
 
 def _pad_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
+
+
+def _expand_wcam(wcam: torch.Tensor, window: int, dtype) -> torch.Tensor:
+    """(G, n) window-relative camera indices -> (G, W, n) one-hot, on
+    ``wcam``'s device.  Padding slots carry -1, which matches no window
+    row, so they expand to all-zero columns."""
+    rows = torch.arange(window, device=wcam.device, dtype=torch.int32)[None, :, None]
+    return (wcam[:, None, :].to(torch.int32) == rows).to(dtype)
+
+
+def expand_onehots(problem: "BAWTTProblem", onehot_dtype=None) -> "BAWTTProblem":
+    """Materialize deferred one-hots (``wtt_from_flat(defer_onehot=True)``)
+    where the problem lives; ``onehot_dtype`` defaults to int8.  Buckets
+    that already hold a one-hot keep it."""
+    dt = torch.int8 if onehot_dtype is None else onehot_dtype
+    buckets = tuple(
+        b if b.onehot is not None
+        else dataclasses.replace(b, onehot=_expand_wcam(b.wcam, b.window, dt))
+        for b in problem.buckets
+    )
+    return dataclasses.replace(problem, buckets=buckets)
 
 
 def unpermute_cameras(cameras: CameraParams, cam_rows) -> CameraParams:
@@ -140,7 +163,7 @@ def _slots_estimate(pt_idx_real: np.ndarray, n_points: int,
 
 
 def _plan_camera_order(problem: BAProblem, reorder_cameras: str, bounds,
-                       point_chunk: int, max_onehot_bytes: int):
+                       point_chunk: int, max_onehot_bytes: int, itemsize: int):
     """(perm or None, n_local): the window-locality relabeling of
     ``wtt_from_flat``'s ``reorder_cameras`` modes."""
     from tpu3drecon_torch.problems.reorder import (
@@ -180,13 +203,13 @@ def _plan_camera_order(problem: BAProblem, reorder_cameras: str, bounds,
         point_chunk=point_chunk,
     )
     slots_est = _slots_estimate(pr, problem.n_points, bounds)
-    est_plain = w_plain * slots_est * _ONEHOT_ITEMSIZE
+    est_plain = w_plain * slots_est * itemsize
     if est_plain > 0.5 * max_onehot_bytes:
         hub_perm, hub_local, hub_stats = plan_hub_camera_order(
             ci, pi, mk, problem.n_cameras, problem.n_points,
             point_chunk=point_chunk,
         )
-        if hub_stats["score"] * slots_est * _ONEHOT_ITEMSIZE < est_plain:
+        if hub_stats["score"] * slots_est * itemsize < est_plain:
             perm, n_local = hub_perm, hub_local
     return perm, n_local
 
@@ -197,8 +220,9 @@ def wtt_from_flat(
     point_chunk: int = 512,
     max_onehot_bytes: int = 8 << 30,
     chunk_multiple: int = 1,
+    onehot_dtype=None,
     reorder_cameras: str = "auto",
-    defer_onehot: bool = True,
+    defer_onehot: bool = False,
     split_windows: bool | int = False,
     device=None,
 ) -> BAWTTProblem:
@@ -207,19 +231,18 @@ def wtt_from_flat(
     Same plan as the JAX packer: ``point_chunk``-wide micro-chunks sharing
     a 128-aligned window base merge into groups (the arrays' leading
     axis); windows are per bucket, derived from the data.  Raises
-    ``ValueError`` when the JAX layout's windowed one-hots would exceed
-    ``max_onehot_bytes`` (the port stores only ``wcam``, but keeps the
-    packer's contract).  ``reorder_cameras`` is "auto", "always", "never"
-    or "hub" (problems/reorder.py).  ``defer_onehot`` must stay True: the
-    port never materializes the dense one-hot.  ``split_windows`` belongs
-    to the BAL-scale slice and is not ported yet.  ``device`` defaults to
-    the problem's device.
+    ``ValueError`` when the windowed one-hots would exceed
+    ``max_onehot_bytes`` at ``onehot_dtype``'s itemsize (int8 by default;
+    a float dtype is accepted too), deferred or not, as the JAX packer
+    does.  ``reorder_cameras`` is "auto", "always", "never" or "hub"
+    (problems/reorder.py).  Unless ``defer_onehot``, each bucket's dense
+    one-hot is built from ``wcam`` on ``device`` (``expand_onehots``
+    builds it later); the fully indexed route never reads it.
+    ``split_windows`` belongs to the BAL-scale slice and is not ported
+    yet.  ``device`` defaults to the problem's device.
     """
-    if not defer_onehot:
-        raise NotImplementedError(
-            "the port keeps only the compact wcam encoding; "
-            "use defer_onehot=True"
-        )
+    oh_dtype = torch.int8 if onehot_dtype is None else onehot_dtype
+    itemsize = torch.empty((), dtype=oh_dtype).element_size()
     if split_windows:
         raise NotImplementedError(
             "split_windows (per-chunk window classes) is not ported yet"
@@ -234,7 +257,8 @@ def wtt_from_flat(
         from tpu3drecon_torch.problems.reorder import permute_cameras_flat
 
         perm, n_local = _plan_camera_order(
-            problem, reorder_cameras, bounds, point_chunk, max_onehot_bytes
+            problem, reorder_cameras, bounds, point_chunk, max_onehot_bytes,
+            itemsize,
         )
         if perm is not None:
             problem = permute_cameras_flat(problem, perm)
@@ -318,7 +342,7 @@ def wtt_from_flat(
         row_off += Pb
         onehot_bytes += (
             (window + n_gt * CAM_TILE)
-            * len(groups) * Tb * cap * Pc * _ONEHOT_ITEMSIZE
+            * len(groups) * Tb * cap * Pc * itemsize
         )
 
     if onehot_bytes > max_onehot_bytes:
@@ -373,13 +397,16 @@ def wtt_from_flat(
                     tcv < glob_start, tcv - base, window + (tcv - g_base),
                 )
                 sel[bi, col0 : col0 + Pc] = g_off + np.arange(gi * Pc, (gi + 1) * Pc)
+        total_rows = window + n_gt_eff * CAM_TILE
+        wcam = t_(wcam_b)
         buckets.append(
             WTTBucket(
                 uv=t_(uv_b),
                 mask=t_(mask_b),
                 cam_base=t_(cam_base),
-                wcam=t_(wcam_b),
-                window=window + n_gt_eff * CAM_TILE,
+                wcam=wcam,
+                onehot=None if defer_onehot else _expand_wcam(wcam, total_rows, oh_dtype),
+                window=total_rows,
                 global_tiles=n_gt_eff,
                 global_tile0=g_tile0 + g_lo,
             )

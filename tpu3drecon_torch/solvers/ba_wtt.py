@@ -1,36 +1,61 @@
-"""Windowed track-table bundle adjustment, fully indexed.
+"""Windowed track-table bundle adjustment.
 
-Counterpart of ``tpu3drecon/solvers/ba_wtt.py`` on its production path
-(``matvec_kernel="index"``, ``linearize_kernel="index"``, deferred
-one-hots): the same LM / implicit-Schur algorithm and trust-region control,
-with every per-slot camera interaction in the four wtt kernels
-(ops/wtt_linearize.py, ops/wtt_matvec.py, ops/wtt_cost.py).  One LM
-iteration:
+Counterpart of ``tpu3drecon/solvers/ba_wtt.py``: the same LM /
+implicit-Schur algorithm and trust-region control, with every per-slot
+camera interaction in the wtt kernels (ops/wtt_linearize.py,
+ops/wtt_matvec.py, ops/wtt_cost.py).  One LM iteration:
 
-  1. linearize: kernel B1 per bucket; its window rows tile-scatter to the
-     camera axis, and the 8x8 blocks get a guarded Cholesky factorization;
-  2. PCG on U x - sum W V^-1 W^T x, the coupling from kernel B2;
-  3. back-substitution: W^T dc from kernel B3, dp = V^-1 (-g_pt - W^T dc);
-  4. cost of the candidate: kernel B4;
+  1. linearize: with ``linearize_kernel="index"`` kernel B1 per bucket
+     (it also reduces the Schur rhs W V^-1 g_pt); otherwise the unfused
+     route: B7 selects the slot camera planes, the Jacobian planes and the
+     point normal run in PyTorch, B8 reduces the contribution rows.  The
+     window rows tile-scatter to the camera axis, and the 8x8 blocks get a
+     guarded Cholesky factorization;
+  2. PCG on U x - sum W V^-1 W^T x, the coupling from kernel B2
+     (``matvec_kernel="index"``), B6 from the dense one-hot
+     (``True``/``"fused"``) or PyTorch gathers and scatters (False);
+  3. rhs (unfused linearize only) W V^-1 g_pt: B5 with the index matvec,
+     else PyTorch; back-substitution W^T dc: B3 with the index matvec,
+     else PyTorch; dp = V^-1 (-g_pt - W^T dc);
+  4. cost of the candidate: kernel B4 (fused linearize) or B7 and the
+     projection in PyTorch;
   5. SE(3) retraction and trust-region accept/reject.
 
-Window gathers and scatters move whole 128-row camera tiles
-(``_window_rows`` / ``_scatter_rows``, a tile gather and an ``index_add_``).
-The XLA one-hot paths, the reduced-fidelity ``index1``/``index2`` modes and
-the band preconditioners (``tridiag``/``ssor``, which need the linearize's
+The PyTorch forms of the JAX engine's XLA products (``_w_times_plane``,
+``_wt_times_plane``) gather and scatter through ``wcam``; no route here
+multiplies by the dense one-hot, which only B6 reads.  Window gathers and
+scatters move whole 128-row camera tiles (``_window_rows`` /
+``_scatter_rows``, a tile gather and an ``index_add_``).  The
+reduced-fidelity ``index1``/``index2`` modes, ``matvec_bf16`` and the band
+preconditioners (``tridiag``/``ssor``, which need the linearize's
 ``want_od`` rows) are not ported and raise.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
 
+from tpu3drecon_torch.geometry.losses import robust_weight
+from tpu3drecon_torch.ops._wtt_common import reduce_rows
 from tpu3drecon_torch.ops.jacobians import apply_se3_retraction
 from tpu3drecon_torch.ops.wtt_cost import wtt_cost_cols_idx
-from tpu3drecon_torch.ops.wtt_linearize import wtt_linearize_fused_idx
-from tpu3drecon_torch.ops.wtt_matvec import wtt_coupling_rows_idx, wtt_wt_planes_idx
+from tpu3drecon_torch.ops.wtt_linearize import (
+    point_normal,
+    wtt_cam_planes_idx,
+    wtt_contrib_rows_idx,
+    wtt_linearize_fused_idx,
+)
+from tpu3drecon_torch.ops.wtt_matvec import (
+    _w_z,
+    _wt_x,
+    wtt_coupling_rows_fused,
+    wtt_coupling_rows_idx,
+    wtt_w_rows_idx,
+    wtt_wt_planes_idx,
+)
 from tpu3drecon_torch.problems.grid import unpermute_points
 from tpu3drecon_torch.problems.packing import CameraParams
 from tpu3drecon_torch.problems.wtt import BAWTTProblem, CAM_TILE, WTTBucket, unpermute_cameras
@@ -38,6 +63,7 @@ from tpu3drecon_torch.solvers.ba_tt import (
     _cam_table,
     _sym3_matvec,
     _triu_pairs,
+    _tt_blocks,
     _tt_state,
     _unpack_sym,
 )
@@ -87,7 +113,9 @@ class WTTNormal(NamedTuple):
     g_cam: torch.Tensor  # (c_pad, np)
     damp_cam: torch.Tensor  # (c_pad, np)
     buckets: Tuple[WTTBucketNormal, ...]
-    b_cam: torch.Tensor  # (c_pad, np) Schur rhs product W V^-1 g_pt
+    # (c_pad, np) Schur rhs product W V^-1 g_pt from B1's rhs columns; None
+    # on the unfused route, where propose forms it with w_times.
+    b_cam: torch.Tensor = None
 
 
 def _padded_table(params, c_pad: int) -> torch.Tensor:
@@ -111,6 +139,7 @@ def _linearize(params, lam, problem: BAWTTProblem, config: BAConfig) -> WTTNorma
     np_cam = n_cam_params(config)
     n_triu = len(_triu_pairs(np_cam))
     use_sj = config.precond == "schur_jacobi"
+    fused = config.linearize_kernel == "index"
     u_cols = table_pad.new_zeros(c_pad, n_triu)
     g_cols = table_pad.new_zeros(c_pad, np_cam)
     coup_cols = table_pad.new_zeros(c_pad, n_triu)
@@ -119,17 +148,30 @@ def _linearize(params, lam, problem: BAWTTProblem, config: BAConfig) -> WTTNorma
     for bucket, pts in zip(problem.buckets, pts_list):
         widx = _window_idx(bucket)
         tw = _window_rows(table_pad, widx)
-        rows, jc, jp, v_inv, g_pt, damp_pt = wtt_linearize_fused_idx(
-            bucket.wcam, tw, pts, bucket.uv, bucket.mask, lam, inv_w, config,
-            np_cam, use_sj,
-        )
+        if fused:
+            rows, jc, jp, v_inv, g_pt, damp_pt = wtt_linearize_fused_idx(
+                bucket.wcam, tw, pts, bucket.uv, bucket.mask, lam, inv_w, config,
+                np_cam, use_sj,
+            )
+        else:
+            tb = bucket.uv.shape[2]
+            cp = wtt_cam_planes_idx(bucket.wcam, tw, tb)  # (G, 19, Tb, Pc)
+            r, jc, jp = _tt_blocks(
+                cp.transpose(0, 1), pts[:, :, None, :], bucket.uv.transpose(0, 1),
+                bucket.mask, inv_w, config,
+            )
+            v_inv, g_pt, damp_pt = point_normal(jp, r, lam)
+            rows = wtt_contrib_rows_idx(
+                bucket.wcam, jc, jp, r, v_inv, np_cam, bucket.window, use_sj,
+            )
         reduced = _scatter_rows(rows, widx, c_pad)
         u_cols = u_cols + reduced[:, :n_triu]
         g_cols = g_cols + reduced[:, n_triu : n_triu + np_cam]
         off = n_triu + np_cam + (n_triu if use_sj else 0)
         if use_sj:
             coup_cols = coup_cols + reduced[:, n_triu + np_cam : off]
-        b_cols = b_cols + reduced[:, off : off + np_cam]
+        if fused:
+            b_cols = b_cols + reduced[:, off : off + np_cam]
         bucket_normals.append(WTTBucketNormal(jc, jp, v_inv, g_pt, damp_pt))
 
     u0 = _unpack_sym(u_cols, np_cam)
@@ -144,7 +186,7 @@ def _linearize(params, lam, problem: BAWTTProblem, config: BAConfig) -> WTTNorma
         u_chol = torch.linalg.cholesky_ex(u_d).L
     return WTTNormal(
         u=u_d, u_chol=u_chol, g_cam=g_cols, damp_cam=damp_cam,
-        buckets=tuple(bucket_normals), b_cam=b_cols,
+        buckets=tuple(bucket_normals), b_cam=b_cols if fused else None,
     )
 
 
@@ -153,12 +195,37 @@ def _xw_t(x_pad: torch.Tensor, bucket: WTTBucket) -> torch.Tensor:
     return _window_rows(x_pad, _window_idx(bucket)).transpose(1, 2).contiguous()
 
 
-def _schur_matvec(nb: WTTNormal, x_pad: torch.Tensor, problem: BAWTTProblem):
+def _wt_times_plane(bn: WTTBucketNormal, x_pad: torch.Tensor, bucket: WTTBucket):
+    """(W^T x) point planes (3, G, Pc) in PyTorch: the JAX engine's
+    ``_wt_times_bucket_w`` with the one-hot selection as a ``wcam`` gather."""
+    return torch.stack(_wt_x(_xw_t(x_pad, bucket), bucket.wcam, bn.jc, bn.jp))
+
+
+def _w_times_plane(bn: WTTBucketNormal, y_pt: torch.Tensor, bucket: WTTBucket,
+                   c_pad: int) -> torch.Tensor:
+    """(W y) camera rows (c_pad, np) in PyTorch: the JAX engine's
+    ``_w_times_bucket_w`` with the one-hot reduction as a ``wcam``
+    scatter-add; y_pt is (3, G, Pc)."""
+    rows = reduce_rows(_w_z(y_pt, bn.jc, bn.jp), bucket.wcam, bucket.window)
+    return _scatter_rows(rows, _window_idx(bucket), c_pad)
+
+
+def _schur_matvec(nb: WTTNormal, x_pad: torch.Tensor, problem: BAWTTProblem,
+                  use_kernel=False):
     coup = torch.zeros_like(x_pad)
     for bn, bucket in zip(nb.buckets, problem.buckets):
-        rows = wtt_coupling_rows_idx(
-            _xw_t(x_pad, bucket), bucket.wcam, bn.jc, bn.jp, bn.v_inv
-        )
+        if use_kernel == "index":
+            rows = wtt_coupling_rows_idx(
+                _xw_t(x_pad, bucket), bucket.wcam, bn.jc, bn.jp, bn.v_inv
+            )
+        elif use_kernel:
+            rows = wtt_coupling_rows_fused(
+                _xw_t(x_pad, bucket), bucket.onehot, bn.jc, bn.jp, bn.v_inv
+            )
+        else:
+            vw = _sym3_matvec(bn.v_inv, _wt_times_plane(bn, x_pad, bucket))
+            coup = coup + _w_times_plane(bn, vw, bucket, problem.c_pad)
+            continue
         coup = coup + _scatter_rows(
             rows.transpose(1, 2), _window_idx(bucket), problem.c_pad
         )
@@ -172,26 +239,87 @@ def _cost(params, problem: BAWTTProblem, config: BAConfig) -> torch.Tensor:
     total = table_pad.new_zeros(())
     for bucket, pts in zip(problem.buckets, pts_list):
         tw = _window_rows(table_pad, _window_idx(bucket))
-        cols = wtt_cost_cols_idx(bucket.wcam, tw, pts, bucket.uv, bucket.mask, config.loss)
-        total = total + 0.5 * (inv_w * inv_w) * torch.sum(cols)
+        if config.linearize_kernel == "index":
+            cols = wtt_cost_cols_idx(bucket.wcam, tw, pts, bucket.uv, bucket.mask,
+                                     config.loss)
+            total = total + 0.5 * (inv_w * inv_w) * torch.sum(cols)
+            continue
+        cpm = wtt_cam_planes_idx(bucket.wcam, tw, bucket.uv.shape[2])
+        cpm = cpm.transpose(0, 1)  # (19, G, Tb, Pc)
+        pb = pts[:, :, None, :]  # (3, G, 1, Pc)
+        x = cpm[0] * pb[0] + cpm[1] * pb[1] + cpm[2] * pb[2] + cpm[9]
+        y = cpm[3] * pb[0] + cpm[4] * pb[1] + cpm[5] * pb[2] + cpm[10]
+        z = cpm[6] * pb[0] + cpm[7] * pb[1] + cpm[8] * pb[2] + cpm[11]
+        iz = 1.0 / torch.where(torch.abs(z) < 1e-12, torch.ones_like(z), z)
+        mx = x * iz
+        my = y * iz
+        r2 = mx * mx + my * my
+        s_rad = 1.0 + cpm[17] * r2 + cpm[18] * r2 * r2
+        u = cpm[12] * s_rad * mx + cpm[16] * s_rad * my + cpm[14]
+        v = cpm[13] * s_rad * my + cpm[15]
+        r0 = u - bucket.uv[:, 0]
+        r1 = v - bucket.uv[:, 1]
+        s = r0 * r0 + r1 * r1
+        w = robust_weight(config.loss, s)
+        total = total + 0.5 * torch.sum(s * w * (bucket.mask * inv_w) ** 2)
     return total
 
 
-def _check_config(problem: BAWTTProblem, config: BAConfig) -> None:
-    if config.matvec_kernel != "index" or config.linearize_kernel != "index":
+_MATVEC_KERNELS = (False, True, "fused", "index", "index1", "index2")
+_LINEARIZE_KERNELS = (False, "index", "index2")
+
+
+def _check_config(config: BAConfig, problem: BAWTTProblem = None) -> None:
+    """The JAX engine's errors (``ValueError``) in its order, the problem's
+    only when one is given; then the options the port does not take yet
+    (``NotImplementedError``)."""
+    indexed_mv = config.matvec_kernel in ("index", "index1", "index2")
+    indexed_lin = config.linearize_kernel in ("index", "index2")
+    if problem is not None and not (indexed_mv and indexed_lin) and any(
+        b.onehot is None for b in problem.buckets
+    ):
+        raise ValueError(
+            "problem has deferred one-hots (wtt_from_flat(defer_onehot=True));"
+            " materialize them on the target device first (problems.wtt."
+            "expand_onehots(problem)) — or run fully indexed"
+            " (matvec_kernel + linearize_kernel 'index'*), which never"
+            " reads the dense one-hot"
+        )
+    if config.matvec_kernel and config.matvec_bf16:
+        raise ValueError(
+            "matvec_bf16 applies to the XLA matvec path; disable matvec_kernel"
+        )
+    if config.matvec_kernel not in _MATVEC_KERNELS:
+        raise ValueError(
+            f"matvec_kernel must be False, True/'fused', 'index', "
+            f"'index1'/'index2'; got {config.matvec_kernel!r}"
+        )
+    if config.linearize_kernel not in _LINEARIZE_KERNELS:
+        raise ValueError(
+            f"linearize_kernel must be False, 'index' or 'index2'; got "
+            f"{config.linearize_kernel!r}"
+        )
+    if problem is not None and (indexed_mv or indexed_lin) and any(
+        b.wcam is None for b in problem.buckets
+    ):
+        raise ValueError(
+            "the index kernels need the compact window indices "
+            "(WTTBucket.wcam); repack with wtt_from_flat"
+        )
+    if config.matvec_kernel in ("index1", "index2") or config.linearize_kernel == "index2":
         raise NotImplementedError(
-            "only the fully indexed path is ported: matvec_kernel='index' and "
-            "linearize_kernel='index' (the XLA one-hot paths and the "
-            "reduced-fidelity index1/index2/fused modes are not)"
+            "the reduced-fidelity bf16-split modes (matvec_kernel 'index1'/"
+            "'index2', linearize_kernel 'index2') are not ported (ROADMAP A6)"
+        )
+    if config.matvec_bf16:
+        raise NotImplementedError(
+            "matvec_bf16 (bf16 jc/jp on the XLA matvec path, a measured "
+            "negative on the TPU) is not ported (ROADMAP A14)"
         )
     if config.precond not in ("schur_jacobi", "jacobi_u"):
         raise NotImplementedError(
             f"precond={config.precond!r} needs the band rows (want_od) of the "
-            "BAL-scale slice; use 'schur_jacobi' or 'jacobi_u'"
-        )
-    if config.matvec_bf16:
-        raise ValueError(
-            "matvec_bf16 applies to the XLA matvec path; disable matvec_kernel"
+            "BAL-scale slice (ROADMAP A8); use 'schur_jacobi' or 'jacobi_u'"
         )
 
 
@@ -200,9 +328,10 @@ def ba_solve_wtt(
 ) -> Tuple[CameraParams, torch.Tensor, BAState]:
     """Windowed track-table BA solve on ``device`` (default: where the
     problem lives); same outputs and trust-region trajectory as the JAX
-    ``ba_solve_wtt`` on the fully indexed path.  Returns (cameras in
-    original order, points in original order, final state)."""
-    _check_config(problem, config)
+    ``ba_solve_wtt`` with the same ``matvec_kernel`` and
+    ``linearize_kernel``.  Returns (cameras in original order, points in
+    original order, final state)."""
+    _check_config(config, problem)
     torch.set_float32_matmul_precision("highest")
     if device is not None:
         problem = problem.to(device)
@@ -228,6 +357,19 @@ def _ba_solve_wtt_core(problem: BAWTTProblem, pts_list, config: BAConfig, dev):
         pts_list,
     )
 
+    index_mv = config.matvec_kernel == "index"
+
+    def w_times(bn, vw, bucket):
+        if not index_mv:
+            return _w_times_plane(bn, vw, bucket, problem.c_pad)
+        rows = wtt_w_rows_idx(vw, bucket.wcam, bn.jc, bn.jp, bucket.window)
+        return _scatter_rows(rows.transpose(1, 2), _window_idx(bucket), problem.c_pad)
+
+    def wt_times(bn, dc, bucket):
+        if not index_mv:
+            return _wt_times_plane(bn, dc, bucket)
+        return wtt_wt_planes_idx(_xw_t(dc, bucket), bucket.wcam, bn.jc, bn.jp)
+
     def propose(params, lam):
         nb = _linearize(params, lam, problem, config)
         gp_max = torch.zeros((), dtype=dtype, device=dev)
@@ -239,9 +381,16 @@ def _ba_solve_wtt_core(problem: BAWTTProblem, pts_list, config: BAConfig, dev):
         else:
             grad_norm = torch.clamp(grad_norm, min=0.0)
 
-        b = nb.b_cam - nb.g_cam
+        if nb.b_cam is not None:
+            b = nb.b_cam - nb.g_cam
+        else:
+            b = torch.zeros_like(nb.g_cam)
+            for bn, bucket in zip(nb.buckets, problem.buckets):
+                vw = _sym3_matvec(bn.v_inv, bn.g_pt)
+                b = b + w_times(bn, vw, bucket)
+            b = b - nb.g_cam
         out = pcg(
-            lambda p: _schur_matvec(nb, p, problem),
+            lambda p: _schur_matvec(nb, p, problem, config.matvec_kernel),
             cho_block_precond(nb.u_chol),
             b, config.cg_maxiter, config.cg_rtol,
         )
@@ -250,7 +399,7 @@ def _ba_solve_wtt_core(problem: BAWTTProblem, pts_list, config: BAConfig, dev):
         dps = []
         pred_pt = torch.zeros((), dtype=dtype, device=dev)
         for bn, bucket in zip(nb.buckets, problem.buckets):
-            wtx = wtt_wt_planes_idx(_xw_t(dc, bucket), bucket.wcam, bn.jc, bn.jp)
+            wtx = wt_times(bn, dc, bucket)
             dp = _sym3_matvec(bn.v_inv, -bn.g_pt - wtx)  # (3, G, Pc)
             if not config.optimize_points:
                 dp = dp * 0.0
@@ -289,3 +438,22 @@ def _ba_solve_wtt_core(problem: BAWTTProblem, pts_list, config: BAConfig, dev):
         rmats=rmats, tvecs=tvecs, fx_fy=fx_fy, cx_cy_skew=ccs, dist=dist,
     )
     return cameras_out, pts_out, final
+
+
+_SOLVER_CACHE: dict = {}
+
+
+def make_wtt_ba_solver(config: BAConfig = BAConfig(), aot: bool = False):
+    """``problem -> ba_solve_wtt(problem, config)``, one closure per config
+    (cached).  The JAX package's jit and its ``aot=True`` executable cache
+    have no counterpart: PyTorch runs eagerly, and the AOT cache works
+    around a TPU plugin's compile cache."""
+    if aot:
+        raise NotImplementedError(
+            "aot=True (the persistent executable cache) is TPU-specific and "
+            "not ported (ROADMAP A14)"
+        )
+    _check_config(config)
+    if config not in _SOLVER_CACHE:
+        _SOLVER_CACHE[config] = functools.partial(ba_solve_wtt, config=config)
+    return _SOLVER_CACHE[config]
