@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's medium bundle-adjustment solves once on one CUDA GPU.
+"""Run the PyTorch port's medium and BAL-scale bundle-adjustment solves once on
+one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -41,7 +42,24 @@ Phases (any failure exits non-zero and prints no result line):
    float32 and float64, B12 and B16 under all three losses.
 9. The tt path: ``ba_solve_tt`` (fully fused, kernels B12-B16) on the same
    problem with the same config: one warm-up solve and 3 timed solves.
-10. Prints the kernel table as one JSON line, the ``nvidia-smi`` line, then
+10. The BAL-scale sequential problem: ``bal_sequential_wtt`` (1712
+    cameras, 999,808 points, 3,808,166 observations, f32) built on the
+    card, its build time and buckets logged.
+11. B1 and B8 with ``want_od`` (the band pair rows) against their plain
+    versions: f32 on the BAL buckets, where they are timed beside B1 and
+    B8 without od, and f64 on the medium wtt buckets with window row 0 and
+    the padded slots' planes NaN.
+12. The BAL paths, with the JAX suite's BAL solver config (8 CG
+    iterations, ``cg_rtol`` 0, f32): ``bal_seq`` (fully indexed,
+    Schur-Jacobi) and ``bal_seq_ssor`` (fully indexed, block SSOR, B1 od)
+    at 3 and 12 LM iterations, one warm-up solve and 3 timed solves each,
+    with the marginal s/LM-iter (w12 - w3) / 9; ``bal_seq_tridiag_unfused``
+    (``linearize_kernel=False``, ``matvec_kernel="index"``, block
+    tridiagonal, B8 od) on the packing with its dense int8 one-hot, at 6
+    LM iterations (its first three steps are rejected), one warm-up and 2
+    timed solves.  Each must end finite
+    and below its initial loss with at least one accepted step.
+13. Prints the kernel table as one JSON line, the ``nvidia-smi`` line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Tolerances, relative to max|plain|: per-element outputs 1e-5 (f32) and
@@ -57,17 +75,20 @@ wrapper: the kernel, and for B9 the packing of the camera rows (as in the
 JAX function), for B16 the sum of its per-point partials.  B7's
 ``library_ms`` is the same device time of the one ``torch.gather`` that
 computes its function; no other kernel has such a call.  Every count is
-set to 0 just before each path's solves and read just after: each path
-must launch each of its kernels and call no plain version.  A kernel on
-several paths takes its table ``launches`` from the first; every path's
-counts are on its ``solve`` line.  Each solve must reach a reprojection
-RMSE below 1e-3 px and a final loss below the initial one.
+set to 0 just before each path's solves (each of its iteration counts)
+and read just after: each path must launch each of its kernels and call no
+plain version.  A kernel on several paths takes its table ``launches``
+from the first; every path's counts are on its ``solve`` lines.  Each
+medium solve must reach a reprojection RMSE below 1e-3 px and a final
+loss below the initial one; a BAL solve (3 or 12 LM iterations from a
+perturbation of the whole scene) only the latter, and its RMSE is printed.
 
 ``bound_ms`` is the least time the card could take for the same work: the
 larger of the bytes the function must move (each input read once, each
 output written once, f32, from this run's tensors) over 3.35 TB/s and its
-operations (counted per slot or lane from the kernel source, ``FLOPS``)
-over 67 TFLOP/s of float32.
+operations (counted per slot or lane from the kernel source, ``FLOPS``;
+for the od rows also per adjacent slot pair of this run's data) over 67
+TFLOP/s of float32.
 """
 
 from __future__ import annotations
@@ -89,24 +110,27 @@ LIN_PY = "tpu3drecon/ops/pallas/wtt_linearize.py"
 MV_PY = "tpu3drecon/ops/pallas/wtt_matvec.py"
 TT_PY = "tpu3drecon/ops/pallas/tt_linearize.py"
 # The paths: wtt's fully indexed route, its unfused route (a) and its
-# one-hot route (c), the grid engine, the dense track table.
+# one-hot route (c), the grid engine, the dense track table; at BAL scale
+# wtt fully indexed under Schur-Jacobi and block SSOR, and the unfused
+# route under the block-tridiagonal preconditioner.
 WTT, UNFUSED, ONEHOT = "wtt", "wtt_unfused", "wtt_onehot"
+BAL, BAL_SSOR, BAL_TRI = "bal_seq", "bal_seq_ssor", "bal_seq_tridiag_unfused"
 # (module, counter attribute, kernel name, source, replaced TPU kernel, paths)
 KERNELS = (
     ("wtt_linearize", "COUNTS", "wtt_linearize_fused_idx", WTT_SRC, f"{LIN_PY}:554",
-     {WTT}),
+     {WTT, BAL}),
     ("wtt_matvec", "COUPLING_COUNTS", "wtt_coupling_rows_idx", WTT_SRC, f"{MV_PY}:215",
-     {WTT, UNFUSED}),
+     {WTT, UNFUSED, BAL, BAL_SSOR, BAL_TRI}),
     ("wtt_matvec", "WT_COUNTS", "wtt_wt_planes_idx", WTT_SRC, f"{MV_PY}:405",
-     {WTT, UNFUSED}),
+     {WTT, UNFUSED, BAL, BAL_SSOR, BAL_TRI}),
     ("wtt_cost", "COUNTS", "wtt_cost_cols_idx", WTT_SRC,
-     "tpu3drecon/ops/pallas/wtt_cost.py:94", {WTT}),
+     "tpu3drecon/ops/pallas/wtt_cost.py:94", {WTT, BAL, BAL_SSOR}),
     ("wtt_matvec", "W_ROWS_COUNTS", "wtt_w_rows_idx", ROUTE_SRC, f"{MV_PY}:468",
-     {UNFUSED}),
+     {UNFUSED, BAL_TRI}),
     ("wtt_matvec", "FUSED_COUNTS", "wtt_coupling_rows_fused", ROUTE_SRC, f"{MV_PY}:526",
      {ONEHOT}),
     ("wtt_linearize", "CAM_PLANES_COUNTS", "wtt_cam_planes_idx", ROUTE_SRC,
-     f"{LIN_PY}:229", {UNFUSED, ONEHOT}),
+     f"{LIN_PY}:229", {UNFUSED, ONEHOT, BAL_TRI}),
     ("wtt_linearize", "CONTRIB_COUNTS", "wtt_contrib_rows_idx", ROUTE_SRC,
      f"{LIN_PY}:286", {UNFUSED, ONEHOT}),
     ("cam_normal", "COUNTS", "cam_normal_fused", GRID_SRC,
@@ -120,6 +144,9 @@ KERNELS = (
     ("tt_linearize", "WT_COUNTS", "tt_wt_times_fused", TT_SRC, f"{TT_PY}:436", {"tt"}),
     ("tt_linearize", "W_COUNTS", "tt_w_times_fused", TT_SRC, f"{TT_PY}:475", {"tt"}),
     ("tt_linearize", "COST_COUNTS", "tt_cost_fused", TT_SRC, f"{TT_PY}:512", {"tt"}),
+    # B1's and B8's want_od branches (the band pair rows of ssor/tridiag).
+    ("wtt_linearize", "OD_COUNTS", "B1 od", WTT_SRC, f"{LIN_PY}:515", {BAL_SSOR}),
+    ("wtt_linearize", "CONTRIB_OD_COUNTS", "B8 od", ROUTE_SRC, f"{LIN_PY}:163", {BAL_TRI}),
 )
 TOL = {  # (per-element, summed) bounds relative to max|plain|
     torch.float32: (1e-5, 1e-4),
@@ -132,7 +159,8 @@ F32_FLOPS_PER_S = 67e12
 # included; B8 with the Schur-Jacobi columns: 108 u + 24 g + 72 W + 120 WV
 # + 180 coupling + 80 adds; B7 is a copy; B6's one-hot scan compares bytes,
 # no float operation), per grid lane (C * K) for B9 and B11, per track row
-# (P * T2) plus per point for B10.
+# (P * T2) plus per point for B10.  The od rows add, per adjacent slot
+# pair, np^2 outputs of 3 multiplies and 2 adds and their atomic adds.
 FLOPS = {
     "wtt_linearize_fused_idx": 1000, "wtt_coupling_rows_idx": 80,
     "wtt_wt_planes_idx": 44, "wtt_cost_cols_idx": 45,
@@ -142,6 +170,7 @@ FLOPS = {
     "coupling_fused": 408,
     "tt_cam_normal_fused": 370, "tt_coupling_fused": 408, "tt_wt_times_fused": 44,
     "tt_w_times_fused": 42, "tt_cost_fused": 51,
+    "od_pair": 64 * 6,
 }
 CAM_FIELDS = ("rmats", "tvecs", "fx_fy", "cx_cy_skew", "dist")
 
@@ -443,6 +472,82 @@ def check_route_kernels(problem) -> None:
             f"({int(pad.sum())} padded slots, window row 0 NaN)")
 
 
+def adjacent_pairs(wcam, g: int, tb: int, pc: int) -> int:
+    """Slot pairs (t-1, t) of one track on window rows (w, w + 1): the od
+    rows' work in this run's data."""
+    w = wcam.reshape(g, tb, pc).long()
+    return int(((w[:, :-1] >= 0) & (w[:, 1:] == w[:, :-1] + 1)).sum())
+
+
+def check_od_kernels(bal, medium) -> None:
+    """Phase 11: B1 and B8 with want_od against their plain versions, f32
+    on the BAL buckets (timed there, beside B1 and B8 without od) and f64
+    on the medium buckets with NaN where only padded slots read."""
+    from tpu3drecon_torch.ops import wtt_linearize as lin
+    from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
+
+    cfg = BAConfig()
+    lin_outs = ("rows", "jc", "jp", "v_inv", "g_pt", "damp_pt")
+    elem, summed = TOL[torch.float32]
+    plain_od = {"B1": 0.0, "B8": 0.0}  # device ms per pass without the od rows
+    for bi, d in enumerate(wtt_kernel_inputs(bal, torch.float32)):
+        g, tb, pc, w = d["shape"]
+        lin_args = (d["wcam"], d["tw"], d["pts"], d["uv"], d["mask"], d["lam"],
+                    d["inv_w"], cfg, 8, True, True)
+        got = lin.wtt_linearize_fused_idx(*lin_args)
+        err_b1 = max(compare("B1 od", "f32", k, a, b, summed if k == "rows" else elem)
+                     for k, a, b in zip(lin_outs, got,
+                                        lin.wtt_linearize_fused_idx_plain(*lin_args)))
+        jc, jp, r, v_inv, _ = route_planes(d, lin.wtt_cam_planes_idx(d["wcam"], d["tw"], tb),
+                                           cfg)
+        b8 = (d["wcam"], jc, jp, r, v_inv, 8, w, True, True)
+        rows = lin.wtt_contrib_rows_idx(*b8)
+        err_b8 = compare("B8 od", "f32", "", rows, lin.wtt_contrib_rows_idx_plain(*b8), summed)
+        pairs = adjacent_pairs(d["wcam"], g, tb, pc)
+        log(f"check f32 od BAL bucket {bi} (G={g} Tb={tb} Pc={pc} W={w}, {pairs} pairs): "
+            f"B1 od {err_b1:.3e} B8 od {err_b8:.3e}")
+        slots = g * tb * pc
+        account("B1 od", lambda: lin.wtt_linearize_fused_idx(*lin_args),
+                lambda: lin.wtt_linearize_fused_idx_plain(*lin_args),
+                nbytes(*lin_args[:7], *got),
+                FLOPS["wtt_linearize_fused_idx"] * slots + FLOPS["od_pair"] * pairs)
+        account("B8 od", lambda: lin.wtt_contrib_rows_idx(*b8),
+                lambda: lin.wtt_contrib_rows_idx_plain(*b8), nbytes(*b8[:5], rows),
+                FLOPS["wtt_contrib_rows_idx"] * slots + FLOPS["od_pair"] * pairs)
+        plain_od["B1"] += device_ms(lambda: lin.wtt_linearize_fused_idx(*lin_args[:-1]))
+        plain_od["B8"] += device_ms(lambda: lin.wtt_contrib_rows_idx(*b8[:-1]))
+    log(f"od rows on the BAL buckets, device ms per pass (f32, cold L2): "
+        f"B1 {plain_od['B1']:.6f} -> B1 od {RESULTS['B1 od']['ms']:.6f}, "
+        f"B8 {plain_od['B8']:.6f} -> B8 od {RESULTS['B8 od']['ms']:.6f}")
+
+    elem, summed = TOL[torch.float64]
+    for bi, d in enumerate(wtt_kernel_inputs(medium, torch.float64)):
+        g, tb, pc, w = d["shape"]
+        wcam = torch.where(d["wcam"] == 0, torch.full_like(d["wcam"], -1), d["wcam"])
+        pad = (wcam < 0).reshape(g, tb, pc)
+        d = {**d, "wcam": wcam, "mask": d["mask"] * ~pad, "tw": d["tw"].clone()}
+        d["tw"][:, 0] = float("nan")
+        lin_args = (wcam, d["tw"], d["pts"], d["uv"], d["mask"], d["lam"], d["inv_w"], cfg,
+                    8, True, True)
+        got = lin.wtt_linearize_fused_idx(*lin_args)
+        err_b1 = max(compare("B1 od", "f64", k, a, b, summed if k == "rows" else elem)
+                     for k, a, b in zip(lin_outs, got,
+                                        lin.wtt_linearize_fused_idx_plain(*lin_args)))
+        planes = lin.wtt_cam_planes_idx(wcam, d["tw"], tb)
+        jc, jp, r, v_inv, _ = (x.clone() for x in route_planes(d, planes, cfg))
+        for x in (jc, jp, r):
+            x[:, pad] = float("nan")
+        b8 = (wcam, jc, jp, r, v_inv, 8, w, True, True)
+        rows = lin.wtt_contrib_rows_idx(*b8)
+        err_b8 = compare("B8 od", "f64", "poisoned", rows,
+                         lin.wtt_contrib_rows_idx_plain(*b8), summed)
+        if not (torch.isfinite(got[0]).all() and torch.isfinite(rows).all()):
+            raise AssertionError("f64 od: a poisoned padded slot reached an output")
+        log(f"check f64 od medium bucket {bi} (G={g} Tb={tb} Pc={pc} W={w}, "
+            f"{adjacent_pairs(wcam, g, tb, pc)} pairs, {int(pad.sum())} padded slots, "
+            f"window row 0 NaN): B1 od {err_b1:.3e} B8 od {err_b8:.3e}")
+
+
 def check_grid_kernels(grid) -> None:
     """Phase 6: B9-B11 against their plain versions, f32 and f64."""
     from tpu3drecon_torch.geometry.losses import RobustLoss
@@ -611,40 +716,60 @@ def check_tt_kernels(problem) -> None:
                     nbytes(*b16_args[:6], cost_b16), FLOPS["tt_cost_fused"] * slots)
 
 
-def drive(path: str, solve, problem, flat, repeats: int) -> dict:
-    """One path's solves (1 warm-up + ``repeats``) with every count set to 0
-    just before and read just after; returns its kernels' launch counts."""
+def drive(path: str, solve, problem, flat, repeats: int, maxiters=(None,),
+          rmse_limit=1e-3) -> dict:
+    """One path's solves (1 warm-up + ``repeats``) at each of ``maxiters``
+    (None: the config's), every count set to 0 just before each group and
+    read just after; returns its kernels' launch counts over all groups.
+    Two groups also give the marginal s/LM-iter of the medians."""
     from tpu3drecon_torch.benchmark.medium_config import timed_solve_stats
     from tpu3drecon_torch.solvers.bundle_adjust import reprojection_rmse
 
     _, _, init = solve(problem, maxiter=0)
     counts = counters()
-    for cnt in counts.values():
-        cnt.reset()
-    warm_s, times, (cams, pts, state) = timed_solve_stats(solve, problem, repeats)
     mine = {name for *_, name, _, _, paths in KERNELS if path in paths}
-    launches = {n: cnt.kernel for n, cnt in counts.items() if n in mine}
-    plain = {n: cnt.plain for n, cnt in counts.items() if cnt.plain}
-    rmse = float(reprojection_rmse(flat, cams, pts))
-    report = dict(
-        median_s=statistics.median(times), min_s=min(times), max_s=max(times),
-        warmup_s=warm_s, reproj_rmse_px=rmse,
-        initial_loss=float(init.loss), final_loss=float(state.loss),
-        accepted_steps=int(state.accepted), lm_iters=int(state.iter_num),
-        cg_iters_last=int(state.cg_iters),
-        launches_per_solve={n: v / (repeats + 1) for n, v in launches.items()},
-        plain_calls=plain,
-    )
-    log(f"solve {path} " + json.dumps(report))
-    if not rmse < 1e-3:
-        raise AssertionError(f"{path}: final RMSE {rmse:.3e} px is not below 1e-3 px")
-    if not float(state.loss) < float(init.loss):
-        raise AssertionError(f"{path}: the final loss is not below the initial loss")
-    missing = [n for n, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"{path}: kernels not launched during the solves: {missing}")
-    if plain:
-        raise AssertionError(f"{path}: plain versions ran during the solves: {plain}")
+    launches = dict.fromkeys(mine, 0)
+    medians = []
+    for maxiter in maxiters:
+        kw = {} if maxiter is None else {"maxiter": maxiter}
+        for cnt in counts.values():
+            cnt.reset()
+        warm_s, times, (cams, pts, state) = timed_solve_stats(
+            lambda p: solve(p, **kw), problem, repeats)
+        group = {n: cnt.kernel for n, cnt in counts.items() if n in mine}
+        plain = {n: cnt.plain for n, cnt in counts.items() if cnt.plain}
+        rmse = float(reprojection_rmse(flat, cams, pts))
+        medians.append(statistics.median(times))
+        report = dict(
+            median_s=medians[-1], min_s=min(times), max_s=max(times),
+            warmup_s=warm_s, reproj_rmse_px=rmse,
+            initial_loss=float(init.loss), final_loss=float(state.loss),
+            accepted_steps=int(state.accepted), lm_iters=int(state.iter_num),
+            cg_iters_last=int(state.cg_iters),
+            launches_per_solve={n: v / (repeats + 1) for n, v in group.items()},
+            plain_calls=plain,
+        )
+        log(f"solve {path}" + ("" if maxiter is None else f" maxiter={maxiter}") + " "
+            + json.dumps(report))
+        if rmse_limit is not None and not rmse < rmse_limit:
+            raise AssertionError(f"{path}: final RMSE {rmse:.3e} px is not below "
+                                 f"{rmse_limit:.0e} px")
+        if not float(state.loss) < float(init.loss):
+            raise AssertionError(f"{path}: the final loss is not finite and below the "
+                                 "initial loss")
+        if int(state.accepted) < 1:
+            raise AssertionError(f"{path}: no step was accepted")
+        missing = [n for n, v in group.items() if v == 0]
+        if missing:
+            raise AssertionError(f"{path}: kernels not launched during the solves: {missing}")
+        if plain:
+            raise AssertionError(f"{path}: plain versions ran during the solves: {plain}")
+        for n, v in group.items():
+            launches[n] += v
+    if len(maxiters) == 2:
+        lo, hi = maxiters
+        log(f"marginal {path}: ({medians[1]:.6f} s - {medians[0]:.6f} s) / {hi - lo} = "
+            f"{(medians[1] - medians[0]) / (hi - lo):.6f} s/LM-iter")
     return launches
 
 
@@ -653,6 +778,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
+    from tpu3drecon_torch.benchmark.balscale import (
+        BAL_CONFIG,
+        bal_sequential_flat,
+        bal_sequential_wtt,
+    )
     from tpu3drecon_torch.benchmark.medium_config import (
         BENCH_CONFIG,
         build_grid_problem,
@@ -660,7 +790,7 @@ def main() -> int:
         build_tt_problem,
     )
     from tpu3drecon_torch.ops import _build
-    from tpu3drecon_torch.problems.wtt import wtt_from_flat
+    from tpu3drecon_torch.problems.wtt import expand_onehots, wtt_from_flat
     from tpu3drecon_torch.solvers.ba_pallas import ba_solve_pallas
     from tpu3drecon_torch.solvers.ba_tt import ba_solve_tt
     from tpu3drecon_torch.solvers.ba_wtt import ba_solve_wtt
@@ -735,6 +865,39 @@ def main() -> int:
     check_tt_kernels(tt)
     first_path(drive(
         "tt", lambda p, **kw: ba_solve_tt(p, BENCH_CONFIG._replace(**kw)), tt, flat, 3,
+    ))
+    del tt, grid
+
+    t0 = time.perf_counter()
+    bal = bal_sequential_wtt(device=dev, verbose=False)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    bal_flat = bal_sequential_flat(device=dev)
+    log(f"BAL problem: {bal_flat.n_cameras} cameras, {bal_flat.n_points} points, "
+        f"{int(bal_flat.mask.sum())} observations, c_pad {bal.c_pad}; "
+        f"bal_sequential_wtt built in {build_s:.1f} s; buckets (G, Tb, Pc, W): "
+        + str([(b.uv.shape[0], b.uv.shape[2], b.uv.shape[3], b.window)
+               for b in bal.buckets]))
+    check_od_kernels(bal, wtt)
+    for path, precond in ((BAL, "schur_jacobi"), (BAL_SSOR, "ssor")):
+        cfg = BAL_CONFIG._replace(matvec_kernel="index", linearize_kernel="index",
+                                  precond=precond)
+        first_path(drive(
+            path, lambda p, cfg=cfg, **kw: ba_solve_wtt(p, cfg._replace(**kw)),
+            bal, bal_flat, 3, maxiters=(3, 12), rmse_limit=None,
+        ))
+    t0 = time.perf_counter()
+    bal_oh = expand_onehots(bal)
+    torch.cuda.synchronize()
+    log(f"BAL int8 one-hot: {sum(b.onehot.numel() for b in bal_oh.buckets)} bytes in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # 6 LM iterations, not 3: on this scene family the block-tridiagonal
+    # preconditioner's first three proposals are all rejected (JAX's too).
+    cfg = BAL_CONFIG._replace(matvec_kernel="index", linearize_kernel=False,
+                              precond="tridiag")
+    first_path(drive(
+        BAL_TRI, lambda p, **kw: ba_solve_wtt(p, cfg._replace(**kw)), bal_oh, bal_flat, 2,
+        maxiters=(6,), rmse_limit=None,
     ))
     log("worst max|diff| / max|plain|: "
         + ", ".join(f"{k} {v:.2e}" for k, v in sorted(WORST.items())))

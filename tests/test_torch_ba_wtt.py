@@ -102,7 +102,7 @@ def test_jacobi_u_preconditioner_descends():
 @pytest.mark.parametrize("change", [
     {"matvec_kernel": "index1"}, {"linearize_kernel": "index2"},
     {"matvec_kernel": False, "matvec_bf16": True},
-    {"matvec_kernel": "index2"}, {"precond": "ssor"}, {"precond": "tridiag"},
+    {"matvec_kernel": "index2"},
 ])
 def test_unported_paths_raise(change):
     _, packed = _port_packed("pinhole")

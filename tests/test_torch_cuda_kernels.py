@@ -1,7 +1,7 @@
 """The CUDA kernels vs their plain PyTorch versions, on the card: the four
 wtt kernels of the indexed route (B1-B4) and the four of its unfused and
-one-hot routes (B5-B8), the grid engine's three (B9-B11) and the dense
-track table's five (B12-B16).
+one-hot routes (B5-B8), B1's and B8's band pair rows (``want_od``), the
+grid engine's three (B9-B11) and the dense track table's five (B12-B16).
 
 Needs an NVIDIA GPU with nvcc (the kernels build at first use); skips where
 ``torch.cuda.is_available()`` is false.  Imports no jax, so on a machine
@@ -133,7 +133,7 @@ def test_bad_inputs_raise(dev):
                 d["inv_w"], BAConfig(), 8, True)[1:3],
         )
     wide = _inputs(dev, torch.float64, 1, 1024, 2, 8, seed=4)
-    with pytest.raises(RuntimeError, match="shared memory"):
+    with pytest.raises(ValueError, match="shared memory"):
         wtt_linearize.wtt_linearize_fused_idx(
             wide["wcam"], wide["tw"], wide["pts"], wide["uv"], wide["mask"],
             wide["lam"], wide["inv_w"], BAConfig(), 8, True)
@@ -202,6 +202,56 @@ def test_route_kernels_match_plain(dev, dtype, g, w, tb, np_cam, use_sj):
     assert not torch.allclose(
         got, wtt_matvec.wtt_coupling_rows_fused_plain(d["xw_t"], bad, jc, jp, v_inv))
     assert [c.kernel - b for c, b in zip(counts, before)] == [1, 1, 1, 4]
+
+
+OD_CASES = [  # (dtype, G, W, Tb, np); each (W, K) tile within 227 KB
+    (torch.float32, 1, 256, 4, 8),
+    (torch.float64, 2, 128, 3, 8),
+    (torch.float64, 1, 128, 1, 8),
+    (torch.float32, 1, 128, 3, 10),
+]
+
+
+@pytest.mark.parametrize("dtype,g,w,tb,np_cam", OD_CASES)
+def test_od_kernels_match_plain(dev, dtype, g, w, tb, np_cam):
+    """B1 and B8 with want_od on tracks that walk through adjacent window
+    rows; window row 0 and the padded slots' planes are NaN.  Tb = 1 gives
+    exact-zero od columns."""
+    d = _inputs(dev, dtype, g, w, tb, np_cam, seed=3 * g + w + tb)
+    rng = np.random.default_rng(w + tb)
+    steps = np.where(rng.random((g, tb, PC)) < 0.75, 1, 2)
+    steps[:, 0] = rng.integers(1, w - 2 * tb, size=(g, PC))  # row 0 is poisoned
+    length = rng.integers(0, tb + 1, size=(g, 1, PC))
+    wcam = np.where(np.arange(tb)[None, :, None] < length, np.cumsum(steps, axis=1), -1)
+    wcam = torch.as_tensor(wcam.reshape(g, tb * PC).astype(np.int16), device=dev)
+    pad = (wcam < 0).reshape(g, tb, PC)
+    tw = d["tw"].clone()
+    tw[:, 0] = float("nan")
+    elem, reduced = TOL[dtype]
+    cfg = BAConfig(optimize_dist=np_cam >= 10, optimize_pp=np_cam == 12)
+    lin_args = (wcam, tw, d["pts"], d["uv"], (~pad).to(dtype), d["lam"], d["inv_w"], cfg,
+                np_cam, True, True)
+    before = (wtt_linearize.OD_COUNTS.kernel, wtt_linearize.CONTRIB_OD_COUNTS.kernel)
+    got = wtt_linearize.wtt_linearize_fused_idx(*lin_args)
+    want = wtt_linearize.wtt_linearize_fused_idx_plain(*lin_args)
+    for name, a, b in zip(("rows", "jc", "jp", "v_inv", "g_pt", "damp_pt"), got, want):
+        assert torch.isfinite(a).all(), name
+        _close(a, b, reduced if name == "rows" else elem, f"B1 od {name}")
+    od = got[0][..., -np_cam * np_cam:]
+    assert (od == 0).all() if tb == 1 else (od != 0).any()
+
+    _, jc, jp, v_inv, _, _ = want
+    jc, jp = jc.clone(), jp.clone()
+    r = torch.randn(2, g, tb, PC, dtype=dtype, device=dev)
+    for x in (jc, jp, r):
+        x[:, pad] = float("nan")
+    b8 = (wcam, jc, jp, r, v_inv, np_cam, w, True, True)
+    rows = wtt_linearize.wtt_contrib_rows_idx(*b8)
+    assert torch.isfinite(rows).all()
+    _close(rows, wtt_linearize.wtt_contrib_rows_idx_plain(*b8), reduced, "B8 od")
+    _close(rows[..., -np_cam * np_cam:], od, reduced, "B8 od vs B1 od")
+    assert (wtt_linearize.OD_COUNTS.kernel, wtt_linearize.CONTRIB_OD_COUNTS.kernel) == (
+        before[0] + 1, before[1] + 1)
 
 
 def test_route_kernels_refuse_bad_inputs(dev):

@@ -160,12 +160,23 @@ def test_cpu_tensors_run_the_plain_versions():
 
 
 def test_want_od_and_bad_np_raise():
+    """want_od needs use_sj (JAX's ValueError); with it the CPU call runs the
+    plain version, whose rows gain the np^2 od columns."""
     d = _inputs(1, 128, 2, 8, seed=2)
-    with pytest.raises(NotImplementedError, match="want_od"):
+    with pytest.raises(ValueError, match="want_od requires use_sj"):
         wtt_linearize.wtt_linearize_fused_idx(
             _t(d["wcam"]), _t(d["tw"]), _t(d["pts"]), _t(d["uv"]), _t(d["mask"]),
-            LAM, 1.0, TConfig(), 8, True, want_od=True,
+            LAM, 1.0, TConfig(), 8, False, want_od=True,
         )
+    before = (wtt_linearize.OD_COUNTS.kernel, wtt_linearize.OD_COUNTS.plain)
+    rows = wtt_linearize.wtt_linearize_fused_idx(
+        _t(d["wcam"]), _t(d["tw"]), _t(d["pts"]), _t(d["uv"]), _t(d["mask"]),
+        torch.tensor(LAM, dtype=torch.float64), torch.tensor(1.0, dtype=torch.float64),
+        TConfig(), 8, True, want_od=True,
+    )[0]
+    assert rows.shape == (1, 128, wtt_linearize.n_rows_cols(8, True) + 64)
+    assert (wtt_linearize.OD_COUNTS.kernel, wtt_linearize.OD_COUNTS.plain) == (
+        before[0], before[1] + 1)
     with pytest.raises(ValueError, match="np_cam"):
         wtt_linearize.wtt_linearize_fused_idx(
             _t(d["wcam"]), _t(d["tw"]), _t(d["pts"]), _t(d["uv"]), _t(d["mask"]),

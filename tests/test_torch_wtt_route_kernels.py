@@ -127,7 +127,7 @@ def test_fused_coupling_plain_is_the_literal_product():
 
 def test_cpu_tensors_run_the_plain_versions():
     """A CPU call runs the plain version (its counter grows) and never the
-    kernel; want_od raises as B1's does."""
+    kernel, with want_od too (which needs use_sj, as B1's does)."""
     g, w, tb = 1, 128, 2
     d = wtt_kernel_inputs(g, w, tb, 8, seed=1, pc=PC)
     p = {k: _t(v) for k, v in _planes(g, tb, 8, seed=1).items()}
@@ -143,8 +143,14 @@ def test_cpu_tensors_run_the_plain_versions():
     after = [(c.kernel, c.plain) for c in counters]
     assert [a[0] - b[0] for a, b in zip(after, before)] == [0, 0, 0, 0]
     assert [a[1] - b[1] for a, b in zip(after, before)] == [1, 1, 1, 1]
-    with pytest.raises(NotImplementedError, match="want_od"):
+    od = wtt_linearize.CONTRIB_OD_COUNTS
+    before = (od.kernel, od.plain)
+    rows = wtt_linearize.wtt_contrib_rows_idx(wcam, p["jc"], p["jp"], p["r"], p["v_inv"], 8,
+                                              w, True, want_od=True)
+    assert rows.shape == (g, w, wtt_linearize.n_contrib_cols(8, True) + 64)
+    assert (od.kernel, od.plain) == (before[0], before[1] + 1)
+    with pytest.raises(ValueError, match="want_od requires use_sj"):
         wtt_linearize.wtt_contrib_rows_idx(wcam, p["jc"], p["jp"], p["r"], p["v_inv"], 8, w,
-                                           True, want_od=True)
+                                           False, want_od=True)
     with pytest.raises(ValueError, match="device"):
         wtt_linearize.wtt_cam_planes_idx(wcam, torch.empty(1, device="meta"), tb)

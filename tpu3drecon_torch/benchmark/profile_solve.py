@@ -1,4 +1,4 @@
-"""Where the time of one medium solve goes on the card.
+"""Where the time of one solve goes on the card.
 
     python -m tpu3drecon_torch.benchmark.profile_solve [--trace-dir DIR]
 
@@ -11,9 +11,12 @@ the fused-kernel grid engine ``ba_solve_pallas`` and the dense track table
 (``wtt_unfused``: ``linearize_kernel=False``, ``matvec_kernel="index"``)
 and its one-hot route (``wtt_onehot``: ``linearize_kernel=False``,
 ``matvec_kernel="fused"``, on the packing with its dense int8 one-hot), on
-the medium problem with ``BENCH_CONFIG``: two warm-up solves, then ``torch.profiler``
-(CPU and CUDA activities) over one solve.  The Chrome trace it exports is
-read back, and one JSON line per engine or route gives
+the medium problem with ``BENCH_CONFIG``, and for ``bal_seq_ssor``, the
+BAL-scale sequential problem (``benchmark/balscale.py``) solved fully
+indexed under the block-SSOR preconditioner for 3 LM iterations
+(``BAL_CONFIG``): two warm-up solves, then ``torch.profiler`` (CPU and
+CUDA activities) over one solve.  The Chrome trace it exports is read
+back, and one JSON line per engine or route gives
 
   - ``wall_s``: host clock around the profiled solve (synchronized);
   - ``busy_s`` and ``busy_share``: the union of device kernel, memcpy and
@@ -24,7 +27,11 @@ read back, and one JSON line per engine or route gives
   - ``top``: the device kernels with the most total time, with their
     launch count, total and mean time;
   - ``port``: the same figures for each of the port's own CUDA kernels
-    (``csrc/*.cu``) that ran.
+    (``csrc/*.cu``) that ran;
+  - ``spans``: for each ``torch.profiler.record_function`` span of the
+    solvers (the band preconditioner's ``band_precond_factor`` and
+    ``band_precond_apply``), its calls, host time and share of ``wall_s``,
+    and the ``cudaLaunchKernel`` calls made inside it.
 
 Needs a CUDA device; measures nothing elsewhere.
 """
@@ -40,6 +47,8 @@ import torch
 
 from tpu3drecon_torch.ops._build import BUILD_DIR
 
+# The solvers' record_function spans.
+SPANS = ("band_precond_factor", "band_precond_apply")
 # The port's kernels (csrc/*.cu) as named in a trace: "...::<name><...>(...)".
 PORT_KERNELS = ("lin_kernel", "coupling_kernel", "wt_planes_kernel", "cost_kernel",
                 "w_rows_kernel", "onehot_coupling_kernel", "cam_planes_kernel",
@@ -68,8 +77,9 @@ def summarize(trace_path: str, wall_s: float, top: int = 12) -> dict:
     (times in the trace are microseconds)."""
     with open(trace_path) as fh:
         events = json.load(fh)["traceEvents"]
-    device, kernels = [], {}
-    launches = syncs = 0
+    device, kernels, launch_ts = [], {}, []
+    spans = {name: [] for name in SPANS}
+    syncs = 0
     for ev in events:
         cat, name = ev.get("cat", ""), ev.get("name", "")
         if cat in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in ev:
@@ -79,20 +89,30 @@ def summarize(trace_path: str, wall_s: float, top: int = 12) -> dict:
                 k[0] += 1
                 k[1] += ev["dur"]
         elif cat == "cuda_runtime":
-            launches += name.startswith("cudaLaunchKernel")
+            if name.startswith("cudaLaunchKernel"):
+                launch_ts.append(ev["ts"])
             syncs += name == "cudaStreamSynchronize"
+        elif cat == "user_annotation" and name in spans and "dur" in ev:
+            spans[name].append((ev["ts"], ev["ts"] + ev["dur"]))
     busy_s = _intervals_union(device) * 1e-6
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])
 
     def row(name, n, t):
         return dict(kernel=name[:90], launches=n, total_ms=t * 1e-3, mean_us=t / n)
 
+    def span_row(intervals):
+        host_s = sum(e - s for s, e in intervals) * 1e-6
+        inside = sum(any(s <= t <= e for s, e in intervals) for t in launch_ts)
+        return dict(calls=len(intervals), host_s=host_s, host_share=host_s / wall_s,
+                    launch_calls=inside)
+
     return dict(
         wall_s=wall_s, busy_s=busy_s, busy_share=busy_s / wall_s,
-        device_ops=len(device), launch_calls=launches, sync_calls=syncs,
+        device_ops=len(device), launch_calls=len(launch_ts), sync_calls=syncs,
         top=[row(name, n, t) for name, (n, t) in ranked[:top]],
         port=[row(name, n, t) for name, (n, t) in ranked
               if any(f"::{k}<" in name for k in PORT_KERNELS)],
+        spans={name: span_row(iv) for name, iv in spans.items() if iv},
     )
 
 
@@ -120,6 +140,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_solve measures on a CUDA device; none is available")
 
+    from tpu3drecon_torch.benchmark.balscale import BAL_CONFIG, bal_sequential_wtt
     from tpu3drecon_torch.benchmark.medium_config import (
         BENCH_CONFIG,
         build_grid_problem,
@@ -134,6 +155,8 @@ def main() -> int:
     cfg = BENCH_CONFIG._replace(matvec_kernel="index", linearize_kernel="index")
     cfg_a = BENCH_CONFIG._replace(matvec_kernel="index", linearize_kernel=False)
     cfg_c = BENCH_CONFIG._replace(matvec_kernel="fused", linearize_kernel=False)
+    cfg_bal = BAL_CONFIG._replace(matvec_kernel="index", linearize_kernel="index",
+                                  precond="ssor")
     runs = (
         ("wtt", lambda p: ba_solve_wtt(p, cfg),
          lambda: wtt_from_flat(build_problem(), defer_onehot=True)),
@@ -143,6 +166,8 @@ def main() -> int:
          lambda: wtt_from_flat(build_problem(), defer_onehot=False)),
         ("wtt_onehot", lambda p: ba_solve_wtt(p, cfg_c),
          lambda: wtt_from_flat(build_problem(), defer_onehot=False)),
+        ("bal_seq_ssor", lambda p: ba_solve_wtt(p, cfg_bal),
+         lambda: bal_sequential_wtt(verbose=False)),
     )
     out_dir = Path(args.trace_dir)
     out_dir.mkdir(parents=True, exist_ok=True)

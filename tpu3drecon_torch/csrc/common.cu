@@ -17,5 +17,6 @@ extern "C" const char* kernel_error_string(int code) {
   if (code == kErrNp) return "unsupported camera block width (np must be 8, 10 or 12)";
   if (code == kErrSmem) return "window too wide: shared memory exceeds the per-block limit";
   if (code == kErrDtype) return "unsupported dtype (float32 or float64)";
+  if (code == kErrOd) return "want_od requires use_sj (the band rows reuse the W/WV factors)";
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -10,7 +10,7 @@ namespace tpu3drecon {
 constexpr unsigned kFull = 0xffffffffu;
 
 // Codes for arguments the kernels do not take; cudaError_t values are >= 0.
-enum : int { kErrNp = -1, kErrSmem = -2, kErrDtype = -3 };
+enum : int { kErrNp = -1, kErrSmem = -2, kErrDtype = -3, kErrOd = -4 };
 
 // IRLS weight rho'(s) of the robust loss with code `loss` (LOSS_CODES in
 // geometry/losses.py): geometry.losses.robust_weight, operation for

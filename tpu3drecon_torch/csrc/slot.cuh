@@ -1,9 +1,9 @@
 // Device code shared by the track-table kernels (wtt_kernels.cu,
 // wtt_route_kernels.cu and tt_kernels.cu): the per-slot residual/Jacobian
 // formulas, the staged camera table and x window with their all-zero
-// padding row, the per-slot contribution columns and coupling-product
-// halves, the warp-aggregated shared-memory row reduction and its flush,
-// and the host-side launch helpers.
+// padding row, the per-slot contribution columns, band pair rows and
+// coupling-product halves, the warp-aggregated shared-memory row reduction
+// and its flush, and the host-side launch helpers.
 //
 // The track-table layouts keep one point's whole track in one thread: a
 // slot (t, p) reads its camera's row of a (rows + 1, 19) table staged in
@@ -185,12 +185,15 @@ __device__ __forceinline__ void stage_xw(const T* xw_t, T* s_xw, int W) {
 // slot (kernel B1's pass 2 and kernel B8), added into a (rows, K) tile at
 // element offsets `self` / `lead` (rows w / w0).  `j0`, `j1` are the two
 // camera-Jacobian rows, `q` the point-Jacobian planes, `vi` the point's
-// V^-1 (sym3 packing).  Returns the next free column.
+// V^-1 (sym3 packing).  With `use_sj` the slot's W factor and W V^-1 are
+// left in `wl` / `wv` (the band pair rows reuse them).  Returns the next
+// free column.
 template <typename T, int NP>
 __device__ __forceinline__ int add_contribs(T* acc, const WarpRow& wr, int self,
                                             int lead, const T* j0, const T* j1,
                                             const T* q, T r0, T r1, const T* vi,
-                                            bool use_sj) {
+                                            bool use_sj, T (&wl)[3][NP],
+                                            T (&wv)[3][NP]) {
   int col = 0;
 #pragma unroll
   for (int dd = 0; dd < NP; ++dd)
@@ -202,7 +205,6 @@ __device__ __forceinline__ int add_contribs(T* acc, const WarpRow& wr, int self,
     row_add(acc, wr, self + col, lead + col, j0[i] * r0 + j1[i] * r1);
   if (use_sj) {
     // W factor w_l[i] = jc0[i] jp0[l] + jc1[i] jp1[l]; WV = W sym3(V^-1).
-    T wl[3][NP], wv[3][NP];
 #pragma unroll
     for (int l = 0; l < 3; ++l)
 #pragma unroll
@@ -222,6 +224,29 @@ __device__ __forceinline__ int add_contribs(T* acc, const WarpRow& wr, int self,
                     wv[2][i] * wl[2][i + dd]);
   }
   return col;
+}
+
+// Band pair rows S_{c,c+1} of one slot (kernels B1 and B8 with want_od):
+// where this lane's previous track slot sits on window row `w_prev` and this
+// slot on row w_prev + 1, od[i * NP + j] = sum_l wv_prev[l][i] wl[l][j] is
+// added into row w_prev at columns col0 + i * NP + j of the (rows, K) tile.
+// Padded slots (-1) never form a pair.  The whole warp calls it.
+template <typename T, int NP>
+__device__ __forceinline__ void add_pair_rows(T* acc, int K, int col0, int w_prev,
+                                              int w, const T (&wv_prev)[3][NP],
+                                              const T (&wl)[3][NP]) {
+  const int pw = (w_prev >= 0 && w == w_prev + 1) ? w_prev : -1;
+  const WarpRow pr = warp_row(pw);
+  if (!pr.any) return;  // warp-uniform
+  const int self = (pw >= 0 ? pw : 0) * K + col0;
+  const int lead = pr.w0 * K + col0;
+#pragma unroll
+  for (int i = 0; i < NP; ++i)
+#pragma unroll
+    for (int j = 0; j < NP; ++j)
+      row_add(acc, pr, self + i * NP + j, lead + i * NP + j,
+              wv_prev[0][i] * wl[0][j] + wv_prev[1][i] * wl[1][j] +
+                  wv_prev[2][i] * wl[2][j]);
 }
 
 // (W^T x) of one slot added to wtx[3]: x read from column `col` of the

@@ -62,7 +62,13 @@ using namespace tpu3drecon;
 namespace {
 
 // ---------------------------------------------------------------- B1 ----
-template <typename T, int NP>
+// With OD (want_od) the rows gain np^2 band pair columns after the rhs:
+// od[i * np + j] of window row w sums wv(slot t-1)[i] w(slot t)[j] over the
+// adjacent track slots on rows w and w + 1 (the pair one-hot of
+// wtt_linearize.py:515-538).  Each thread keeps its previous slot's W V^-1
+// factor and row in registers; the pair rows go through the same
+// warp-aggregated shared-memory atomics as the other columns.
+template <typename T, int NP, bool OD>
 __global__ void __launch_bounds__(kBlock)
 lin_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ tw,
            const T* __restrict__ pts, const T* __restrict__ uv,
@@ -73,7 +79,7 @@ lin_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ tw,
            T* __restrict__ damp_out, int G, int Tb, int Pc, int W,
            LinFlags f) {
   constexpr int NT = NP * (NP + 1) / 2;
-  const int K = NT + NP + (f.use_sj ? NT : 0) + NP;
+  const int K = NT + NP + (f.use_sj ? NT : 0) + NP + (OD ? NP * NP : 0);
   extern __shared__ __align__(16) unsigned char smem[];
   T* s_tw = reinterpret_cast<T*>(smem);  // (W + 1, 19)
   T* s_acc = s_tw + (W + 1) * kD;        // (W, K)
@@ -152,24 +158,39 @@ lin_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ tw,
   const T vw1 = vi[1] * gp[0] + vi[3] * gp[1] + vi[4] * gp[2];
   const T vw2 = vi[2] * gp[0] + vi[4] * gp[1] + vi[5] * gp[2];
 
-  // Pass 2: contribution columns u | g [| coupling] | rhs into window rows.
+  // Pass 2: contribution columns u | g [| coupling] | rhs [| od] into window
+  // rows.
+  T wv_prev[3][NP];
+  int w_prev = -1;
   for (int t = 0; t < Tb; ++t) {
     int w;
     Slot<T, NP> o;
     slot(t, w, o);
     const WarpRow wr = warp_row(w);
-    if (!wr.any) continue;  // warp-uniform
+    if (!wr.any) {  // warp-uniform
+      w_prev = -1;
+      continue;
+    }
     const int self = (w >= 0 ? w : 0) * K;
     const int lead = wr.w0 * K;
     const T* j0 = o.jc;
     const T* j1 = o.jc + NP;
+    T wl[3][NP], wv[3][NP];
     const int col = add_contribs<T, NP>(s_acc, wr, self, lead, j0, j1, o.jp, o.r0,
-                                        o.r1, vi, f.use_sj);
+                                        o.r1, vi, f.use_sj, wl, wv);
     const T s0r = o.jp[0] * vw0 + o.jp[1] * vw1 + o.jp[2] * vw2;
     const T s1r = o.jp[3] * vw0 + o.jp[4] * vw1 + o.jp[5] * vw2;
 #pragma unroll
     for (int i = 0; i < NP; ++i) {
       row_add(s_acc, wr, self + col + i, lead + col + i, j0[i] * s0r + j1[i] * s1r);
+    }
+    if constexpr (OD) {
+      add_pair_rows<T, NP>(s_acc, K, col + NP, w_prev, w, wv_prev, wl);
+#pragma unroll
+      for (int l = 0; l < 3; ++l)
+#pragma unroll
+        for (int i = 0; i < NP; ++i) wv_prev[l][i] = wv[l][i];
+      w_prev = w;
     }
   }
   __syncthreads();
@@ -293,17 +314,17 @@ cost_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ tw,
 }
 
 // ---------------------------------------------------------------- host --
-template <typename T, int NP>
+template <typename T, int NP, bool OD>
 int lin_launch(const void* wcam, const void* tw, const void* pts, const void* uv,
                const void* mask, const void* lam, const void* inv_w, void* rows,
                void* jc, void* jp, void* vinv, void* gpt, void* damp, int G,
                int Tb, int Pc, int W, LinFlags f, cudaStream_t stream) {
   constexpr int NT = NP * (NP + 1) / 2;
-  const int K = NT + NP + (f.use_sj ? NT : 0) + NP;
+  const int K = NT + NP + (f.use_sj ? NT : 0) + NP + (OD ? NP * NP : 0);
   const size_t smem = sizeof(T) * ((size_t)(W + 1) * kD + (size_t)W * K);
-  const int err = prepare(lin_kernel<T, NP>, smem);
+  const int err = prepare(lin_kernel<T, NP, OD>, smem);
   if (err) return err;
-  lin_kernel<T, NP><<<grid_of(Pc, G), kBlock, smem, stream>>>(
+  lin_kernel<T, NP, OD><<<grid_of(Pc, G), kBlock, smem, stream>>>(
       (const int16_t*)wcam, (const T*)tw, (const T*)pts, (const T*)uv,
       (const T*)mask, (const T*)lam, (const T*)inv_w, (T*)rows, (T*)jc,
       (T*)jp, (T*)vinv, (T*)gpt, (T*)damp, G, Tb, Pc, W, f);
@@ -356,14 +377,20 @@ int wtt_linearize(int dtype, int np, const void* wcam, const void* tw,
                   const void* pts, const void* uv, const void* mask,
                   const void* lam, const void* inv_w, void* rows, void* jc,
                   void* jp, void* vinv, void* gpt, void* damp, int G, int Tb,
-                  int Pc, int W, int use_sj, int loss, int focal, int points,
-                  int dist, int pp, void* stream) {
+                  int Pc, int W, int use_sj, int want_od, int loss, int focal,
+                  int points, int dist, int pp, void* stream) {
+  if (want_od && !use_sj) return kErrOd;
   if (G == 0 || Pc == 0) return 0;
   const LinFlags f{use_sj, loss, focal, points, dist, pp};
   NP_DISPATCH(dtype, np,
-               (lin_launch<T, NP>(wcam, tw, pts, uv, mask, lam, inv_w, rows, jc,
-                                  jp, vinv, gpt, damp, G, Tb, Pc, W, f,
-                                  (cudaStream_t)stream)));
+               (want_od ? lin_launch<T, NP, true>(wcam, tw, pts, uv, mask, lam,
+                                                  inv_w, rows, jc, jp, vinv, gpt,
+                                                  damp, G, Tb, Pc, W, f,
+                                                  (cudaStream_t)stream)
+                        : lin_launch<T, NP, false>(wcam, tw, pts, uv, mask, lam,
+                                                   inv_w, rows, jc, jp, vinv, gpt,
+                                                   damp, G, Tb, Pc, W, f,
+                                                   (cudaStream_t)stream)));
 }
 
 int wtt_coupling(int dtype, int np, const void* xw_t, const void* wcam,

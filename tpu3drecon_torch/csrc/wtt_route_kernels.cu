@@ -61,14 +61,17 @@ cam_planes_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ tw,
 }
 
 // ---------------------------------------------------------------- B8 ----
-template <typename T, int NP>
+// With OD (want_od) the rows gain np^2 band pair columns after the coupling
+// (wtt_linearize.py:163-190), formed as in B1 from the previous slot's
+// W V^-1 factor kept in registers (slot.cuh add_pair_rows).
+template <typename T, int NP, bool OD>
 __global__ void __launch_bounds__(kBlock)
 contrib_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ jc,
                const T* __restrict__ jp, const T* __restrict__ r,
                const T* __restrict__ vinv, T* __restrict__ rows, int G, int Tb,
                int Pc, int W, int use_sj) {
   constexpr int NT = NP * (NP + 1) / 2;
-  const int K = NT + NP + (use_sj ? NT : 0);
+  const int K = NT + NP + (use_sj ? NT : 0) + (OD ? NP * NP : 0);
   extern __shared__ __align__(16) unsigned char smem[];
   T* s_acc = reinterpret_cast<T*>(smem);  // (W, K)
   const int g = blockIdx.y;
@@ -82,11 +85,16 @@ contrib_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ jc,
 #pragma unroll
   for (int k = 0; k < 6; ++k)
     vi[k] = live && use_sj ? vinv[k * GP + (size_t)g * Pc + p] : T(0);
+  T wv_prev[3][NP];
+  int w_prev = -1;
   for (int t = 0; t < Tb; ++t) {
     const size_t ts = ((size_t)g * Tb + t) * Pc + p;
     const int w = live ? int(wcam[ts]) : -1;
     const WarpRow wr = warp_row(w);
-    if (!wr.any) continue;  // warp-uniform
+    if (!wr.any) {  // warp-uniform
+      w_prev = -1;
+      continue;
+    }
     const bool own = w >= 0;
     T j[2 * NP], q[6];
 #pragma unroll
@@ -95,8 +103,17 @@ contrib_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ jc,
     for (int k = 0; k < 6; ++k) q[k] = own && use_sj ? jp[k * GTP + ts] : T(0);
     const T r0 = own ? r[ts] : T(0);
     const T r1 = own ? r[GTP + ts] : T(0);
-    add_contribs<T, NP>(s_acc, wr, (own ? w : 0) * K, wr.w0 * K, j, j + NP, q, r0,
-                        r1, vi, use_sj);
+    T wl[3][NP], wv[3][NP];
+    const int col = add_contribs<T, NP>(s_acc, wr, (own ? w : 0) * K, wr.w0 * K, j,
+                                        j + NP, q, r0, r1, vi, use_sj, wl, wv);
+    if constexpr (OD) {
+      add_pair_rows<T, NP>(s_acc, K, col, w_prev, w, wv_prev, wl);
+#pragma unroll
+      for (int l = 0; l < 3; ++l)
+#pragma unroll
+        for (int i = 0; i < NP; ++i) wv_prev[l][i] = wv[l][i];
+      w_prev = w;
+    }
   }
   __syncthreads();
   flush(s_acc, rows + (size_t)g * W * K, W * K);
@@ -193,16 +210,16 @@ int cam_planes_launch(const void* wcam, const void* tw, void* out, int G, int N,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NP>
+template <typename T, int NP, bool OD>
 int contrib_launch(const void* wcam, const void* jc, const void* jp, const void* r,
                    const void* vinv, void* rows, int G, int Tb, int Pc, int W,
                    int use_sj, cudaStream_t stream) {
   constexpr int NT = NP * (NP + 1) / 2;
-  const int K = NT + NP + (use_sj ? NT : 0);
+  const int K = NT + NP + (use_sj ? NT : 0) + (OD ? NP * NP : 0);
   const size_t smem = sizeof(T) * (size_t)W * K;
-  const int err = prepare(contrib_kernel<T, NP>, smem);
+  const int err = prepare(contrib_kernel<T, NP, OD>, smem);
   if (err) return err;
-  contrib_kernel<T, NP><<<grid_of(Pc, G), kBlock, smem, stream>>>(
+  contrib_kernel<T, NP, OD><<<grid_of(Pc, G), kBlock, smem, stream>>>(
       (const int16_t*)wcam, (const T*)jc, (const T*)jp, (const T*)r,
       (const T*)vinv, (T*)rows, G, Tb, Pc, W, use_sj);
   return (int)cudaGetLastError();
@@ -250,11 +267,16 @@ int wtt_cam_planes(int dtype, const void* wcam, const void* tw, void* out, int G
 
 int wtt_contrib(int dtype, int np, const void* wcam, const void* jc, const void* jp,
                 const void* r, const void* vinv, void* rows, int G, int Tb, int Pc,
-                int W, int use_sj, void* stream) {
+                int W, int use_sj, int want_od, void* stream) {
+  if (want_od && !use_sj) return kErrOd;
   if (G == 0 || Pc == 0) return 0;
   NP_DISPATCH(dtype, np,
-              (contrib_launch<T, NP>(wcam, jc, jp, r, vinv, rows, G, Tb, Pc, W,
-                                     use_sj, (cudaStream_t)stream)));
+              (want_od ? contrib_launch<T, NP, true>(wcam, jc, jp, r, vinv, rows, G,
+                                                     Tb, Pc, W, use_sj,
+                                                     (cudaStream_t)stream)
+                       : contrib_launch<T, NP, false>(wcam, jc, jp, r, vinv, rows, G,
+                                                      Tb, Pc, W, use_sj,
+                                                      (cudaStream_t)stream)));
 }
 
 int wtt_w_rows(int dtype, int np, const void* y, const void* wcam, const void* jc,

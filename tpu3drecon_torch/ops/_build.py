@@ -49,8 +49,9 @@ _D = ctypes.c_double
 # c_void_p: a plain int would be cut to 32 bits).
 _SIGNATURES = {
     # dtype, np, wcam, tw, pts, uv, mask, lam, inv_w, rows, jc, jp, vinv,
-    # gpt, damp, G, Tb, Pc, W, use_sj, loss, focal, points, dist, pp, stream
-    "wtt_linearize": [_I, _I] + [_P] * 13 + [_I] * 9 + [_P],
+    # gpt, damp, G, Tb, Pc, W, use_sj, want_od, loss, focal, points, dist, pp,
+    # stream
+    "wtt_linearize": [_I, _I] + [_P] * 13 + [_I] * 11 + [_P],
     # dtype, np, xw_t, wcam, jc, jp, vinv, out, G, Tb, Pc, W, stream
     "wtt_coupling": [_I, _I] + [_P] * 6 + [_I] * 4 + [_P],
     # dtype, np, xw_t, wcam, jc, jp, out, G, Tb, Pc, W, stream
@@ -76,8 +77,9 @@ _SIGNATURES = {
     "tt_cost": [_I] + [_P] * 7 + [_I] * 4 + [_P],
     # dtype, wcam, tw, out, G, N, W, stream
     "wtt_cam_planes": [_I] + [_P] * 3 + [_I] * 3 + [_P],
-    # dtype, np, wcam, jc, jp, r, vinv, rows, G, Tb, Pc, W, use_sj, stream
-    "wtt_contrib": [_I, _I] + [_P] * 6 + [_I] * 5 + [_P],
+    # dtype, np, wcam, jc, jp, r, vinv, rows, G, Tb, Pc, W, use_sj, want_od,
+    # stream
+    "wtt_contrib": [_I, _I] + [_P] * 6 + [_I] * 6 + [_P],
     # dtype, np, y, wcam, jc, jp, out, G, Tb, Pc, W, stream
     "wtt_w_rows": [_I, _I] + [_P] * 5 + [_I] * 4 + [_P],
     # dtype, np, onehot_float, xw_t, onehot, jc, jp, vinv, out, G, Tb, Pc, W,

@@ -8,12 +8,16 @@ ops/wtt_matvec.py, ops/wtt_cost.py).  One LM iteration:
   1. linearize: with ``linearize_kernel="index"`` kernel B1 per bucket
      (it also reduces the Schur rhs W V^-1 g_pt); otherwise the unfused
      route: B7 selects the slot camera planes, the Jacobian planes and the
-     point normal run in PyTorch, B8 reduces the contribution rows.  The
-     window rows tile-scatter to the camera axis, and the 8x8 blocks get a
-     guarded Cholesky factorization;
+     point normal run in PyTorch, B8 reduces the contribution rows.  Under
+     the band preconditioners (``precond="tridiag"``/``"ssor"``) B1 or B8
+     also emits the S_{c,c+1} pair rows (``want_od``).  The window rows
+     tile-scatter to the camera axis, and the 8x8 blocks get a guarded
+     Cholesky factorization, or with a band preconditioner the
+     ``solvers/tridiag.py`` factor over 128-camera segments;
   2. PCG on U x - sum W V^-1 W^T x, the coupling from kernel B2
      (``matvec_kernel="index"``), B6 from the dense one-hot
-     (``True``/``"fused"``) or PyTorch gathers and scatters (False);
+     (``True``/``"fused"``) or PyTorch gathers and scatters (False),
+     preconditioned by the block Cholesky solve or the band sweeps;
   3. rhs (unfused linearize only) W V^-1 g_pt: B5 with the index matvec,
      else PyTorch; back-substitution W^T dc: B3 with the index matvec,
      else PyTorch; dp = V^-1 (-g_pt - W^T dc);
@@ -26,9 +30,11 @@ The PyTorch forms of the JAX engine's XLA products (``_w_times_plane``,
 multiplies by the dense one-hot, which only B6 reads.  Window gathers and
 scatters move whole 128-row camera tiles (``_window_rows`` /
 ``_scatter_rows``, a tile gather and an ``index_add_``).  The
-reduced-fidelity ``index1``/``index2`` modes, ``matvec_bf16`` and the band
-preconditioners (``tridiag``/``ssor``, which need the linearize's
-``want_od`` rows) are not ported and raise.
+reduced-fidelity ``index1``/``index2`` modes and ``matvec_bf16`` are not
+ported and raise; the band preconditioners refuse hub/global camera tiles
+with the JAX engine's ``ValueError``.  The band factor and sweeps run as
+``torch.profiler`` spans ``band_precond_factor`` / ``band_precond_apply``
+(``benchmark/profile_solve.py`` reads their host time and launches).
 """
 
 from __future__ import annotations
@@ -69,7 +75,17 @@ from tpu3drecon_torch.solvers.ba_tt import (
 )
 from tpu3drecon_torch.solvers.bundle_adjust import BAConfig, BAState, n_cam_params
 from tpu3drecon_torch.solvers.pcg import cho_block_precond, guarded_block_cholesky, pcg
+from tpu3drecon_torch.solvers.tridiag import (
+    SSORFactor,
+    auto_segments,
+    ssor_factor,
+    ssor_solve,
+    tridiag_factor,
+    tridiag_solve,
+)
 from tpu3drecon_torch.solvers.trust_region import trust_region_solve
+
+_BAND = ("tridiag", "ssor")
 
 
 def _window_idx(bucket: WTTBucket) -> torch.Tensor:
@@ -113,6 +129,8 @@ class WTTNormal(NamedTuple):
     g_cam: torch.Tensor  # (c_pad, np)
     damp_cam: torch.Tensor  # (c_pad, np)
     buckets: Tuple[WTTBucketNormal, ...]
+    # TridiagFactor / SSORFactor under precond "tridiag" / "ssor", else None.
+    tridiag: object = None
     # (c_pad, np) Schur rhs product W V^-1 g_pt from B1's rhs columns; None
     # on the unfused route, where propose forms it with w_times.
     b_cam: torch.Tensor = None
@@ -138,11 +156,13 @@ def _linearize(params, lam, problem: BAWTTProblem, config: BAConfig) -> WTTNorma
     inv_w = _inv_w(problem, dtype)
     np_cam = n_cam_params(config)
     n_triu = len(_triu_pairs(np_cam))
-    use_sj = config.precond == "schur_jacobi"
+    want_od = config.precond in _BAND
+    use_sj = config.precond == "schur_jacobi" or want_od
     fused = config.linearize_kernel == "index"
     u_cols = table_pad.new_zeros(c_pad, n_triu)
     g_cols = table_pad.new_zeros(c_pad, np_cam)
     coup_cols = table_pad.new_zeros(c_pad, n_triu)
+    e_cols = table_pad.new_zeros(c_pad, np_cam * np_cam)
     b_cols = table_pad.new_zeros(c_pad, np_cam)
     bucket_normals = []
     for bucket, pts in zip(problem.buckets, pts_list):
@@ -151,7 +171,7 @@ def _linearize(params, lam, problem: BAWTTProblem, config: BAConfig) -> WTTNorma
         if fused:
             rows, jc, jp, v_inv, g_pt, damp_pt = wtt_linearize_fused_idx(
                 bucket.wcam, tw, pts, bucket.uv, bucket.mask, lam, inv_w, config,
-                np_cam, use_sj,
+                np_cam, use_sj, want_od,
             )
         else:
             tb = bucket.uv.shape[2]
@@ -162,7 +182,7 @@ def _linearize(params, lam, problem: BAWTTProblem, config: BAConfig) -> WTTNorma
             )
             v_inv, g_pt, damp_pt = point_normal(jp, r, lam)
             rows = wtt_contrib_rows_idx(
-                bucket.wcam, jc, jp, r, v_inv, np_cam, bucket.window, use_sj,
+                bucket.wcam, jc, jp, r, v_inv, np_cam, bucket.window, use_sj, want_od,
             )
         reduced = _scatter_rows(rows, widx, c_pad)
         u_cols = u_cols + reduced[:, :n_triu]
@@ -171,7 +191,11 @@ def _linearize(params, lam, problem: BAWTTProblem, config: BAConfig) -> WTTNorma
         if use_sj:
             coup_cols = coup_cols + reduced[:, n_triu + np_cam : off]
         if fused:
+            # rhs block (W V^-1 g_pt) after the coupling, before the od rows.
             b_cols = b_cols + reduced[:, off : off + np_cam]
+            off += np_cam
+        if want_od:
+            e_cols = e_cols + reduced[:, off:]
         bucket_normals.append(WTTBucketNormal(jc, jp, v_inv, g_pt, damp_pt))
 
     u0 = _unpack_sym(u_cols, np_cam)
@@ -180,14 +204,36 @@ def _linearize(params, lam, problem: BAWTTProblem, config: BAConfig) -> WTTNorma
     damp_cam = lam * du
     u_d = u0 + damp_cam[..., None] * eye
     if use_sj:
-        u_chol = guarded_block_cholesky(u_d - _unpack_sym(coup_cols, np_cam), u_d)
+        precond_mat = u_d - _unpack_sym(coup_cols, np_cam)
+        u_chol = guarded_block_cholesky(precond_mat, u_d)
     else:
         # Padding cameras have u0 = 0 and damp = lam*1e-8: SPD, inert.
         u_chol = torch.linalg.cholesky_ex(u_d).L
+    band = None
+    if want_od:
+        make = ssor_factor if config.precond == "ssor" else tridiag_factor
+        with torch.profiler.record_function("band_precond_factor"):
+            band = make(precond_mat, -e_cols.reshape(c_pad, np_cam, np_cam),
+                        segments=auto_segments(c_pad))
     return WTTNormal(
         u=u_d, u_chol=u_chol, g_cam=g_cols, damp_cam=damp_cam,
-        buckets=tuple(bucket_normals), b_cam=b_cols if fused else None,
+        buckets=tuple(bucket_normals), tridiag=band, b_cam=b_cols if fused else None,
     )
+
+
+def _preconditioner(nb: WTTNormal):
+    """The PCG preconditioner: the band sweeps of ``nb.tridiag`` over
+    ``auto_segments`` segments, else the block Cholesky solve."""
+    if nb.tridiag is None:
+        return cho_block_precond(nb.u_chol)
+    seg = auto_segments(nb.u_chol.shape[0])
+    solve = ssor_solve if isinstance(nb.tridiag, SSORFactor) else tridiag_solve
+
+    def apply(r):
+        with torch.profiler.record_function("band_precond_apply"):
+            return solve(nb.tridiag, r, segments=seg)
+
+    return apply
 
 
 def _xw_t(x_pad: torch.Tensor, bucket: WTTBucket) -> torch.Tensor:
@@ -306,6 +352,15 @@ def _check_config(config: BAConfig, problem: BAWTTProblem = None) -> None:
             "the index kernels need the compact window indices "
             "(WTTBucket.wcam); repack with wtt_from_flat"
         )
+    if problem is not None and config.precond in _BAND and any(
+        b.global_tiles for b in problem.buckets
+    ):
+        # The pair rows take window-row adjacency for camera adjacency, which
+        # breaks at the local/global boundary of a hub split.
+        raise ValueError(
+            "band preconditioners (ssor/tridiag) are not supported with "
+            "hub/global camera tiles; use precond='schur_jacobi'"
+        )
     if config.matvec_kernel in ("index1", "index2") or config.linearize_kernel == "index2":
         raise NotImplementedError(
             "the reduced-fidelity bf16-split modes (matvec_kernel 'index1'/"
@@ -315,11 +370,6 @@ def _check_config(config: BAConfig, problem: BAWTTProblem = None) -> None:
         raise NotImplementedError(
             "matvec_bf16 (bf16 jc/jp on the XLA matvec path, a measured "
             "negative on the TPU) is not ported (ROADMAP A14)"
-        )
-    if config.precond not in ("schur_jacobi", "jacobi_u"):
-        raise NotImplementedError(
-            f"precond={config.precond!r} needs the band rows (want_od) of the "
-            "BAL-scale slice (ROADMAP A8); use 'schur_jacobi' or 'jacobi_u'"
         )
 
 
@@ -391,7 +441,7 @@ def _ba_solve_wtt_core(problem: BAWTTProblem, pts_list, config: BAConfig, dev):
             b = b - nb.g_cam
         out = pcg(
             lambda p: _schur_matvec(nb, p, problem, config.matvec_kernel),
-            cho_block_precond(nb.u_chol),
+            _preconditioner(nb),
             b, config.cg_maxiter, config.cg_rtol,
         )
         dc = out.x
