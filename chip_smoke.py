@@ -40,16 +40,23 @@ Phases (any failure exits non-zero and prints no result line):
    the card, on the five buckets of the medium problem in track-table
    layout (``build_tt_problem``; initial parameters, lam = 1e-4), in
    float32 and float64, B12 and B16 under all three losses.
-9. The tt path: ``ba_solve_tt`` (fully fused, kernels B12-B16) on the same
-   problem with the same config: one warm-up solve and 3 timed solves.
-10. The BAL-scale sequential problem: ``bal_sequential_wtt`` (1712
+9. The tt path: ``ba_solve_tt(kernels="full")`` (kernels B12-B16) on the
+   same problem with the same config: one warm-up solve and 3 timed solves.
+10. Padded slots and the global-memory mode: every kernel that reads
+    camera rows or x by index or reduces into rows (B1, B1 od, B2-B6, B8,
+    B8 od, B12-B16) against its plain version on the medium wtt and tt
+    buckets, in float32 and float64, with the padded slots poisoned (window
+    row 0 NaN and only padded slots on it, NaN jc/jp/r on padded slots for
+    B5 and B8, an extra NaN camera carried only by padded tt slots); B6 and
+    B15, which keep a shared-memory mode, also with the global-memory mode
+    forced (``_mode``), whose f32 time is their ``global_ms``.
+11. The BAL-scale sequential problem: ``bal_sequential_wtt`` (1712
     cameras, 999,808 points, 3,808,166 observations, f32) built on the
     card, its build time and buckets logged.
-11. B1 and B8 with ``want_od`` (the band pair rows) against their plain
-    versions: f32 on the BAL buckets, where they are timed beside B1 and
-    B8 without od, and f64 on the medium wtt buckets with window row 0 and
-    the padded slots' planes NaN.
-12. The BAL paths, with the JAX suite's BAL solver config (8 CG
+12. B1 and B8 with ``want_od`` (the band pair rows) against their plain
+    versions on the BAL buckets: f32, where they are timed beside B1 and B8
+    without od, and f64 with window row 0 and the padded slots' planes NaN.
+13. The BAL paths, with the JAX suite's BAL solver config (8 CG
     iterations, ``cg_rtol`` 0, f32): ``bal_seq`` (fully indexed,
     Schur-Jacobi) and ``bal_seq_ssor`` (fully indexed, block SSOR, B1 od)
     at 3 and 12 LM iterations, one warm-up solve and 3 timed solves each,
@@ -57,16 +64,42 @@ Phases (any failure exits non-zero and prints no result line):
     (``linearize_kernel=False``, ``matvec_kernel="index"``, block
     tridiagonal, B8 od) on the packing with its dense int8 one-hot, at 6
     LM iterations (its first three steps are rejected), one warm-up and 2
-    timed solves.  Each must end finite
-    and below its initial loss with at least one accepted step.
-13. Prints the kernel table as one JSON line, the ``nvidia-smi`` line, then
+    timed solves; then B1 od, B2 and B3 at np = 10 (``optimize_dist``)
+    checked on the BAL buckets and ``bal_seq_ssor_np10`` (block SSOR with
+    ``optimize_dist``) at 3 LM iterations, one warm-up and 2 timed solves.
+14. The BAL hub problem: ``bal_hub_wtt`` (1712 cameras, 5 % hubs of 4000
+    observations, packed with global camera tiles) built on the card, its
+    buckets (G, Tb, Pc, W, global tiles) logged; the band preconditioners
+    must raise JAX's hub ``ValueError``; B1 and B4 checked on its buckets
+    (f32), each mode and time printed;
+    ``bal_hub`` (fully indexed, Schur-Jacobi, the BAL config) at 3 and 12
+    LM iterations, one warm-up and 3 timed solves each, and its marginal.
+15. ``tt_seq1024``: a sequential scene of 1024 cameras and 256 points per
+    camera (seed 7, perturbed with seed 8 and 0.5 px noise) packed by
+    ``tt_from_flat`` (f32), its counts logged; B12-B16 checked on its
+    buckets, each mode printed; solved with the BAL config at 3 LM
+    iterations on ``kernels="full"`` (Schur-Jacobi) and on JAX's default
+    route ``kernels=False`` under block SSOR (``tt_seq1024_ssor``, no port
+    kernel), one warm-up and 2 timed solves each.
+    Each BAL, hub and tt_seq1024 solve must end finite and below its
+    initial loss with at least one accepted step.
+16. Prints the kernel table as one JSON line, the ``nvidia-smi`` line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Tolerances, relative to max|plain|: per-element outputs 1e-5 (f32) and
 1e-12 (f64); summed outputs 1e-4 and 1e-10 (B1, B2, B5, B6 and B8 rows,
 B12's U|g columns, B13 and B15 are atomic sums whose order varies; B9's U
 and g and B11's blocks are block reductions in another order than the
-plain version's); B7 (a selection) exactly.  Kernel and plain
+plain version's); B7 (a selection) exactly.  Each row of the kernel table
+gives its ``mode``: the memory mode its wrapper counted during the timed
+calls of its ``ms`` (``global``; ``shared`` for B6 and B15 on the medium
+buckets; none for B7 and B9-B11, which have no mode), which must match the
+row's label; B6's and B15's rows add ``global_ms``, the same inputs' time
+with the global-memory mode forced.  The rows ``B1 [hub]`` (the hub
+buckets), ``B1 od [np=10]`` (the BAL buckets with ``optimize_dist``) and
+``B12 [C=1024]`` (tt_seq1024) time those kernels at the widths that a
+shared tile could not hold, and count their launches on those paths.
+Kernel and plain
 times (``ms``, ``plain_ms``) are device times (``device_ms``): the median
 of 20 calls, each with a cold L2 and timed by a CUDA-event pair that sees
 none of the call's host time, summed over one pass of the solve (the five
@@ -115,39 +148,65 @@ TT_PY = "tpu3drecon/ops/pallas/tt_linearize.py"
 # route under the block-tridiagonal preconditioner.
 WTT, UNFUSED, ONEHOT = "wtt", "wtt_unfused", "wtt_onehot"
 BAL, BAL_SSOR, BAL_TRI = "bal_seq", "bal_seq_ssor", "bal_seq_tridiag_unfused"
-# (module, counter attribute, kernel name, source, replaced TPU kernel, paths)
+# The inputs that a shared-memory tile could not hold: the BAL hub problem
+# (fully indexed, Schur-Jacobi), the BAL sequential problem with
+# optimize_dist under block SSOR (np = 10), and a 1024-camera track table on
+# both tt routes (fully fused, and JAX's default XLA route under block SSOR).
+HUB, NP10 = "bal_hub", "bal_seq_ssor_np10"
+TT1024, TT1024_SSOR = "tt_seq1024", "tt_seq1024_ssor"
+SHARED, GLOBAL = "shared", "global"  # tpu3drecon_torch.ops._build's modes
+# (module, counter attribute, kernel name, source, replaced TPU kernel, paths,
+# the memory mode of its ms: the kernels read camera rows from device memory
+# and reduce into the output rows directly, B6 and B15 use their shared
+# mode where it fits, B7 and B9-B11 have no mode)
 KERNELS = (
     ("wtt_linearize", "COUNTS", "wtt_linearize_fused_idx", WTT_SRC, f"{LIN_PY}:554",
-     {WTT, BAL}),
+     {WTT, BAL, HUB}, GLOBAL),
     ("wtt_matvec", "COUPLING_COUNTS", "wtt_coupling_rows_idx", WTT_SRC, f"{MV_PY}:215",
-     {WTT, UNFUSED, BAL, BAL_SSOR, BAL_TRI}),
+     {WTT, UNFUSED, BAL, BAL_SSOR, BAL_TRI, HUB, NP10}, GLOBAL),
     ("wtt_matvec", "WT_COUNTS", "wtt_wt_planes_idx", WTT_SRC, f"{MV_PY}:405",
-     {WTT, UNFUSED, BAL, BAL_SSOR, BAL_TRI}),
+     {WTT, UNFUSED, BAL, BAL_SSOR, BAL_TRI, HUB, NP10}, GLOBAL),
     ("wtt_cost", "COUNTS", "wtt_cost_cols_idx", WTT_SRC,
-     "tpu3drecon/ops/pallas/wtt_cost.py:94", {WTT, BAL, BAL_SSOR}),
+     "tpu3drecon/ops/pallas/wtt_cost.py:94", {WTT, BAL, BAL_SSOR, HUB, NP10}, GLOBAL),
     ("wtt_matvec", "W_ROWS_COUNTS", "wtt_w_rows_idx", ROUTE_SRC, f"{MV_PY}:468",
-     {UNFUSED, BAL_TRI}),
+     {UNFUSED, BAL_TRI}, GLOBAL),
     ("wtt_matvec", "FUSED_COUNTS", "wtt_coupling_rows_fused", ROUTE_SRC, f"{MV_PY}:526",
-     {ONEHOT}),
+     {ONEHOT}, SHARED),
     ("wtt_linearize", "CAM_PLANES_COUNTS", "wtt_cam_planes_idx", ROUTE_SRC,
-     f"{LIN_PY}:229", {UNFUSED, ONEHOT, BAL_TRI}),
+     f"{LIN_PY}:229", {UNFUSED, ONEHOT, BAL_TRI}, None),
     ("wtt_linearize", "CONTRIB_COUNTS", "wtt_contrib_rows_idx", ROUTE_SRC,
-     f"{LIN_PY}:286", {UNFUSED, ONEHOT}),
+     f"{LIN_PY}:286", {UNFUSED, ONEHOT}, GLOBAL),
     ("cam_normal", "COUNTS", "cam_normal_fused", GRID_SRC,
-     "tpu3drecon/ops/pallas/cam_normal.py:205", {"grid"}),
+     "tpu3drecon/ops/pallas/cam_normal.py:205", {"grid"}, None),
     ("point_normal", "COUNTS", "point_normal_fused", GRID_SRC,
-     "tpu3drecon/ops/pallas/point_normal.py:80", {"grid"}),
+     "tpu3drecon/ops/pallas/point_normal.py:80", {"grid"}, None),
     ("coupling", "COUNTS", "coupling_fused", GRID_SRC,
-     "tpu3drecon/ops/pallas/coupling.py:65", {"grid"}),
-    ("tt_linearize", "CAM_COUNTS", "tt_cam_normal_fused", TT_SRC, f"{TT_PY}:221", {"tt"}),
-    ("tt_linearize", "COUPLING_COUNTS", "tt_coupling_fused", TT_SRC, f"{TT_PY}:297", {"tt"}),
-    ("tt_linearize", "WT_COUNTS", "tt_wt_times_fused", TT_SRC, f"{TT_PY}:436", {"tt"}),
-    ("tt_linearize", "W_COUNTS", "tt_w_times_fused", TT_SRC, f"{TT_PY}:475", {"tt"}),
-    ("tt_linearize", "COST_COUNTS", "tt_cost_fused", TT_SRC, f"{TT_PY}:512", {"tt"}),
+     "tpu3drecon/ops/pallas/coupling.py:65", {"grid"}, None),
+    ("tt_linearize", "CAM_COUNTS", "tt_cam_normal_fused", TT_SRC, f"{TT_PY}:221",
+     {"tt", TT1024}, GLOBAL),
+    ("tt_linearize", "COUPLING_COUNTS", "tt_coupling_fused", TT_SRC, f"{TT_PY}:297",
+     {"tt", TT1024}, GLOBAL),
+    ("tt_linearize", "WT_COUNTS", "tt_wt_times_fused", TT_SRC, f"{TT_PY}:436",
+     {"tt", TT1024}, GLOBAL),
+    ("tt_linearize", "W_COUNTS", "tt_w_times_fused", TT_SRC, f"{TT_PY}:475",
+     {"tt", TT1024}, SHARED),
+    ("tt_linearize", "COST_COUNTS", "tt_cost_fused", TT_SRC, f"{TT_PY}:512",
+     {"tt", TT1024}, GLOBAL),
     # B1's and B8's want_od branches (the band pair rows of ssor/tridiag).
-    ("wtt_linearize", "OD_COUNTS", "B1 od", WTT_SRC, f"{LIN_PY}:515", {BAL_SSOR}),
-    ("wtt_linearize", "CONTRIB_OD_COUNTS", "B8 od", ROUTE_SRC, f"{LIN_PY}:163", {BAL_TRI}),
+    ("wtt_linearize", "OD_COUNTS", "B1 od", WTT_SRC, f"{LIN_PY}:515", {BAL_SSOR, NP10},
+     GLOBAL),
+    ("wtt_linearize", "CONTRIB_OD_COUNTS", "B8 od", ROUTE_SRC, f"{LIN_PY}:163",
+     {BAL_TRI}, GLOBAL),
+    # B1, B1 od and B12 at the widths that a shared tile could not hold.
+    ("wtt_linearize", "COUNTS", "B1 [hub]", WTT_SRC, f"{LIN_PY}:554", {HUB}, GLOBAL),
+    ("wtt_linearize", "OD_COUNTS", "B1 od [np=10]", WTT_SRC, f"{LIN_PY}:515", {NP10},
+     GLOBAL),
+    ("tt_linearize", "CAM_COUNTS", "B12 [C=1024]", TT_SRC, f"{TT_PY}:221", {TT1024},
+     GLOBAL),
 )
+# The kernels that keep a shared-memory mode beside the global one: their
+# rows add global_ms, the time of the same inputs with the global mode forced.
+TWO_MODES = ("wtt_coupling_rows_fused", "tt_w_times_fused")
 TOL = {  # (per-element, summed) bounds relative to max|plain|
     torch.float32: (1e-5, 1e-4),
     torch.float64: (1e-12, 1e-10),
@@ -180,10 +239,17 @@ def log(msg: str) -> None:
 
 
 def counters():
+    """kernel name -> its wrapper's launch counter."""
     return {
         name: getattr(importlib.import_module(f"tpu3drecon_torch.ops.{mod}"), attr)
         for mod, attr, name, *_ in KERNELS
     }
+
+
+def mode_of(counter, before: dict) -> str:
+    """The memory modes of a wrapper's launches since ``before`` (a copy
+    of its ``modes``)."""
+    return "+".join(sorted(m for m, n in counter.modes.items() if n > before.get(m, 0)))
 
 
 L2_FLUSH_BYTES = 128 << 20  # over twice the H100's 50 MB L2
@@ -227,9 +293,32 @@ def nbytes(*tensors) -> int:
 
 RESULTS = {  # kernel -> measured and counted figures of this run
     name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0,
-           "library_ms": None}
+           "library_ms": None, "global_ms": 0.0, "modes": set()}
     for _, _, name, *_ in KERNELS
 }
+
+
+def timed(kernel: str, fn) -> float:
+    """``device_ms(fn)``, where ``fn`` calls the wrapper of row ``kernel``;
+    the memory modes that wrapper counted meanwhile join the row's
+    ``modes``."""
+    counter = counters()[kernel]
+    before = dict(counter.modes)
+    ms = device_ms(fn)
+    mode = mode_of(counter, before)
+    if mode:
+        RESULTS[kernel]["modes"].add(mode)
+    return ms
+
+
+def time_global_ms(kernel: str, fn) -> None:
+    """Adds the device time of ``fn(_mode=GLOBAL)`` (B6 or B15 forced into
+    its global-memory mode) to the row's ``global_ms``."""
+    counter = counters()[kernel]
+    before = dict(counter.modes)
+    RESULTS[kernel]["global_ms"] += device_ms(lambda: fn(_mode=GLOBAL))
+    if mode_of(counter, before) != GLOBAL:
+        raise AssertionError(f"{kernel}: the forced calls ran in {mode_of(counter, before)}")
 WORST = {}  # "kernel dtype [output]" -> largest max|diff| / max|plain|
 
 
@@ -253,7 +342,7 @@ def account(kernel: str, fn, plain, n_bytes: int, flops: int, library=None) -> N
     """Adds one f32 call of ``kernel`` to its pass: device times and work
     (and the time of ``library``, one PyTorch call of the same function)."""
     r = RESULTS[kernel]
-    r["ms"] += device_ms(fn)
+    r["ms"] += timed(kernel, fn)
     r["plain_ms"] += device_ms(plain)
     r["bytes"] += n_bytes
     r["flops"] += flops
@@ -261,8 +350,9 @@ def account(kernel: str, fn, plain, n_bytes: int, flops: int, library=None) -> N
         r["library_ms"] = (r["library_ms"] or 0.0) + device_ms(library)
 
 
-def wtt_kernel_inputs(problem, dtype, lam_value=1e-4):
-    """Per-bucket wtt kernel inputs at the initial parameters, cast to dtype."""
+def wtt_kernel_inputs(problem, dtype, lam_value=1e-4, np_cam=8):
+    """Per-bucket wtt kernel inputs at the initial parameters, cast to dtype
+    (x with ``np_cam`` columns)."""
     from tpu3drecon_torch.solvers.ba_wtt import (
         _inv_w,
         _padded_table,
@@ -280,7 +370,7 @@ def wtt_kernel_inputs(problem, dtype, lam_value=1e-4):
         g, _, tb, pc = bucket.uv.shape
         widx = _window_idx(bucket)
         pts = problem.points3d[off : off + g * pc].reshape(g, pc, 3)
-        x = torch.randn(problem.c_pad, 8, generator=gen, dtype=torch.float64)
+        x = torch.randn(problem.c_pad, np_cam, generator=gen, dtype=torch.float64)
         out.append(dict(
             wcam=bucket.wcam,
             tw=_window_rows(table, widx).contiguous(),
@@ -292,6 +382,27 @@ def wtt_kernel_inputs(problem, dtype, lam_value=1e-4):
             xw_t=_window_rows(x.to(dev, dtype), widx).transpose(1, 2).contiguous(),
             shape=(g, tb, pc, bucket.window),
         ))
+    return out
+
+
+def poisoned(d):
+    """``d`` (one bucket of ``wtt_kernel_inputs``) with every slot on window
+    row 0 made a padded slot (-1, mask 0) and row 0 set to NaN: a kernel that
+    read row 0 for a padded slot would give NaN where the plain version
+    gives exact zeros.  Returns (inputs, padded-slot mask (G, Tb, Pc))."""
+    g, tb, pc, _ = d["shape"]
+    wcam = torch.where(d["wcam"] == 0, torch.full_like(d["wcam"], -1), d["wcam"])
+    pad = (wcam < 0).reshape(g, tb, pc)
+    d = {**d, "wcam": wcam, "mask": d["mask"] * ~pad, "tw": d["tw"].clone()}
+    d["tw"][:, 0] = float("nan")
+    return d, pad
+
+
+def nan_on(pad, *planes):
+    """Copies of (K, G, Tb, Pc) planes with the padded slots set to NaN."""
+    out = tuple(x.clone() for x in planes)
+    for x in out:
+        x[:, pad] = float("nan")
     return out
 
 
@@ -446,19 +557,15 @@ def check_route_kernels(problem) -> None:
 
         # Padded slots read exact zeros: window row 0 is NaN and only padded
         # slots point at it; jc/jp/r of padded slots are NaN for B5 and B8.
-        d = wtt_kernel_inputs(problem, dtype)[0]
+        d, pad = poisoned(wtt_kernel_inputs(problem, dtype)[0])
         g, tb, pc, w = d["shape"]
-        wcam = torch.where(d["wcam"] == 0, torch.full_like(d["wcam"], -1), d["wcam"])
-        pad = (wcam < 0).reshape(g, tb, pc)
-        d = {**d, "wcam": wcam, "mask": d["mask"] * ~pad, "tw": d["tw"].clone()}
-        d["tw"][:, 0] = float("nan")
+        wcam = d["wcam"]
         b7 = (wcam, d["tw"], tb)
         planes = lin.wtt_cam_planes_idx(*b7)
         compare("wtt_cam_planes_idx", tag, "poisoned", planes,
                 lin.wtt_cam_planes_idx_plain(*b7), 0.0)
-        jc, jp, r, v_inv, g_pt = (x.clone() for x in route_planes(d, planes, cfg))
-        for x in (jc, jp, r):
-            x[:, pad] = float("nan")
+        jc, jp, r, v_inv, g_pt = route_planes(d, planes, cfg)
+        jc, jp, r = nan_on(pad, jc, jp, r)
         b8 = (wcam, jc, jp, r, v_inv, 8, w, True)
         rows = lin.wtt_contrib_rows_idx(*b8)
         compare("wtt_contrib_rows_idx", tag, "poisoned", rows,
@@ -479,10 +586,11 @@ def adjacent_pairs(wcam, g: int, tb: int, pc: int) -> int:
     return int(((w[:, :-1] >= 0) & (w[:, 1:] == w[:, :-1] + 1)).sum())
 
 
-def check_od_kernels(bal, medium) -> None:
-    """Phase 11: B1 and B8 with want_od against their plain versions, f32
-    on the BAL buckets (timed there, beside B1 and B8 without od) and f64
-    on the medium buckets with NaN where only padded slots read."""
+def check_od_kernels(bal) -> None:
+    """Phase 12: B1 and B8 with want_od against their plain versions on the
+    BAL buckets: f32 (timed there, beside B1 and B8 without od), and f64
+    with NaN where only padded slots read (rows of 350,360 and 294,912
+    bytes per group, which no shared tile of the card could hold)."""
     from tpu3drecon_torch.ops import wtt_linearize as lin
     from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
 
@@ -521,12 +629,10 @@ def check_od_kernels(bal, medium) -> None:
         f"B8 {plain_od['B8']:.6f} -> B8 od {RESULTS['B8 od']['ms']:.6f}")
 
     elem, summed = TOL[torch.float64]
-    for bi, d in enumerate(wtt_kernel_inputs(medium, torch.float64)):
+    for bi, d in enumerate(wtt_kernel_inputs(bal, torch.float64)):
+        d, pad = poisoned(d)
         g, tb, pc, w = d["shape"]
-        wcam = torch.where(d["wcam"] == 0, torch.full_like(d["wcam"], -1), d["wcam"])
-        pad = (wcam < 0).reshape(g, tb, pc)
-        d = {**d, "wcam": wcam, "mask": d["mask"] * ~pad, "tw": d["tw"].clone()}
-        d["tw"][:, 0] = float("nan")
+        wcam = d["wcam"]
         lin_args = (wcam, d["tw"], d["pts"], d["uv"], d["mask"], d["lam"], d["inv_w"], cfg,
                     8, True, True)
         got = lin.wtt_linearize_fused_idx(*lin_args)
@@ -534,16 +640,15 @@ def check_od_kernels(bal, medium) -> None:
                      for k, a, b in zip(lin_outs, got,
                                         lin.wtt_linearize_fused_idx_plain(*lin_args)))
         planes = lin.wtt_cam_planes_idx(wcam, d["tw"], tb)
-        jc, jp, r, v_inv, _ = (x.clone() for x in route_planes(d, planes, cfg))
-        for x in (jc, jp, r):
-            x[:, pad] = float("nan")
+        jc, jp, r, v_inv, _ = route_planes(d, planes, cfg)
+        jc, jp, r = nan_on(pad, jc, jp, r)
         b8 = (wcam, jc, jp, r, v_inv, 8, w, True, True)
         rows = lin.wtt_contrib_rows_idx(*b8)
         err_b8 = compare("B8 od", "f64", "poisoned", rows,
                          lin.wtt_contrib_rows_idx_plain(*b8), summed)
         if not (torch.isfinite(got[0]).all() and torch.isfinite(rows).all()):
             raise AssertionError("f64 od: a poisoned padded slot reached an output")
-        log(f"check f64 od medium bucket {bi} (G={g} Tb={tb} Pc={pc} W={w}, "
+        log(f"check f64 od BAL bucket {bi} (G={g} Tb={tb} Pc={pc} W={w}, "
             f"{adjacent_pairs(wcam, g, tb, pc)} pairs, {int(pad.sum())} padded slots, "
             f"window row 0 NaN): B1 od {err_b1:.3e} B8 od {err_b8:.3e}")
 
@@ -640,11 +745,45 @@ def tt_kernel_inputs(problem, dtype, lam_value=1e-4):
     return out
 
 
+def tt_follower_args(d, b12_plain, n_cams: int):
+    """The arguments of B13, B14 and B15 on one tt bucket ``d`` (of
+    ``tt_kernel_inputs``), from B12's plain outputs there: damped V^-1 at
+    the bucket's lam, B14 on its x, B15 on V^-1 W^T x."""
+    from tpu3drecon_torch.ops import tt_linearize as tt
+    from tpu3drecon_torch.solvers.ba_tt import _sym3_inv_planes, _sym3_matvec
+
+    jc, jp, v6 = b12_plain[:3]
+    damp = torch.stack([d["lam"] * torch.clamp(v6[k], min=1e-8) for k in (0, 3, 5)])
+    v_inv = _sym3_inv_planes(torch.stack(
+        [v6[0] + damp[0], v6[1], v6[2], v6[3] + damp[1], v6[4], v6[5] + damp[2]]))
+    b13 = (d["cam_ids"], d["mask"], jc, jp, v_inv, n_cams)
+    b14 = (d["x"], d["cam_ids"], d["mask"], jc, jp)
+    y = _sym3_matvec(v_inv, tt.tt_wt_times_fused_plain(*b14)).contiguous()
+    return b13, b14, (y, d["cam_ids"], d["mask"], jc, jp, n_cams)
+
+
+def check_tt_followers(tag: str, output: str, b13, b14, b15, errs: dict):
+    """B13, B14 and B15 against their plain versions (errors into
+    ``errs``); returns their outputs."""
+    from tpu3drecon_torch.ops import tt_linearize as tt
+
+    elem, summed = TOL[b14[0].dtype]
+    coup = tt.tt_coupling_fused(*b13)
+    errs["B13"] = compare("tt_coupling_fused", tag, output, coup,
+                          tt.tt_coupling_fused_plain(*b13), summed)
+    wtx = tt.tt_wt_times_fused(*b14)
+    errs["B14"] = compare("tt_wt_times_fused", tag, output, wtx,
+                          tt.tt_wt_times_fused_plain(*b14), elem)
+    wy = tt.tt_w_times_fused(*b15)
+    errs["B15"] = compare("tt_w_times_fused", tag, output, wy,
+                          tt.tt_w_times_fused_plain(*b15), summed)
+    return coup, wtx, wy
+
+
 def check_tt_kernels(problem) -> None:
     """Phase 8: B12-B16 against their plain versions, f32 and f64."""
     from tpu3drecon_torch.geometry.losses import RobustLoss
     from tpu3drecon_torch.ops import tt_linearize as tt
-    from tpu3drecon_torch.solvers.ba_tt import _sym3_inv_planes, _sym3_matvec
     from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
 
     c = problem.n_cameras
@@ -671,23 +810,8 @@ def check_tt_kernels(problem) -> None:
                     "tt_cost_fused", tag, "", cost, tt.tt_cost_fused_plain(*b16_args), elem)
                 if loss == RobustLoss.TRIVIAL:
                     b12_cfg, out_b12, want, cost_b16 = b12_args, got, plain, cost
-            jc, jp, v6 = want[:3]
-            damp = torch.stack([d["lam"] * torch.clamp(v6[k], min=1e-8) for k in (0, 3, 5)])
-            v_inv = _sym3_inv_planes(torch.stack(
-                [v6[0] + damp[0], v6[1], v6[2], v6[3] + damp[1], v6[4], v6[5] + damp[2]]))
-            b13_args = (d["cam_ids"], d["mask"], jc, jp, v_inv, c)
-            b14_args = (d["x"], d["cam_ids"], d["mask"], jc, jp)
-            coup = tt.tt_coupling_fused(*b13_args)
-            errs["B13"] = compare("tt_coupling_fused", tag, "", coup,
-                                  tt.tt_coupling_fused_plain(*b13_args), summed)
-            wtx = tt.tt_wt_times_fused(*b14_args)
-            wtx_plain = tt.tt_wt_times_fused_plain(*b14_args)
-            errs["B14"] = compare("tt_wt_times_fused", tag, "", wtx, wtx_plain, elem)
-            b15_args = (_sym3_matvec(v_inv, wtx_plain).contiguous(), d["cam_ids"], d["mask"],
-                        jc, jp, c)
-            wy = tt.tt_w_times_fused(*b15_args)
-            errs["B15"] = compare("tt_w_times_fused", tag, "", wy,
-                                  tt.tt_w_times_fused_plain(*b15_args), summed)
+            b13_args, b14_args, b15_args = tt_follower_args(d, want, c)
+            coup, wtx, wy = check_tt_followers(tag, "", b13_args, b14_args, b15_args, errs)
             log(f"check {tag} tt bucket {bi} (Tb={tb} Pb={pb}): "
                 + " ".join(f"{k} {v:.3e}" for k, v in errs.items()))
             if dtype != torch.float32:
@@ -716,6 +840,253 @@ def check_tt_kernels(problem) -> None:
                     nbytes(*b16_args[:6], cost_b16), FLOPS["tt_cost_fused"] * slots)
 
 
+def check_poisoned(kernel: str, tag: str, output: str, fn, plain, rel,
+                   time_global: bool = False) -> float:
+    """``fn()`` against ``plain()`` on inputs with poisoned padded slots:
+    outputs finite and within ``rel``.  For B6 and B15 also
+    ``fn(_mode=GLOBAL)``, and with ``time_global`` that call's device time
+    is added to the kernel's ``global_ms``.  Returns the largest
+    max|diff|."""
+    want = plain()
+    want = want if isinstance(want, tuple) else (want,)
+    calls = [("", fn)]
+    if kernel in TWO_MODES:
+        calls.append((" global", lambda: fn(_mode=GLOBAL)))
+    err = 0.0
+    for label, call in calls:
+        got = call()
+        got = got if isinstance(got, tuple) else (got,)
+        for name, a, b in zip(output.split(","), got, want):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"{kernel} {tag}{label} {name}: a non-finite output")
+            err = max(err, compare(kernel, f"{tag} poisoned{label}", name, a, b,
+                                   rel[name] if isinstance(rel, dict) else rel))
+    if time_global:
+        time_global_ms(kernel, fn)
+    return err
+
+
+def check_padded_slots(wtt, tt) -> None:
+    """Phase 10: every kernel that reads camera rows or x by index or
+    reduces into rows against its plain version on the medium buckets, f32
+    and f64, with the padded slots poisoned (window row 0 NaN and only
+    padded slots on it; NaN jc/jp/r on padded slots for B5 and B8; for the
+    tt kernels an extra NaN camera that only padded slots carry); B6 and
+    B15 also in their forced global-memory mode, whose f32 device time per
+    pass is their ``global_ms``."""
+    from tpu3drecon_torch.geometry.losses import RobustLoss
+    from tpu3drecon_torch.ops import _build
+    from tpu3drecon_torch.ops import tt_linearize as tt_ops
+    from tpu3drecon_torch.ops import wtt_cost
+    from tpu3drecon_torch.ops import wtt_linearize as lin
+    from tpu3drecon_torch.ops import wtt_matvec as mv
+    from tpu3drecon_torch.solvers.ba_tt import _sym3_matvec
+    from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
+
+    assert (SHARED, GLOBAL) == (_build.SHARED, _build.GLOBAL)
+    cfg = BAConfig()
+    lin_outs = "rows,jc,jp,v_inv,g_pt,damp_pt"
+    for dtype in (torch.float32, torch.float64):
+        elem, summed = TOL[dtype]
+        lin_tol = {k: summed if k == "rows" else elem for k in lin_outs.split(",")}
+        tag = "f32" if dtype == torch.float32 else "f64"
+        t = dtype == torch.float32
+        for bi, d in enumerate(wtt_kernel_inputs(wtt, dtype)):
+            d, pad = poisoned(d)
+            g, tb, pc, w = d["shape"]
+            wcam, errs = d["wcam"], {}
+            for od, name in ((False, "wtt_linearize_fused_idx"), (True, "B1 od")):
+                args = (wcam, d["tw"], d["pts"], d["uv"], d["mask"], d["lam"], d["inv_w"],
+                        cfg, 8, True, od)
+                errs[name] = check_poisoned(
+                    name, tag, lin_outs, lambda args=args: lin.wtt_linearize_fused_idx(*args),
+                    lambda args=args: lin.wtt_linearize_fused_idx_plain(*args), lin_tol)
+            _, jc, jp, v_inv, g_pt, _ = lin.wtt_linearize_fused_idx_plain(*args)
+            b2 = (d["xw_t"], wcam, jc, jp, v_inv)
+            errs["B2"] = check_poisoned(
+                "wtt_coupling_rows_idx", tag, "rows", lambda: mv.wtt_coupling_rows_idx(*b2),
+                lambda: mv.wtt_coupling_rows_idx_plain(*b2), summed)
+            errs["B3"] = check_poisoned(
+                "wtt_wt_planes_idx", tag, "planes", lambda: mv.wtt_wt_planes_idx(*b2[:4]),
+                lambda: mv.wtt_wt_planes_idx_plain(*b2[:4]), elem)
+            b4 = (wcam, d["tw"], d["pts"], d["uv"], d["mask"], RobustLoss.TRIVIAL)
+            errs["B4"] = check_poisoned(
+                "wtt_cost_cols_idx", tag, "cols", lambda: wtt_cost.wtt_cost_cols_idx(*b4),
+                lambda: wtt_cost.wtt_cost_cols_idx_plain(*b4), elem)
+            onehot = (wcam[:, None, :] == torch.arange(w, device=wcam.device)[None, :, None])
+            b6 = (d["xw_t"], onehot.to(torch.int8), jc, jp, v_inv)
+            errs["B6"] = check_poisoned(
+                "wtt_coupling_rows_fused", tag, "rows",
+                lambda **kw: mv.wtt_coupling_rows_fused(*b6, **kw),
+                lambda: mv.wtt_coupling_rows_fused_plain(*b6), summed, time_global=t)
+            r = torch.randn(2, g, tb, pc, generator=torch.Generator().manual_seed(bi),
+                            dtype=torch.float64).to(jc.device, dtype)
+            jc_n, jp_n, r_n = nan_on(pad, jc, jp, r)
+            b5 = (_sym3_matvec(v_inv, g_pt).contiguous(), wcam, jc_n, jp_n, w)
+            errs["B5"] = check_poisoned(
+                "wtt_w_rows_idx", tag, "rows", lambda: mv.wtt_w_rows_idx(*b5),
+                lambda: mv.wtt_w_rows_idx_plain(*b5), summed)
+            for od, name in ((False, "wtt_contrib_rows_idx"), (True, "B8 od")):
+                b8 = (wcam, jc_n, jp_n, r_n, v_inv, 8, w, True, od)
+                errs[name] = check_poisoned(
+                    name, tag, "rows", lambda b8=b8: lin.wtt_contrib_rows_idx(*b8),
+                    lambda b8=b8: lin.wtt_contrib_rows_idx_plain(*b8), summed)
+            log(f"check {tag} padded slots, wtt bucket {bi} (G={g} Tb={tb} Pc={pc} W={w}, "
+                f"{int(pad.sum())} padded slots poisoned; B6 also global): "
+                + " ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+
+        for bi, d in enumerate(tt_kernel_inputs(tt, dtype)):
+            c = tt.n_cameras
+            mask = d["mask"]
+            cam_ids = torch.where(mask > 0, d["cam_ids"], torch.full_like(d["cam_ids"], c))
+            nan_row = torch.full((1, 19), float("nan"), dtype=dtype, device=mask.device)
+            table = torch.cat([d["table"], nan_row]).contiguous()
+            x = torch.cat([d["x"], nan_row[:, :8]]).contiguous()
+            b12 = (table, cam_ids, d["pts"], d["uv"], mask, d["inv_w"], cfg, 8)
+            errs = {"B12": check_poisoned(
+                "tt_cam_normal_fused", tag, "jc,jp,v6,g_pt,ug",
+                lambda: tt_ops.tt_cam_normal_fused(*b12),
+                lambda: tt_ops.tt_cam_normal_fused_plain(*b12),
+                {"jc": elem, "jp": elem, "v6": elem, "g_pt": elem, "ug": summed})}
+            b13, b14, b15 = tt_follower_args(
+                {**d, "table": table, "cam_ids": cam_ids, "x": x},
+                tt_ops.tt_cam_normal_fused_plain(*b12), c + 1)
+            errs["B13"] = check_poisoned(
+                "tt_coupling_fused", tag, "cols", lambda: tt_ops.tt_coupling_fused(*b13),
+                lambda: tt_ops.tt_coupling_fused_plain(*b13), summed)
+            errs["B14"] = check_poisoned(
+                "tt_wt_times_fused", tag, "wtx", lambda: tt_ops.tt_wt_times_fused(*b14),
+                lambda: tt_ops.tt_wt_times_fused_plain(*b14), elem)
+            errs["B15"] = check_poisoned(
+                "tt_w_times_fused", tag, "wy",
+                lambda **kw: tt_ops.tt_w_times_fused(*b15, **kw),
+                lambda: tt_ops.tt_w_times_fused_plain(*b15), summed, time_global=t)
+            errs["B16"] = check_poisoned(
+                "tt_cost_fused", tag, "cost", lambda: tt_ops.tt_cost_fused(*b12[:7]),
+                lambda: tt_ops.tt_cost_fused_plain(*b12[:7]), elem)
+            log(f"check {tag} padded slots, tt bucket {bi} (Tb={mask.shape[0]} "
+                f"Pb={mask.shape[1]}, {int((mask == 0).sum())} padded slots on a NaN "
+                "camera; B15 also global): "
+                + " ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    log("B6 and B15, device ms per pass (f32, cold L2), shared -> global mode forced: "
+        + ", ".join(f"{k} {RESULTS[k]['ms']:.6f} -> {RESULTS[k]['global_ms']:.6f}"
+                    for k in TWO_MODES))
+
+
+def check_hub_kernels(hub) -> None:
+    """B1 and B4 on the BAL hub buckets (f32), each mode and time printed;
+    B1 timed as the ``B1 [hub]`` row."""
+    from tpu3drecon_torch.geometry.losses import RobustLoss
+    from tpu3drecon_torch.ops import wtt_cost
+    from tpu3drecon_torch.ops import wtt_linearize as lin
+    from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
+
+    elem, summed = TOL[torch.float32]
+    row = "B1 [hub]"
+    for bi, d in enumerate(wtt_kernel_inputs(hub, torch.float32)):
+        g, tb, pc, w = d["shape"]
+        args = (d["wcam"], d["tw"], d["pts"], d["uv"], d["mask"], d["lam"], d["inv_w"],
+                BAConfig(), 8, True)
+        before = (dict(lin.COUNTS.modes), dict(wtt_cost.COUNTS.modes))
+        got = lin.wtt_linearize_fused_idx(*args)
+        err_b1 = max(compare(row, "f32", k, a, b, summed if k == "rows" else elem)
+                     for k, a, b in zip(("rows", "jc", "jp", "v_inv", "g_pt", "damp_pt"),
+                                        got, lin.wtt_linearize_fused_idx_plain(*args)))
+        b4 = (d["wcam"], d["tw"], d["pts"], d["uv"], d["mask"], RobustLoss.TRIVIAL)
+        err_b4 = compare("wtt_cost_cols_idx", "f32 hub", "", wtt_cost.wtt_cost_cols_idx(*b4),
+                         wtt_cost.wtt_cost_cols_idx_plain(*b4), elem)
+        modes = (mode_of(lin.COUNTS, before[0]), mode_of(wtt_cost.COUNTS, before[1]))
+        b1_ms = timed(row, lambda: lin.wtt_linearize_fused_idx(*args))
+        b4_ms = device_ms(lambda: wtt_cost.wtt_cost_cols_idx(*b4))
+        log(f"check f32 hub bucket {bi} (G={g} Tb={tb} Pc={pc} W={w}, global tiles "
+            f"{hub.buckets[bi].global_tiles}, rows {got[0].numel() * 4} bytes): "
+            f"B1 {err_b1:.3e} [{modes[0]}, {b1_ms:.6f} ms] "
+            f"B4 {err_b4:.3e} [{modes[1]}, {b4_ms:.6f} ms]")
+        RESULTS[row]["ms"] += b1_ms
+        RESULTS[row]["plain_ms"] += device_ms(lambda: lin.wtt_linearize_fused_idx_plain(*args))
+        RESULTS[row]["bytes"] += nbytes(*args[:7], *got)
+        RESULTS[row]["flops"] += FLOPS["wtt_linearize_fused_idx"] * g * tb * pc
+
+
+def check_np10_od(bal) -> None:
+    """B1 od, B2 and B3 at np = 10 (``optimize_dist``) on the BAL buckets
+    (f32): B1 od timed as the ``B1 od [np=10]`` row (rows of 255,052 bytes
+    per group at W = 256, which no shared tile of the card could hold)."""
+    from tpu3drecon_torch.ops import wtt_linearize as lin
+    from tpu3drecon_torch.ops import wtt_matvec as mv
+    from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
+
+    cfg = BAConfig(optimize_dist=True)
+    elem, summed = TOL[torch.float32]
+    row = "B1 od [np=10]"
+    # Operations scale with the row columns K (np = 10 against np = 8).
+    k_ratio = lin.n_rows_cols(10, True, True) / lin.n_rows_cols(8, True, True)
+    for bi, d in enumerate(wtt_kernel_inputs(bal, torch.float32, np_cam=10)):
+        g, tb, pc, w = d["shape"]
+        args = (d["wcam"], d["tw"], d["pts"], d["uv"], d["mask"], d["lam"], d["inv_w"],
+                cfg, 10, True, True)
+        before = dict(lin.OD_COUNTS.modes)
+        got = lin.wtt_linearize_fused_idx(*args)
+        want = lin.wtt_linearize_fused_idx_plain(*args)
+        err = max(compare(row, "f32", k, a, b, summed if k == "rows" else elem)
+                  for k, a, b in zip(("rows", "jc", "jp", "v_inv", "g_pt", "damp_pt"), got,
+                                     want))
+        mode = mode_of(lin.OD_COUNTS, before)
+        _, jc, jp, v_inv, _, _ = want
+        b2 = (d["xw_t"], d["wcam"], jc, jp, v_inv)
+        err_b2 = compare("wtt_coupling_rows_idx", "f32 np=10", "",
+                         mv.wtt_coupling_rows_idx(*b2), mv.wtt_coupling_rows_idx_plain(*b2),
+                         summed)
+        err_b3 = compare("wtt_wt_planes_idx", "f32 np=10", "", mv.wtt_wt_planes_idx(*b2[:4]),
+                         mv.wtt_wt_planes_idx_plain(*b2[:4]), elem)
+        pairs = adjacent_pairs(d["wcam"], g, tb, pc)
+        ms = timed(row, lambda: lin.wtt_linearize_fused_idx(*args))
+        log(f"check f32 np=10 BAL bucket {bi} (G={g} Tb={tb} Pc={pc} W={w}): "
+            f"B1 od {err:.3e} [{mode}, {ms:.6f} ms] B2 {err_b2:.3e} B3 {err_b3:.3e}")
+        RESULTS[row]["ms"] += ms
+        RESULTS[row]["plain_ms"] += device_ms(lambda: lin.wtt_linearize_fused_idx_plain(*args))
+        RESULTS[row]["bytes"] += nbytes(*args[:7], *got)
+        RESULTS[row]["flops"] += int(k_ratio * (FLOPS["wtt_linearize_fused_idx"] * g * tb * pc
+                                                + FLOPS["od_pair"] * pairs))
+
+
+def check_tt1024_kernels(tt) -> None:
+    """B12-B16 on the 1024-camera track table (f32), each mode printed:
+    B12 timed as the ``B12 [C=1024]`` row (camera columns that no shared
+    tile of the card could hold)."""
+    from tpu3drecon_torch.ops import tt_linearize as tt_ops
+    from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
+
+    elem, summed = TOL[torch.float32]
+    row = "B12 [C=1024]"
+    c = tt.n_cameras
+    for bi, d in enumerate(tt_kernel_inputs(tt, torch.float32)):
+        tb, pb = d["mask"].shape
+        args = (d["table"], d["cam_ids"], d["pts"], d["uv"], d["mask"], d["inv_w"],
+                BAConfig(), 8)
+        before = {n: dict(cnt.modes) for n, cnt in counters().items()}
+        got = tt_ops.tt_cam_normal_fused(*args)
+        want = tt_ops.tt_cam_normal_fused_plain(*args)
+        errs = {"B12": max(compare(row, "f32", k, a, b, summed if k == "ug" else elem)
+                           for k, a, b in zip(("jc", "jp", "v6", "g_pt", "ug"), got, want))}
+        check_tt_followers("f32 C=1024", "", *tt_follower_args(d, want, c), errs)
+        errs["B16"] = compare("tt_cost_fused", "f32 C=1024", "",
+                              tt_ops.tt_cost_fused(*args[:7]),
+                              tt_ops.tt_cost_fused_plain(*args[:7]), elem)
+        modes = {k: mode_of(counters()[n], before[n]) for k, n in (
+            ("B12", "tt_cam_normal_fused"), ("B13", "tt_coupling_fused"),
+            ("B14", "tt_wt_times_fused"), ("B15", "tt_w_times_fused"),
+            ("B16", "tt_cost_fused"))}
+        ms = timed(row, lambda: tt_ops.tt_cam_normal_fused(*args))
+        log(f"check f32 tt_seq1024 bucket {bi} (C={c} Tb={tb} Pb={pb}): "
+            + " ".join(f"{k} {v:.3e} [{modes[k]}]" for k, v in errs.items())
+            + f"; B12 {ms:.6f} ms")
+        RESULTS[row]["ms"] += ms
+        RESULTS[row]["plain_ms"] += device_ms(lambda: tt_ops.tt_cam_normal_fused_plain(*args))
+        RESULTS[row]["bytes"] += nbytes(*args[:6], *got)
+        RESULTS[row]["flops"] += FLOPS["tt_cam_normal_fused"] * tb * pb
+
+
 def drive(path: str, solve, problem, flat, repeats: int, maxiters=(None,),
           rmse_limit=1e-3) -> dict:
     """One path's solves (1 warm-up + ``repeats``) at each of ``maxiters``
@@ -727,7 +1098,7 @@ def drive(path: str, solve, problem, flat, repeats: int, maxiters=(None,),
 
     _, _, init = solve(problem, maxiter=0)
     counts = counters()
-    mine = {name for *_, name, _, _, paths in KERNELS if path in paths}
+    mine = {name for _, _, name, _, _, paths, *_ in KERNELS if path in paths}
     launches = dict.fromkeys(mine, 0)
     medians = []
     for maxiter in maxiters:
@@ -736,7 +1107,8 @@ def drive(path: str, solve, problem, flat, repeats: int, maxiters=(None,),
             cnt.reset()
         warm_s, times, (cams, pts, state) = timed_solve_stats(
             lambda p: solve(p, **kw), problem, repeats)
-        group = {n: cnt.kernel for n, cnt in counts.items() if n in mine}
+        group = {n: counts[n].kernel for n in mine}
+        modes = {n: dict(counts[n].modes) for n in mine if counts[n].modes}
         plain = {n: cnt.plain for n, cnt in counts.items() if cnt.plain}
         rmse = float(reprojection_rmse(flat, cams, pts))
         medians.append(statistics.median(times))
@@ -747,7 +1119,7 @@ def drive(path: str, solve, problem, flat, repeats: int, maxiters=(None,),
             accepted_steps=int(state.accepted), lm_iters=int(state.iter_num),
             cg_iters_last=int(state.cg_iters),
             launches_per_solve={n: v / (repeats + 1) for n, v in group.items()},
-            plain_calls=plain,
+            launches_by_mode=modes, plain_calls=plain,
         )
         log(f"solve {path}" + ("" if maxiter is None else f" maxiter={maxiter}") + " "
             + json.dumps(report))
@@ -780,6 +1152,8 @@ def main() -> int:
         return 2
     from tpu3drecon_torch.benchmark.balscale import (
         BAL_CONFIG,
+        bal_hub_flat,
+        bal_hub_wtt,
         bal_sequential_flat,
         bal_sequential_wtt,
     )
@@ -831,6 +1205,7 @@ def main() -> int:
     def first_path(counts):
         for name, n in counts.items():
             launches.setdefault(name, n)
+        return counts
 
     t0 = time.perf_counter()
     wtt_oh = wtt_from_flat(flat, defer_onehot=False, device=dev)
@@ -864,8 +1239,10 @@ def main() -> int:
         + str([tuple(b.mask.shape) for b in tt.buckets]))
     check_tt_kernels(tt)
     first_path(drive(
-        "tt", lambda p, **kw: ba_solve_tt(p, BENCH_CONFIG._replace(**kw)), tt, flat, 3,
+        "tt", lambda p, **kw: ba_solve_tt(p, BENCH_CONFIG._replace(**kw), kernels="full"),
+        tt, flat, 3,
     ))
+    check_padded_slots(wtt, tt)
     del tt, grid
 
     t0 = time.perf_counter()
@@ -878,7 +1255,7 @@ def main() -> int:
         f"bal_sequential_wtt built in {build_s:.1f} s; buckets (G, Tb, Pc, W): "
         + str([(b.uv.shape[0], b.uv.shape[2], b.uv.shape[3], b.window)
                for b in bal.buckets]))
-    check_od_kernels(bal, wtt)
+    check_od_kernels(bal)
     for path, precond in ((BAL, "schur_jacobi"), (BAL_SSOR, "ssor")):
         cfg = BAL_CONFIG._replace(matvec_kernel="index", linearize_kernel="index",
                                   precond=precond)
@@ -899,21 +1276,102 @@ def main() -> int:
         BAL_TRI, lambda p, **kw: ba_solve_wtt(p, cfg._replace(**kw)), bal_oh, bal_flat, 2,
         maxiters=(6,), rmse_limit=None,
     ))
+    del bal_oh
+
+    # C1's second input: optimize_dist (np = 10) under block SSOR, B1 od's
+    # rows wider than a shared tile could hold.
+    check_np10_od(bal)
+    cfg = BAL_CONFIG._replace(matvec_kernel="index", linearize_kernel="index",
+                              precond="ssor", optimize_dist=True)
+    first_path(drive(
+        NP10, lambda p, **kw: ba_solve_wtt(p, cfg._replace(**kw)), bal, bal_flat, 2,
+        maxiters=(3,), rmse_limit=None,
+    ))
+    del bal, bal_flat
+
+    # The hub-structured BAL problem: global camera tiles widen the windows.
+    t0 = time.perf_counter()
+    hub = bal_hub_wtt(device=dev, verbose=False)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    hub_flat = bal_hub_flat(device=dev)
+    log(f"BAL hub problem: {hub_flat.n_cameras} cameras, {hub_flat.n_points} points, "
+        f"{int(hub_flat.mask.sum())} observations, c_pad {hub.c_pad}; bal_hub_wtt built "
+        f"in {build_s:.1f} s; buckets (G, Tb, Pc, W, global_tiles): "
+        + str([(b.uv.shape[0], b.uv.shape[2], b.uv.shape[3], b.window, b.global_tiles)
+               for b in hub.buckets])
+        + f"; B1 rows {sum(b.uv.shape[0] * b.window * 88 * 4 for b in hub.buckets)} bytes")
+    cfg = BAL_CONFIG._replace(matvec_kernel="index", linearize_kernel="index")
+    for precond in ("ssor", "tridiag"):
+        try:
+            ba_solve_wtt(hub, cfg._replace(precond=precond))
+        except ValueError as e:
+            if "hub/global camera tiles" not in str(e):
+                raise
+            log(f"bal_hub under {precond}: ValueError as in JAX ({e})")
+        else:
+            raise AssertionError(f"bal_hub under {precond} did not raise")
+    check_hub_kernels(hub)
+    first_path(drive(
+        HUB, lambda p, **kw: ba_solve_wtt(p, cfg._replace(**kw)), hub, hub_flat, 3,
+        maxiters=(3, 12), rmse_limit=None,
+    ))
+    del hub, hub_flat
+
+    # C2 and C3: a 1024-camera track table (more camera columns than a
+    # shared tile of B12 could hold above 922 cameras in f32) on the fully
+    # fused route and on JAX's default route under block SSOR, the CLI's
+    # pick at 1000 cameras or more.
+    from tpu3drecon_torch.dataset.synthetic import (
+        make_sequential_scene,
+        perturb_scene,
+        scene_to_ba_problem,
+    )
+    from tpu3drecon_torch.problems.tt import tt_from_flat
+
+    t0 = time.perf_counter()
+    scene = make_sequential_scene(n_cameras=1024, points_per_camera=256, track_span=4,
+                                  seed=7)
+    seq_flat, _ = scene_to_ba_problem(perturb_scene(scene, seed=8, point2d_noise=0.5),
+                                      observed=scene, dtype=torch.float32, device=dev)
+    tt1024 = tt_from_flat(seq_flat, device=dev)
+    torch.cuda.synchronize()
+    slots = sum(b.mask.numel() for b in tt1024.buckets)
+    log(f"tt_seq1024 problem: {seq_flat.n_cameras} cameras, {seq_flat.n_points} points, "
+        f"{int(seq_flat.mask.sum())} observations, {slots} slots (JAX's int8 one-hot "
+        f"{tt1024.n_cameras * slots} bytes), built and packed in "
+        f"{time.perf_counter() - t0:.1f} s; buckets (Tb, Pb): "
+        + str([tuple(b.mask.shape) for b in tt1024.buckets]))
+    check_tt1024_kernels(tt1024)
+    first_path(drive(
+        TT1024, lambda p, **kw: ba_solve_tt(p, BAL_CONFIG._replace(**kw), kernels="full"),
+        tt1024, seq_flat, 2, rmse_limit=None,
+    ))
+    cfg = BAL_CONFIG._replace(precond="ssor")
+    drive(TT1024_SSOR, lambda p, **kw: ba_solve_tt(p, cfg._replace(**kw)),
+          tt1024, seq_flat, 2, rmse_limit=None)
+    del tt1024, seq_flat
     log("worst max|diff| / max|plain|: "
         + ", ".join(f"{k} {v:.2e}" for k, v in sorted(WORST.items())))
 
     table = []
-    for *_, name, source, replaces, _ in KERNELS:
+    for _, _, name, source, replaces, _, label in KERNELS:
         r = RESULTS[name]
+        mode = "+".join(sorted(r["modes"])) or None
+        if mode != label:
+            raise AssertionError(f"{name}: timed in memory mode {mode}, expected {label}")
         bytes_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
         flops_ms = r["flops"] / F32_FLOPS_PER_S * 1e3
-        table.append(dict(
+        row = dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=max(bytes_ms, flops_ms),
             bound_by="bytes" if bytes_ms >= flops_ms else "operations",
-            library_ms=r["library_ms"],
-        ))
+            library_ms=r["library_ms"], mode=mode,
+        )
+        if name in TWO_MODES:
+            row["global_ms"] = r["global_ms"]
+        table.append(row)
         log(f"bound {name}: {r['bytes']} B -> {bytes_ms:.6f} ms, "
             f"{r['flops']} flop -> {flops_ms:.6f} ms")
     print(json.dumps({"kernels": table}))

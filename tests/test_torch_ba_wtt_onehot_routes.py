@@ -131,7 +131,7 @@ def test_make_wtt_ba_solver():
     _, p2, s2 = t_solve(problem, cfg)
     assert float(s1.loss) == float(s2.loss)
     assert torch.equal(p1, p2)
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
         make_wtt_ba_solver(cfg, aot=True)
     with pytest.raises(ValueError, match="matvec_kernel must be"):
         make_wtt_ba_solver(cfg._replace(matvec_kernel="indx"))

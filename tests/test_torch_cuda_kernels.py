@@ -2,6 +2,11 @@
 wtt kernels of the indexed route (B1-B4) and the four of its unfused and
 one-hot routes (B5-B8), B1's and B8's band pair rows (``want_od``), the
 grid engine's three (B9-B11) and the dense track table's five (B12-B16).
+The kernels read camera rows from device memory and reduce into the output
+rows directly, so wide windows and camera axes run: one input per kernel
+family past the card's shared memory per block.  B6 and B15 also keep a
+shared-memory mode: their global mode is forced (``_mode``) on small
+inputs, and chosen by the wrapper on inputs whose tiles exceed the limit.
 
 Needs an NVIDIA GPU with nvcc (the kernels build at first use); skips where
 ``torch.cuda.is_available()`` is false.  Imports no jax, so on a machine
@@ -22,6 +27,7 @@ import torch
 
 from tpu3drecon_torch.geometry.losses import RobustLoss
 from tpu3drecon_torch.ops import (
+    _build,
     cam_normal,
     coupling,
     point_normal,
@@ -36,6 +42,7 @@ from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: (1e-5, 1e-4), torch.float64: (1e-12, 1e-10)}
+SHARED, GLOBAL = _build.SHARED, _build.GLOBAL
 PC = 300  # not a multiple of the 256-thread block: exercises the ragged edge
 
 
@@ -132,11 +139,14 @@ def test_bad_inputs_raise(dev):
                 d["wcam"], d["tw"], d["pts"], d["uv"], d["mask"], d["lam"],
                 d["inv_w"], BAConfig(), 8, True)[1:3],
         )
+    # A window of any width runs (its rows would not fit a shared tile).
     wide = _inputs(dev, torch.float64, 1, 1024, 2, 8, seed=4)
-    with pytest.raises(ValueError, match="shared memory"):
-        wtt_linearize.wtt_linearize_fused_idx(
-            wide["wcam"], wide["tw"], wide["pts"], wide["uv"], wide["mask"],
-            wide["lam"], wide["inv_w"], BAConfig(), 8, True)
+    args = (wide["wcam"], wide["tw"], wide["pts"], wide["uv"], wide["mask"], wide["lam"],
+            wide["inv_w"], BAConfig(), 8, True)
+    g0 = wtt_linearize.COUNTS.modes.get(GLOBAL, 0)
+    _close(wtt_linearize.wtt_linearize_fused_idx(*args)[0],
+           wtt_linearize.wtt_linearize_fused_idx_plain(*args)[0], 1e-10, "wide rows")
+    assert wtt_linearize.COUNTS.modes[GLOBAL] == g0 + 1
 
 
 ROUTE_CASES = [  # (dtype, G, W, Tb, np, use_sj)
@@ -204,6 +214,18 @@ def test_route_kernels_match_plain(dev, dtype, g, w, tb, np_cam, use_sj):
     assert [c.kernel - b for c, b in zip(counts, before)] == [1, 1, 1, 4]
 
 
+def _track_wcam(dev, g, w, tb, seed):
+    """(G, Tb * PC) int16 window rows of tracks that walk through adjacent
+    rows (steps of 1 or 2, so the od rows have pairs), -1 past each track's
+    end; window row 0 is never used (tests poison it)."""
+    rng = np.random.default_rng(seed)
+    steps = np.where(rng.random((g, tb, PC)) < 0.75, 1, 2)
+    steps[:, 0] = rng.integers(1, w - 2 * tb, size=(g, PC))
+    length = rng.integers(0, tb + 1, size=(g, 1, PC))
+    wcam = np.where(np.arange(tb)[None, :, None] < length, np.cumsum(steps, axis=1), -1)
+    return torch.as_tensor(wcam.reshape(g, tb * PC).astype(np.int16), device=dev)
+
+
 OD_CASES = [  # (dtype, G, W, Tb, np); each (W, K) tile within 227 KB
     (torch.float32, 1, 256, 4, 8),
     (torch.float64, 2, 128, 3, 8),
@@ -218,12 +240,7 @@ def test_od_kernels_match_plain(dev, dtype, g, w, tb, np_cam):
     rows; window row 0 and the padded slots' planes are NaN.  Tb = 1 gives
     exact-zero od columns."""
     d = _inputs(dev, dtype, g, w, tb, np_cam, seed=3 * g + w + tb)
-    rng = np.random.default_rng(w + tb)
-    steps = np.where(rng.random((g, tb, PC)) < 0.75, 1, 2)
-    steps[:, 0] = rng.integers(1, w - 2 * tb, size=(g, PC))  # row 0 is poisoned
-    length = rng.integers(0, tb + 1, size=(g, 1, PC))
-    wcam = np.where(np.arange(tb)[None, :, None] < length, np.cumsum(steps, axis=1), -1)
-    wcam = torch.as_tensor(wcam.reshape(g, tb * PC).astype(np.int16), device=dev)
+    wcam = _track_wcam(dev, g, w, tb, seed=w + tb)
     pad = (wcam < 0).reshape(g, tb, PC)
     tw = d["tw"].clone()
     tw[:, 0] = float("nan")
@@ -255,13 +272,21 @@ def test_od_kernels_match_plain(dev, dtype, g, w, tb, np_cam):
 
 
 def test_route_kernels_refuse_bad_inputs(dev):
-    """B8's (W, K) tile above the card's shared memory raises ValueError;
-    B6 takes an int8 or the data's float one-hot only."""
+    """B8 takes rows wider than the card's shared memory (zero planes give
+    zero rows); B6 takes an int8 or the data's float one-hot only, and its
+    shared mode forced past the card's limit raises."""
     d = _inputs(dev, torch.float64, 1, 256, 2, 12, seed=9)
     z = torch.zeros((24, 1, 2, PC), dtype=torch.float64, device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
-        wtt_linearize.wtt_contrib_rows_idx(d["wcam"], z, z[:6], z[:2],
-                                           z[:6, :, 0].contiguous(), 12, 256, True)
+    b8 = (d["wcam"], z, z[:6], z[:2], z[:6, :, 0].contiguous(), 12, 256, True)
+    g0 = wtt_linearize.CONTRIB_COUNTS.modes.get(GLOBAL, 0)
+    rows = wtt_linearize.wtt_contrib_rows_idx(*b8)
+    torch.cuda.synchronize()
+    assert (rows == 0).all() and wtt_linearize.CONTRIB_COUNTS.modes[GLOBAL] == g0 + 1
+    wide = _inputs(dev, torch.float64, 1, 1280, 2, 12, seed=10)
+    b6 = (wide["xw_t"], torch.zeros((1, 1280, 2 * PC), dtype=torch.int8, device=dev),
+          z, z[:6], z[:6, :, 0].contiguous())
+    with pytest.raises(RuntimeError, match="shared-memory mode"):
+        wtt_matvec.wtt_coupling_rows_fused(*b6, _mode=SHARED)
     onehot = torch.zeros((1, 256, 2 * PC), dtype=torch.float32, device=dev)
     with pytest.raises(ValueError, match="onehot"):
         wtt_matvec.wtt_coupling_rows_fused(d["xw_t"], onehot, z, z[:6],
@@ -426,14 +451,201 @@ def test_tt_kernels_match_plain(dev, dtype, c, tb, pb, np_cam, loss):
 
 
 def test_tt_kernels_refuse_wide_camera_axes(dev):
-    """Above the card's shared memory per block the wrappers raise
-    ValueError naming the limit; they do not fall back."""
+    """A camera axis past the card's shared memory per block runs (B12's
+    tiles would not fit; nothing falls back to a plain version), and B15's
+    shared mode forced there raises; ``cam_ids`` must be int32."""
     d = _tt_inputs(dev, torch.float64, 400, 2, 300, seed=8)
     cfg = BAConfig(optimize_dist=True, optimize_pp=True)
-    with pytest.raises(ValueError, match="shared memory"):
-        tt_linearize.tt_cam_normal_fused(d["table"], d["cam_ids"], d["pts"], d["uv"],
-                                         d["mask"], d["inv_w"], cfg, 12)
+    b12 = (d["table"], d["cam_ids"], d["pts"], d["uv"], d["mask"], d["inv_w"], cfg, 12)
+    before = (tt_linearize.CAM_COUNTS.modes.get(GLOBAL, 0), tt_linearize.CAM_COUNTS.plain)
+    got = tt_linearize.tt_cam_normal_fused(*b12)
+    for name, a, b in zip(("jc", "jp", "v6", "g_pt", "ug"), got,
+                          tt_linearize.tt_cam_normal_fused_plain(*b12)):
+        _close(a, b, 1e-10 if name == "ug" else 1e-12, name)
+    assert (tt_linearize.CAM_COUNTS.modes[GLOBAL],
+            tt_linearize.CAM_COUNTS.plain) == (before[0] + 1, before[1] + 1)
+    y = d["x"].new_zeros(3, 300)
+    with pytest.raises(RuntimeError, match="shared-memory mode"):
+        tt_linearize.tt_w_times_fused(y, d["cam_ids"], d["mask"], got[0], got[1], 2500,
+                                      _mode=SHARED)
     with pytest.raises(ValueError, match="int32"):
         tt_linearize.tt_wt_times_fused(d["x"][:, :8].contiguous(), d["cam_ids"].long(),
                                        d["mask"], d["x"].new_zeros(16, 2, 300),
                                        d["x"].new_zeros(6, 2, 300))
+
+
+GLOBAL_CASES = [  # (dtype, G, W, Tb, np); B6's tiles would fit: its mode is forced
+    (torch.float32, 2, 128, 3, 8),
+    (torch.float64, 2, 128, 4, 12),
+]
+
+
+@pytest.mark.parametrize("dtype,g,w,tb,np_cam", GLOBAL_CASES)
+def test_wtt_global_mode_matches_plain(dev, dtype, g, w, tb, np_cam):
+    """B1 (with and without od), B2, B3, B4, B5 and B8 (with and without od)
+    in their one mode, B6 forced into its global-memory mode, on tracks
+    that walk adjacent window rows.  Window row 0 is NaN and only padded
+    slots could reach it; B5 and B8 also get NaN jc/jp/r on padded slots."""
+    d = _inputs(dev, dtype, g, w, tb, np_cam, seed=5 * g + w + tb)
+    wcam = _track_wcam(dev, g, w, tb, seed=w + 2 * tb)
+    pad = (wcam < 0).reshape(g, tb, PC)
+    mask = (~pad).to(dtype)
+    tw = d["tw"].clone()
+    tw[:, 0] = float("nan")
+    elem, reduced = TOL[dtype]
+    cfg = BAConfig(loss=RobustLoss.CAUCHY, optimize_dist=np_cam >= 10,
+                   optimize_pp=np_cam == 12)
+    counts = (wtt_linearize.COUNTS, wtt_linearize.OD_COUNTS, wtt_matvec.COUPLING_COUNTS,
+              wtt_matvec.WT_COUNTS, wtt_cost.COUNTS, wtt_matvec.W_ROWS_COUNTS,
+              wtt_matvec.FUSED_COUNTS, wtt_linearize.CONTRIB_COUNTS,
+              wtt_linearize.CONTRIB_OD_COUNTS)
+    before = [c.modes.get(GLOBAL, 0) for c in counts]
+
+    for od in (False, True):
+        args = (wcam, tw, d["pts"], d["uv"], mask, d["lam"], d["inv_w"], cfg, np_cam,
+                True, od)
+        got = wtt_linearize.wtt_linearize_fused_idx(*args)
+        want = wtt_linearize.wtt_linearize_fused_idx_plain(*args)
+        for name, a, b in zip(("rows", "jc", "jp", "v_inv", "g_pt", "damp_pt"), got, want):
+            assert torch.isfinite(a).all(), name
+            _close(a, b, reduced if name == "rows" else elem, f"B1 od={od} {name}")
+
+    _, jc, jp, v_inv, g_pt, _ = want
+    mv = (d["xw_t"], wcam, jc, jp)
+    _close(wtt_matvec.wtt_coupling_rows_idx(*mv, v_inv),
+           wtt_matvec.wtt_coupling_rows_idx_plain(*mv, v_inv), reduced, "B2")
+    _close(wtt_matvec.wtt_wt_planes_idx(*mv),
+           wtt_matvec.wtt_wt_planes_idx_plain(*mv), elem, "B3")
+    cost = (wcam, tw, d["pts"], d["uv"], mask, RobustLoss.CAUCHY)
+    b4 = wtt_cost.wtt_cost_cols_idx(*cost)
+    assert torch.isfinite(b4).all()
+    _close(b4, wtt_cost.wtt_cost_cols_idx_plain(*cost), elem, "B4")
+    onehot = (wcam[:, None, :] == torch.arange(w, device=dev)[None, :, None]).to(torch.int8)
+    b6 = (d["xw_t"], onehot, jc, jp, v_inv)
+    _close(wtt_matvec.wtt_coupling_rows_fused(*b6, _mode=GLOBAL),
+           wtt_matvec.wtt_coupling_rows_fused_plain(*b6), reduced, "B6")
+
+    r = torch.randn(2, g, tb, PC, dtype=dtype, device=dev)
+    jc, jp = jc.clone(), jp.clone()
+    for x in (jc, jp, r):
+        x[:, pad] = float("nan")
+    for use_sj, od in ((False, False), (True, False), (True, True)):
+        b8 = (wcam, jc, jp, r, v_inv, np_cam, w, use_sj, od)
+        rows = wtt_linearize.wtt_contrib_rows_idx(*b8)
+        assert torch.isfinite(rows).all()
+        _close(rows, wtt_linearize.wtt_contrib_rows_idx_plain(*b8), reduced,
+               f"B8 sj={use_sj} od={od}")
+    b5 = (_sym3(v_inv, g_pt), wcam, jc, jp, w)
+    rows_b5 = wtt_matvec.wtt_w_rows_idx(*b5)
+    assert torch.isfinite(rows_b5).all()
+    _close(rows_b5, wtt_matvec.wtt_w_rows_idx_plain(*b5), reduced, "B5")
+    assert [c.modes.get(GLOBAL, 0) - b for c, b in zip(counts, before)] == [
+        1, 1, 1, 1, 1, 1, 1, 2, 1]
+
+
+def _sym3(v_inv, x):
+    from tpu3drecon_torch.solvers.ba_tt import _sym3_matvec
+
+    return _sym3_matvec(v_inv, x).contiguous()
+
+
+@pytest.mark.parametrize("dtype,c,tb,pb,np_cam,loss", [TT_CASES[0], TT_CASES[3]])
+def test_tt_global_mode_matches_plain(dev, dtype, c, tb, pb, np_cam, loss):
+    """B12-B14 and B16 in their one mode and B15 forced into its
+    global-memory mode; camera 0's row is NaN and only padded slots carry
+    camera 0."""
+    d = _tt_inputs(dev, dtype, c, tb, pb, seed=2 * c + tb + pb)
+    elem, reduced = TOL[dtype]
+    cfg = BAConfig(loss=RobustLoss(loss), optimize_dist=np_cam >= 10,
+                   optimize_pp=np_cam == 12)
+    counts = (tt_linearize.CAM_COUNTS, tt_linearize.COUPLING_COUNTS,
+              tt_linearize.WT_COUNTS, tt_linearize.W_COUNTS, tt_linearize.COST_COUNTS)
+    before = [c_.modes.get(GLOBAL, 0) for c_ in counts]
+    b12 = (d["table"], d["cam_ids"], d["pts"], d["uv"], d["mask"], d["inv_w"], cfg, np_cam)
+    got = tt_linearize.tt_cam_normal_fused(*b12)
+    want = tt_linearize.tt_cam_normal_fused_plain(*b12)
+    for name, a, b in zip(("jc", "jp", "v6", "g_pt", "ug"), got, want):
+        assert torch.isfinite(a).all(), name
+        _close(a, b, reduced if name == "ug" else elem, name)
+    slots = (d["cam_ids"], d["mask"], want[0], want[1])
+    x = d["x"][:, :np_cam].contiguous()
+    _close(tt_linearize.tt_coupling_fused(*slots, d["v_inv"], c),
+           tt_linearize.tt_coupling_fused_plain(*slots, d["v_inv"], c), reduced, "B13")
+    _close(tt_linearize.tt_wt_times_fused(x, *slots),
+           tt_linearize.tt_wt_times_fused_plain(x, *slots), elem, "B14")
+    _close(tt_linearize.tt_w_times_fused(d["y"], *slots, c, _mode=GLOBAL),
+           tt_linearize.tt_w_times_fused_plain(d["y"], *slots, c), reduced, "B15")
+    b16 = b12[:7]
+    _close(tt_linearize.tt_cost_fused(*b16),
+           tt_linearize.tt_cost_fused_plain(*b16), elem, "B16")
+    assert [c_.modes.get(GLOBAL, 0) - b for c_, b in zip(counts, before)] == [1] * 5
+
+
+def test_wide_inputs_take_the_global_mode(dev):
+    """One input per kernel family whose shared tiles would exceed the
+    card's limit, with no mode forced: B1 at W = 640 and B8 od at W = 640
+    (f32, np = 8), B2 and B6 at W = 1280 (f64, np = 12), B4 at W = 1536
+    (f64), B12, B13 and B15 at 7300 cameras (f32, np = 8).  Each runs in the
+    global mode (B6 and B15 picked by their wrappers) and matches its plain
+    version."""
+    elem, reduced = TOL[torch.float32]
+    d = _inputs(dev, torch.float32, 1, 640, 2, 8, seed=11)
+    args = (d["wcam"], d["tw"], d["pts"], d["uv"], d["mask"], d["lam"], d["inv_w"],
+            BAConfig(), 8, True)
+    g0 = wtt_linearize.COUNTS.modes.get(GLOBAL, 0)
+    got = wtt_linearize.wtt_linearize_fused_idx(*args)
+    want = wtt_linearize.wtt_linearize_fused_idx_plain(*args)
+    for name, a, b in zip(("rows", "jc", "jp", "v_inv", "g_pt", "damp_pt"), got, want):
+        _close(a, b, reduced if name == "rows" else elem, f"B1 W=640 {name}")
+    assert wtt_linearize.COUNTS.modes[GLOBAL] == g0 + 1
+    _, jc, jp, v_inv, _, _ = want
+    r = torch.randn(2, 1, 2, PC, device=dev)
+    b8 = (d["wcam"], jc, jp, r, v_inv, 8, 640, True, True)
+    g0 = wtt_linearize.CONTRIB_OD_COUNTS.modes.get(GLOBAL, 0)
+    _close(wtt_linearize.wtt_contrib_rows_idx(*b8),
+           wtt_linearize.wtt_contrib_rows_idx_plain(*b8), reduced, "B8 od W=640")
+    assert wtt_linearize.CONTRIB_OD_COUNTS.modes[GLOBAL] == g0 + 1
+
+    elem, reduced = TOL[torch.float64]
+    cfg = BAConfig(optimize_dist=True, optimize_pp=True)
+    d = _inputs(dev, torch.float64, 1, 1280, 2, 12, seed=12)
+    want = wtt_linearize.wtt_linearize_fused_idx_plain(
+        d["wcam"], d["tw"], d["pts"], d["uv"], d["mask"], d["lam"], d["inv_w"], cfg, 12,
+        True)
+    _, jc, jp, v_inv, _, _ = want
+    mv = (d["xw_t"], d["wcam"], jc, jp, v_inv)
+    onehot = (d["wcam"][:, None, :]
+              == torch.arange(1280, device=dev)[None, :, None]).to(torch.int8)
+    before = (wtt_matvec.COUPLING_COUNTS.modes.get(GLOBAL, 0),
+              wtt_matvec.FUSED_COUNTS.modes.get(GLOBAL, 0))
+    _close(wtt_matvec.wtt_coupling_rows_idx(*mv),
+           wtt_matvec.wtt_coupling_rows_idx_plain(*mv), reduced, "B2 W=1280")
+    b6 = (d["xw_t"], onehot, jc, jp, v_inv)
+    _close(wtt_matvec.wtt_coupling_rows_fused(*b6),
+           wtt_matvec.wtt_coupling_rows_fused_plain(*b6), reduced, "B6 W=1280")
+    assert (wtt_matvec.COUPLING_COUNTS.modes[GLOBAL],
+            wtt_matvec.FUSED_COUNTS.modes[GLOBAL]) == (before[0] + 1, before[1] + 1)
+    d = _inputs(dev, torch.float64, 1, 1536, 3, 8, seed=13)
+    cost = (d["wcam"], d["tw"], d["pts"], d["uv"], d["mask"], RobustLoss.HUBER)
+    g0 = wtt_cost.COUNTS.modes.get(GLOBAL, 0)
+    _close(wtt_cost.wtt_cost_cols_idx(*cost), wtt_cost.wtt_cost_cols_idx_plain(*cost),
+           elem, "B4 W=1536")
+    assert wtt_cost.COUNTS.modes[GLOBAL] == g0 + 1
+
+    elem, reduced = TOL[torch.float32]
+    c = 7300
+    d = _tt_inputs(dev, torch.float32, c, 3, 1000, seed=14)
+    b12 = (d["table"], d["cam_ids"], d["pts"], d["uv"], d["mask"], d["inv_w"], BAConfig(), 8)
+    counts = (tt_linearize.CAM_COUNTS, tt_linearize.COUPLING_COUNTS, tt_linearize.W_COUNTS)
+    before = [c_.modes.get(GLOBAL, 0) for c_ in counts]
+    got = tt_linearize.tt_cam_normal_fused(*b12)
+    want = tt_linearize.tt_cam_normal_fused_plain(*b12)
+    for name, a, b in zip(("jc", "jp", "v6", "g_pt", "ug"), got, want):
+        _close(a, b, reduced if name == "ug" else elem, f"B12 C={c} {name}")
+    b13 = (d["cam_ids"], d["mask"], want[0], want[1], d["v_inv"], c)
+    _close(tt_linearize.tt_coupling_fused(*b13), tt_linearize.tt_coupling_fused_plain(*b13),
+           reduced, f"B13 C={c}")
+    b15 = (d["y"], d["cam_ids"], d["mask"], want[0], want[1], c)
+    _close(tt_linearize.tt_w_times_fused(*b15), tt_linearize.tt_w_times_fused_plain(*b15),
+           reduced, f"B15 C={c}")
+    assert [c_.modes.get(GLOBAL, 0) - b for c_, b in zip(counts, before)] == [1, 1, 1]

@@ -1,5 +1,6 @@
-"""The BAL-scale sequential bundle-adjustment problem: 1712 cameras, ~1M
-points, 3.81M observations.
+"""The BAL-scale bundle-adjustment problems: 1712 cameras, ~1M points,
+3.81M observations on a sequential capture, and its hub-structured
+(photo-tourism) variant.
 
 Counterpart of ``tpu3drecon/benchmark/balscale.py``'s
 ``bal_sequential_wtt``: the same scene (``make_sequential_scene`` with
@@ -15,8 +16,13 @@ the host, and ``bal_sequential_wtt`` built the problem onto the card in
 6.3 s on the H100 machine (``chip_smoke.py``), so a cache would cost more
 in invalidation rules than it saves.
 
-The hub-structured ``bal_hub_wtt`` and ``split_windows`` need the split
-window packing, which the port does not have yet.
+``bal_hub_wtt`` is the JAX function of the same name: ``make_hub_scene``
+with 5 % interleaved overview hubs of 4000 observations each, packed in
+``wtt_from_flat``'s auto mode, which finds the hub/global camera split
+itself.  Its windows carry global camera tiles, so its buckets are wider
+than the kernels' shared-memory tiles hold (B1 runs in its global-memory
+mode there).  The split window classes (``split_windows``) are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -34,6 +40,14 @@ N_CAMERAS = 1712
 BAL_CONFIG = BAConfig(
     maxiter=3, gtol=0.0, ftol=0.0, cg_maxiter=8, cg_rtol=0.0, precond="schur_jacobi",
 )
+
+
+def _refuse_split_windows(split_windows) -> None:
+    if split_windows:
+        raise NotImplementedError(
+            "split_windows (the coalesced per-chunk window classes of "
+            "problems/wtt.py:189-330) is not ported yet (ROADMAP A.1)"
+        )
 
 
 def bal_sequential_flat(
@@ -84,11 +98,7 @@ def bal_sequential_wtt(
     group counts.  ``problems.wtt.expand_onehots`` builds the dense one-hot
     for the routes that read it.  A truthy ``split_windows`` raises
     ``NotImplementedError``."""
-    if split_windows:
-        raise NotImplementedError(
-            "split_windows belongs to the hub/split-window slice of the port "
-            "(window-row tiling of B1/B8), which is not done yet"
-        )
+    _refuse_split_windows(split_windows)
     device = resolve_device(device)
     from tpu3drecon_torch.problems.wtt import wtt_from_flat
 
@@ -99,5 +109,57 @@ def bal_sequential_wtt(
                             **kwargs)
     if verbose:
         print(f"bal_sequential_wtt: built in {time.perf_counter() - t0:.1f} s "
+              f"(c_pad {problem.c_pad}, {len(problem.buckets)} buckets)", flush=True)
+    return problem
+
+
+def bal_hub_flat(
+    hub_fraction: float = 0.05,
+    hub_obs: int = 4000,
+    points_per_camera: int = 584,
+    track_span: int = 4,
+    device=None,
+):
+    """The flat BAL-scale hub problem (f32) on ``device`` (default: the CUDA
+    card; raises without one), before packing."""
+    device = resolve_device(device)
+    from tpu3drecon_torch.dataset.synthetic import (
+        make_hub_scene,
+        perturb_scene,
+        scene_to_ba_problem,
+    )
+
+    scene = make_hub_scene(
+        n_cameras=N_CAMERAS, points_per_camera=points_per_camera, track_span=track_span,
+        hub_fraction=hub_fraction, hub_obs=hub_obs, seed=7,
+    )
+    noisy = perturb_scene(scene, seed=8, point2d_noise=0.5)
+    flat, _ = scene_to_ba_problem(noisy, observed=scene, dtype=torch.float32, device=device)
+    return flat
+
+
+def bal_hub_wtt(
+    verbose: bool = True,
+    hub_fraction: float = 0.05,
+    hub_obs: int = 4000,
+    points_per_camera: int = 584,
+    track_span: int = 4,
+    split_windows: bool | int = False,
+    device=None,
+):
+    """The BAL-scale hub-structured wtt problem with deferred one-hots on
+    ``device`` (default: the CUDA card; raises without one): 1712 cameras
+    with ``hub_fraction`` interleaved hubs of ``hub_obs`` observations,
+    packed by ``wtt_from_flat``'s auto mode with 512-point chunks.  A
+    truthy ``split_windows`` raises ``NotImplementedError``."""
+    _refuse_split_windows(split_windows)
+    device = resolve_device(device)
+    from tpu3drecon_torch.problems.wtt import wtt_from_flat
+
+    t0 = time.perf_counter()
+    flat = bal_hub_flat(hub_fraction, hub_obs, points_per_camera, track_span, device="cpu")
+    problem = wtt_from_flat(flat, point_chunk=512, defer_onehot=True, device=device)
+    if verbose:
+        print(f"bal_hub_wtt: built in {time.perf_counter() - t0:.1f} s "
               f"(c_pad {problem.c_pad}, {len(problem.buckets)} buckets)", flush=True)
     return problem

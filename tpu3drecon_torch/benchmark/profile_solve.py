@@ -11,11 +11,17 @@ the fused-kernel grid engine ``ba_solve_pallas`` and the dense track table
 (``wtt_unfused``: ``linearize_kernel=False``, ``matvec_kernel="index"``)
 and its one-hot route (``wtt_onehot``: ``linearize_kernel=False``,
 ``matvec_kernel="fused"``, on the packing with its dense int8 one-hot), on
-the medium problem with ``BENCH_CONFIG``, and for ``bal_seq_ssor``, the
+the medium problem with ``BENCH_CONFIG``; for ``bal_seq_ssor``, the
 BAL-scale sequential problem (``benchmark/balscale.py``) solved fully
-indexed under the block-SSOR preconditioner for 3 LM iterations
-(``BAL_CONFIG``): two warm-up solves, then ``torch.profiler`` (CPU and
-CUDA activities) over one solve.  The Chrome trace it exports is read
+indexed under the block-SSOR preconditioner, and ``bal_hub``, the BAL hub
+problem (``bal_hub_wtt``, global camera tiles, windows up to W = 1664)
+solved fully indexed under Schur-Jacobi, each for 3 LM iterations
+(``BAL_CONFIG``); and for ``tt_seq1024_ssor``, a 1024-camera sequential
+track table (256 points per camera, seed 7, as ``chip_smoke.py`` builds
+it) on the tt engine's default route (``kernels=False``, PyTorch products
+through ``cam_ids``) under block SSOR for 3 LM iterations: two warm-up
+solves, then ``torch.profiler`` (CPU and CUDA activities) over one
+solve.  The Chrome trace it exports is read
 back, and one JSON line per engine or route gives
 
   - ``wall_s``: host clock around the profiled solve (synchronized);
@@ -132,6 +138,23 @@ def profile(solve, problem, trace_path: str) -> dict:
     return summarize(trace_path, wall_s)
 
 
+def tt_seq1024():
+    """The 1024-camera sequential track table of ``chip_smoke.py`` (f32, on
+    the card)."""
+    from tpu3drecon_torch.dataset.synthetic import (
+        make_sequential_scene,
+        perturb_scene,
+        scene_to_ba_problem,
+    )
+    from tpu3drecon_torch.problems.tt import tt_from_flat
+
+    scene = make_sequential_scene(n_cameras=1024, points_per_camera=256, track_span=4,
+                                  seed=7)
+    flat, _ = scene_to_ba_problem(perturb_scene(scene, seed=8, point2d_noise=0.5),
+                                  observed=scene, dtype=torch.float32)
+    return tt_from_flat(flat)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace-dir", default=str(BUILD_DIR / "profile"),
@@ -140,7 +163,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_solve measures on a CUDA device; none is available")
 
-    from tpu3drecon_torch.benchmark.balscale import BAL_CONFIG, bal_sequential_wtt
+    from tpu3drecon_torch.benchmark.balscale import (
+        BAL_CONFIG,
+        bal_hub_wtt,
+        bal_sequential_wtt,
+    )
     from tpu3drecon_torch.benchmark.medium_config import (
         BENCH_CONFIG,
         build_grid_problem,
@@ -161,13 +188,17 @@ def main() -> int:
         ("wtt", lambda p: ba_solve_wtt(p, cfg),
          lambda: wtt_from_flat(build_problem(), defer_onehot=True)),
         ("grid", lambda p: ba_solve_pallas(p, BENCH_CONFIG), build_grid_problem),
-        ("tt", lambda p: ba_solve_tt(p, BENCH_CONFIG), build_tt_problem),
+        ("tt", lambda p: ba_solve_tt(p, BENCH_CONFIG, kernels="full"), build_tt_problem),
         ("wtt_unfused", lambda p: ba_solve_wtt(p, cfg_a),
          lambda: wtt_from_flat(build_problem(), defer_onehot=False)),
         ("wtt_onehot", lambda p: ba_solve_wtt(p, cfg_c),
          lambda: wtt_from_flat(build_problem(), defer_onehot=False)),
         ("bal_seq_ssor", lambda p: ba_solve_wtt(p, cfg_bal),
          lambda: bal_sequential_wtt(verbose=False)),
+        ("bal_hub", lambda p: ba_solve_wtt(p, cfg_bal._replace(precond="schur_jacobi")),
+         lambda: bal_hub_wtt(verbose=False)),
+        ("tt_seq1024_ssor", lambda p: ba_solve_tt(p, BAL_CONFIG._replace(precond="ssor")),
+         tt_seq1024),
     )
     out_dir = Path(args.trace_dir)
     out_dir.mkdir(parents=True, exist_ok=True)

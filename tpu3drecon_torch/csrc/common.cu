@@ -15,7 +15,8 @@ extern "C" int kernel_smem_limit(int device) {
 extern "C" const char* kernel_error_string(int code) {
   using namespace tpu3drecon;
   if (code == kErrNp) return "unsupported camera block width (np must be 8, 10 or 12)";
-  if (code == kErrSmem) return "window too wide: shared memory exceeds the per-block limit";
+  if (code == kErrSmem)
+    return "shared-memory mode asked for a tile above the per-block limit";
   if (code == kErrDtype) return "unsupported dtype (float32 or float64)";
   if (code == kErrOd) return "want_od requires use_sj (the band rows reuse the W/WV factors)";
   return cudaGetErrorString((cudaError_t)code);

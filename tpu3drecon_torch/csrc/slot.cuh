@@ -1,18 +1,33 @@
 // Device code shared by the track-table kernels (wtt_kernels.cu,
 // wtt_route_kernels.cu and tt_kernels.cu): the per-slot residual/Jacobian
-// formulas, the staged camera table and x window with their all-zero
-// padding row, the per-slot contribution columns, band pair rows and
-// coupling-product halves, the warp-aggregated shared-memory row reduction
-// and its flush, and the host-side launch helpers.
+// formulas, camera-row and x reads with their all-zero padding, the
+// per-slot contribution columns, band pair rows and coupling-product
+// halves, the warp-aggregated row reduction, the shared tile of the
+// kernels that keep one, and the host-side launch helpers.
 //
 // The track-table layouts keep one point's whole track in one thread: a
-// slot (t, p) reads its camera's row of a (rows + 1, 19) table staged in
-// shared memory, where the extra last row is all zero.  A padded slot reads
-// that zero row, exactly as the TPU kernels' empty one-hot column gives it:
-// z = 0 -> z_safe = 1, so every output of the slot is exactly 0.
+// slot (t, p) reads its camera's row of a (rows, 19) table.  A padded slot
+// reads an all-zero row, exactly as the TPU kernels' empty one-hot column
+// gives it: z = 0 -> z_safe = 1, so every output of the slot is exactly 0.
+//
+// Memory.  The kernels read camera rows and x straight from device memory
+// (__ldg into registers, zeros for padding) and send row_add's
+// warp-aggregated atomics straight to the output rows, which the wrapper
+// zeroes, so any window width or camera count runs.  Two kernels, B6
+// (wtt_route_kernels.cu) and B15 (tt_kernels.cu), measured faster with a
+// block-local tile and keep it as a second mode, template flag GM false:
+// the block stages x as (NP, W + 1) with a zero column for padding (B6)
+// and reduces rows into a shared tile that it flushes with one global
+// atomic per nonzero entry.  Their wrappers compute the tile's bytes, pick
+// the shared mode where it fits the card's per-block limit and pass those
+// bytes (0 = global mode, GM true).  Both modes keep one slot per thread
+// and the whole track in one thread, so the per-point sums are the same;
+// only the order of the atomic row sums differs.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -164,21 +179,52 @@ __device__ __forceinline__ void tt_blocks(const T* cp, T X, T Y, T Z, T u_obs,
   o.r1 = r1 * scale;
 }
 
-// Stage W camera rows (W, 19) plus one all-zero row W.
+// Camera row of a slot on row `w` (-1 = padding) of `table`, read from
+// device memory into `buf`; all zero for padding.
 template <typename T>
-__device__ __forceinline__ void stage_window(const T* tw, T* s_tw, int W) {
-  const int n = W * kD;
-  for (int i = threadIdx.x; i < n + kD; i += kBlock) s_tw[i] = i < n ? tw[i] : T(0);
+__device__ __forceinline__ const T* cam_row(const T* table, int w, T (&buf)[kD]) {
+#pragma unroll
+  for (int k = 0; k < kD; ++k) buf[k] = w >= 0 ? __ldg(table + (size_t)w * kD + k) : T(0);
+  return buf;
 }
 
 // Stage the group's x window rows (NP, W) transposed as (NP, W + 1) with a
-// zero column W for padding slots.
-template <typename T, int NP>
+// zero column W for padding slots (B6's shared mode only).
+template <typename T, int NP, bool GM>
 __device__ __forceinline__ void stage_xw(const T* xw_t, T* s_xw, int W) {
+  if constexpr (GM) return;
   for (int i = threadIdx.x; i < NP * (W + 1); i += kBlock) {
     const int r = i / (W + 1), w = i % (W + 1);
     s_xw[i] = w < W ? xw_t[r * W + w] : T(0);
   }
+}
+
+// Entry (i, w) of the group's x window (NP, W), 0 for padding (w = -1):
+// from the staged (NP, W + 1) copy, or with GM from `xw_t` in device memory.
+template <typename T, bool GM>
+__device__ __forceinline__ T xw_at(const T* s_xw, const T* xw_t, int i, int w, int W) {
+  if constexpr (GM) return w >= 0 ? __ldg(xw_t + (size_t)i * W + w) : T(0);
+  else return s_xw[i * (W + 1) + (w >= 0 ? w : W)];
+}
+
+// The block's accumulator for `n` row elements whose output is `out` (B6
+// and B15): the shared tile `s_acc`, zeroed here and flushed by
+// finish_rows, or with GM `out` itself (zeroed by the wrapper).  Call
+// __syncthreads before use.
+template <typename T, bool GM>
+__device__ __forceinline__ T* start_rows(T* s_acc, T* out, int n) {
+  if constexpr (GM) return out;
+  for (int i = threadIdx.x; i < n; i += kBlock) s_acc[i] = T(0);
+  return s_acc;
+}
+
+// Flush the shared tile into `out` (shared mode); nothing to do with GM.
+// Every thread of the block calls it.
+template <typename T, bool GM>
+__device__ __forceinline__ void finish_rows(const T* s_acc, T* out, int n) {
+  if constexpr (GM) return;
+  __syncthreads();
+  flush(s_acc, out, n);
 }
 
 // Contribution columns u (NT) | g (NP) [| Schur-Jacobi coupling (NT)] of one
@@ -249,16 +295,17 @@ __device__ __forceinline__ void add_pair_rows(T* acc, int K, int col0, int w_pre
                   wv_prev[2][i] * wl[2][j]);
 }
 
-// (W^T x) of one slot added to wtx[3]: x read from column `col` of the
-// staged (NP, W + 1) window; `ts` is the slot's (G, Tb, Pc) offset and GTP
-// the plane stride of jc/jp.
-template <typename T, int NP>
-__device__ __forceinline__ void wt_slot(const T* s_xw, int col, int W, const T* jc,
-                                        const T* jp, size_t ts, size_t GTP, T wtx[3]) {
+// (W^T x) of one slot on window row w (-1 = padding) added to wtx[3]: x
+// read by xw_at; `ts` is the slot's (G, Tb, Pc) offset and GTP the plane
+// stride of jc/jp.
+template <typename T, int NP, bool GM>
+__device__ __forceinline__ void wt_slot(const T* s_xw, const T* xw_t, int w, int W,
+                                        const T* jc, const T* jp, size_t ts, size_t GTP,
+                                        T wtx[3]) {
   T s0 = T(0), s1 = T(0);
 #pragma unroll
   for (int i = 0; i < NP; ++i) {
-    const T xg = s_xw[i * (W + 1) + col];
+    const T xg = xw_at<T, GM>(s_xw, xw_t, i, w, W);
     s0 += jc[i * GTP + ts] * xg;
     s1 += jc[(NP + i) * GTP + ts] * xg;
   }
@@ -266,7 +313,7 @@ __device__ __forceinline__ void wt_slot(const T* s_xw, int col, int W, const T* 
   for (int l = 0; l < 3; ++l) wtx[l] += jp[l * GTP + ts] * s0 + jp[(3 + l) * GTP + ts] * s1;
 }
 
-// z = jc (jp y) of one slot reduced into the (NP, W) tile at row w (-1 =
+// z = jc (jp y) of one slot reduced into the (NP, W) rows at row w (-1 =
 // none; the whole warp calls it).
 template <typename T, int NP>
 __device__ __forceinline__ void w_slot(T* acc, int w, int W, const T* jc, const T* jp,
@@ -295,7 +342,8 @@ inline int smem_limit() {
 }
 
 // Opt the kernel in to `smem` bytes of dynamic shared memory (kErrSmem
-// above the card's per-block limit).
+// above the card's per-block limit: the wrapper asked for the shared mode
+// where its tile does not fit).
 template <typename K>
 int prepare(K kernel, size_t smem) {
   if (smem > (size_t)smem_limit()) return kErrSmem;
@@ -308,6 +356,13 @@ int prepare(K kernel, size_t smem) {
 }
 
 inline dim3 grid_of(int Pc, int G) { return dim3((Pc + kBlock - 1) / kBlock, G); }
+
+// f(std::integral_constant<bool, GM>) for a C entry's memory-mode flag `gm`
+// (false = shared, true = global).
+template <typename F>
+int with_mode(int gm, F&& f) {
+  return gm ? f(std::true_type{}) : f(std::false_type{});
+}
 
 }  // namespace tpu3drecon
 

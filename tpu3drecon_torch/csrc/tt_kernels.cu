@@ -20,24 +20,27 @@
 // W^T x, the cost lane) stay in registers and are taken in t order, as the
 // TPU kernels accumulate over their sequential t grid axis.
 //
-// Padded slots (mask 0) carry cam_ids 0.  They select the all-zero row C of
-// the staged camera table (or of x), never camera 0's row: the masked
+// Padded slots (mask 0) carry cam_ids 0.  They take an all-zero camera row
+// (and x row) without reading one, never camera 0's row: the masked
 // one-hot gives them an all-zero camera column, so z = 0 -> z_safe = 1 and
 // every output of the slot is exactly 0, where camera 0's row could give
 // z ~ 0 and inf * 0 = NaN.  They add nothing to any camera row.
 //
-// Per-camera reductions (B12's U|g columns, B13's coupling columns, B15's
-// W y rows) go into a (C, cols) shared-memory tile with atomics, a warp
-// reducing with shuffles first when all its live lanes share a camera, and
-// each block flushes its nonzero entries with one global atomic each
-// (slot.cuh).  Their summation order varies from run to run.  The tile
-// grows with C: above the card's per-block shared memory the wrapper
-// raises (ops/tt_linearize.py), it never falls back.
+// Camera rows and x are read from device memory into registers, so any
+// camera count runs.  Per-camera reductions (B12's U|g columns, B13's
+// coupling columns, B15's W y rows) go to the zeroed outputs with atomics,
+// a warp reducing with shuffles first when all its live lanes share a
+// camera (slot.cuh); their summation order varies from run to run.  B15
+// alone keeps a shared-memory mode (a (C, NP) tile per block, flushed with
+// one global atomic per nonzero entry), which measured 1.38x faster than
+// the direct atomics on the medium problem (PERF.md): its wrapper passes
+// the tile's bytes where they fit the card's per-block limit, 0 for the
+// global mode.  For B12-B14 and B16 a staged copy measured within 6 %.
 //
 // What bounds them on the H100: B14 and B16 stream their inputs once (jc/jp,
 // resp. uv/mask/cam_ids) and are bound by bytes; B12, B13 and B15 by the
-// shared-memory atomics of their reductions (44 columns per slot for B12 at
-// np = 8, 36 for B13, 8 for B15).
+// atomics of their reductions (44 columns per slot for B12 at np = 8, 36
+// for B13, 8 for B15).
 //
 // Built with --fmad=false (ops/_build.py): each kernel's per-element
 // outputs match its plain version (ops/tt_linearize.py) to the last bits.
@@ -68,15 +71,9 @@ tt_cam_normal_kernel(const T* __restrict__ table, const int* __restrict__ cam_id
                      T* __restrict__ jc_out, T* __restrict__ jp_out,
                      T* __restrict__ v6_out, T* __restrict__ gpt_out,
                      T* __restrict__ ug, int C, int Tb, int Pb, LinFlags f) {
-  constexpr int K = NP * (NP + 1) / 2 + NP;  // U upper triangle | g
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* s_tab = reinterpret_cast<T*>(smem);  // (C + 1, 19), row C all zero
-  T* s_acc = s_tab + (C + 1) * kD;        // (C, K)
+  constexpr int K = NP * (NP + 1) / 2 + NP;  // U upper triangle | g: ug is (C, K)
   const int p = blockIdx.x * kBlock + threadIdx.x;
   const bool live = p < Pb;
-  stage_window(table, s_tab, C);
-  for (int i = threadIdx.x; i < C * K; i += kBlock) s_acc[i] = T(0);
-  __syncthreads();
 
   const T inv_w = *invw_p;
   const size_t TP = (size_t)Tb * Pb;
@@ -88,7 +85,8 @@ tt_cam_normal_kernel(const T* __restrict__ table, const int* __restrict__ cam_id
   for (int t = 0; t < Tb; ++t) {
     const size_t ts = (size_t)t * Pb + p;
     const int c = slot_cam(cam_ids, mask, ts, live);
-    const T* cp = s_tab + (c >= 0 ? c : C) * kD;
+    T buf[kD];
+    const T* cp = cam_row(table, c, buf);
     const T m = live ? mask[ts] : T(0);
     const T u_obs = live ? uv[ts] : T(0);
     const T v_obs = live ? uv[TP + ts] : T(0);
@@ -123,11 +121,11 @@ tt_cam_normal_kernel(const T* __restrict__ table, const int* __restrict__ cam_id
     for (int dd = 0; dd < NP; ++dd)
 #pragma unroll
       for (int i = 0; i < NP - dd; ++i, ++col)
-        row_add(s_acc, wr, self + col, lead + col,
+        row_add(ug, wr, self + col, lead + col,
                 j0[i] * j0[i + dd] + j1[i] * j1[i + dd]);
 #pragma unroll
     for (int i = 0; i < NP; ++i, ++col)
-      row_add(s_acc, wr, self + col, lead + col, j0[i] * o.r0 + j1[i] * o.r1);
+      row_add(ug, wr, self + col, lead + col, j0[i] * o.r0 + j1[i] * o.r1);
   }
   if (live) {
 #pragma unroll
@@ -135,8 +133,6 @@ tt_cam_normal_kernel(const T* __restrict__ table, const int* __restrict__ cam_id
 #pragma unroll
     for (int k = 0; k < 3; ++k) gpt_out[(size_t)k * Pb + p] = gp[k];
   }
-  __syncthreads();
-  flush(s_acc, ug, C * K);
 }
 
 // ---------------------------------------------------------------- B13 ---
@@ -146,13 +142,9 @@ tt_coupling_kernel(const int* __restrict__ cam_ids, const T* __restrict__ mask,
                    const T* __restrict__ jc, const T* __restrict__ jp,
                    const T* __restrict__ vinv, T* __restrict__ out, int C, int Tb,
                    int Pb) {
-  constexpr int NT = NP * (NP + 1) / 2;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* s_acc = reinterpret_cast<T*>(smem);  // (C, NT)
+  constexpr int NT = NP * (NP + 1) / 2;  // out is (C, NT)
   const int p = blockIdx.x * kBlock + threadIdx.x;
   const bool live = p < Pb;
-  for (int i = threadIdx.x; i < C * NT; i += kBlock) s_acc[i] = T(0);
-  __syncthreads();
 
   const size_t TP = (size_t)Tb * Pb;
   T vi[6];
@@ -188,12 +180,10 @@ tt_coupling_kernel(const int* __restrict__ cam_ids, const T* __restrict__ mask,
     for (int dd = 0; dd < NP; ++dd)
 #pragma unroll
       for (int i = 0; i < NP - dd; ++i, ++col)
-        row_add(s_acc, wr, self + col, lead + col,
+        row_add(out, wr, self + col, lead + col,
                 wv[0][i] * wl[0][i + dd] + wv[1][i] * wl[1][i + dd] +
                     wv[2][i] * wl[2][i + dd]);
   }
-  __syncthreads();
-  flush(s_acc, out, C * NT);
 }
 
 // ---------------------------------------------------------------- B14 ---
@@ -203,11 +193,6 @@ tt_wt_times_kernel(const T* __restrict__ x, const int* __restrict__ cam_ids,
                    const T* __restrict__ mask, const T* __restrict__ jc,
                    const T* __restrict__ jp, T* __restrict__ out, int C, int Tb,
                    int Pb) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* s_x = reinterpret_cast<T*>(smem);  // (C + 1, NP), row C all zero
-  for (int i = threadIdx.x; i < (C + 1) * NP; i += kBlock)
-    s_x[i] = i < C * NP ? x[i] : T(0);
-  __syncthreads();
   const int p = blockIdx.x * kBlock + threadIdx.x;
   if (p >= Pb) return;
   const size_t TP = (size_t)Tb * Pb;
@@ -215,7 +200,9 @@ tt_wt_times_kernel(const T* __restrict__ x, const int* __restrict__ cam_ids,
   for (int t = 0; t < Tb; ++t) {
     const size_t ts = (size_t)t * Pb + p;
     const int c = slot_cam(cam_ids, mask, ts, true);
-    const T* xr = s_x + (c >= 0 ? c : C) * NP;
+    T xr[NP];
+#pragma unroll
+    for (int i = 0; i < NP; ++i) xr[i] = c >= 0 ? __ldg(x + (size_t)c * NP + i) : T(0);
     T s0 = T(0), s1 = T(0);
 #pragma unroll
     for (int i = 0; i < NP; ++i) {
@@ -233,17 +220,16 @@ tt_wt_times_kernel(const T* __restrict__ x, const int* __restrict__ cam_ids,
 }
 
 // ---------------------------------------------------------------- B15 ---
-template <typename T, int NP>
+template <typename T, int NP, bool GM>
 __global__ void __launch_bounds__(kBlock)
 tt_w_times_kernel(const T* __restrict__ y, const int* __restrict__ cam_ids,
                   const T* __restrict__ mask, const T* __restrict__ jc,
                   const T* __restrict__ jp, T* __restrict__ out, int C, int Tb,
                   int Pb) {
   extern __shared__ __align__(16) unsigned char smem[];
-  T* s_acc = reinterpret_cast<T*>(smem);  // (C, NP)
   const int p = blockIdx.x * kBlock + threadIdx.x;
   const bool live = p < Pb;
-  for (int i = threadIdx.x; i < C * NP; i += kBlock) s_acc[i] = T(0);
+  T* acc = start_rows<T, GM>(reinterpret_cast<T*>(smem), out, C * NP);  // (C, NP)
   __syncthreads();
   const size_t TP = (size_t)Tb * Pb;
   const T y0 = live ? y[p] : T(0);
@@ -265,11 +251,10 @@ tt_w_times_kernel(const T* __restrict__ y, const int* __restrict__ cam_ids,
     for (int i = 0; i < NP; ++i) {
       const T a = c >= 0 ? jc[i * TP + ts] : T(0);
       const T b = c >= 0 ? jc[(NP + i) * TP + ts] : T(0);
-      row_add(s_acc, wr, self + i, lead + i, a * s0 + b * s1);
+      row_add(acc, wr, self + i, lead + i, a * s0 + b * s1);
     }
   }
-  __syncthreads();
-  flush(s_acc, out, C * NP);
+  finish_rows<T, GM>(acc, out, C * NP);
 }
 
 // ---------------------------------------------------------------- B16 ---
@@ -279,10 +264,6 @@ tt_cost_kernel(const T* __restrict__ table, const int* __restrict__ cam_ids,
                const T* __restrict__ pts, const T* __restrict__ uv,
                const T* __restrict__ mask, const T* __restrict__ invw_p,
                T* __restrict__ lane, int C, int Tb, int Pb, int loss) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* s_tab = reinterpret_cast<T*>(smem);  // (C + 1, 19), row C all zero
-  stage_window(table, s_tab, C);
-  __syncthreads();
   const int p = blockIdx.x * kBlock + threadIdx.x;
   if (p >= Pb) return;
   const T inv_w = *invw_p;
@@ -295,9 +276,10 @@ tt_cost_kernel(const T* __restrict__ table, const int* __restrict__ cam_ids,
   for (int t = 0; t < Tb; ++t) {
     const size_t ts = (size_t)t * Pb + p;
     const int c = slot_cam(cam_ids, mask, ts, true);
+    T buf[kD];
     Slot<T, 8> o;
-    tt_blocks<T, 8>(s_tab + (c >= 0 ? c : C) * kD, X, Y, Z, uv[ts], uv[TP + ts],
-                    mask[ts], inv_w, f, o);
+    tt_blocks<T, 8>(cam_row(table, c, buf), X, Y, Z, uv[ts], uv[TP + ts], mask[ts],
+                    inv_w, f, o);
     const T part = o.r0 * o.r0 + o.r1 * o.r1;
     total += part;
   }
@@ -310,11 +292,7 @@ int cam_normal_launch(const void* table, const void* cam_ids, const void* pts,
                       const void* uv, const void* mask, const void* inv_w,
                       void* jc, void* jp, void* v6, void* gpt, void* ug, int C,
                       int Tb, int Pb, LinFlags f, cudaStream_t stream) {
-  constexpr int K = NP * (NP + 1) / 2 + NP;
-  const size_t smem = sizeof(T) * ((size_t)(C + 1) * kD + (size_t)C * K);
-  const int err = prepare(tt_cam_normal_kernel<T, NP>, smem);
-  if (err) return err;
-  tt_cam_normal_kernel<T, NP><<<grid_of(Pb, 1), kBlock, smem, stream>>>(
+  tt_cam_normal_kernel<T, NP><<<grid_of(Pb, 1), kBlock, 0, stream>>>(
       (const T*)table, (const int*)cam_ids, (const T*)pts, (const T*)uv,
       (const T*)mask, (const T*)inv_w, (T*)jc, (T*)jp, (T*)v6, (T*)gpt, (T*)ug,
       C, Tb, Pb, f);
@@ -325,10 +303,7 @@ template <typename T, int NP>
 int coupling_launch(const void* cam_ids, const void* mask, const void* jc,
                     const void* jp, const void* vinv, void* out, int C, int Tb,
                     int Pb, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * (size_t)C * (NP * (NP + 1) / 2);
-  const int err = prepare(tt_coupling_kernel<T, NP>, smem);
-  if (err) return err;
-  tt_coupling_kernel<T, NP><<<grid_of(Pb, 1), kBlock, smem, stream>>>(
+  tt_coupling_kernel<T, NP><<<grid_of(Pb, 1), kBlock, 0, stream>>>(
       (const int*)cam_ids, (const T*)mask, (const T*)jc, (const T*)jp,
       (const T*)vinv, (T*)out, C, Tb, Pb);
   return (int)cudaGetLastError();
@@ -338,23 +313,21 @@ template <typename T, int NP>
 int wt_times_launch(const void* x, const void* cam_ids, const void* mask,
                     const void* jc, const void* jp, void* out, int C, int Tb,
                     int Pb, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * (size_t)(C + 1) * NP;
-  const int err = prepare(tt_wt_times_kernel<T, NP>, smem);
-  if (err) return err;
-  tt_wt_times_kernel<T, NP><<<grid_of(Pb, 1), kBlock, smem, stream>>>(
+  tt_wt_times_kernel<T, NP><<<grid_of(Pb, 1), kBlock, 0, stream>>>(
       (const T*)x, (const int*)cam_ids, (const T*)mask, (const T*)jc,
       (const T*)jp, (T*)out, C, Tb, Pb);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NP>
+// `tile`: the bytes of the shared mode's (C, NP) tile, 0 in the global mode
+// (kErrSmem above the card's per-block limit).
+template <typename T, int NP, bool GM>
 int w_times_launch(const void* y, const void* cam_ids, const void* mask,
                    const void* jc, const void* jp, void* out, int C, int Tb,
-                   int Pb, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * (size_t)C * NP;
-  const int err = prepare(tt_w_times_kernel<T, NP>, smem);
+                   int Pb, int tile, cudaStream_t stream) {
+  const int err = prepare(tt_w_times_kernel<T, NP, GM>, (size_t)tile);
   if (err) return err;
-  tt_w_times_kernel<T, NP><<<grid_of(Pb, 1), kBlock, smem, stream>>>(
+  tt_w_times_kernel<T, NP, GM><<<grid_of(Pb, 1), kBlock, tile, stream>>>(
       (const T*)y, (const int*)cam_ids, (const T*)mask, (const T*)jc,
       (const T*)jp, (T*)out, C, Tb, Pb);
   return (int)cudaGetLastError();
@@ -364,10 +337,7 @@ template <typename T>
 int cost_launch(const void* table, const void* cam_ids, const void* pts,
                 const void* uv, const void* mask, const void* inv_w, void* lane,
                 int C, int Tb, int Pb, int loss, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * (size_t)(C + 1) * kD;
-  const int err = prepare(tt_cost_kernel<T>, smem);
-  if (err) return err;
-  tt_cost_kernel<T><<<grid_of(Pb, 1), kBlock, smem, stream>>>(
+  tt_cost_kernel<T><<<grid_of(Pb, 1), kBlock, 0, stream>>>(
       (const T*)table, (const int*)cam_ids, (const T*)pts, (const T*)uv,
       (const T*)mask, (const T*)inv_w, (T*)lane, C, Tb, Pb, loss);
   return (int)cudaGetLastError();
@@ -384,37 +354,37 @@ int tt_cam_normal(int dtype, int np, const void* table, const void* cam_ids,
                   int points, int dist, int pp, void* stream) {
   if (Pb == 0 || Tb == 0) return 0;
   const LinFlags f{0, loss, focal, points, dist, pp};
-  NP_DISPATCH(dtype, np,
-              (cam_normal_launch<T, NP>(table, cam_ids, pts, uv, mask, inv_w,
-                                        jc, jp, v6, gpt, ug, C, Tb, Pb, f,
-                                        (cudaStream_t)stream)));
+  NP_DISPATCH(dtype, np, (cam_normal_launch<T, NP>(table, cam_ids, pts, uv, mask, inv_w,
+                                                   jc, jp, v6, gpt, ug, C, Tb, Pb, f,
+                                                   (cudaStream_t)stream)));
 }
 
 int tt_coupling(int dtype, int np, const void* cam_ids, const void* mask,
                 const void* jc, const void* jp, const void* vinv, void* out,
                 int C, int Tb, int Pb, void* stream) {
   if (Pb == 0 || Tb == 0) return 0;
-  NP_DISPATCH(dtype, np,
-              (coupling_launch<T, NP>(cam_ids, mask, jc, jp, vinv, out, C, Tb,
-                                      Pb, (cudaStream_t)stream)));
+  NP_DISPATCH(dtype, np, (coupling_launch<T, NP>(cam_ids, mask, jc, jp, vinv, out, C, Tb,
+                                                 Pb, (cudaStream_t)stream)));
 }
 
 int tt_wt_times(int dtype, int np, const void* x, const void* cam_ids,
                 const void* mask, const void* jc, const void* jp, void* out,
                 int C, int Tb, int Pb, void* stream) {
   if (Pb == 0) return 0;
-  NP_DISPATCH(dtype, np,
-              (wt_times_launch<T, NP>(x, cam_ids, mask, jc, jp, out, C, Tb, Pb,
-                                      (cudaStream_t)stream)));
+  NP_DISPATCH(dtype, np, (wt_times_launch<T, NP>(x, cam_ids, mask, jc, jp, out, C, Tb,
+                                                 Pb, (cudaStream_t)stream)));
 }
 
+// tile: the bytes of the shared mode's tile as the wrapper computed them
+// (ops/tt_linearize.py), 0 for the global mode.
 int tt_w_times(int dtype, int np, const void* y, const void* cam_ids,
                const void* mask, const void* jc, const void* jp, void* out,
-               int C, int Tb, int Pb, void* stream) {
+               int C, int Tb, int Pb, int tile, void* stream) {
   if (Pb == 0 || Tb == 0) return 0;
-  NP_DISPATCH(dtype, np,
-              (w_times_launch<T, NP>(y, cam_ids, mask, jc, jp, out, C, Tb, Pb,
-                                     (cudaStream_t)stream)));
+  NP_DISPATCH(dtype, np, (with_mode(tile == 0, [&](auto m) {
+    return w_times_launch<T, NP, decltype(m)::value>(y, cam_ids, mask, jc, jp, out, C,
+                                                     Tb, Pb, tile, (cudaStream_t)stream);
+  })));
 }
 
 int tt_cost(int dtype, const void* table, const void* cam_ids, const void* pts,
@@ -422,11 +392,11 @@ int tt_cost(int dtype, const void* table, const void* cam_ids, const void* pts,
             int C, int Tb, int Pb, int loss, void* stream) {
   if (Pb == 0) return 0;
   if (dtype == 0)
-    return cost_launch<float>(table, cam_ids, pts, uv, mask, inv_w, lane, C, Tb,
-                              Pb, loss, (cudaStream_t)stream);
+    return cost_launch<float>(table, cam_ids, pts, uv, mask, inv_w, lane, C, Tb, Pb, loss,
+                              (cudaStream_t)stream);
   if (dtype == 1)
-    return cost_launch<double>(table, cam_ids, pts, uv, mask, inv_w, lane, C,
-                               Tb, Pb, loss, (cudaStream_t)stream);
+    return cost_launch<double>(table, cam_ids, pts, uv, mask, inv_w, lane, C, Tb, Pb, loss,
+                               (cudaStream_t)stream);
   return kErrDtype;
 }
 

@@ -16,24 +16,26 @@
 // The TPU kernels rebuild one-hot tiles from wcam and select camera rows
 // with bf16-split MXU dots because row gathers are slow there; here a
 // thread reads its slot's window row directly (wcam is int16, -1 =
-// padding), from a copy of the group's window staged in shared memory with
-// one extra all-zero row that padding slots point at — so a padded slot
-// sees the all-zero camera row exactly as the TPU's empty one-hot column
-// gives it, and never reads row -1.
+// padding) from device memory into registers, and a padded slot takes an
+// all-zero camera row (and x column) without reading one, exactly as the
+// TPU's empty one-hot column gives it.  Nothing is staged in shared
+// memory, so any window width runs (the hub layout's W = 1664 too).
 //
 // Reductions into window-camera rows (linearize rows, coupling rows) cross
-// threads: each block accumulates into a shared-memory (W, K) tile with
-// atomics and flushes its nonzero entries to the global rows (zeroed by the
-// wrapper) with one global atomicAdd each.  When all live lanes of a warp
-// address the same window row — the common case for a point's first slot,
-// since points are sorted by their minimum camera — the warp reduces the
-// value with shuffles and issues one atomic instead of 32 conflicting ones.
+// threads: they go straight to the global rows (zeroed by the wrapper) with
+// atomics.  When all live lanes of a warp address the same window row — the
+// common case, since points are sorted by their minimum camera — the warp
+// reduces the value with shuffles and issues one atomic instead of 32
+// conflicting ones (slot.cuh).  A block-local shared (W, K) tile flushed
+// once per block measured 1.45-4.6x slower on the H100 than these direct
+// atomics (PERF.md): a block touches few rows of a wide tile but has to
+// zero and flush all of it.
 //
 // What bounds them on the H100: the linearize and coupling kernels are
-// bound by shared-memory atomics (K = 88 columns per slot for the
-// linearize), the back-substitution and cost kernels by the bytes of
-// jc/jp (resp. uv/mask) they stream.  Atomic reduction order varies from
-// run to run, so f32 row sums vary in the last bits.
+// bound by the L2 atomics of their row reductions (K = 88 columns per slot
+// for the linearize at np = 8); the back-substitution and cost kernels by
+// the bytes of jc/jp (resp. uv/mask) they stream.  Atomic reduction order
+// varies from run to run, so f32 row sums vary in the last bits.
 //
 // Built with --fmad=false (ops/_build.py): products and sums round one at a
 // time, as PyTorch's elementwise ops do, so each kernel matches its plain
@@ -45,8 +47,8 @@
 // code for arguments the kernels do not take (common.cuh; named by
 // kernel_error_string in common.cu).  The kernels allocate nothing;
 // scalars that change every LM iteration (lam, inv_w) are read from device
-// memory, so no launch needs a host sync.  The slot formulas, the staged
-// window with its zero row, the contribution columns, the two halves of the
+// memory, so no launch needs a host sync.  The slot formulas, the camera
+// row and x reads, the contribution columns, the two halves of the
 // coupling product and the warp-aggregated row reduction live in slot.cuh,
 // shared with the route kernels (wtt_route_kernels.cu) and the dense
 // track-table kernels (tt_kernels.cu).
@@ -67,7 +69,7 @@ namespace {
 // adjacent track slots on rows w and w + 1 (the pair one-hot of
 // wtt_linearize.py:515-538).  Each thread keeps its previous slot's W V^-1
 // factor and row in registers; the pair rows go through the same
-// warp-aggregated shared-memory atomics as the other columns.
+// warp-aggregated atomics as the other columns.
 template <typename T, int NP, bool OD>
 __global__ void __launch_bounds__(kBlock)
 lin_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ tw,
@@ -80,15 +82,11 @@ lin_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ tw,
            LinFlags f) {
   constexpr int NT = NP * (NP + 1) / 2;
   const int K = NT + NP + (f.use_sj ? NT : 0) + NP + (OD ? NP * NP : 0);
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* s_tw = reinterpret_cast<T*>(smem);  // (W + 1, 19)
-  T* s_acc = s_tw + (W + 1) * kD;        // (W, K)
   const int g = blockIdx.y;
   const int p = blockIdx.x * kBlock + threadIdx.x;
   const bool live = p < Pc;
-  stage_window(tw + (size_t)g * W * kD, s_tw, W);
-  for (int i = threadIdx.x; i < W * K; i += kBlock) s_acc[i] = T(0);
-  __syncthreads();
+  const T* tw_g = tw + (size_t)g * W * kD;
+  T* rows_g = rows + (size_t)g * W * K;  // (W, K)
 
   const T lam = *lam_p, inv_w = *invw_p;
   const size_t GP = (size_t)G * Pc;
@@ -100,7 +98,8 @@ lin_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ tw,
   auto slot = [&](int t, int& w, Slot<T, NP>& o) {
     const size_t ts = ((size_t)g * Tb + t) * Pc + p;  // (G, Tb, Pc) offset
     w = live ? int(wcam[((size_t)g * Tb + t) * Pc + p]) : -1;
-    const T* cp = s_tw + (w >= 0 ? w : W) * kD;
+    T buf[kD];
+    const T* cp = cam_row(tw_g, w, buf);
     const T u_obs = live ? uv[(((size_t)g * 2 + 0) * Tb + t) * Pc + p] : T(0);
     const T v_obs = live ? uv[(((size_t)g * 2 + 1) * Tb + t) * Pc + p] : T(0);
     const T m = live ? mask[ts] : T(0);
@@ -176,16 +175,16 @@ lin_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ tw,
     const T* j0 = o.jc;
     const T* j1 = o.jc + NP;
     T wl[3][NP], wv[3][NP];
-    const int col = add_contribs<T, NP>(s_acc, wr, self, lead, j0, j1, o.jp, o.r0,
+    const int col = add_contribs<T, NP>(rows_g, wr, self, lead, j0, j1, o.jp, o.r0,
                                         o.r1, vi, f.use_sj, wl, wv);
     const T s0r = o.jp[0] * vw0 + o.jp[1] * vw1 + o.jp[2] * vw2;
     const T s1r = o.jp[3] * vw0 + o.jp[4] * vw1 + o.jp[5] * vw2;
 #pragma unroll
     for (int i = 0; i < NP; ++i) {
-      row_add(s_acc, wr, self + col + i, lead + col + i, j0[i] * s0r + j1[i] * s1r);
+      row_add(rows_g, wr, self + col + i, lead + col + i, j0[i] * s0r + j1[i] * s1r);
     }
     if constexpr (OD) {
-      add_pair_rows<T, NP>(s_acc, K, col + NP, w_prev, w, wv_prev, wl);
+      add_pair_rows<T, NP>(rows_g, K, col + NP, w_prev, w, wv_prev, wl);
 #pragma unroll
       for (int l = 0; l < 3; ++l)
 #pragma unroll
@@ -193,26 +192,21 @@ lin_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ tw,
       w_prev = w;
     }
   }
-  __syncthreads();
-  flush(s_acc, rows + (size_t)g * W * K, W * K);
 }
 
 // ---------------------------------------------------------------- B2/B3 --
 // Phase 1 of the coupling product: (W^T x) of this thread's point over its
-// track, x read from the group's window rows staged as (NP, W + 1) with a
-// zero column W for padding slots.
+// track, x read from the group's window rows xw_g (NP, W) in device memory.
 template <typename T, int NP>
-__device__ __forceinline__ void wt_x(const T* s_xw, const int16_t* wcam,
-                                     const T* jc, const T* jp, int g, int p,
-                                     bool live, int G, int Tb, int Pc, int W,
-                                     T wtx[3]) {
+__device__ __forceinline__ void wt_x(const T* xw_g, const int16_t* wcam, const T* jc,
+                                     const T* jp, int g, int p, bool live, int G,
+                                     int Tb, int Pc, int W, T wtx[3]) {
   const size_t GTP = (size_t)G * Tb * Pc;
   wtx[0] = wtx[1] = wtx[2] = T(0);
   if (!live) return;
   for (int t = 0; t < Tb; ++t) {
     const size_t ts = ((size_t)g * Tb + t) * Pc + p;
-    const int w = wcam[ts];
-    wt_slot<T, NP>(s_xw, w >= 0 ? w : W, W, jc, jp, ts, GTP, wtx);
+    wt_slot<T, NP, true>(nullptr, xw_g, int(wcam[ts]), W, jc, jp, ts, GTP, wtx);
   }
 }
 
@@ -222,18 +216,14 @@ coupling_kernel(const T* __restrict__ xw_t, const int16_t* __restrict__ wcam,
                 const T* __restrict__ jc, const T* __restrict__ jp,
                 const T* __restrict__ vinv, T* __restrict__ out, int G, int Tb,
                 int Pc, int W) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* s_xw = reinterpret_cast<T*>(smem);  // (NP, W + 1)
-  T* s_acc = s_xw + NP * (W + 1);        // (NP, W)
   const int g = blockIdx.y;
   const int p = blockIdx.x * kBlock + threadIdx.x;
   const bool live = p < Pc;
-  stage_xw<T, NP>(xw_t + (size_t)g * NP * W, s_xw, W);
-  for (int i = threadIdx.x; i < NP * W; i += kBlock) s_acc[i] = T(0);
-  __syncthreads();
+  const T* xw_g = xw_t + (size_t)g * NP * W;
+  T* out_g = out + (size_t)g * NP * W;  // (NP, W)
 
   T wtx[3];
-  wt_x<T, NP>(s_xw, wcam, jc, jp, g, p, live, G, Tb, Pc, W, wtx);
+  wt_x<T, NP>(xw_g, wcam, jc, jp, g, p, live, G, Tb, Pc, W, wtx);
   const size_t GP = (size_t)G * Pc, GTP = GP * Tb;
   T v[6];
 #pragma unroll
@@ -245,10 +235,8 @@ coupling_kernel(const T* __restrict__ xw_t, const int16_t* __restrict__ wcam,
   // Phase 2: z = jc (jp y) reduced into the (NP, W) window rows.
   for (int t = 0; t < Tb; ++t) {
     const size_t ts = ((size_t)g * Tb + t) * Pc + p;
-    w_slot<T, NP>(s_acc, live ? int(wcam[ts]) : -1, W, jc, jp, ts, GTP, y0, y1, y2);
+    w_slot<T, NP>(out_g, live ? int(wcam[ts]) : -1, W, jc, jp, ts, GTP, y0, y1, y2);
   }
-  __syncthreads();
-  flush(s_acc, out + (size_t)g * NP * W, NP * W);
 }
 
 template <typename T, int NP>
@@ -256,15 +244,11 @@ __global__ void __launch_bounds__(kBlock)
 wt_planes_kernel(const T* __restrict__ xw_t, const int16_t* __restrict__ wcam,
                  const T* __restrict__ jc, const T* __restrict__ jp,
                  T* __restrict__ out, int G, int Tb, int Pc, int W) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* s_xw = reinterpret_cast<T*>(smem);  // (NP, W + 1)
   const int g = blockIdx.y;
   const int p = blockIdx.x * kBlock + threadIdx.x;
   const bool live = p < Pc;
-  stage_xw<T, NP>(xw_t + (size_t)g * NP * W, s_xw, W);
-  __syncthreads();
   T wtx[3];
-  wt_x<T, NP>(s_xw, wcam, jc, jp, g, p, live, G, Tb, Pc, W, wtx);
+  wt_x<T, NP>(xw_t + (size_t)g * NP * W, wcam, jc, jp, g, p, live, G, Tb, Pc, W, wtx);
   if (live) {
     const size_t GP = (size_t)G * Pc;
 #pragma unroll
@@ -279,13 +263,10 @@ cost_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ tw,
             const T* __restrict__ pts, const T* __restrict__ uv,
             const T* __restrict__ mask, T* __restrict__ out, int G, int Tb,
             int Pc, int W, int loss) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* s_tw = reinterpret_cast<T*>(smem);  // (W + 1, 19)
   const int g = blockIdx.y;
   const int p = blockIdx.x * kBlock + threadIdx.x;
-  stage_window(tw + (size_t)g * W * kD, s_tw, W);
-  __syncthreads();
   if (p >= Pc) return;
+  const T* tw_g = tw + (size_t)g * W * kD;
   const size_t GP = (size_t)G * Pc;
   const T px = pts[0 * GP + (size_t)g * Pc + p];
   const T py = pts[1 * GP + (size_t)g * Pc + p];
@@ -293,8 +274,8 @@ cost_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ tw,
   T total = T(0);
   for (int t = 0; t < Tb; ++t) {
     const size_t ts = ((size_t)g * Tb + t) * Pc + p;
-    const int w = wcam[ts];
-    const T* cp = s_tw + (w >= 0 ? w : W) * kD;
+    T buf[kD];
+    const T* cp = cam_row(tw_g, int(wcam[ts]), buf);
     const T x = cp[0] * px + cp[1] * py + cp[2] * pz + cp[9];
     const T y = cp[3] * px + cp[4] * py + cp[5] * pz + cp[10];
     const T z = cp[6] * px + cp[7] * py + cp[8] * pz + cp[11];
@@ -319,12 +300,7 @@ int lin_launch(const void* wcam, const void* tw, const void* pts, const void* uv
                const void* mask, const void* lam, const void* inv_w, void* rows,
                void* jc, void* jp, void* vinv, void* gpt, void* damp, int G,
                int Tb, int Pc, int W, LinFlags f, cudaStream_t stream) {
-  constexpr int NT = NP * (NP + 1) / 2;
-  const int K = NT + NP + (f.use_sj ? NT : 0) + NP + (OD ? NP * NP : 0);
-  const size_t smem = sizeof(T) * ((size_t)(W + 1) * kD + (size_t)W * K);
-  const int err = prepare(lin_kernel<T, NP, OD>, smem);
-  if (err) return err;
-  lin_kernel<T, NP, OD><<<grid_of(Pc, G), kBlock, smem, stream>>>(
+  lin_kernel<T, NP, OD><<<grid_of(Pc, G), kBlock, 0, stream>>>(
       (const int16_t*)wcam, (const T*)tw, (const T*)pts, (const T*)uv,
       (const T*)mask, (const T*)lam, (const T*)inv_w, (T*)rows, (T*)jc,
       (T*)jp, (T*)vinv, (T*)gpt, (T*)damp, G, Tb, Pc, W, f);
@@ -335,10 +311,7 @@ template <typename T, int NP>
 int coupling_launch(const void* xw_t, const void* wcam, const void* jc,
                     const void* jp, const void* vinv, void* out, int G, int Tb,
                     int Pc, int W, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * ((size_t)NP * (W + 1) + (size_t)NP * W);
-  const int err = prepare(coupling_kernel<T, NP>, smem);
-  if (err) return err;
-  coupling_kernel<T, NP><<<grid_of(Pc, G), kBlock, smem, stream>>>(
+  coupling_kernel<T, NP><<<grid_of(Pc, G), kBlock, 0, stream>>>(
       (const T*)xw_t, (const int16_t*)wcam, (const T*)jc, (const T*)jp,
       (const T*)vinv, (T*)out, G, Tb, Pc, W);
   return (int)cudaGetLastError();
@@ -347,10 +320,7 @@ int coupling_launch(const void* xw_t, const void* wcam, const void* jc,
 template <typename T, int NP>
 int wt_launch(const void* xw_t, const void* wcam, const void* jc, const void* jp,
               void* out, int G, int Tb, int Pc, int W, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * (size_t)NP * (W + 1);
-  const int err = prepare(wt_planes_kernel<T, NP>, smem);
-  if (err) return err;
-  wt_planes_kernel<T, NP><<<grid_of(Pc, G), kBlock, smem, stream>>>(
+  wt_planes_kernel<T, NP><<<grid_of(Pc, G), kBlock, 0, stream>>>(
       (const T*)xw_t, (const int16_t*)wcam, (const T*)jc, (const T*)jp, (T*)out,
       G, Tb, Pc, W);
   return (int)cudaGetLastError();
@@ -360,10 +330,7 @@ template <typename T>
 int cost_launch(const void* wcam, const void* tw, const void* pts, const void* uv,
                 const void* mask, void* out, int G, int Tb, int Pc, int W,
                 int loss, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * (size_t)(W + 1) * kD;
-  const int err = prepare(cost_kernel<T>, smem);
-  if (err) return err;
-  cost_kernel<T><<<grid_of(Pc, G), kBlock, smem, stream>>>(
+  cost_kernel<T><<<grid_of(Pc, G), kBlock, 0, stream>>>(
       (const int16_t*)wcam, (const T*)tw, (const T*)pts, (const T*)uv,
       (const T*)mask, (T*)out, G, Tb, Pc, W, loss);
   return (int)cudaGetLastError();
@@ -382,33 +349,29 @@ int wtt_linearize(int dtype, int np, const void* wcam, const void* tw,
   if (want_od && !use_sj) return kErrOd;
   if (G == 0 || Pc == 0) return 0;
   const LinFlags f{use_sj, loss, focal, points, dist, pp};
+  const cudaStream_t s = (cudaStream_t)stream;
   NP_DISPATCH(dtype, np,
-               (want_od ? lin_launch<T, NP, true>(wcam, tw, pts, uv, mask, lam,
-                                                  inv_w, rows, jc, jp, vinv, gpt,
-                                                  damp, G, Tb, Pc, W, f,
-                                                  (cudaStream_t)stream)
-                        : lin_launch<T, NP, false>(wcam, tw, pts, uv, mask, lam,
-                                                   inv_w, rows, jc, jp, vinv, gpt,
-                                                   damp, G, Tb, Pc, W, f,
-                                                   (cudaStream_t)stream)));
+              (want_od ? lin_launch<T, NP, true>(wcam, tw, pts, uv, mask, lam, inv_w, rows,
+                                                 jc, jp, vinv, gpt, damp, G, Tb, Pc, W, f, s)
+                       : lin_launch<T, NP, false>(wcam, tw, pts, uv, mask, lam, inv_w, rows,
+                                                  jc, jp, vinv, gpt, damp, G, Tb, Pc, W, f,
+                                                  s)));
 }
 
 int wtt_coupling(int dtype, int np, const void* xw_t, const void* wcam,
                  const void* jc, const void* jp, const void* vinv, void* out,
                  int G, int Tb, int Pc, int W, void* stream) {
   if (G == 0 || Pc == 0) return 0;
-  NP_DISPATCH(dtype, np,
-               (coupling_launch<T, NP>(xw_t, wcam, jc, jp, vinv, out, G, Tb, Pc,
-                                       W, (cudaStream_t)stream)));
+  NP_DISPATCH(dtype, np, (coupling_launch<T, NP>(xw_t, wcam, jc, jp, vinv, out, G, Tb,
+                                                 Pc, W, (cudaStream_t)stream)));
 }
 
 int wtt_wt_planes(int dtype, int np, const void* xw_t, const void* wcam,
                   const void* jc, const void* jp, void* out, int G, int Tb,
                   int Pc, int W, void* stream) {
   if (G == 0 || Pc == 0) return 0;
-  NP_DISPATCH(dtype, np,
-               (wt_launch<T, NP>(xw_t, wcam, jc, jp, out, G, Tb, Pc, W,
-                                 (cudaStream_t)stream)));
+  NP_DISPATCH(dtype, np, (wt_launch<T, NP>(xw_t, wcam, jc, jp, out, G, Tb, Pc, W,
+                                           (cudaStream_t)stream)));
 }
 
 int wtt_cost(int dtype, const void* wcam, const void* tw, const void* pts,
@@ -419,8 +382,8 @@ int wtt_cost(int dtype, const void* wcam, const void* tw, const void* pts,
     return cost_launch<float>(wcam, tw, pts, uv, mask, out, G, Tb, Pc, W, loss,
                               (cudaStream_t)stream);
   if (dtype == 1)
-    return cost_launch<double>(wcam, tw, pts, uv, mask, out, G, Tb, Pc, W,
-                               loss, (cudaStream_t)stream);
+    return cost_launch<double>(wcam, tw, pts, uv, mask, out, G, Tb, Pc, W, loss,
+                               (cudaStream_t)stream);
   return kErrDtype;
 }
 

@@ -13,8 +13,8 @@
 // slot, a copy with no reduction: bound by the 19 output planes it writes);
 // B8 is kernel B1's pass 2 on its own, reading jc/jp/r/v_inv from device
 // memory (one thread per point column walks its track; the u | g | coupling
-// columns go into a (W, K) shared tile with warp-aggregated atomics, then
-// one global atomic per nonzero entry).  B5 is kernel B2's phase 2 on its
+// columns go to the global rows with warp-aggregated atomics).  B5 is
+// kernel B2's phase 2 on its
 // own (W y rows, the Schur rhs when the linearization is unfused).  B6 is
 // B2's whole product with each slot's window row taken from the dense
 // one-hot column instead of wcam: a thread scans the W entries of its
@@ -30,8 +30,13 @@
 // ops/wtt_matvec.py); only the order of the atomic window-row sums differs,
 // so B5, B6 and B8 vary in the last bits from run to run and B7 is exact.
 // Per-slot formulas and the row reduction come from slot.cuh, shared with
-// B1-B4 (wtt_kernels.cu).  Every C entry returns cudaGetLastError() after
-// its launch, or a negative code of common.cuh.
+// B1-B4 (wtt_kernels.cu).  B5 and B8 reduce into device memory directly,
+// as B1 and B2 do.  B6 alone keeps a shared-memory mode (x staged as
+// (NP, W + 1), rows reduced into a shared (NP, W) tile, slot.cuh), which
+// measured 1.77x faster than the direct atomics on the medium buckets
+// (PERF.md): its wrapper passes the tile's bytes where they fit the card's
+// per-block limit, 0 for the global mode.  Every C entry returns
+// cudaGetLastError() after its launch, or a negative code of common.cuh.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,6 +65,92 @@ cam_planes_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ tw,
   for (int d = 0; d < kD; ++d) o[(size_t)d * N] = w >= 0 ? row[d] : T(0);
 }
 
+// ---------------------------------------------------------------- B5 ----
+// W y rows (G, NP, W): z = jc (jp y) of every slot reduced into its window
+// row; y is (3, G, Pc).
+template <typename T, int NP>
+__global__ void __launch_bounds__(kBlock)
+w_rows_kernel(const T* __restrict__ y, const int16_t* __restrict__ wcam,
+              const T* __restrict__ jc, const T* __restrict__ jp,
+              T* __restrict__ out, int G, int Tb, int Pc, int W) {
+  const int g = blockIdx.y;
+  const int p = blockIdx.x * kBlock + threadIdx.x;
+  const bool live = p < Pc;
+  T* out_g = out + (size_t)g * NP * W;  // (NP, W)
+  const size_t GP = (size_t)G * Pc, GTP = GP * Tb;
+  const size_t pp = (size_t)g * Pc + p;
+  const T y0 = live ? y[pp] : T(0);
+  const T y1 = live ? y[GP + pp] : T(0);
+  const T y2 = live ? y[2 * GP + pp] : T(0);
+  for (int t = 0; t < Tb; ++t) {
+    const size_t ts = ((size_t)g * Tb + t) * Pc + p;
+    w_slot<T, NP>(out_g, live ? int(wcam[ts]) : -1, W, jc, jp, ts, GTP, y0, y1, y2);
+  }
+}
+
+// ---------------------------------------------------------------- B6 ----
+// Byte offset of B6's float tiles after its (Tb, kBlock) int16 row table,
+// aligned for T.
+template <typename T>
+__host__ __device__ __forceinline__ size_t tile_offset(int Tb) {
+  const size_t n = sizeof(int16_t) * (size_t)Tb * kBlock;
+  return (n + sizeof(T) - 1) / sizeof(T) * sizeof(T);
+}
+
+// B2's coupling rows with each slot's window row read from the one-hot
+// (G, W, Tb * Pc) of element type OH (int8, or the data's float type).
+// Each thread keeps its slots' rows in a shared (Tb, kBlock) int16 table in
+// both memory modes; only the x window and the (NP, W) tile depend on GM.
+template <typename T, typename OH, int NP, bool GM>
+__global__ void __launch_bounds__(kBlock)
+onehot_coupling_kernel(const T* __restrict__ xw_t, const OH* __restrict__ onehot,
+                       const T* __restrict__ jc, const T* __restrict__ jp,
+                       const T* __restrict__ vinv, T* __restrict__ out, int G,
+                       int Tb, int Pc, int W) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int16_t* s_row = reinterpret_cast<int16_t*>(smem);         // (Tb, kBlock)
+  T* s_xw = reinterpret_cast<T*>(smem + tile_offset<T>(Tb));  // (NP, W + 1), shared mode
+  const int g = blockIdx.y;
+  const int p = blockIdx.x * kBlock + threadIdx.x;
+  const bool live = p < Pc;
+  const T* xw_g = xw_t + (size_t)g * NP * W;
+  T* out_g = out + (size_t)g * NP * W;
+  stage_xw<T, NP, GM>(xw_g, s_xw, W);
+  T* acc = start_rows<T, GM>(s_xw + NP * (W + 1), out_g, NP * W);  // (NP, W)
+  __syncthreads();
+
+  const size_t N = (size_t)Tb * Pc;
+  const size_t GP = (size_t)G * Pc, GTP = GP * Tb;
+  // Phase 1: each slot's row from its one-hot column, then (W^T x).
+  T wtx[3] = {T(0), T(0), T(0)};
+  for (int t = 0; t < Tb; ++t) {
+    int w = -1;
+    if (live) {
+      // Scanned from the last row down, so w ends on the first nonzero row
+      // and no load waits on an earlier one's compare.
+      const OH* col = onehot + (size_t)g * W * N + (size_t)t * Pc + p;
+#pragma unroll 8
+      for (int i = W - 1; i >= 0; --i) w = col[(size_t)i * N] != OH(0) ? i : w;
+      wt_slot<T, NP, GM>(s_xw, xw_g, w, W, jc, jp, ((size_t)g * Tb + t) * Pc + p, GTP,
+                         wtx);
+    }
+    s_row[t * kBlock + threadIdx.x] = (int16_t)w;
+  }
+  T v[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) v[k] = live ? vinv[k * GP + (size_t)g * Pc + p] : T(0);
+  const T y0 = v[0] * wtx[0] + v[1] * wtx[1] + v[2] * wtx[2];
+  const T y1 = v[1] * wtx[0] + v[3] * wtx[1] + v[4] * wtx[2];
+  const T y2 = v[2] * wtx[0] + v[4] * wtx[1] + v[5] * wtx[2];
+
+  // Phase 2: z = jc (jp y) reduced into the (NP, W) window rows.
+  for (int t = 0; t < Tb; ++t) {
+    const size_t ts = ((size_t)g * Tb + t) * Pc + p;
+    w_slot<T, NP>(acc, s_row[t * kBlock + threadIdx.x], W, jc, jp, ts, GTP, y0, y1, y2);
+  }
+  finish_rows<T, GM>(acc, out_g, NP * W);
+}
+
 // ---------------------------------------------------------------- B8 ----
 // With OD (want_od) the rows gain np^2 band pair columns after the coupling
 // (wtt_linearize.py:163-190), formed as in B1 from the previous slot's
@@ -72,13 +163,10 @@ contrib_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ jc,
                int Pc, int W, int use_sj) {
   constexpr int NT = NP * (NP + 1) / 2;
   const int K = NT + NP + (use_sj ? NT : 0) + (OD ? NP * NP : 0);
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* s_acc = reinterpret_cast<T*>(smem);  // (W, K)
   const int g = blockIdx.y;
   const int p = blockIdx.x * kBlock + threadIdx.x;
   const bool live = p < Pc;
-  for (int i = threadIdx.x; i < W * K; i += kBlock) s_acc[i] = T(0);
-  __syncthreads();
+  T* rows_g = rows + (size_t)g * W * K;  // (W, K)
 
   const size_t GP = (size_t)G * Pc, GTP = GP * Tb;
   T vi[6];
@@ -104,10 +192,10 @@ contrib_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ jc,
     const T r0 = own ? r[ts] : T(0);
     const T r1 = own ? r[GTP + ts] : T(0);
     T wl[3][NP], wv[3][NP];
-    const int col = add_contribs<T, NP>(s_acc, wr, (own ? w : 0) * K, wr.w0 * K, j,
+    const int col = add_contribs<T, NP>(rows_g, wr, (own ? w : 0) * K, wr.w0 * K, j,
                                         j + NP, q, r0, r1, vi, use_sj, wl, wv);
     if constexpr (OD) {
-      add_pair_rows<T, NP>(s_acc, K, col, w_prev, w, wv_prev, wl);
+      add_pair_rows<T, NP>(rows_g, K, col, w_prev, w, wv_prev, wl);
 #pragma unroll
       for (int l = 0; l < 3; ++l)
 #pragma unroll
@@ -115,90 +203,6 @@ contrib_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ jc,
       w_prev = w;
     }
   }
-  __syncthreads();
-  flush(s_acc, rows + (size_t)g * W * K, W * K);
-}
-
-// ---------------------------------------------------------------- B5 ----
-// W y rows (G, NP, W): z = jc (jp y) of every slot reduced into its window
-// row; y is (3, G, Pc).
-template <typename T, int NP>
-__global__ void __launch_bounds__(kBlock)
-w_rows_kernel(const T* __restrict__ y, const int16_t* __restrict__ wcam,
-              const T* __restrict__ jc, const T* __restrict__ jp,
-              T* __restrict__ out, int G, int Tb, int Pc, int W) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* s_acc = reinterpret_cast<T*>(smem);  // (NP, W)
-  const int g = blockIdx.y;
-  const int p = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = p < Pc;
-  for (int i = threadIdx.x; i < NP * W; i += kBlock) s_acc[i] = T(0);
-  __syncthreads();
-  const size_t GP = (size_t)G * Pc, GTP = GP * Tb;
-  const size_t pp = (size_t)g * Pc + p;
-  const T y0 = live ? y[pp] : T(0);
-  const T y1 = live ? y[GP + pp] : T(0);
-  const T y2 = live ? y[2 * GP + pp] : T(0);
-  for (int t = 0; t < Tb; ++t) {
-    const size_t ts = ((size_t)g * Tb + t) * Pc + p;
-    w_slot<T, NP>(s_acc, live ? int(wcam[ts]) : -1, W, jc, jp, ts, GTP, y0, y1, y2);
-  }
-  __syncthreads();
-  flush(s_acc, out + (size_t)g * NP * W, NP * W);
-}
-
-// ---------------------------------------------------------------- B6 ----
-// B2's coupling rows with each slot's window row read from the one-hot
-// (G, W, Tb * Pc) of element type OH (int8, or the data's float type).
-template <typename T, typename OH, int NP>
-__global__ void __launch_bounds__(kBlock)
-onehot_coupling_kernel(const T* __restrict__ xw_t, const OH* __restrict__ onehot,
-                       const T* __restrict__ jc, const T* __restrict__ jp,
-                       const T* __restrict__ vinv, T* __restrict__ out, int G,
-                       int Tb, int Pc, int W) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* s_xw = reinterpret_cast<T*>(smem);                       // (NP, W + 1)
-  T* s_acc = s_xw + NP * (W + 1);                             // (NP, W)
-  int16_t* s_row = reinterpret_cast<int16_t*>(s_acc + NP * W);  // (Tb, kBlock)
-  const int g = blockIdx.y;
-  const int p = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = p < Pc;
-  stage_xw<T, NP>(xw_t + (size_t)g * NP * W, s_xw, W);
-  for (int i = threadIdx.x; i < NP * W; i += kBlock) s_acc[i] = T(0);
-  __syncthreads();
-
-  const size_t N = (size_t)Tb * Pc;
-  const size_t GP = (size_t)G * Pc, GTP = GP * Tb;
-  // Phase 1: each slot's row from its one-hot column, then (W^T x).
-  T wtx[3] = {T(0), T(0), T(0)};
-  for (int t = 0; t < Tb; ++t) {
-    int w = -1;
-    if (live) {
-      // Scanned from the last row down, so w ends on the first nonzero row
-      // and no load waits on an earlier one's compare.
-      const OH* col = onehot + (size_t)g * W * N + (size_t)t * Pc + p;
-#pragma unroll 8
-      for (int i = W - 1; i >= 0; --i) w = col[(size_t)i * N] != OH(0) ? i : w;
-      wt_slot<T, NP>(s_xw, w >= 0 ? w : W, W, jc, jp, ((size_t)g * Tb + t) * Pc + p,
-                     GTP, wtx);
-    }
-    s_row[t * kBlock + threadIdx.x] = (int16_t)w;
-  }
-  T v[6];
-#pragma unroll
-  for (int k = 0; k < 6; ++k) v[k] = live ? vinv[k * GP + (size_t)g * Pc + p] : T(0);
-  const T y0 = v[0] * wtx[0] + v[1] * wtx[1] + v[2] * wtx[2];
-  const T y1 = v[1] * wtx[0] + v[3] * wtx[1] + v[4] * wtx[2];
-  const T y2 = v[2] * wtx[0] + v[4] * wtx[1] + v[5] * wtx[2];
-
-  // Phase 2: z = jc (jp y) reduced into the (NP, W) window rows.
-  for (int t = 0; t < Tb; ++t) {
-    const size_t ts = ((size_t)g * Tb + t) * Pc + p;
-    w_slot<T, NP>(s_acc, s_row[t * kBlock + threadIdx.x], W, jc, jp, ts, GTP, y0, y1,
-                  y2);
-  }
-  __syncthreads();
-  flush(s_acc, out + (size_t)g * NP * W, NP * W);
 }
 
 // ---------------------------------------------------------------- host --
@@ -214,12 +218,7 @@ template <typename T, int NP, bool OD>
 int contrib_launch(const void* wcam, const void* jc, const void* jp, const void* r,
                    const void* vinv, void* rows, int G, int Tb, int Pc, int W,
                    int use_sj, cudaStream_t stream) {
-  constexpr int NT = NP * (NP + 1) / 2;
-  const int K = NT + NP + (use_sj ? NT : 0) + (OD ? NP * NP : 0);
-  const size_t smem = sizeof(T) * (size_t)W * K;
-  const int err = prepare(contrib_kernel<T, NP, OD>, smem);
-  if (err) return err;
-  contrib_kernel<T, NP, OD><<<grid_of(Pc, G), kBlock, smem, stream>>>(
+  contrib_kernel<T, NP, OD><<<grid_of(Pc, G), kBlock, 0, stream>>>(
       (const int16_t*)wcam, (const T*)jc, (const T*)jp, (const T*)r,
       (const T*)vinv, (T*)rows, G, Tb, Pc, W, use_sj);
   return (int)cudaGetLastError();
@@ -228,24 +227,22 @@ int contrib_launch(const void* wcam, const void* jc, const void* jp, const void*
 template <typename T, int NP>
 int w_rows_launch(const void* y, const void* wcam, const void* jc, const void* jp,
                   void* out, int G, int Tb, int Pc, int W, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * (size_t)NP * W;
-  const int err = prepare(w_rows_kernel<T, NP>, smem);
-  if (err) return err;
-  w_rows_kernel<T, NP><<<grid_of(Pc, G), kBlock, smem, stream>>>(
+  w_rows_kernel<T, NP><<<grid_of(Pc, G), kBlock, 0, stream>>>(
       (const T*)y, (const int16_t*)wcam, (const T*)jc, (const T*)jp, (T*)out, G,
       Tb, Pc, W);
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename OH, int NP>
+// `tiles`: the bytes of the shared mode's x window and rows tile, 0 in the
+// global mode; the row table comes first in both.
+template <typename T, typename OH, int NP, bool GM>
 int onehot_launch(const void* xw_t, const void* onehot, const void* jc,
                   const void* jp, const void* vinv, void* out, int G, int Tb,
-                  int Pc, int W, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * ((size_t)NP * (W + 1) + (size_t)NP * W) +
-                      sizeof(int16_t) * (size_t)Tb * kBlock;
-  const int err = prepare(onehot_coupling_kernel<T, OH, NP>, smem);
+                  int Pc, int W, int tiles, cudaStream_t stream) {
+  const size_t smem = tile_offset<T>(Tb) + (size_t)tiles;
+  const int err = prepare(onehot_coupling_kernel<T, OH, NP, GM>, smem);
   if (err) return err;
-  onehot_coupling_kernel<T, OH, NP><<<grid_of(Pc, G), kBlock, smem, stream>>>(
+  onehot_coupling_kernel<T, OH, NP, GM><<<grid_of(Pc, G), kBlock, smem, stream>>>(
       (const T*)xw_t, (const OH*)onehot, (const T*)jc, (const T*)jp,
       (const T*)vinv, (T*)out, G, Tb, Pc, W);
   return (int)cudaGetLastError();
@@ -270,38 +267,38 @@ int wtt_contrib(int dtype, int np, const void* wcam, const void* jc, const void*
                 int W, int use_sj, int want_od, void* stream) {
   if (want_od && !use_sj) return kErrOd;
   if (G == 0 || Pc == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
   NP_DISPATCH(dtype, np,
-              (want_od ? contrib_launch<T, NP, true>(wcam, jc, jp, r, vinv, rows, G,
-                                                     Tb, Pc, W, use_sj,
-                                                     (cudaStream_t)stream)
-                       : contrib_launch<T, NP, false>(wcam, jc, jp, r, vinv, rows, G,
-                                                      Tb, Pc, W, use_sj,
-                                                      (cudaStream_t)stream)));
+              (want_od ? contrib_launch<T, NP, true>(wcam, jc, jp, r, vinv, rows, G, Tb, Pc,
+                                                     W, use_sj, s)
+                       : contrib_launch<T, NP, false>(wcam, jc, jp, r, vinv, rows, G, Tb, Pc,
+                                                      W, use_sj, s)));
 }
 
 int wtt_w_rows(int dtype, int np, const void* y, const void* wcam, const void* jc,
-               const void* jp, void* out, int G, int Tb, int Pc, int W,
-               void* stream) {
+               const void* jp, void* out, int G, int Tb, int Pc, int W, void* stream) {
   if (G == 0 || Pc == 0) return 0;
-  NP_DISPATCH(dtype, np,
-              (w_rows_launch<T, NP>(y, wcam, jc, jp, out, G, Tb, Pc, W,
-                                    (cudaStream_t)stream)));
+  NP_DISPATCH(dtype, np, (w_rows_launch<T, NP>(y, wcam, jc, jp, out, G, Tb, Pc, W,
+                                               (cudaStream_t)stream)));
 }
 
 // onehot_float: 0 = int8 one-hot, 1 = one-hot in the data's float type.
+// tiles: the bytes of the shared mode's tiles as the wrapper computed them
+// (ops/wtt_matvec.py), 0 for the global mode.
 int wtt_coupling_onehot(int dtype, int np, int onehot_float, const void* xw_t,
                         const void* onehot, const void* jc, const void* jp,
                         const void* vinv, void* out, int G, int Tb, int Pc, int W,
-                        void* stream) {
+                        int tiles, void* stream) {
   if (G == 0 || Pc == 0) return 0;
   if (onehot_float != 0 && onehot_float != 1) return kErrDtype;
-  NP_DISPATCH(dtype, np,
-              (onehot_float
-                   ? onehot_launch<T, T, NP>(xw_t, onehot, jc, jp, vinv, out, G,
-                                             Tb, Pc, W, (cudaStream_t)stream)
-                   : onehot_launch<T, int8_t, NP>(xw_t, onehot, jc, jp, vinv, out,
-                                                  G, Tb, Pc, W,
-                                                  (cudaStream_t)stream)));
+  NP_DISPATCH(dtype, np, (with_mode(tiles == 0, [&](auto m) {
+    constexpr bool GM = decltype(m)::value;
+    return onehot_float
+               ? onehot_launch<T, T, NP, GM>(xw_t, onehot, jc, jp, vinv, out, G, Tb, Pc,
+                                             W, tiles, (cudaStream_t)stream)
+               : onehot_launch<T, int8_t, NP, GM>(xw_t, onehot, jc, jp, vinv, out, G,
+                                                  Tb, Pc, W, tiles, (cudaStream_t)stream);
+  })));
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 """Synthetic scenes with known ground truth.
 
-Counterpart of ``tpu3drecon/dataset/synthetic.py:42-161, 354-427``.  Every
+Counterpart of ``tpu3drecon/dataset/synthetic.py:42-427``.  Every
 scene is drawn from numpy RNGs with the same draws in the same order as
 the JAX package, so both packages build identical arrays from a seed; only
 ``scene_to_ba_problem`` produces tensors.
@@ -210,6 +210,72 @@ def make_sequential_scene(
         pt_idx=np.concatenate(pt_chunks),
         uv=np.concatenate(uv_chunks),
         dist=dist_rows,
+    )
+
+
+def make_hub_scene(
+    n_cameras: int = 160,
+    points_per_camera: int = 30,
+    track_span: int = 4,
+    hub_fraction: float = 0.05,
+    hub_obs: int = 2000,
+    image_size: Tuple[int, int] = (1280, 960),
+    focal: float = 1100.0,
+    spacing: float = 0.5,
+    seed: int = 0,
+) -> SyntheticScene:
+    """Core-periphery (photo-tourism) scene: a sequential backbone of local
+    cameras (``make_sequential_scene``) plus ``hub_fraction`` overview hub
+    cameras, far behind the scene line, that each observe ``hub_obs``
+    random points scene-wide.  Camera ids come out interleaved by a seeded
+    permutation, so the packer must find the hub/global split itself
+    (``problems.reorder.plan_hub_camera_order``).  Projections are exact."""
+    rng = np.random.default_rng(seed)
+    w, h = image_size
+    n_hubs = max(1, int(round(n_cameras * hub_fraction)))
+    n_locals = n_cameras - n_hubs
+    base = make_sequential_scene(
+        n_cameras=n_locals, points_per_camera=points_per_camera, track_span=track_span,
+        image_size=image_size, focal=focal, spacing=spacing, seed=seed, dist=(0.0, 0.0),
+    )
+    n_points = base.n_points
+
+    # Hubs: far behind (z << 0), looking at the middle of the scene line; the
+    # distance scales with the scene's extent, so the frustum covers it.
+    extent = spacing * n_locals
+    hub_r = np.zeros((n_hubs, 3, 3))
+    hub_t = np.zeros((n_hubs, 3))
+    hub_f = np.zeros((n_hubs, 2))
+    hub_c = np.zeros((n_hubs, 3))
+    hub_cam, hub_pt, hub_uv = [], [], []
+    for j in range(n_hubs):
+        center = np.array([extent * (j + 0.5) / n_hubs, -0.3 * extent, -1.2 * extent])
+        target = np.array([extent / 2, 0.0, 6.0]) + rng.normal(scale=0.1, size=3)
+        hub_r[j], hub_t[j] = _look_at_w2c(center, target, np.array([0.0, 1.0, 0.0]))
+        hub_f[j], hub_c[j] = _random_intrinsics(rng, focal, w, h)
+        rows, uv = _project_inside(
+            base.points3d, np.unique(rng.integers(0, n_points, size=hub_obs)), hub_r[j],
+            hub_t[j], hub_f[j], hub_c[j], np.zeros(2), w, h,
+        )
+        hub_cam.append(np.full(len(rows), n_locals + j, np.int32))
+        hub_pt.append(rows)
+        hub_uv.append(uv)
+
+    # Interleave the hub ids among the local ids (photo-tourism labelling).
+    perm = rng.permutation(n_cameras)  # perm[packed] = emitted id
+    inv = np.empty(n_cameras, np.int64)
+    inv[perm] = np.arange(n_cameras)
+    cam_idx = inv[np.concatenate([base.cam_idx] + hub_cam).astype(np.int64)]
+    return SyntheticScene(
+        rmats=np.concatenate([base.rmats, hub_r])[perm],
+        tvecs=np.concatenate([base.tvecs, hub_t])[perm],
+        fx_fy=np.concatenate([base.fx_fy, hub_f])[perm],
+        cx_cy_skew=np.concatenate([base.cx_cy_skew, hub_c])[perm],
+        width=w, height=h, points3d=base.points3d,
+        cam_idx=cam_idx.astype(np.int32),
+        pt_idx=np.concatenate([base.pt_idx] + hub_pt),
+        uv=np.concatenate([base.uv] + hub_uv),
+        dist=np.zeros((n_cameras, 2)),
     )
 
 

@@ -12,6 +12,13 @@ Every C entry returns ``cudaGetLastError()`` after its launch (or a
 negative code for arguments the kernels do not take); ``check`` raises on
 anything but 0, with the message of ``kernel_error_string``
 (``csrc/common.cu``).
+
+Memory modes (``csrc/slot.cuh``): the kernels read camera rows and x from
+device memory and reduce straight into the output rows (``GLOBAL``), so no
+window width or camera count is refused.  B6 and B15, which measured faster
+with a block-local tile, keep a ``SHARED`` mode: their wrappers compute the
+tile's bytes in pure Python, ``memory_mode`` picks the mode from them alone,
+and the C entry takes the bytes (0 for ``GLOBAL``).
 """
 
 from __future__ import annotations
@@ -71,8 +78,8 @@ _SIGNATURES = {
     "tt_coupling": [_I, _I] + [_P] * 6 + [_I] * 3 + [_P],
     # dtype, np, x, cam_ids, mask, jc, jp, out, C, Tb, Pb, stream
     "tt_wt_times": [_I, _I] + [_P] * 6 + [_I] * 3 + [_P],
-    # dtype, np, y, cam_ids, mask, jc, jp, out, C, Tb, Pb, stream
-    "tt_w_times": [_I, _I] + [_P] * 6 + [_I] * 3 + [_P],
+    # dtype, np, y, cam_ids, mask, jc, jp, out, C, Tb, Pb, tile, stream
+    "tt_w_times": [_I, _I] + [_P] * 6 + [_I] * 4 + [_P],
     # dtype, table, cam_ids, pts, uv, mask, inv_w, lane, C, Tb, Pb, loss, stream
     "tt_cost": [_I] + [_P] * 7 + [_I] * 4 + [_P],
     # dtype, wcam, tw, out, G, N, W, stream
@@ -83,8 +90,8 @@ _SIGNATURES = {
     # dtype, np, y, wcam, jc, jp, out, G, Tb, Pc, W, stream
     "wtt_w_rows": [_I, _I] + [_P] * 5 + [_I] * 4 + [_P],
     # dtype, np, onehot_float, xw_t, onehot, jc, jp, vinv, out, G, Tb, Pc, W,
-    # stream
-    "wtt_coupling_onehot": [_I, _I, _I] + [_P] * 6 + [_I] * 4 + [_P],
+    # tiles, stream
+    "wtt_coupling_onehot": [_I, _I, _I] + [_P] * 6 + [_I] * 5 + [_P],
     # device -> opt-in shared memory per block (bytes)
     "kernel_smem_limit": [_I],
 }
@@ -92,18 +99,40 @@ _SIGNATURES = {
 _LIB = []  # the loaded library, once per process (sources do not change under it)
 
 
+SHARED, GLOBAL = "shared", "global"  # memory modes (csrc/slot.cuh)
+
+
 class LaunchCounter:
     """Launch counts of one kernel wrapper: ``kernel`` grows where the
     wrapper launches its CUDA kernel, ``plain`` where the plain PyTorch
-    version runs."""
+    version runs; ``modes`` splits the launches of a kernel that stages a
+    table or reduces into rows by memory mode."""
 
     def __init__(self):
-        self.kernel = 0
-        self.plain = 0
+        self.reset()
 
     def reset(self):
         self.kernel = 0
         self.plain = 0
+        self.modes = {}
+
+    def launched(self, mode: str) -> None:
+        """One launch of the kernel in memory mode ``mode``."""
+        self.kernel += 1
+        self.modes[mode] = self.modes.get(mode, 0) + 1
+
+
+def memory_mode(need: int, limit: int, forced=None) -> str:
+    """The memory mode of B6 or B15, whose shared tiles take ``need`` bytes
+    per block: ``SHARED`` at or below ``limit`` (the card's shared memory
+    per block), ``GLOBAL`` above it.  ``forced`` (the two wrappers' private
+    ``_mode``: None, ``SHARED`` or ``GLOBAL``) overrides the choice; a
+    forced ``SHARED`` above the limit fails in the C entry."""
+    if forced is not None:
+        if forced not in (SHARED, GLOBAL):
+            raise ValueError(f"_mode must be None, {SHARED!r} or {GLOBAL!r}, not {forced!r}")
+        return forced
+    return SHARED if need <= limit else GLOBAL
 
 
 def _sources():

@@ -21,12 +21,15 @@ an all-zero camera row and adds to no camera, as its all-zero one-hot
 column does.  Outputs have the JAX functions' shapes and order.
 
 CUDA kernels (``csrc/tt_kernels.cu``): one thread per point column walks
-its track; per-point sums in registers, taken in track order; per-camera
-sums into a (C, cols) shared-memory tile with atomics, flushed with one
-global atomic per nonzero entry.  So B12's ug, B13 and B15 vary in the last
+its track, reading its slots' camera rows (or x) from device memory; per-point
+sums in registers, taken in track order; per-camera sums go straight to
+the zeroed outputs with atomics.  So B12's ug, B13 and B15 vary in the last
 bits from run to run; every other output matches the plain version to the
-last bit.  The tiles grow with C: a bucket whose tile exceeds the card's
-shared memory per block raises ``ValueError`` (``shared_memory_bytes``).
+last bit.  Nothing is staged per block, so any camera count runs.  B15
+alone keeps a shared-memory mode (a (C, np) tile per block, flushed with
+one global atomic per nonzero entry), which measured faster than the direct
+atomics: ``memory_mode`` picks it where the tile fits the card's shared
+memory per block, and the wrapper passes its bytes to the kernel.
 
 Each public function runs its plain PyTorch version on CPU tensors and its
 CUDA kernel on CUDA tensors; there is no fallback from one to the other.
@@ -42,6 +45,9 @@ from tpu3drecon_torch.ops._wtt_common import check_inputs, check_shape, is_cuda_
 from tpu3drecon_torch.solvers.ba_tt import (
     CAM_TABLE_DIM,
     _coupling_contribs,
+    _reduce,
+    _select,
+    _slot_cams,
     _triu_pairs,
     _tt_blocks,
     _u_g_contribs,
@@ -56,59 +62,23 @@ COST_COUNTS = _build.LaunchCounter()  # B16
 _V6_PAIRS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
 
 
-def shared_memory_bytes(kernel: str, n_cams: int, np_cam: int, itemsize: int) -> int:
-    """Dynamic shared memory of one block of ``kernel`` (csrc/tt_kernels.cu):
-    the staged camera table or x with its zero row, and the (C, cols)
-    reduction tile."""
-    n_triu = np_cam * (np_cam + 1) // 2
-    elems = {
-        "tt_cam_normal_fused": (n_cams + 1) * CAM_TABLE_DIM + n_cams * (n_triu + np_cam),
-        "tt_coupling_fused": n_cams * n_triu,
-        "tt_wt_times_fused": (n_cams + 1) * np_cam,
-        "tt_w_times_fused": n_cams * np_cam,
-        "tt_cost_fused": (n_cams + 1) * CAM_TABLE_DIM,
-    }[kernel]
-    return elems * itemsize
+def shared_memory_bytes(n_cams: int, np_cam: int, itemsize: int) -> int:
+    """Dynamic shared memory of one block of B15 in its shared mode: the
+    (C, np) reduction tile."""
+    return n_cams * np_cam * itemsize
 
 
-def _check_smem(name: str, n_cams: int, np_cam: int, t: torch.Tensor) -> None:
-    """Raise ``ValueError`` when the kernel's tiles exceed the card's shared
-    memory per block: the kernels take no wider camera axis."""
-    limit = _build.smem_limit(t)
-    need = shared_memory_bytes(name, n_cams, np_cam, t.element_size())
-    if need > limit:
-        raise ValueError(
-            f"{name}: {n_cams} cameras at np={np_cam} in {t.dtype} need {need} "
-            f"bytes of shared memory per block, above this card's limit of "
-            f"{limit} bytes; the tt kernels take no more cameras"
-        )
+def memory_mode(n_cams: int, np_cam: int, itemsize: int, limit: int, forced=None):
+    """(bytes, mode) of B15: ``shared_memory_bytes`` and the mode
+    ``_build.memory_mode`` picks from it against ``limit``."""
+    need = shared_memory_bytes(n_cams, np_cam, itemsize)
+    return need, _build.memory_mode(need, limit, forced)
 
 
 def _check_config(config, np_cam: int) -> None:
     want = 8 + 2 * bool(config.optimize_dist) + 2 * bool(config.optimize_pp)
     if np_cam != want:
         raise ValueError(f"np_cam={np_cam} does not match the config's {want}")
-
-
-def _slot_cams(cam_ids, mask, n_cams: int) -> torch.Tensor:
-    """(Tb, Pb) int64 camera row per slot; padded slots get ``n_cams``, the
-    index of the all-zero row."""
-    return torch.where(mask > 0, cam_ids.long(), torch.full_like(cam_ids, n_cams).long())
-
-
-def _select(rows, idx) -> torch.Tensor:
-    """(D, Tb, Pb) per-slot rows of ``rows`` (C, D); index C is all zero."""
-    padded = torch.cat([rows, rows.new_zeros(1, rows.shape[1])])
-    return padded[idx].permute(2, 0, 1)
-
-
-def _reduce(planes, idx, n_cams: int) -> torch.Tensor:
-    """Sum slot planes (K, Tb, Pb) into camera rows (C, K); index C
-    (padding) is dropped."""
-    k = planes.shape[0]
-    out = planes.new_zeros(n_cams + 1, k)
-    out.index_add_(0, idx.reshape(-1), planes.reshape(k, -1).T)
-    return out[:n_cams]
 
 
 def _track_sum(planes) -> torch.Tensor:
@@ -158,7 +128,6 @@ def tt_cam_normal_fused(table, cam_ids, pts, uv, mask, inv_w, config, np_cam: in
     check_shape(name, "pts", pts, (3, pb))
     check_shape(name, "uv", uv, (2, tb, pb))
     check_shape(name, "inv_w", inv_w, ())
-    _check_smem(name, n_cams, np_cam, table)
     n_triu = np_cam * (np_cam + 1) // 2
     jc = torch.empty((2 * np_cam, tb, pb), dtype=dtype, device=dev)
     jp = torch.empty((6, tb, pb), dtype=dtype, device=dev)
@@ -175,7 +144,7 @@ def tt_cam_normal_fused(table, cam_ids, pts, uv, mask, inv_w, config, np_cam: in
         int(config.optimize_pp), _build.stream_ptr(dev),
     )
     _build.check(lib, name, code)
-    CAM_COUNTS.kernel += 1
+    CAM_COUNTS.launched(_build.GLOBAL)
     return jc, jp, v6, g_pt, ug
 
 
@@ -213,7 +182,6 @@ def tt_coupling_fused(cam_ids, mask, jc, jp, v_inv, n_cams: int):
     name = "tt_coupling_fused"
     np_cam, tb, pb = _check_slots(name, jc, cam_ids, mask, jc, jp, v_inv=v_inv)
     check_shape(name, "v_inv", v_inv, (6, pb))
-    _check_smem(name, n_cams, np_cam, jc)
     out = torch.zeros((n_cams, np_cam * (np_cam + 1) // 2), dtype=jc.dtype, device=jc.device)
     lib = _build.library()
     code = lib.tt_coupling(
@@ -222,7 +190,7 @@ def tt_coupling_fused(cam_ids, mask, jc, jp, v_inv, n_cams: int):
         _build.stream_ptr(jc.device),
     )
     _build.check(lib, name, code)
-    COUPLING_COUNTS.kernel += 1
+    COUPLING_COUNTS.launched(_build.GLOBAL)
     return out
 
 
@@ -247,7 +215,6 @@ def tt_wt_times_fused(x, cam_ids, mask, jc, jp):
     np_cam, tb, pb = _check_slots(name, x, cam_ids, mask, jc, jp, x=x)
     n_cams = x.shape[0]
     check_shape(name, "x", x, (n_cams, np_cam))
-    _check_smem(name, n_cams, np_cam, x)
     out = torch.empty((3, pb), dtype=x.dtype, device=x.device)
     lib = _build.library()
     code = lib.tt_wt_times(
@@ -256,7 +223,7 @@ def tt_wt_times_fused(x, cam_ids, mask, jc, jp):
         _build.stream_ptr(x.device),
     )
     _build.check(lib, name, code)
-    WT_COUNTS.kernel += 1
+    WT_COUNTS.launched(_build.GLOBAL)
     return out
 
 
@@ -272,25 +239,26 @@ def tt_w_times_fused_plain(y, cam_ids, mask, jc, jp, n_cams: int):
     return _reduce(z, _slot_cams(cam_ids, mask, n_cams), n_cams)
 
 
-def tt_w_times_fused(y, cam_ids, mask, jc, jp, n_cams: int):
+def tt_w_times_fused(y, cam_ids, mask, jc, jp, n_cams: int, *, _mode=None):
     """(W y) camera rows (C, np) of one bucket; ``y`` (3, Pb) point planes,
     the rest as ``tt_coupling_fused``.  CPU tensors run the plain version,
-    CUDA tensors the kernel."""
+    CUDA tensors the kernel in the memory mode of ``memory_mode``
+    (``_mode`` forces one, for tests)."""
     if not is_cuda_call(y):
         return tt_w_times_fused_plain(y, cam_ids, mask, jc, jp, n_cams)
     name = "tt_w_times_fused"
     np_cam, tb, pb = _check_slots(name, y, cam_ids, mask, jc, jp, y=y)
     check_shape(name, "y", y, (3, pb))
-    _check_smem(name, n_cams, np_cam, y)
+    need, mode = memory_mode(n_cams, np_cam, y.element_size(), _build.smem_limit(y), _mode)
     out = torch.zeros((n_cams, np_cam), dtype=y.dtype, device=y.device)
     lib = _build.library()
     code = lib.tt_w_times(
         _build.dtype_code(y.dtype), np_cam, y.data_ptr(), cam_ids.data_ptr(),
         mask.data_ptr(), jc.data_ptr(), jp.data_ptr(), out.data_ptr(), n_cams, tb, pb,
-        _build.stream_ptr(y.device),
+        need if mode == _build.SHARED else 0, _build.stream_ptr(y.device),
     )
     _build.check(lib, name, code)
-    W_COUNTS.kernel += 1
+    W_COUNTS.launched(mode)
     return out
 
 
@@ -324,7 +292,6 @@ def tt_cost_fused(table, cam_ids, pts, uv, mask, inv_w, config):
     check_shape(name, "pts", pts, (3, pb))
     check_shape(name, "uv", uv, (2, tb, pb))
     check_shape(name, "inv_w", inv_w, ())
-    _check_smem(name, n_cams, 8, table)
     lane = torch.empty((pb,), dtype=dtype, device=dev)
     lib = _build.library()
     code = lib.tt_cost(
@@ -333,5 +300,5 @@ def tt_cost_fused(table, cam_ids, pts, uv, mask, inv_w, config):
         tb, pb, LOSS_CODES[config.loss], _build.stream_ptr(dev),
     )
     _build.check(lib, name, code)
-    COST_COUNTS.kernel += 1
+    COST_COUNTS.launched(_build.GLOBAL)
     return 0.5 * torch.sum(lane)

@@ -7,9 +7,9 @@ residual s * rho'(s) * mask^2 over each point column's track, giving
 (G, 1, Pc).  The caller scales the sum by 0.5 * inv_w^2.
 
 CUDA kernel (``csrc/wtt_kernels.cu:cost_kernel``): one thread per point
-column, the group's camera window staged in shared memory, the track sum
-in a register.  On the H100 it is bound by the uv/mask/wcam bytes it reads
-(no cross-thread reduction, so its sums are deterministic).
+column, its slots' camera rows read from device memory (any window width),
+the track sum in a register.  On the H100 it is bound by the uv/mask/wcam
+bytes it reads (no cross-thread reduction, so its sums are deterministic).
 """
 
 from __future__ import annotations
@@ -77,5 +77,5 @@ def wtt_cost_cols_idx(wcam, tw, pts, uv, mask, loss: RobustLoss):
         g, tb, pc, window, LOSS_CODES[loss], _build.stream_ptr(tw.device),
     )
     _build.check(lib, name, code)
-    COUNTS.kernel += 1
+    COUNTS.launched(_build.GLOBAL)
     return out

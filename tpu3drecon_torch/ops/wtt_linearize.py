@@ -27,15 +27,15 @@ these kernels compute without the one-hot.
 
 CUDA kernels: B1 (``csrc/wtt_kernels.cu:lin_kernel``) takes one thread per
 point column, two passes over the track (planes and point normal, then the
-K columns into a shared-memory (W, K) tile with atomics, flushed to the
-global rows with one atomic per nonzero entry).  On the H100 it is bound by
-the shared-memory atomics: K = 88 per slot at np = 8 (152 with the od
-columns); warps whose live lanes share a window row reduce with shuffles
-first.  The od pairs keep the previous slot's W V^-1 factor in registers.
-B8
+K columns into the global rows with atomics).  On the H100 it is bound by
+those atomics: K = 88 per slot at np = 8 (152 with the od columns); warps
+whose live lanes share a window row reduce with shuffles first.  The od
+pairs keep the previous slot's W V^-1 factor in registers.  B8
 (``csrc/wtt_route_kernels.cu:contrib_kernel``) is B1's pass 2 alone and B7
 (``cam_planes_kernel``) a per-slot copy bound by the 19 planes it writes.
 Row sums are atomic, so f32 rows vary in the last bits from run to run.
+Camera rows are read from device memory and nothing is staged per block,
+so any window width runs (``csrc/slot.cuh``).
 """
 
 from __future__ import annotations
@@ -102,8 +102,7 @@ def wtt_linearize_fused_idx(
     ``pts`` (3, G, Pc), ``uv`` (G, 2, Tb, Pc), ``mask`` (G, Tb, Pc);
     ``lam``/``inv_w`` are 0-d tensors on the same device.  ``want_od``
     (needs ``use_sj``) appends the np^2 band pair columns.  CPU tensors run
-    the plain version, CUDA tensors the kernel; a shared-memory tile above
-    the card's per-block limit raises ``ValueError``."""
+    the plain version, CUDA tensors the kernel."""
     _check_config(blocks_config, np_cam, use_sj, want_od)
     if not is_cuda_call(tw):
         return wtt_linearize_fused_idx_plain(
@@ -213,18 +212,6 @@ def _od_rows(wcam, w_l, wv_l, window: int) -> torch.Tensor:
     return reduce_rows(od, pair.reshape(g, -1), window)
 
 
-def _check_smem(name: str, t: torch.Tensor, window: int, k: int, staged_rows: int) -> None:
-    """``ValueError`` where the kernel's (W, K) row tile and ``staged_rows``
-    camera rows of 19 exceed the card's shared memory per block."""
-    need = (window * k + staged_rows * CAM_TABLE_DIM) * t.element_size()
-    limit = _build.smem_limit(t)
-    if need > limit:
-        raise ValueError(
-            f"{name}: a ({window}, {k}) {t.dtype} row tile needs {need} bytes of "
-            f"shared memory per block, above this card's limit of {limit} bytes"
-        )
-
-
 def _launch(wcam, tw, pts, uv, mask, lam, inv_w, cfg, np_cam, use_sj, want_od):
     name = "wtt_linearize_fused_idx"
     g, _, tb, pc = uv.shape
@@ -241,7 +228,6 @@ def _launch(wcam, tw, pts, uv, mask, lam, inv_w, cfg, np_cam, use_sj, want_od):
     check_shape(name, "lam", lam, ())
     check_shape(name, "inv_w", inv_w, ())
     k = n_rows_cols(np_cam, use_sj, want_od)
-    _check_smem(name, tw, window, k, window + 1)
     rows = torch.zeros((g, window, k), dtype=dtype, device=dev)
     jc = torch.empty((2 * np_cam, g, tb, pc), dtype=dtype, device=dev)
     jp = torch.empty((6, g, tb, pc), dtype=dtype, device=dev)
@@ -259,7 +245,7 @@ def _launch(wcam, tw, pts, uv, mask, lam, inv_w, cfg, np_cam, use_sj, want_od):
         _build.stream_ptr(dev),
     )
     _build.check(lib, name, code)
-    (OD_COUNTS if want_od else COUNTS).kernel += 1
+    (OD_COUNTS if want_od else COUNTS).launched(_build.GLOBAL)
     return rows, jc, jp, v_inv, g_pt, damp
 
 
@@ -320,8 +306,7 @@ def wtt_contrib_rows_idx(wcam, jc, jp, r, v_inv, np_cam: int, window: int,
     ``wcam`` (G, Tb*Pc) int16, ``jc`` (2np, G, Tb, Pc), ``jp`` (6, G, Tb,
     Pc), ``r`` (2, G, Tb, Pc), ``v_inv`` (6, G, Pc).  ``want_od`` needs
     ``use_sj`` (``ValueError``).  CPU tensors run the plain version, CUDA
-    tensors the kernel; a (W, K) tile above the card's shared memory per
-    block raises ``ValueError``."""
+    tensors the kernel."""
     _check_od(use_sj, want_od)
     if not is_cuda_call(jc):
         return wtt_contrib_rows_idx_plain(wcam, jc, jp, r, v_inv, np_cam, window, use_sj,
@@ -334,7 +319,6 @@ def wtt_contrib_rows_idx(wcam, jc, jp, r, v_inv, np_cam: int, window: int,
     check_shape(name, "r", r, (2, g, tb, pc))
     check_shape(name, "v_inv", v_inv, (6, g, pc))
     k = n_contrib_cols(np_cam, use_sj, want_od)
-    _check_smem(name, jc, window, k, 0)
     rows = torch.zeros((g, window, k), dtype=jc.dtype, device=jc.device)
     lib = _build.library()
     code = lib.wtt_contrib(
@@ -343,5 +327,5 @@ def wtt_contrib_rows_idx(wcam, jc, jp, r, v_inv, np_cam: int, window: int,
         window, int(use_sj), int(want_od), _build.stream_ptr(jc.device),
     )
     _build.check(lib, name, code)
-    (CONTRIB_OD_COUNTS if want_od else CONTRIB_COUNTS).kernel += 1
+    (CONTRIB_OD_COUNTS if want_od else CONTRIB_COUNTS).launched(_build.GLOBAL)
     return rows

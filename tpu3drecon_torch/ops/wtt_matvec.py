@@ -13,17 +13,23 @@ slot's window row read from the dense one-hot (G, W, Tb*Pc) instead of
 ``wcam`` (``matvec_kernel=True``/``"fused"``); its plain version is the
 literal one-hot product.
 
-CUDA kernels (``csrc/wtt_kernels.cu``): one thread per point column, the
-group's x window staged in shared memory.  B2 keeps W^T x and y in
-registers and reduces only z across threads (shared-memory atomics into an
-(np, W) tile, one global atomic per nonzero entry); on the H100 it is
-bound by those atomics and the jc/jp stream (2 np + 6 planes per slot).
-B3 has no cross-thread reduction and is bound by the jc/jp bytes it reads.
-B5 and B6 (``csrc/wtt_route_kernels.cu``) reuse B2's per-slot halves; B6
-scans each slot's one-hot column and keeps its first nonzero row, so it
-agrees with the literal product on a one-hot with at most one 1 per column
-and reads the first 1 of a malformed column.  B2, B5 and B6 rows are atomic
-sums, so f32 rows vary in the last bits.
+CUDA kernels (``csrc/wtt_kernels.cu``): one thread per point column, x
+read from the group's window rows in device memory.  B2 keeps W^T x and y
+in registers and reduces only z across threads (warp-aggregated atomics
+straight into the zeroed (np, W) rows); on the H100 it is bound by those
+atomics and the jc/jp stream (2 np + 6 planes per slot).  B3 has no
+cross-thread reduction and is bound by the jc/jp bytes it reads.  B5 and
+B6 (``csrc/wtt_route_kernels.cu``) reuse B2's per-slot halves; B6 scans
+each slot's one-hot column and keeps its first nonzero row, so it agrees
+with the literal product on a one-hot with at most one 1 per column and
+reads the first 1 of a malformed column.  B2, B5 and B6 rows are atomic
+sums, so f32 rows vary in the last bits.  Any window width runs.
+
+B6 alone keeps a shared-memory mode (x staged per block, rows reduced into
+a block-local tile), which measured faster than the direct atomics:
+``memory_mode`` picks it where its tiles fit the card's shared memory per
+block, and the wrapper passes their bytes to the kernel
+(``csrc/slot.cuh``).
 """
 
 from __future__ import annotations
@@ -44,6 +50,24 @@ COUPLING_COUNTS = _build.LaunchCounter()  # B2
 WT_COUNTS = _build.LaunchCounter()  # B3
 W_ROWS_COUNTS = _build.LaunchCounter()  # B5
 FUSED_COUNTS = _build.LaunchCounter()  # B6
+
+_BLOCK = 256  # threads per block (csrc/slot.cuh kBlock)
+
+
+def _fused_tiles(window: int, np_cam: int, itemsize: int) -> int:
+    """Bytes of B6's shared-mode tiles: the staged (np, W + 1) x window and
+    the (np, W) rows tile."""
+    return np_cam * (2 * window + 1) * itemsize
+
+
+def memory_mode(window: int, np_cam: int, tb: int, itemsize: int, limit: int,
+                forced=None):
+    """(bytes, mode) of B6: its shared memory per block in the shared mode
+    (the (Tb, 256) int16 row table of ``tb`` slots per thread, which it
+    keeps in both modes, and ``_fused_tiles``), and the mode
+    ``_build.memory_mode`` picks from it against ``limit``."""
+    need = 2 * tb * _BLOCK + _fused_tiles(window, np_cam, itemsize)
+    return need, _build.memory_mode(need, limit, forced)
 
 
 def _wt_x(xw_t, wcam, jc, jp):
@@ -117,7 +141,7 @@ def wtt_coupling_rows_idx(xw_t, wcam, jc, jp, v_inv):
         g, tb, pc, window, _build.stream_ptr(xw_t.device),
     )
     _build.check(lib, name, code)
-    COUPLING_COUNTS.kernel += 1
+    COUPLING_COUNTS.launched(_build.GLOBAL)
     return out
 
 
@@ -137,7 +161,7 @@ def wtt_wt_planes_idx(xw_t, wcam, jc, jp):
         _build.stream_ptr(xw_t.device),
     )
     _build.check(lib, name, code)
-    WT_COUNTS.kernel += 1
+    WT_COUNTS.launched(_build.GLOBAL)
     return out
 
 
@@ -169,7 +193,7 @@ def wtt_w_rows_idx(y, wcam, jc, jp, window: int):
         _build.stream_ptr(y.device),
     )
     _build.check(lib, name, code)
-    W_ROWS_COUNTS.kernel += 1
+    W_ROWS_COUNTS.launched(_build.GLOBAL)
     return out
 
 
@@ -189,11 +213,13 @@ def wtt_coupling_rows_fused_plain(xw_t, onehot, jc, jp, v_inv):
     return torch.einsum("kgn,gwn->gkw", z.reshape(np_cam, g, tb * pc), oh)
 
 
-def wtt_coupling_rows_fused(xw_t, onehot, jc, jp, v_inv):
+def wtt_coupling_rows_fused(xw_t, onehot, jc, jp, v_inv, *, _mode=None):
     """Coupling rows (G, np, W) of W V^-1 W^T x for one bucket, the slots'
     window rows read from ``onehot`` (G, W, Tb*Pc), int8 or the data's
     float dtype; other inputs as ``wtt_coupling_rows_idx``.  CPU tensors
-    run the plain version, CUDA tensors the kernel."""
+    run the plain version, CUDA tensors the kernel in the memory mode of
+    ``memory_mode`` (``_mode`` forces one, for tests).  The window takes at
+    most 32,767 rows (the int16 of JAX's ``wcam``)."""
     if not is_cuda_call(xw_t):
         return wtt_coupling_rows_fused_plain(xw_t, onehot, jc, jp, v_inv)
     name = "wtt_coupling_rows_fused"
@@ -212,14 +238,17 @@ def wtt_coupling_rows_fused(xw_t, onehot, jc, jp, v_inv):
     check_shape(name, "onehot", onehot, (g, window, tb * pc))
     check_shape(name, "jc", jc, (2 * np_cam, g, tb, pc))
     check_shape(name, "v_inv", v_inv, (6, g, pc))
+    _, mode = memory_mode(window, np_cam, tb, xw_t.element_size(),
+                          _build.smem_limit(xw_t), _mode)
+    tiles = _fused_tiles(window, np_cam, xw_t.element_size()) if mode == _build.SHARED else 0
     out = torch.zeros((g, np_cam, window), dtype=xw_t.dtype, device=xw_t.device)
     lib = _build.library()
     code = lib.wtt_coupling_onehot(
         _build.dtype_code(xw_t.dtype), np_cam, int(onehot.dtype != torch.int8),
         xw_t.data_ptr(), onehot.data_ptr(), jc.data_ptr(), jp.data_ptr(),
-        v_inv.data_ptr(), out.data_ptr(), g, tb, pc, window,
+        v_inv.data_ptr(), out.data_ptr(), g, tb, pc, window, tiles,
         _build.stream_ptr(xw_t.device),
     )
     _build.check(lib, name, code)
-    FUSED_COUNTS.kernel += 1
+    FUSED_COUNTS.launched(mode)
     return out

@@ -245,7 +245,7 @@ def wtt_from_flat(
     itemsize = torch.empty((), dtype=oh_dtype).element_size()
     if split_windows:
         raise NotImplementedError(
-            "split_windows (per-chunk window classes) is not ported yet"
+            "split_windows (per-chunk window classes) is not ported yet (ROADMAP A.1)"
         )
     if reorder_cameras not in ("auto", "always", "never", "hub"):
         raise ValueError(f"reorder_cameras={reorder_cameras!r}")

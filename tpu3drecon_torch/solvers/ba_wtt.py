@@ -75,14 +75,7 @@ from tpu3drecon_torch.solvers.ba_tt import (
 )
 from tpu3drecon_torch.solvers.bundle_adjust import BAConfig, BAState, n_cam_params
 from tpu3drecon_torch.solvers.pcg import cho_block_precond, guarded_block_cholesky, pcg
-from tpu3drecon_torch.solvers.tridiag import (
-    SSORFactor,
-    auto_segments,
-    ssor_factor,
-    ssor_solve,
-    tridiag_factor,
-    tridiag_solve,
-)
+from tpu3drecon_torch.solvers.tridiag import band_factor, band_preconditioner
 from tpu3drecon_torch.solvers.trust_region import trust_region_solve
 
 _BAND = ("tridiag", "ssor")
@@ -211,10 +204,8 @@ def _linearize(params, lam, problem: BAWTTProblem, config: BAConfig) -> WTTNorma
         u_chol = torch.linalg.cholesky_ex(u_d).L
     band = None
     if want_od:
-        make = ssor_factor if config.precond == "ssor" else tridiag_factor
-        with torch.profiler.record_function("band_precond_factor"):
-            band = make(precond_mat, -e_cols.reshape(c_pad, np_cam, np_cam),
-                        segments=auto_segments(c_pad))
+        band = band_factor(config.precond, precond_mat,
+                           -e_cols.reshape(c_pad, np_cam, np_cam))
     return WTTNormal(
         u=u_d, u_chol=u_chol, g_cam=g_cols, damp_cam=damp_cam,
         buckets=tuple(bucket_normals), tridiag=band, b_cam=b_cols if fused else None,
@@ -222,18 +213,11 @@ def _linearize(params, lam, problem: BAWTTProblem, config: BAConfig) -> WTTNorma
 
 
 def _preconditioner(nb: WTTNormal):
-    """The PCG preconditioner: the band sweeps of ``nb.tridiag`` over
-    ``auto_segments`` segments, else the block Cholesky solve."""
+    """The PCG preconditioner: the band sweeps of ``nb.tridiag``, else the
+    block Cholesky solve."""
     if nb.tridiag is None:
         return cho_block_precond(nb.u_chol)
-    seg = auto_segments(nb.u_chol.shape[0])
-    solve = ssor_solve if isinstance(nb.tridiag, SSORFactor) else tridiag_solve
-
-    def apply(r):
-        with torch.profiler.record_function("band_precond_apply"):
-            return solve(nb.tridiag, r, segments=seg)
-
-    return apply
+    return band_preconditioner(nb.tridiag)
 
 
 def _xw_t(x_pad: torch.Tensor, bucket: WTTBucket) -> torch.Tensor:
@@ -364,12 +348,12 @@ def _check_config(config: BAConfig, problem: BAWTTProblem = None) -> None:
     if config.matvec_kernel in ("index1", "index2") or config.linearize_kernel == "index2":
         raise NotImplementedError(
             "the reduced-fidelity bf16-split modes (matvec_kernel 'index1'/"
-            "'index2', linearize_kernel 'index2') are not ported (ROADMAP A6)"
+            "'index2', linearize_kernel 'index2') are not ported (ROADMAP B.7)"
         )
     if config.matvec_bf16:
         raise NotImplementedError(
             "matvec_bf16 (bf16 jc/jp on the XLA matvec path, a measured "
-            "negative on the TPU) is not ported (ROADMAP A14)"
+            "negative on the TPU) is not ported (ROADMAP A.9)"
         )
 
 
@@ -501,7 +485,7 @@ def make_wtt_ba_solver(config: BAConfig = BAConfig(), aot: bool = False):
     if aot:
         raise NotImplementedError(
             "aot=True (the persistent executable cache) is TPU-specific and "
-            "not ported (ROADMAP A14)"
+            "not ported (ROADMAP A.9)"
         )
     _check_config(config)
     if config not in _SOLVER_CACHE:

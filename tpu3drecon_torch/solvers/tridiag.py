@@ -207,6 +207,28 @@ def ssor_matvec(d_blocks, e_blocks, x, segments: int = 1):
     return out
 
 
+def band_factor(precond: str, d_blocks: torch.Tensor, e_blocks: torch.Tensor):
+    """The ``precond`` ("ssor" or "tridiag") factor of D and E over
+    ``auto_segments`` segments, inside the ``band_precond_factor`` profiler
+    span (the wtt and tt engines' band path)."""
+    make = ssor_factor if precond == "ssor" else tridiag_factor
+    with torch.profiler.record_function("band_precond_factor"):
+        return make(d_blocks, e_blocks, segments=auto_segments(d_blocks.shape[0]))
+
+
+def band_preconditioner(factor):
+    """r -> M^-1 r for a ``band_factor`` factor, each apply inside the
+    ``band_precond_apply`` profiler span."""
+    seg = auto_segments(factor[0].shape[0])
+    solve = ssor_solve if isinstance(factor, SSORFactor) else tridiag_solve
+
+    def apply(r):
+        with torch.profiler.record_function("band_precond_apply"):
+            return solve(factor, r, segments=seg)
+
+    return apply
+
+
 def tridiag_matvec(d_blocks, e_blocks, x):
     """M x for testing: (C, n, n), (C, n, n), (C, n) -> (C, n)."""
     out = _mv(d_blocks, x)
