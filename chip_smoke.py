@@ -53,9 +53,14 @@ Phases (any failure exits non-zero and prints no result line):
 11. The BAL-scale sequential problem: ``bal_sequential_wtt`` (1712
     cameras, 999,808 points, 3,808,166 observations, f32) built on the
     card, its build time and buckets logged.
-12. B1 and B8 with ``want_od`` (the band pair rows) against their plain
-    versions on the BAL buckets: f32, where they are timed beside B1 and B8
-    without od, and f64 with window row 0 and the padded slots' planes NaN.
+12. B1 and B8 with ``want_od`` against their plain versions on the BAL
+    buckets: f32, where they are timed beside B1 and B8 without od, and f64
+    with window row 0 and the padded slots' planes NaN.  Then the
+    reduced-fidelity kernels against their plain versions at the same
+    terms, f32, with window row 0 of the camera rows and of x NaN: B2 at
+    terms 1 and 2 and B1 at terms 2 on the medium buckets (timed there
+    beside the exact B2 and B1), B2 at terms 1 and 2 and B1 at terms 2 with
+    and without od on the BAL buckets (B1 od timed there).
 13. The BAL paths, with the JAX suite's BAL solver config (8 CG
     iterations, ``cg_rtol`` 0, f32): ``bal_seq`` (fully indexed,
     Schur-Jacobi) and ``bal_seq_ssor`` (fully indexed, block SSOR, B1 od)
@@ -67,14 +72,31 @@ Phases (any failure exits non-zero and prints no result line):
     timed solves; then B1 od, B2 and B3 at np = 10 (``optimize_dist``)
     checked on the BAL buckets and ``bal_seq_ssor_np10`` (block SSOR with
     ``optimize_dist``) at 3 LM iterations, one warm-up and 2 timed solves.
-14. The BAL hub problem: ``bal_hub_wtt`` (1712 cameras, 5 % hubs of 4000
+    The probes E2 (``experiments.index_matvec3``: B2 at terms 3, 2 and 1
+    and the PyTorch plane matvec against float64 rows, device ms per
+    matvec) and E1 (``experiments.index_matvec2``: B2's copy at 128, 256
+    and 512 threads per block, without the gather, without the atomics)
+    run on these buckets.
+14. The split-window packing of the same problem
+    (``bal_sequential_wtt(split_windows=True)``, the JAX suite's TPU BAL
+    cell), its build time and buckets (G, Tb, Pc, W, global tiles,
+    global_tile0) logged: ``bal_seq_split`` (fully indexed),
+    ``bal_seq_split_index2`` (matvec and linearize ``index2``) and
+    ``bal_seq_split_index1`` (matvec ``index1``, linearize ``index``) at 3
+    and 12 LM iterations, one warm-up and 3 timed solves each, with their
+    marginals; ``bal_seq_split_index2_ssor`` (``index2``/``index2`` under
+    block SSOR: B1 od at 2 terms) at 3 iterations, one warm-up and 1 timed.
+15. The BAL hub problem: ``bal_hub_wtt`` (1712 cameras, 5 % hubs of 4000
     observations, packed with global camera tiles) built on the card, its
     buckets (G, Tb, Pc, W, global tiles) logged; the band preconditioners
     must raise JAX's hub ``ValueError``; B1 and B4 checked on its buckets
     (f32), each mode and time printed;
     ``bal_hub`` (fully indexed, Schur-Jacobi, the BAL config) at 3 and 12
     LM iterations, one warm-up and 3 timed solves each, and its marginal.
-15. ``tt_seq1024``: a sequential scene of 1024 cameras and 256 points per
+    Then its split packing (``bal_hub_wtt(split_windows=True)``), buckets
+    and build time logged, the band preconditioners must raise there too,
+    and ``bal_hub_split`` (fully indexed) at 3 and 12 iterations, 1 + 3.
+16. ``tt_seq1024``: a sequential scene of 1024 cameras and 256 points per
     camera (seed 7, perturbed with seed 8 and 0.5 px noise) packed by
     ``tt_from_flat`` (f32), its counts logged; B12-B16 checked on its
     buckets, each mode printed; solved with the BAL config at 3 LM
@@ -83,7 +105,11 @@ Phases (any failure exits non-zero and prints no result line):
     kernel), one warm-up and 2 timed solves each.
     Each BAL, hub and tt_seq1024 solve must end finite and below its
     initial loss with at least one accepted step.
-16. Prints the kernel table as one JSON line, the ``nvidia-smi`` line, then
+17. The probes E3 (``experiments.term_stack``: B2 against its plain
+    version at terms 3 and 1 on E3's random inputs) and E4
+    (``experiments.bits_expand``: both unpack layouts against numpy; its
+    counts set to 0 before and read after, as a path's).
+18. Prints the kernel table as one JSON line, the ``nvidia-smi`` line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Tolerances, relative to max|plain|: per-element outputs 1e-5 (f32) and
@@ -93,14 +119,19 @@ and g and B11's blocks are block reductions in another order than the
 plain version's); B7 (a selection) exactly.  Each row of the kernel table
 gives its ``mode``: the memory mode its wrapper counted during the timed
 calls of its ``ms`` (``global``; ``shared`` for B6 and B15 on the medium
-buckets; none for B7 and B9-B11, which have no mode), which must match the
-row's label; B6's and B15's rows add ``global_ms``, the same inputs' time
+buckets; none for B7, B9-B11 and E4, which have no mode), which must match
+the row's label; B6's and B15's rows add ``global_ms``, the same inputs' time
 with the global-memory mode forced.  The rows ``B1 [hub]`` (the hub
 buckets), ``B1 od [np=10]`` (the BAL buckets with ``optimize_dist``) and
 ``B12 [C=1024]`` (tt_seq1024) time those kernels at the widths that a
-shared tile could not hold, and count their launches on those paths.
+shared tile could not hold, and count their launches on those paths.  The
+rows ``B2 [terms 1]``, ``B2 [terms 2]`` and ``B1 [terms 2]`` (medium
+buckets) and ``B1 od [terms 2]`` (BAL buckets) time the reduced-fidelity
+kernels and count their launches on the split paths that run them; ``E4
+A`` / ``E4 B`` count theirs in the E4 phase.
 Kernel and plain
-times (``ms``, ``plain_ms``) are device times (``device_ms``): the median
+times (``ms``, ``plain_ms``) are device times
+(``tpu3drecon_torch.benchmark.timing.device_ms``): the median
 of 20 calls, each with a cold L2 and timed by a CUDA-event pair that sees
 none of the call's host time, summed over one pass of the solve (the five
 buckets, or one linearization).  ``ms`` covers all the device work of the
@@ -129,16 +160,19 @@ from __future__ import annotations
 import importlib
 import json
 import statistics
-import subprocess
 import sys
 import time
 
 import torch
 
+from tpu3drecon_torch.benchmark.timing import HBM_BYTES_PER_S, card_line, device_ms, nbytes
+
 WTT_SRC = "tpu3drecon_torch/csrc/wtt_kernels.cu"
+TERMS_SRC = "tpu3drecon_torch/csrc/wtt_terms_kernels.cu"
 ROUTE_SRC = "tpu3drecon_torch/csrc/wtt_route_kernels.cu"
 GRID_SRC = "tpu3drecon_torch/csrc/grid_kernels.cu"
 TT_SRC = "tpu3drecon_torch/csrc/tt_kernels.cu"
+PROBE_SRC = "tpu3drecon_torch/csrc/probe_kernels.cu"
 LIN_PY = "tpu3drecon/ops/pallas/wtt_linearize.py"
 MV_PY = "tpu3drecon/ops/pallas/wtt_matvec.py"
 TT_PY = "tpu3drecon/ops/pallas/tt_linearize.py"
@@ -154,55 +188,80 @@ BAL, BAL_SSOR, BAL_TRI = "bal_seq", "bal_seq_ssor", "bal_seq_tridiag_unfused"
 # both tt routes (fully fused, and JAX's default XLA route under block SSOR).
 HUB, NP10 = "bal_hub", "bal_seq_ssor_np10"
 TT1024, TT1024_SSOR = "tt_seq1024", "tt_seq1024_ssor"
+# The split-window BAL packings (the JAX suite's TPU BAL cell packs this
+# way): fully indexed, the reduced-fidelity modes (matvec index2 with
+# linearize index2, matvec index1 with linearize index, and index2/index2
+# under block SSOR, whose B1 od rows run at 2 terms), and the split hub.
+SPLIT, SPLIT2, SPLIT1 = "bal_seq_split", "bal_seq_split_index2", "bal_seq_split_index1"
+SPLIT2_SSOR, HUB_SPLIT = "bal_seq_split_index2_ssor", "bal_hub_split"
+E4 = "E4 probe"
 SHARED, GLOBAL = "shared", "global"  # tpu3drecon_torch.ops._build's modes
-# (module, counter attribute, kernel name, source, replaced TPU kernel, paths,
-# the memory mode of its ms: the kernels read camera rows from device memory
-# and reduce into the output rows directly, B6 and B15 use their shared
-# mode where it fits, B7 and B9-B11 have no mode)
+# (module under tpu3drecon_torch, counter attribute, kernel name, source,
+# replaced TPU kernel, paths, the memory mode of its ms: the kernels read
+# camera rows from device memory and reduce into the output rows directly,
+# B6 and B15 use their shared mode where it fits, B7, B9-B11 and E4 have no
+# mode)
+ALL_SPLIT = {SPLIT, SPLIT2, SPLIT1, SPLIT2_SSOR, HUB_SPLIT}
 KERNELS = (
-    ("wtt_linearize", "COUNTS", "wtt_linearize_fused_idx", WTT_SRC, f"{LIN_PY}:554",
-     {WTT, BAL, HUB}, GLOBAL),
-    ("wtt_matvec", "COUPLING_COUNTS", "wtt_coupling_rows_idx", WTT_SRC, f"{MV_PY}:215",
-     {WTT, UNFUSED, BAL, BAL_SSOR, BAL_TRI, HUB, NP10}, GLOBAL),
-    ("wtt_matvec", "WT_COUNTS", "wtt_wt_planes_idx", WTT_SRC, f"{MV_PY}:405",
-     {WTT, UNFUSED, BAL, BAL_SSOR, BAL_TRI, HUB, NP10}, GLOBAL),
-    ("wtt_cost", "COUNTS", "wtt_cost_cols_idx", WTT_SRC,
-     "tpu3drecon/ops/pallas/wtt_cost.py:94", {WTT, BAL, BAL_SSOR, HUB, NP10}, GLOBAL),
-    ("wtt_matvec", "W_ROWS_COUNTS", "wtt_w_rows_idx", ROUTE_SRC, f"{MV_PY}:468",
+    ("ops.wtt_linearize", "COUNTS", "wtt_linearize_fused_idx", WTT_SRC, f"{LIN_PY}:554",
+     {WTT, BAL, HUB, SPLIT, SPLIT1, HUB_SPLIT}, GLOBAL),
+    ("ops.wtt_matvec", "COUPLING_COUNTS", "wtt_coupling_rows_idx", WTT_SRC, f"{MV_PY}:215",
+     {WTT, UNFUSED, BAL, BAL_SSOR, BAL_TRI, HUB, NP10, SPLIT, HUB_SPLIT}, GLOBAL),
+    ("ops.wtt_matvec", "WT_COUNTS", "wtt_wt_planes_idx", WTT_SRC, f"{MV_PY}:405",
+     {WTT, UNFUSED, BAL, BAL_SSOR, BAL_TRI, HUB, NP10} | ALL_SPLIT, GLOBAL),
+    ("ops.wtt_cost", "COUNTS", "wtt_cost_cols_idx", WTT_SRC,
+     "tpu3drecon/ops/pallas/wtt_cost.py:94", {WTT, BAL, BAL_SSOR, HUB, NP10} | ALL_SPLIT,
+     GLOBAL),
+    ("ops.wtt_matvec", "W_ROWS_COUNTS", "wtt_w_rows_idx", ROUTE_SRC, f"{MV_PY}:468",
      {UNFUSED, BAL_TRI}, GLOBAL),
-    ("wtt_matvec", "FUSED_COUNTS", "wtt_coupling_rows_fused", ROUTE_SRC, f"{MV_PY}:526",
+    ("ops.wtt_matvec", "FUSED_COUNTS", "wtt_coupling_rows_fused", ROUTE_SRC, f"{MV_PY}:526",
      {ONEHOT}, SHARED),
-    ("wtt_linearize", "CAM_PLANES_COUNTS", "wtt_cam_planes_idx", ROUTE_SRC,
+    ("ops.wtt_linearize", "CAM_PLANES_COUNTS", "wtt_cam_planes_idx", ROUTE_SRC,
      f"{LIN_PY}:229", {UNFUSED, ONEHOT, BAL_TRI}, None),
-    ("wtt_linearize", "CONTRIB_COUNTS", "wtt_contrib_rows_idx", ROUTE_SRC,
+    ("ops.wtt_linearize", "CONTRIB_COUNTS", "wtt_contrib_rows_idx", ROUTE_SRC,
      f"{LIN_PY}:286", {UNFUSED, ONEHOT}, GLOBAL),
-    ("cam_normal", "COUNTS", "cam_normal_fused", GRID_SRC,
+    ("ops.cam_normal", "COUNTS", "cam_normal_fused", GRID_SRC,
      "tpu3drecon/ops/pallas/cam_normal.py:205", {"grid"}, None),
-    ("point_normal", "COUNTS", "point_normal_fused", GRID_SRC,
+    ("ops.point_normal", "COUNTS", "point_normal_fused", GRID_SRC,
      "tpu3drecon/ops/pallas/point_normal.py:80", {"grid"}, None),
-    ("coupling", "COUNTS", "coupling_fused", GRID_SRC,
+    ("ops.coupling", "COUNTS", "coupling_fused", GRID_SRC,
      "tpu3drecon/ops/pallas/coupling.py:65", {"grid"}, None),
-    ("tt_linearize", "CAM_COUNTS", "tt_cam_normal_fused", TT_SRC, f"{TT_PY}:221",
+    ("ops.tt_linearize", "CAM_COUNTS", "tt_cam_normal_fused", TT_SRC, f"{TT_PY}:221",
      {"tt", TT1024}, GLOBAL),
-    ("tt_linearize", "COUPLING_COUNTS", "tt_coupling_fused", TT_SRC, f"{TT_PY}:297",
+    ("ops.tt_linearize", "COUPLING_COUNTS", "tt_coupling_fused", TT_SRC, f"{TT_PY}:297",
      {"tt", TT1024}, GLOBAL),
-    ("tt_linearize", "WT_COUNTS", "tt_wt_times_fused", TT_SRC, f"{TT_PY}:436",
+    ("ops.tt_linearize", "WT_COUNTS", "tt_wt_times_fused", TT_SRC, f"{TT_PY}:436",
      {"tt", TT1024}, GLOBAL),
-    ("tt_linearize", "W_COUNTS", "tt_w_times_fused", TT_SRC, f"{TT_PY}:475",
+    ("ops.tt_linearize", "W_COUNTS", "tt_w_times_fused", TT_SRC, f"{TT_PY}:475",
      {"tt", TT1024}, SHARED),
-    ("tt_linearize", "COST_COUNTS", "tt_cost_fused", TT_SRC, f"{TT_PY}:512",
+    ("ops.tt_linearize", "COST_COUNTS", "tt_cost_fused", TT_SRC, f"{TT_PY}:512",
      {"tt", TT1024}, GLOBAL),
     # B1's and B8's want_od branches (the band pair rows of ssor/tridiag).
-    ("wtt_linearize", "OD_COUNTS", "B1 od", WTT_SRC, f"{LIN_PY}:515", {BAL_SSOR, NP10},
+    ("ops.wtt_linearize", "OD_COUNTS", "B1 od", WTT_SRC, f"{LIN_PY}:515", {BAL_SSOR, NP10},
      GLOBAL),
-    ("wtt_linearize", "CONTRIB_OD_COUNTS", "B8 od", ROUTE_SRC, f"{LIN_PY}:163",
+    ("ops.wtt_linearize", "CONTRIB_OD_COUNTS", "B8 od", ROUTE_SRC, f"{LIN_PY}:163",
      {BAL_TRI}, GLOBAL),
     # B1, B1 od and B12 at the widths that a shared tile could not hold.
-    ("wtt_linearize", "COUNTS", "B1 [hub]", WTT_SRC, f"{LIN_PY}:554", {HUB}, GLOBAL),
-    ("wtt_linearize", "OD_COUNTS", "B1 od [np=10]", WTT_SRC, f"{LIN_PY}:515", {NP10},
+    ("ops.wtt_linearize", "COUNTS", "B1 [hub]", WTT_SRC, f"{LIN_PY}:554", {HUB}, GLOBAL),
+    ("ops.wtt_linearize", "OD_COUNTS", "B1 od [np=10]", WTT_SRC, f"{LIN_PY}:515", {NP10},
      GLOBAL),
-    ("tt_linearize", "CAM_COUNTS", "B12 [C=1024]", TT_SRC, f"{TT_PY}:221", {TT1024},
+    ("ops.tt_linearize", "CAM_COUNTS", "B12 [C=1024]", TT_SRC, f"{TT_PY}:221", {TT1024},
      GLOBAL),
+    # The reduced-fidelity branches: B2 at terms 1 and 2, B1 (and B1 od) at
+    # terms 2, on the split BAL paths that run them.
+    ("ops.wtt_matvec", "COUPLING1_COUNTS", "B2 [terms 1]", TERMS_SRC, f"{MV_PY}:215",
+     {SPLIT1}, GLOBAL),
+    ("ops.wtt_matvec", "COUPLING2_COUNTS", "B2 [terms 2]", TERMS_SRC, f"{MV_PY}:215",
+     {SPLIT2, SPLIT2_SSOR}, GLOBAL),
+    ("ops.wtt_linearize", "TERMS2_COUNTS", "B1 [terms 2]", TERMS_SRC, f"{LIN_PY}:554",
+     {SPLIT2}, GLOBAL),
+    ("ops.wtt_linearize", "TERMS2_OD_COUNTS", "B1 od [terms 2]", TERMS_SRC, f"{LIN_PY}:515",
+     {SPLIT2_SSOR}, GLOBAL),
+    # E4's two unpack kernels, launched by the E4 probe phase.
+    ("experiments.bits_expand", "LAYOUT_A_COUNTS", "E4 A", PROBE_SRC,
+     "experiments/tpu_bits_expand_probe.py:51", {E4}, None),
+    ("experiments.bits_expand", "LAYOUT_B_COUNTS", "E4 B", PROBE_SRC,
+     "experiments/tpu_bits_expand_probe.py:51", {E4}, None),
 )
 # The kernels that keep a shared-memory mode beside the global one: their
 # rows add global_ms, the time of the same inputs with the global mode forced.
@@ -211,7 +270,6 @@ TOL = {  # (per-element, summed) bounds relative to max|plain|
     torch.float32: (1e-5, 1e-4),
     torch.float64: (1e-12, 1e-10),
 }
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12
 # Float operations per unit of work, counted from csrc/*.cu: per slot
 # (Tb * Pc per bucket) for B1-B8 and B12-B16 (np = 8, atomic adds
@@ -230,6 +288,11 @@ FLOPS = {
     "tt_cam_normal_fused": 370, "tt_coupling_fused": 408, "tt_wt_times_fused": 44,
     "tt_w_times_fused": 42, "tt_cost_fused": 51,
     "od_pair": 64 * 6,
+    # split_round at 2 terms: 3 float operations per rounded value (np x and
+    # np z values per slot for B2, the 80 u | g | coupling values per slot and
+    # the 64 od values per pair for B1); at 1 term none.
+    "B2 [terms 1]": 80, "B2 [terms 2]": 80 + 16 * 3, "B1 [terms 2]": 1000 + 80 * 3,
+    "od_pair_terms2": 64 * 6 + 64 * 3,
 }
 CAM_FIELDS = ("rmats", "tvecs", "fx_fy", "cx_cy_skew", "dist")
 
@@ -241,7 +304,7 @@ def log(msg: str) -> None:
 def counters():
     """kernel name -> its wrapper's launch counter."""
     return {
-        name: getattr(importlib.import_module(f"tpu3drecon_torch.ops.{mod}"), attr)
+        name: getattr(importlib.import_module(f"tpu3drecon_torch.{mod}"), attr)
         for mod, attr, name, *_ in KERNELS
     }
 
@@ -250,45 +313,6 @@ def mode_of(counter, before: dict) -> str:
     """The memory modes of a wrapper's launches since ``before`` (a copy
     of its ``modes``)."""
     return "+".join(sorted(m for m, n in counter.modes.items() if n > before.get(m, 0)))
-
-
-L2_FLUSH_BYTES = 128 << 20  # over twice the H100's 50 MB L2
-SPIN_CYCLES_PER_S = 2e9  # at or above the SM clock: a spin lasts at least its time
-
-
-def device_ms(fn, n: int = 20) -> float:
-    """Median device time (ms) of one call of ``fn`` over ``n`` calls.
-
-    Before each call a 128 MB write evicts the L2, so every call reads its
-    inputs from HBM, and a spin kernel then holds the stream for twice
-    the host time of one call plus 1 ms, so the host has enqueued the whole
-    call before its work starts: the CUDA-event pair around the call spans
-    its device work back to back, without the host time between launches.
-    """
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    spin = int((2 * host_s + 1e-3) * SPIN_CYCLES_PER_S)
-    times = []
-    for _ in range(n):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        flush.zero_()
-        torch.cuda._sleep(spin)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 RESULTS = {  # kernel -> measured and counted figures of this run
@@ -1050,6 +1074,109 @@ def check_np10_od(bal) -> None:
                                                 + FLOPS["od_pair"] * pairs))
 
 
+def check_terms_kernels(wtt, bal) -> None:
+    """B2 at terms 1 and 2 and B1 at terms 2 (with and without od) against
+    their plain versions at the same terms (f32), with window row 0 of the
+    camera rows and of x NaN and only padded slots on it: B2 and B1 on the
+    medium buckets, timed there as the ``B2 [terms 1|2]`` and ``B1 [terms
+    2]`` rows beside the exact kernels' rows; B2, B1 and B1 od on the BAL
+    buckets, B1 od timed there as the ``B1 od [terms 2]`` row."""
+    from tpu3drecon_torch.ops import wtt_linearize as lin
+    from tpu3drecon_torch.ops import wtt_matvec as mv
+    from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
+
+    cfg = BAConfig()
+    elem, summed = TOL[torch.float32]
+    lin_outs = ("rows", "jc", "jp", "v_inv", "g_pt", "damp_pt")
+    for label, problem in (("medium", wtt), ("BAL", bal)):
+        for bi, d in enumerate(wtt_kernel_inputs(problem, torch.float32)):
+            d, pad = poisoned(d)
+            d["xw_t"] = d["xw_t"].clone()
+            d["xw_t"][:, :, 0] = float("nan")
+            g, tb, pc, w = d["shape"]
+            slots = g * tb * pc
+            base = (d["wcam"], d["tw"], d["pts"], d["uv"], d["mask"], d["lam"], d["inv_w"],
+                    cfg, 8, True)
+            errs = {}
+            for od in (False, True) if label == "BAL" else (False,):
+                name = "B1 od [terms 2]" if od else "B1 [terms 2]"
+                args = (*base, od)
+                got = lin.wtt_linearize_fused_idx(*args, terms=2)
+                want = lin.wtt_linearize_fused_idx_plain(*args, terms=2)
+                for k, a, b in zip(lin_outs, got, want):
+                    if not torch.isfinite(a).all():
+                        raise AssertionError(f"{name} {label}: non-finite {k}")
+                errs[name] = max(compare(name, "f32", k, a, b, summed if k == "rows" else elem)
+                                 for k, a, b in zip(lin_outs, got, want))
+                if od and label == "BAL":
+                    pairs = adjacent_pairs(d["wcam"], g, tb, pc)
+                    account(name, lambda args=args: lin.wtt_linearize_fused_idx(*args, terms=2),
+                            lambda args=args: lin.wtt_linearize_fused_idx_plain(*args, terms=2),
+                            nbytes(*args[:7], *got), FLOPS["B1 [terms 2]"] * slots
+                            + FLOPS["od_pair_terms2"] * pairs)
+                elif not od and label == "medium":
+                    account(name, lambda args=args: lin.wtt_linearize_fused_idx(*args, terms=2),
+                            lambda args=args: lin.wtt_linearize_fused_idx_plain(*args, terms=2),
+                            nbytes(*args[:7], *got), FLOPS[name] * slots)
+            _, jc, jp, v_inv, _, _ = want
+            b2 = (d["xw_t"], d["wcam"], jc, jp, v_inv)
+            for terms in (1, 2):
+                name = f"B2 [terms {terms}]"
+                rows = mv.wtt_coupling_rows_idx(*b2, terms=terms)
+                if not torch.isfinite(rows).all():
+                    raise AssertionError(f"{name} {label}: a poisoned padded slot reached a row")
+                errs[name] = compare(name, "f32", "", rows,
+                                     mv.wtt_coupling_rows_idx_plain(*b2, terms=terms), summed)
+                if label == "medium":
+                    account(name, lambda terms=terms: mv.wtt_coupling_rows_idx(*b2, terms=terms),
+                            lambda terms=terms: mv.wtt_coupling_rows_idx_plain(*b2, terms=terms),
+                            nbytes(*b2, rows), FLOPS[name] * slots)
+            log(f"check f32 terms, {label} bucket {bi} (G={g} Tb={tb} Pc={pc} W={w}, "
+                f"{int(pad.sum())} padded slots poisoned): "
+                + " ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    log("reduced terms, device ms per pass (f32, cold L2): medium B2 "
+        f"{RESULTS['wtt_coupling_rows_idx']['ms']:.6f} (terms 3) -> "
+        f"{RESULTS['B2 [terms 2]']['ms']:.6f} (terms 2), {RESULTS['B2 [terms 1]']['ms']:.6f} "
+        f"(terms 1); medium B1 {RESULTS['wtt_linearize_fused_idx']['ms']:.6f} -> "
+        f"{RESULTS['B1 [terms 2]']['ms']:.6f}; BAL B1 od {RESULTS['B1 od']['ms']:.6f} -> "
+        f"{RESULTS['B1 od [terms 2]']['ms']:.6f}")
+
+
+def buckets_line(problem) -> str:
+    """The buckets (G, Tb, Pc, W, global tiles, global_tile0) of a wtt packing."""
+    return str([(b.uv.shape[0], b.uv.shape[2], b.uv.shape[3], b.window, b.global_tiles,
+                 b.global_tile0) for b in problem.buckets])
+
+
+def run_probes_bal(bal) -> None:
+    """E2 and E1 on the unsplit BAL buckets, their tables logged."""
+    from tpu3drecon_torch.experiments import index_matvec2, index_matvec3
+
+    t0 = time.perf_counter()
+    index_matvec3.run(bal, log=log)
+    index_matvec2.run(bal, log=log)
+    log(f"probes E2 and E1: {time.perf_counter() - t0:.1f} s")
+
+
+def run_probe_e4(launches: dict) -> None:
+    """E4 as a path: its counts set to 0 just before its run and read just
+    after; its device times are the ``E4 A`` / ``E4 B`` rows."""
+    from tpu3drecon_torch.experiments import bits_expand
+
+    counts = counters()
+    for name in ("E4 A", "E4 B"):
+        counts[name].reset()
+    res = bits_expand.run(log=log)
+    for layout in bits_expand.LAYOUTS:
+        name = f"E4 {layout}"
+        if counts[name].kernel == 0 or counts[name].plain == 0:
+            raise AssertionError(f"{name}: kernel or plain version not run")
+        r = RESULTS[name]
+        r["ms"], r["plain_ms"], r["bytes"] = (res[layout]["ms"], res[layout]["plain_ms"],
+                                              res[layout]["bytes"])
+        launches[name] = counts[name].kernel
+
+
 def check_tt1024_kernels(tt) -> None:
     """B12-B16 on the 1024-camera track table (f32), each mode printed:
     B12 timed as the ``B12 [C=1024]`` row (camera columns that no shared
@@ -1169,10 +1296,7 @@ def main() -> int:
     from tpu3drecon_torch.solvers.ba_tt import ba_solve_tt
     from tpu3drecon_torch.solvers.ba_wtt import ba_solve_wtt
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     log(f"nvidia-smi: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
@@ -1256,6 +1380,7 @@ def main() -> int:
         + str([(b.uv.shape[0], b.uv.shape[2], b.uv.shape[3], b.window)
                for b in bal.buckets]))
     check_od_kernels(bal)
+    check_terms_kernels(wtt, bal)
     for path, precond in ((BAL, "schur_jacobi"), (BAL_SSOR, "ssor")):
         cfg = BAL_CONFIG._replace(matvec_kernel="index", linearize_kernel="index",
                                   precond=precond)
@@ -1287,7 +1412,29 @@ def main() -> int:
         NP10, lambda p, **kw: ba_solve_wtt(p, cfg._replace(**kw)), bal, bal_flat, 2,
         maxiters=(3,), rmse_limit=None,
     ))
-    del bal, bal_flat
+    run_probes_bal(bal)
+    del bal
+
+    # The split-window packing of the same problem (the JAX suite's TPU BAL
+    # cell), fully indexed and in the reduced-fidelity modes.
+    t0 = time.perf_counter()
+    split = bal_sequential_wtt(split_windows=True, device=dev, verbose=False)
+    torch.cuda.synchronize()
+    log(f"BAL split packing: bal_sequential_wtt(split_windows=True) built in "
+        f"{time.perf_counter() - t0:.1f} s; buckets (G, Tb, Pc, W, global tiles, "
+        f"global_tile0): {buckets_line(split)}")
+    for path, matvec, linearize, precond, maxiters, repeats in (
+            (SPLIT, "index", "index", "schur_jacobi", (3, 12), 3),
+            (SPLIT2, "index2", "index2", "schur_jacobi", (3, 12), 3),
+            (SPLIT1, "index1", "index", "schur_jacobi", (3, 12), 3),
+            (SPLIT2_SSOR, "index2", "index2", "ssor", (3,), 1)):
+        cfg = BAL_CONFIG._replace(matvec_kernel=matvec, linearize_kernel=linearize,
+                                  precond=precond)
+        first_path(drive(
+            path, lambda p, cfg=cfg, **kw: ba_solve_wtt(p, cfg._replace(**kw)), split,
+            bal_flat, repeats, maxiters=maxiters, rmse_limit=None,
+        ))
+    del split, bal_flat
 
     # The hub-structured BAL problem: global camera tiles widen the windows.
     t0 = time.perf_counter()
@@ -1316,7 +1463,28 @@ def main() -> int:
         HUB, lambda p, **kw: ba_solve_wtt(p, cfg._replace(**kw)), hub, hub_flat, 3,
         maxiters=(3, 12), rmse_limit=None,
     ))
-    del hub, hub_flat
+    del hub
+
+    t0 = time.perf_counter()
+    hub_split = bal_hub_wtt(split_windows=True, device=dev, verbose=False)
+    torch.cuda.synchronize()
+    log(f"BAL hub split packing: bal_hub_wtt(split_windows=True) built in "
+        f"{time.perf_counter() - t0:.1f} s; buckets (G, Tb, Pc, W, global tiles, "
+        f"global_tile0): {buckets_line(hub_split)}")
+    for precond in ("ssor", "tridiag"):
+        try:
+            ba_solve_wtt(hub_split, cfg._replace(precond=precond))
+        except ValueError as e:
+            if "hub/global camera tiles" not in str(e):
+                raise
+            log(f"bal_hub_split under {precond}: ValueError as in JAX")
+        else:
+            raise AssertionError(f"bal_hub_split under {precond} did not raise")
+    first_path(drive(
+        HUB_SPLIT, lambda p, **kw: ba_solve_wtt(p, cfg._replace(**kw)), hub_split, hub_flat,
+        3, maxiters=(3, 12), rmse_limit=None,
+    ))
+    del hub_split, hub_flat
 
     # C2 and C3: a 1024-camera track table (more camera columns than a
     # shared tile of B12 could hold above 922 cameras in f32) on the fully
@@ -1351,6 +1519,11 @@ def main() -> int:
     drive(TT1024_SSOR, lambda p, **kw: ba_solve_tt(p, cfg._replace(**kw)),
           tt1024, seq_flat, 2, rmse_limit=None)
     del tt1024, seq_flat
+
+    from tpu3drecon_torch.experiments import term_stack
+
+    term_stack.run(log=log)
+    run_probe_e4(launches)
     log("worst max|diff| / max|plain|: "
         + ", ".join(f"{k} {v:.2e}" for k, v in sorted(WORST.items())))
 

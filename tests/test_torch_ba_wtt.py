@@ -104,10 +104,21 @@ def test_jacobi_u_preconditioner_descends():
     {"matvec_kernel": False, "matvec_bf16": True},
     {"matvec_kernel": "index2"},
 ])
-def test_unported_paths_raise(change):
-    _, packed = _port_packed("pinhole")
-    with pytest.raises(NotImplementedError):
-        t_solve(packed, TConfig(**{**SOLVE, **change}))
+def test_unported_paths_raise(change, reference):
+    """``matvec_bf16`` alone is not ported and raises; the reduced-fidelity
+    modes solve, in f64 exactly as the reference (which never splits f64)
+    and as the exact fully indexed route."""
+    _, packed, (_, _, jstate), dist = reference
+    _, own = _port_packed(dist)
+    if change.get("matvec_bf16"):
+        with pytest.raises(NotImplementedError):
+            t_solve(own, TConfig(**{**SOLVE, **change}))
+        return
+    _, _, state = t_solve(own, TConfig(**{**SOLVE, **change}))
+    assert state.iter_num == int(jstate.iter_num)
+    assert int(state.accepted) == int(jstate.accepted)
+    assert state.cg_iters == int(jstate.cg_iters)
+    np.testing.assert_allclose(float(state.loss), float(jstate.loss), rtol=1e-8)
 
 
 _NO_JAX = r"""

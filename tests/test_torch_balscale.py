@@ -23,7 +23,7 @@ from tpu3drecon.problems.wtt import wtt_from_flat as j_wtt
 from tpu3drecon_torch.benchmark import balscale
 
 
-def _jax_build(shuffled, points_per_camera=8, track_span=4):
+def _jax_build(shuffled, points_per_camera=8, track_span=4, split_windows=False):
     """The body of the JAX ``bal_sequential_wtt`` build, without its cache."""
     scene = j_syn.make_sequential_scene(n_cameras=1712, points_per_camera=points_per_camera,
                                         track_span=track_span, seed=7)
@@ -31,7 +31,8 @@ def _jax_build(shuffled, points_per_camera=8, track_span=4):
     flat, _ = j_syn.scene_to_ba_problem(noisy, observed=scene, dtype=jnp.float32)
     if shuffled:
         flat = j_permute(flat, np.random.default_rng(99).permutation(flat.n_cameras))
-    return j_wtt(flat, point_chunk=512, defer_onehot=True)
+    kwargs = {"split_windows": split_windows} if split_windows else {}
+    return j_wtt(flat, point_chunk=512, defer_onehot=True, **kwargs)
 
 
 def _fields(obj):
@@ -77,10 +78,15 @@ def test_bal_sequential_wtt_bit_equal(shuffled):
 
 
 def test_bal_sequential_wtt_needs_a_card_and_refuses_split_windows(monkeypatch):
+    """Without a card the builders raise; ``split_windows`` reaches the
+    packer, as in the JAX builder: the split packing is bit-equal to JAX's."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         balscale.bal_sequential_wtt(points_per_camera=8, verbose=False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         balscale.bal_sequential_flat(points_per_camera=8)
-    with pytest.raises(NotImplementedError, match="split_windows"):
-        balscale.bal_sequential_wtt(points_per_camera=8, split_windows=True, device="cpu")
+    got = balscale.bal_sequential_wtt(points_per_camera=8, split_windows=True, verbose=False,
+                                      device="cpu")
+    want = _jax_build(False, split_windows=True)
+    assert len(want.buckets) > 3  # more buckets than the unsplit packing's
+    _assert_bit_equal(_fields(got), np_fields(want))

@@ -1,7 +1,10 @@
 """The CUDA kernels vs their plain PyTorch versions, on the card: the four
 wtt kernels of the indexed route (B1-B4) and the four of its unfused and
-one-hot routes (B5-B8), B1's and B8's band pair rows (``want_od``), the
-grid engine's three (B9-B11) and the dense track table's five (B12-B16).
+one-hot routes (B5-B8), B1's and B8's band pair rows (``want_od``), B1 at
+terms 2 and B2 at terms 1 and 2 (the reduced-fidelity modes), the grid
+engine's three (B9-B11), the dense track table's five (B12-B16), and the
+probe kernels of ``tpu3drecon_torch.experiments`` (E1's copies of B2, E4's
+bit expansion).
 The kernels read camera rows from device memory and reduce into the output
 rows directly, so wide windows and camera axes run: one input per kernel
 family past the card's shared memory per block.  B6 and B15 also keep a
@@ -649,3 +652,73 @@ def test_wide_inputs_take_the_global_mode(dev):
     _close(tt_linearize.tt_w_times_fused(*b15), tt_linearize.tt_w_times_fused_plain(*b15),
            reduced, f"B15 C={c}")
     assert [c_.modes.get(GLOBAL, 0) - b for c_, b in zip(counts, before)] == [1, 1, 1]
+
+
+TERMS_CASES = [  # (G, W, Tb, np)
+    (1, 128, 3, 8),
+    (2, 256, 4, 10),
+]
+
+
+@pytest.mark.parametrize("g,w,tb,np_cam", TERMS_CASES)
+def test_reduced_terms_match_plain(dev, g, w, tb, np_cam):
+    """B2 at terms 1 and 2 and B1 at terms 2 (with and without the od rows),
+    float32, against their plain versions at the same terms: window row 0
+    of x and of the camera rows is NaN and only padded slots point at it.
+    The plain versions round the same values (``split_round``), so only the
+    order of the atomic row sums differs."""
+    d = _inputs(dev, torch.float32, g, w, tb, np_cam, seed=5 * g + w + tb)
+    elem, reduced = TOL[torch.float32]
+    wcam = _track_wcam(dev, g, w, tb, seed=w + 2 * tb)
+    pad = (wcam < 0).reshape(g, tb, PC)
+    tw, xw_t = d["tw"].clone(), d["xw_t"].clone()
+    tw[:, 0] = float("nan")
+    xw_t[:, :, 0] = float("nan")
+    cfg = BAConfig(optimize_dist=np_cam >= 10)
+    counts = (wtt_linearize.TERMS2_COUNTS, wtt_linearize.TERMS2_OD_COUNTS,
+              wtt_matvec.COUPLING1_COUNTS, wtt_matvec.COUPLING2_COUNTS)
+    before = [c.kernel for c in counts]
+    for od in (False, True):
+        args = (wcam, tw, d["pts"], d["uv"], (~pad).float(), d["lam"], d["inv_w"], cfg,
+                np_cam, True, od)
+        got = wtt_linearize.wtt_linearize_fused_idx(*args, terms=2)
+        want = wtt_linearize.wtt_linearize_fused_idx_plain(*args, terms=2)
+        for name, a, b in zip(("rows", "jc", "jp", "v_inv", "g_pt", "damp_pt"), got, want):
+            assert torch.isfinite(a).all(), name
+            _close(a, b, reduced if name == "rows" else elem, f"B1 terms=2 od={od} {name}")
+        exact = wtt_linearize.wtt_linearize_fused_idx(*args)[0]
+        n_sj = wtt_linearize.n_contrib_cols(np_cam, True)
+        _close(got[0][..., n_sj:n_sj + np_cam], exact[..., n_sj:n_sj + np_cam], reduced,
+               "B1 terms=2 rhs vs exact")
+    _, jc, jp, v_inv, _, _ = want
+    for terms in (1, 2):
+        mv = (xw_t, wcam, jc, jp, v_inv)
+        got = wtt_matvec.wtt_coupling_rows_idx(*mv, terms=terms)
+        assert torch.isfinite(got).all()
+        _close(got, wtt_matvec.wtt_coupling_rows_idx_plain(*mv, terms=terms), reduced,
+               f"B2 terms={terms}")
+    assert [c.kernel - b for c, b in zip(counts, before)] == [1, 1, 1, 1]
+
+
+def test_probe_kernels_match(dev):
+    """E4: both layouts equal E4's numpy formulas; E1: every variant of B2's
+    copy matches its plain version (the block variants are B2's rows)."""
+    from tpu3drecon_torch.experiments import bits_expand, index_matvec2
+
+    host = bits_expand.packed_input()
+    packed = torch.as_tensor(host, device=dev)
+    for layout in bits_expand.LAYOUTS:
+        got = bits_expand.bits_expand(packed, layout).cpu().numpy()
+        assert np.array_equal(got, bits_expand.numpy_expand(host, layout)), layout
+
+    d = _inputs(dev, torch.float32, 2, 256, 3, 8, seed=21)
+    _, reduced = TOL[torch.float32]
+    _, jc, jp, v_inv, _, _ = wtt_linearize.wtt_linearize_fused_idx_plain(
+        d["wcam"], d["tw"], d["pts"], d["uv"], d["mask"], d["lam"], d["inv_w"], BAConfig(),
+        8, True)
+    mv = (d["xw_t"], d["wcam"], jc, jp, v_inv)
+    for variant in index_matvec2.VARIANTS:
+        _close(index_matvec2.probe_coupling_rows(*mv, variant),
+               index_matvec2.probe_coupling_rows_plain(*mv, variant), reduced, variant)
+    _close(index_matvec2.probe_coupling_rows(*mv, "block512"),
+           wtt_matvec.wtt_coupling_rows_idx_plain(*mv), reduced, "block512 vs B2")

@@ -15,7 +15,8 @@ camera tiles, port vs JAX reference.
   equals the body of JAX's function, bit for bit.  At this thinness the auto
   mode keeps the plain camera order (its one-hot estimate is far below the
   bound that calls the hub planner); at full size it takes the hub split,
-  which ``chip_smoke.py`` logs.
+  which ``chip_smoke.py`` logs.  ``split_windows=True`` reaches the
+  packer there too (bit-equal to JAX's split packing).
 """
 
 import functools
@@ -92,19 +93,28 @@ def test_band_preconditioners_refuse_the_hub(precond):
         j_solve(_jax_packed(), JConfig(**cfg))
 
 
-def test_bal_hub_wtt_bit_equal():
-    kw = dict(points_per_camera=4, track_span=4, hub_fraction=0.05, hub_obs=300)
-    got = balscale.bal_hub_wtt(verbose=False, device="cpu", **kw)
-    scene = j_syn.make_hub_scene(n_cameras=1712, seed=7, **kw)
+_BAL_HUB_THIN = dict(points_per_camera=4, track_span=4, hub_fraction=0.05, hub_obs=300)
+
+
+def _jax_bal_hub(split_windows):
+    """The body of JAX's ``bal_hub_wtt`` at the thin point set."""
+    scene = j_syn.make_hub_scene(n_cameras=1712, seed=7, **_BAL_HUB_THIN)
     noisy = j_syn.perturb_scene(scene, seed=8, point2d_noise=0.5)
     flat, _ = j_syn.scene_to_ba_problem(noisy, observed=scene, dtype=jnp.float32)
-    want = j_wtt(flat, point_chunk=512, defer_onehot=True, split_windows=False)
-    _assert_bit_equal(_fields(got), np_fields(want))
+    return j_wtt(flat, point_chunk=512, defer_onehot=True, split_windows=split_windows)
+
+
+def test_bal_hub_wtt_bit_equal():
+    got = balscale.bal_hub_wtt(verbose=False, device="cpu", **_BAL_HUB_THIN)
+    _assert_bit_equal(_fields(got), np_fields(_jax_bal_hub(False)))
 
 
 def test_bal_hub_wtt_needs_a_card_and_refuses_split_windows(monkeypatch):
+    """Without a card the builder raises; ``split_windows`` reaches the
+    packer, as in JAX's ``bal_hub_wtt``: bit-equal split packings."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         balscale.bal_hub_wtt(points_per_camera=4, hub_obs=300, verbose=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.1"):
-        balscale.bal_hub_wtt(split_windows=True, device="cpu")
+    got = balscale.bal_hub_wtt(verbose=False, device="cpu", split_windows=True,
+                               **_BAL_HUB_THIN)
+    _assert_bit_equal(_fields(got), np_fields(_jax_bal_hub(True)))

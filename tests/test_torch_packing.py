@@ -225,9 +225,15 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_unsupported_packing_options_raise():
-    tf, _ = _seq_flats((0.0, 0.0))
-    with pytest.raises(NotImplementedError, match="split_windows"):
-        t_wtt(tf, point_chunk=64, split_windows=True)
+    """A one-hot budget below the packing and a class cap <= 0 raise JAX's
+    ``ValueError``; ``split_windows`` packs JAX's window classes bit for bit
+    (tests/test_torch_split_windows.py covers caps and hub splits)."""
+    tf, jf = _seq_flats((0.0, 0.0))
+    for opts in (dict(split_windows=True), dict(split_windows=2)):
+        _wtt_equal(t_wtt(tf, point_chunk=64, defer_onehot=True, **opts),
+                   j_wtt(jf, point_chunk=64, defer_onehot=True, **opts))
+    with pytest.raises(ValueError, match="must be > 0"):
+        t_wtt(tf, point_chunk=64, split_windows=-1)
     with pytest.raises(ValueError, match="one-hot"):
         t_wtt(tf, point_chunk=64, max_onehot_bytes=16)
 

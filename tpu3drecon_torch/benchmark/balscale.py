@@ -21,8 +21,8 @@ with 5 % interleaved overview hubs of 4000 observations each, packed in
 ``wtt_from_flat``'s auto mode, which finds the hub/global camera split
 itself.  Its windows carry global camera tiles, so its buckets are wider
 than the kernels' shared-memory tiles hold (B1 runs in its global-memory
-mode there).  The split window classes (``split_windows``) are not ported
-yet.
+mode there).  Both builders take ``split_windows`` (``wtt_from_flat``'s
+per-chunk window classes), as the JAX suite's BAL cell packs them.
 """
 
 from __future__ import annotations
@@ -40,14 +40,6 @@ N_CAMERAS = 1712
 BAL_CONFIG = BAConfig(
     maxiter=3, gtol=0.0, ftol=0.0, cg_maxiter=8, cg_rtol=0.0, precond="schur_jacobi",
 )
-
-
-def _refuse_split_windows(split_windows) -> None:
-    if split_windows:
-        raise NotImplementedError(
-            "split_windows (the coalesced per-chunk window classes of "
-            "problems/wtt.py:189-330) is not ported yet (ROADMAP A.1)"
-        )
 
 
 def bal_sequential_flat(
@@ -95,16 +87,17 @@ def bal_sequential_wtt(
 
     ``shuffled`` relabels cameras photo-tourism-style (the RCM pass inside
     ``wtt_from_flat`` must recover locality); ``chunk_multiple`` rounds
-    group counts.  ``problems.wtt.expand_onehots`` builds the dense one-hot
-    for the routes that read it.  A truthy ``split_windows`` raises
-    ``NotImplementedError``."""
-    _refuse_split_windows(split_windows)
+    group counts; ``split_windows`` packs per-chunk window classes.
+    ``problems.wtt.expand_onehots`` builds the dense one-hot for the routes
+    that read it."""
     device = resolve_device(device)
     from tpu3drecon_torch.problems.wtt import wtt_from_flat
 
     t0 = time.perf_counter()
     flat = bal_sequential_flat(shuffled, track_span, points_per_camera, device="cpu")
     kwargs = {} if chunk_multiple is None else {"chunk_multiple": chunk_multiple}
+    if split_windows:
+        kwargs["split_windows"] = split_windows
     problem = wtt_from_flat(flat, point_chunk=512, defer_onehot=True, device=device,
                             **kwargs)
     if verbose:
@@ -150,15 +143,15 @@ def bal_hub_wtt(
     """The BAL-scale hub-structured wtt problem with deferred one-hots on
     ``device`` (default: the CUDA card; raises without one): 1712 cameras
     with ``hub_fraction`` interleaved hubs of ``hub_obs`` observations,
-    packed by ``wtt_from_flat``'s auto mode with 512-point chunks.  A
-    truthy ``split_windows`` raises ``NotImplementedError``."""
-    _refuse_split_windows(split_windows)
+    packed by ``wtt_from_flat``'s auto mode with 512-point chunks
+    (``split_windows`` as ``bal_sequential_wtt``'s)."""
     device = resolve_device(device)
     from tpu3drecon_torch.problems.wtt import wtt_from_flat
 
     t0 = time.perf_counter()
     flat = bal_hub_flat(hub_fraction, hub_obs, points_per_camera, track_span, device="cpu")
-    problem = wtt_from_flat(flat, point_chunk=512, defer_onehot=True, device=device)
+    problem = wtt_from_flat(flat, point_chunk=512, defer_onehot=True,
+                            split_windows=split_windows, device=device)
     if verbose:
         print(f"bal_hub_wtt: built in {time.perf_counter() - t0:.1f} s "
               f"(c_pad {problem.c_pad}, {len(problem.buckets)} buckets)", flush=True)

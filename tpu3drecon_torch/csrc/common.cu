@@ -19,5 +19,8 @@ extern "C" const char* kernel_error_string(int code) {
     return "shared-memory mode asked for a tile above the per-block limit";
   if (code == kErrDtype) return "unsupported dtype (float32 or float64)";
   if (code == kErrOd) return "want_od requires use_sj (the band rows reuse the W/WV factors)";
+  if (code == kErrTerms)
+    return "unsupported split terms (coupling 1, 2 or 3; linearize 2 or 3)";
+  if (code == kErrProbe) return "unsupported probe variant, block size or layout";
   return cudaGetErrorString((cudaError_t)code);
 }

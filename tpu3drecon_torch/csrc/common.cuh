@@ -10,7 +10,8 @@ namespace tpu3drecon {
 constexpr unsigned kFull = 0xffffffffu;
 
 // Codes for arguments the kernels do not take; cudaError_t values are >= 0.
-enum : int { kErrNp = -1, kErrSmem = -2, kErrDtype = -3, kErrOd = -4 };
+enum : int { kErrNp = -1, kErrSmem = -2, kErrDtype = -3, kErrOd = -4, kErrTerms = -5,
+             kErrProbe = -6 };
 
 // IRLS weight rho'(s) of the robust loss with code `loss` (LOSS_CODES in
 // geometry/losses.py): geometry.losses.robust_weight, operation for

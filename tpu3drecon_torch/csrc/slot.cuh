@@ -25,6 +25,7 @@
 // only the order of the atomic row sums differs.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -84,6 +85,29 @@ __device__ __forceinline__ void flush(const T* acc, T* out, int n) {
   for (int i = threadIdx.x; i < n; i += kBlock) {
     const T v = acc[i];
     if (v != T(0)) atomicAdd(out + i, v);
+  }
+}
+
+// x as the TPU kernels' reduced-fidelity selection and reduction dots see
+// it (tpu3drecon/ops/pallas/splitdot.py): split into TERMS bfloat16 pieces,
+// h1 = bf16(x), h2 = bf16(x - h1), ..., each rounded to nearest even, and
+// folded back in float as (h1 + h2) + h3.  TERMS >= 3 is exact for float,
+// and double is never split (the TPU kernels' f64 path takes one exact
+// dot), so both return x unchanged.
+template <int TERMS, typename T>
+__device__ __forceinline__ T split_round(T x) {
+  if constexpr (TERMS >= 3 || !std::is_same_v<T, float>) {
+    return x;
+  } else {
+    float acc = __bfloat162float(__float2bfloat16_rn(x));
+    float rem = x - acc;
+#pragma unroll
+    for (int k = 1; k < TERMS; ++k) {
+      const float h = __bfloat162float(__float2bfloat16_rn(rem));
+      rem = rem - h;
+      acc = acc + h;
+    }
+    return acc;
   }
 }
 
@@ -232,9 +256,10 @@ __device__ __forceinline__ void finish_rows(const T* s_acc, T* out, int n) {
 // element offsets `self` / `lead` (rows w / w0).  `j0`, `j1` are the two
 // camera-Jacobian rows, `q` the point-Jacobian planes, `vi` the point's
 // V^-1 (sym3 packing).  With `use_sj` the slot's W factor and W V^-1 are
-// left in `wl` / `wv` (the band pair rows reuse them).  Returns the next
-// free column.
-template <typename T, int NP>
+// left in `wl` / `wv` (the band pair rows reuse them).  Every column value
+// passes split_round<TERMS> before it is reduced.  Returns the next free
+// column.
+template <typename T, int NP, int TERMS = 3>
 __device__ __forceinline__ int add_contribs(T* acc, const WarpRow& wr, int self,
                                             int lead, const T* j0, const T* j1,
                                             const T* q, T r0, T r1, const T* vi,
@@ -245,10 +270,11 @@ __device__ __forceinline__ int add_contribs(T* acc, const WarpRow& wr, int self,
   for (int dd = 0; dd < NP; ++dd)
 #pragma unroll
     for (int i = 0; i < NP - dd; ++i, ++col)
-      row_add(acc, wr, self + col, lead + col, j0[i] * j0[i + dd] + j1[i] * j1[i + dd]);
+      row_add(acc, wr, self + col, lead + col,
+              split_round<TERMS>(j0[i] * j0[i + dd] + j1[i] * j1[i + dd]));
 #pragma unroll
   for (int i = 0; i < NP; ++i, ++col)
-    row_add(acc, wr, self + col, lead + col, j0[i] * r0 + j1[i] * r1);
+    row_add(acc, wr, self + col, lead + col, split_round<TERMS>(j0[i] * r0 + j1[i] * r1));
   if (use_sj) {
     // W factor w_l[i] = jc0[i] jp0[l] + jc1[i] jp1[l]; WV = W sym3(V^-1).
 #pragma unroll
@@ -266,8 +292,8 @@ __device__ __forceinline__ int add_contribs(T* acc, const WarpRow& wr, int self,
 #pragma unroll
       for (int i = 0; i < NP - dd; ++i, ++col)
         row_add(acc, wr, self + col, lead + col,
-                wv[0][i] * wl[0][i + dd] + wv[1][i] * wl[1][i + dd] +
-                    wv[2][i] * wl[2][i + dd]);
+                split_round<TERMS>(wv[0][i] * wl[0][i + dd] + wv[1][i] * wl[1][i + dd] +
+                                   wv[2][i] * wl[2][i + dd]));
   }
   return col;
 }
@@ -276,8 +302,9 @@ __device__ __forceinline__ int add_contribs(T* acc, const WarpRow& wr, int self,
 // where this lane's previous track slot sits on window row `w_prev` and this
 // slot on row w_prev + 1, od[i * NP + j] = sum_l wv_prev[l][i] wl[l][j] is
 // added into row w_prev at columns col0 + i * NP + j of the (rows, K) tile.
-// Padded slots (-1) never form a pair.  The whole warp calls it.
-template <typename T, int NP>
+// Padded slots (-1) never form a pair; values pass split_round<TERMS>.  The
+// whole warp calls it.
+template <typename T, int NP, int TERMS = 3>
 __device__ __forceinline__ void add_pair_rows(T* acc, int K, int col0, int w_prev,
                                               int w, const T (&wv_prev)[3][NP],
                                               const T (&wl)[3][NP]) {
@@ -291,21 +318,21 @@ __device__ __forceinline__ void add_pair_rows(T* acc, int K, int col0, int w_pre
 #pragma unroll
     for (int j = 0; j < NP; ++j)
       row_add(acc, pr, self + i * NP + j, lead + i * NP + j,
-              wv_prev[0][i] * wl[0][j] + wv_prev[1][i] * wl[1][j] +
-                  wv_prev[2][i] * wl[2][j]);
+              split_round<TERMS>(wv_prev[0][i] * wl[0][j] + wv_prev[1][i] * wl[1][j] +
+                                 wv_prev[2][i] * wl[2][j]));
 }
 
 // (W^T x) of one slot on window row w (-1 = padding) added to wtx[3]: x
-// read by xw_at; `ts` is the slot's (G, Tb, Pc) offset and GTP the plane
-// stride of jc/jp.
-template <typename T, int NP, bool GM>
+// read by xw_at and passed through split_round<TERMS>; `ts` is the slot's
+// (G, Tb, Pc) offset and GTP the plane stride of jc/jp.
+template <typename T, int NP, bool GM, int TERMS = 3>
 __device__ __forceinline__ void wt_slot(const T* s_xw, const T* xw_t, int w, int W,
                                         const T* jc, const T* jp, size_t ts, size_t GTP,
                                         T wtx[3]) {
   T s0 = T(0), s1 = T(0);
 #pragma unroll
   for (int i = 0; i < NP; ++i) {
-    const T xg = xw_at<T, GM>(s_xw, xw_t, i, w, W);
+    const T xg = split_round<TERMS>(xw_at<T, GM>(s_xw, xw_t, i, w, W));
     s0 += jc[i * GTP + ts] * xg;
     s1 += jc[(NP + i) * GTP + ts] * xg;
   }
@@ -313,9 +340,9 @@ __device__ __forceinline__ void wt_slot(const T* s_xw, const T* xw_t, int w, int
   for (int l = 0; l < 3; ++l) wtx[l] += jp[l * GTP + ts] * s0 + jp[(3 + l) * GTP + ts] * s1;
 }
 
-// z = jc (jp y) of one slot reduced into the (NP, W) rows at row w (-1 =
-// none; the whole warp calls it).
-template <typename T, int NP>
+// z = jc (jp y) of one slot, passed through split_round<TERMS>, reduced
+// into the (NP, W) rows at row w (-1 = none; the whole warp calls it).
+template <typename T, int NP, int TERMS = 3>
 __device__ __forceinline__ void w_slot(T* acc, int w, int W, const T* jc, const T* jp,
                                        size_t ts, size_t GTP, T y0, T y1, T y2) {
   const WarpRow wr = warp_row(w);
@@ -330,7 +357,7 @@ __device__ __forceinline__ void w_slot(T* acc, int w, int W, const T* jc, const 
   const int ws = w >= 0 ? w : 0;
 #pragma unroll
   for (int i = 0; i < NP; ++i)
-    row_add(acc, wr, i * W + ws, i * W + wr.w0, j[i] * s0p + j[NP + i] * s1p);
+    row_add(acc, wr, i * W + ws, i * W + wr.w0, split_round<TERMS>(j[i] * s0p + j[NP + i] * s1p));
 }
 
 // ---------------------------------------------------------------- host --

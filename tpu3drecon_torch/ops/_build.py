@@ -55,12 +55,12 @@ _D = ctypes.c_double
 # argtypes of every C entry of csrc/*.cu (pointers and the stream as
 # c_void_p: a plain int would be cut to 32 bits).
 _SIGNATURES = {
-    # dtype, np, wcam, tw, pts, uv, mask, lam, inv_w, rows, jc, jp, vinv,
-    # gpt, damp, G, Tb, Pc, W, use_sj, want_od, loss, focal, points, dist, pp,
-    # stream
-    "wtt_linearize": [_I, _I] + [_P] * 13 + [_I] * 11 + [_P],
-    # dtype, np, xw_t, wcam, jc, jp, vinv, out, G, Tb, Pc, W, stream
-    "wtt_coupling": [_I, _I] + [_P] * 6 + [_I] * 4 + [_P],
+    # dtype, np, terms, wcam, tw, pts, uv, mask, lam, inv_w, rows, jc, jp,
+    # vinv, gpt, damp, G, Tb, Pc, W, use_sj, want_od, loss, focal, points,
+    # dist, pp, stream
+    "wtt_linearize": [_I, _I, _I] + [_P] * 13 + [_I] * 11 + [_P],
+    # dtype, np, terms, xw_t, wcam, jc, jp, vinv, out, G, Tb, Pc, W, stream
+    "wtt_coupling": [_I, _I, _I] + [_P] * 6 + [_I] * 4 + [_P],
     # dtype, np, xw_t, wcam, jc, jp, out, G, Tb, Pc, W, stream
     "wtt_wt_planes": [_I, _I] + [_P] * 5 + [_I] * 4 + [_P],
     # dtype, wcam, tw, pts, uv, mask, out, G, Tb, Pc, W, loss, stream
@@ -92,6 +92,10 @@ _SIGNATURES = {
     # dtype, np, onehot_float, xw_t, onehot, jc, jp, vinv, out, G, Tb, Pc, W,
     # tiles, stream
     "wtt_coupling_onehot": [_I, _I, _I] + [_P] * 6 + [_I] * 5 + [_P],
+    # np, block, variant, xw_t, wcam, jc, jp, vinv, out, G, Tb, Pc, W, stream
+    "probe_coupling": [_I] * 3 + [_P] * 6 + [_I] * 4 + [_P],
+    # layout, packed, out, rows, nbytes, stream
+    "probe_bits_expand": [_I] + [_P] * 2 + [_I] * 2 + [_P],
     # device -> opt-in shared memory per block (bytes)
     "kernel_smem_limit": [_I],
 }

@@ -1,6 +1,7 @@
 """Shared plumbing of the kernel wrappers: input checks and the device
-dispatch rule (all wrappers), and the window-row gather and scatter of the
-wtt plain versions.
+dispatch rule (all wrappers), the window-row gather and scatter of the
+wtt plain versions, and the bfloat16 split rounding of their
+reduced-fidelity modes.
 
 Dispatch rule of every public kernel function: a CPU tensor goes to the
 plain PyTorch version; a CUDA tensor launches the CUDA kernel or raises.
@@ -69,3 +70,21 @@ def reduce_rows(planes: torch.Tensor, wcam: torch.Tensor, window: int) -> torch.
     out.scatter_add_(1, idx[:, :, None].expand(g, n, k), data)
     return out[:, :window]
 
+
+
+def split_round(x: torch.Tensor, terms: int) -> torch.Tensor:
+    """``x`` as the TPU kernels' reduced-fidelity dots see it
+    (``tpu3drecon/ops/pallas/splitdot.py``): split into ``terms`` bfloat16
+    pieces h1 = bf16(x), h2 = bf16(x - h1), ... (round to nearest even) and
+    folded back as (h1 + h2) + h3 in float32; the plain form of
+    ``csrc/slot.cuh`` ``split_round``.  float32 at 3 terms or more is
+    exact, and float64 is never split, so both come back unchanged."""
+    if terms >= 3 or x.dtype != torch.float32:
+        return x
+    acc = x.to(torch.bfloat16).to(torch.float32)
+    rem = x - acc
+    for _ in range(terms - 1):
+        h = rem.to(torch.bfloat16).to(torch.float32)
+        rem = rem - h
+        acc = acc + h
+    return acc

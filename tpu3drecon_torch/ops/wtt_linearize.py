@@ -36,6 +36,13 @@ pairs keep the previous slot's W V^-1 factor in registers.  B8
 Row sums are atomic, so f32 rows vary in the last bits from run to run.
 Camera rows are read from device memory and nothing is staged per block,
 so any window width runs (``csrc/slot.cuh``).
+
+B1 also takes the TPU kernel's ``terms=2`` (``linearize_kernel="index2"``,
+``csrc/wtt_terms_kernels.cu``): in float32 the u | g | coupling and od
+column values are rounded through two bfloat16 split pieces
+(``_wtt_common.split_round``) before their reduction, as the TPU kernel's
+2-term reduce dots round them; the camera rows, Jacobian planes, point
+normal and rhs columns stay exact (``wtt_linearize.py:502-531``).
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from tpu3drecon_torch.ops._wtt_common import (
     is_cuda_call,
     reduce_rows,
     select_rows,
+    split_round,
 )
 from tpu3drecon_torch.solvers.ba_tt import (
     CAM_TABLE_DIM,
@@ -60,6 +68,8 @@ from tpu3drecon_torch.solvers.ba_tt import (
 
 COUNTS = _build.LaunchCounter()  # B1
 OD_COUNTS = _build.LaunchCounter()  # B1 with want_od
+TERMS2_COUNTS = _build.LaunchCounter()  # B1 at terms 2
+TERMS2_OD_COUNTS = _build.LaunchCounter()  # B1 at terms 2 with want_od
 CAM_PLANES_COUNTS = _build.LaunchCounter()  # B7
 CONTRIB_COUNTS = _build.LaunchCounter()  # B8
 CONTRIB_OD_COUNTS = _build.LaunchCounter()  # B8 with want_od
@@ -84,6 +94,14 @@ def _check_od(use_sj: bool, want_od: bool) -> None:
         raise ValueError("want_od requires use_sj (od reuses the W/WV tiles)")
 
 
+def _lin_counter(want_od: bool, terms: int) -> _build.LaunchCounter:
+    if terms not in (2, 3):
+        raise ValueError(f"wtt_linearize_fused_idx: terms must be 2 or 3, not {terms!r}")
+    if terms == 2:
+        return TERMS2_OD_COUNTS if want_od else TERMS2_COUNTS
+    return OD_COUNTS if want_od else COUNTS
+
+
 def _check_config(blocks_config, np_cam: int, use_sj: bool, want_od: bool) -> None:
     _check_od(use_sj, want_od)
     want = 8 + 2 * bool(blocks_config.optimize_dist) + 2 * bool(blocks_config.optimize_pp)
@@ -93,7 +111,7 @@ def _check_config(blocks_config, np_cam: int, use_sj: bool, want_od: bool) -> No
 
 def wtt_linearize_fused_idx(
     wcam, tw, pts, uv, mask, lam, inv_w, blocks_config, np_cam: int,
-    use_sj: bool, want_od: bool = False,
+    use_sj: bool, want_od: bool = False, terms: int = 3,
 ):
     """(rows (G, W, K), jc (2np, G, Tb, Pc), jp (6, G, Tb, Pc),
     v_inv (6, G, Pc), g_pt (3, G, Pc), damp_pt (3, G, Pc)).
@@ -101,25 +119,28 @@ def wtt_linearize_fused_idx(
     ``wcam`` (G, Tb*Pc) int16, ``tw`` (G, W, 19) window camera rows,
     ``pts`` (3, G, Pc), ``uv`` (G, 2, Tb, Pc), ``mask`` (G, Tb, Pc);
     ``lam``/``inv_w`` are 0-d tensors on the same device.  ``want_od``
-    (needs ``use_sj``) appends the np^2 band pair columns.  CPU tensors run
-    the plain version, CUDA tensors the kernel."""
+    (needs ``use_sj``) appends the np^2 band pair columns.  ``terms`` 2
+    rounds the float32 u | g | coupling | od values through two bfloat16
+    split pieces (3: exact).  CPU tensors run the plain version, CUDA
+    tensors the kernel."""
     _check_config(blocks_config, np_cam, use_sj, want_od)
+    _lin_counter(want_od, terms)
     if not is_cuda_call(tw):
         return wtt_linearize_fused_idx_plain(
             wcam, tw, pts, uv, mask, lam, inv_w, blocks_config, np_cam, use_sj,
-            want_od,
+            want_od, terms,
         )
     return _launch(wcam, tw, pts, uv, mask, lam, inv_w, blocks_config, np_cam, use_sj,
-                   want_od)
+                   want_od, terms)
 
 
 def wtt_linearize_fused_idx_plain(
     wcam, tw, pts, uv, mask, lam, inv_w, blocks_config, np_cam: int,
-    use_sj: bool, want_od: bool = False,
+    use_sj: bool, want_od: bool = False, terms: int = 3,
 ):
     """Plain PyTorch version of ``wtt_linearize_fused_idx``."""
     _check_config(blocks_config, np_cam, use_sj, want_od)
-    (OD_COUNTS if want_od else COUNTS).plain += 1
+    _lin_counter(want_od, terms).plain += 1
     g, _, tb, pc = uv.shape
     window = tw.shape[1]
     cp = select_rows(tw, wcam, tb, pc)  # (19, G, Tb, Pc)
@@ -133,13 +154,14 @@ def wtt_linearize_fused_idx_plain(
     vw = _sym3_matvec(v_inv, g_pt)  # V^-1 g_pt, (G, Pc) planes
 
     parts, w_l, wv_l = _contrib_parts(jc, jp, r, v_inv, np_cam, use_sj)
+    parts = [split_round(x, terms) for x in parts]  # the rhs below stays exact
     vwb = [x[:, None, :] for x in vw]
     s0r = jp[0] * vwb[0] + jp[1] * vwb[1] + jp[2] * vwb[2]
     s1r = jp[3] * vwb[0] + jp[4] * vwb[1] + jp[5] * vwb[2]
     parts.append(jc[:np_cam] * s0r[None] + jc[np_cam:] * s1r[None])
     rows = reduce_rows(torch.cat(parts, dim=0), wcam, window)
     if want_od:
-        rows = torch.cat([rows, _od_rows(wcam, w_l, wv_l, window)], dim=2)
+        rows = torch.cat([rows, _od_rows(wcam, w_l, wv_l, window, terms)], dim=2)
     return rows, jc, jp, v_inv, g_pt, damp
 
 
@@ -193,12 +215,12 @@ def _contrib_parts(jc, jp, r, v_inv, np_cam: int, use_sj: bool):
     return parts, w_l, wv_l
 
 
-def _od_rows(wcam, w_l, wv_l, window: int) -> torch.Tensor:
+def _od_rows(wcam, w_l, wv_l, window: int, terms: int = 3) -> torch.Tensor:
     """Band pair rows (G, W, np^2) from the factor planes of
     ``_contrib_parts``: od[i * np + j] = sum_l wv_l[l][i] (slot t-1) *
-    w_l[l][j] (slot t), reduced into window row w where slot t-1 sits on w
-    and slot t on w + 1; padded slots (-1) never pair, and Tb = 1 gives
-    zeros."""
+    w_l[l][j] (slot t), rounded by ``split_round(., terms)`` and reduced
+    into window row w where slot t-1 sits on w and slot t on w + 1; padded
+    slots (-1) never pair, and Tb = 1 gives zeros."""
     np_cam, g, tb, pc = w_l[0].shape
     od = torch.cat([
         wv_l[0][i][None, :, :-1] * w_l[0][:, :, 1:]
@@ -209,10 +231,10 @@ def _od_rows(wcam, w_l, wv_l, window: int) -> torch.Tensor:
     idx = wcam.reshape(g, tb, pc).long()
     prev, cur = idx[:, :-1], idx[:, 1:]
     pair = torch.where((prev >= 0) & (cur == prev + 1), prev, torch.full_like(prev, -1))
-    return reduce_rows(od, pair.reshape(g, -1), window)
+    return reduce_rows(split_round(od, terms), pair.reshape(g, -1), window)
 
 
-def _launch(wcam, tw, pts, uv, mask, lam, inv_w, cfg, np_cam, use_sj, want_od):
+def _launch(wcam, tw, pts, uv, mask, lam, inv_w, cfg, np_cam, use_sj, want_od, terms):
     name = "wtt_linearize_fused_idx"
     g, _, tb, pc = uv.shape
     window = tw.shape[1]
@@ -236,7 +258,7 @@ def _launch(wcam, tw, pts, uv, mask, lam, inv_w, cfg, np_cam, use_sj, want_od):
     damp = torch.empty((3, g, pc), dtype=dtype, device=dev)
     lib = _build.library()
     code = lib.wtt_linearize(
-        _build.dtype_code(dtype), np_cam, wcam.data_ptr(), tw.data_ptr(),
+        _build.dtype_code(dtype), np_cam, terms, wcam.data_ptr(), tw.data_ptr(),
         pts.data_ptr(), uv.data_ptr(), mask.data_ptr(), lam.data_ptr(),
         inv_w.data_ptr(), rows.data_ptr(), jc.data_ptr(), jp.data_ptr(),
         v_inv.data_ptr(), g_pt.data_ptr(), damp.data_ptr(), g, tb, pc, window,
@@ -245,7 +267,7 @@ def _launch(wcam, tw, pts, uv, mask, lam, inv_w, cfg, np_cam, use_sj, want_od):
         _build.stream_ptr(dev),
     )
     _build.check(lib, name, code)
-    (OD_COUNTS if want_od else COUNTS).launched(_build.GLOBAL)
+    _lin_counter(want_od, terms).launched(_build.GLOBAL)
     return rows, jc, jp, v_inv, g_pt, damp
 
 

@@ -25,6 +25,14 @@ with the literal product on a one-hot with at most one 1 per column and
 reads the first 1 of a malformed column.  B2, B5 and B6 rows are atomic
 sums, so f32 rows vary in the last bits.  Any window width runs.
 
+B2 also takes the TPU kernel's ``terms`` (``matvec_kernel`` "index1" /
+"index2", ``csrc/wtt_terms_kernels.cu``): at 1 or 2 each window-row value
+of x that a slot reads and each z value it reduces is rounded through that
+many bfloat16 split pieces (``_wtt_common.split_round``); float64 and
+``terms=3`` are exact.  The JAX kernel sums each split piece over the
+slots before it folds them, this one folds per slot, so the two differ by
+f32 re-association.  B3 and B5 stay exact in every mode.
+
 B6 alone keeps a shared-memory mode (x staged per block, rows reduced into
 a block-local tile), which measured faster than the direct atomics:
 ``memory_mode`` picks it where its tiles fit the card's shared memory per
@@ -43,10 +51,13 @@ from tpu3drecon_torch.ops._wtt_common import (
     is_cuda_call,
     reduce_rows,
     slot_index,
+    split_round,
 )
 from tpu3drecon_torch.solvers.ba_tt import _sym3_matvec
 
 COUPLING_COUNTS = _build.LaunchCounter()  # B2
+COUPLING1_COUNTS = _build.LaunchCounter()  # B2 at terms 1
+COUPLING2_COUNTS = _build.LaunchCounter()  # B2 at terms 2
 WT_COUNTS = _build.LaunchCounter()  # B3
 W_ROWS_COUNTS = _build.LaunchCounter()  # B5
 FUSED_COUNTS = _build.LaunchCounter()  # B6
@@ -70,8 +81,11 @@ def memory_mode(window: int, np_cam: int, tb: int, itemsize: int, limit: int,
     return need, _build.memory_mode(need, limit, forced)
 
 
-def _wt_x(xw_t, wcam, jc, jp):
-    """W^T x point planes [(G, Pc)] * 3: phase 1 of both kernels."""
+def _wt_x(xw_t, wcam, jc, jp, ordered: bool = False):
+    """W^T x point planes [(G, Pc)] * 3: phase 1 of both kernels.  With
+    ``ordered`` the sums over the camera block and the track run one term
+    at a time in the kernels' order, so a float32 result is bit-equal to
+    the kernels' before any split rounding of B2's reduced modes."""
     np_cam = jc.shape[0] // 2
     _, g, tb, pc = jp.shape
     window = xw_t.shape[2]
@@ -79,9 +93,22 @@ def _wt_x(xw_t, wcam, jc, jp):
     idx = slot_index(wcam, window)
     xg = torch.gather(xw_pad, 2, idx[:, None, :].expand(g, np_cam, idx.shape[1]))
     xg = xg.permute(1, 0, 2).reshape(np_cam, g, tb, pc)
-    s0 = torch.sum(jc[:np_cam] * xg, dim=0)
-    s1 = torch.sum(jc[np_cam:] * xg, dim=0)
-    return [torch.sum(jp[l] * s0 + jp[3 + l] * s1, dim=1) for l in range(3)]
+    if not ordered:
+        s0 = torch.sum(jc[:np_cam] * xg, dim=0)
+        s1 = torch.sum(jc[np_cam:] * xg, dim=0)
+        return [torch.sum(jp[l] * s0 + jp[3 + l] * s1, dim=1) for l in range(3)]
+    s0, s1 = jc[0] * xg[0], jc[np_cam] * xg[0]
+    for i in range(1, np_cam):
+        s0 = s0 + jc[i] * xg[i]
+        s1 = s1 + jc[np_cam + i] * xg[i]
+    out = []
+    for l in range(3):
+        part = jp[l] * s0 + jp[3 + l] * s1  # (G, Tb, Pc)
+        acc = part[:, 0]
+        for t in range(1, tb):
+            acc = acc + part[:, t]
+        out.append(acc)
+    return out
 
 
 def _w_z(y, jc, jp):
@@ -94,10 +121,17 @@ def _w_z(y, jc, jp):
     return jc[:np_cam] * s0p[None] + jc[np_cam:] * s1p[None]
 
 
-def wtt_coupling_rows_idx_plain(xw_t, wcam, jc, jp, v_inv):
+def _coupling_counter(terms: int) -> _build.LaunchCounter:
+    if terms not in (1, 2, 3):
+        raise ValueError(f"wtt_coupling_rows_idx: terms must be 1, 2 or 3, not {terms!r}")
+    return {1: COUPLING1_COUNTS, 2: COUPLING2_COUNTS, 3: COUPLING_COUNTS}[terms]
+
+
+def wtt_coupling_rows_idx_plain(xw_t, wcam, jc, jp, v_inv, terms: int = 3):
     """Plain PyTorch version of ``wtt_coupling_rows_idx``."""
-    COUPLING_COUNTS.plain += 1
-    z = _w_z(_sym3_matvec(v_inv, _wt_x(xw_t, wcam, jc, jp)), jc, jp)
+    _coupling_counter(terms).plain += 1
+    wtx = _wt_x(split_round(xw_t, terms), wcam, jc, jp, ordered=True)
+    z = split_round(_w_z(_sym3_matvec(v_inv, wtx), jc, jp), terms)
     return reduce_rows(z, wcam, xw_t.shape[2]).transpose(1, 2)
 
 
@@ -122,26 +156,28 @@ def _check(name, xw_t, wcam, jc, jp, v_inv=None):
     return np_cam, g, tb, pc, window
 
 
-def wtt_coupling_rows_idx(xw_t, wcam, jc, jp, v_inv):
+def wtt_coupling_rows_idx(xw_t, wcam, jc, jp, v_inv, terms: int = 3):
     """Coupling rows (G, np, W) of W V^-1 W^T x for one bucket.
 
     ``xw_t`` (G, np, W) window rows of x (transposed), ``wcam``
     (G, Tb*Pc) int16, ``jc`` (2np, G, Tb, Pc), ``jp`` (6, G, Tb, Pc),
-    ``v_inv`` (6, G, Pc).  CPU tensors run the plain version, CUDA tensors
-    the kernel."""
+    ``v_inv`` (6, G, Pc).  ``terms`` (1, 2 or 3) is the number of bfloat16
+    split pieces that x and z are rounded through in float32 (3: exact).
+    CPU tensors run the plain version, CUDA tensors the kernel."""
+    counter = _coupling_counter(terms)
     if not is_cuda_call(xw_t):
-        return wtt_coupling_rows_idx_plain(xw_t, wcam, jc, jp, v_inv)
+        return wtt_coupling_rows_idx_plain(xw_t, wcam, jc, jp, v_inv, terms)
     name = "wtt_coupling_rows_idx"
     np_cam, g, tb, pc, window = _check(name, xw_t, wcam, jc, jp, v_inv)
     out = torch.zeros((g, np_cam, window), dtype=xw_t.dtype, device=xw_t.device)
     lib = _build.library()
     code = lib.wtt_coupling(
-        _build.dtype_code(xw_t.dtype), np_cam, xw_t.data_ptr(), wcam.data_ptr(),
+        _build.dtype_code(xw_t.dtype), np_cam, terms, xw_t.data_ptr(), wcam.data_ptr(),
         jc.data_ptr(), jp.data_ptr(), v_inv.data_ptr(), out.data_ptr(),
         g, tb, pc, window, _build.stream_ptr(xw_t.device),
     )
     _build.check(lib, name, code)
-    COUPLING_COUNTS.launched(_build.GLOBAL)
+    counter.launched(_build.GLOBAL)
     return out
 
 

@@ -1,6 +1,6 @@
 """Windowed track-table ("wtt") BA problem.
 
-Counterpart of ``tpu3drecon/problems/wtt.py:47-186, 328-833``.  Points are
+Counterpart of ``tpu3drecon/problems/wtt.py``.  Points are
 ordered by their minimum observing camera inside each track-length bucket
 and chunked along the point axis, so each chunk's observations fall inside
 a narrow, 128-aligned camera WINDOW.  Each slot stores its
@@ -133,6 +133,193 @@ def unpermute_cameras(cameras: CameraParams, cam_rows) -> CameraParams:
     )
 
 
+# Default per-bucket window-class cap under ``split_windows=True``: classes
+# beyond it merge into exact covering bins (``_coalesce_window_classes``).
+_SPLIT_MAX_CLASSES = 4
+
+
+def _split_class_cap(split_windows) -> int:
+    """Per-bucket window-class cap implied by ``split_windows``: ``True`` ->
+    ``_SPLIT_MAX_CLASSES``, an ``int`` N > 0 -> N; raises ``ValueError``
+    for an int <= 0."""
+    if split_windows is True:
+        return _SPLIT_MAX_CLASSES
+    cap = int(split_windows)
+    if cap <= 0:
+        raise ValueError(
+            f"split_windows int cap must be > 0 (got {split_windows}); "
+            "use False/0 to disable splitting"
+        )
+    return cap
+
+
+def _coalesce_window_classes(runs_by_class, max_classes, n_gt, c_pad):
+    """Merge window classes into at most ``max_classes`` covering bins.
+
+    A class ``(w, gr)`` (local width ``w``, global-tile range ``gr``: None
+    or an inclusive tile hull ``(lo, hi)``) may ride any bin ``(W, GR)``
+    with ``W >= w`` and ``GR`` a superset of ``gr``; padded rows contribute
+    exact zeros, so values are preserved.  The bins are the subset of
+    candidate keys (widths x observed range hulls) of least total
+    selection rows (chunks x bin rows), found by exhaustive enumeration;
+    above ``_ENUM_BUDGET`` subsets a deterministic greedy add seeded with
+    the cover-all key.  Ties resolve through sorted keys (None ranges sort
+    first as ``(-1, -1)``), so the bins and their run order are the JAX
+    packer's.  Returns {bin: [(clamped base, chunk ids), ...]}.
+    """
+    import itertools
+    import math
+
+    def _r(gr):  # sortable form: None -> (-1, -1)
+        return (-1, -1) if gr is None else gr
+
+    def rows(key):
+        w, gr = key
+        return w + ((gr[1] - gr[0] + 1) * CAM_TILE if gr is not None else 0)
+
+    def n_chunks(runs):
+        return sum(len(ids) for _, ids in runs)
+
+    keys = sorted(runs_by_class, key=lambda k: (k[0], _r(k[1])))
+    weights = {k: n_chunks(runs_by_class[k]) for k in keys}
+    widths = sorted({w for w, _ in keys})
+    granges = [gr for _, gr in keys if gr is not None]
+    los = sorted({gr[0] for gr in granges})
+    his = sorted({gr[1] for gr in granges})
+    hulls = [None] + sorted(
+        {(lo, hi) for lo in los for hi in his if lo <= hi}
+    )
+    full = (min(los), max(his)) if granges else None
+    top = (widths[-1], full)
+    cands = sorted(
+        {
+            (w, gr)
+            for w in widths
+            for gr in hulls
+            if any(
+                w >= kw
+                and (kgr is None
+                     or (gr is not None and gr[0] <= kgr[0] and gr[1] >= kgr[1]))
+                for kw, kgr in keys
+            )
+        },
+        key=lambda k: (k[0], _r(k[1])),
+    )
+
+    def admissible(bin_key, cls_key):
+        if bin_key[0] < cls_key[0]:
+            return False
+        gr_b, gr_c = bin_key[1], cls_key[1]
+        if gr_c is None:
+            return True
+        return gr_b is not None and gr_b[0] <= gr_c[0] and gr_b[1] >= gr_c[1]
+
+    def subset_cost(subset):
+        cost = 0
+        for k in keys:
+            fits = [rows(b) for b in subset if admissible(b, k)]
+            if not fits:
+                return None
+            cost += weights[k] * min(fits)
+        return cost
+
+    def skey(key):
+        return (key[0], _r(key[1]))
+
+    n_bins = min(max_classes, len(cands))
+    _ENUM_BUDGET = 200_000
+    if math.comb(len(cands), n_bins) <= _ENUM_BUDGET:
+        best = None
+        for subset in itertools.combinations(cands, n_bins):
+            cost = subset_cost(subset)
+            if cost is None:
+                continue
+            cand = (cost, tuple(skey(b) for b in subset), subset)
+            if best is None or cand[:2] < best[:2]:
+                best = cand
+        bins = best[2]
+    else:
+        chosen = [top]  # the only single-key cover-all
+        while len(chosen) < n_bins:
+            best_add = min(
+                ((subset_cost(chosen + [c]), skey(c), c)
+                 for c in cands if c not in chosen),
+                key=lambda t: t[:2],
+            )
+            chosen.append(best_add[2])
+        bins = tuple(sorted(chosen, key=skey))
+
+    merged: dict = {}
+    for k in keys:
+        bk = min(
+            (b for b in bins if admissible(b, k)),
+            key=lambda b: (rows(b), skey(b)),
+        )
+        clamp = max(c_pad - bk[0], 0)
+        merged.setdefault(bk, []).extend(
+            (min(b, clamp), ids) for b, ids in runs_by_class[k]
+        )
+    return merged
+
+
+def _hub_point_order(tc, tm, glob_start: int, n_gt: int) -> np.ndarray:
+    """Point order of one bucket under a split hub packing: hub-observing
+    points after the others, then by global-tile hull (lowest, then
+    highest tile) and by minimum local camera; stable, as the JAX packer's
+    ``np.lexsort``."""
+    real = tm > 0
+    loc = np.where(real & (tc < glob_start), tc, np.iinfo(np.int64).max)
+    min_local = loc.min(axis=1)
+    gp = np.where(real & (tc >= glob_start), tc - glob_start, -1)
+    has_gp = gp.max(axis=1) >= 0
+    g_hi_p = np.maximum(gp.max(axis=1), 0) // CAM_TILE
+    gp_lo = np.where(gp >= 0, gp, np.iinfo(np.int64).max)
+    g_lo_p = np.minimum(gp_lo.min(axis=1) // CAM_TILE, n_gt - 1)
+    return np.lexsort((min_local, g_hi_p, g_lo_p, has_gp))
+
+
+def _split_runs(tc, tm, rows_b, n_chunks: int, Pc: int, glob_start: int, c_pad: int):
+    """{(window class, global-tile hull): [(base, chunk ids), ...]}: runs of
+    consecutive micro-chunks with equal (base, class, hull) keys.  A chunk
+    with real but unobserved points takes the key (0, 128, None); a chunk
+    with no real point row is dropped (transparent to the runs)."""
+    keys = []
+    for gi in range(n_chunks):
+        sl = slice(gi * Pc, (gi + 1) * Pc)
+        cams = tc[sl][tm[sl] > 0]
+        if cams.size == 0:
+            keys.append(None if (rows_b[sl] < 0).all() else (0, CAM_TILE, None))
+            continue
+        gcams = cams[cams >= glob_start]
+        grange = None
+        if gcams.size:
+            grange = (
+                int(gcams.min() - glob_start) // CAM_TILE,
+                int(gcams.max() - glob_start) // CAM_TILE,
+            )
+        local = cams[cams < glob_start]
+        if local.size:
+            base = (int(local.min()) // CAM_TILE) * CAM_TILE
+            wcls = min(_pad_up(int(local.max()) - base + 1, CAM_TILE), c_pad)
+            base = min(base, c_pad - wcls)
+        else:
+            base, wcls = 0, 0
+        keys.append((base, wcls, grange))
+
+    runs_by_class: dict = {}
+    cur_key, cur_ids = None, []
+    for gi, k in enumerate(keys + [False]):
+        if k is None:
+            continue
+        if k == cur_key:
+            cur_ids.append(gi)
+            continue
+        if cur_key is not None:
+            runs_by_class.setdefault(cur_key[1:], []).append((cur_key[0], cur_ids))
+        cur_key, cur_ids = (k, [gi]) if k is not False else (None, [])
+    return runs_by_class
+
+
 def _choose_cap(run_lengths, max_waste: float = 0.125, min_groups: int = 1) -> int:
     """Group-size cap (in micro-chunks): fewest groups within a padding cap
     of ``max_waste``; keeps at least ``min_groups`` groups when admissible."""
@@ -238,15 +425,20 @@ def wtt_from_flat(
     (problems/reorder.py).  Unless ``defer_onehot``, each bucket's dense
     one-hot is built from ``wcam`` on ``device`` (``expand_onehots``
     builds it later); the fully indexed route never reads it.
-    ``split_windows`` belongs to the BAL-scale slice and is not ported
-    yet.  ``device`` defaults to the problem's device.
+
+    ``split_windows`` refines the window to micro-chunk granularity: chunks
+    are classed by their own 128-aligned local window and, under a hub
+    split, by the global-tile hull they touch (after a stable re-sort of
+    each bucket's points by hull), and each class becomes its own bucket
+    (a class of hub-only chunks has no local rows, ``window`` = its global
+    rows).  Chunks without a real point are dropped.  ``True`` caps the
+    classes per bucket at ``_SPLIT_MAX_CLASSES`` by merging them into exact
+    covering bins; an int N > 0 caps them at N (``ValueError`` for N <= 0).
+    Values are step-equivalent to the unsplit packing.  ``device`` defaults
+    to the problem's device.
     """
     oh_dtype = torch.int8 if onehot_dtype is None else onehot_dtype
     itemsize = torch.empty((), dtype=oh_dtype).element_size()
-    if split_windows:
-        raise NotImplementedError(
-            "split_windows (per-chunk window classes) is not ported yet (ROADMAP A.1)"
-        )
     if reorder_cameras not in ("auto", "always", "never", "hub"):
         raise ValueError(f"reorder_cameras={reorder_cameras!r}")
     if device is None:
@@ -281,16 +473,54 @@ def wtt_from_flat(
     glob_start = g_tile0 * CAM_TILE
     n_gt = c_pad // CAM_TILE - g_tile0
 
-    # Pass 1: per-bucket window, clamped micro-chunk bases, grouping plan.
-    plans = []  # (ti, tc, tm, window, groups, cap, grange, row_off)
+    # Pass 1: per-bucket window, clamped micro-chunk bases, grouping plan;
+    # with split_windows per micro-chunk window classes, each its own bucket.
+    plans = []  # (ti, tc, tm, window, groups, cap, grange, porder, row_off)
     onehot_bytes = 0
     row_off = 0
+    g_rows_all = g.point_rows.numpy()
     for b in g.buckets:
         ti = b.track_idx.numpy()
         tc = b.track_cam.numpy()
         tm = b.track_mask.numpy()
         Pb, Tb = ti.shape
         n_chunks = Pb // Pc
+        if split_windows:
+            porder = None
+            rows_b = g_rows_all[row_off : row_off + Pb]
+            if n_gt > 0:
+                # Cluster hub-observing points by their global-tile hull, so
+                # most chunks skip the global tiles or carry one of them.
+                porder = _hub_point_order(tc, tm, glob_start, n_gt)
+                ti, tc, tm, rows_b = ti[porder], tc[porder], tm[porder], rows_b[porder]
+            runs_by_class = _split_runs(tc, tm, rows_b, n_chunks, Pc, glob_start, c_pad)
+            max_cls = _split_class_cap(split_windows)
+            if max_cls and len(runs_by_class) > max_cls:
+                runs_by_class = _coalesce_window_classes(
+                    runs_by_class, max_cls, n_gt, c_pad
+                )
+            for (wcls, grange) in sorted(
+                runs_by_class,
+                key=lambda k: (k[0], (-1, -1) if k[1] is None else k[1]),
+            ):
+                runs = runs_by_class[(wcls, grange)]
+                cap = _choose_cap(
+                    [len(ids) for _, ids in runs], min_groups=max(chunk_multiple, 1)
+                )
+                groups = []
+                for base, ids in runs:
+                    for lo in range(0, len(ids), cap):
+                        groups.append((base, ids[lo : lo + cap]))
+                while len(groups) % max(chunk_multiple, 1):
+                    groups.append((0, []))
+                n_gt_eff = (grange[1] - grange[0] + 1) if grange else 0
+                plans.append((ti, tc, tm, wcls, groups, cap, grange, porder, row_off))
+                onehot_bytes += (
+                    (wcls + n_gt_eff * CAM_TILE) * len(groups) * Tb * cap * Pc * itemsize
+                )
+            row_off += Pb
+            continue
+
         window = CAM_TILE
         raw_bases = np.zeros(n_chunks, np.int64)
         has_obs = np.zeros(n_chunks, bool)
@@ -337,7 +567,7 @@ def wtt_from_flat(
 
         plans.append((
             ti, tc, tm, window, groups, cap,
-            (0, n_gt - 1) if n_gt else None, row_off,
+            (0, n_gt - 1) if n_gt else None, None, row_off,
         ))
         row_off += Pb
         onehot_bytes += (
@@ -363,7 +593,7 @@ def wtt_from_flat(
     pts_chunks = []
     rows_chunks = []
     off = 0
-    for ti, tc, tm, window, groups, cap, grange, g_off in plans:
+    for ti, tc, tm, window, groups, cap, grange, porder, g_off in plans:
         g_lo = grange[0] if grange else 0
         n_gt_eff = (grange[1] - grange[0] + 1) if grange else 0
         g_base = glob_start + g_lo * CAM_TILE
@@ -396,7 +626,10 @@ def wtt_from_flat(
                 wcam_b[bi, cols] = np.where(
                     tcv < glob_start, tcv - base, window + (tcv - g_base),
                 )
-                sel[bi, col0 : col0 + Pc] = g_off + np.arange(gi * Pc, (gi + 1) * Pc)
+                rows_g = np.arange(gi * Pc, (gi + 1) * Pc)
+                if porder is not None:  # the bucket's points were re-sorted
+                    rows_g = porder[rows_g]
+                sel[bi, col0 : col0 + Pc] = g_off + rows_g
         total_rows = window + n_gt_eff * CAM_TILE
         wcam = t_(wcam_b)
         buckets.append(

@@ -6,7 +6,9 @@ camera interaction in the wtt kernels (ops/wtt_linearize.py,
 ops/wtt_matvec.py, ops/wtt_cost.py).  One LM iteration:
 
   1. linearize: with ``linearize_kernel="index"`` kernel B1 per bucket
-     (it also reduces the Schur rhs W V^-1 g_pt); otherwise the unfused
+     (it also reduces the Schur rhs W V^-1 g_pt; ``"index2"`` rounds its
+     u | g | coupling | od columns through two bfloat16 split pieces in
+     float32, as the TPU kernel's 2-term reduce does); otherwise the unfused
      route: B7 selects the slot camera planes, the Jacobian planes and the
      point normal run in PyTorch, B8 reduces the contribution rows.  Under
      the band preconditioners (``precond="tridiag"``/``"ssor"``) B1 or B8
@@ -15,12 +17,14 @@ ops/wtt_matvec.py, ops/wtt_cost.py).  One LM iteration:
      Cholesky factorization, or with a band preconditioner the
      ``solvers/tridiag.py`` factor over 128-camera segments;
   2. PCG on U x - sum W V^-1 W^T x, the coupling from kernel B2
-     (``matvec_kernel="index"``), B6 from the dense one-hot
+     (``matvec_kernel="index"``; ``"index1"``/``"index2"`` round x and z
+     through 1 or 2 bfloat16 split pieces in float32), B6 from the dense one-hot
      (``True``/``"fused"``) or PyTorch gathers and scatters (False),
      preconditioned by the block Cholesky solve or the band sweeps;
-  3. rhs (unfused linearize only) W V^-1 g_pt: B5 with the index matvec,
-     else PyTorch; back-substitution W^T dc: B3 with the index matvec,
-     else PyTorch; dp = V^-1 (-g_pt - W^T dc);
+  3. rhs (unfused linearize only) W V^-1 g_pt: B5 with any index matvec,
+     else PyTorch; back-substitution W^T dc: B3 with any index matvec,
+     else PyTorch; dp = V^-1 (-g_pt - W^T dc) (B3 and B5 always exact, as
+     the JAX engine's ``idx_terms = 3``);
   4. cost of the candidate: kernel B4 (fused linearize) or B7 and the
      projection in PyTorch;
   5. SE(3) retraction and trust-region accept/reject.
@@ -29,10 +33,12 @@ The PyTorch forms of the JAX engine's XLA products (``_w_times_plane``,
 ``_wt_times_plane``) gather and scatter through ``wcam``; no route here
 multiplies by the dense one-hot, which only B6 reads.  Window gathers and
 scatters move whole 128-row camera tiles (``_window_rows`` /
-``_scatter_rows``, a tile gather and an ``index_add_``).  The
-reduced-fidelity ``index1``/``index2`` modes and ``matvec_bf16`` are not
-ported and raise; the band preconditioners refuse hub/global camera tiles
-with the JAX engine's ``ValueError``.  The band factor and sweeps run as
+``_scatter_rows``, a tile gather and an ``index_add_``; a window class of
+a split packing may have no local tile, only global ones).  Only the CG
+operator and B1's contribution columns run at reduced fidelity; the rhs,
+back-substitution and cost stay exact.  ``matvec_bf16`` is not ported and
+raises; the band preconditioners refuse hub/global camera tiles with the
+JAX engine's ``ValueError``.  The band factor and sweeps run as
 ``torch.profiler`` spans ``band_precond_factor`` / ``band_precond_apply``
 (``benchmark/profile_solve.py`` reads their host time and launches).
 """
@@ -151,7 +157,8 @@ def _linearize(params, lam, problem: BAWTTProblem, config: BAConfig) -> WTTNorma
     n_triu = len(_triu_pairs(np_cam))
     want_od = config.precond in _BAND
     use_sj = config.precond == "schur_jacobi" or want_od
-    fused = config.linearize_kernel == "index"
+    fused = config.linearize_kernel in ("index", "index2")
+    terms = 2 if config.linearize_kernel == "index2" else 3
     u_cols = table_pad.new_zeros(c_pad, n_triu)
     g_cols = table_pad.new_zeros(c_pad, np_cam)
     coup_cols = table_pad.new_zeros(c_pad, n_triu)
@@ -164,7 +171,7 @@ def _linearize(params, lam, problem: BAWTTProblem, config: BAConfig) -> WTTNorma
         if fused:
             rows, jc, jp, v_inv, g_pt, damp_pt = wtt_linearize_fused_idx(
                 bucket.wcam, tw, pts, bucket.uv, bucket.mask, lam, inv_w, config,
-                np_cam, use_sj, want_od,
+                np_cam, use_sj, want_od, terms,
             )
         else:
             tb = bucket.uv.shape[2]
@@ -244,9 +251,10 @@ def _schur_matvec(nb: WTTNormal, x_pad: torch.Tensor, problem: BAWTTProblem,
                   use_kernel=False):
     coup = torch.zeros_like(x_pad)
     for bn, bucket in zip(nb.buckets, problem.buckets):
-        if use_kernel == "index":
+        if use_kernel in _INDEX_TERMS:
             rows = wtt_coupling_rows_idx(
-                _xw_t(x_pad, bucket), bucket.wcam, bn.jc, bn.jp, bn.v_inv
+                _xw_t(x_pad, bucket), bucket.wcam, bn.jc, bn.jp, bn.v_inv,
+                _INDEX_TERMS[use_kernel],
             )
         elif use_kernel:
             rows = wtt_coupling_rows_fused(
@@ -269,7 +277,7 @@ def _cost(params, problem: BAWTTProblem, config: BAConfig) -> torch.Tensor:
     total = table_pad.new_zeros(())
     for bucket, pts in zip(problem.buckets, pts_list):
         tw = _window_rows(table_pad, _window_idx(bucket))
-        if config.linearize_kernel == "index":
+        if config.linearize_kernel in ("index", "index2"):
             cols = wtt_cost_cols_idx(bucket.wcam, tw, pts, bucket.uv, bucket.mask,
                                      config.loss)
             total = total + 0.5 * (inv_w * inv_w) * torch.sum(cols)
@@ -296,14 +304,16 @@ def _cost(params, problem: BAWTTProblem, config: BAConfig) -> torch.Tensor:
 
 
 _MATVEC_KERNELS = (False, True, "fused", "index", "index1", "index2")
+# The bfloat16 split terms of B2 per index matvec mode (3: exact).
+_INDEX_TERMS = {"index": 3, "index1": 1, "index2": 2}
 _LINEARIZE_KERNELS = (False, "index", "index2")
 
 
 def _check_config(config: BAConfig, problem: BAWTTProblem = None) -> None:
     """The JAX engine's errors (``ValueError``) in its order, the problem's
-    only when one is given; then the options the port does not take yet
-    (``NotImplementedError``)."""
-    indexed_mv = config.matvec_kernel in ("index", "index1", "index2")
+    only when one is given; then ``matvec_bf16``, which the port does not
+    take (``NotImplementedError``)."""
+    indexed_mv = config.matvec_kernel in _INDEX_TERMS
     indexed_lin = config.linearize_kernel in ("index", "index2")
     if problem is not None and not (indexed_mv and indexed_lin) and any(
         b.onehot is None for b in problem.buckets
@@ -344,11 +354,6 @@ def _check_config(config: BAConfig, problem: BAWTTProblem = None) -> None:
         raise ValueError(
             "band preconditioners (ssor/tridiag) are not supported with "
             "hub/global camera tiles; use precond='schur_jacobi'"
-        )
-    if config.matvec_kernel in ("index1", "index2") or config.linearize_kernel == "index2":
-        raise NotImplementedError(
-            "the reduced-fidelity bf16-split modes (matvec_kernel 'index1'/"
-            "'index2', linearize_kernel 'index2') are not ported (ROADMAP B.7)"
         )
     if config.matvec_bf16:
         raise NotImplementedError(
@@ -391,7 +396,7 @@ def _ba_solve_wtt_core(problem: BAWTTProblem, pts_list, config: BAConfig, dev):
         pts_list,
     )
 
-    index_mv = config.matvec_kernel == "index"
+    index_mv = config.matvec_kernel in _INDEX_TERMS
 
     def w_times(bn, vw, bucket):
         if not index_mv:
