@@ -4,7 +4,9 @@ one-hot routes (B5-B8), B1's and B8's band pair rows (``want_od``), B1 at
 terms 2 and B2 at terms 1 and 2 (the reduced-fidelity modes), the grid
 engine's three (B9-B11), the dense track table's five (B12-B16), and the
 probe kernels of ``tpu3drecon_torch.experiments`` (E1's copies of B2, E4's
-bit expansion).
+bit expansion); the slot-major B1 and B2 also on tracks longer than one
+block's chunk, all-padding buckets, the hub layout's width and warps whose
+lanes hit different rows.
 The kernels read camera rows from device memory and reduce into the output
 rows directly, so wide windows and camera axes run: one input per kernel
 family past the card's shared memory per block.  B6 and B15 also keep a
@@ -698,6 +700,81 @@ def test_reduced_terms_match_plain(dev, g, w, tb, np_cam):
         _close(got, wtt_matvec.wtt_coupling_rows_idx_plain(*mv, terms=terms), reduced,
                f"B2 terms={terms}")
     assert [c.kernel - b for c, b in zip(counts, before)] == [1, 1, 1, 1]
+
+
+def _slot_wcam(dev, kind, g, w, tb, seed):
+    """(G, Tb * PC) int16 window rows for the slot-major B1 and B2, window
+    row 0 never used: "tracks" (``_track_wcam``: lanes of a warp on
+    different rows), "grouped" (every 32-point group walks one track, each
+    point cut at its own length: row-uniform warps with padded tails),
+    "random" (``_inputs``' random rows) or "one" (all padding but the last
+    slot of point 37)."""
+    rng = np.random.default_rng(seed)
+    if kind == "tracks":
+        return _track_wcam(dev, g, w, tb, seed)
+    if kind == "grouped":
+        n_groups = -(-PC // 32)
+        steps = np.where(rng.random((g, tb, n_groups)) < 0.75, 1, 2)
+        steps[:, 0] = rng.integers(1, w - 2 * tb, size=(g, n_groups))
+        rows = np.repeat(np.cumsum(steps, axis=1), 32, axis=2)[:, :, :PC]
+        length = rng.integers(1, tb + 1, size=(g, 1, PC))
+        wcam = np.where(np.arange(tb)[None, :, None] < length, rows, -1)
+    elif kind == "random":
+        wcam = rng.integers(1, w, size=(g, tb, PC))
+        wcam[rng.random(wcam.shape) < 0.15] = -1
+    else:
+        wcam = np.full((g, tb, PC), -1)
+        wcam[0, tb - 1, 37] = w // 2
+    return torch.as_tensor(wcam.reshape(g, tb * PC).astype(np.int16), device=dev)
+
+
+SLOT_CASES = [  # (dtype, G, W, Tb, np, want_od, rows)
+    (torch.float32, 1, 128, 1, 8, False, "tracks"),
+    (torch.float64, 2, 128, 3, 10, True, "tracks"),
+    (torch.float32, 1, 256, 12, 12, True, "grouped"),
+    (torch.float32, 1, 128, 40, 8, True, "grouped"),
+    (torch.float64, 1, 128, 40, 12, True, "tracks"),
+    (torch.float32, 2, 1664, 12, 8, False, "random"),
+    (torch.float64, 2, 256, 4, 8, True, "one"),
+]
+
+
+@pytest.mark.parametrize("dtype,g,w,tb,np_cam,want_od,rows", SLOT_CASES)
+def test_slot_major_kernels_match_plain(dev, dtype, g, w, tb, np_cam, want_od, rows):
+    """The slot-major B1 (with ``want_od`` as given) and B2 against their
+    plain versions: one-chunk tracks (Tb 1, 3, 12), tracks longer than one
+    block's chunk (Tb 40), the hub layout's W = 1664 with random rows (warps
+    that are not row-uniform), row-uniform warps, a bucket that is all
+    padding but one slot; in float32 also B1 at terms 2 and B2 at terms 1
+    and 2.  Window row 0 of the camera rows and of x is NaN and only padded
+    slots point at it."""
+    d = _inputs(dev, dtype, g, w, tb, np_cam, seed=7 * g + w + tb + np_cam)
+    wcam = _slot_wcam(dev, rows, g, w, tb, seed=w + 3 * tb)
+    pad = (wcam < 0).reshape(g, tb, PC)
+    tw, xw_t = d["tw"].clone(), d["xw_t"].clone()
+    tw[:, 0] = float("nan")
+    xw_t[:, :, 0] = float("nan")
+    elem, reduced = TOL[dtype]
+    cfg = BAConfig(optimize_dist=np_cam >= 10, optimize_pp=np_cam == 12)
+    args = (wcam, tw, d["pts"], d["uv"], (~pad).to(dtype), d["lam"], d["inv_w"], cfg,
+            np_cam, True, want_od)
+    f32 = dtype == torch.float32
+    before = (wtt_linearize.OD_COUNTS if want_od else wtt_linearize.COUNTS).kernel
+    for terms in (3, 2) if f32 else (3,):
+        got = wtt_linearize.wtt_linearize_fused_idx(*args, terms=terms)
+        want = wtt_linearize.wtt_linearize_fused_idx_plain(*args, terms=terms)
+        for name, a, b in zip(("rows", "jc", "jp", "v_inv", "g_pt", "damp_pt"), got, want):
+            assert torch.isfinite(a).all(), name
+            _close(a, b, reduced if name == "rows" else elem, f"B1 terms={terms} {name}")
+        assert (got[1][:, pad] == 0).all() and (got[2][:, pad] == 0).all()
+    assert (wtt_linearize.OD_COUNTS if want_od else wtt_linearize.COUNTS).kernel == before + 1
+    _, jc, jp, v_inv, _, _ = want
+    mv = (xw_t, wcam, jc, jp, v_inv)
+    for terms in (3, 2, 1) if f32 else (3,):
+        got = wtt_matvec.wtt_coupling_rows_idx(*mv, terms=terms)
+        assert torch.isfinite(got).all()
+        _close(got, wtt_matvec.wtt_coupling_rows_idx_plain(*mv, terms=terms), reduced,
+               f"B2 terms={terms}")
 
 
 def test_probe_kernels_match(dev):

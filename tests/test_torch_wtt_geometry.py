@@ -1,0 +1,98 @@
+"""Launch geometry of the slot-major kernels B1 and B2
+(``tpu3drecon_torch.ops._wtt_common.slot_geometry``), on the CPU: for every
+(dtype, np, od, terms) that the C entries ``wtt_linearize`` and
+``wtt_coupling`` take and tracks of 1 to 100 slots, the shared bytes fit
+the card's per-block limit, the chunks cover each track once, the blocks
+cover every point column once and no block exceeds the kernel's thread
+limit.  Also pins B1's row width K."""
+
+import pytest
+import torch
+
+from tpu3drecon_torch.ops._wtt_common import (
+    SMEM_PER_BLOCK,
+    max_threads,
+    slot_geometry,
+    slot_smem,
+)
+from tpu3drecon_torch.ops.wtt_linearize import n_rows_cols
+
+TBS = (1, 2, 3, 4, 8, 12, 33, 100)
+PCS = (1, 31, 32, 33, 300, 512, 67584)
+NPS = (8, 10, 12)
+# (kernel, dtype, np, want_od, terms): B1 takes terms 2 (float32) and 3, B2
+# terms 1 and 2 (float32) and 3; float64 is always exact.
+ENTRIES = [
+    ("lin", dtype, np_cam, od, terms)
+    for dtype in (torch.float32, torch.float64)
+    for np_cam in NPS
+    for od in (False, True)
+    for terms in ((2, 3) if dtype == torch.float32 else (3,))
+] + [
+    ("coupling", dtype, np_cam, False, terms)
+    for dtype in (torch.float32, torch.float64)
+    for np_cam in NPS
+    for terms in ((1, 2, 3) if dtype == torch.float32 else (3,))
+]
+
+
+@pytest.mark.parametrize("kernel,dtype,np_cam,want_od,terms", ENTRIES)
+def test_geometry_fits_and_covers(kernel, dtype, np_cam, want_od, terms):
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    for tb in TBS:
+        for pc in PCS:
+            geo = slot_geometry(kernel, tb, pc, np_cam, itemsize, want_od)
+            what = f"{kernel} {dtype} np={np_cam} od={want_od} terms={terms} Tb={tb} Pc={pc}"
+            assert geo.smem <= SMEM_PER_BLOCK, what
+            assert geo.smem == slot_smem(kernel, geo.warps, geo.groups, np_cam, itemsize,
+                                         want_od), what
+            assert 32 <= 32 * geo.warps * geo.groups <= max_threads(kernel, itemsize), what
+            # The chunks (warp ti of chunk c holds slot c * warps + ti) cover
+            # slots 0 .. Tb - 1 once, in order, none empty.
+            chunks = [range(c * geo.warps, min((c + 1) * geo.warps, tb))
+                      for c in range(geo.chunks)]
+            assert [t for chunk in chunks for t in chunk] == list(range(tb)), what
+            assert all(len(chunk) > 0 for chunk in chunks), what
+            # The blocks cover the point columns once: block b holds columns
+            # [b * 32 * groups, (b + 1) * 32 * groups), the last one ragged.
+            per_block = 32 * geo.groups
+            assert geo.blocks * per_block >= pc > (geo.blocks - 1) * per_block, what
+
+
+@pytest.mark.parametrize("kernel,itemsize", [("lin", 4), ("lin", 8), ("coupling", 4),
+                                             ("coupling", 8)])
+def test_geometry_one_chunk_up_to_the_thread_limit(kernel, itemsize):
+    """A track of up to max_threads / 32 slots runs in one chunk (each slot
+    stays in registers from phase 1 to phase 2); a short track shares its
+    block with other point groups, 8 warps in all where Pc allows."""
+    max_warps = max_threads(kernel, itemsize) // 32
+    for tb in range(1, max_warps + 1):
+        geo = slot_geometry(kernel, tb, 67584, 8, itemsize)
+        assert (geo.warps, geo.chunks) == (tb, 1)
+        assert geo.groups == max(1, 8 // tb)
+    geo = slot_geometry(kernel, max_warps + 1, 67584, 8, itemsize)
+    assert geo.chunks == 2 and geo.warps == -(-(max_warps + 1) // 2)
+
+
+def test_geometry_shrinks_to_the_shared_limit():
+    """Under a small per-block limit the groups, then the warps per group,
+    shrink until the bytes fit (B1 f64 np 12 with od has the widest
+    layout)."""
+    full = slot_geometry("lin", 8, 67584, 12, 8, True)
+    limit = slot_smem("lin", 4, 1, 12, 8, True)
+    small = slot_geometry("lin", 8, 67584, 12, 8, True, limit=limit)
+    assert full.smem > limit >= small.smem
+    assert (small.warps, small.groups, small.chunks) == (4, 1, 2)
+    with pytest.raises(ValueError, match="kernel"):
+        slot_geometry("cost", 2, 10, 8, 4)
+
+
+@pytest.mark.parametrize("np_cam,use_sj,want_od,k", [
+    (8, False, False, 52), (8, True, False, 88), (8, True, True, 152),
+    (10, False, False, 75), (10, True, False, 130), (10, True, True, 230),
+    (12, False, False, 102), (12, True, False, 180), (12, True, True, 324),
+])
+def test_b1_row_width(np_cam, use_sj, want_od, k):
+    """K of B1's rows: u (np(np+1)/2) | g (np) [| coupling] | rhs (np)
+    [| od (np^2)]: the columns the kernel's row tile walks."""
+    assert n_rows_cols(np_cam, use_sj, want_od) == k

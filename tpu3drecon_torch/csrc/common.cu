@@ -22,5 +22,8 @@ extern "C" const char* kernel_error_string(int code) {
   if (code == kErrTerms)
     return "unsupported split terms (coupling 1, 2 or 3; linearize 2 or 3)";
   if (code == kErrProbe) return "unsupported probe variant, block size or layout";
+  if (code == kErrGeom)
+    return "launch geometry (warps per point group, groups per block, shared bytes) "
+           "does not match the kernel";
   return cudaGetErrorString((cudaError_t)code);
 }

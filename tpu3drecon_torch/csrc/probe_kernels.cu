@@ -2,8 +2,10 @@
 // own so that the solver's kernels stay as they are.
 //
 //   probe_coupling     <- experiments/tpu_index_matvec2.py (E1): a copy of
-//                         kernel B2 (wtt_kernels.cuh coupling_kernel, float,
-//                         np = 8) whose launch shape and work are template
+//                         kernel B2's earlier design, one thread per point
+//                         column (float, np = 8; wtt_kernels.cuh
+//                         coupling_kernel is now slot-major), whose
+//                         launch shape and work are template
 //                         flags: BS threads per block (128, 256, 512);
 //                         GATHER false reads window row 0 for every live
 //                         slot (E1's "const" one-hot build: no camera-row

@@ -2,11 +2,13 @@
 // wtt_route_kernels.cu and tt_kernels.cu): the per-slot residual/Jacobian
 // formulas, camera-row and x reads with their all-zero padding, the
 // per-slot contribution columns, band pair rows and coupling-product
-// halves, the warp-aggregated row reduction, the shared tile of the
-// kernels that keep one, and the host-side launch helpers.
+// halves, the warp-aggregated row reduction, the row tiles of the
+// slot-major B1 and B2, the shared tile of the kernels that keep one, and
+// the host-side launch helpers.
 //
-// The track-table layouts keep one point's whole track in one thread: a
-// slot (t, p) reads its camera's row of a (rows, 19) table.  A padded slot
+// The track-table layouts keep one point's whole track in one thread (B1
+// and B2 instead one slot per lane, wtt_kernels.cuh): a slot (t, p) reads
+// its camera's row of a (rows, 19) table.  A padded slot
 // reads an all-zero row, exactly as the TPU kernels' empty one-hot column
 // gives it: z = 0 -> z_safe = 1, so every output of the slot is exactly 0.
 //
@@ -358,6 +360,79 @@ __device__ __forceinline__ void w_slot(T* acc, int w, int W, const T* jc, const 
 #pragma unroll
   for (int i = 0; i < NP; ++i)
     row_add(acc, wr, i * W + ws, i * W + wr.w0, split_round<TERMS>(j[i] * s0p + j[NP + i] * s1p));
+}
+
+// ------------------------------------------------ slot-major row tiles --
+// The row reduction of the slot-major kernels B1 and B2 (wtt_kernels.cuh),
+// where a warp holds one track slot of 32 point columns: its lanes' column
+// values go to window rows that are mostly one row.  Each lane writes its
+// values into the warp's shared (32, KT + 1) tile (a row per lane, padded
+// against bank conflicts); the lanes are grouped by row with
+// __match_any_sync, and each (distinct row, column) pair is summed over its
+// lanes by one lane and leaves as one atomic.  A row-uniform warp thus sends
+// KT columns' atomics from KT lanes at once, with no shuffle per column.
+// Lanes on no row (-1: padding, past the track) are left out.  Columns are
+// put one at a time in the order of the output's columns; the tile flushes
+// every KT columns and at the segment's end.
+constexpr int kTile = 32;  // tile columns of B1 (B2's tile is np wide)
+
+template <typename T, int KT>
+struct RowTile {
+  T* v;       // (32, KT + 1) column values, row = lane
+  int* meta;  // (3, 32): each lane's row, its row's lanes, the leader lanes
+  T* out;     // element (row w, column c) at out + w * rs + c * cs
+  size_t rs, cs;
+  int nd;     // distinct rows among the warp's live lanes
+};
+
+// Groups the warp's lanes by row `w` (-1 = none); the whole warp calls it,
+// and a warp with rt.nd == 0 has nothing to reduce.
+template <typename T, int KT>
+__device__ __forceinline__ void tile_rows(RowTile<T, KT>& rt, int w) {
+  const int lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(kFull, w);
+  const bool leader = w >= 0 && lane == __ffs(peers) - 1;
+  const unsigned leaders = __ballot_sync(kFull, leader);
+  __syncwarp();  // the previous flush is done with meta
+  rt.meta[lane] = w;
+  rt.meta[32 + lane] = int(peers);
+  if (leader) rt.meta[64 + __popc(leaders & ((1u << lane) - 1u))] = lane;
+  rt.nd = __popc(leaders);
+  __syncwarp();
+}
+
+// Adds tile columns [0, n) into the output columns col0 .. col0 + n - 1 of
+// each distinct row: one lane per (row, column), one atomic each.  The sum
+// reads all 32 tile rows (independent loads, four partial sums) and keeps
+// the row's lanes by selection, so a lane outside the row (whose value may
+// be anything) adds nothing.
+template <typename T, int KT>
+__device__ __forceinline__ void tile_flush(const RowTile<T, KT>& rt, int n, int col0) {
+  __syncwarp();
+  for (int item = threadIdx.x & 31; item < rt.nd * n; item += 32) {
+    const int r = item / n, c = item - r * n;
+    const int l0 = rt.meta[64 + r];
+    const unsigned m = unsigned(rt.meta[32 + l0]);
+    T s[4] = {T(0), T(0), T(0), T(0)};
+#pragma unroll
+    for (int l = 0; l < 32; ++l) {
+      const T v = rt.v[l * (KT + 1) + c];
+      s[l & 3] += (m >> l) & 1u ? v : T(0);
+    }
+    const T sum = (s[0] + s[1]) + (s[2] + s[3]);
+    if (sum != T(0))
+      atomicAdd(rt.out + size_t(rt.meta[l0]) * rt.rs + size_t(col0 + c) * rt.cs, sum);
+  }
+  __syncwarp();
+}
+
+// Puts this lane's value of column `col` of an NCOL-column segment that
+// starts at output column col0.  The kernels call it from fully unrolled
+// loops, so `col` is a constant and the flush test folds away.
+template <int NCOL, typename T, int KT>
+__device__ __forceinline__ void tile_put(const RowTile<T, KT>& rt, int col, T val, int col0) {
+  rt.v[(threadIdx.x & 31) * (KT + 1) + col % KT] = val;
+  if (col % KT == KT - 1 || col == NCOL - 1) tile_flush(rt, col % KT + 1, col0 + col - col % KT);
 }
 
 // ---------------------------------------------------------------- host --

@@ -8,34 +8,46 @@
 //   wtt_wt_planes  <- wtt_matvec.py:wtt_wt_planes_idx          (_wt_kernel_idx)
 //   wtt_cost       <- wtt_cost.py:wtt_cost_cols_idx            (_cost_kernel)
 //
-// Design (the same for all four).  One thread owns one point column (g, p)
-// of a bucket: its whole track (the Tb slots) lives in that thread, so the
-// per-point quantities (V^-1, g_pt, W^T x, the cost column) never leave
-// registers.  The grid is (ceil(Pc / 256), G): on the medium problem every
-// bucket has G = 1, so all parallelism comes from the point-column axis.
-// The TPU kernels rebuild one-hot tiles from wcam and select camera rows
-// with bf16-split MXU dots because row gathers are slow there; here a
-// thread reads its slot's window row directly (wcam is int16, -1 =
-// padding) from device memory into registers, and a padded slot takes an
+// Design of B3 and B4.  One thread owns one point column (g, p) of a
+// bucket: its whole track (the Tb slots) lives in that thread, so W^T x and
+// the cost column never leave registers; the grid is (ceil(Pc / 256), G).
+//
+// Design of B1 and B2 (wtt_kernels.cuh): slot-major.  One lane owns one
+// track slot: a warp holds slot t of 32 consecutive point columns and a
+// block the Tb warps of one or more 32-point groups, so a bucket runs on
+// Tb * Pc threads (1,152 blocks on the medium problem's five buckets of
+// G = 1, where one thread per point gives 396).  The
+// per-point sums (V and g_pt, W^T x) cross warps through shared memory and
+// one lane per point adds them in slot order, the order of the loop they
+// replace; each slot keeps its Jacobian planes in registers from phase 1
+// to phase 2, so B2 reads jc/jp once and B1 calls tt_blocks once per slot.
+//
+// Every kernel reads its slot's window row directly (wcam is int16, -1 =
+// padding) from device memory, where the TPU kernels rebuild one-hot tiles
+// and select camera rows with bf16-split MXU dots; a padded slot takes an
 // all-zero camera row (and x column) without reading one, exactly as the
-// TPU's empty one-hot column gives it.  Nothing is staged in shared
-// memory, so any window width runs (the hub layout's W = 1664 too).
+// TPU's empty one-hot column gives it.  Nothing is staged per window, so
+// any window width runs (the hub layout's W = 1664 too).
 //
 // Reductions into window-camera rows (linearize rows, coupling rows) cross
 // threads: they go straight to the global rows (zeroed by the wrapper) with
-// atomics.  When all live lanes of a warp address the same window row — the
-// common case, since points are sorted by their minimum camera — the warp
-// reduces the value with shuffles and issues one atomic instead of 32
-// conflicting ones (slot.cuh).  A block-local shared (W, K) tile flushed
-// once per block measured 1.45-4.6x slower on the H100 than these direct
+// atomics.  B1 and B2 write a warp's column values into the warp's shared
+// row tile, and one lane per (distinct row, column) sums its lanes and
+// sends one atomic, so the 32 lanes of a row-uniform warp (the common
+// case, since points are sorted by their minimum camera) issue a slot's
+// atomics at once (slot.cuh tile_put).  A block-local shared (W, K) tile
+// flushed once per block measured 1.45-4.6x slower on the H100 than direct
 // atomics (PERF.md): a block touches few rows of a wide tile but has to
 // zero and flush all of it.
 //
-// What bounds them on the H100: the linearize and coupling kernels are
-// bound by the L2 atomics of their row reductions (K = 88 columns per slot
-// for the linearize at np = 8); the back-substitution and cost kernels by
-// the bytes of jc/jp (resp. uv/mask) they stream.  Atomic reduction order
-// varies from run to run, so f32 row sums vary in the last bits.
+// What bounds them on the H100 (PERF.md): B2 on the medium buckets by the
+// atomics that many warps send to the same 128 x 8 row entries, on the BAL
+// buckets by its phase 1, the jc/jp stream; B1 by latency at the occupancy
+// its registers allow (capped at 128 in float by a 512-thread bound, so
+// two blocks of 256 threads share an SM); the back-substitution and cost
+// kernels by the bytes of jc/jp (resp. uv/mask) they stream.
+// Atomic reduction order varies from run to run, so f32 row sums vary in
+// the last bits.
 //
 // Built with --fmad=false (ops/_build.py): products and sums round one at a
 // time, as PyTorch's elementwise ops do, so each kernel matches its plain
@@ -49,7 +61,8 @@
 // scalars that change every LM iteration (lam, inv_w) are read from device
 // memory, so no launch needs a host sync.  The slot formulas, the camera
 // row and x reads, the contribution columns, the two halves of the
-// coupling product and the warp-aggregated row reduction live in slot.cuh,
+// coupling product and the row reductions (warp-aggregated, and B1's and
+// B2's row tiles) live in slot.cuh,
 // shared with the route kernels (wtt_route_kernels.cu) and the dense
 // track-table kernels (tt_kernels.cu).  B1's and B2's kernel templates live
 // in wtt_kernels.cuh: their reduced-fidelity float instantiations (the TPU
@@ -157,7 +170,7 @@ int wtt_linearize(int dtype, int np, int terms, const void* wcam, const void* tw
                   const void* lam, const void* inv_w, void* rows, void* jc,
                   void* jp, void* vinv, void* gpt, void* damp, int G, int Tb,
                   int Pc, int W, int use_sj, int want_od, int loss, int focal,
-                  int points, int dist, int pp, void* stream) {
+                  int points, int dist, int pp, int tc, int ng, int smem, void* stream) {
   if (want_od && !use_sj) return kErrOd;
   if (terms != 2 && terms != 3) return kErrTerms;
   if (G == 0 || Pc == 0) return 0;
@@ -165,26 +178,28 @@ int wtt_linearize(int dtype, int np, int terms, const void* wcam, const void* tw
   const cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0 && terms < 3)
     return wtt_linearize_reduced(np, terms, wcam, tw, pts, uv, mask, lam, inv_w, rows, jc,
-                                 jp, vinv, gpt, damp, G, Tb, Pc, W, want_od, f, s);
+                                 jp, vinv, gpt, damp, G, Tb, Pc, W, want_od, f, tc, ng, smem,
+                                 s);
   NP_DISPATCH(dtype, np,
               (want_od ? lin_launch<T, NP, true, 3>(wcam, tw, pts, uv, mask, lam, inv_w,
                                                     rows, jc, jp, vinv, gpt, damp, G, Tb,
-                                                    Pc, W, f, s)
+                                                    Pc, W, f, tc, ng, smem, s)
                        : lin_launch<T, NP, false, 3>(wcam, tw, pts, uv, mask, lam, inv_w,
                                                      rows, jc, jp, vinv, gpt, damp, G, Tb,
-                                                     Pc, W, f, s)));
+                                                     Pc, W, f, tc, ng, smem, s)));
 }
 
 int wtt_coupling(int dtype, int np, int terms, const void* xw_t, const void* wcam,
                  const void* jc, const void* jp, const void* vinv, void* out,
-                 int G, int Tb, int Pc, int W, void* stream) {
+                 int G, int Tb, int Pc, int W, int tc, int ng, int smem, void* stream) {
   if (terms < 1 || terms > 3) return kErrTerms;
   if (G == 0 || Pc == 0) return 0;
   if (dtype == 0 && terms < 3)
-    return wtt_coupling_reduced(np, terms, xw_t, wcam, jc, jp, vinv, out, G, Tb, Pc, W,
-                                (cudaStream_t)stream);
+    return wtt_coupling_reduced(np, terms, xw_t, wcam, jc, jp, vinv, out, G, Tb, Pc, W, tc,
+                                ng, smem, (cudaStream_t)stream);
   NP_DISPATCH(dtype, np, (coupling_launch<T, NP, 3>(xw_t, wcam, jc, jp, vinv, out, G, Tb,
-                                                    Pc, W, (cudaStream_t)stream)));
+                                                    Pc, W, tc, ng, smem,
+                                                    (cudaStream_t)stream)));
 }
 
 int wtt_wt_planes(int dtype, int np, const void* xw_t, const void* wcam,

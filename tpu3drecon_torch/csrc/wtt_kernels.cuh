@@ -3,7 +3,33 @@
 // (TERMS, slot.cuh split_round): wtt_kernels.cu instantiates the exact
 // kernels (TERMS = 3, float and double), wtt_terms_kernels.cu the float
 // kernels at TERMS = 1 and 2 in an object of their own, so the two sources
-// compile in parallel.  The design notes are in wtt_kernels.cu.
+// compile in parallel.  B3's phase-1 helper wt_x lives here too.
+//
+// Slot-major design of B1 and B2.  A warp holds one track slot t of 32
+// consecutive point columns, one lane per slot; a block holds `ng` such
+// 32-point groups as `tc` warps each (warp ti of a group holds slot
+// c * tc + ti in chunk c), so a bucket runs on Tb * Pc threads, not Pc.
+// A track longer than tc slots is cut into ceil(Tb / tc) chunks that the
+// block walks in order.  The wrapper computes tc, ng and the shared bytes
+// (ops/_wtt_common.py slot_geometry) and the C entries check them against
+// *_smem below.
+//
+// Per-point sums (B2: W^T x; B1: V and g_pt) cross warps through shared
+// memory: each lane writes its slot's part, and lane p of the group's warp
+// 0 adds the Tb parts in slot order t = 0 .. Tb - 1, exactly the order of
+// the one-thread-per-point loop they replace, so under --fmad=false V^-1,
+// g_pt, damp and y keep their last bits against the plain versions (V^-1
+// of a point seen once is conditioned ~1/lam and would amplify any other
+// order).  That lane computes the point's V^-1 and y = V^-1 W^T x (B2) or
+// the rhs factor V^-1 g_pt (B1) once and shares them back.
+//
+// Each slot stays in registers from phase 1 to phase 2: B2 reads its jc/jp
+// once, B1 calls tt_blocks once.  A track of several chunks keeps only its
+// last chunk there; phase 2 re-reads (B2) or recomputes (B1) the slots of
+// the earlier chunks (tracks longer than the largest tc: 16 slots for B2
+// and for B1 in float, 8 for B1 in double).  Window-row reductions go through the
+// warp's shared row tile (slot.cuh tile_put): every lane of a warp issues
+// atomics at once.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,21 +45,67 @@ namespace {
 
 using namespace tpu3drecon;
 
+// Threads per block at most (the wrapper's geometry keeps to them; they
+// bound the registers per thread): B1 holds a slot's Jacobians and its W,
+// W V^-1 factors, B2 a slot's jc/jp.
+template <typename T>
+constexpr int lin_threads() { return sizeof(T) == 4 ? 512 : 256; }
+constexpr int kCouplingThreads = 512;
+
+// This lane's place in the slot-major grid: a 1-D grid of G groups times
+// ceil(Pc / (32 ng)) blocks each, so no G is refused.
+struct SlotLane {
+  int lane, warp, gi, ti, g, p, nchunk;
+  bool live;
+};
+
+__device__ __forceinline__ SlotLane slot_lane(int tc, int ng, int Tb, int Pc) {
+  SlotLane s;
+  const int nb = (Pc + 32 * ng - 1) / (32 * ng);
+  s.g = blockIdx.x / nb;
+  s.lane = threadIdx.x & 31;
+  s.warp = threadIdx.x >> 5;
+  s.gi = s.warp / tc;
+  s.ti = s.warp - s.gi * tc;
+  s.p = ((blockIdx.x - s.g * nb) * ng + s.gi) * 32 + s.lane;
+  s.live = s.p < Pc;
+  s.nchunk = (Tb + tc - 1) / tc;
+  return s;
+}
+
 // ---------------------------------------------------------------- B1 ----
-// With OD (want_od) the rows gain np^2 band pair columns after the rhs:
+// Shared memory of B1 (elements): the (ng, tc, 9, 32) per-slot V | g_pt
+// parts, aliased by the warps' (32, kTile + 1) row tiles; the (ng, 9, 32)
+// V^-1 | V^-1 g_pt of each point; with OD the (ng, tc + 1, 3 np, 32)
+// W V^-1 factors and (ng, tc + 1, 32) window rows of the slots (index 0:
+// the slot before the chunk); the warps' (3, 32) tile meta.
+template <typename T, int NP, bool OD>
+constexpr size_t lin_smem(int tc, int ng) {
+  const size_t nw = size_t(tc) * ng;
+  const size_t parts = nw * 9 * 32, tiles = nw * 32 * (kTile + 1);
+  const size_t vals = (parts > tiles ? parts : tiles) + size_t(ng) * 9 * 32 +
+                      (OD ? size_t(ng) * (tc + 1) * 3 * NP * 32 : 0);
+  const size_t ints = (OD ? size_t(ng) * (tc + 1) * 32 : 0) + nw * 96;
+  return vals * sizeof(T) + ints * sizeof(int);
+}
+
+// B1 <- wtt_linearize.py:wtt_linearize_fused_idx.  Pass 1: each lane forms
+// its slot's residual and Jacobian planes (tt_blocks), writes jc/jp, and
+// its V | g_pt parts go to the point's summing lane.  Pass 2: each lane
+// puts its slot's columns u | g [| coupling (SJ)] | rhs into the row tile
+// of its window row.  With OD (want_od) the np^2 band pair columns follow:
 // od[i * np + j] of window row w sums wv(slot t-1)[i] w(slot t)[j] over the
-// adjacent track slots on rows w and w + 1 (the pair one-hot of
-// wtt_linearize.py:515-538).  Each thread keeps its previous slot's W V^-1
-// factor and row in registers; the pair rows go through the same
-// warp-aggregated atomics as the other columns.
+// adjacent track slots on rows w and w + 1 (wtt_linearize.py:515-538); slot
+// t reads slot t-1's W V^-1 factor from the shared copy that warp t-1 wrote
+// (the slot before a chunk: from jc/jp, which pass 1 wrote).
 //
 // TERMS < 3 (float only) is the TPU kernel's reduced-fidelity linearization
 // (linearize_kernel "index2", wtt_linearize.py:502-531): the u | g |
 // coupling and od column values pass split_round<TERMS> before their
 // reduction; the camera rows, the Jacobian planes, the point normal and the
 // rhs columns stay exact.
-template <typename T, int NP, bool OD, int TERMS>
-__global__ void __launch_bounds__(kBlock)
+template <typename T, int NP, bool SJ, bool OD, int TERMS>
+__global__ void __launch_bounds__(sizeof(T) == 4 ? 512 : 256)  // lin_threads<T>()
 lin_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ tw,
            const T* __restrict__ pts, const T* __restrict__ uv,
            const T* __restrict__ mask, const T* __restrict__ lam_p,
@@ -41,125 +113,219 @@ lin_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ tw,
            T* __restrict__ jc_out, T* __restrict__ jp_out,
            T* __restrict__ vinv_out, T* __restrict__ gpt_out,
            T* __restrict__ damp_out, int G, int Tb, int Pc, int W,
-           LinFlags f) {
+           LinFlags f, int tc, int ng) {
   constexpr int NT = NP * (NP + 1) / 2;
-  const int K = NT + NP + (f.use_sj ? NT : 0) + NP + (OD ? NP * NP : 0);
-  const int g = blockIdx.y;
-  const int p = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = p < Pc;
+  constexpr int K0 = NT + NP + (SJ ? NT : 0) + NP;  // u | g [| coupling] | rhs
+  constexpr int K = K0 + (OD ? NP * NP : 0);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const SlotLane sl = slot_lane(tc, ng, Tb, Pc);
+  const int lane = sl.lane, gi = sl.gi, ti = sl.ti, p = sl.p;
+  const int nw = tc * ng;
+  T* s_a = reinterpret_cast<T*>(smem);  // parts, then row tiles
+  const size_t n_a = size_t(nw) * 32 * (kTile + 1);
+  T* s_pt = s_a + n_a;                  // (ng, 9, 32)
+  T* s_wv = s_pt + ng * 9 * 32;         // OD: (ng, tc + 1, 3 NP, 32)
+  int* s_w = reinterpret_cast<int*>(s_wv + (OD ? ng * (tc + 1) * 3 * NP * 32 : 0));
+  int* s_meta = s_w + (OD ? ng * (tc + 1) * 32 : 0);
+
+  const int g = sl.g;
   const T* tw_g = tw + (size_t)g * W * kD;
-  T* rows_g = rows + (size_t)g * W * K;  // (W, K)
-
   const T lam = *lam_p, inv_w = *invw_p;
-  const size_t GP = (size_t)G * Pc;
-  const size_t GTP = GP * Tb;
-  const T X = live ? pts[0 * GP + (size_t)g * Pc + p] : T(0);
-  const T Y = live ? pts[1 * GP + (size_t)g * Pc + p] : T(0);
-  const T Z = live ? pts[2 * GP + (size_t)g * Pc + p] : T(0);
+  const size_t GP = (size_t)G * Pc, GTP = GP * Tb;
+  const T X = sl.live ? pts[0 * GP + (size_t)g * Pc + p] : T(0);
+  const T Y = sl.live ? pts[1 * GP + (size_t)g * Pc + p] : T(0);
+  const T Z = sl.live ? pts[2 * GP + (size_t)g * Pc + p] : T(0);
 
-  auto slot = [&](int t, int& w, Slot<T, NP>& o) {
-    const size_t ts = ((size_t)g * Tb + t) * Pc + p;  // (G, Tb, Pc) offset
-    w = live ? int(wcam[((size_t)g * Tb + t) * Pc + p]) : -1;
+  // Slot t of this lane's point: window row w (-1 = padding or past the
+  // track) and its planes o (all zero past the track).
+  Slot<T, NP> o;
+  int w;
+  auto compute = [&](int t) {
+    const bool real = sl.live && t < Tb;
+    const size_t ts = ((size_t)g * Tb + t) * Pc + p;
+    w = real ? int(wcam[ts]) : -1;
     T buf[kD];
     const T* cp = cam_row(tw_g, w, buf);
-    const T u_obs = live ? uv[(((size_t)g * 2 + 0) * Tb + t) * Pc + p] : T(0);
-    const T v_obs = live ? uv[(((size_t)g * 2 + 1) * Tb + t) * Pc + p] : T(0);
-    const T m = live ? mask[ts] : T(0);
+    const T u_obs = real ? uv[(((size_t)g * 2 + 0) * Tb + t) * Pc + p] : T(0);
+    const T v_obs = real ? uv[(((size_t)g * 2 + 1) * Tb + t) * Pc + p] : T(0);
+    const T m = real ? mask[ts] : T(0);
     tt_blocks<T, NP>(cp, X, Y, Z, u_obs, v_obs, m, inv_w, f, o);
-    return ts;
   };
 
-  // Pass 1: Jacobian planes out, point normal accumulated over the track.
-  T v6[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
-  T gp[3] = {T(0), T(0), T(0)};
-  for (int t = 0; t < Tb; ++t) {
-    int w;
-    Slot<T, NP> o;
-    const size_t ts = slot(t, w, o);
-    if (live) {
+  // Pass 1: Jacobian planes out, V | g_pt parts summed in slot order.
+  T acc[9] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
+  T* part = s_a + (size_t)(gi * tc + ti) * 9 * 32 + lane;
+  for (int c = 0; c < sl.nchunk; ++c) {
+    const int t = c * tc + ti;
+    compute(t);
+    if (sl.live && t < Tb) {
+      const size_t ts = ((size_t)g * Tb + t) * Pc + p;
 #pragma unroll
       for (int k = 0; k < 2 * NP; ++k) jc_out[k * GTP + ts] = o.jc[k];
 #pragma unroll
       for (int k = 0; k < 6; ++k) jp_out[k * GTP + ts] = o.jp[k];
     }
     const T* q = o.jp;
-    v6[0] += q[0] * q[0] + q[3] * q[3];
-    v6[1] += q[0] * q[1] + q[3] * q[4];
-    v6[2] += q[0] * q[2] + q[3] * q[5];
-    v6[3] += q[1] * q[1] + q[4] * q[4];
-    v6[4] += q[1] * q[2] + q[4] * q[5];
-    v6[5] += q[2] * q[2] + q[5] * q[5];
+    part[0 * 32] = q[0] * q[0] + q[3] * q[3];
+    part[1 * 32] = q[0] * q[1] + q[3] * q[4];
+    part[2 * 32] = q[0] * q[2] + q[3] * q[5];
+    part[3 * 32] = q[1] * q[1] + q[4] * q[4];
+    part[4 * 32] = q[1] * q[2] + q[4] * q[5];
+    part[5 * 32] = q[2] * q[2] + q[5] * q[5];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) gp[i] += q[i] * o.r0 + q[3 + i] * o.r1;
-  }
-  // Damped V and its closed-form inverse (ba_tt._sym3_inv_planes).
-  const T d0 = lam * (v6[0] > T(1e-8) ? v6[0] : T(1e-8));
-  const T d1 = lam * (v6[3] > T(1e-8) ? v6[3] : T(1e-8));
-  const T d2 = lam * (v6[5] > T(1e-8) ? v6[5] : T(1e-8));
-  const T a = v6[0] + d0, b = v6[1], c = v6[2], d = v6[3] + d1, e = v6[4];
-  const T ff = v6[5] + d2;
-  const T co_a = d * ff - e * e, co_b = c * e - b * ff, co_c = b * e - c * d;
-  const T det = a * co_a + b * co_b + c * co_c;
-  const T inv_det = T(1) / (fabs(det) < T(1e-32) ? T(1) : det);
-  T vi[6] = {co_a * inv_det, co_b * inv_det, co_c * inv_det,
-             (a * ff - c * c) * inv_det, (b * c - a * e) * inv_det,
-             (a * d - b * b) * inv_det};
-  if (live) {
-    const size_t pp = (size_t)g * Pc + p;
+    for (int i = 0; i < 3; ++i) part[(6 + i) * 32] = q[i] * o.r0 + q[3 + i] * o.r1;
+    __syncthreads();
+    if (ti == 0) {
+      const int n = min(tc, Tb - c * tc);
+      for (int s = 0; s < n; ++s)
 #pragma unroll
-    for (int k = 0; k < 6; ++k) vinv_out[k * GP + pp] = vi[k];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) gpt_out[k * GP + pp] = gp[k];
-    damp_out[0 * GP + pp] = d0;
-    damp_out[1 * GP + pp] = d1;
-    damp_out[2 * GP + pp] = d2;
-  }
-  // rhs factor vw = V^-1 g_pt.
-  const T vw0 = vi[0] * gp[0] + vi[1] * gp[1] + vi[2] * gp[2];
-  const T vw1 = vi[1] * gp[0] + vi[3] * gp[1] + vi[4] * gp[2];
-  const T vw2 = vi[2] * gp[0] + vi[4] * gp[1] + vi[5] * gp[2];
-
-  // Pass 2: contribution columns u | g [| coupling] | rhs [| od] into window
-  // rows.
-  T wv_prev[3][NP];
-  int w_prev = -1;
-  for (int t = 0; t < Tb; ++t) {
-    int w;
-    Slot<T, NP> o;
-    slot(t, w, o);
-    const WarpRow wr = warp_row(w);
-    if (!wr.any) {  // warp-uniform
-      w_prev = -1;
-      continue;
+        for (int k = 0; k < 9; ++k) acc[k] += s_a[((size_t)(gi * tc + s) * 9 + k) * 32 + lane];
     }
-    const int self = (w >= 0 ? w : 0) * K;
-    const int lead = wr.w0 * K;
+    __syncthreads();
+  }
+  T* pt = s_pt + gi * 9 * 32 + lane;
+  if (ti == 0) {
+    // Damped V and its closed-form inverse (ba_tt._sym3_inv_planes).
+    const T* v6 = acc;
+    const T d0 = lam * (v6[0] > T(1e-8) ? v6[0] : T(1e-8));
+    const T d1 = lam * (v6[3] > T(1e-8) ? v6[3] : T(1e-8));
+    const T d2 = lam * (v6[5] > T(1e-8) ? v6[5] : T(1e-8));
+    const T a = v6[0] + d0, b = v6[1], cc = v6[2], d = v6[3] + d1, e = v6[4];
+    const T ff = v6[5] + d2;
+    const T co_a = d * ff - e * e, co_b = cc * e - b * ff, co_c = b * e - cc * d;
+    const T det = a * co_a + b * co_b + cc * co_c;
+    const T inv_det = T(1) / (fabs(det) < T(1e-32) ? T(1) : det);
+    const T vi[6] = {co_a * inv_det, co_b * inv_det, co_c * inv_det,
+                     (a * ff - cc * cc) * inv_det, (b * cc - a * e) * inv_det,
+                     (a * d - b * b) * inv_det};
+    const T* gp = acc + 6;
+    if (sl.live) {
+      const size_t pp = (size_t)g * Pc + p;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) vinv_out[k * GP + pp] = vi[k];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) gpt_out[k * GP + pp] = gp[k];
+      damp_out[0 * GP + pp] = d0;
+      damp_out[1 * GP + pp] = d1;
+      damp_out[2 * GP + pp] = d2;
+    }
+#pragma unroll
+    for (int k = 0; k < 6; ++k) pt[k * 32] = vi[k];
+    // rhs factor vw = V^-1 g_pt.
+    pt[6 * 32] = vi[0] * gp[0] + vi[1] * gp[1] + vi[2] * gp[2];
+    pt[7 * 32] = vi[1] * gp[0] + vi[3] * gp[1] + vi[4] * gp[2];
+    pt[8 * 32] = vi[2] * gp[0] + vi[4] * gp[1] + vi[5] * gp[2];
+  }
+  __syncthreads();
+  T vi[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) vi[k] = pt[k * 32];
+  const T vw0 = pt[6 * 32], vw1 = pt[7 * 32], vw2 = pt[8 * 32];
+
+  // Pass 2: columns u | g [| coupling] | rhs [| od] into the window rows,
+  // the last chunk first (its slots are still in registers).
+  RowTile<T, kTile> rt{s_a + (size_t)sl.warp * 32 * (kTile + 1), s_meta + sl.warp * 96,
+                       rows + (size_t)g * W * K, size_t(K), 1, 0};
+  // W factor w_l[i] = jc0[i] jp0[l] + jc1[i] jp1[l]; WV = W sym3(V^-1).
+  auto factors = [&](const T* j0, const T* j1, const T* q, T (&wl)[3][NP], T (&wv)[3][NP]) {
+#pragma unroll
+    for (int l = 0; l < 3; ++l)
+#pragma unroll
+      for (int i = 0; i < NP; ++i) wl[l][i] = j0[i] * q[l] + j1[i] * q[3 + l];
+#pragma unroll
+    for (int l = 0; l < 3; ++l)
+#pragma unroll
+      for (int i = 0; i < NP; ++i)
+        wv[l][i] = wl[0][i] * vi[sym_idx(0, l)] + wl[1][i] * vi[sym_idx(1, l)] +
+                   wl[2][i] * vi[sym_idx(2, l)];
+  };
+  for (int c = sl.nchunk - 1; c >= 0; --c) {
+    if (c != sl.nchunk - 1) compute(c * tc + ti);
     const T* j0 = o.jc;
     const T* j1 = o.jc + NP;
+    const T* q = o.jp;
     T wl[3][NP], wv[3][NP];
-    const int col = add_contribs<T, NP, TERMS>(rows_g, wr, self, lead, j0, j1, o.jp, o.r0,
-                                        o.r1, vi, f.use_sj, wl, wv);
-    const T s0r = o.jp[0] * vw0 + o.jp[1] * vw1 + o.jp[2] * vw2;
-    const T s1r = o.jp[3] * vw0 + o.jp[4] * vw1 + o.jp[5] * vw2;
-#pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      row_add(rows_g, wr, self + col + i, lead + col + i, j0[i] * s0r + j1[i] * s1r);
-    }
+    if constexpr (SJ) factors(j0, j1, q, wl, wv);
     if constexpr (OD) {
-      add_pair_rows<T, NP, TERMS>(rows_g, K, col + NP, w_prev, w, wv_prev, wl);
+      const size_t base = (size_t)gi * (tc + 1);
 #pragma unroll
       for (int l = 0; l < 3; ++l)
 #pragma unroll
-        for (int i = 0; i < NP; ++i) wv_prev[l][i] = wv[l][i];
-      w_prev = w;
+        for (int i = 0; i < NP; ++i)
+          s_wv[((base + ti + 1) * 3 * NP + l * NP + i) * 32 + lane] = wv[l][i];
+      s_w[(base + ti + 1) * 32 + lane] = w;
+      if (ti == 0) {  // the slot before this chunk, as pass 1 wrote it
+        int wp = -1;
+        if (c > 0 && sl.live) {
+          const size_t tsp = ((size_t)g * Tb + c * tc - 1) * Pc + p;
+          wp = int(wcam[tsp]);
+          T jcp[2 * NP], jpp[6], wlp[3][NP], wvp[3][NP];
+#pragma unroll
+          for (int k = 0; k < 2 * NP; ++k) jcp[k] = jc_out[k * GTP + tsp];
+#pragma unroll
+          for (int k = 0; k < 6; ++k) jpp[k] = jp_out[k * GTP + tsp];
+          factors(jcp, jcp + NP, jpp, wlp, wvp);
+#pragma unroll
+          for (int l = 0; l < 3; ++l)
+#pragma unroll
+            for (int i = 0; i < NP; ++i)
+              s_wv[((base + 0) * 3 * NP + l * NP + i) * 32 + lane] = wvp[l][i];
+        }
+        s_w[base * 32 + lane] = wp;
+      }
+    }
+    tile_rows(rt, w);
+    if (rt.nd > 0) {  // warp-uniform
+      int col = 0;
+#pragma unroll
+      for (int dd = 0; dd < NP; ++dd)
+#pragma unroll
+        for (int i = 0; i < NP - dd; ++i, ++col)
+          tile_put<K0>(rt, col, split_round<TERMS>(j0[i] * j0[i + dd] + j1[i] * j1[i + dd]), 0);
+#pragma unroll
+      for (int i = 0; i < NP; ++i, ++col)
+        tile_put<K0>(rt, col, split_round<TERMS>(j0[i] * o.r0 + j1[i] * o.r1), 0);
+      if constexpr (SJ) {
+#pragma unroll
+        for (int dd = 0; dd < NP; ++dd)
+#pragma unroll
+          for (int i = 0; i < NP - dd; ++i, ++col)
+            tile_put<K0>(rt, col,
+                         split_round<TERMS>(wv[0][i] * wl[0][i + dd] + wv[1][i] * wl[1][i + dd] +
+                                            wv[2][i] * wl[2][i + dd]),
+                         0);
+      }
+      const T s0r = q[0] * vw0 + q[1] * vw1 + q[2] * vw2;
+      const T s1r = q[3] * vw0 + q[4] * vw1 + q[5] * vw2;
+#pragma unroll
+      for (int i = 0; i < NP; ++i, ++col) tile_put<K0>(rt, col, j0[i] * s0r + j1[i] * s1r, 0);
+    }
+    if constexpr (OD) {
+      __syncthreads();
+      const size_t prev = (size_t)gi * (tc + 1) + ti;  // slot t - 1
+      const int w_prev = s_w[prev * 32 + lane];
+      tile_rows(rt, (w_prev >= 0 && w == w_prev + 1) ? w_prev : -1);
+      if (rt.nd > 0) {  // warp-uniform
+        const T* wvp = s_wv + prev * 3 * NP * 32 + lane;
+#pragma unroll
+        for (int i = 0; i < NP; ++i)
+#pragma unroll
+          for (int j = 0; j < NP; ++j)
+            tile_put<NP * NP>(rt, i * NP + j,
+                              split_round<TERMS>(wvp[(0 * NP + i) * 32] * wl[0][j] +
+                                                 wvp[(1 * NP + i) * 32] * wl[1][j] +
+                                                 wvp[(2 * NP + i) * 32] * wl[2][j]),
+                              K0);
+      }
+      __syncthreads();
     }
   }
 }
 
 // ---------------------------------------------------------------- B2/B3 --
-// Phase 1 of the coupling product: (W^T x) of this thread's point over its
-// track, x read from the group's window rows xw_g (NP, W) in device memory
-// (through split_round<TERMS>).
+// Phase 1 of the coupling product in one thread per point (B3's design):
+// (W^T x) of this thread's point over its track, x read from the group's
+// window rows xw_g (NP, W) in device memory (through split_round<TERMS>).
 template <typename T, int NP, int TERMS = 3>
 __device__ __forceinline__ void wt_x(const T* xw_g, const int16_t* wcam, const T* jc,
                                      const T* jp, int g, int p, bool live, int G,
@@ -173,59 +339,186 @@ __device__ __forceinline__ void wt_x(const T* xw_g, const int16_t* wcam, const T
   }
 }
 
+// Shared memory of B2 (elements): the (ng, tc, 3, 32) per-slot W^T x parts,
+// aliased by the warps' (32, NP + 1) row tiles; the (ng, 3, 32) y of each
+// point; the warps' (3, 32) tile meta.
+template <typename T, int NP>
+constexpr size_t coupling_smem(int tc, int ng) {
+  const size_t nw = size_t(tc) * ng;
+  const size_t parts = nw * 3 * 32, tiles = nw * 32 * (NP + 1);
+  return ((parts > tiles ? parts : tiles) + size_t(ng) * 3 * 32) * sizeof(T) +
+         nw * 96 * sizeof(int);
+}
+
+// B2 <- wtt_matvec.py:wtt_coupling_rows_idx.  Phase 1: each lane reads its
+// slot's window row, jc/jp and x, and its W^T x part goes to the point's
+// summing lane; y = V^-1 W^T x comes back.  Phase 2: z = jc (jp y) of the
+// slot into the (NP, W) window rows through the warp's row tile.
+//
 // TERMS < 3 (float only) is the TPU kernel's reduced-fidelity CG operator
 // (matvec_kernel "index1" / "index2", wtt_matvec.py:215): each window-row
 // value of x that a slot reads and each z value it reduces pass
 // split_round<TERMS>.
 template <typename T, int NP, int TERMS>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kCouplingThreads)
 coupling_kernel(const T* __restrict__ xw_t, const int16_t* __restrict__ wcam,
                 const T* __restrict__ jc, const T* __restrict__ jp,
                 const T* __restrict__ vinv, T* __restrict__ out, int G, int Tb,
-                int Pc, int W) {
-  const int g = blockIdx.y;
-  const int p = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = p < Pc;
-  const T* xw_g = xw_t + (size_t)g * NP * W;
-  T* out_g = out + (size_t)g * NP * W;  // (NP, W)
+                int Pc, int W, int tc, int ng) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const SlotLane sl = slot_lane(tc, ng, Tb, Pc);
+  const int lane = sl.lane, gi = sl.gi, ti = sl.ti, p = sl.p;
+  const int nw = tc * ng;
+  T* s_a = reinterpret_cast<T*>(smem);  // parts, then row tiles
+  const size_t n_a = size_t(nw) * 32 * (NP + 1);
+  T* s_y = s_a + n_a;                   // (ng, 3, 32)
+  int* s_meta = reinterpret_cast<int*>(s_y + ng * 3 * 32);
 
-  T wtx[3];
-  wt_x<T, NP, TERMS>(xw_g, wcam, jc, jp, g, p, live, G, Tb, Pc, W, wtx);
+  const int g = sl.g;
+  const T* xw_g = xw_t + (size_t)g * NP * W;
   const size_t GP = (size_t)G * Pc, GTP = GP * Tb;
+
+  // Slot t of this lane's point: window row w (-1 = padding or past the
+  // track) and its planes (zero where w = -1).  The planes are read beside
+  // the row, not after it, and a padded slot's are dropped.
+  int w;
+  T j[2 * NP], q[6];
+  auto load = [&](int t) {
+    const bool real = sl.live && t < Tb;
+    const size_t ts = ((size_t)g * Tb + t) * Pc + p;
+    w = real ? int(wcam[ts]) : -1;
+#pragma unroll
+    for (int k = 0; k < 2 * NP; ++k) j[k] = real ? jc[k * GTP + ts] : T(0);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) q[k] = real ? jp[k * GTP + ts] : T(0);
+    if (w < 0) {
+#pragma unroll
+      for (int k = 0; k < 2 * NP; ++k) j[k] = T(0);
+#pragma unroll
+      for (int k = 0; k < 6; ++k) q[k] = T(0);
+    }
+  };
+  // The point's V^-1, read ahead for the summing lanes.
   T v[6];
 #pragma unroll
-  for (int k = 0; k < 6; ++k) v[k] = live ? vinv[k * GP + (size_t)g * Pc + p] : T(0);
-  const T y0 = v[0] * wtx[0] + v[1] * wtx[1] + v[2] * wtx[2];
-  const T y1 = v[1] * wtx[0] + v[3] * wtx[1] + v[4] * wtx[2];
-  const T y2 = v[2] * wtx[0] + v[4] * wtx[1] + v[5] * wtx[2];
+  for (int k = 0; k < 6; ++k)
+    v[k] = sl.live && ti == 0 ? vinv[k * GP + (size_t)g * Pc + p] : T(0);
 
-  // Phase 2: z = jc (jp y) reduced into the (NP, W) window rows.
-  for (int t = 0; t < Tb; ++t) {
-    const size_t ts = ((size_t)g * Tb + t) * Pc + p;
-    w_slot<T, NP, TERMS>(out_g, live ? int(wcam[ts]) : -1, W, jc, jp, ts, GTP, y0, y1, y2);
+  // Phase 1: W^T x parts, summed in slot order.
+  T wtx[3] = {T(0), T(0), T(0)};
+  T* part = s_a + (size_t)(gi * tc + ti) * 3 * 32 + lane;
+  for (int c = 0; c < sl.nchunk; ++c) {
+    load(c * tc + ti);
+    T s0 = T(0), s1 = T(0);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const T xg = split_round<TERMS>(w >= 0 ? __ldg(xw_g + (size_t)i * W + w) : T(0));
+      s0 += j[i] * xg;
+      s1 += j[NP + i] * xg;
+    }
+#pragma unroll
+    for (int l = 0; l < 3; ++l) part[l * 32] = q[l] * s0 + q[3 + l] * s1;
+    __syncthreads();
+    if (ti == 0) {
+      const int n = min(tc, Tb - c * tc);
+      for (int s = 0; s < n; ++s)
+#pragma unroll
+        for (int l = 0; l < 3; ++l) wtx[l] += s_a[((size_t)(gi * tc + s) * 3 + l) * 32 + lane];
+    }
+    __syncthreads();
+  }
+  T* yp = s_y + gi * 3 * 32 + lane;
+  if (ti == 0) {
+    yp[0] = v[0] * wtx[0] + v[1] * wtx[1] + v[2] * wtx[2];
+    yp[32] = v[1] * wtx[0] + v[3] * wtx[1] + v[4] * wtx[2];
+    yp[64] = v[2] * wtx[0] + v[4] * wtx[1] + v[5] * wtx[2];
+  }
+  __syncthreads();
+  const T y0 = yp[0], y1 = yp[32], y2 = yp[64];
+
+  // Phase 2: z = jc (jp y) into the (NP, W) window rows, the last chunk
+  // first (its slots are still in registers).
+  RowTile<T, NP> rt{s_a + (size_t)sl.warp * 32 * (NP + 1), s_meta + sl.warp * 96,
+                    out + (size_t)g * NP * W, 1, size_t(W), 0};
+  for (int c = sl.nchunk - 1; c >= 0; --c) {
+    if (c != sl.nchunk - 1) load(c * tc + ti);
+    tile_rows(rt, w);
+    if (rt.nd == 0) continue;  // warp-uniform
+    const T s0p = q[0] * y0 + q[1] * y1 + q[2] * y2;
+    const T s1p = q[3] * y0 + q[4] * y1 + q[5] * y2;
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+      tile_put<NP>(rt, i, split_round<TERMS>(j[i] * s0p + j[NP + i] * s1p), 0);
   }
 }
 
 // ---------------------------------------------------------------- host --
+// The launch of B1 or B2 at the wrapper's geometry: tc warps per 32-point
+// group, ng groups per block, `smem` bytes, which must be the kernel's own
+// count (kErrGeom otherwise); above 48 KB the kernel is opted in first.
+template <typename K>
+int slot_launch(K kernel, int max_threads, size_t need, int tc, int ng, int smem, int G,
+                int Pc, dim3& grid, dim3& block) {
+  if (tc < 1 || ng < 1 || tc * ng * 32 > max_threads || size_t(smem) != need) return kErrGeom;
+  if (need > 48 * 1024) {
+    const int e = prepare(kernel, need);
+    if (e) return e;
+  }
+  grid = dim3(unsigned((Pc + 32 * ng - 1) / (32 * ng)) * unsigned(G));
+  block = dim3(32 * tc * ng);
+  return 0;
+}
+
+template <typename T, int NP, bool SJ, bool OD, int TERMS>
+int lin_launch_sj(const void* wcam, const void* tw, const void* pts, const void* uv,
+                  const void* mask, const void* lam, const void* inv_w, void* rows,
+                  void* jc, void* jp, void* vinv, void* gpt, void* damp, int G, int Tb,
+                  int Pc, int W, LinFlags f, int tc, int ng, int smem,
+                  cudaStream_t stream) {
+  auto kernel = lin_kernel<T, NP, SJ, OD, TERMS>;
+  dim3 grid, block;
+  const int e = slot_launch(kernel, lin_threads<T>(), lin_smem<T, NP, OD>(tc, ng), tc, ng,
+                            smem, G, Pc, grid, block);
+  if (e) return e;
+  kernel<<<grid, block, smem, stream>>>(
+      (const int16_t*)wcam, (const T*)tw, (const T*)pts, (const T*)uv, (const T*)mask,
+      (const T*)lam, (const T*)inv_w, (T*)rows, (T*)jc, (T*)jp, (T*)vinv, (T*)gpt,
+      (T*)damp, G, Tb, Pc, W, f, tc, ng);
+  return (int)cudaGetLastError();
+}
+
+// B1 with want_od (OD) or without, on f.use_sj (OD needs it: kErrOd).
 template <typename T, int NP, bool OD, int TERMS>
 int lin_launch(const void* wcam, const void* tw, const void* pts, const void* uv,
                const void* mask, const void* lam, const void* inv_w, void* rows,
                void* jc, void* jp, void* vinv, void* gpt, void* damp, int G,
-               int Tb, int Pc, int W, LinFlags f, cudaStream_t stream) {
-  lin_kernel<T, NP, OD, TERMS><<<grid_of(Pc, G), kBlock, 0, stream>>>(
-      (const int16_t*)wcam, (const T*)tw, (const T*)pts, (const T*)uv,
-      (const T*)mask, (const T*)lam, (const T*)inv_w, (T*)rows, (T*)jc,
-      (T*)jp, (T*)vinv, (T*)gpt, (T*)damp, G, Tb, Pc, W, f);
-  return (int)cudaGetLastError();
+               int Tb, int Pc, int W, LinFlags f, int tc, int ng, int smem,
+               cudaStream_t stream) {
+  if (f.use_sj)
+    return lin_launch_sj<T, NP, true, OD, TERMS>(wcam, tw, pts, uv, mask, lam, inv_w, rows,
+                                                 jc, jp, vinv, gpt, damp, G, Tb, Pc, W, f,
+                                                 tc, ng, smem, stream);
+  if constexpr (OD) {
+    return kErrOd;
+  } else {
+    return lin_launch_sj<T, NP, false, false, TERMS>(wcam, tw, pts, uv, mask, lam, inv_w,
+                                                     rows, jc, jp, vinv, gpt, damp, G, Tb,
+                                                     Pc, W, f, tc, ng, smem, stream);
+  }
 }
 
 template <typename T, int NP, int TERMS>
 int coupling_launch(const void* xw_t, const void* wcam, const void* jc,
                     const void* jp, const void* vinv, void* out, int G, int Tb,
-                    int Pc, int W, cudaStream_t stream) {
-  coupling_kernel<T, NP, TERMS><<<grid_of(Pc, G), kBlock, 0, stream>>>(
-      (const T*)xw_t, (const int16_t*)wcam, (const T*)jc, (const T*)jp,
-      (const T*)vinv, (T*)out, G, Tb, Pc, W);
+                    int Pc, int W, int tc, int ng, int smem, cudaStream_t stream) {
+  auto kernel = coupling_kernel<T, NP, TERMS>;
+  dim3 grid, block;
+  const int e = slot_launch(kernel, kCouplingThreads, coupling_smem<T, NP>(tc, ng), tc, ng,
+                            smem, G, Pc, grid, block);
+  if (e) return e;
+  kernel<<<grid, block, smem, stream>>>((const T*)xw_t, (const int16_t*)wcam, (const T*)jc,
+                                        (const T*)jp, (const T*)vinv, (T*)out, G, Tb, Pc, W,
+                                        tc, ng);
   return (int)cudaGetLastError();
 }
 
@@ -240,9 +533,11 @@ int wtt_linearize_reduced(int np, int terms, const void* wcam, const void* tw,
                           const void* pts, const void* uv, const void* mask,
                           const void* lam, const void* inv_w, void* rows, void* jc,
                           void* jp, void* vinv, void* gpt, void* damp, int G, int Tb,
-                          int Pc, int W, int want_od, LinFlags f, cudaStream_t stream);
+                          int Pc, int W, int want_od, LinFlags f, int tc, int ng, int smem,
+                          cudaStream_t stream);
 int wtt_coupling_reduced(int np, int terms, const void* xw_t, const void* wcam,
                          const void* jc, const void* jp, const void* vinv, void* out,
-                         int G, int Tb, int Pc, int W, cudaStream_t stream);
+                         int G, int Tb, int Pc, int W, int tc, int ng, int smem,
+                         cudaStream_t stream);
 
 }  // namespace tpu3drecon

@@ -29,16 +29,17 @@ int wtt_linearize_reduced(int np, int terms, const void* wcam, const void* tw,
                           const void* pts, const void* uv, const void* mask,
                           const void* lam, const void* inv_w, void* rows, void* jc,
                           void* jp, void* vinv, void* gpt, void* damp, int G, int Tb,
-                          int Pc, int W, int want_od, LinFlags f, cudaStream_t s) {
+                          int Pc, int W, int want_od, LinFlags f, int tc, int ng, int smem,
+                          cudaStream_t s) {
   if (terms != 2) return kErrTerms;
   using T = float;
 #define LIN2(NPV)                                                                        \
   return want_od ? lin_launch<T, NPV, true, 2>(wcam, tw, pts, uv, mask, lam, inv_w, rows, \
                                                jc, jp, vinv, gpt, damp, G, Tb, Pc, W, f,   \
-                                               s)                                          \
+                                               tc, ng, smem, s)                            \
                  : lin_launch<T, NPV, false, 2>(wcam, tw, pts, uv, mask, lam, inv_w, rows, \
                                                 jc, jp, vinv, gpt, damp, G, Tb, Pc, W, f,  \
-                                                s)
+                                                tc, ng, smem, s)
   if (np == 8) LIN2(8);
   if (np == 10) LIN2(10);
   if (np == 12) LIN2(12);
@@ -48,10 +49,12 @@ int wtt_linearize_reduced(int np, int terms, const void* wcam, const void* tw,
 
 int wtt_coupling_reduced(int np, int terms, const void* xw_t, const void* wcam,
                          const void* jc, const void* jp, const void* vinv, void* out,
-                         int G, int Tb, int Pc, int W, cudaStream_t s) {
+                         int G, int Tb, int Pc, int W, int tc, int ng, int smem,
+                         cudaStream_t s) {
   using T = float;
 #define COUP(NPV, TERMSV) \
-  return coupling_launch<T, NPV, TERMSV>(xw_t, wcam, jc, jp, vinv, out, G, Tb, Pc, W, s)
+  return coupling_launch<T, NPV, TERMSV>(xw_t, wcam, jc, jp, vinv, out, G, Tb, Pc, W, tc, ng, \
+                                         smem, s)
   if (terms == 1) {
     if (np == 8) COUP(8, 1);
     if (np == 10) COUP(10, 1);

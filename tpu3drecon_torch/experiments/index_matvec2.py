@@ -3,13 +3,14 @@ the BAL buckets.
 
 Counterpart of ``experiments/tpu_index_matvec2.py``, which timed a copy of
 the TPU coupling kernel over block size, MXU precision, one-hot build and
-tile reuse to attribute its time.  Here a copy of B2
-(``csrc/probe_kernels.cu`` ``probe_coupling``, float32, np = 8) runs on the
+tile reuse to attribute its time.  Here a copy of B2's earlier design,
+one thread per point column (``csrc/probe_kernels.cu`` ``probe_coupling``,
+float32, np = 8; B2 itself is now slot-major), runs on the
 linearized buckets of the 1712-camera BAL sequential problem
 (``bal_sequential_wtt()``, unsplit, lam = 1e-3) in five variants:
 
-- ``block128`` / ``block256`` / ``block512``: B2's work at 128, 256 (B2's
-  own) and 512 threads per block;
+- ``block128`` / ``block256`` / ``block512``: the copy's work at 128, 256
+  (its own) and 512 threads per block;
 - ``no_gather``: every live slot reads window row 0 of x and reduces into
   row 0 (E1's "const" one-hot build: no camera-row gather, every warp on
   one row);

@@ -57,10 +57,11 @@ _D = ctypes.c_double
 _SIGNATURES = {
     # dtype, np, terms, wcam, tw, pts, uv, mask, lam, inv_w, rows, jc, jp,
     # vinv, gpt, damp, G, Tb, Pc, W, use_sj, want_od, loss, focal, points,
-    # dist, pp, stream
-    "wtt_linearize": [_I, _I, _I] + [_P] * 13 + [_I] * 11 + [_P],
-    # dtype, np, terms, xw_t, wcam, jc, jp, vinv, out, G, Tb, Pc, W, stream
-    "wtt_coupling": [_I, _I, _I] + [_P] * 6 + [_I] * 4 + [_P],
+    # dist, pp, tc, ng, smem, stream
+    "wtt_linearize": [_I, _I, _I] + [_P] * 13 + [_I] * 14 + [_P],
+    # dtype, np, terms, xw_t, wcam, jc, jp, vinv, out, G, Tb, Pc, W, tc, ng,
+    # smem, stream
+    "wtt_coupling": [_I, _I, _I] + [_P] * 6 + [_I] * 7 + [_P],
     # dtype, np, xw_t, wcam, jc, jp, out, G, Tb, Pc, W, stream
     "wtt_wt_planes": [_I, _I] + [_P] * 5 + [_I] * 4 + [_P],
     # dtype, wcam, tw, pts, uv, mask, out, G, Tb, Pc, W, loss, stream

@@ -1,7 +1,8 @@
 """Shared plumbing of the kernel wrappers: input checks and the device
 dispatch rule (all wrappers), the window-row gather and scatter of the
-wtt plain versions, and the bfloat16 split rounding of their
-reduced-fidelity modes.
+wtt plain versions, the bfloat16 split rounding of their
+reduced-fidelity modes, and the launch geometry of the slot-major
+kernels B1 and B2.
 
 Dispatch rule of every public kernel function: a CPU tensor goes to the
 plain PyTorch version; a CUDA tensor launches the CUDA kernel or raises.
@@ -9,6 +10,8 @@ There is no fallback from one to the other.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -88,3 +91,83 @@ def split_round(x: torch.Tensor, terms: int) -> torch.Tensor:
         rem = rem - h
         acc = acc + h
     return acc
+
+
+# ------------------------------------------------- slot-major geometry ---
+# B1 and B2 (csrc/wtt_kernels.cuh) run one lane per track slot: a warp holds
+# slot t of 32 consecutive point columns, a block holds `groups` such
+# 32-point groups as `warps` warps each, and a track longer than `warps`
+# slots is walked in `chunks` chunks.  The C entries check the shared bytes
+# against their own count (lin_smem / coupling_smem), so these formulas are
+# the kernels' layout.
+SMEM_PER_BLOCK = 232_448  # the H100's opt-in shared memory per block
+TILE_COLS = 32  # B1's row-tile columns (csrc/slot.cuh kTile)
+TARGET_WARPS = 8  # warps per block the geometry aims at (256 threads)
+INT_BYTES = 4
+
+
+def max_threads(kernel: str, itemsize: int) -> int:
+    """Threads per block at most of B1 ("lin") or B2 ("coupling"): their
+    ``__launch_bounds__``, which bound the registers per thread."""
+    if kernel == "lin":
+        return 512 if itemsize == 4 else 256
+    if kernel == "coupling":
+        return 512
+    raise ValueError(f"kernel must be 'lin' or 'coupling', not {kernel!r}")
+
+
+def slot_smem(kernel: str, warps: int, groups: int, np_cam: int, itemsize: int,
+              want_od: bool = False) -> int:
+    """Shared bytes of one block: the per-slot parts of the per-point sums
+    (9 values for B1, 3 for B2) aliased by the warps' (32, cols + 1) row
+    tiles, the per-point values shared back (9, 3), B1's od factors and
+    rows of the chunk's slots and the one before it, and each warp's
+    (3, 32) int tile meta."""
+    nw = warps * groups
+    if kernel == "lin":
+        vals = max(nw * 9 * 32, nw * 32 * (TILE_COLS + 1)) + groups * 9 * 32
+        ints = nw * 96
+        if want_od:
+            vals += groups * (warps + 1) * 3 * np_cam * 32
+            ints += groups * (warps + 1) * 32
+    elif kernel == "coupling":
+        vals = max(nw * 3 * 32, nw * 32 * (np_cam + 1)) + groups * 3 * 32
+        ints = nw * 96
+    else:
+        raise ValueError(f"kernel must be 'lin' or 'coupling', not {kernel!r}")
+    return vals * itemsize + ints * INT_BYTES
+
+
+class SlotGeometry(NamedTuple):
+    """Launch geometry of B1 or B2 on one bucket."""
+
+    warps: int  # warps (track slots) per 32-point group and chunk
+    groups: int  # 32-point groups per block
+    chunks: int  # chunks per track: ceil(Tb / warps)
+    blocks: int  # blocks along the point axis: ceil(Pc / (32 * groups))
+    smem: int  # shared bytes per block
+
+
+def slot_geometry(kernel: str, tb: int, pc: int, np_cam: int, itemsize: int,
+                  want_od: bool = False, limit: int = SMEM_PER_BLOCK) -> SlotGeometry:
+    """The geometry of B1 ("lin") or B2 ("coupling") on a bucket of ``tb``
+    slots per track and ``pc`` point columns: as many warps per group as
+    the track has slots, up to the kernel's thread limit (a longer track is
+    cut into balanced chunks); short tracks share a block, up to
+    ``TARGET_WARPS`` warps; groups, then warps per group, shrink until the
+    shared bytes fit ``limit``."""
+    tb = max(int(tb), 1)
+    max_warps = max_threads(kernel, itemsize) // 32
+    warps = -(-tb // -(-tb // max_warps))
+    groups = max(1, min(TARGET_WARPS // warps, -(-pc // 32)))
+
+    def smem(w, gr):
+        return slot_smem(kernel, w, gr, np_cam, itemsize, want_od)
+
+    while smem(warps, groups) > limit and groups > 1:
+        groups -= 1
+    while smem(warps, groups) > limit and warps > 1:
+        warps = -(-tb // (-(-tb // warps) + 1))
+    return SlotGeometry(warps, groups, -(-tb // warps), -(-pc // (32 * groups)),
+                        smem(warps, groups))
+

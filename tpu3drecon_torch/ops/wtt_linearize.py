@@ -25,12 +25,15 @@ from jc, jp, r and v_inv in device memory.  The unfused linearization of
 PyTorch, then B8: the JAX engine's XLA route, whose two one-hot einsums
 these kernels compute without the one-hot.
 
-CUDA kernels: B1 (``csrc/wtt_kernels.cu:lin_kernel``) takes one thread per
-point column, two passes over the track (planes and point normal, then the
-K columns into the global rows with atomics).  On the H100 it is bound by
-those atomics: K = 88 per slot at np = 8 (152 with the od columns); warps
-whose live lanes share a window row reduce with shuffles first.  The od
-pairs keep the previous slot's W V^-1 factor in registers.  B8
+CUDA kernels: B1 (``csrc/wtt_kernels.cuh:lin_kernel``) is slot-major:
+one lane per track slot computes its planes once (pass 1: jc/jp out, the
+V | g_pt parts to shared memory, where one lane per point adds them in
+slot order and forms V^-1) and keeps them in registers for pass 2, which
+puts the K columns (88 per slot at np = 8, 152 with the od columns) into
+each warp's row tile; one lane per (row, column) sends the atomic.  The od
+pairs read slot t-1's W V^-1 factor from the copy its warp left in shared
+memory.  ``_wtt_common.slot_geometry`` gives the launch geometry.  On the
+H100 it is bound by latency at the occupancy its registers allow.  B8
 (``csrc/wtt_route_kernels.cu:contrib_kernel``) is B1's pass 2 alone and B7
 (``cam_planes_kernel``) a per-slot copy bound by the 19 planes it writes.
 Row sums are atomic, so f32 rows vary in the last bits from run to run.
@@ -57,6 +60,7 @@ from tpu3drecon_torch.ops._wtt_common import (
     is_cuda_call,
     reduce_rows,
     select_rows,
+    slot_geometry,
     split_round,
 )
 from tpu3drecon_torch.solvers.ba_tt import (
@@ -256,6 +260,7 @@ def _launch(wcam, tw, pts, uv, mask, lam, inv_w, cfg, np_cam, use_sj, want_od, t
     v_inv = torch.empty((6, g, pc), dtype=dtype, device=dev)
     g_pt = torch.empty((3, g, pc), dtype=dtype, device=dev)
     damp = torch.empty((3, g, pc), dtype=dtype, device=dev)
+    geo = slot_geometry("lin", tb, pc, np_cam, tw.element_size(), want_od)
     lib = _build.library()
     code = lib.wtt_linearize(
         _build.dtype_code(dtype), np_cam, terms, wcam.data_ptr(), tw.data_ptr(),
@@ -264,7 +269,7 @@ def _launch(wcam, tw, pts, uv, mask, lam, inv_w, cfg, np_cam, use_sj, want_od, t
         v_inv.data_ptr(), g_pt.data_ptr(), damp.data_ptr(), g, tb, pc, window,
         int(use_sj), int(want_od), LOSS_CODES[cfg.loss], int(cfg.optimize_focal),
         int(cfg.optimize_points), int(cfg.optimize_dist), int(cfg.optimize_pp),
-        _build.stream_ptr(dev),
+        geo.warps, geo.groups, geo.smem, _build.stream_ptr(dev),
     )
     _build.check(lib, name, code)
     _lin_counter(want_od, terms).launched(_build.GLOBAL)

@@ -13,12 +13,17 @@ slot's window row read from the dense one-hot (G, W, Tb*Pc) instead of
 ``wcam`` (``matvec_kernel=True``/``"fused"``); its plain version is the
 literal one-hot product.
 
-CUDA kernels (``csrc/wtt_kernels.cu``): one thread per point column, x
-read from the group's window rows in device memory.  B2 keeps W^T x and y
-in registers and reduces only z across threads (warp-aggregated atomics
-straight into the zeroed (np, W) rows); on the H100 it is bound by those
-atomics and the jc/jp stream (2 np + 6 planes per slot).  B3 has no
-cross-thread reduction and is bound by the jc/jp bytes it reads.  B5 and
+CUDA kernels (``csrc/wtt_kernels.cu``), x read from the group's window
+rows in device memory.  B2 is slot-major (``csrc/wtt_kernels.cuh``): one
+lane per track slot, its jc/jp read once into registers; the W^T x parts
+of a point's slots meet in shared memory, where one lane adds them in
+slot order and shares y back, and z goes into the zeroed (np, W) rows
+through each warp's row tile, one atomic per (row, column) from every lane
+at once.  ``_wtt_common.slot_geometry`` gives its launch geometry.  On the
+H100 it is bound by those atomics on the medium buckets and by the jc/jp
+stream (2 np + 6 planes per slot) on the BAL ones.  B3 takes one thread
+per point column, has no cross-thread reduction and is bound by the jc/jp
+bytes it reads.  B5 and
 B6 (``csrc/wtt_route_kernels.cu``) reuse B2's per-slot halves; B6 scans
 each slot's one-hot column and keeps its first nonzero row, so it agrees
 with the literal product on a one-hot with at most one 1 per column and
@@ -50,6 +55,7 @@ from tpu3drecon_torch.ops._wtt_common import (
     check_shape,
     is_cuda_call,
     reduce_rows,
+    slot_geometry,
     slot_index,
     split_round,
 )
@@ -169,12 +175,13 @@ def wtt_coupling_rows_idx(xw_t, wcam, jc, jp, v_inv, terms: int = 3):
         return wtt_coupling_rows_idx_plain(xw_t, wcam, jc, jp, v_inv, terms)
     name = "wtt_coupling_rows_idx"
     np_cam, g, tb, pc, window = _check(name, xw_t, wcam, jc, jp, v_inv)
+    geo = slot_geometry("coupling", tb, pc, np_cam, xw_t.element_size())
     out = torch.zeros((g, np_cam, window), dtype=xw_t.dtype, device=xw_t.device)
     lib = _build.library()
     code = lib.wtt_coupling(
         _build.dtype_code(xw_t.dtype), np_cam, terms, xw_t.data_ptr(), wcam.data_ptr(),
         jc.data_ptr(), jp.data_ptr(), v_inv.data_ptr(), out.data_ptr(),
-        g, tb, pc, window, _build.stream_ptr(xw_t.device),
+        g, tb, pc, window, geo.warps, geo.groups, geo.smem, _build.stream_ptr(xw_t.device),
     )
     _build.check(lib, name, code)
     counter.launched(_build.GLOBAL)
