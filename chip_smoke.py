@@ -22,7 +22,7 @@ Phases (any failure exits non-zero and prints no result line):
    buckets packed with their dense int8 one-hot
    (``wtt_from_flat(defer_onehot=False)``), in float32 and float64: B7
    bit-equal, B8 with and without the Schur-Jacobi columns, B6 with the
-   int8 one-hot and in float64 also with a float64 one-hot; then on the
+   int8 one-hot and with the same one-hot in the data's float type; then on the
    first bucket with window row 0 set to NaN and used by padded slots only
    (and NaN jc/jp/r on padded slots for B5 and B8), which must read exact
    zeros.
@@ -47,9 +47,10 @@ Phases (any failure exits non-zero and prints no result line):
     B8 od, B12-B16) against its plain version on the medium wtt and tt
     buckets, in float32 and float64, with the padded slots poisoned (window
     row 0 NaN and only padded slots on it, NaN jc/jp/r on padded slots for
-    B5 and B8, an extra NaN camera carried only by padded tt slots); B6 and
-    B15, which keep a shared-memory mode, also with the global-memory mode
-    forced (``_mode``), whose f32 time is their ``global_ms``.
+    B5 and B8, an extra NaN camera carried only by padded tt slots); B15,
+    which keeps a block-shared tile at small camera counts, also with the
+    global-memory mode forced (``_mode``), whose f32 time is its
+    ``global_ms``.
 11. The BAL-scale sequential problem: ``bal_sequential_wtt`` (1712
     cameras, 999,808 points, 3,808,166 observations, f32) built on the
     card, its build time and buckets logged.
@@ -118,13 +119,15 @@ B12's U|g columns, B13 and B15 are atomic sums whose order varies; B9's U
 and g and B11's blocks are block reductions in another order than the
 plain version's); B7 (a selection) exactly.  Each row of the kernel table
 gives its ``mode``: the memory mode its wrapper counted during the timed
-calls of its ``ms`` (``global``; ``shared`` for B6 and B15 on the medium
-buckets; none for B7, B9-B11 and E4, which have no mode), which must match
-the row's label; B6's and B15's rows add ``global_ms``, the same inputs' time
-with the global-memory mode forced.  The rows ``B1 [hub]`` (the hub
-buckets), ``B1 od [np=10]`` (the BAL buckets with ``optimize_dist``) and
-``B12 [C=1024]`` (tt_seq1024) time those kernels at the widths that a
-shared tile could not hold, and count their launches on those paths.  The
+calls of its ``ms`` (``global``; ``shared`` for B15 on the medium buckets,
+whose (C, np) tile has at most 2,048 entries; none for B7, B9-B11 and E4,
+which have no mode), which must match the row's label; B15's row adds
+``global_ms``, the same inputs' time with the global-memory mode forced.
+The rows ``B1 [hub]`` (the hub buckets), ``B1 od [np=10]`` (the BAL buckets
+with ``optimize_dist``), ``B12 [C=1024]`` and ``B15 [C=1024]``
+(tt_seq1024, B15 there in its global mode) time those kernels at the
+widths that a shared tile could not hold or does not serve, and count
+their launches on those paths.  The
 rows ``B2 [terms 1]``, ``B2 [terms 2]`` and ``B1 [terms 2]`` (medium
 buckets) and ``B1 od [terms 2]`` (BAL buckets) time the reduced-fidelity
 kernels and count their launches on the split paths that run them; ``E4
@@ -199,8 +202,8 @@ SHARED, GLOBAL = "shared", "global"  # tpu3drecon_torch.ops._build's modes
 # (module under tpu3drecon_torch, counter attribute, kernel name, source,
 # replaced TPU kernel, paths, the memory mode of its ms: the kernels read
 # camera rows from device memory and reduce into the output rows directly,
-# B6 and B15 use their shared mode where it fits, B7, B9-B11 and E4 have no
-# mode)
+# B15 into a block-shared tile at small camera counts, B7, B9-B11 and E4
+# have no mode)
 ALL_SPLIT = {SPLIT, SPLIT2, SPLIT1, SPLIT2_SSOR, HUB_SPLIT}
 KERNELS = (
     ("ops.wtt_linearize", "COUNTS", "wtt_linearize_fused_idx", WTT_SRC, f"{LIN_PY}:554",
@@ -215,7 +218,7 @@ KERNELS = (
     ("ops.wtt_matvec", "W_ROWS_COUNTS", "wtt_w_rows_idx", ROUTE_SRC, f"{MV_PY}:468",
      {UNFUSED, BAL_TRI}, GLOBAL),
     ("ops.wtt_matvec", "FUSED_COUNTS", "wtt_coupling_rows_fused", ROUTE_SRC, f"{MV_PY}:526",
-     {ONEHOT}, SHARED),
+     {ONEHOT}, GLOBAL),
     ("ops.wtt_linearize", "CAM_PLANES_COUNTS", "wtt_cam_planes_idx", ROUTE_SRC,
      f"{LIN_PY}:229", {UNFUSED, ONEHOT, BAL_TRI}, None),
     ("ops.wtt_linearize", "CONTRIB_COUNTS", "wtt_contrib_rows_idx", ROUTE_SRC,
@@ -241,11 +244,14 @@ KERNELS = (
      GLOBAL),
     ("ops.wtt_linearize", "CONTRIB_OD_COUNTS", "B8 od", ROUTE_SRC, f"{LIN_PY}:163",
      {BAL_TRI}, GLOBAL),
-    # B1, B1 od and B12 at the widths that a shared tile could not hold.
+    # B1, B1 od and B12 at the widths that a shared tile could not hold, and
+    # B15 at the camera count where it takes its global mode.
     ("ops.wtt_linearize", "COUNTS", "B1 [hub]", WTT_SRC, f"{LIN_PY}:554", {HUB}, GLOBAL),
     ("ops.wtt_linearize", "OD_COUNTS", "B1 od [np=10]", WTT_SRC, f"{LIN_PY}:515", {NP10},
      GLOBAL),
     ("ops.tt_linearize", "CAM_COUNTS", "B12 [C=1024]", TT_SRC, f"{TT_PY}:221", {TT1024},
+     GLOBAL),
+    ("ops.tt_linearize", "W_COUNTS", "B15 [C=1024]", TT_SRC, f"{TT_PY}:475", {TT1024},
      GLOBAL),
     # The reduced-fidelity branches: B2 at terms 1 and 2, B1 (and B1 od) at
     # terms 2, on the split BAL paths that run them.
@@ -263,9 +269,9 @@ KERNELS = (
     ("experiments.bits_expand", "LAYOUT_B_COUNTS", "E4 B", PROBE_SRC,
      "experiments/tpu_bits_expand_probe.py:51", {E4}, None),
 )
-# The kernels that keep a shared-memory mode beside the global one: their
-# rows add global_ms, the time of the same inputs with the global mode forced.
-TWO_MODES = ("wtt_coupling_rows_fused", "tt_w_times_fused")
+# The kernel that keeps a shared-memory mode beside the global one: its row
+# adds global_ms, the time of the same inputs with the global mode forced.
+TWO_MODES = ("tt_w_times_fused",)
 TOL = {  # (per-element, summed) bounds relative to max|plain|
     torch.float32: (1e-5, 1e-4),
     torch.float64: (1e-12, 1e-10),
@@ -336,8 +342,8 @@ def timed(kernel: str, fn) -> float:
 
 
 def time_global_ms(kernel: str, fn) -> None:
-    """Adds the device time of ``fn(_mode=GLOBAL)`` (B6 or B15 forced into
-    its global-memory mode) to the row's ``global_ms``."""
+    """Adds the device time of ``fn(_mode=GLOBAL)`` (B15 forced into its
+    global-memory mode) to the row's ``global_ms``."""
     counter = counters()[kernel]
     before = dict(counter.modes)
     RESULTS[kernel]["global_ms"] += device_ms(lambda: fn(_mode=GLOBAL))
@@ -549,8 +555,7 @@ def check_route_kernels(problem) -> None:
             rows_b5 = mv.wtt_w_rows_idx(*b5)
             errs["B5"] = compare("wtt_w_rows_idx", tag, "", rows_b5,
                                  mv.wtt_w_rows_idx_plain(*b5), summed)
-            onehots = [bucket.onehot] + ([bucket.onehot.to(dtype)] if tag == "f64" else [])
-            for oh in onehots:
+            for oh in (bucket.onehot, bucket.onehot.to(dtype)):
                 b6 = (d["xw_t"], oh, jc, jp, v_inv)
                 out_b6 = mv.wtt_coupling_rows_fused(*b6)
                 errs[f"B6 {oh.dtype}"] = compare(
@@ -867,7 +872,7 @@ def check_tt_kernels(problem) -> None:
 def check_poisoned(kernel: str, tag: str, output: str, fn, plain, rel,
                    time_global: bool = False) -> float:
     """``fn()`` against ``plain()`` on inputs with poisoned padded slots:
-    outputs finite and within ``rel``.  For B6 and B15 also
+    outputs finite and within ``rel``.  For B15 also
     ``fn(_mode=GLOBAL)``, and with ``time_global`` that call's device time
     is added to the kernel's ``global_ms``.  Returns the largest
     max|diff|."""
@@ -895,9 +900,9 @@ def check_padded_slots(wtt, tt) -> None:
     reduces into rows against its plain version on the medium buckets, f32
     and f64, with the padded slots poisoned (window row 0 NaN and only
     padded slots on it; NaN jc/jp/r on padded slots for B5 and B8; for the
-    tt kernels an extra NaN camera that only padded slots carry); B6 and
-    B15 also in their forced global-memory mode, whose f32 device time per
-    pass is their ``global_ms``."""
+    tt kernels an extra NaN camera that only padded slots carry); B15 also
+    in its forced global-memory mode, whose f32 device time per pass is its
+    ``global_ms``."""
     from tpu3drecon_torch.geometry.losses import RobustLoss
     from tpu3drecon_torch.ops import _build
     from tpu3drecon_torch.ops import tt_linearize as tt_ops
@@ -941,8 +946,8 @@ def check_padded_slots(wtt, tt) -> None:
             b6 = (d["xw_t"], onehot.to(torch.int8), jc, jp, v_inv)
             errs["B6"] = check_poisoned(
                 "wtt_coupling_rows_fused", tag, "rows",
-                lambda **kw: mv.wtt_coupling_rows_fused(*b6, **kw),
-                lambda: mv.wtt_coupling_rows_fused_plain(*b6), summed, time_global=t)
+                lambda: mv.wtt_coupling_rows_fused(*b6),
+                lambda: mv.wtt_coupling_rows_fused_plain(*b6), summed)
             r = torch.randn(2, g, tb, pc, generator=torch.Generator().manual_seed(bi),
                             dtype=torch.float64).to(jc.device, dtype)
             jc_n, jp_n, r_n = nan_on(pad, jc, jp, r)
@@ -956,7 +961,7 @@ def check_padded_slots(wtt, tt) -> None:
                     name, tag, "rows", lambda b8=b8: lin.wtt_contrib_rows_idx(*b8),
                     lambda b8=b8: lin.wtt_contrib_rows_idx_plain(*b8), summed)
             log(f"check {tag} padded slots, wtt bucket {bi} (G={g} Tb={tb} Pc={pc} W={w}, "
-                f"{int(pad.sum())} padded slots poisoned; B6 also global): "
+                f"{int(pad.sum())} padded slots poisoned): "
                 + " ".join(f"{k} {v:.3e}" for k, v in errs.items()))
 
         for bi, d in enumerate(tt_kernel_inputs(tt, dtype)):
@@ -992,7 +997,7 @@ def check_padded_slots(wtt, tt) -> None:
                 f"Pb={mask.shape[1]}, {int((mask == 0).sum())} padded slots on a NaN "
                 "camera; B15 also global): "
                 + " ".join(f"{k} {v:.3e}" for k, v in errs.items()))
-    log("B6 and B15, device ms per pass (f32, cold L2), shared -> global mode forced: "
+    log("B15, device ms per pass (f32, cold L2), shared -> global mode forced: "
         + ", ".join(f"{k} {RESULTS[k]['ms']:.6f} -> {RESULTS[k]['global_ms']:.6f}"
                     for k in TWO_MODES))
 
@@ -1180,12 +1185,13 @@ def run_probe_e4(launches: dict) -> None:
 def check_tt1024_kernels(tt) -> None:
     """B12-B16 on the 1024-camera track table (f32), each mode printed:
     B12 timed as the ``B12 [C=1024]`` row (camera columns that no shared
-    tile of the card could hold)."""
+    tile of the card could hold), B15 as ``B15 [C=1024]`` (its global
+    mode: a (C, np) tile of 8,192 entries measured slower)."""
     from tpu3drecon_torch.ops import tt_linearize as tt_ops
     from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
 
     elem, summed = TOL[torch.float32]
-    row = "B12 [C=1024]"
+    row, row15 = "B12 [C=1024]", "B15 [C=1024]"
     c = tt.n_cameras
     for bi, d in enumerate(tt_kernel_inputs(tt, torch.float32)):
         tb, pb = d["mask"].shape
@@ -1196,7 +1202,9 @@ def check_tt1024_kernels(tt) -> None:
         want = tt_ops.tt_cam_normal_fused_plain(*args)
         errs = {"B12": max(compare(row, "f32", k, a, b, summed if k == "ug" else elem)
                            for k, a, b in zip(("jc", "jp", "v6", "g_pt", "ug"), got, want))}
-        check_tt_followers("f32 C=1024", "", *tt_follower_args(d, want, c), errs)
+        b13, b14, b15 = tt_follower_args(d, want, c)
+        wy = check_tt_followers("f32 C=1024", "", b13, b14, b15, errs)[2]
+        compare(row15, "f32", "", wy, tt_ops.tt_w_times_fused_plain(*b15), summed)
         errs["B16"] = compare("tt_cost_fused", "f32 C=1024", "",
                               tt_ops.tt_cost_fused(*args[:7]),
                               tt_ops.tt_cost_fused_plain(*args[:7]), elem)
@@ -1205,9 +1213,13 @@ def check_tt1024_kernels(tt) -> None:
             ("B14", "tt_wt_times_fused"), ("B15", "tt_w_times_fused"),
             ("B16", "tt_cost_fused"))}
         ms = timed(row, lambda: tt_ops.tt_cam_normal_fused(*args))
+        ms15 = RESULTS[row15]["ms"]
+        account(row15, lambda: tt_ops.tt_w_times_fused(*b15),
+                lambda: tt_ops.tt_w_times_fused_plain(*b15), nbytes(*b15[:5], wy),
+                FLOPS["tt_w_times_fused"] * tb * pb)
         log(f"check f32 tt_seq1024 bucket {bi} (C={c} Tb={tb} Pb={pb}): "
             + " ".join(f"{k} {v:.3e} [{modes[k]}]" for k, v in errs.items())
-            + f"; B12 {ms:.6f} ms")
+            + f"; B12 {ms:.6f} ms, B15 {RESULTS[row15]['ms'] - ms15:.6f} ms")
         RESULTS[row]["ms"] += ms
         RESULTS[row]["plain_ms"] += device_ms(lambda: tt_ops.tt_cam_normal_fused_plain(*args))
         RESULTS[row]["bytes"] += nbytes(*args[:6], *got)

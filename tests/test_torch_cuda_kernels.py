@@ -4,14 +4,15 @@ one-hot routes (B5-B8), B1's and B8's band pair rows (``want_od``), B1 at
 terms 2 and B2 at terms 1 and 2 (the reduced-fidelity modes), the grid
 engine's three (B9-B11), the dense track table's five (B12-B16), and the
 probe kernels of ``tpu3drecon_torch.experiments`` (E1's copies of B2, E4's
-bit expansion); the slot-major B1 and B2 also on tracks longer than one
-block's chunk, all-padding buckets, the hub layout's width and warps whose
-lanes hit different rows.
+bit expansion); the slot-major B1, B2, B6 and B15 also on tracks longer
+than one block's chunk, all-padding buckets, the hub layout's width and
+warps whose lanes hit different rows; B6 at every one-hot load width.
 The kernels read camera rows from device memory and reduce into the output
 rows directly, so wide windows and camera axes run: one input per kernel
-family past the card's shared memory per block.  B6 and B15 also keep a
-shared-memory mode: their global mode is forced (``_mode``) on small
-inputs, and chosen by the wrapper on inputs whose tiles exceed the limit.
+family past the card's shared memory per block.  B15 also keeps a
+block-shared tile at small camera counts: its global mode is forced
+(``_mode``) on small inputs, and chosen by the wrapper at large camera
+counts.
 
 Needs an NVIDIA GPU with nvcc (the kernels build at first use); skips where
 ``torch.cuda.is_available()`` is false.  Imports no jax, so on a machine
@@ -58,9 +59,9 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _inputs(dev, dtype, g, w, tb, np_cam, seed):
+def _inputs(dev, dtype, g, w, tb, np_cam, seed, pc=PC):
     rng = np.random.default_rng(seed)
-    wcam = rng.integers(0, w, size=(g, tb * PC)).astype(np.int16)
+    wcam = rng.integers(0, w, size=(g, tb * pc)).astype(np.int16)
     wcam[rng.random(wcam.shape) < 0.15] = -1
     # Camera rows near a pinhole camera looking down +z from z ~ -6.
     tw = np.zeros((g, w, 19))
@@ -79,9 +80,9 @@ def _inputs(dev, dtype, g, w, tb, np_cam, seed):
     return dict(
         wcam=t(wcam, torch.int16),
         tw=t(tw),
-        pts=t(rng.normal(size=(3, g, PC))),
-        uv=t(rng.uniform(300, 1000, size=(g, 2, tb, PC))),
-        mask=t((wcam >= 0).reshape(g, tb, PC)),
+        pts=t(rng.normal(size=(3, g, pc))),
+        uv=t(rng.uniform(300, 1000, size=(g, 2, tb, pc))),
+        mask=t((wcam >= 0).reshape(g, tb, pc)),
         lam=torch.tensor(1e-4, dtype=dtype, device=dev),
         inv_w=torch.tensor(1.0 / 1280.0, dtype=dtype, device=dev),
         xw_t=t(rng.normal(size=(g, np_cam, w))),
@@ -219,16 +220,16 @@ def test_route_kernels_match_plain(dev, dtype, g, w, tb, np_cam, use_sj):
     assert [c.kernel - b for c, b in zip(counts, before)] == [1, 1, 1, 4]
 
 
-def _track_wcam(dev, g, w, tb, seed):
-    """(G, Tb * PC) int16 window rows of tracks that walk through adjacent
+def _track_wcam(dev, g, w, tb, seed, pc=PC):
+    """(G, Tb * pc) int16 window rows of tracks that walk through adjacent
     rows (steps of 1 or 2, so the od rows have pairs), -1 past each track's
     end; window row 0 is never used (tests poison it)."""
     rng = np.random.default_rng(seed)
-    steps = np.where(rng.random((g, tb, PC)) < 0.75, 1, 2)
-    steps[:, 0] = rng.integers(1, w - 2 * tb, size=(g, PC))
-    length = rng.integers(0, tb + 1, size=(g, 1, PC))
+    steps = np.where(rng.random((g, tb, pc)) < 0.75, 1, 2)
+    steps[:, 0] = rng.integers(1, w - 2 * tb, size=(g, pc))
+    length = rng.integers(0, tb + 1, size=(g, 1, pc))
     wcam = np.where(np.arange(tb)[None, :, None] < length, np.cumsum(steps, axis=1), -1)
-    return torch.as_tensor(wcam.reshape(g, tb * PC).astype(np.int16), device=dev)
+    return torch.as_tensor(wcam.reshape(g, tb * pc).astype(np.int16), device=dev)
 
 
 OD_CASES = [  # (dtype, G, W, Tb, np); each (W, K) tile within 227 KB
@@ -278,8 +279,9 @@ def test_od_kernels_match_plain(dev, dtype, g, w, tb, np_cam):
 
 def test_route_kernels_refuse_bad_inputs(dev):
     """B8 takes rows wider than the card's shared memory (zero planes give
-    zero rows); B6 takes an int8 or the data's float one-hot only, and its
-    shared mode forced past the card's limit raises."""
+    zero rows); B6 takes the f64 np = 12 window of 1280 rows whose shared
+    tiles the old kernel could not hold (zero planes give zero rows), and an
+    int8 or the data's float one-hot only."""
     d = _inputs(dev, torch.float64, 1, 256, 2, 12, seed=9)
     z = torch.zeros((24, 1, 2, PC), dtype=torch.float64, device=dev)
     b8 = (d["wcam"], z, z[:6], z[:2], z[:6, :, 0].contiguous(), 12, 256, True)
@@ -290,8 +292,9 @@ def test_route_kernels_refuse_bad_inputs(dev):
     wide = _inputs(dev, torch.float64, 1, 1280, 2, 12, seed=10)
     b6 = (wide["xw_t"], torch.zeros((1, 1280, 2 * PC), dtype=torch.int8, device=dev),
           z, z[:6], z[:6, :, 0].contiguous())
-    with pytest.raises(RuntimeError, match="shared-memory mode"):
-        wtt_matvec.wtt_coupling_rows_fused(*b6, _mode=SHARED)
+    rows = wtt_matvec.wtt_coupling_rows_fused(*b6)
+    torch.cuda.synchronize()
+    assert rows.shape == (1, 12, 1280) and (rows == 0).all()
     onehot = torch.zeros((1, 256, 2 * PC), dtype=torch.float32, device=dev)
     with pytest.raises(ValueError, match="onehot"):
         wtt_matvec.wtt_coupling_rows_fused(d["xw_t"], onehot, z, z[:6],
@@ -479,7 +482,7 @@ def test_tt_kernels_refuse_wide_camera_axes(dev):
                                        d["x"].new_zeros(6, 2, 300))
 
 
-GLOBAL_CASES = [  # (dtype, G, W, Tb, np); B6's tiles would fit: its mode is forced
+GLOBAL_CASES = [  # (dtype, G, W, Tb, np)
     (torch.float32, 2, 128, 3, 8),
     (torch.float64, 2, 128, 4, 12),
 ]
@@ -487,9 +490,8 @@ GLOBAL_CASES = [  # (dtype, G, W, Tb, np); B6's tiles would fit: its mode is for
 
 @pytest.mark.parametrize("dtype,g,w,tb,np_cam", GLOBAL_CASES)
 def test_wtt_global_mode_matches_plain(dev, dtype, g, w, tb, np_cam):
-    """B1 (with and without od), B2, B3, B4, B5 and B8 (with and without od)
-    in their one mode, B6 forced into its global-memory mode, on tracks
-    that walk adjacent window rows.  Window row 0 is NaN and only padded
+    """B1 (with and without od), B2, B3, B4, B5, B6 and B8 (with and
+    without od) in their one mode, on tracks that walk adjacent window rows.  Window row 0 is NaN and only padded
     slots could reach it; B5 and B8 also get NaN jc/jp/r on padded slots."""
     d = _inputs(dev, dtype, g, w, tb, np_cam, seed=5 * g + w + tb)
     wcam = _track_wcam(dev, g, w, tb, seed=w + 2 * tb)
@@ -527,7 +529,7 @@ def test_wtt_global_mode_matches_plain(dev, dtype, g, w, tb, np_cam):
     _close(b4, wtt_cost.wtt_cost_cols_idx_plain(*cost), elem, "B4")
     onehot = (wcam[:, None, :] == torch.arange(w, device=dev)[None, :, None]).to(torch.int8)
     b6 = (d["xw_t"], onehot, jc, jp, v_inv)
-    _close(wtt_matvec.wtt_coupling_rows_fused(*b6, _mode=GLOBAL),
+    _close(wtt_matvec.wtt_coupling_rows_fused(*b6),
            wtt_matvec.wtt_coupling_rows_fused_plain(*b6), reduced, "B6")
 
     r = torch.randn(2, g, tb, PC, dtype=dtype, device=dev)
@@ -591,7 +593,7 @@ def test_wide_inputs_take_the_global_mode(dev):
     card's limit, with no mode forced: B1 at W = 640 and B8 od at W = 640
     (f32, np = 8), B2 and B6 at W = 1280 (f64, np = 12), B4 at W = 1536
     (f64), B12, B13 and B15 at 7300 cameras (f32, np = 8).  Each runs in the
-    global mode (B6 and B15 picked by their wrappers) and matches its plain
+    global mode (B15 picked by its wrapper) and matches its plain
     version."""
     elem, reduced = TOL[torch.float32]
     d = _inputs(dev, torch.float32, 1, 640, 2, 8, seed=11)
@@ -702,8 +704,8 @@ def test_reduced_terms_match_plain(dev, g, w, tb, np_cam):
     assert [c.kernel - b for c, b in zip(counts, before)] == [1, 1, 1, 1]
 
 
-def _slot_wcam(dev, kind, g, w, tb, seed):
-    """(G, Tb * PC) int16 window rows for the slot-major B1 and B2, window
+def _slot_wcam(dev, kind, g, w, tb, seed, pc=PC):
+    """(G, Tb * pc) int16 window rows for the slot-major B1 and B2, window
     row 0 never used: "tracks" (``_track_wcam``: lanes of a warp on
     different rows), "grouped" (every 32-point group walks one track, each
     point cut at its own length: row-uniform warps with padded tails),
@@ -711,21 +713,21 @@ def _slot_wcam(dev, kind, g, w, tb, seed):
     slot of point 37)."""
     rng = np.random.default_rng(seed)
     if kind == "tracks":
-        return _track_wcam(dev, g, w, tb, seed)
+        return _track_wcam(dev, g, w, tb, seed, pc)
     if kind == "grouped":
-        n_groups = -(-PC // 32)
+        n_groups = -(-pc // 32)
         steps = np.where(rng.random((g, tb, n_groups)) < 0.75, 1, 2)
         steps[:, 0] = rng.integers(1, w - 2 * tb, size=(g, n_groups))
-        rows = np.repeat(np.cumsum(steps, axis=1), 32, axis=2)[:, :, :PC]
-        length = rng.integers(1, tb + 1, size=(g, 1, PC))
+        rows = np.repeat(np.cumsum(steps, axis=1), 32, axis=2)[:, :, :pc]
+        length = rng.integers(1, tb + 1, size=(g, 1, pc))
         wcam = np.where(np.arange(tb)[None, :, None] < length, rows, -1)
     elif kind == "random":
-        wcam = rng.integers(1, w, size=(g, tb, PC))
+        wcam = rng.integers(1, w, size=(g, tb, pc))
         wcam[rng.random(wcam.shape) < 0.15] = -1
     else:
-        wcam = np.full((g, tb, PC), -1)
+        wcam = np.full((g, tb, pc), -1)
         wcam[0, tb - 1, 37] = w // 2
-    return torch.as_tensor(wcam.reshape(g, tb * PC).astype(np.int16), device=dev)
+    return torch.as_tensor(wcam.reshape(g, tb * pc).astype(np.int16), device=dev)
 
 
 SLOT_CASES = [  # (dtype, G, W, Tb, np, want_od, rows)
@@ -799,3 +801,112 @@ def test_probe_kernels_match(dev):
                index_matvec2.probe_coupling_rows_plain(*mv, variant), reduced, variant)
     _close(index_matvec2.probe_coupling_rows(*mv, "block512"),
            wtt_matvec.wtt_coupling_rows_idx_plain(*mv), reduced, "block512 vs B2")
+
+
+ONEHOT_CASES = [  # (dtype, G, W, Tb, np, Pc, rows)
+    (torch.float32, 1, 128, 3, 8, 300, "random"),  # int8 4-byte loads, f32 16
+    (torch.float32, 2, 128, 2, 8, 512, "grouped"),  # 16-byte loads
+    (torch.float64, 1, 128, 40, 10, 512, "tracks"),  # three chunks per track
+    (torch.float64, 1, 1280, 2, 12, 300, "random"),  # past the old shared tile
+    (torch.float32, 1, 256, 12, 8, 301, "random"),  # int8 1-byte, f32 4-byte loads
+    (torch.float64, 1, 128, 4, 12, 520, "one"),  # int8 8-byte loads
+]
+
+
+@pytest.mark.parametrize("dtype,g,w,tb,np_cam,pc,rows", ONEHOT_CASES)
+def test_onehot_coupling_matches_plain_and_b2(dev, dtype, g, w, tb, np_cam, pc, rows):
+    """B6 (B2's slot-major kernel with each slot's row decoded from the
+    one-hot in vector loads) with the int8 and the float one-hot: against
+    its plain version (the literal one-hot product), against B2 on the same
+    ``wcam`` with window row 0 of x NaN (only padded slots, all-zero
+    columns, could reach it), and on a malformed column (a second 1 below
+    the slot's row), where it reads the first 1 and the plain version sums
+    both.  B6's plain version sums W^T x in another order than the kernel
+    (B2's plain version keeps the kernel's), and V^-1 of a point seen once
+    (conditioned ~1/lam) carries that order's rounding past the float32
+    bound; so the float32 cases draw random rows and one grouped bucket,
+    and the tracks of one slot ("tracks", "one") run in float64."""
+    d = _inputs(dev, dtype, g, w, tb, np_cam, seed=11 * g + w + tb + pc, pc=pc)
+    wcam = _slot_wcam(dev, rows, g, w, tb, seed=w + 5 * tb, pc=pc)
+    pad = (wcam < 0).reshape(g, tb, pc)
+    tw = d["tw"].clone()
+    tw[:, 0] = float("nan")
+    _, reduced = TOL[dtype]
+    cfg = BAConfig(optimize_dist=np_cam >= 10, optimize_pp=np_cam == 12)
+    _, jc, jp, v_inv, _, _ = wtt_linearize.wtt_linearize_fused_idx_plain(
+        wcam, tw, d["pts"], d["uv"], (~pad).to(dtype), d["lam"], d["inv_w"], cfg, np_cam,
+        True)
+    onehot = (wcam[:, None, :] == torch.arange(w, device=dev)[None, :, None]).to(torch.int8)
+    xw_nan = d["xw_t"].clone()
+    xw_nan[:, :, 0] = float("nan")
+    col = int(torch.nonzero((wcam[0] >= 0) & (wcam[0] < w - 1))[0])
+    before = wtt_matvec.FUSED_COUNTS.kernel
+    for oh in (onehot, onehot.to(dtype)):
+        b6 = (d["xw_t"], oh, jc, jp, v_inv)
+        _close(wtt_matvec.wtt_coupling_rows_fused(*b6),
+               wtt_matvec.wtt_coupling_rows_fused_plain(*b6), reduced, f"B6 {oh.dtype}")
+        got = wtt_matvec.wtt_coupling_rows_fused(xw_nan, oh, jc, jp, v_inv)
+        assert torch.isfinite(got).all(), f"B6 {oh.dtype} read a padded slot's x"
+        b2 = (xw_nan, wcam, jc, jp, v_inv)
+        _close(got, wtt_matvec.wtt_coupling_rows_idx_plain(*b2), reduced,
+               f"B6 {oh.dtype} vs B2 plain")
+        _close(got, wtt_matvec.wtt_coupling_rows_idx(*b2), reduced, f"B6 {oh.dtype} vs B2")
+        bad = oh.clone()
+        bad[0, int(wcam[0, col]) + 1, col] = 1
+        got = wtt_matvec.wtt_coupling_rows_fused(d["xw_t"], bad, jc, jp, v_inv)
+        _close(got, wtt_matvec.wtt_coupling_rows_fused_plain(*b6), reduced,
+               f"B6 {oh.dtype} malformed column")
+        assert not torch.allclose(
+            got, wtt_matvec.wtt_coupling_rows_fused_plain(d["xw_t"], bad, jc, jp, v_inv))
+    assert wtt_matvec.FUSED_COUNTS.kernel == before + 6
+
+
+def _three_camera_ids(c, tb, pb, seed):
+    """(Tb, Pb) camera ids where every 32-lane group of a slot carries three
+    cameras and padding (camera 0, mask 0) at every fifth lane: warps whose
+    lanes go to three rows at once."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(1, c - 3, size=(tb, -(-pb // 32)))
+    lane = np.arange(pb) % 32
+    cam_ids = np.repeat(base, 32, axis=1)[:, :pb] + lane % 3
+    mask = lane % 5 != 0
+    return np.where(mask, cam_ids, 0).astype(np.int32), np.broadcast_to(mask, (tb, pb)).copy()
+
+
+TT_W_CASES = [  # (dtype, C, Tb, Pb, np, cameras)
+    (torch.float32, 100, 40, 300, 8, "random"),  # three chunks per track
+    (torch.float64, 1024, 3, 1000, 12, "random"),
+    (torch.float32, 7300, 3, 1000, 8, "random"),  # past the old shared tile
+    (torch.float32, 100, 4, 300, 10, "three"),
+    (torch.float64, 37, 12, 513, 8, "three"),
+]
+
+
+@pytest.mark.parametrize("dtype,c,tb,pb,np_cam,cams", TT_W_CASES)
+def test_tt_w_times_slot_major_matches_plain(dev, dtype, c, tb, pb, np_cam, cams):
+    """B15 (one warp per slot and 32-point group, lanes grouped by camera
+    before their atomics) against its plain version: tracks of several
+    chunks, camera axes of 1024 and 7300, and warps whose lanes carry
+    three cameras and padding.  Camera 0's row is NaN and only padded slots
+    carry camera 0, so B12's plain planes of a padded slot are zero and a
+    kernel that added one would still add zeros; the padded slots' jc/jp
+    are then set to NaN, which B15 must not read."""
+    d = _tt_inputs(dev, dtype, c, tb, pb, seed=c + 3 * tb + pb)
+    if cams == "three":
+        cam_ids, mask = _three_camera_ids(c, tb, pb, seed=c + tb)
+        d["cam_ids"] = torch.as_tensor(cam_ids, device=dev)
+        d["mask"] = torch.as_tensor(mask, dtype=dtype, device=dev)
+    _, reduced = TOL[dtype]
+    cfg = BAConfig(optimize_dist=np_cam >= 10, optimize_pp=np_cam == 12)
+    b12 = (d["table"], d["cam_ids"], d["pts"], d["uv"], d["mask"], d["inv_w"], cfg, np_cam)
+    jc, jp = (x.clone() for x in tt_linearize.tt_cam_normal_fused_plain(*b12)[:2])
+    b15 = (d["y"], d["cam_ids"], d["mask"], jc, jp, c)
+    want = tt_linearize.tt_w_times_fused_plain(*b15)
+    pad = d["mask"] == 0
+    jc[:, pad] = float("nan")
+    jp[:, pad] = float("nan")
+    before = tt_linearize.W_COUNTS.kernel
+    got = tt_linearize.tt_w_times_fused(*b15)
+    assert torch.isfinite(got).all()
+    _close(got, want, reduced, f"B15 C={c} Tb={tb} {cams}")
+    assert tt_linearize.W_COUNTS.kernel == before + 1

@@ -1,14 +1,13 @@
-"""The memory-mode choice of B6 and B15 and the C interface of the kernel
-library, checked without a card.
+"""The memory-mode choice of B15 and the C interface of the kernel library,
+checked without a card.
 
-Every staged kernel reads its camera rows and x from device memory and
-reduces straight into its output rows, so no window width or camera count
-is refused.  B6 (``wtt_coupling_rows_fused``) and B15
-(``tt_w_times_fused``) also keep a shared-memory mode, which measured
-faster on the H100 where its tiles fit; each has one pure-Python function
-that gives the bytes of its shared tiles and the mode picked from them:
-shared at or below the card's per-block limit, global above it.  The limit
-stated here is the H100's opt-in shared memory per block, 232,448 bytes.
+Every kernel reads its camera rows and x from device memory and reduces
+straight into its output rows, so no window width or camera count is
+refused.  B15 (``tt_w_times_fused``) alone also keeps a shared-memory mode,
+a block-shared (C, np) tile of its camera rows, which measured faster on
+the H100 at 100 cameras and slower at 1024; one pure-Python function picks
+the mode from the tile's entries: shared at or below
+``tt_linearize.TILE_ENTRIES``, global above.
 
 The ctypes argument lists of ``ops/_build.py`` must match the C entries of
 ``csrc/*.cu`` one for one: an argument too few passes the stream pointer as
@@ -20,58 +19,43 @@ import re
 
 import pytest
 
-from tpu3drecon_torch.ops import _build, tt_linearize, wtt_matvec
+from tpu3drecon_torch.ops import _build, tt_linearize
 
-H100 = 232_448
 SHARED, GLOBAL = _build.SHARED, _build.GLOBAL
-F32, F64 = 4, 8
 
 
-@pytest.mark.parametrize("w,np_cam,tb,itemsize,want", [
-    (128, 8, 4, F32, (10_272, SHARED)),  # the medium buckets
-    (1664, 8, 12, F32, (112_672, SHARED)),  # the hub layout's widest window
-    (1152, 12, 4, F64, (223_328, SHARED)),
-    (1280, 12, 4, F64, (247_904, GLOBAL)),
+@pytest.mark.parametrize("n_cams,np_cam,want", [
+    (100, 8, SHARED),  # the medium problem
+    (256, 8, SHARED),
+    (257, 8, GLOBAL),
+    (170, 12, SHARED),
+    (171, 12, GLOBAL),
+    (1024, 8, GLOBAL),  # tt_seq1024
 ])
-def test_fused_coupling_pins(w, np_cam, tb, itemsize, want):
-    """B6: the (Tb, 256) int16 row table plus the (np, W + 1) x window and
-    the (np, W) rows tile."""
-    assert wtt_matvec.memory_mode(w, np_cam, tb, itemsize, H100) == want
+def test_tt_w_times_pins(n_cams, np_cam, want):
+    """B15: the (C, np) tile's entries against TILE_ENTRIES = 2048."""
+    assert tt_linearize.memory_mode(n_cams, np_cam) == want
 
 
-@pytest.mark.parametrize("n_cams,np_cam,itemsize,want", [
-    (1024, 8, F32, (32_768, SHARED)),  # tt_seq1024
-    (7264, 8, F32, (232_448, SHARED)),
-    (7265, 8, F32, (232_480, GLOBAL)),
-    (2421, 12, F64, (232_416, SHARED)),
-    (2422, 12, F64, (232_512, GLOBAL)),
-])
-def test_tt_w_times_pins(n_cams, np_cam, itemsize, want):
-    """B15: the (C, np) rows tile."""
-    assert tt_linearize.memory_mode(n_cams, np_cam, itemsize, H100) == want
-
-
-FAMILIES = {  # id -> (bytes, mode) of the shared tiles under the limit given
-    "B6": lambda limit: wtt_matvec.memory_mode(896, 8, 3, F32, limit),
-    "B15": lambda limit: tt_linearize.memory_mode(500, 10, F64, limit),
+FAMILIES = {  # id -> the mode of a tile of `entries` (C, np) entries
+    "B15": lambda entries: tt_linearize.memory_mode(entries // 8, 8),
 }
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))
 def test_shared_at_and_below_the_limit_global_above(family):
-    need, _ = FAMILIES[family](H100)
-    assert FAMILIES[family](need) == (need, SHARED)
-    assert FAMILIES[family](need + 1) == (need, SHARED)
-    assert FAMILIES[family](need - 1) == (need, GLOBAL)
+    limit = tt_linearize.TILE_ENTRIES
+    assert FAMILIES[family](limit) == SHARED
+    assert FAMILIES[family](limit - 8) == SHARED
+    assert FAMILIES[family](limit + 8) == GLOBAL
 
 
 def test_forced_mode_overrides_and_is_checked():
-    assert _build.memory_mode(10, 5, forced=SHARED) == SHARED
-    assert _build.memory_mode(10, 50, forced=GLOBAL) == GLOBAL
+    assert tt_linearize.memory_mode(9000, 8, forced=SHARED) == SHARED
+    assert tt_linearize.memory_mode(100, 8, forced=GLOBAL) == GLOBAL
     with pytest.raises(ValueError, match="_mode"):
-        _build.memory_mode(10, 50, forced="l2")
-    assert wtt_matvec.memory_mode(128, 8, 4, F32, H100, forced=GLOBAL) == (10_272, GLOBAL)
-    assert tt_linearize.memory_mode(9000, 8, F32, H100, forced=SHARED) == (288_000, SHARED)
+        tt_linearize.memory_mode(100, 8, forced="l2")
+    assert tt_linearize.shared_memory_bytes(9000, 8, 4) == 288_000
 
 
 def test_launch_counter_splits_modes():

@@ -1,10 +1,12 @@
-"""Launch geometry of the slot-major kernels B1 and B2
+"""Launch geometry of the slot-major kernels B1, B2, B6 and B15
 (``tpu3drecon_torch.ops._wtt_common.slot_geometry``), on the CPU: for every
 (dtype, np, od, terms) that the C entries ``wtt_linearize`` and
-``wtt_coupling`` take and tracks of 1 to 100 slots, the shared bytes fit
-the card's per-block limit, the chunks cover each track once, the blocks
-cover every point column once and no block exceeds the kernel's thread
-limit.  Also pins B1's row width K."""
+``wtt_coupling`` take, every (dtype, np, one-hot type) of
+``wtt_coupling_onehot`` and every (dtype, np) of ``tt_w_times``, and
+tracks of 1 to 100 slots, the shared bytes fit the card's per-block limit,
+the chunks cover each track once, the blocks cover every point column once
+and no block exceeds the kernel's thread limit.  Also pins B1's row width K
+and B6's one-hot vector width against hand-worked alignments."""
 
 import pytest
 import torch
@@ -12,6 +14,7 @@ import torch
 from tpu3drecon_torch.ops._wtt_common import (
     SMEM_PER_BLOCK,
     max_threads,
+    onehot_vector_bytes,
     slot_geometry,
     slot_smem,
 )
@@ -34,15 +37,23 @@ ENTRIES = [
     for np_cam in NPS
     for terms in ((1, 2, 3) if dtype == torch.float32 else (3,))
 ]
+# B6 ("onehot", TERMS = 3) with an int8 or a float one-hot (the geometry is
+# the same, the one-hot type picks the C instantiation); B15 ("tt_w").
+ONEHOT_ENTRIES = [
+    (dtype, np_cam, onehot)
+    for dtype in (torch.float32, torch.float64)
+    for np_cam in NPS
+    for onehot in ("int8", "float")
+]
+TT_W_ENTRIES = [(dtype, np_cam) for dtype in (torch.float32, torch.float64) for np_cam in NPS]
 
 
-@pytest.mark.parametrize("kernel,dtype,np_cam,want_od,terms", ENTRIES)
-def test_geometry_fits_and_covers(kernel, dtype, np_cam, want_od, terms):
+def _fits_and_covers(kernel, dtype, np_cam, want_od, label):
     itemsize = torch.empty((), dtype=dtype).element_size()
     for tb in TBS:
         for pc in PCS:
             geo = slot_geometry(kernel, tb, pc, np_cam, itemsize, want_od)
-            what = f"{kernel} {dtype} np={np_cam} od={want_od} terms={terms} Tb={tb} Pc={pc}"
+            what = f"{kernel} {dtype} np={np_cam} od={want_od} {label} Tb={tb} Pc={pc}"
             assert geo.smem <= SMEM_PER_BLOCK, what
             assert geo.smem == slot_smem(kernel, geo.warps, geo.groups, np_cam, itemsize,
                                          want_od), what
@@ -59,8 +70,62 @@ def test_geometry_fits_and_covers(kernel, dtype, np_cam, want_od, terms):
             assert geo.blocks * per_block >= pc > (geo.blocks - 1) * per_block, what
 
 
+@pytest.mark.parametrize("kernel,dtype,np_cam,want_od,terms", ENTRIES)
+def test_geometry_fits_and_covers(kernel, dtype, np_cam, want_od, terms):
+    _fits_and_covers(kernel, dtype, np_cam, want_od, f"terms={terms}")
+
+
+@pytest.mark.parametrize("dtype,np_cam,onehot", ONEHOT_ENTRIES)
+def test_onehot_geometry_fits_and_covers(dtype, np_cam, onehot):
+    """B6: B2's layout plus a (32,) int row table per warp."""
+    _fits_and_covers("onehot", dtype, np_cam, False, f"onehot={onehot}")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    for tb in TBS:
+        geo = slot_geometry("onehot", tb, 512, np_cam, itemsize)
+        assert geo.smem == slot_smem("coupling", geo.warps, geo.groups, np_cam,
+                                     itemsize) + geo.warps * geo.groups * 32 * 4
+
+
+@pytest.mark.parametrize("dtype,np_cam", TT_W_ENTRIES)
+def test_tt_w_geometry_fits_and_covers(dtype, np_cam):
+    """B15: the warps' (32, np + 1) row tiles and their meta, no per-point
+    parts."""
+    _fits_and_covers("tt_w", dtype, np_cam, False, "tt")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    geo = slot_geometry("tt_w", 2, 67584, np_cam, itemsize)
+    assert (geo.warps, geo.groups, geo.chunks) == (2, 4, 1)
+    assert geo.smem == 8 * 32 * (np_cam + 1) * itemsize + 8 * 96 * 4
+
+
+@pytest.mark.parametrize("address,pc,itemsize,vec", [
+    (0, 512, 1, 16),  # the medium buckets, int8: 16-byte loads
+    (0, 300, 1, 4),  # Pc = 300 bytes per slot row: 4-byte aligned only
+    (0, 520, 1, 8),
+    (0, 301, 1, 1),  # an odd Pc: byte loads
+    (0, 302, 1, 1),  # 2-byte aligned: no 2-byte width, byte loads
+    (8, 512, 1, 8),  # the address limits the width
+    (1, 512, 1, 1),
+    (0, 300, 4, 16),  # f32: 1200 bytes per slot row
+    (0, 301, 4, 4),
+    (0, 302, 4, 8),
+    (4, 512, 4, 4),
+    (0, 3, 8, 8),  # f64: never narrower than an entry
+    (0, 2, 8, 16),
+    (8, 512, 8, 8),
+])
+def test_onehot_vector_bytes(address, pc, itemsize, vec):
+    """B6's one-hot load width: the widest of 16, 8, 4, 1 bytes, no
+    narrower than an entry, that divides the address and Pc entries."""
+    assert onehot_vector_bytes(address, pc, itemsize) == vec
+
+
+def test_onehot_vector_bytes_refuses_a_misaligned_one_hot():
+    with pytest.raises(ValueError, match="aligned"):
+        onehot_vector_bytes(2, 512, 4)
+
+
 @pytest.mark.parametrize("kernel,itemsize", [("lin", 4), ("lin", 8), ("coupling", 4),
-                                             ("coupling", 8)])
+                                             ("coupling", 8), ("onehot", 4), ("tt_w", 8)])
 def test_geometry_one_chunk_up_to_the_thread_limit(kernel, itemsize):
     """A track of up to max_threads / 32 slots runs in one chunk (each slot
     stays in registers from phase 1 to phase 2); a short track shares its

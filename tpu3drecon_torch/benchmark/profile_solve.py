@@ -1,9 +1,10 @@
 """Where the time of one solve goes on the card.
 
-    python -m tpu3drecon_torch.benchmark.profile_solve [--trace-dir DIR]
+    python -m tpu3drecon_torch.benchmark.profile_solve [--trace-dir DIR] [--engines A,B]
 
 The Chrome traces are kept in ``--trace-dir`` (default: the ignored
-``tpu3drecon_torch/_build/profile/``), one ``<engine>.json`` each.
+``tpu3drecon_torch/_build/profile/``), one ``<engine>.json`` each;
+``--engines`` profiles only the engines or routes named (default: all).
 
 For each engine (the windowed track table ``ba_solve_wtt``, fully indexed,
 the fused-kernel grid engine ``ba_solve_pallas`` and the dense track table
@@ -159,6 +160,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace-dir", default=str(BUILD_DIR / "profile"),
                     help="where the Chrome traces are written")
+    ap.add_argument("--engines", default="",
+                    help="comma-separated engines or routes to profile (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_solve measures on a CUDA device; none is available")
@@ -202,7 +205,13 @@ def main() -> int:
     )
     out_dir = Path(args.trace_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
+    wanted = set(filter(None, args.engines.split(",")))
+    unknown = wanted - {engine for engine, _, _ in runs}
+    if unknown:
+        raise SystemExit(f"profile_solve: unknown engines {sorted(unknown)}")
     for engine, solve, build in runs:
+        if wanted and engine not in wanted:
+            continue
         report = profile(solve, build(), str(out_dir / f"{engine}.json"))
         print(json.dumps(dict(engine=engine, device=torch.cuda.get_device_name(0),
                               **report)), flush=True)

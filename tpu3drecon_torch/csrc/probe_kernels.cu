@@ -57,7 +57,7 @@ probe_coupling_kernel(const float* __restrict__ xw_t, const int16_t* __restrict_
   if (live) {
     for (int t = 0; t < Tb; ++t) {
       const size_t ts = ((size_t)g * Tb + t) * Pc + p;
-      wt_slot<T, NP, true>(nullptr, xw_g, row(ts), W, jc, jp, ts, GTP, wtx);
+      wt_slot<T, NP>(xw_g, row(ts), W, jc, jp, ts, GTP, wtx);
     }
   }
   T v[6];

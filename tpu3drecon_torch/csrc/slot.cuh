@@ -2,29 +2,21 @@
 // wtt_route_kernels.cu and tt_kernels.cu): the per-slot residual/Jacobian
 // formulas, camera-row and x reads with their all-zero padding, the
 // per-slot contribution columns, band pair rows and coupling-product
-// halves, the warp-aggregated row reduction, the row tiles of the
-// slot-major B1 and B2, the shared tile of the kernels that keep one, and
-// the host-side launch helpers.
+// halves, the warp-aggregated row reduction, the slot-major grid and row
+// tiles (B1, B2, B6 and B15), and the host-side launch helpers.
 //
-// The track-table layouts keep one point's whole track in one thread (B1
-// and B2 instead one slot per lane, wtt_kernels.cuh): a slot (t, p) reads
-// its camera's row of a (rows, 19) table.  A padded slot
-// reads an all-zero row, exactly as the TPU kernels' empty one-hot column
-// gives it: z = 0 -> z_safe = 1, so every output of the slot is exactly 0.
+// The track-table layouts keep one point's whole track in one thread (the
+// slot-major kernels instead one slot per lane): a slot (t, p) reads its
+// camera's row of a (rows, 19) table.  A padded slot reads an all-zero row,
+// exactly as the TPU kernels' empty one-hot column gives it: z = 0 ->
+// z_safe = 1, so every output of the slot is exactly 0.
 //
 // Memory.  The kernels read camera rows and x straight from device memory
-// (__ldg into registers, zeros for padding) and send row_add's
-// warp-aggregated atomics straight to the output rows, which the wrapper
-// zeroes, so any window width or camera count runs.  Two kernels, B6
-// (wtt_route_kernels.cu) and B15 (tt_kernels.cu), measured faster with a
-// block-local tile and keep it as a second mode, template flag GM false:
-// the block stages x as (NP, W + 1) with a zero column for padding (B6)
-// and reduces rows into a shared tile that it flushes with one global
-// atomic per nonzero entry.  Their wrappers compute the tile's bytes, pick
-// the shared mode where it fits the card's per-block limit and pass those
-// bytes (0 = global mode, GM true).  Both modes keep one slot per thread
-// and the whole track in one thread, so the per-point sums are the same;
-// only the order of the atomic row sums differs.
+// (__ldg into registers, zeros for padding) and send their atomics
+// straight to the output rows, which the wrapper zeroes, so any window
+// width or camera count runs.  B15 (tt_kernels.cu) alone can point its row
+// tiles at a block-shared tile of the camera rows instead, flushed once per
+// block; its wrapper picks that mode at small camera counts.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -78,15 +70,6 @@ __device__ __forceinline__ void row_add(T* acc, const WarpRow& wr, int self,
     if ((threadIdx.x & 31) == 0) atomicAdd(acc + lead, s);
   } else if (wr.w >= 0) {
     atomicAdd(acc + self, val);
-  }
-}
-
-// One global atomic per nonzero entry of the block's shared tile.
-template <typename T>
-__device__ __forceinline__ void flush(const T* acc, T* out, int n) {
-  for (int i = threadIdx.x; i < n; i += kBlock) {
-    const T v = acc[i];
-    if (v != T(0)) atomicAdd(out + i, v);
   }
 }
 
@@ -214,45 +197,6 @@ __device__ __forceinline__ const T* cam_row(const T* table, int w, T (&buf)[kD])
   return buf;
 }
 
-// Stage the group's x window rows (NP, W) transposed as (NP, W + 1) with a
-// zero column W for padding slots (B6's shared mode only).
-template <typename T, int NP, bool GM>
-__device__ __forceinline__ void stage_xw(const T* xw_t, T* s_xw, int W) {
-  if constexpr (GM) return;
-  for (int i = threadIdx.x; i < NP * (W + 1); i += kBlock) {
-    const int r = i / (W + 1), w = i % (W + 1);
-    s_xw[i] = w < W ? xw_t[r * W + w] : T(0);
-  }
-}
-
-// Entry (i, w) of the group's x window (NP, W), 0 for padding (w = -1):
-// from the staged (NP, W + 1) copy, or with GM from `xw_t` in device memory.
-template <typename T, bool GM>
-__device__ __forceinline__ T xw_at(const T* s_xw, const T* xw_t, int i, int w, int W) {
-  if constexpr (GM) return w >= 0 ? __ldg(xw_t + (size_t)i * W + w) : T(0);
-  else return s_xw[i * (W + 1) + (w >= 0 ? w : W)];
-}
-
-// The block's accumulator for `n` row elements whose output is `out` (B6
-// and B15): the shared tile `s_acc`, zeroed here and flushed by
-// finish_rows, or with GM `out` itself (zeroed by the wrapper).  Call
-// __syncthreads before use.
-template <typename T, bool GM>
-__device__ __forceinline__ T* start_rows(T* s_acc, T* out, int n) {
-  if constexpr (GM) return out;
-  for (int i = threadIdx.x; i < n; i += kBlock) s_acc[i] = T(0);
-  return s_acc;
-}
-
-// Flush the shared tile into `out` (shared mode); nothing to do with GM.
-// Every thread of the block calls it.
-template <typename T, bool GM>
-__device__ __forceinline__ void finish_rows(const T* s_acc, T* out, int n) {
-  if constexpr (GM) return;
-  __syncthreads();
-  flush(s_acc, out, n);
-}
-
 // Contribution columns u (NT) | g (NP) [| Schur-Jacobi coupling (NT)] of one
 // slot (kernel B1's pass 2 and kernel B8), added into a (rows, K) tile at
 // element offsets `self` / `lead` (rows w / w0).  `j0`, `j1` are the two
@@ -325,16 +269,16 @@ __device__ __forceinline__ void add_pair_rows(T* acc, int K, int col0, int w_pre
 }
 
 // (W^T x) of one slot on window row w (-1 = padding) added to wtx[3]: x
-// read by xw_at and passed through split_round<TERMS>; `ts` is the slot's
+// read from the group's window rows xw_t (NP, W) in device memory (0 for
+// padding) and passed through split_round<TERMS>; `ts` is the slot's
 // (G, Tb, Pc) offset and GTP the plane stride of jc/jp.
-template <typename T, int NP, bool GM, int TERMS = 3>
-__device__ __forceinline__ void wt_slot(const T* s_xw, const T* xw_t, int w, int W,
-                                        const T* jc, const T* jp, size_t ts, size_t GTP,
-                                        T wtx[3]) {
+template <typename T, int NP, int TERMS = 3>
+__device__ __forceinline__ void wt_slot(const T* xw_t, int w, int W, const T* jc,
+                                        const T* jp, size_t ts, size_t GTP, T wtx[3]) {
   T s0 = T(0), s1 = T(0);
 #pragma unroll
   for (int i = 0; i < NP; ++i) {
-    const T xg = split_round<TERMS>(xw_at<T, GM>(s_xw, xw_t, i, w, W));
+    const T xg = split_round<TERMS>(w >= 0 ? __ldg(xw_t + (size_t)i * W + w) : T(0));
     s0 += jc[i * GTP + ts] * xg;
     s1 += jc[(NP + i) * GTP + ts] * xg;
   }
@@ -362,8 +306,37 @@ __device__ __forceinline__ void w_slot(T* acc, int w, int W, const T* jc, const 
     row_add(acc, wr, i * W + ws, i * W + wr.w0, split_round<TERMS>(j[i] * s0p + j[NP + i] * s1p));
 }
 
+// ------------------------------------------------ slot-major grid ------
+// The slot-major kernels (B1, B2 and B6 in wtt_kernels.cuh, B15 in
+// tt_kernels.cu) run one lane per track slot: a warp holds slot t of 32
+// consecutive point columns, a block holds `ng` such 32-point groups as `tc`
+// warps each (warp ti of a group holds slot c * tc + ti in chunk c), and a
+// track longer than tc slots is walked in ceil(Tb / tc) chunks.  The
+// wrappers compute tc, ng and the shared bytes (ops/_wtt_common.py
+// slot_geometry).
+// This lane's place in the slot-major grid: a 1-D grid of G groups times
+// ceil(Pc / (32 ng)) blocks each, so no G is refused.
+struct SlotLane {
+  int lane, warp, gi, ti, g, p, nchunk;
+  bool live;
+};
+
+__device__ __forceinline__ SlotLane slot_lane(int tc, int ng, int Tb, int Pc) {
+  SlotLane s;
+  const int nb = (Pc + 32 * ng - 1) / (32 * ng);
+  s.g = blockIdx.x / nb;
+  s.lane = threadIdx.x & 31;
+  s.warp = threadIdx.x >> 5;
+  s.gi = s.warp / tc;
+  s.ti = s.warp - s.gi * tc;
+  s.p = ((blockIdx.x - s.g * nb) * ng + s.gi) * 32 + s.lane;
+  s.live = s.p < Pc;
+  s.nchunk = (Tb + tc - 1) / tc;
+  return s;
+}
+
 // ------------------------------------------------ slot-major row tiles --
-// The row reduction of the slot-major kernels B1 and B2 (wtt_kernels.cuh),
+// The row reduction of the slot-major kernels (B1, B2, B6 and B15),
 // where a warp holds one track slot of 32 point columns: its lanes' column
 // values go to window rows that are mostly one row.  Each lane writes its
 // values into the warp's shared (32, KT + 1) tile (a row per lane, padded
@@ -374,7 +347,7 @@ __device__ __forceinline__ void w_slot(T* acc, int w, int W, const T* jc, const 
 // Lanes on no row (-1: padding, past the track) are left out.  Columns are
 // put one at a time in the order of the output's columns; the tile flushes
 // every KT columns and at the segment's end.
-constexpr int kTile = 32;  // tile columns of B1 (B2's tile is np wide)
+constexpr int kTile = 32;  // tile columns of B1 (B2's, B6's and B15's are np wide)
 
 template <typename T, int KT>
 struct RowTile {
@@ -457,14 +430,23 @@ int prepare(K kernel, size_t smem) {
   return 0;
 }
 
-inline dim3 grid_of(int Pc, int G) { return dim3((Pc + kBlock - 1) / kBlock, G); }
-
-// f(std::integral_constant<bool, GM>) for a C entry's memory-mode flag `gm`
-// (false = shared, true = global).
-template <typename F>
-int with_mode(int gm, F&& f) {
-  return gm ? f(std::true_type{}) : f(std::false_type{});
+// The launch of a slot-major kernel at the wrapper's geometry: tc warps per 32-point
+// group, ng groups per block, `smem` bytes, which must be the kernel's own
+// count (kErrGeom otherwise); above 48 KB the kernel is opted in first.
+template <typename K>
+int slot_launch(K kernel, int max_threads, size_t need, int tc, int ng, int smem, int G,
+                int Pc, dim3& grid, dim3& block) {
+  if (tc < 1 || ng < 1 || tc * ng * 32 > max_threads || size_t(smem) != need) return kErrGeom;
+  if (need > 48 * 1024) {
+    const int e = prepare(kernel, need);
+    if (e) return e;
+  }
+  grid = dim3(unsigned((Pc + 32 * ng - 1) / (32 * ng)) * unsigned(G));
+  block = dim3(32 * tc * ng);
+  return 0;
 }
+
+inline dim3 grid_of(int Pc, int G) { return dim3((Pc + kBlock - 1) / kBlock, G); }
 
 }  // namespace tpu3drecon
 

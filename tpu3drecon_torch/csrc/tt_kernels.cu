@@ -15,10 +15,12 @@
 // pts (3, Pb), jc (2np, Tb, Pb), jp (6, Tb, Pb).  The TPU kernels select
 // each slot's camera row, and reduce per-slot values into camera rows, with
 // MXU dots against a dense {0,1} one-hot tile, because gathers are slow
-// there.  Here a slot reads its camera index directly: one thread owns one
-// point column p and walks its track t = 0..Tb-1, so per-point sums (V, g_pt,
-// W^T x, the cost lane) stay in registers and are taken in t order, as the
-// TPU kernels accumulate over their sequential t grid axis.
+// there.  Here a slot reads its camera index directly.  B12-B14 and B16:
+// one thread owns one point column p and walks its track t = 0..Tb-1, so
+// per-point sums (V, g_pt, W^T x, the cost lane) stay in registers and are
+// taken in t order, as the TPU kernels accumulate over their sequential t
+// grid axis.  B15, which has no per-point sum, is slot-major: one warp per
+// slot and 32 consecutive point columns (below).
 //
 // Padded slots (mask 0) carry cam_ids 0.  They take an all-zero camera row
 // (and x row) without reading one, never camera 0's row: the masked
@@ -28,19 +30,21 @@
 //
 // Camera rows and x are read from device memory into registers, so any
 // camera count runs.  Per-camera reductions (B12's U|g columns, B13's
-// coupling columns, B15's W y rows) go to the zeroed outputs with atomics,
-// a warp reducing with shuffles first when all its live lanes share a
-// camera (slot.cuh); their summation order varies from run to run.  B15
-// alone keeps a shared-memory mode (a (C, NP) tile per block, flushed with
-// one global atomic per nonzero entry), which measured 1.38x faster than
-// the direct atomics on the medium problem (PERF.md): its wrapper passes
-// the tile's bytes where they fit the card's per-block limit, 0 for the
-// global mode.  For B12-B14 and B16 a staged copy measured within 6 %.
+// coupling columns, B15's W y rows) go to the zeroed outputs with atomics;
+// B12 and B13 reduce with shuffles first when all live lanes of a warp
+// share a camera (slot.cuh row_add), B15 groups its lanes by camera in a
+// row tile (slot.cuh tile_put); their summation order varies from run to
+// run.  B15 alone keeps a second memory mode, a block-shared (C, NP) tile
+// flushed once per block: it measured faster at 100 cameras on the largest
+// medium bucket and slower at 1024 (PERF.md), and its wrapper picks it
+// where the tile has at most 2,048 entries (ops/tt_linearize.py
+// memory_mode).  For B12-B14 and B16 a staged copy measured within 6 %.
 //
 // What bounds them on the H100: B14 and B16 stream their inputs once (jc/jp,
-// resp. uv/mask/cam_ids) and are bound by bytes; B12, B13 and B15 by the
-// atomics of their reductions (44 columns per slot for B12 at np = 8, 36
-// for B13, 8 for B15).
+// resp. uv/mask/cam_ids) and are bound by bytes; B12 and B13 by the atomics
+// of their reductions (44 columns per slot for B12 at np = 8, 36 for B13);
+// B15 (8 columns per slot) by launch and latency, its pass 9x its bytes'
+// bound on the medium buckets.
 //
 // Built with --fmad=false (ops/_build.py): each kernel's per-element
 // outputs match its plain version (ops/tt_linearize.py) to the last bits.
@@ -220,41 +224,74 @@ tt_wt_times_kernel(const T* __restrict__ x, const int* __restrict__ cam_ids,
 }
 
 // ---------------------------------------------------------------- B15 ---
-template <typename T, int NP, bool GM>
-__global__ void __launch_bounds__(kBlock)
+// Slot-major (slot.cuh slot_lane): a warp holds slot t of 32 consecutive
+// point columns, tc warps of a 32-point group walk its track in chunks, ng
+// groups share a block.  No per-point sum crosses slots, so the warps are
+// independent; each keeps its points' y in registers over the slots it
+// walks.  A lane forms z = jc (jp y) of its slot, and the warp's row tile
+// groups its lanes by camera (__match_any_sync) and sends one atomic per
+// (distinct camera, column): the points of a bucket are sorted by their
+// least camera and a track's slots by camera, so the 32 lanes of a slot see
+// one camera or a few.  With ST those atomics go to a block-shared (C, NP)
+// tile instead, zeroed first and flushed into `out` once per block with one
+// global atomic per nonzero entry: it spares the output's few cache lines
+// the atomics of every warp, and costs C * NP shared entries to zero and to
+// read per block (the wrapper picks it for small camera counts, PERF.md).
+constexpr int kTtWThreads = 512;
+
+template <typename T, int NP>
+constexpr size_t tt_w_smem(int tc, int ng) {  // the warps' row tiles and meta
+  const size_t nw = size_t(tc) * ng;
+  return nw * 32 * (NP + 1) * sizeof(T) + nw * 96 * sizeof(int);
+}
+
+template <typename T, int NP, bool ST>
+__global__ void __launch_bounds__(kTtWThreads)
 tt_w_times_kernel(const T* __restrict__ y, const int* __restrict__ cam_ids,
                   const T* __restrict__ mask, const T* __restrict__ jc,
-                  const T* __restrict__ jp, T* __restrict__ out, int C, int Tb,
-                  int Pb) {
+                  const T* __restrict__ jp, T* __restrict__ out, int C, int Tb, int Pb,
+                  int tc, int ng) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int p = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = p < Pb;
-  T* acc = start_rows<T, GM>(reinterpret_cast<T*>(smem), out, C * NP);  // (C, NP)
-  __syncthreads();
+  const SlotLane sl = slot_lane(tc, ng, Tb, Pb);
+  const int nw = tc * ng;
+  T* s_v = reinterpret_cast<T*>(smem);  // (nw, 32, NP + 1) row tiles
+  int* s_meta = reinterpret_cast<int*>(s_v + size_t(nw) * 32 * (NP + 1));  // (nw, 96)
+  T* s_acc = reinterpret_cast<T*>(s_meta + nw * 96);  // ST: (C, NP)
+  if constexpr (ST) {
+    for (int i = threadIdx.x; i < C * NP; i += blockDim.x) s_acc[i] = T(0);
+    __syncthreads();
+  }
+  const int p = sl.p;
+  const T y0 = sl.live ? y[p] : T(0);
+  const T y1 = sl.live ? y[(size_t)Pb + p] : T(0);
+  const T y2 = sl.live ? y[2 * (size_t)Pb + p] : T(0);
   const size_t TP = (size_t)Tb * Pb;
-  const T y0 = live ? y[p] : T(0);
-  const T y1 = live ? y[(size_t)Pb + p] : T(0);
-  const T y2 = live ? y[2 * (size_t)Pb + p] : T(0);
-  for (int t = 0; t < Tb; ++t) {
+  RowTile<T, NP> rt{s_v + (size_t)sl.warp * 32 * (NP + 1), s_meta + sl.warp * 96,
+                    ST ? s_acc : out, size_t(NP), 1, 0};
+  for (int c = 0; c < sl.nchunk; ++c) {
+    const int t = c * tc + sl.ti;
+    if (t >= Tb) break;  // warp-uniform
     const size_t ts = (size_t)t * Pb + p;
-    const int c = slot_cam(cam_ids, mask, ts, live);
-    const WarpRow wr = warp_row(c);
-    if (!wr.any) continue;  // warp-uniform
-    T q[6];
+    const int cam = slot_cam(cam_ids, mask, ts, sl.live);
+    T q[6], j[2 * NP];
 #pragma unroll
-    for (int k = 0; k < 6; ++k) q[k] = c >= 0 ? jp[k * TP + ts] : T(0);
+    for (int k = 0; k < 6; ++k) q[k] = cam >= 0 ? jp[k * TP + ts] : T(0);
+#pragma unroll
+    for (int k = 0; k < 2 * NP; ++k) j[k] = cam >= 0 ? jc[k * TP + ts] : T(0);
+    tile_rows(rt, cam);
+    if (rt.nd == 0) continue;  // warp-uniform
     const T s0 = q[0] * y0 + q[1] * y1 + q[2] * y2;
     const T s1 = q[3] * y0 + q[4] * y1 + q[5] * y2;
-    const int self = (c >= 0 ? c : 0) * NP;
-    const int lead = wr.w0 * NP;
 #pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      const T a = c >= 0 ? jc[i * TP + ts] : T(0);
-      const T b = c >= 0 ? jc[(NP + i) * TP + ts] : T(0);
-      row_add(acc, wr, self + i, lead + i, a * s0 + b * s1);
+    for (int i = 0; i < NP; ++i) tile_put<NP>(rt, i, j[i] * s0 + j[NP + i] * s1, 0);
+  }
+  if constexpr (ST) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < C * NP; i += blockDim.x) {
+      const T v = s_acc[i];
+      if (v != T(0)) atomicAdd(out + i, v);
     }
   }
-  finish_rows<T, GM>(acc, out, C * NP);
 }
 
 // ---------------------------------------------------------------- B16 ---
@@ -319,17 +356,21 @@ int wt_times_launch(const void* x, const void* cam_ids, const void* mask,
   return (int)cudaGetLastError();
 }
 
-// `tile`: the bytes of the shared mode's (C, NP) tile, 0 in the global mode
-// (kErrSmem above the card's per-block limit).
-template <typename T, int NP, bool GM>
-int w_times_launch(const void* y, const void* cam_ids, const void* mask,
-                   const void* jc, const void* jp, void* out, int C, int Tb,
-                   int Pb, int tile, cudaStream_t stream) {
-  const int err = prepare(tt_w_times_kernel<T, NP, GM>, (size_t)tile);
-  if (err) return err;
-  tt_w_times_kernel<T, NP, GM><<<grid_of(Pb, 1), kBlock, tile, stream>>>(
-      (const T*)y, (const int*)cam_ids, (const T*)mask, (const T*)jc,
-      (const T*)jp, (T*)out, C, Tb, Pb);
+// B15 at the wrapper's geometry; `tile`: the bytes of the block-shared
+// (C, NP) tile (ST), 0 for atomics straight into `out`.
+template <typename T, int NP, bool ST>
+int w_times_launch(const void* y, const void* cam_ids, const void* mask, const void* jc,
+                   const void* jp, void* out, int C, int Tb, int Pb, int tc, int ng,
+                   int smem, int tile, cudaStream_t stream) {
+  auto kernel = tt_w_times_kernel<T, NP, ST>;
+  if (size_t(tile) != (ST ? size_t(C) * NP * sizeof(T) : 0)) return kErrGeom;
+  dim3 grid, block;
+  const int e = slot_launch(kernel, kTtWThreads, tt_w_smem<T, NP>(tc, ng) + tile, tc, ng,
+                            smem, 1, Pb, grid, block);
+  if (e) return e;
+  kernel<<<grid, block, smem, stream>>>((const T*)y, (const int*)cam_ids, (const T*)mask,
+                                        (const T*)jc, (const T*)jp, (T*)out, C, Tb, Pb, tc,
+                                        ng);
   return (int)cudaGetLastError();
 }
 
@@ -375,16 +416,18 @@ int tt_wt_times(int dtype, int np, const void* x, const void* cam_ids,
                                                  Pb, (cudaStream_t)stream)));
 }
 
-// tile: the bytes of the shared mode's tile as the wrapper computed them
-// (ops/tt_linearize.py), 0 for the global mode.
+// tc, ng, smem: the slot-major geometry (ops/_wtt_common.py slot_geometry
+// "tt_w"); tile: the bytes of the block-shared (C, NP) tile, 0 for none.
 int tt_w_times(int dtype, int np, const void* y, const void* cam_ids,
                const void* mask, const void* jc, const void* jp, void* out,
-               int C, int Tb, int Pb, int tile, void* stream) {
+               int C, int Tb, int Pb, int tc, int ng, int smem, int tile, void* stream) {
   if (Pb == 0 || Tb == 0) return 0;
-  NP_DISPATCH(dtype, np, (with_mode(tile == 0, [&](auto m) {
-    return w_times_launch<T, NP, decltype(m)::value>(y, cam_ids, mask, jc, jp, out, C,
-                                                     Tb, Pb, tile, (cudaStream_t)stream);
-  })));
+  const cudaStream_t s = (cudaStream_t)stream;
+  NP_DISPATCH(dtype, np,
+              (tile ? w_times_launch<T, NP, true>(y, cam_ids, mask, jc, jp, out, C, Tb, Pb, tc,
+                                                  ng, smem, tile, s)
+                    : w_times_launch<T, NP, false>(y, cam_ids, mask, jc, jp, out, C, Tb, Pb,
+                                                   tc, ng, smem, tile, s)));
 }
 
 int tt_cost(int dtype, const void* table, const void* cam_ids, const void* pts,

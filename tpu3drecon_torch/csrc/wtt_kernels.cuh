@@ -3,9 +3,12 @@
 // (TERMS, slot.cuh split_round): wtt_kernels.cu instantiates the exact
 // kernels (TERMS = 3, float and double), wtt_terms_kernels.cu the float
 // kernels at TERMS = 1 and 2 in an object of their own, so the two sources
-// compile in parallel.  B3's phase-1 helper wt_x lives here too.
+// compile in parallel.  B2's kernel is also a template over where a slot's
+// window row comes from: wcam (B2) or the dense one-hot (B6, instantiated
+// at TERMS = 3 in wtt_route_kernels.cu).  B3's phase-1 helper wt_x lives
+// here too.
 //
-// Slot-major design of B1 and B2.  A warp holds one track slot t of 32
+// Slot-major design of B1, B2 and B6.  A warp holds one track slot t of 32
 // consecutive point columns, one lane per slot; a block holds `ng` such
 // 32-point groups as `tc` warps each (warp ti of a group holds slot
 // c * tc + ti in chunk c), so a bucket runs on Tb * Pc threads, not Pc.
@@ -34,6 +37,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "common.cuh"
 #include "slot.cuh"
@@ -51,27 +55,6 @@ using namespace tpu3drecon;
 template <typename T>
 constexpr int lin_threads() { return sizeof(T) == 4 ? 512 : 256; }
 constexpr int kCouplingThreads = 512;
-
-// This lane's place in the slot-major grid: a 1-D grid of G groups times
-// ceil(Pc / (32 ng)) blocks each, so no G is refused.
-struct SlotLane {
-  int lane, warp, gi, ti, g, p, nchunk;
-  bool live;
-};
-
-__device__ __forceinline__ SlotLane slot_lane(int tc, int ng, int Tb, int Pc) {
-  SlotLane s;
-  const int nb = (Pc + 32 * ng - 1) / (32 * ng);
-  s.g = blockIdx.x / nb;
-  s.lane = threadIdx.x & 31;
-  s.warp = threadIdx.x >> 5;
-  s.gi = s.warp / tc;
-  s.ti = s.warp - s.gi * tc;
-  s.p = ((blockIdx.x - s.g * nb) * ng + s.gi) * 32 + s.lane;
-  s.live = s.p < Pc;
-  s.nchunk = (Tb + tc - 1) / tc;
-  return s;
-}
 
 // ---------------------------------------------------------------- B1 ----
 // Shared memory of B1 (elements): the (ng, tc, 9, 32) per-slot V | g_pt
@@ -335,36 +318,140 @@ __device__ __forceinline__ void wt_x(const T* xw_g, const int16_t* wcam, const T
   if (!live) return;
   for (int t = 0; t < Tb; ++t) {
     const size_t ts = ((size_t)g * Tb + t) * Pc + p;
-    wt_slot<T, NP, true, TERMS>(nullptr, xw_g, int(wcam[ts]), W, jc, jp, ts, GTP, wtx);
+    wt_slot<T, NP, TERMS>(xw_g, int(wcam[ts]), W, jc, jp, ts, GTP, wtx);
   }
 }
 
-// Shared memory of B2 (elements): the (ng, tc, 3, 32) per-slot W^T x parts,
-// aliased by the warps' (32, NP + 1) row tiles; the (ng, 3, 32) y of each
-// point; the warps' (3, 32) tile meta.
-template <typename T, int NP>
+// Where a slot's window row comes from.  Each source is a functor that the
+// whole warp calls for slot t of its 32 point columns (t is warp-uniform;
+// `real`: this lane's slot exists, p < Pc and t < Tb) and that returns this
+// lane's row, -1 for padding or no slot.  kScratch: the shared ints per warp
+// it needs (B2 and B6 otherwise share coupling_kernel's layout).
+
+// B2: the row is wcam[ts], int16, -1 = padding.
+struct WcamRows {
+  static constexpr int kScratch = 0;
+  const int16_t* wcam;
+  __device__ __forceinline__ int operator()(const SlotLane&, int, size_t ts, bool real,
+                                            int*) const {
+    return real ? int(wcam[ts]) : -1;
+  }
+};
+
+// V bytes of one-hot entries from p into v (V / sizeof(OH) entries), one
+// read-only vector load; V is the wrapper's vector width (onehot_vector_bytes
+// in ops/_wtt_common.py), so p is V-aligned.
+template <int V, typename OH, int E>
+__device__ __forceinline__ void load_vec(const OH* p, OH (&v)[E]) {
+  static_assert(E * sizeof(OH) == V, "one vector");
+  if constexpr (V == sizeof(OH)) {
+    v[0] = __ldg(p);
+  } else if constexpr (V == 16) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    memcpy(v, &u, V);
+  } else if constexpr (V == 8) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    memcpy(v, &u, V);
+  } else {
+    const unsigned u = __ldg(reinterpret_cast<const unsigned*>(p));
+    memcpy(v, &u, V);
+  }
+}
+
+// The first nonzero row of each of the warp's 32 one-hot columns, lowered
+// into the warp's shared (32,) table s_row (which holds W before).  `col`
+// points at row 0 of column 0; rows are N entries apart and a row's 32
+// entries are contiguous, read as R = 32 / E vectors of E entries each.
+// Lane l reads vector l % R of rows l / R, l / R + 32 / R, ...: 32 / R rows
+// per warp-wide load (16 at int8 with V = 16, so W = 128 takes 8 loads per
+// lane).  Each lane keeps, per entry of its vector, the first row where it
+// saw a nonzero (rows rise, so the first is the least), then lowers the
+// table with one shared atomicMin per entry it found.  Columns at or past
+// `ncol` (the bucket's ragged edge) are not read: Pc * sizeof(OH) is a
+// multiple of V, so no vector straddles the edge.
+template <typename OH, int V>
+__device__ __forceinline__ void first_rows(const OH* col, size_t N, int W, int ncol, int lane,
+                                           int* s_row) {
+  if constexpr (V >= sizeof(OH)) {
+    constexpr int E = V / int(sizeof(OH)), R = 32 / E, RPL = 32 / R;
+    const int j = lane % R;
+    if (j * E >= ncol) return;
+    const OH* p = col + j * E;
+    int first[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) first[e] = W;
+#pragma unroll 4
+    for (int i = lane / R; i < W; i += RPL) {
+      OH v[E];
+      load_vec<V>(p + size_t(i) * N, v);
+#pragma unroll
+      for (int e = 0; e < E; ++e) first[e] = (first[e] == W && v[e] != OH(0)) ? i : first[e];
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      if (first[e] < W) atomicMin(s_row + j * E + e, first[e]);
+  }
+}
+
+// B6: the row is the first nonzero row of the slot's column of the one-hot
+// (G, W, Tb * Pc), int8 or the data's float type; an all-zero column is a
+// padded slot.  The warp decodes its 32 columns at once (first_rows) with
+// `vec`-byte loads.
+template <typename OH>
+struct OnehotRows {
+  static constexpr int kScratch = 32;
+  const OH* onehot;
+  int Tb, Pc, W, vec;
+  __device__ __forceinline__ int operator()(const SlotLane& sl, int t, size_t, bool,
+                                            int* s_row) const {
+    if (t >= Tb) return -1;  // warp-uniform
+    const size_t N = size_t(Tb) * Pc;
+    const int p0 = sl.p - sl.lane;
+    const OH* col = onehot + size_t(sl.g) * W * N + size_t(t) * Pc + p0;
+    const int ncol = min(32, Pc - p0);
+    s_row[sl.lane] = W;
+    __syncwarp();
+    switch (vec) {
+      case 16: first_rows<OH, 16>(col, N, W, ncol, sl.lane, s_row); break;
+      case 8: first_rows<OH, 8>(col, N, W, ncol, sl.lane, s_row); break;
+      case 4: first_rows<OH, 4>(col, N, W, ncol, sl.lane, s_row); break;
+      default: first_rows<OH, 1>(col, N, W, ncol, sl.lane, s_row); break;
+    }
+    __syncwarp();
+    const int w = s_row[sl.lane];
+    __syncwarp();
+    return w < W ? w : -1;
+  }
+};
+
+// Shared memory of B2 and B6 (elements): the (ng, tc, 3, 32) per-slot W^T x
+// parts, aliased by the warps' (32, NP + 1) row tiles; the (ng, 3, 32) y of
+// each point; the warps' (3, 32) tile meta and the row source's scratch.
+template <typename T, int NP, typename Rows>
 constexpr size_t coupling_smem(int tc, int ng) {
   const size_t nw = size_t(tc) * ng;
   const size_t parts = nw * 3 * 32, tiles = nw * 32 * (NP + 1);
   return ((parts > tiles ? parts : tiles) + size_t(ng) * 3 * 32) * sizeof(T) +
-         nw * 96 * sizeof(int);
+         nw * (96 + Rows::kScratch) * sizeof(int);
 }
 
-// B2 <- wtt_matvec.py:wtt_coupling_rows_idx.  Phase 1: each lane reads its
-// slot's window row, jc/jp and x, and its W^T x part goes to the point's
-// summing lane; y = V^-1 W^T x comes back.  Phase 2: z = jc (jp y) of the
-// slot into the (NP, W) window rows through the warp's row tile.
+// B2 <- wtt_matvec.py:wtt_coupling_rows_idx, with Rows = WcamRows, and
+// B6 <- wtt_matvec.py:wtt_coupling_rows_fused, with Rows = OnehotRows (at
+// TERMS = 3: the JAX kernel takes no terms).  Phase 1: each lane takes its
+// slot's window row from `rows`, reads jc/jp and x, and its W^T x part goes
+// to the point's summing lane; y = V^-1 W^T x comes back.  Phase 2: z = jc
+// (jp y) of the slot into the (NP, W) window rows through the warp's row
+// tile.
 //
 // TERMS < 3 (float only) is the TPU kernel's reduced-fidelity CG operator
 // (matvec_kernel "index1" / "index2", wtt_matvec.py:215): each window-row
 // value of x that a slot reads and each z value it reduces pass
 // split_round<TERMS>.
-template <typename T, int NP, int TERMS>
+template <typename T, int NP, int TERMS, typename Rows>
 __global__ void __launch_bounds__(kCouplingThreads)
-coupling_kernel(const T* __restrict__ xw_t, const int16_t* __restrict__ wcam,
-                const T* __restrict__ jc, const T* __restrict__ jp,
-                const T* __restrict__ vinv, T* __restrict__ out, int G, int Tb,
-                int Pc, int W, int tc, int ng) {
+coupling_kernel(const T* __restrict__ xw_t, Rows rows, const T* __restrict__ jc,
+                const T* __restrict__ jp, const T* __restrict__ vinv, T* __restrict__ out,
+                int G, int Tb, int Pc, int W, int tc, int ng) {
   extern __shared__ __align__(16) unsigned char smem[];
   const SlotLane sl = slot_lane(tc, ng, Tb, Pc);
   const int lane = sl.lane, gi = sl.gi, ti = sl.ti, p = sl.p;
@@ -373,24 +460,25 @@ coupling_kernel(const T* __restrict__ xw_t, const int16_t* __restrict__ wcam,
   const size_t n_a = size_t(nw) * 32 * (NP + 1);
   T* s_y = s_a + n_a;                   // (ng, 3, 32)
   int* s_meta = reinterpret_cast<int*>(s_y + ng * 3 * 32);
+  int* s_scratch = s_meta + nw * 96 + sl.warp * Rows::kScratch;
 
   const int g = sl.g;
   const T* xw_g = xw_t + (size_t)g * NP * W;
   const size_t GP = (size_t)G * Pc, GTP = GP * Tb;
 
   // Slot t of this lane's point: window row w (-1 = padding or past the
-  // track) and its planes (zero where w = -1).  The planes are read beside
-  // the row, not after it, and a padded slot's are dropped.
+  // track) and its planes (zero where w = -1).  The planes are read before
+  // the row is known, and a padded slot's are dropped.
   int w;
   T j[2 * NP], q[6];
   auto load = [&](int t) {
     const bool real = sl.live && t < Tb;
     const size_t ts = ((size_t)g * Tb + t) * Pc + p;
-    w = real ? int(wcam[ts]) : -1;
 #pragma unroll
     for (int k = 0; k < 2 * NP; ++k) j[k] = real ? jc[k * GTP + ts] : T(0);
 #pragma unroll
     for (int k = 0; k < 6; ++k) q[k] = real ? jp[k * GTP + ts] : T(0);
+    w = rows(sl, t, ts, real, s_scratch);
     if (w < 0) {
 #pragma unroll
       for (int k = 0; k < 2 * NP; ++k) j[k] = T(0);
@@ -453,19 +541,15 @@ coupling_kernel(const T* __restrict__ xw_t, const int16_t* __restrict__ wcam,
 }
 
 // ---------------------------------------------------------------- host --
-// The launch of B1 or B2 at the wrapper's geometry: tc warps per 32-point
-// group, ng groups per block, `smem` bytes, which must be the kernel's own
-// count (kErrGeom otherwise); above 48 KB the kernel is opted in first.
-template <typename K>
-int slot_launch(K kernel, int max_threads, size_t need, int tc, int ng, int smem, int G,
-                int Pc, dim3& grid, dim3& block) {
-  if (tc < 1 || ng < 1 || tc * ng * 32 > max_threads || size_t(smem) != need) return kErrGeom;
-  if (need > 48 * 1024) {
-    const int e = prepare(kernel, need);
-    if (e) return e;
-  }
-  grid = dim3(unsigned((Pc + 32 * ng - 1) / (32 * ng)) * unsigned(G));
-  block = dim3(32 * tc * ng);
+// B6's one-hot load width in bytes: the widest of 16, 8, 4 and 1 that is no
+// narrower than an entry of `size` bytes and divides both the one-hot's
+// address and Pc entries (so every column block's offset g W N + i N +
+// t Pc + p0 is aligned, p0 being a multiple of 32); 0 if none.
+// ops/_wtt_common.py onehot_vector_bytes is the same rule.
+inline int onehot_vec(const void* onehot, int Pc, int size) {
+  const int widths[] = {16, 8, 4, 1};
+  for (const int v : widths)
+    if (v >= size && uintptr_t(onehot) % v == 0 && size_t(Pc) * size % v == 0) return v;
   return 0;
 }
 
@@ -507,19 +591,27 @@ int lin_launch(const void* wcam, const void* tw, const void* pts, const void* uv
   }
 }
 
+// B2 (Rows = WcamRows) or B6 (Rows = OnehotRows) at the wrapper's geometry.
+template <typename T, int NP, int TERMS, typename Rows>
+int coupling_launch_rows(const void* xw_t, Rows rows, const void* jc, const void* jp,
+                         const void* vinv, void* out, int G, int Tb, int Pc, int W, int tc,
+                         int ng, int smem, cudaStream_t stream) {
+  auto kernel = coupling_kernel<T, NP, TERMS, Rows>;
+  dim3 grid, block;
+  const int e = slot_launch(kernel, kCouplingThreads, coupling_smem<T, NP, Rows>(tc, ng), tc,
+                            ng, smem, G, Pc, grid, block);
+  if (e) return e;
+  kernel<<<grid, block, smem, stream>>>((const T*)xw_t, rows, (const T*)jc, (const T*)jp,
+                                        (const T*)vinv, (T*)out, G, Tb, Pc, W, tc, ng);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int NP, int TERMS>
 int coupling_launch(const void* xw_t, const void* wcam, const void* jc,
                     const void* jp, const void* vinv, void* out, int G, int Tb,
                     int Pc, int W, int tc, int ng, int smem, cudaStream_t stream) {
-  auto kernel = coupling_kernel<T, NP, TERMS>;
-  dim3 grid, block;
-  const int e = slot_launch(kernel, kCouplingThreads, coupling_smem<T, NP>(tc, ng), tc, ng,
-                            smem, G, Pc, grid, block);
-  if (e) return e;
-  kernel<<<grid, block, smem, stream>>>((const T*)xw_t, (const int16_t*)wcam, (const T*)jc,
-                                        (const T*)jp, (const T*)vinv, (T*)out, G, Tb, Pc, W,
-                                        tc, ng);
-  return (int)cudaGetLastError();
+  return coupling_launch_rows<T, NP, TERMS>(xw_t, WcamRows{(const int16_t*)wcam}, jc, jp,
+                                            vinv, out, G, Tb, Pc, W, tc, ng, smem, stream);
 }
 
 }  // namespace

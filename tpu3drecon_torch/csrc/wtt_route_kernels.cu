@@ -15,14 +15,20 @@
 // memory (one thread per point column walks its track; the u | g | coupling
 // columns go to the global rows with warp-aggregated atomics).  B5 is
 // kernel B2's phase 2 on its
-// own (W y rows, the Schur rhs when the linearization is unfused).  B6 is
-// B2's whole product with each slot's window row taken from the dense
-// one-hot column instead of wcam: a thread scans the W entries of its
-// slot's column (adjacent slots are adjacent bytes, so a warp's loads
-// coalesce), keeps the first nonzero row (an all-zero column is a padded
-// slot: no row, exact zeros) in shared memory for phase 2, and otherwise
-// runs B2.  B6 reads W bytes of int8 one-hot per slot on top of B2's
-// jc/jp stream, so its bound is about twice B2's.
+// own (W y rows, the Schur rhs when the linearization is unfused).
+//
+// B6 is B2's whole product with each slot's window row taken from the dense
+// one-hot column instead of wcam.  It is B2's slot-major kernel itself
+// (wtt_kernels.cuh coupling_kernel, included here and instantiated in this
+// source at TERMS = 3, so it compiles beside wtt_kernels.cu), with the row
+// source OnehotRows: a warp holds slot t of 32 consecutive point columns,
+// whose one-hot entries of a window row are 32 contiguous entries, and
+// reads its (W, 32) block with vector loads of up to 16 bytes (8 loads per
+// lane at int8 and W = 128); each column's first nonzero row is its slot's
+// row, and an all-zero column is a padded slot (no row, exact zeros).
+// Phases 1 and 2 are B2's: x read from device memory, rows out through the
+// warp's row tile, one memory mode.  B6 reads W one-hot entries per slot on
+// top of B2's jc/jp stream, so its bound is about twice B2's at int8.
 //
 // The TPU kernels rebuild one-hot tiles and select or reduce with
 // bf16-split MXU dots; none of that carries over.  Every value is the same
@@ -30,19 +36,16 @@
 // ops/wtt_matvec.py); only the order of the atomic window-row sums differs,
 // so B5, B6 and B8 vary in the last bits from run to run and B7 is exact.
 // Per-slot formulas and the row reduction come from slot.cuh, shared with
-// B1-B4 (wtt_kernels.cu).  B5 and B8 reduce into device memory directly,
-// as B1 and B2 do.  B6 alone keeps a shared-memory mode (x staged as
-// (NP, W + 1), rows reduced into a shared (NP, W) tile, slot.cuh), which
-// measured 1.77x faster than the direct atomics on the medium buckets
-// (PERF.md): its wrapper passes the tile's bytes where they fit the card's
-// per-block limit, 0 for the global mode.  Every C entry returns
-// cudaGetLastError() after its launch, or a negative code of common.cuh.
+// B1-B4 (wtt_kernels.cu).  B5, B6 and B8 reduce into device memory
+// directly, as B1 and B2 do.  Every C entry returns cudaGetLastError()
+// after its launch, or a negative code of common.cuh.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "common.cuh"
 #include "slot.cuh"
+#include "wtt_kernels.cuh"
 
 using namespace tpu3drecon;
 
@@ -86,69 +89,6 @@ w_rows_kernel(const T* __restrict__ y, const int16_t* __restrict__ wcam,
     const size_t ts = ((size_t)g * Tb + t) * Pc + p;
     w_slot<T, NP>(out_g, live ? int(wcam[ts]) : -1, W, jc, jp, ts, GTP, y0, y1, y2);
   }
-}
-
-// ---------------------------------------------------------------- B6 ----
-// Byte offset of B6's float tiles after its (Tb, kBlock) int16 row table,
-// aligned for T.
-template <typename T>
-__host__ __device__ __forceinline__ size_t tile_offset(int Tb) {
-  const size_t n = sizeof(int16_t) * (size_t)Tb * kBlock;
-  return (n + sizeof(T) - 1) / sizeof(T) * sizeof(T);
-}
-
-// B2's coupling rows with each slot's window row read from the one-hot
-// (G, W, Tb * Pc) of element type OH (int8, or the data's float type).
-// Each thread keeps its slots' rows in a shared (Tb, kBlock) int16 table in
-// both memory modes; only the x window and the (NP, W) tile depend on GM.
-template <typename T, typename OH, int NP, bool GM>
-__global__ void __launch_bounds__(kBlock)
-onehot_coupling_kernel(const T* __restrict__ xw_t, const OH* __restrict__ onehot,
-                       const T* __restrict__ jc, const T* __restrict__ jp,
-                       const T* __restrict__ vinv, T* __restrict__ out, int G,
-                       int Tb, int Pc, int W) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int16_t* s_row = reinterpret_cast<int16_t*>(smem);         // (Tb, kBlock)
-  T* s_xw = reinterpret_cast<T*>(smem + tile_offset<T>(Tb));  // (NP, W + 1), shared mode
-  const int g = blockIdx.y;
-  const int p = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = p < Pc;
-  const T* xw_g = xw_t + (size_t)g * NP * W;
-  T* out_g = out + (size_t)g * NP * W;
-  stage_xw<T, NP, GM>(xw_g, s_xw, W);
-  T* acc = start_rows<T, GM>(s_xw + NP * (W + 1), out_g, NP * W);  // (NP, W)
-  __syncthreads();
-
-  const size_t N = (size_t)Tb * Pc;
-  const size_t GP = (size_t)G * Pc, GTP = GP * Tb;
-  // Phase 1: each slot's row from its one-hot column, then (W^T x).
-  T wtx[3] = {T(0), T(0), T(0)};
-  for (int t = 0; t < Tb; ++t) {
-    int w = -1;
-    if (live) {
-      // Scanned from the last row down, so w ends on the first nonzero row
-      // and no load waits on an earlier one's compare.
-      const OH* col = onehot + (size_t)g * W * N + (size_t)t * Pc + p;
-#pragma unroll 8
-      for (int i = W - 1; i >= 0; --i) w = col[(size_t)i * N] != OH(0) ? i : w;
-      wt_slot<T, NP, GM>(s_xw, xw_g, w, W, jc, jp, ((size_t)g * Tb + t) * Pc + p, GTP,
-                         wtx);
-    }
-    s_row[t * kBlock + threadIdx.x] = (int16_t)w;
-  }
-  T v[6];
-#pragma unroll
-  for (int k = 0; k < 6; ++k) v[k] = live ? vinv[k * GP + (size_t)g * Pc + p] : T(0);
-  const T y0 = v[0] * wtx[0] + v[1] * wtx[1] + v[2] * wtx[2];
-  const T y1 = v[1] * wtx[0] + v[3] * wtx[1] + v[4] * wtx[2];
-  const T y2 = v[2] * wtx[0] + v[4] * wtx[1] + v[5] * wtx[2];
-
-  // Phase 2: z = jc (jp y) reduced into the (NP, W) window rows.
-  for (int t = 0; t < Tb; ++t) {
-    const size_t ts = ((size_t)g * Tb + t) * Pc + p;
-    w_slot<T, NP>(acc, s_row[t * kBlock + threadIdx.x], W, jc, jp, ts, GTP, y0, y1, y2);
-  }
-  finish_rows<T, GM>(acc, out_g, NP * W);
 }
 
 // ---------------------------------------------------------------- B8 ----
@@ -233,19 +173,16 @@ int w_rows_launch(const void* y, const void* wcam, const void* jc, const void* j
   return (int)cudaGetLastError();
 }
 
-// `tiles`: the bytes of the shared mode's x window and rows tile, 0 in the
-// global mode; the row table comes first in both.
-template <typename T, typename OH, int NP, bool GM>
-int onehot_launch(const void* xw_t, const void* onehot, const void* jc,
-                  const void* jp, const void* vinv, void* out, int G, int Tb,
-                  int Pc, int W, int tiles, cudaStream_t stream) {
-  const size_t smem = tile_offset<T>(Tb) + (size_t)tiles;
-  const int err = prepare(onehot_coupling_kernel<T, OH, NP, GM>, smem);
-  if (err) return err;
-  onehot_coupling_kernel<T, OH, NP, GM><<<grid_of(Pc, G), kBlock, smem, stream>>>(
-      (const T*)xw_t, (const OH*)onehot, (const T*)jc, (const T*)jp,
-      (const T*)vinv, (T*)out, G, Tb, Pc, W);
-  return (int)cudaGetLastError();
+// B6: B2's kernel (wtt_kernels.cuh) with each slot's row decoded from the
+// one-hot in `vec`-byte loads; `vec` must be the width that the one-hot's
+// alignment allows (onehot_vec), as the wrapper computed it.
+template <typename T, typename OH, int NP>
+int onehot_launch(const void* xw_t, const void* onehot, const void* jc, const void* jp,
+                  const void* vinv, void* out, int G, int Tb, int Pc, int W, int tc,
+                  int ng, int smem, int vec, cudaStream_t stream) {
+  if (vec != onehot_vec(onehot, Pc, sizeof(OH))) return kErrGeom;
+  return coupling_launch_rows<T, NP, 3>(xw_t, OnehotRows<OH>{(const OH*)onehot, Tb, Pc, W, vec},
+                                        jc, jp, vinv, out, G, Tb, Pc, W, tc, ng, smem, stream);
 }
 
 }  // namespace
@@ -283,22 +220,21 @@ int wtt_w_rows(int dtype, int np, const void* y, const void* wcam, const void* j
 }
 
 // onehot_float: 0 = int8 one-hot, 1 = one-hot in the data's float type.
-// tiles: the bytes of the shared mode's tiles as the wrapper computed them
-// (ops/wtt_matvec.py), 0 for the global mode.
+// tc, ng, smem: the slot-major geometry (ops/_wtt_common.py slot_geometry
+// "onehot"); vec: the one-hot vector width (onehot_vector_bytes).
 int wtt_coupling_onehot(int dtype, int np, int onehot_float, const void* xw_t,
                         const void* onehot, const void* jc, const void* jp,
                         const void* vinv, void* out, int G, int Tb, int Pc, int W,
-                        int tiles, void* stream) {
+                        int tc, int ng, int smem, int vec, void* stream) {
   if (G == 0 || Pc == 0) return 0;
   if (onehot_float != 0 && onehot_float != 1) return kErrDtype;
-  NP_DISPATCH(dtype, np, (with_mode(tiles == 0, [&](auto m) {
-    constexpr bool GM = decltype(m)::value;
-    return onehot_float
-               ? onehot_launch<T, T, NP, GM>(xw_t, onehot, jc, jp, vinv, out, G, Tb, Pc,
-                                             W, tiles, (cudaStream_t)stream)
-               : onehot_launch<T, int8_t, NP, GM>(xw_t, onehot, jc, jp, vinv, out, G,
-                                                  Tb, Pc, W, tiles, (cudaStream_t)stream);
-  })));
+  const cudaStream_t s = (cudaStream_t)stream;
+  NP_DISPATCH(dtype, np,
+              (onehot_float ? onehot_launch<T, T, NP>(xw_t, onehot, jc, jp, vinv, out, G, Tb,
+                                                      Pc, W, tc, ng, smem, vec, s)
+                            : onehot_launch<T, int8_t, NP>(xw_t, onehot, jc, jp, vinv, out,
+                                                           G, Tb, Pc, W, tc, ng, smem, vec,
+                                                           s)));
 }
 
 }  // extern "C"

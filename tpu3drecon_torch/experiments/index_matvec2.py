@@ -87,7 +87,7 @@ def probe_coupling_rows(xw_t, wcam, jc, jp, v_inv, variant: str):
 
 
 def run(problem=None, log=print) -> dict:
-    """variant -> {"ms", "max_rel_diff"} (against its plain version),
+    """variant -> {"ms", "plain_ms", "max_rel_diff"} (against its plain version),
     "b2" -> {"ms"}: kernel B2 on the same inputs, and "bound_ms": B2's
     bytes (each input read once, the rows written once) at the card's
     memory rate."""
@@ -113,10 +113,13 @@ def run(problem=None, log=print) -> dict:
             torch.cuda.synchronize()
             rel = max(rel, float(torch.max(torch.abs(got - want)) / torch.max(torch.abs(want))))
         ms = device_ms(lambda variant=variant: [probe_coupling_rows(*a, variant) for a in args])
-        out[variant] = {"ms": ms, "max_rel_diff": rel}
+        plain_ms = device_ms(
+            lambda variant=variant: [probe_coupling_rows_plain(*a, variant) for a in args])
+        out[variant] = {"ms": ms, "plain_ms": plain_ms, "max_rel_diff": rel}
         block, _ = VARIANTS[variant]
         log(f"E1 {variant} ({block} threads per block): {ms:.6f} ms per pass, "
-            f"{ms / out['b2']['ms']:.3f}x B2; max|diff| / max|plain| {rel:.3e}")
+            f"{ms / out['b2']['ms']:.3f}x B2, plain {plain_ms:.6f} ms; "
+            f"max|diff| / max|plain| {rel:.3e}")
         tol = REL.get(variant, REL_ROWS)
         if not rel <= tol:
             raise AssertionError(f"E1 {variant}: {rel:.3e} > {tol:.0e} of its plain version")

@@ -15,10 +15,10 @@ anything but 0, with the message of ``kernel_error_string``
 
 Memory modes (``csrc/slot.cuh``): the kernels read camera rows and x from
 device memory and reduce straight into the output rows (``GLOBAL``), so no
-window width or camera count is refused.  B6 and B15, which measured faster
-with a block-local tile, keep a ``SHARED`` mode: their wrappers compute the
-tile's bytes in pure Python, ``memory_mode`` picks the mode from them alone,
-and the C entry takes the bytes (0 for ``GLOBAL``).
+window width or camera count is refused.  B15 alone also keeps a
+``SHARED`` mode, a block-shared tile of its camera rows that measured
+faster at small camera counts (``ops/tt_linearize.py memory_mode``); its
+C entry takes the tile's bytes (0 for ``GLOBAL``).
 """
 
 from __future__ import annotations
@@ -79,8 +79,9 @@ _SIGNATURES = {
     "tt_coupling": [_I, _I] + [_P] * 6 + [_I] * 3 + [_P],
     # dtype, np, x, cam_ids, mask, jc, jp, out, C, Tb, Pb, stream
     "tt_wt_times": [_I, _I] + [_P] * 6 + [_I] * 3 + [_P],
-    # dtype, np, y, cam_ids, mask, jc, jp, out, C, Tb, Pb, tile, stream
-    "tt_w_times": [_I, _I] + [_P] * 6 + [_I] * 4 + [_P],
+    # dtype, np, y, cam_ids, mask, jc, jp, out, C, Tb, Pb, tc, ng, smem, tile,
+    # stream
+    "tt_w_times": [_I, _I] + [_P] * 6 + [_I] * 7 + [_P],
     # dtype, table, cam_ids, pts, uv, mask, inv_w, lane, C, Tb, Pb, loss, stream
     "tt_cost": [_I] + [_P] * 7 + [_I] * 4 + [_P],
     # dtype, wcam, tw, out, G, N, W, stream
@@ -91,14 +92,12 @@ _SIGNATURES = {
     # dtype, np, y, wcam, jc, jp, out, G, Tb, Pc, W, stream
     "wtt_w_rows": [_I, _I] + [_P] * 5 + [_I] * 4 + [_P],
     # dtype, np, onehot_float, xw_t, onehot, jc, jp, vinv, out, G, Tb, Pc, W,
-    # tiles, stream
-    "wtt_coupling_onehot": [_I, _I, _I] + [_P] * 6 + [_I] * 5 + [_P],
+    # tc, ng, smem, vec, stream
+    "wtt_coupling_onehot": [_I, _I, _I] + [_P] * 6 + [_I] * 8 + [_P],
     # np, block, variant, xw_t, wcam, jc, jp, vinv, out, G, Tb, Pc, W, stream
     "probe_coupling": [_I] * 3 + [_P] * 6 + [_I] * 4 + [_P],
     # layout, packed, out, rows, nbytes, stream
     "probe_bits_expand": [_I] + [_P] * 2 + [_I] * 2 + [_P],
-    # device -> opt-in shared memory per block (bytes)
-    "kernel_smem_limit": [_I],
 }
 
 _LIB = []  # the loaded library, once per process (sources do not change under it)
@@ -110,8 +109,8 @@ SHARED, GLOBAL = "shared", "global"  # memory modes (csrc/slot.cuh)
 class LaunchCounter:
     """Launch counts of one kernel wrapper: ``kernel`` grows where the
     wrapper launches its CUDA kernel, ``plain`` where the plain PyTorch
-    version runs; ``modes`` splits the launches of a kernel that stages a
-    table or reduces into rows by memory mode."""
+    version runs; ``modes`` splits the launches of a kernel that reduces
+    into rows by memory mode."""
 
     def __init__(self):
         self.reset()
@@ -125,19 +124,6 @@ class LaunchCounter:
         """One launch of the kernel in memory mode ``mode``."""
         self.kernel += 1
         self.modes[mode] = self.modes.get(mode, 0) + 1
-
-
-def memory_mode(need: int, limit: int, forced=None) -> str:
-    """The memory mode of B6 or B15, whose shared tiles take ``need`` bytes
-    per block: ``SHARED`` at or below ``limit`` (the card's shared memory
-    per block), ``GLOBAL`` above it.  ``forced`` (the two wrappers' private
-    ``_mode``: None, ``SHARED`` or ``GLOBAL``) overrides the choice; a
-    forced ``SHARED`` above the limit fails in the C entry."""
-    if forced is not None:
-        if forced not in (SHARED, GLOBAL):
-            raise ValueError(f"_mode must be None, {SHARED!r} or {GLOBAL!r}, not {forced!r}")
-        return forced
-    return SHARED if need <= limit else GLOBAL
 
 
 def _sources():
@@ -219,17 +205,6 @@ def library() -> ctypes.CDLL:
     lib.kernel_error_string.restype = ctypes.c_char_p
     _LIB.append(lib)
     return lib
-
-
-_SMEM_LIMIT = {}  # CUDA device index -> opt-in shared memory per block
-
-
-def smem_limit(t: torch.Tensor) -> int:
-    """Shared memory (bytes) one block may use on the card that holds ``t``."""
-    dev = t.device.index if t.device.index is not None else torch.cuda.current_device()
-    if dev not in _SMEM_LIMIT:
-        _SMEM_LIMIT[dev] = library().kernel_smem_limit(dev)
-    return _SMEM_LIMIT[dev]
 
 
 def check(lib: ctypes.CDLL, name: str, code: int) -> None:

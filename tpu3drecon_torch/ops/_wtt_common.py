@@ -1,8 +1,8 @@
 """Shared plumbing of the kernel wrappers: input checks and the device
 dispatch rule (all wrappers), the window-row gather and scatter of the
 wtt plain versions, the bfloat16 split rounding of their
-reduced-fidelity modes, and the launch geometry of the slot-major
-kernels B1 and B2.
+reduced-fidelity modes, the launch geometry of the slot-major kernels
+(B1, B2, B6 and B15) and B6's one-hot vector width.
 
 Dispatch rule of every public kernel function: a CPU tensor goes to the
 plain PyTorch version; a CUDA tensor launches the CUDA kernel or raises.
@@ -94,52 +94,58 @@ def split_round(x: torch.Tensor, terms: int) -> torch.Tensor:
 
 
 # ------------------------------------------------- slot-major geometry ---
-# B1 and B2 (csrc/wtt_kernels.cuh) run one lane per track slot: a warp holds
-# slot t of 32 consecutive point columns, a block holds `groups` such
-# 32-point groups as `warps` warps each, and a track longer than `warps`
-# slots is walked in `chunks` chunks.  The C entries check the shared bytes
-# against their own count (lin_smem / coupling_smem), so these formulas are
-# the kernels' layout.
+# The slot-major kernels run one lane per track slot: a warp holds slot t of
+# 32 consecutive point columns, a block holds `groups` such 32-point groups
+# as `warps` warps each, and a track longer than `warps` slots is walked in
+# `chunks` chunks.  B1 ("lin") and B2 ("coupling") are csrc/wtt_kernels.cuh's
+# templates; B6 ("onehot") is B2's kernel with each slot's row decoded from
+# the one-hot; B15 ("tt_w") is csrc/tt_kernels.cu's.  The C entries check
+# the shared bytes against their own count (lin_smem, coupling_smem,
+# tt_w_smem), so these formulas are the kernels' layout.
 SMEM_PER_BLOCK = 232_448  # the H100's opt-in shared memory per block
 TILE_COLS = 32  # B1's row-tile columns (csrc/slot.cuh kTile)
 TARGET_WARPS = 8  # warps per block the geometry aims at (256 threads)
 INT_BYTES = 4
+KERNELS = ("lin", "coupling", "onehot", "tt_w")
 
 
 def max_threads(kernel: str, itemsize: int) -> int:
-    """Threads per block at most of B1 ("lin") or B2 ("coupling"): their
+    """Threads per block at most of a slot-major kernel: its
     ``__launch_bounds__``, which bound the registers per thread."""
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel must be one of {KERNELS}, not {kernel!r}")
     if kernel == "lin":
         return 512 if itemsize == 4 else 256
-    if kernel == "coupling":
-        return 512
-    raise ValueError(f"kernel must be 'lin' or 'coupling', not {kernel!r}")
+    return 512
 
 
 def slot_smem(kernel: str, warps: int, groups: int, np_cam: int, itemsize: int,
               want_od: bool = False) -> int:
     """Shared bytes of one block: the per-slot parts of the per-point sums
-    (9 values for B1, 3 for B2) aliased by the warps' (32, cols + 1) row
-    tiles, the per-point values shared back (9, 3), B1's od factors and
-    rows of the chunk's slots and the one before it, and each warp's
-    (3, 32) int tile meta."""
+    (9 values for B1, 3 for B2 and B6) aliased by the warps' (32, cols + 1)
+    row tiles, the per-point values shared back (9, 3), B1's od factors and
+    rows of the chunk's slots and the one before it, each warp's (3, 32) int
+    tile meta, and B6's (32,) int row table per warp.  B15 has no per-point
+    sum: its warps' (32, np + 1) row tiles and their meta."""
+    max_threads(kernel, itemsize)  # raises on an unknown kernel
     nw = warps * groups
+    ints = nw * 96
     if kernel == "lin":
         vals = max(nw * 9 * 32, nw * 32 * (TILE_COLS + 1)) + groups * 9 * 32
-        ints = nw * 96
         if want_od:
             vals += groups * (warps + 1) * 3 * np_cam * 32
             ints += groups * (warps + 1) * 32
-    elif kernel == "coupling":
-        vals = max(nw * 3 * 32, nw * 32 * (np_cam + 1)) + groups * 3 * 32
-        ints = nw * 96
+    elif kernel == "tt_w":
+        vals = nw * 32 * (np_cam + 1)
     else:
-        raise ValueError(f"kernel must be 'lin' or 'coupling', not {kernel!r}")
+        vals = max(nw * 3 * 32, nw * 32 * (np_cam + 1)) + groups * 3 * 32
+        if kernel == "onehot":
+            ints += nw * 32
     return vals * itemsize + ints * INT_BYTES
 
 
 class SlotGeometry(NamedTuple):
-    """Launch geometry of B1 or B2 on one bucket."""
+    """Launch geometry of a slot-major kernel on one bucket."""
 
     warps: int  # warps (track slots) per 32-point group and chunk
     groups: int  # 32-point groups per block
@@ -149,20 +155,22 @@ class SlotGeometry(NamedTuple):
 
 
 def slot_geometry(kernel: str, tb: int, pc: int, np_cam: int, itemsize: int,
-                  want_od: bool = False, limit: int = SMEM_PER_BLOCK) -> SlotGeometry:
-    """The geometry of B1 ("lin") or B2 ("coupling") on a bucket of ``tb``
-    slots per track and ``pc`` point columns: as many warps per group as
-    the track has slots, up to the kernel's thread limit (a longer track is
-    cut into balanced chunks); short tracks share a block, up to
-    ``TARGET_WARPS`` warps; groups, then warps per group, shrink until the
-    shared bytes fit ``limit``."""
+                  want_od: bool = False, limit: int = SMEM_PER_BLOCK,
+                  tile: int = 0) -> SlotGeometry:
+    """The geometry of B1 ("lin"), B2 ("coupling"), B6 ("onehot") or B15
+    ("tt_w") on a bucket of ``tb`` slots per track and ``pc`` point
+    columns: as many warps per group as the track has slots, up to the
+    kernel's thread limit (a longer track is cut into balanced chunks);
+    short tracks share a block, up to ``TARGET_WARPS`` warps; groups, then
+    warps per group, shrink until the shared bytes (with ``tile`` bytes of
+    a block-wide tile) fit ``limit``."""
     tb = max(int(tb), 1)
     max_warps = max_threads(kernel, itemsize) // 32
     warps = -(-tb // -(-tb // max_warps))
     groups = max(1, min(TARGET_WARPS // warps, -(-pc // 32)))
 
     def smem(w, gr):
-        return slot_smem(kernel, w, gr, np_cam, itemsize, want_od)
+        return slot_smem(kernel, w, gr, np_cam, itemsize, want_od) + tile
 
     while smem(warps, groups) > limit and groups > 1:
         groups -= 1
@@ -171,3 +179,16 @@ def slot_geometry(kernel: str, tb: int, pc: int, np_cam: int, itemsize: int,
     return SlotGeometry(warps, groups, -(-tb // warps), -(-pc // (32 * groups)),
                         smem(warps, groups))
 
+
+def onehot_vector_bytes(address: int, pc: int, itemsize: int) -> int:
+    """Bytes of B6's one-hot vector loads: the widest of 16, 8, 4 and 1
+    that is no narrower than an entry of ``itemsize`` bytes and divides
+    both the one-hot's ``address`` and the ``pc`` entries of a slot row, so
+    that every warp's block of 32 columns (at t * Pc + a multiple of 32 in
+    each of the W rows, N = Tb * Pc entries apart) starts aligned.  The C
+    entry computes the same width (csrc/wtt_kernels.cuh onehot_vec) and
+    refuses any other."""
+    for vec in (16, 8, 4, 1):
+        if vec >= itemsize and address % vec == 0 and pc * itemsize % vec == 0:
+            return vec
+    raise ValueError(f"a one-hot at {address:#x} with {itemsize}-byte entries is not aligned")

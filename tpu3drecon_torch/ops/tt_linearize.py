@@ -20,16 +20,19 @@ The JAX functions select camera rows and reduce into them through the dense
 an all-zero camera row and adds to no camera, as its all-zero one-hot
 column does.  Outputs have the JAX functions' shapes and order.
 
-CUDA kernels (``csrc/tt_kernels.cu``): one thread per point column walks
-its track, reading its slots' camera rows (or x) from device memory; per-point
-sums in registers, taken in track order; per-camera sums go straight to
-the zeroed outputs with atomics.  So B12's ug, B13 and B15 vary in the last
-bits from run to run; every other output matches the plain version to the
-last bit.  Nothing is staged per block, so any camera count runs.  B15
-alone keeps a shared-memory mode (a (C, np) tile per block, flushed with
-one global atomic per nonzero entry), which measured faster than the direct
-atomics: ``memory_mode`` picks it where the tile fits the card's shared
-memory per block, and the wrapper passes its bytes to the kernel.
+CUDA kernels (``csrc/tt_kernels.cu``): B12-B14 and B16 run one thread per
+point column, which walks its track reading its slots' camera rows (or x)
+from device memory; per-point sums in registers, taken in track order;
+per-camera sums go straight to the zeroed outputs with atomics.  B15 is
+slot-major (one warp per slot and 32 consecutive point columns,
+``_wtt_common.slot_geometry("tt_w")``): its lanes are grouped by camera
+before their atomics, one per (distinct camera, column).  So B12's ug, B13
+and B15 vary in the last bits from run to run; every other output matches
+the plain version to the last bit.  Any camera count runs.  B15 keeps two
+memory modes (``memory_mode``): its atomics go to a block-shared (C, np)
+tile, flushed once per block, where the tile has at most ``TILE_ENTRIES``
+entries, and straight to the output above (PERF.md: at C = 100 the tile
+measured faster on the largest medium bucket, at C = 1024 slower).
 
 Each public function runs its plain PyTorch version on CPU tensors and its
 CUDA kernel on CUDA tensors; there is no fallback from one to the other.
@@ -41,7 +44,12 @@ import torch
 
 from tpu3drecon_torch.geometry.losses import LOSS_CODES
 from tpu3drecon_torch.ops import _build
-from tpu3drecon_torch.ops._wtt_common import check_inputs, check_shape, is_cuda_call
+from tpu3drecon_torch.ops._wtt_common import (
+    check_inputs,
+    check_shape,
+    is_cuda_call,
+    slot_geometry,
+)
 from tpu3drecon_torch.solvers.ba_tt import (
     CAM_TABLE_DIM,
     _coupling_contribs,
@@ -62,17 +70,26 @@ COST_COUNTS = _build.LaunchCounter()  # B16
 _V6_PAIRS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
 
 
+TILE_ENTRIES = 2048  # B15's block-shared tile at most: 8 entries per thread of 256
+
+
 def shared_memory_bytes(n_cams: int, np_cam: int, itemsize: int) -> int:
-    """Dynamic shared memory of one block of B15 in its shared mode: the
-    (C, np) reduction tile."""
+    """Bytes of B15's block-shared (C, np) tile in its shared mode."""
     return n_cams * np_cam * itemsize
 
 
-def memory_mode(n_cams: int, np_cam: int, itemsize: int, limit: int, forced=None):
-    """(bytes, mode) of B15: ``shared_memory_bytes`` and the mode
-    ``_build.memory_mode`` picks from it against ``limit``."""
-    need = shared_memory_bytes(n_cams, np_cam, itemsize)
-    return need, _build.memory_mode(need, limit, forced)
+def memory_mode(n_cams: int, np_cam: int, forced=None) -> str:
+    """B15's memory mode: ``SHARED`` (a block-shared (C, np) tile) where the
+    tile has at most ``TILE_ENTRIES`` entries, ``GLOBAL`` (atomics straight
+    into the output) above.  ``forced`` (the wrapper's private ``_mode``:
+    None, ``SHARED`` or ``GLOBAL``) overrides the choice; a forced
+    ``SHARED`` past the card's shared memory fails in the C entry."""
+    if forced is not None:
+        if forced not in (_build.SHARED, _build.GLOBAL):
+            raise ValueError(f"_mode must be None, {_build.SHARED!r} or {_build.GLOBAL!r}, "
+                             f"not {forced!r}")
+        return forced
+    return _build.SHARED if n_cams * np_cam <= TILE_ENTRIES else _build.GLOBAL
 
 
 def _check_config(config, np_cam: int) -> None:
@@ -249,13 +266,15 @@ def tt_w_times_fused(y, cam_ids, mask, jc, jp, n_cams: int, *, _mode=None):
     name = "tt_w_times_fused"
     np_cam, tb, pb = _check_slots(name, y, cam_ids, mask, jc, jp, y=y)
     check_shape(name, "y", y, (3, pb))
-    need, mode = memory_mode(n_cams, np_cam, y.element_size(), _build.smem_limit(y), _mode)
+    mode = memory_mode(n_cams, np_cam, _mode)
+    tile = shared_memory_bytes(n_cams, np_cam, y.element_size()) if mode == _build.SHARED else 0
+    geo = slot_geometry("tt_w", tb, pb, np_cam, y.element_size(), tile=tile)
     out = torch.zeros((n_cams, np_cam), dtype=y.dtype, device=y.device)
     lib = _build.library()
     code = lib.tt_w_times(
         _build.dtype_code(y.dtype), np_cam, y.data_ptr(), cam_ids.data_ptr(),
         mask.data_ptr(), jc.data_ptr(), jp.data_ptr(), out.data_ptr(), n_cams, tb, pb,
-        need if mode == _build.SHARED else 0, _build.stream_ptr(y.device),
+        geo.warps, geo.groups, geo.smem, tile, _build.stream_ptr(y.device),
     )
     _build.check(lib, name, code)
     W_COUNTS.launched(mode)

@@ -23,12 +23,16 @@ at once.  ``_wtt_common.slot_geometry`` gives its launch geometry.  On the
 H100 it is bound by those atomics on the medium buckets and by the jc/jp
 stream (2 np + 6 planes per slot) on the BAL ones.  B3 takes one thread
 per point column, has no cross-thread reduction and is bound by the jc/jp
-bytes it reads.  B5 and
-B6 (``csrc/wtt_route_kernels.cu``) reuse B2's per-slot halves; B6 scans
-each slot's one-hot column and keeps its first nonzero row, so it agrees
-with the literal product on a one-hot with at most one 1 per column and
-reads the first 1 of a malformed column.  B2, B5 and B6 rows are atomic
-sums, so f32 rows vary in the last bits.  Any window width runs.
+bytes it reads.  B5 (``csrc/wtt_route_kernels.cu``) reuses B2's
+phase 2 per point column.  B6 is B2's slot-major kernel itself, with each
+slot's window row decoded from the one-hot: a warp reads the one-hot
+entries of its 32 point columns, contiguous in each window row, with
+vector loads of ``_wtt_common.onehot_vector_bytes`` (16 bytes where the
+one-hot's address and Pc allow it) and keeps each column's first nonzero
+row, so it agrees with the literal product on a one-hot with at most one 1
+per column and reads the first 1 of a malformed column.  B2, B5 and B6
+rows are atomic sums, so f32 rows vary in the last bits.  Any window width
+runs, in one memory mode.
 
 B2 also takes the TPU kernel's ``terms`` (``matvec_kernel`` "index1" /
 "index2", ``csrc/wtt_terms_kernels.cu``): at 1 or 2 each window-row value
@@ -37,12 +41,6 @@ many bfloat16 split pieces (``_wtt_common.split_round``); float64 and
 ``terms=3`` are exact.  The JAX kernel sums each split piece over the
 slots before it folds them, this one folds per slot, so the two differ by
 f32 re-association.  B3 and B5 stay exact in every mode.
-
-B6 alone keeps a shared-memory mode (x staged per block, rows reduced into
-a block-local tile), which measured faster than the direct atomics:
-``memory_mode`` picks it where its tiles fit the card's shared memory per
-block, and the wrapper passes their bytes to the kernel
-(``csrc/slot.cuh``).
 """
 
 from __future__ import annotations
@@ -54,6 +52,7 @@ from tpu3drecon_torch.ops._wtt_common import (
     check_inputs,
     check_shape,
     is_cuda_call,
+    onehot_vector_bytes,
     reduce_rows,
     slot_geometry,
     slot_index,
@@ -67,25 +66,6 @@ COUPLING2_COUNTS = _build.LaunchCounter()  # B2 at terms 2
 WT_COUNTS = _build.LaunchCounter()  # B3
 W_ROWS_COUNTS = _build.LaunchCounter()  # B5
 FUSED_COUNTS = _build.LaunchCounter()  # B6
-
-_BLOCK = 256  # threads per block (csrc/slot.cuh kBlock)
-
-
-def _fused_tiles(window: int, np_cam: int, itemsize: int) -> int:
-    """Bytes of B6's shared-mode tiles: the staged (np, W + 1) x window and
-    the (np, W) rows tile."""
-    return np_cam * (2 * window + 1) * itemsize
-
-
-def memory_mode(window: int, np_cam: int, tb: int, itemsize: int, limit: int,
-                forced=None):
-    """(bytes, mode) of B6: its shared memory per block in the shared mode
-    (the (Tb, 256) int16 row table of ``tb`` slots per thread, which it
-    keeps in both modes, and ``_fused_tiles``), and the mode
-    ``_build.memory_mode`` picks from it against ``limit``."""
-    need = 2 * tb * _BLOCK + _fused_tiles(window, np_cam, itemsize)
-    return need, _build.memory_mode(need, limit, forced)
-
 
 def _wt_x(xw_t, wcam, jc, jp, ordered: bool = False):
     """W^T x point planes [(G, Pc)] * 3: phase 1 of both kernels.  With
@@ -256,13 +236,11 @@ def wtt_coupling_rows_fused_plain(xw_t, onehot, jc, jp, v_inv):
     return torch.einsum("kgn,gwn->gkw", z.reshape(np_cam, g, tb * pc), oh)
 
 
-def wtt_coupling_rows_fused(xw_t, onehot, jc, jp, v_inv, *, _mode=None):
+def wtt_coupling_rows_fused(xw_t, onehot, jc, jp, v_inv):
     """Coupling rows (G, np, W) of W V^-1 W^T x for one bucket, the slots'
     window rows read from ``onehot`` (G, W, Tb*Pc), int8 or the data's
     float dtype; other inputs as ``wtt_coupling_rows_idx``.  CPU tensors
-    run the plain version, CUDA tensors the kernel in the memory mode of
-    ``memory_mode`` (``_mode`` forces one, for tests).  The window takes at
-    most 32,767 rows (the int16 of JAX's ``wcam``)."""
+    run the plain version, CUDA tensors the kernel."""
     if not is_cuda_call(xw_t):
         return wtt_coupling_rows_fused_plain(xw_t, onehot, jc, jp, v_inv)
     name = "wtt_coupling_rows_fused"
@@ -273,25 +251,22 @@ def wtt_coupling_rows_fused(xw_t, onehot, jc, jp, v_inv, *, _mode=None):
         raise ValueError(
             f"{name}: onehot has dtype {onehot.dtype}, expected int8 or {xw_t.dtype}"
         )
-    if window > 32767:
-        raise ValueError(f"{name}: window {window} exceeds 32767 rows")
     check_inputs(name, xw_t.device, xw_t.dtype, xw_t=xw_t, jc=jc, jp=jp, v_inv=v_inv)
     check_inputs(name, xw_t.device, onehot.dtype, onehot=onehot)
     check_shape(name, "xw_t", xw_t, (g, np_cam, window))
     check_shape(name, "onehot", onehot, (g, window, tb * pc))
     check_shape(name, "jc", jc, (2 * np_cam, g, tb, pc))
     check_shape(name, "v_inv", v_inv, (6, g, pc))
-    _, mode = memory_mode(window, np_cam, tb, xw_t.element_size(),
-                          _build.smem_limit(xw_t), _mode)
-    tiles = _fused_tiles(window, np_cam, xw_t.element_size()) if mode == _build.SHARED else 0
+    geo = slot_geometry("onehot", tb, pc, np_cam, xw_t.element_size())
+    vec = onehot_vector_bytes(onehot.data_ptr(), pc, onehot.element_size())
     out = torch.zeros((g, np_cam, window), dtype=xw_t.dtype, device=xw_t.device)
     lib = _build.library()
     code = lib.wtt_coupling_onehot(
         _build.dtype_code(xw_t.dtype), np_cam, int(onehot.dtype != torch.int8),
         xw_t.data_ptr(), onehot.data_ptr(), jc.data_ptr(), jp.data_ptr(),
-        v_inv.data_ptr(), out.data_ptr(), g, tb, pc, window, tiles,
-        _build.stream_ptr(xw_t.device),
+        v_inv.data_ptr(), out.data_ptr(), g, tb, pc, window, geo.warps, geo.groups,
+        geo.smem, vec, _build.stream_ptr(xw_t.device),
     )
     _build.check(lib, name, code)
-    FUSED_COUNTS.launched(mode)
+    FUSED_COUNTS.launched(_build.GLOBAL)
     return out
