@@ -124,10 +124,10 @@ whose (C, np) tile has at most 2,048 entries; none for B7, B9-B11 and E4,
 which have no mode), which must match the row's label; B15's row adds
 ``global_ms``, the same inputs' time with the global-memory mode forced.
 The rows ``B1 [hub]`` (the hub buckets), ``B1 od [np=10]`` (the BAL buckets
-with ``optimize_dist``), ``B12 [C=1024]`` and ``B15 [C=1024]``
-(tt_seq1024, B15 there in its global mode) time those kernels at the
-widths that a shared tile could not hold or does not serve, and count
-their launches on those paths.  The
+with ``optimize_dist``), ``B12 [C=1024]``, ``B14 [C=1024]`` and ``B15
+[C=1024]`` (tt_seq1024, B15 there in its global mode) time those kernels
+at the widths that a shared tile could not hold or does not serve, and
+count their launches on those paths.  The
 rows ``B2 [terms 1]``, ``B2 [terms 2]`` and ``B1 [terms 2]`` (medium
 buckets) and ``B1 od [terms 2]`` (BAL buckets) time the reduced-fidelity
 kernels and count their launches on the split paths that run them; ``E4
@@ -244,12 +244,15 @@ KERNELS = (
      GLOBAL),
     ("ops.wtt_linearize", "CONTRIB_OD_COUNTS", "B8 od", ROUTE_SRC, f"{LIN_PY}:163",
      {BAL_TRI}, GLOBAL),
-    # B1, B1 od and B12 at the widths that a shared tile could not hold, and
-    # B15 at the camera count where it takes its global mode.
+    # B1, B1 od and B12 at the widths that a shared tile could not hold, B14
+    # on the same 1024-camera track table, and B15 at the camera count where
+    # it takes its global mode.
     ("ops.wtt_linearize", "COUNTS", "B1 [hub]", WTT_SRC, f"{LIN_PY}:554", {HUB}, GLOBAL),
     ("ops.wtt_linearize", "OD_COUNTS", "B1 od [np=10]", WTT_SRC, f"{LIN_PY}:515", {NP10},
      GLOBAL),
     ("ops.tt_linearize", "CAM_COUNTS", "B12 [C=1024]", TT_SRC, f"{TT_PY}:221", {TT1024},
+     GLOBAL),
+    ("ops.tt_linearize", "WT_COUNTS", "B14 [C=1024]", TT_SRC, f"{TT_PY}:436", {TT1024},
      GLOBAL),
     ("ops.tt_linearize", "W_COUNTS", "B15 [C=1024]", TT_SRC, f"{TT_PY}:475", {TT1024},
      GLOBAL),
@@ -1185,13 +1188,14 @@ def run_probe_e4(launches: dict) -> None:
 def check_tt1024_kernels(tt) -> None:
     """B12-B16 on the 1024-camera track table (f32), each mode printed:
     B12 timed as the ``B12 [C=1024]`` row (camera columns that no shared
-    tile of the card could hold), B15 as ``B15 [C=1024]`` (its global
-    mode: a (C, np) tile of 8,192 entries measured slower)."""
+    tile of the card could hold), B14 as ``B14 [C=1024]``, B15 as ``B15
+    [C=1024]`` (its global mode: a (C, np) tile of 8,192 entries measured
+    slower)."""
     from tpu3drecon_torch.ops import tt_linearize as tt_ops
     from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
 
     elem, summed = TOL[torch.float32]
-    row, row15 = "B12 [C=1024]", "B15 [C=1024]"
+    row, row14, row15 = "B12 [C=1024]", "B14 [C=1024]", "B15 [C=1024]"
     c = tt.n_cameras
     for bi, d in enumerate(tt_kernel_inputs(tt, torch.float32)):
         tb, pb = d["mask"].shape
@@ -1203,7 +1207,8 @@ def check_tt1024_kernels(tt) -> None:
         errs = {"B12": max(compare(row, "f32", k, a, b, summed if k == "ug" else elem)
                            for k, a, b in zip(("jc", "jp", "v6", "g_pt", "ug"), got, want))}
         b13, b14, b15 = tt_follower_args(d, want, c)
-        wy = check_tt_followers("f32 C=1024", "", b13, b14, b15, errs)[2]
+        _, wtx, wy = check_tt_followers("f32 C=1024", "", b13, b14, b15, errs)
+        compare(row14, "f32", "", wtx, tt_ops.tt_wt_times_fused_plain(*b14), elem)
         compare(row15, "f32", "", wy, tt_ops.tt_w_times_fused_plain(*b15), summed)
         errs["B16"] = compare("tt_cost_fused", "f32 C=1024", "",
                               tt_ops.tt_cost_fused(*args[:7]),
@@ -1213,13 +1218,17 @@ def check_tt1024_kernels(tt) -> None:
             ("B14", "tt_wt_times_fused"), ("B15", "tt_w_times_fused"),
             ("B16", "tt_cost_fused"))}
         ms = timed(row, lambda: tt_ops.tt_cam_normal_fused(*args))
-        ms15 = RESULTS[row15]["ms"]
+        ms14, ms15 = RESULTS[row14]["ms"], RESULTS[row15]["ms"]
+        account(row14, lambda: tt_ops.tt_wt_times_fused(*b14),
+                lambda: tt_ops.tt_wt_times_fused_plain(*b14), nbytes(*b14, wtx),
+                FLOPS["tt_wt_times_fused"] * tb * pb)
         account(row15, lambda: tt_ops.tt_w_times_fused(*b15),
                 lambda: tt_ops.tt_w_times_fused_plain(*b15), nbytes(*b15[:5], wy),
                 FLOPS["tt_w_times_fused"] * tb * pb)
         log(f"check f32 tt_seq1024 bucket {bi} (C={c} Tb={tb} Pb={pb}): "
             + " ".join(f"{k} {v:.3e} [{modes[k]}]" for k, v in errs.items())
-            + f"; B12 {ms:.6f} ms, B15 {RESULTS[row15]['ms'] - ms15:.6f} ms")
+            + f"; B12 {ms:.6f} ms, B14 {RESULTS[row14]['ms'] - ms14:.6f} ms, "
+            f"B15 {RESULTS[row15]['ms'] - ms15:.6f} ms")
         RESULTS[row]["ms"] += ms
         RESULTS[row]["plain_ms"] += device_ms(lambda: tt_ops.tt_cam_normal_fused_plain(*args))
         RESULTS[row]["bytes"] += nbytes(*args[:6], *got)

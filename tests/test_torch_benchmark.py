@@ -1,11 +1,14 @@
 """The profile summary of tpu3drecon_torch.benchmark.profile_solve, checked
-on a synthetic Chrome trace (it needs no card)."""
+on a synthetic Chrome trace, and the ``-Xptxas -v`` filter of
+tpu3drecon_torch.benchmark.wtt_bucket_times on compiler lines (neither
+needs a card)."""
 
 import json
 
 import pytest
 
 from tpu3drecon_torch.benchmark.profile_solve import _intervals_union, summarize
+from tpu3drecon_torch.benchmark.wtt_bucket_times import ptxas_lines
 
 
 def test_intervals_union_merges_overlaps():
@@ -36,3 +39,25 @@ def test_summarize_reads_a_chrome_trace(tmp_path):
                launches=2, total_ms=pytest.approx(0.02), mean_us=10.0)
     assert out["top"][0] == cam
     assert out["port"] == [cam]  # the PyTorch kernel is not the port's
+
+
+_TT = "_ZN46_GLOBAL__N__08e980a5_13_tt_kernels_cu_c6cf0c1e"
+
+
+@pytest.mark.parametrize("mangled,kept", [
+    (f"{_TT}20tt_cam_normal_kernelIfLi8EEEvPKT_PKiS3_S3_S3_S3_PS1_S6_S6_S6_S6_iii", True),  # B12
+    (f"{_TT}18tt_wt_times_kernelIfLi8EEEvPKT_PKiS3_S3_S3_PS1_iiiii", True),  # B14
+    (f"{_TT}17tt_w_times_kernelIfLi8ELb1EEEvPKT_PKiS3_S3_S3_PS1_iiiii", True),  # B15
+    (f"{_TT}18tt_coupling_kernelIfLi8EEEvPKiPKT_S5_S5_S5_PS3_iii", False),  # B13
+    (f"{_TT}14tt_cost_kernelIfEEvPKT_PKiS3_S3_S3_S3_PS1_iiii", False),  # B16
+])
+def test_ptxas_lines_keep_the_slot_major_kernels(mangled, kept):
+    """The registers and spills of B12, B14 and B15 are kept, B13's and
+    B16's dropped: the names are matched with their length prefix."""
+    out = (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
+           "ptxas info    : Function properties for x\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 64 registers, used 1 barriers\n")
+    lines = ptxas_lines(out)
+    assert len(lines) == (3 if kept else 0)
+    assert not kept or lines[-1].endswith("Used 64 registers, used 1 barriers")

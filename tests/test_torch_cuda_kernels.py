@@ -4,9 +4,9 @@ one-hot routes (B5-B8), B1's and B8's band pair rows (``want_od``), B1 at
 terms 2 and B2 at terms 1 and 2 (the reduced-fidelity modes), the grid
 engine's three (B9-B11), the dense track table's five (B12-B16), and the
 probe kernels of ``tpu3drecon_torch.experiments`` (E1's copies of B2, E4's
-bit expansion); the slot-major B1, B2, B6 and B15 also on tracks longer
-than one block's chunk, all-padding buckets, the hub layout's width and
-warps whose lanes hit different rows; B6 at every one-hot load width.
+bit expansion); the slot-major B1, B2, B6, B12, B14 and B15 also on tracks
+longer than one block's chunk, all-padding buckets, the hub layout's width
+and warps whose lanes hit different rows; B6 at every one-hot load width.
 The kernels read camera rows from device memory and reduce into the output
 rows directly, so wide windows and camera axes run: one input per kernel
 family past the card's shared memory per block.  B15 also keeps a
@@ -910,3 +910,69 @@ def test_tt_w_times_slot_major_matches_plain(dev, dtype, c, tb, pb, np_cam, cams
     assert torch.isfinite(got).all()
     _close(got, want, reduced, f"B15 C={c} Tb={tb} {cams}")
     assert tt_linearize.W_COUNTS.kernel == before + 1
+
+
+TT_SLOT_CASES = [  # (dtype, C, Tb, Pb, np, loss, cameras)
+    (torch.float32, 100, 1, 300, 8, "trivial", "random"),
+    (torch.float32, 100, 3, 513, 10, "cauchy", "three"),
+    (torch.float64, 37, 12, 300, 12, "huber", "three"),
+    (torch.float32, 100, 40, 300, 8, "huber", "random"),  # three chunks per track
+    (torch.float64, 100, 40, 300, 10, "cauchy", "random"),  # B12: five chunks
+    (torch.float64, 100, 4, 300, 8, "trivial", "one"),
+    (torch.float32, 1024, 3, 1000, 12, "cauchy", "random"),
+    (torch.float32, 7300, 3, 1000, 8, "huber", "random"),
+]
+
+
+@pytest.mark.parametrize("dtype,c,tb,pb,np_cam,loss,cams", TT_SLOT_CASES)
+def test_tt_slot_major_b12_b14_match_plain(dev, dtype, c, tb, pb, np_cam, loss, cams):
+    """The slot-major B12 and B14 (one lane per track slot, per-point sums
+    added in slot order by one lane per point, B12's camera columns through
+    the warp's row tile) against their plain versions: tracks of 1, 3, 12
+    and 40 slots (several chunks), a bucket that is all padding but one
+    slot, camera axes of 1024 and 7300, np 10 and 12, float64, warps whose
+    lanes carry three cameras and padding, and each loss.  jc, jp, v6, g_pt
+    and B14's W^T x must equal the plain versions bit for bit (both sum
+    each point's track in slot order); ug is an atomic sum.  Camera 0's row
+    and x row are NaN and only padded slots carry camera 0; B14 also gets
+    NaN jc/jp on the padded slots, which it must not read."""
+    d = _tt_inputs(dev, dtype, c, tb, pb, seed=c + 5 * tb + pb + np_cam)
+    if cams == "three":
+        cam_ids, mask = _three_camera_ids(c, tb, pb, seed=c + tb)
+    elif cams == "one":
+        mask = np.zeros((tb, pb), dtype=bool)
+        mask[tb - 1, 37] = True
+        cam_ids = np.where(mask, c // 2, 0).astype(np.int32)
+    if cams != "random":
+        d["cam_ids"] = torch.as_tensor(cam_ids, device=dev)
+        d["mask"] = torch.as_tensor(mask, dtype=dtype, device=dev)
+    _, reduced = TOL[dtype]
+    cfg = BAConfig(loss=RobustLoss(loss), optimize_dist=np_cam >= 10,
+                   optimize_pp=np_cam == 12)
+    before = (tt_linearize.CAM_COUNTS.kernel, tt_linearize.WT_COUNTS.kernel)
+    b12 = (d["table"], d["cam_ids"], d["pts"], d["uv"], d["mask"], d["inv_w"], cfg, np_cam)
+    got = tt_linearize.tt_cam_normal_fused(*b12)
+    want = tt_linearize.tt_cam_normal_fused_plain(*b12)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("jc", "jp", "v6", "g_pt"), got, want):
+        assert torch.isfinite(a).all(), f"B12 {name}"
+        assert torch.equal(a, b), f"B12 {name}: max|diff| {float((a - b).abs().max()):.3e}"
+    assert torch.isfinite(got[4]).all()
+    _close(got[4], want[4], reduced, f"B12 ug C={c} Tb={tb} {cams}")
+    pad = d["mask"] == 0
+    assert (got[0][:, pad] == 0).all() and (got[1][:, pad] == 0).all()
+    assert (got[4][0] == 0).all()  # camera 0 has only padded slots
+
+    x = d["x"][:, :np_cam].clone()
+    x[0] = float("nan")
+    jc, jp = (t.clone() for t in want[:2])
+    b14 = (x, d["cam_ids"], d["mask"], jc, jp)
+    ref = tt_linearize.tt_wt_times_fused_plain(*b14)
+    jc[:, pad] = float("nan")
+    jp[:, pad] = float("nan")
+    out = tt_linearize.tt_wt_times_fused(*b14)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all(), "B14 read a padded slot"
+    assert torch.equal(out, ref), f"B14: max|diff| {float((out - ref).abs().max()):.3e}"
+    assert (tt_linearize.CAM_COUNTS.kernel, tt_linearize.WT_COUNTS.kernel) == (
+        before[0] + 1, before[1] + 1)

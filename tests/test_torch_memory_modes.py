@@ -72,8 +72,8 @@ def test_launch_counter_splits_modes():
 _C_TYPES = {"int": ctypes.c_int, "double": ctypes.c_double}
 
 
-def _c_entries():
-    """name -> ctypes argument list of every C entry in csrc/*.cu."""
+def _c_sources():
+    """name -> the argument text of every C entry in csrc/*.cu."""
     entries = {}
     for path in sorted(_build._CSRC.glob("*.cu")):
         text = path.read_text()
@@ -82,8 +82,13 @@ def _c_entries():
                 entries[name] = args
         for name, args in re.findall(r'^extern "C" int (\w+)\(([^)]*)\)', text, re.M):
             entries[name] = args
+    return entries
+
+
+def _c_entries():
+    """name -> ctypes argument list of every C entry in csrc/*.cu."""
     out = {}
-    for name, args in entries.items():
+    for name, args in _c_sources().items():
         kinds = []
         for arg in " ".join(args.split()).split(","):
             ctype = arg.strip().rsplit(" ", 1)[0]
@@ -97,3 +102,22 @@ def test_ctypes_signatures_match_the_c_entries():
     assert set(entries) == set(_build._SIGNATURES)
     for name, argtypes in _build._SIGNATURES.items():
         assert entries[name] == argtypes, name
+
+
+@pytest.mark.parametrize("name,n_args,tail", [
+    ("wtt_linearize", 31, "tc ng smem stream"),
+    ("wtt_coupling", 17, "tc ng smem stream"),
+    ("tt_cam_normal", 25, "tc ng smem stream"),
+    ("tt_wt_times", 15, "tc ng smem stream"),
+    ("tt_w_times", 16, "tc ng smem tile stream"),
+])
+def test_slot_major_entries_take_their_geometry(name, n_args, tail):
+    """The C entries of the slot-major kernels (B1, B2, B12, B14, B15) end
+    in the launch geometry of ``slot_geometry`` (and B15's tile bytes)
+    before the stream, and their ctypes lists have as many
+    arguments: the entries check tc, ng and smem against the kernels' own
+    count."""
+    args = [a.strip().rsplit(" ", 1)[-1].lstrip("*")
+            for a in " ".join(_c_sources()[name].split()).split(",")]
+    assert len(args) == n_args == len(_build._SIGNATURES[name])
+    assert args[-len(tail.split()):] == tail.split()

@@ -1,8 +1,9 @@
-"""Launch geometry of the slot-major kernels B1, B2, B6 and B15
+"""Launch geometry of the slot-major kernels B1, B2, B6, B12, B14 and B15
 (``tpu3drecon_torch.ops._wtt_common.slot_geometry``), on the CPU: for every
 (dtype, np, od, terms) that the C entries ``wtt_linearize`` and
 ``wtt_coupling`` take, every (dtype, np, one-hot type) of
-``wtt_coupling_onehot`` and every (dtype, np) of ``tt_w_times``, and
+``wtt_coupling_onehot`` and every (dtype, np) of ``tt_cam_normal``,
+``tt_wt_times`` and ``tt_w_times``, and
 tracks of 1 to 100 slots, the shared bytes fit the card's per-block limit,
 the chunks cover each track once, the blocks cover every point column once
 and no block exceeds the kernel's thread limit.  Also pins B1's row width K
@@ -97,6 +98,33 @@ def test_tt_w_geometry_fits_and_covers(dtype, np_cam):
     assert geo.smem == 8 * 32 * (np_cam + 1) * itemsize + 8 * 96 * 4
 
 
+@pytest.mark.parametrize("dtype,np_cam", TT_W_ENTRIES)
+def test_tt_lin_geometry_fits_and_covers(dtype, np_cam):
+    """B12: the per-slot V | g_pt parts aliased by the warps' (32, kTile + 1)
+    row tiles, and their meta; nothing shared back."""
+    _fits_and_covers("tt_lin", dtype, np_cam, False, "tt")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    geo = slot_geometry("tt_lin", 2, 67584, np_cam, itemsize)
+    assert (geo.warps, geo.groups, geo.chunks) == (2, 4, 1)
+    assert geo.smem == 8 * 32 * 33 * itemsize + 8 * 96 * 4
+    # The medium problem's longest bucket: one chunk of 12 warps in float32,
+    # two of 6 in float64 (256 threads at most).
+    geo = slot_geometry("tt_lin", 12, 512, np_cam, itemsize)
+    assert (geo.warps, geo.groups, geo.chunks) == ((12, 1, 1) if itemsize == 4 else (6, 1, 2))
+
+
+@pytest.mark.parametrize("dtype,np_cam", TT_W_ENTRIES)
+def test_tt_wt_geometry_fits_and_covers(dtype, np_cam):
+    """B14: the per-slot W^T x parts alone, no row tile and no meta."""
+    _fits_and_covers("tt_wt", dtype, np_cam, False, "tt")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    geo = slot_geometry("tt_wt", 2, 67584, np_cam, itemsize)
+    assert (geo.warps, geo.groups, geo.chunks) == (2, 4, 1)
+    assert geo.smem == 8 * 3 * 32 * itemsize
+    geo = slot_geometry("tt_wt", 40, 300, np_cam, itemsize)
+    assert (geo.warps, geo.groups, geo.chunks, geo.blocks) == (14, 1, 3, 10)
+
+
 @pytest.mark.parametrize("address,pc,itemsize,vec", [
     (0, 512, 1, 16),  # the medium buckets, int8: 16-byte loads
     (0, 300, 1, 4),  # Pc = 300 bytes per slot row: 4-byte aligned only
@@ -125,7 +153,8 @@ def test_onehot_vector_bytes_refuses_a_misaligned_one_hot():
 
 
 @pytest.mark.parametrize("kernel,itemsize", [("lin", 4), ("lin", 8), ("coupling", 4),
-                                             ("coupling", 8), ("onehot", 4), ("tt_w", 8)])
+                                             ("coupling", 8), ("onehot", 4), ("tt_w", 8),
+                                             ("tt_lin", 4), ("tt_lin", 8), ("tt_wt", 8)])
 def test_geometry_one_chunk_up_to_the_thread_limit(kernel, itemsize):
     """A track of up to max_threads / 32 slots runs in one chunk (each slot
     stays in registers from phase 1 to phase 2); a short track shares its

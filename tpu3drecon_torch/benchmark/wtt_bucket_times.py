@@ -1,10 +1,11 @@
 """Per-bucket device times of the slot-major kernels on the CUDA card, B1
 (``wtt_linearize_fused_idx``), B2 (``wtt_coupling_rows_idx``), B6
-(``wtt_coupling_rows_fused``) and B15 (``tt_w_times_fused``), and the
-registers, shared memory and spills that ``nvcc -Xptxas -v`` reports for
-their instantiations.
+(``wtt_coupling_rows_fused``), B12 (``tt_cam_normal_fused``), B14
+(``tt_wt_times_fused``) and B15 (``tt_w_times_fused``), and the registers,
+shared memory and spills that ``nvcc -Xptxas -v`` reports for their
+instantiations.
 
-    python -m tpu3drecon_torch.benchmark.wtt_bucket_times
+    python -m tpu3drecon_torch.benchmark.wtt_bucket_times [--tt]
 
 ``chip_smoke.py`` sums each kernel over the buckets of a pass; this script
 prints every bucket, each time a ``device_ms`` (median of 20 cold-L2 calls
@@ -12,12 +13,14 @@ by CUDA events) at f32, at the initial parameters and lam = 1e-4, as
 ``chip_smoke.py`` forms its kernel inputs: B1 and B2 on the medium problem
 (100 cameras, 100k points), B1, B1 od and B2 on the BAL sequential problem
 (1712 cameras) and B1 and B2 on the BAL hub problem; B6 on the medium
-problem with its int8 and its float32 one-hot; B15 on the medium problem in
-track-table layout and on ``tt_seq1024`` (1024 cameras, 256 points each).
-A wrapper that takes a private ``_mode`` (a memory mode to force, as the
-parent tree's B6 and B15 do) is also timed with each mode forced.  The last
-line is one JSON object with every time and the card's ``nvidia-smi``
-line.  Needs a CUDA card; the kernels build at first use (a cached build
+problem with its int8 and its float32 one-hot; B12, B14 and B15 on the
+medium problem in track-table layout and on ``tt_seq1024`` (1024 cameras,
+256 points each); with ``--tt`` only the last three.  A wrapper that takes
+a private ``_mode`` (a memory mode to force, as B12 and B15 do) is also
+timed with each mode forced.  First comes the per-launch floor: the same
+cold-L2 ``device_ms`` of one empty kernel launch (``torch.cuda._sleep(0)``).
+The last line is one JSON object with every time and the card's
+``nvidia-smi`` line.  Needs a CUDA card; the kernels build at first use (a cached build
 prints no ptxas lines).  To time another tree's kernels with this script,
 run it from there: ``PYTHONPATH=<tree> python <this file>``.
 """
@@ -33,17 +36,17 @@ import torch
 
 from tpu3drecon_torch.benchmark.timing import card_line, device_ms
 
-# B1, B2 and B6 (coupling_kernel in wtt_route_kernels.cu; the parent tree's
-# onehot_coupling_kernel) and B15; matched with their length prefix in the
-# mangled names, so that tt_coupling_kernel (B13) is not.
+# B1, B2 and B6 (coupling_kernel in wtt_route_kernels.cu; an older tree's
+# onehot_coupling_kernel), B12, B14 and B15; matched with their length
+# prefix in the mangled names, so that tt_coupling_kernel (B13) is not.
 _PTXAS_KERNELS = ("lin_kernel", "coupling_kernel", "onehot_coupling_kernel",
-                  "tt_w_times_kernel")
+                  "tt_cam_normal_kernel", "tt_wt_times_kernel", "tt_w_times_kernel")
 _PTXAS_SOURCES = ("_wtt_kernels_cu", "_wtt_terms_kernels_cu", "_wtt_route_kernels_cu",
                   "_tt_kernels_cu")
 
 
 def ptxas_lines(compiler_out: str) -> list[str]:
-    """The ``-Xptxas -v`` lines of B1's, B2's, B6's and B15's
+    """The ``-Xptxas -v`` lines of B1's, B2's, B6's, B12's, B14's and B15's
     instantiations: each entry function's line with the lines that follow
     it up to the next entry."""
     out, keep = [], False
@@ -167,8 +170,8 @@ def time_onehot_buckets(label: str, problem) -> list[dict]:
 
 
 def time_tt_buckets(label: str, problem) -> list[dict]:
-    """B15 per bucket of a track-table ``problem``: jc/jp from B12 at the
-    initial parameters, y random."""
+    """B12, B14 and B15 per bucket of a track-table ``problem``: B12 at the
+    initial parameters, B14 and B15 on its jc/jp, x and y random."""
     from tpu3drecon_torch.ops import tt_linearize as tt
     from tpu3drecon_torch.solvers.ba_tt import _cam_table, _inv_w
     from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
@@ -186,7 +189,14 @@ def time_tt_buckets(label: str, problem) -> list[dict]:
                                         bucket.uv.to(torch.float32), mask,
                                         _inv_w(problem, torch.float32), BAConfig(), 8)[:2]
         y = torch.randn(3, pb, generator=gen).to(mask.device)
+        x = torch.randn(problem.n_cameras, 8, generator=gen).to(mask.device)
+        b12 = (table, bucket.cam_ids, pts, bucket.uv.to(torch.float32), mask,
+               _inv_w(problem, torch.float32), BAConfig(), 8)
         row = {"problem": label, "bucket": bi, "shape": f"C={problem.n_cameras} Tb={tb} Pb={pb}"}
+        _time_modes(row, "B12", tt.tt_cam_normal_fused,
+                    lambda **kw: tt.tt_cam_normal_fused(*b12, **kw))
+        _time_modes(row, "B14", tt.tt_wt_times_fused,
+                    lambda **kw: tt.tt_wt_times_fused(x, bucket.cam_ids, mask, jc, jp, **kw))
         _time_modes(row, "B15", tt.tt_w_times_fused,
                     lambda **kw: tt.tt_w_times_fused(y, bucket.cam_ids, mask, jc, jp,
                                                      problem.n_cameras, **kw))
@@ -226,17 +236,21 @@ def main() -> int:
     _build.library()
     for line in ptxas_lines(compiler_out) or ["(cached build: no ptxas lines)"]:
         print("  " + line, flush=True)
+    floor = device_ms(lambda: torch.cuda._sleep(0))
+    print(f"per-launch floor (one empty kernel, cold-L2 device_ms): {floor:.6f} ms", flush=True)
     dev = torch.device("cuda", 0)
-    flat = build_problem(dev)
-    rows = time_onehot_buckets("medium one-hot", wtt_from_flat(flat, defer_onehot=False,
-                                                               device=dev))
-    rows += time_tt_buckets("medium tt", build_tt_problem(dev))
+    rows = time_tt_buckets("medium tt", build_tt_problem(dev))
     rows += time_tt_buckets("tt_seq1024", tt_seq1024(dev))
-    rows += time_buckets("medium", wtt_from_flat(flat, defer_onehot=True, device=dev),
-                         od=False)
-    rows += time_buckets("bal_seq", bal_sequential_wtt(device=dev, verbose=False), od=True)
-    rows += time_buckets("bal_hub", bal_hub_wtt(device=dev, verbose=False), od=False)
-    print(json.dumps({"card": smi, "buckets": rows}))
+    if "--tt" not in sys.argv[1:]:
+        flat = build_problem(dev)
+        rows += time_onehot_buckets("medium one-hot", wtt_from_flat(flat, defer_onehot=False,
+                                                                    device=dev))
+        rows += time_buckets("medium", wtt_from_flat(flat, defer_onehot=True, device=dev),
+                             od=False)
+        rows += time_buckets("bal_seq", bal_sequential_wtt(device=dev, verbose=False),
+                             od=True)
+        rows += time_buckets("bal_hub", bal_hub_wtt(device=dev, verbose=False), od=False)
+    print(json.dumps({"card": smi, "floor_ms": floor, "buckets": rows}))
     return 0
 
 

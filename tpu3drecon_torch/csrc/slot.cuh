@@ -3,7 +3,7 @@
 // formulas, camera-row and x reads with their all-zero padding, the
 // per-slot contribution columns, band pair rows and coupling-product
 // halves, the warp-aggregated row reduction, the slot-major grid and row
-// tiles (B1, B2, B6 and B15), and the host-side launch helpers.
+// tiles (B1, B2, B6, B12, B14 and B15), and the host-side launch helpers.
 //
 // The track-table layouts keep one point's whole track in one thread (the
 // slot-major kernels instead one slot per lane): a slot (t, p) reads its
@@ -307,8 +307,8 @@ __device__ __forceinline__ void w_slot(T* acc, int w, int W, const T* jc, const 
 }
 
 // ------------------------------------------------ slot-major grid ------
-// The slot-major kernels (B1, B2 and B6 in wtt_kernels.cuh, B15 in
-// tt_kernels.cu) run one lane per track slot: a warp holds slot t of 32
+// The slot-major kernels (B1, B2 and B6 in wtt_kernels.cuh, B12, B14 and
+// B15 in tt_kernels.cu) run one lane per track slot: a warp holds slot t of 32
 // consecutive point columns, a block holds `ng` such 32-point groups as `tc`
 // warps each (warp ti of a group holds slot c * tc + ti in chunk c), and a
 // track longer than tc slots is walked in ceil(Tb / tc) chunks.  The
@@ -335,8 +335,38 @@ __device__ __forceinline__ SlotLane slot_lane(int tc, int ng, int Tb, int Pc) {
   return s;
 }
 
+// The per-point sums of the slot-major kernels (B1's and B12's V | g_pt,
+// B2's and B14's W^T x).  Each lane writes the N parts of its slot at
+// parts[((gi * tc + ti) * N + k) * 32 + lane], its group's (tc, N, 32) block
+// of an (ng, tc, N, 32) array; after a barrier lane p of the group's warp 0
+// adds chunk c's parts into acc in slot order, the order of the plain
+// versions' track sums, so the sums keep their last bits.
+template <int N, typename T>
+__device__ __forceinline__ void add_parts(T (&acc)[N], const T* parts, const SlotLane& sl,
+                                          int tc, int Tb, int c) {
+  if (sl.ti != 0) return;
+  const int n = min(tc, Tb - c * tc);
+  for (int s = 0; s < n; ++s)
+#pragma unroll
+    for (int k = 0; k < N; ++k) acc[k] += parts[((size_t)(sl.gi * tc + s) * N + k) * 32 + sl.lane];
+}
+
+// The V (sym3 packing) | g_pt parts of one slot (B1, B12) at part[k * 32].
+template <typename T, int NP>
+__device__ __forceinline__ void put_point_parts(T* part, const Slot<T, NP>& o) {
+  const T* q = o.jp;
+  part[0 * 32] = q[0] * q[0] + q[3] * q[3];
+  part[1 * 32] = q[0] * q[1] + q[3] * q[4];
+  part[2 * 32] = q[0] * q[2] + q[3] * q[5];
+  part[3 * 32] = q[1] * q[1] + q[4] * q[4];
+  part[4 * 32] = q[1] * q[2] + q[4] * q[5];
+  part[5 * 32] = q[2] * q[2] + q[5] * q[5];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) part[(6 + i) * 32] = q[i] * o.r0 + q[3 + i] * o.r1;
+}
+
 // ------------------------------------------------ slot-major row tiles --
-// The row reduction of the slot-major kernels (B1, B2, B6 and B15),
+// The row reduction of the slot-major kernels (B1, B2, B6, B12 and B15),
 // where a warp holds one track slot of 32 point columns: its lanes' column
 // values go to window rows that are mostly one row.  Each lane writes its
 // values into the warp's shared (32, KT + 1) tile (a row per lane, padded
@@ -347,7 +377,7 @@ __device__ __forceinline__ SlotLane slot_lane(int tc, int ng, int Tb, int Pc) {
 // Lanes on no row (-1: padding, past the track) are left out.  Columns are
 // put one at a time in the order of the output's columns; the tile flushes
 // every KT columns and at the segment's end.
-constexpr int kTile = 32;  // tile columns of B1 (B2's, B6's and B15's are np wide)
+constexpr int kTile = 32;  // tile columns of B1 and B12 (B2's, B6's and B15's are np wide)
 
 template <typename T, int KT>
 struct RowTile {

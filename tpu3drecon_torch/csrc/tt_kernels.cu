@@ -15,12 +15,25 @@
 // pts (3, Pb), jc (2np, Tb, Pb), jp (6, Tb, Pb).  The TPU kernels select
 // each slot's camera row, and reduce per-slot values into camera rows, with
 // MXU dots against a dense {0,1} one-hot tile, because gathers are slow
-// there.  Here a slot reads its camera index directly.  B12-B14 and B16:
-// one thread owns one point column p and walks its track t = 0..Tb-1, so
-// per-point sums (V, g_pt, W^T x, the cost lane) stay in registers and are
-// taken in t order, as the TPU kernels accumulate over their sequential t
-// grid axis.  B15, which has no per-point sum, is slot-major: one warp per
-// slot and 32 consecutive point columns (below).
+// there.  Here a slot reads its camera index directly.
+//
+// B12, B14 and B15 are slot-major (slot.cuh slot_lane): a warp holds slot t
+// of 32 consecutive point columns, one lane per slot, a block holds `ng`
+// such groups as `tc` warps each, and a track longer than tc slots is
+// walked in chunks, so a bucket runs on Tb * Pb threads and every slot's
+// chain of dependent loads (cam_ids -> mask -> camera row or x row ->
+// arithmetic) runs beside the others instead of Tb times in a row.  The
+// wrappers compute tc, ng and the shared bytes (ops/_wtt_common.py
+// slot_geometry "tt_lin", "tt_wt", "tt_w") and the C entries check them
+// against tt_lin_smem, tt_wt_smem and tt_w_smem.  Per-point sums (B12's V
+// and g_pt, B14's W^T x) cross the warps through shared memory: each lane
+// writes its slot's part, and lane p of the group's warp 0 adds the Tb
+// parts in slot order t = 0 .. Tb - 1, the order of the plain versions'
+// track sums, so they keep their last bits.  Per-camera columns (B12's U|g,
+// B15's W y) go through the warp's row tile (slot.cuh tile_put): the lanes
+// are grouped by camera and each (distinct camera, column) leaves as one
+// atomic, all lanes at once.  B13 and B16 still run one thread per point
+// column, which walks its track.
 //
 // Padded slots (mask 0) carry cam_ids 0.  They take an all-zero camera row
 // (and x row) without reading one, never camera 0's row: the masked
@@ -29,22 +42,25 @@
 // z ~ 0 and inf * 0 = NaN.  They add nothing to any camera row.
 //
 // Camera rows and x are read from device memory into registers, so any
-// camera count runs.  Per-camera reductions (B12's U|g columns, B13's
-// coupling columns, B15's W y rows) go to the zeroed outputs with atomics;
-// B12 and B13 reduce with shuffles first when all live lanes of a warp
-// share a camera (slot.cuh row_add), B15 groups its lanes by camera in a
-// row tile (slot.cuh tile_put); their summation order varies from run to
-// run.  B15 alone keeps a second memory mode, a block-shared (C, NP) tile
+// camera count runs.  Per-camera reductions go to the zeroed outputs with
+// atomics (B13 with shuffles first when all live lanes of a warp share a
+// camera, slot.cuh row_add); their summation order varies from run to run.
+// B15 alone keeps a second memory mode, a block-shared (C, NP) tile
 // flushed once per block: it measured faster at 100 cameras on the largest
 // medium bucket and slower at 1024 (PERF.md), and its wrapper picks it
 // where the tile has at most 2,048 entries (ops/tt_linearize.py
-// memory_mode).  For B12-B14 and B16 a staged copy measured within 6 %.
+// memory_mode).
 //
-// What bounds them on the H100: B14 and B16 stream their inputs once (jc/jp,
-// resp. uv/mask/cam_ids) and are bound by bytes; B12 and B13 by the atomics
-// of their reductions (44 columns per slot for B12 at np = 8, 36 for B13);
-// B15 (8 columns per slot) by launch and latency, its pass 9x its bytes'
-// bound on the medium buckets.
+// What bounds them on the H100.  B14 streams its jc/jp once (96 B per slot
+// at np = 8, 8.35 us per medium pass) and was bound by latency in one
+// thread per point: the long-track buckets (Tb 8 and 12) ran on 5,632 and
+// 512 threads; slot-major, every slot's loads are in flight at once.  B12
+// writes its jc/jp (10.14 us per medium pass) and was bound by the atomics
+// of its 44 camera columns per slot (np = 8), sent lane by lane from warps
+// of mixed cameras; its row tile sends one atomic per (camera, column) and
+// warp-slot.  B13's 36 columns per slot are still atomics of that kind, and
+// B15 (8 columns per slot) is bound by launch and latency, its pass 9x its
+// bytes' bound on the medium buckets.
 //
 // Built with --fmad=false (ops/_build.py): each kernel's per-element
 // outputs match its plain version (ops/tt_linearize.py) to the last bits.
@@ -67,75 +83,102 @@ __device__ __forceinline__ int slot_cam(const int* cam_ids, const T* mask,
 }
 
 // ---------------------------------------------------------------- B12 ---
+// Slot-major, one pass.  Each lane reads its slot's camera row (zeros for
+// padding), runs tt_blocks once and writes jc/jp; while the slot is in
+// registers it puts its U upper triangle | g columns, in the output's
+// column order, into the warp's row tile of its camera (kTile columns, so
+// 44 / 65 / 90 columns at np 8 / 10 / 12 flush 2 / 3 / 3 times).  Then its
+// V | g_pt parts (9 values) go to the point's summing lane, which adds them
+// in slot order.
+//
+// Shared memory (elements of T, then ints): the (ng, tc, 9, 32) per-slot
+// parts, aliased by the warps' (32, kTile + 1) row tiles; the warps' (3, 32)
+// tile meta.  A chunk puts its columns first, a barrier orders every warp's
+// last flush before the parts are written, and a barrier after the summing
+// lanes' reads orders them before the next chunk's columns.  One memory
+// mode: a block-shared (C, K) tile (B15's) measured slower on every medium
+// bucket and 7.6x slower at C = 1024 (PERF.md).
+template <typename T>
+constexpr int tt_lin_threads() { return sizeof(T) == 4 ? 512 : 256; }
+
+template <typename T>
+constexpr size_t tt_lin_smem(int tc, int ng) {
+  const size_t nw = size_t(tc) * ng;
+  const size_t parts = nw * 9 * 32, tiles = nw * 32 * (kTile + 1);
+  return (parts > tiles ? parts : tiles) * sizeof(T) + nw * 96 * sizeof(int);
+}
+
 template <typename T, int NP>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(sizeof(T) == 4 ? 512 : 256)  // tt_lin_threads<T>()
 tt_cam_normal_kernel(const T* __restrict__ table, const int* __restrict__ cam_ids,
                      const T* __restrict__ pts, const T* __restrict__ uv,
                      const T* __restrict__ mask, const T* __restrict__ invw_p,
                      T* __restrict__ jc_out, T* __restrict__ jp_out,
                      T* __restrict__ v6_out, T* __restrict__ gpt_out,
-                     T* __restrict__ ug, int C, int Tb, int Pb, LinFlags f) {
+                     T* __restrict__ ug, int C, int Tb, int Pb, LinFlags f, int tc, int ng) {
   constexpr int K = NP * (NP + 1) / 2 + NP;  // U upper triangle | g: ug is (C, K)
-  const int p = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = p < Pb;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const SlotLane sl = slot_lane(tc, ng, Tb, Pb);
+  const int lane = sl.lane, gi = sl.gi, ti = sl.ti, p = sl.p;
+  const int nw = tc * ng;
+  T* s_a = reinterpret_cast<T*>(smem);  // parts, aliased by the row tiles
+  int* s_meta = reinterpret_cast<int*>(s_a + size_t(nw) * 32 * (kTile + 1));  // (nw, 96)
 
   const T inv_w = *invw_p;
   const size_t TP = (size_t)Tb * Pb;
-  const T X = live ? pts[p] : T(0);
-  const T Y = live ? pts[(size_t)Pb + p] : T(0);
-  const T Z = live ? pts[2 * (size_t)Pb + p] : T(0);
-  T v6[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
-  T gp[3] = {T(0), T(0), T(0)};
-  for (int t = 0; t < Tb; ++t) {
+  const T X = sl.live ? pts[p] : T(0);
+  const T Y = sl.live ? pts[(size_t)Pb + p] : T(0);
+  const T Z = sl.live ? pts[2 * (size_t)Pb + p] : T(0);
+  RowTile<T, kTile> rt{s_a + (size_t)sl.warp * 32 * (kTile + 1), s_meta + sl.warp * 96, ug,
+                       size_t(K), 1, 0};
+  T acc[9] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
+  T* part = s_a + (size_t)(gi * tc + ti) * 9 * 32 + lane;
+  for (int c = 0; c < sl.nchunk; ++c) {
+    const int t = c * tc + ti;
+    const bool real = sl.live && t < Tb;
     const size_t ts = (size_t)t * Pb + p;
-    const int c = slot_cam(cam_ids, mask, ts, live);
+    const int cam = slot_cam(cam_ids, mask, ts, real);
     T buf[kD];
-    const T* cp = cam_row(table, c, buf);
-    const T m = live ? mask[ts] : T(0);
-    const T u_obs = live ? uv[ts] : T(0);
-    const T v_obs = live ? uv[TP + ts] : T(0);
+    const T* cp = cam_row(table, cam, buf);
+    const T m = real ? mask[ts] : T(0);
+    const T u_obs = real ? uv[ts] : T(0);
+    const T v_obs = real ? uv[TP + ts] : T(0);
     Slot<T, NP> o;
     tt_blocks<T, NP>(cp, X, Y, Z, u_obs, v_obs, m, inv_w, f, o);
-    if (live) {
+    if (real) {
 #pragma unroll
       for (int k = 0; k < 2 * NP; ++k) jc_out[k * TP + ts] = o.jc[k];
 #pragma unroll
       for (int k = 0; k < 6; ++k) jp_out[k * TP + ts] = o.jp[k];
     }
-    // Point-side partial sums, accumulated over t in order.
-    const T* q = o.jp;
-    v6[0] += q[0] * q[0] + q[3] * q[3];
-    v6[1] += q[0] * q[1] + q[3] * q[4];
-    v6[2] += q[0] * q[2] + q[3] * q[5];
-    v6[3] += q[1] * q[1] + q[4] * q[4];
-    v6[4] += q[1] * q[2] + q[4] * q[5];
-    v6[5] += q[2] * q[2] + q[5] * q[5];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) gp[i] += q[i] * o.r0 + q[3 + i] * o.r1;
 
     // Camera-side columns (ba_tt._u_g_contribs) into the camera's row.
-    const WarpRow wr = warp_row(c);
-    if (!wr.any) continue;  // warp-uniform
-    const int self = (c >= 0 ? c : 0) * K;
-    const int lead = wr.w0 * K;
-    const T* j0 = o.jc;
-    const T* j1 = o.jc + NP;
-    int col = 0;
+    tile_rows(rt, cam);
+    if (rt.nd > 0) {  // warp-uniform
+      const T* j0 = o.jc;
+      const T* j1 = o.jc + NP;
+      int col = 0;
 #pragma unroll
-    for (int dd = 0; dd < NP; ++dd)
+      for (int dd = 0; dd < NP; ++dd)
 #pragma unroll
-      for (int i = 0; i < NP - dd; ++i, ++col)
-        row_add(ug, wr, self + col, lead + col,
-                j0[i] * j0[i + dd] + j1[i] * j1[i + dd]);
+        for (int i = 0; i < NP - dd; ++i, ++col)
+          tile_put<K>(rt, col, j0[i] * j0[i + dd] + j1[i] * j1[i + dd], 0);
 #pragma unroll
-    for (int i = 0; i < NP; ++i, ++col)
-      row_add(ug, wr, self + col, lead + col, j0[i] * o.r0 + j1[i] * o.r1);
+      for (int i = 0; i < NP; ++i, ++col) tile_put<K>(rt, col, j0[i] * o.r0 + j1[i] * o.r1, 0);
+    }
+    __syncthreads();  // every row tile is flushed: the parts may overwrite it
+
+    // Point-side parts V | g_pt, summed over t in order.
+    put_point_parts(part, o);
+    __syncthreads();
+    add_parts(acc, s_a, sl, tc, Tb, c);
+    if (c + 1 < sl.nchunk) __syncthreads();  // the parts are read before the next tiles
   }
-  if (live) {
+  if (ti == 0 && sl.live) {
 #pragma unroll
-    for (int k = 0; k < 6; ++k) v6_out[(size_t)k * Pb + p] = v6[k];
+    for (int k = 0; k < 6; ++k) v6_out[(size_t)k * Pb + p] = acc[k];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) gpt_out[(size_t)k * Pb + p] = gp[k];
+    for (int k = 0; k < 3; ++k) gpt_out[(size_t)k * Pb + p] = acc[6 + k];
   }
 }
 
@@ -191,36 +234,59 @@ tt_coupling_kernel(const int* __restrict__ cam_ids, const T* __restrict__ mask,
 }
 
 // ---------------------------------------------------------------- B14 ---
+// Slot-major, B2's phase 1 (wtt_kernels.cuh coupling_kernel) without y and
+// phase 2: each lane reads its slot's cam_ids / mask, jc/jp (read before the
+// camera is known, dropped for padding) and the x row of its camera (zeros
+// for padding), and forms its part jp[l] s0 + jp[3 + l] s1; lane p of the
+// group's warp 0 adds the Tb parts in slot order.  No per-camera output, so
+// no atomics and no row tile.  Shared memory: the (ng, tc, 3, 32) parts.
+constexpr int kTtWtThreads = 512;
+
+template <typename T>
+constexpr size_t tt_wt_smem(int tc, int ng) {
+  return size_t(tc) * ng * 3 * 32 * sizeof(T);
+}
+
 template <typename T, int NP>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kTtWtThreads)
 tt_wt_times_kernel(const T* __restrict__ x, const int* __restrict__ cam_ids,
                    const T* __restrict__ mask, const T* __restrict__ jc,
-                   const T* __restrict__ jp, T* __restrict__ out, int C, int Tb,
-                   int Pb) {
-  const int p = blockIdx.x * kBlock + threadIdx.x;
-  if (p >= Pb) return;
+                   const T* __restrict__ jp, T* __restrict__ out, int C, int Tb, int Pb,
+                   int tc, int ng) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const SlotLane sl = slot_lane(tc, ng, Tb, Pb);
+  const int lane = sl.lane, gi = sl.gi, ti = sl.ti, p = sl.p;
+  T* s_part = reinterpret_cast<T*>(smem);
+  T* part = s_part + (size_t)(gi * tc + ti) * 3 * 32 + lane;
   const size_t TP = (size_t)Tb * Pb;
   T wtx[3] = {T(0), T(0), T(0)};
-  for (int t = 0; t < Tb; ++t) {
+  for (int c = 0; c < sl.nchunk; ++c) {
+    const int t = c * tc + ti;
+    const bool real = sl.live && t < Tb;
     const size_t ts = (size_t)t * Pb + p;
-    const int c = slot_cam(cam_ids, mask, ts, true);
-    T xr[NP];
+    T j[2 * NP], q[6];
 #pragma unroll
-    for (int i = 0; i < NP; ++i) xr[i] = c >= 0 ? __ldg(x + (size_t)c * NP + i) : T(0);
+    for (int k = 0; k < 2 * NP; ++k) j[k] = real ? jc[k * TP + ts] : T(0);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) q[k] = real ? jp[k * TP + ts] : T(0);
+    const int cam = slot_cam(cam_ids, mask, ts, real);
     T s0 = T(0), s1 = T(0);
 #pragma unroll
     for (int i = 0; i < NP; ++i) {
-      s0 += jc[i * TP + ts] * xr[i];
-      s1 += jc[(NP + i) * TP + ts] * xr[i];
+      const T xg = cam >= 0 ? __ldg(x + (size_t)cam * NP + i) : T(0);
+      s0 += j[i] * xg;
+      s1 += j[NP + i] * xg;
     }
 #pragma unroll
-    for (int l = 0; l < 3; ++l) {
-      const T part = jp[l * TP + ts] * s0 + jp[(3 + l) * TP + ts] * s1;
-      wtx[l] += part;
-    }
+    for (int l = 0; l < 3; ++l) part[l * 32] = cam >= 0 ? q[l] * s0 + q[3 + l] * s1 : T(0);
+    __syncthreads();
+    add_parts(wtx, s_part, sl, tc, Tb, c);
+    if (c + 1 < sl.nchunk) __syncthreads();  // the parts are read before the next chunk's
   }
+  if (ti == 0 && sl.live) {
 #pragma unroll
-  for (int l = 0; l < 3; ++l) out[(size_t)l * Pb + p] = wtx[l];
+    for (int l = 0; l < 3; ++l) out[(size_t)l * Pb + p] = wtx[l];
+  }
 }
 
 // ---------------------------------------------------------------- B15 ---
@@ -324,15 +390,22 @@ tt_cost_kernel(const T* __restrict__ table, const int* __restrict__ cam_ids,
 }
 
 // ---------------------------------------------------------------- host --
+// B12 at the wrapper's geometry.
 template <typename T, int NP>
 int cam_normal_launch(const void* table, const void* cam_ids, const void* pts,
                       const void* uv, const void* mask, const void* inv_w,
                       void* jc, void* jp, void* v6, void* gpt, void* ug, int C,
-                      int Tb, int Pb, LinFlags f, cudaStream_t stream) {
-  tt_cam_normal_kernel<T, NP><<<grid_of(Pb, 1), kBlock, 0, stream>>>(
+                      int Tb, int Pb, LinFlags f, int tc, int ng, int smem,
+                      cudaStream_t stream) {
+  auto kernel = tt_cam_normal_kernel<T, NP>;
+  dim3 grid, block;
+  const int e = slot_launch(kernel, tt_lin_threads<T>(), tt_lin_smem<T>(tc, ng), tc, ng,
+                            smem, 1, Pb, grid, block);
+  if (e) return e;
+  kernel<<<grid, block, smem, stream>>>(
       (const T*)table, (const int*)cam_ids, (const T*)pts, (const T*)uv,
       (const T*)mask, (const T*)inv_w, (T*)jc, (T*)jp, (T*)v6, (T*)gpt, (T*)ug,
-      C, Tb, Pb, f);
+      C, Tb, Pb, f, tc, ng);
   return (int)cudaGetLastError();
 }
 
@@ -346,13 +419,19 @@ int coupling_launch(const void* cam_ids, const void* mask, const void* jc,
   return (int)cudaGetLastError();
 }
 
+// B14 at the wrapper's geometry.
 template <typename T, int NP>
 int wt_times_launch(const void* x, const void* cam_ids, const void* mask,
                     const void* jc, const void* jp, void* out, int C, int Tb,
-                    int Pb, cudaStream_t stream) {
-  tt_wt_times_kernel<T, NP><<<grid_of(Pb, 1), kBlock, 0, stream>>>(
-      (const T*)x, (const int*)cam_ids, (const T*)mask, (const T*)jc,
-      (const T*)jp, (T*)out, C, Tb, Pb);
+                    int Pb, int tc, int ng, int smem, cudaStream_t stream) {
+  auto kernel = tt_wt_times_kernel<T, NP>;
+  dim3 grid, block;
+  const int e = slot_launch(kernel, kTtWtThreads, tt_wt_smem<T>(tc, ng), tc, ng, smem, 1,
+                            Pb, grid, block);
+  if (e) return e;
+  kernel<<<grid, block, smem, stream>>>((const T*)x, (const int*)cam_ids, (const T*)mask,
+                                        (const T*)jc, (const T*)jp, (T*)out, C, Tb, Pb, tc,
+                                        ng);
   return (int)cudaGetLastError();
 }
 
@@ -388,15 +467,17 @@ int cost_launch(const void* table, const void* cam_ids, const void* pts,
 
 extern "C" {
 
+// tc, ng, smem: the slot-major geometry (ops/_wtt_common.py slot_geometry
+// "tt_lin").
 int tt_cam_normal(int dtype, int np, const void* table, const void* cam_ids,
                   const void* pts, const void* uv, const void* mask,
                   const void* inv_w, void* jc, void* jp, void* v6, void* gpt,
                   void* ug, int C, int Tb, int Pb, int loss, int focal,
-                  int points, int dist, int pp, void* stream) {
+                  int points, int dist, int pp, int tc, int ng, int smem, void* stream) {
   if (Pb == 0 || Tb == 0) return 0;
   const LinFlags f{0, loss, focal, points, dist, pp};
-  NP_DISPATCH(dtype, np, (cam_normal_launch<T, NP>(table, cam_ids, pts, uv, mask, inv_w,
-                                                   jc, jp, v6, gpt, ug, C, Tb, Pb, f,
+  NP_DISPATCH(dtype, np, (cam_normal_launch<T, NP>(table, cam_ids, pts, uv, mask, inv_w, jc,
+                                                   jp, v6, gpt, ug, C, Tb, Pb, f, tc, ng, smem,
                                                    (cudaStream_t)stream)));
 }
 
@@ -408,12 +489,14 @@ int tt_coupling(int dtype, int np, const void* cam_ids, const void* mask,
                                                  Pb, (cudaStream_t)stream)));
 }
 
+// tc, ng, smem: the slot-major geometry (ops/_wtt_common.py slot_geometry
+// "tt_wt").
 int tt_wt_times(int dtype, int np, const void* x, const void* cam_ids,
                 const void* mask, const void* jc, const void* jp, void* out,
-                int C, int Tb, int Pb, void* stream) {
+                int C, int Tb, int Pb, int tc, int ng, int smem, void* stream) {
   if (Pb == 0) return 0;
-  NP_DISPATCH(dtype, np, (wt_times_launch<T, NP>(x, cam_ids, mask, jc, jp, out, C, Tb,
-                                                 Pb, (cudaStream_t)stream)));
+  NP_DISPATCH(dtype, np, (wt_times_launch<T, NP>(x, cam_ids, mask, jc, jp, out, C, Tb, Pb,
+                                                 tc, ng, smem, (cudaStream_t)stream)));
 }
 
 // tc, ng, smem: the slot-major geometry (ops/_wtt_common.py slot_geometry

@@ -148,22 +148,9 @@ lin_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ tw,
 #pragma unroll
       for (int k = 0; k < 6; ++k) jp_out[k * GTP + ts] = o.jp[k];
     }
-    const T* q = o.jp;
-    part[0 * 32] = q[0] * q[0] + q[3] * q[3];
-    part[1 * 32] = q[0] * q[1] + q[3] * q[4];
-    part[2 * 32] = q[0] * q[2] + q[3] * q[5];
-    part[3 * 32] = q[1] * q[1] + q[4] * q[4];
-    part[4 * 32] = q[1] * q[2] + q[4] * q[5];
-    part[5 * 32] = q[2] * q[2] + q[5] * q[5];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) part[(6 + i) * 32] = q[i] * o.r0 + q[3 + i] * o.r1;
+    put_point_parts(part, o);
     __syncthreads();
-    if (ti == 0) {
-      const int n = min(tc, Tb - c * tc);
-      for (int s = 0; s < n; ++s)
-#pragma unroll
-        for (int k = 0; k < 9; ++k) acc[k] += s_a[((size_t)(gi * tc + s) * 9 + k) * 32 + lane];
-    }
+    add_parts(acc, s_a, sl, tc, Tb, c);
     __syncthreads();
   }
   T* pt = s_pt + gi * 9 * 32 + lane;
@@ -507,12 +494,7 @@ coupling_kernel(const T* __restrict__ xw_t, Rows rows, const T* __restrict__ jc,
 #pragma unroll
     for (int l = 0; l < 3; ++l) part[l * 32] = q[l] * s0 + q[3 + l] * s1;
     __syncthreads();
-    if (ti == 0) {
-      const int n = min(tc, Tb - c * tc);
-      for (int s = 0; s < n; ++s)
-#pragma unroll
-        for (int l = 0; l < 3; ++l) wtx[l] += s_a[((size_t)(gi * tc + s) * 3 + l) * 32 + lane];
-    }
+    add_parts(wtx, s_a, sl, tc, Tb, c);
     __syncthreads();
   }
   T* yp = s_y + gi * 3 * 32 + lane;

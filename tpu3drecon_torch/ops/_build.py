@@ -73,12 +73,13 @@ _SIGNATURES = {
     # dtype, jc, jp, vinv6, out, C, K, stream
     "grid_coupling": [_I] + [_P] * 4 + [_I] * 2 + [_P],
     # dtype, np, table, cam_ids, pts, uv, mask, inv_w, jc, jp, v6, gpt, ug,
-    # C, Tb, Pb, loss, focal, points, dist, pp, stream
-    "tt_cam_normal": [_I, _I] + [_P] * 11 + [_I] * 8 + [_P],
+    # C, Tb, Pb, loss, focal, points, dist, pp, tc, ng, smem, stream
+    "tt_cam_normal": [_I, _I] + [_P] * 11 + [_I] * 11 + [_P],
     # dtype, np, cam_ids, mask, jc, jp, vinv, out, C, Tb, Pb, stream
     "tt_coupling": [_I, _I] + [_P] * 6 + [_I] * 3 + [_P],
-    # dtype, np, x, cam_ids, mask, jc, jp, out, C, Tb, Pb, stream
-    "tt_wt_times": [_I, _I] + [_P] * 6 + [_I] * 3 + [_P],
+    # dtype, np, x, cam_ids, mask, jc, jp, out, C, Tb, Pb, tc, ng, smem,
+    # stream
+    "tt_wt_times": [_I, _I] + [_P] * 6 + [_I] * 6 + [_P],
     # dtype, np, y, cam_ids, mask, jc, jp, out, C, Tb, Pb, tc, ng, smem, tile,
     # stream
     "tt_w_times": [_I, _I] + [_P] * 6 + [_I] * 7 + [_P],

@@ -20,19 +20,25 @@ The JAX functions select camera rows and reduce into them through the dense
 an all-zero camera row and adds to no camera, as its all-zero one-hot
 column does.  Outputs have the JAX functions' shapes and order.
 
-CUDA kernels (``csrc/tt_kernels.cu``): B12-B14 and B16 run one thread per
-point column, which walks its track reading its slots' camera rows (or x)
-from device memory; per-point sums in registers, taken in track order;
-per-camera sums go straight to the zeroed outputs with atomics.  B15 is
-slot-major (one warp per slot and 32 consecutive point columns,
-``_wtt_common.slot_geometry("tt_w")``): its lanes are grouped by camera
-before their atomics, one per (distinct camera, column).  So B12's ug, B13
-and B15 vary in the last bits from run to run; every other output matches
-the plain version to the last bit.  Any camera count runs.  B15 keeps two
-memory modes (``memory_mode``): its atomics go to a block-shared (C, np)
-tile, flushed once per block, where the tile has at most ``TILE_ENTRIES``
-entries, and straight to the output above (PERF.md: at C = 100 the tile
-measured faster on the largest medium bucket, at C = 1024 slower).
+CUDA kernels (``csrc/tt_kernels.cu``): B12, B14 and B15 are slot-major,
+one lane per track slot (a warp holds slot t of 32 consecutive point
+columns; ``_wtt_common.slot_geometry("tt_lin" | "tt_wt" | "tt_w")``), so a
+bucket runs on Tb * Pb threads.  Their per-point sums (B12's V and g_pt,
+B14's W^T x) cross the warps through shared memory and are added in slot
+order by one lane per point, the track order of the plain versions' sums;
+their per-camera columns (B12's U | g, B15's W y) go through the warp's
+row tile, which groups the lanes by camera and sends one atomic per
+(distinct camera, column).  B13 and B16 run one thread per point column,
+which walks its track, reads its slots' camera rows from device memory and
+(B13) sends its columns straight to the zeroed output with atomics.  So
+B12's ug, B13 and B15 vary in the last bits from run to run; every other
+output matches the plain version to the last bit.  Any camera count runs.
+B15 keeps two memory modes (``memory_mode``): its atomics go to a
+block-shared (C, np) tile, flushed once per block, where the tile has at
+most ``TILE_ENTRIES`` entries, and straight to the output above (PERF.md:
+at C = 100 the tile measured faster on the largest medium bucket, at C =
+1024 slower).  B12 has one mode: the same tile measured slower on every
+medium bucket and at C = 1024.
 
 Each public function runs its plain PyTorch version on CPU tensors and its
 CUDA kernel on CUDA tensors; there is no fallback from one to the other.
@@ -146,6 +152,7 @@ def tt_cam_normal_fused(table, cam_ids, pts, uv, mask, inv_w, config, np_cam: in
     check_shape(name, "uv", uv, (2, tb, pb))
     check_shape(name, "inv_w", inv_w, ())
     n_triu = np_cam * (np_cam + 1) // 2
+    geo = slot_geometry("tt_lin", tb, pb, np_cam, table.element_size())
     jc = torch.empty((2 * np_cam, tb, pb), dtype=dtype, device=dev)
     jp = torch.empty((6, tb, pb), dtype=dtype, device=dev)
     v6 = torch.empty((6, pb), dtype=dtype, device=dev)
@@ -158,7 +165,7 @@ def tt_cam_normal_fused(table, cam_ids, pts, uv, mask, inv_w, config, np_cam: in
         jc.data_ptr(), jp.data_ptr(), v6.data_ptr(), g_pt.data_ptr(), ug.data_ptr(),
         n_cams, tb, pb, LOSS_CODES[config.loss], int(config.optimize_focal),
         int(config.optimize_points), int(config.optimize_dist),
-        int(config.optimize_pp), _build.stream_ptr(dev),
+        int(config.optimize_pp), geo.warps, geo.groups, geo.smem, _build.stream_ptr(dev),
     )
     _build.check(lib, name, code)
     CAM_COUNTS.launched(_build.GLOBAL)
@@ -232,12 +239,13 @@ def tt_wt_times_fused(x, cam_ids, mask, jc, jp):
     np_cam, tb, pb = _check_slots(name, x, cam_ids, mask, jc, jp, x=x)
     n_cams = x.shape[0]
     check_shape(name, "x", x, (n_cams, np_cam))
+    geo = slot_geometry("tt_wt", tb, pb, np_cam, x.element_size())
     out = torch.empty((3, pb), dtype=x.dtype, device=x.device)
     lib = _build.library()
     code = lib.tt_wt_times(
         _build.dtype_code(x.dtype), np_cam, x.data_ptr(), cam_ids.data_ptr(),
         mask.data_ptr(), jc.data_ptr(), jp.data_ptr(), out.data_ptr(), n_cams, tb, pb,
-        _build.stream_ptr(x.device),
+        geo.warps, geo.groups, geo.smem, _build.stream_ptr(x.device),
     )
     _build.check(lib, name, code)
     WT_COUNTS.launched(_build.GLOBAL)
