@@ -124,8 +124,9 @@ whose (C, np) tile has at most 2,048 entries; none for B7, B9-B11 and E4,
 which have no mode), which must match the row's label; B15's row adds
 ``global_ms``, the same inputs' time with the global-memory mode forced.
 The rows ``B1 [hub]`` (the hub buckets), ``B1 od [np=10]`` (the BAL buckets
-with ``optimize_dist``), ``B12 [C=1024]``, ``B14 [C=1024]`` and ``B15
-[C=1024]`` (tt_seq1024, B15 there in its global mode) time those kernels
+with ``optimize_dist``), ``B12 [C=1024]``, ``B13 [C=1024]``, ``B14
+[C=1024]`` and ``B15 [C=1024]`` (tt_seq1024, B15 there in its global mode)
+time those kernels
 at the widths that a shared tile could not hold or does not serve, and
 count their launches on those paths.  The
 rows ``B2 [terms 1]``, ``B2 [terms 2]`` and ``B1 [terms 2]`` (medium
@@ -244,13 +245,15 @@ KERNELS = (
      GLOBAL),
     ("ops.wtt_linearize", "CONTRIB_OD_COUNTS", "B8 od", ROUTE_SRC, f"{LIN_PY}:163",
      {BAL_TRI}, GLOBAL),
-    # B1, B1 od and B12 at the widths that a shared tile could not hold, B14
-    # on the same 1024-camera track table, and B15 at the camera count where
-    # it takes its global mode.
+    # B1, B1 od, B12 and B13 at the widths that a shared tile could not
+    # hold, B14 on the same 1024-camera track table, and B15 at the camera
+    # count where it takes its global mode.
     ("ops.wtt_linearize", "COUNTS", "B1 [hub]", WTT_SRC, f"{LIN_PY}:554", {HUB}, GLOBAL),
     ("ops.wtt_linearize", "OD_COUNTS", "B1 od [np=10]", WTT_SRC, f"{LIN_PY}:515", {NP10},
      GLOBAL),
     ("ops.tt_linearize", "CAM_COUNTS", "B12 [C=1024]", TT_SRC, f"{TT_PY}:221", {TT1024},
+     GLOBAL),
+    ("ops.tt_linearize", "COUPLING_COUNTS", "B13 [C=1024]", TT_SRC, f"{TT_PY}:297", {TT1024},
      GLOBAL),
     ("ops.tt_linearize", "WT_COUNTS", "B14 [C=1024]", TT_SRC, f"{TT_PY}:436", {TT1024},
      GLOBAL),
@@ -1187,15 +1190,16 @@ def run_probe_e4(launches: dict) -> None:
 
 def check_tt1024_kernels(tt) -> None:
     """B12-B16 on the 1024-camera track table (f32), each mode printed:
-    B12 timed as the ``B12 [C=1024]`` row (camera columns that no shared
-    tile of the card could hold), B14 as ``B14 [C=1024]``, B15 as ``B15
-    [C=1024]`` (its global mode: a (C, np) tile of 8,192 entries measured
-    slower)."""
+    B12 and B13 timed as the ``B12 [C=1024]`` and ``B13 [C=1024]`` rows
+    (camera columns that no shared tile of the card could hold), B14 as
+    ``B14 [C=1024]``, B15 as ``B15 [C=1024]`` (its global mode: a (C, np)
+    tile of 8,192 entries measured slower)."""
     from tpu3drecon_torch.ops import tt_linearize as tt_ops
     from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
 
     elem, summed = TOL[torch.float32]
-    row, row14, row15 = "B12 [C=1024]", "B14 [C=1024]", "B15 [C=1024]"
+    row, row13 = "B12 [C=1024]", "B13 [C=1024]"
+    row14, row15 = "B14 [C=1024]", "B15 [C=1024]"
     c = tt.n_cameras
     for bi, d in enumerate(tt_kernel_inputs(tt, torch.float32)):
         tb, pb = d["mask"].shape
@@ -1207,7 +1211,8 @@ def check_tt1024_kernels(tt) -> None:
         errs = {"B12": max(compare(row, "f32", k, a, b, summed if k == "ug" else elem)
                            for k, a, b in zip(("jc", "jp", "v6", "g_pt", "ug"), got, want))}
         b13, b14, b15 = tt_follower_args(d, want, c)
-        _, wtx, wy = check_tt_followers("f32 C=1024", "", b13, b14, b15, errs)
+        coup, wtx, wy = check_tt_followers("f32 C=1024", "", b13, b14, b15, errs)
+        compare(row13, "f32", "", coup, tt_ops.tt_coupling_fused_plain(*b13), summed)
         compare(row14, "f32", "", wtx, tt_ops.tt_wt_times_fused_plain(*b14), elem)
         compare(row15, "f32", "", wy, tt_ops.tt_w_times_fused_plain(*b15), summed)
         errs["B16"] = compare("tt_cost_fused", "f32 C=1024", "",
@@ -1218,7 +1223,10 @@ def check_tt1024_kernels(tt) -> None:
             ("B14", "tt_wt_times_fused"), ("B15", "tt_w_times_fused"),
             ("B16", "tt_cost_fused"))}
         ms = timed(row, lambda: tt_ops.tt_cam_normal_fused(*args))
-        ms14, ms15 = RESULTS[row14]["ms"], RESULTS[row15]["ms"]
+        ms13, ms14, ms15 = (RESULTS[r]["ms"] for r in (row13, row14, row15))
+        account(row13, lambda: tt_ops.tt_coupling_fused(*b13),
+                lambda: tt_ops.tt_coupling_fused_plain(*b13), nbytes(*b13[:5], coup),
+                FLOPS["tt_coupling_fused"] * tb * pb)
         account(row14, lambda: tt_ops.tt_wt_times_fused(*b14),
                 lambda: tt_ops.tt_wt_times_fused_plain(*b14), nbytes(*b14, wtx),
                 FLOPS["tt_wt_times_fused"] * tb * pb)
@@ -1227,7 +1235,8 @@ def check_tt1024_kernels(tt) -> None:
                 FLOPS["tt_w_times_fused"] * tb * pb)
         log(f"check f32 tt_seq1024 bucket {bi} (C={c} Tb={tb} Pb={pb}): "
             + " ".join(f"{k} {v:.3e} [{modes[k]}]" for k, v in errs.items())
-            + f"; B12 {ms:.6f} ms, B14 {RESULTS[row14]['ms'] - ms14:.6f} ms, "
+            + f"; B12 {ms:.6f} ms, B13 {RESULTS[row13]['ms'] - ms13:.6f} ms, "
+            f"B14 {RESULTS[row14]['ms'] - ms14:.6f} ms, "
             f"B15 {RESULTS[row15]['ms'] - ms15:.6f} ms")
         RESULTS[row]["ms"] += ms
         RESULTS[row]["plain_ms"] += device_ms(lambda: tt_ops.tt_cam_normal_fused_plain(*args))

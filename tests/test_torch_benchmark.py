@@ -42,18 +42,22 @@ def test_summarize_reads_a_chrome_trace(tmp_path):
 
 
 _TT = "_ZN46_GLOBAL__N__08e980a5_13_tt_kernels_cu_c6cf0c1e"
+_ROUTE = "_ZN53_GLOBAL__N__3aa39220_20_wtt_route_kernels_cu_4050bd3c"
 
 
 @pytest.mark.parametrize("mangled,kept", [
     (f"{_TT}20tt_cam_normal_kernelIfLi8EEEvPKT_PKiS3_S3_S3_S3_PS1_S6_S6_S6_S6_iii", True),  # B12
     (f"{_TT}18tt_wt_times_kernelIfLi8EEEvPKT_PKiS3_S3_S3_PS1_iiiii", True),  # B14
     (f"{_TT}17tt_w_times_kernelIfLi8ELb1EEEvPKT_PKiS3_S3_S3_PS1_iiiii", True),  # B15
-    (f"{_TT}18tt_coupling_kernelIfLi8EEEvPKiPKT_S5_S5_S5_PS3_iii", False),  # B13
+    (f"{_TT}18tt_coupling_kernelIfLi8EEEvPKiPKT_S5_S5_S5_PS3_iiiii", True),  # B13
+    (f"{_ROUTE}14contrib_kernelIfLi8ELb1ELb0EEEvPKsPKT_S5_S5_S5_PS3_iiiiii", True),  # B8
     (f"{_TT}14tt_cost_kernelIfEEvPKT_PKiS3_S3_S3_S3_PS1_iiii", False),  # B16
+    (f"{_ROUTE}13w_rows_kernelIfLi8EEEvPKT_PKsS3_S3_PS1_iiii", False),  # B5
 ])
 def test_ptxas_lines_keep_the_slot_major_kernels(mangled, kept):
-    """The registers and spills of B12, B14 and B15 are kept, B13's and
-    B16's dropped: the names are matched with their length prefix."""
+    """The registers and spills of the slot-major B8 and B12-B15 are kept,
+    B5's and B16's (one thread per point) dropped: the names are matched
+    with their length prefix."""
     out = (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
            "ptxas info    : Function properties for x\n"
            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"

@@ -4,7 +4,7 @@ one-hot routes (B5-B8), B1's and B8's band pair rows (``want_od``), B1 at
 terms 2 and B2 at terms 1 and 2 (the reduced-fidelity modes), the grid
 engine's three (B9-B11), the dense track table's five (B12-B16), and the
 probe kernels of ``tpu3drecon_torch.experiments`` (E1's copies of B2, E4's
-bit expansion); the slot-major B1, B2, B6, B12, B14 and B15 also on tracks
+bit expansion); the slot-major B1, B2, B6, B8 and B12-B15 also on tracks
 longer than one block's chunk, all-padding buckets, the hub layout's width
 and warps whose lanes hit different rows; B6 at every one-hot load width.
 The kernels read camera rows from device memory and reduce into the output
@@ -743,13 +743,15 @@ SLOT_CASES = [  # (dtype, G, W, Tb, np, want_od, rows)
 
 @pytest.mark.parametrize("dtype,g,w,tb,np_cam,want_od,rows", SLOT_CASES)
 def test_slot_major_kernels_match_plain(dev, dtype, g, w, tb, np_cam, want_od, rows):
-    """The slot-major B1 (with ``want_od`` as given) and B2 against their
-    plain versions: one-chunk tracks (Tb 1, 3, 12), tracks longer than one
-    block's chunk (Tb 40), the hub layout's W = 1664 with random rows (warps
-    that are not row-uniform), row-uniform warps, a bucket that is all
-    padding but one slot; in float32 also B1 at terms 2 and B2 at terms 1
-    and 2.  Window row 0 of the camera rows and of x is NaN and only padded
-    slots point at it."""
+    """The slot-major B1 (with ``want_od`` as given), B2 and B8 (with and
+    without the Schur-Jacobi columns, and with ``want_od`` as given) against
+    their plain versions: one-chunk tracks (Tb 1, 3, 12), tracks longer than
+    one block's chunk (Tb 40: od pairs across a chunk's edge), the hub
+    layout's W = 1664 with random rows (warps that are not row-uniform),
+    row-uniform warps, a bucket that is all padding but one slot; in float32
+    also B1 at terms 2 and B2 at terms 1 and 2.  Window row 0 of the camera
+    rows and of x is NaN and only padded slots point at it; B8 also gets NaN
+    jc/jp/r on the padded slots, which it must not read."""
     d = _inputs(dev, dtype, g, w, tb, np_cam, seed=7 * g + w + tb + np_cam)
     wcam = _slot_wcam(dev, rows, g, w, tb, seed=w + 3 * tb)
     pad = (wcam < 0).reshape(g, tb, PC)
@@ -777,6 +779,21 @@ def test_slot_major_kernels_match_plain(dev, dtype, g, w, tb, np_cam, want_od, r
         assert torch.isfinite(got).all()
         _close(got, wtt_matvec.wtt_coupling_rows_idx_plain(*mv, terms=terms), reduced,
                f"B2 terms={terms}")
+    r = torch.as_tensor(np.random.default_rng(w + tb).normal(size=(2, g, tb, PC)),
+                        dtype=dtype, device=dev)
+    jc, jp = jc.clone(), jp.clone()
+    for x in (jc, jp, r):
+        x[:, pad] = float("nan")
+    counts = (wtt_linearize.CONTRIB_COUNTS, wtt_linearize.CONTRIB_OD_COUNTS)
+    before = [c.kernel for c in counts]
+    variants = ((False, False), (True, False)) + (((True, True),) if want_od else ())
+    for use_sj, od in variants:
+        b8 = (wcam, jc, jp, r, v_inv, np_cam, w, use_sj, od)
+        rows8 = wtt_linearize.wtt_contrib_rows_idx(*b8)
+        assert torch.isfinite(rows8).all(), f"B8 sj={use_sj} od={od} read a padded slot"
+        _close(rows8, wtt_linearize.wtt_contrib_rows_idx_plain(*b8), reduced,
+               f"B8 sj={use_sj} od={od}")
+    assert [c.kernel - b for c, b in zip(counts, before)] == [2, int(want_od)]
 
 
 def test_probe_kernels_match(dev):
@@ -926,16 +943,17 @@ TT_SLOT_CASES = [  # (dtype, C, Tb, Pb, np, loss, cameras)
 
 @pytest.mark.parametrize("dtype,c,tb,pb,np_cam,loss,cams", TT_SLOT_CASES)
 def test_tt_slot_major_b12_b14_match_plain(dev, dtype, c, tb, pb, np_cam, loss, cams):
-    """The slot-major B12 and B14 (one lane per track slot, per-point sums
-    added in slot order by one lane per point, B12's camera columns through
-    the warp's row tile) against their plain versions: tracks of 1, 3, 12
+    """The slot-major B12, B13 and B14 (one lane per track slot, per-point
+    sums added in slot order by one lane per point, B12's and B13's camera
+    columns through the warp's row tile) against their plain versions: tracks of 1, 3, 12
     and 40 slots (several chunks), a bucket that is all padding but one
     slot, camera axes of 1024 and 7300, np 10 and 12, float64, warps whose
     lanes carry three cameras and padding, and each loss.  jc, jp, v6, g_pt
     and B14's W^T x must equal the plain versions bit for bit (both sum
-    each point's track in slot order); ug is an atomic sum.  Camera 0's row
-    and x row are NaN and only padded slots carry camera 0; B14 also gets
-    NaN jc/jp on the padded slots, which it must not read."""
+    each point's track in slot order); ug and B13's columns are atomic
+    sums.  Camera 0's row and x row are NaN and only padded slots carry
+    camera 0; B13 and B14 also get NaN jc/jp on the padded slots, which
+    they must not read."""
     d = _tt_inputs(dev, dtype, c, tb, pb, seed=c + 5 * tb + pb + np_cam)
     if cams == "three":
         cam_ids, mask = _three_camera_ids(c, tb, pb, seed=c + tb)
@@ -949,7 +967,8 @@ def test_tt_slot_major_b12_b14_match_plain(dev, dtype, c, tb, pb, np_cam, loss, 
     _, reduced = TOL[dtype]
     cfg = BAConfig(loss=RobustLoss(loss), optimize_dist=np_cam >= 10,
                    optimize_pp=np_cam == 12)
-    before = (tt_linearize.CAM_COUNTS.kernel, tt_linearize.WT_COUNTS.kernel)
+    counts = (tt_linearize.CAM_COUNTS, tt_linearize.COUPLING_COUNTS, tt_linearize.WT_COUNTS)
+    before = [c_.kernel for c_ in counts]
     b12 = (d["table"], d["cam_ids"], d["pts"], d["uv"], d["mask"], d["inv_w"], cfg, np_cam)
     got = tt_linearize.tt_cam_normal_fused(*b12)
     want = tt_linearize.tt_cam_normal_fused_plain(*b12)
@@ -966,13 +985,17 @@ def test_tt_slot_major_b12_b14_match_plain(dev, dtype, c, tb, pb, np_cam, loss, 
     x = d["x"][:, :np_cam].clone()
     x[0] = float("nan")
     jc, jp = (t.clone() for t in want[:2])
+    b13 = (d["cam_ids"], d["mask"], jc, jp, d["v_inv"], c)
     b14 = (x, d["cam_ids"], d["mask"], jc, jp)
+    ref13 = tt_linearize.tt_coupling_fused_plain(*b13)
     ref = tt_linearize.tt_wt_times_fused_plain(*b14)
     jc[:, pad] = float("nan")
     jp[:, pad] = float("nan")
+    coup = tt_linearize.tt_coupling_fused(*b13)
+    assert torch.isfinite(coup).all(), "B13 read a padded slot"
+    _close(coup, ref13, reduced, f"B13 C={c} Tb={tb} {cams}")
     out = tt_linearize.tt_wt_times_fused(*b14)
     torch.cuda.synchronize()
     assert torch.isfinite(out).all(), "B14 read a padded slot"
     assert torch.equal(out, ref), f"B14: max|diff| {float((out - ref).abs().max()):.3e}"
-    assert (tt_linearize.CAM_COUNTS.kernel, tt_linearize.WT_COUNTS.kernel) == (
-        before[0] + 1, before[1] + 1)
+    assert [c_.kernel - b for c_, b in zip(counts, before)] == [1, 1, 1]

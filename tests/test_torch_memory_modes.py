@@ -110,9 +110,11 @@ def test_ctypes_signatures_match_the_c_entries():
     ("tt_cam_normal", 25, "tc ng smem stream"),
     ("tt_wt_times", 15, "tc ng smem stream"),
     ("tt_w_times", 16, "tc ng smem tile stream"),
+    ("wtt_contrib", 18, "tc ng smem stream"),
+    ("tt_coupling", 15, "tc ng smem stream"),
 ])
 def test_slot_major_entries_take_their_geometry(name, n_args, tail):
-    """The C entries of the slot-major kernels (B1, B2, B12, B14, B15) end
+    """The C entries of the slot-major kernels (B1, B2, B8, B12-B15) end
     in the launch geometry of ``slot_geometry`` (and B15's tile bytes)
     before the stream, and their ctypes lists have as many
     arguments: the entries check tc, ng and smem against the kernels' own

@@ -1,9 +1,10 @@
-"""Launch geometry of the slot-major kernels B1, B2, B6, B12, B14 and B15
+"""Launch geometry of the slot-major kernels B1, B2, B6, B8 and B12-B15
 (``tpu3drecon_torch.ops._wtt_common.slot_geometry``), on the CPU: for every
 (dtype, np, od, terms) that the C entries ``wtt_linearize`` and
 ``wtt_coupling`` take, every (dtype, np, one-hot type) of
-``wtt_coupling_onehot`` and every (dtype, np) of ``tt_cam_normal``,
-``tt_wt_times`` and ``tt_w_times``, and
+``wtt_coupling_onehot``, every (dtype, np, od) of ``wtt_contrib`` and every
+(dtype, np) of ``tt_cam_normal``, ``tt_coupling``, ``tt_wt_times`` and
+``tt_w_times``, and
 tracks of 1 to 100 slots, the shared bytes fit the card's per-block limit,
 the chunks cover each track once, the blocks cover every point column once
 and no block exceeds the kernel's thread limit.  Also pins B1's row width K
@@ -47,6 +48,9 @@ ONEHOT_ENTRIES = [
     for onehot in ("int8", "float")
 ]
 TT_W_ENTRIES = [(dtype, np_cam) for dtype in (torch.float32, torch.float64) for np_cam in NPS]
+# B8 ("contrib"): with and without od (use_sj changes the instantiation, not
+# the layout).
+CONTRIB_ENTRIES = [(dtype, np_cam, od) for dtype, np_cam in TT_W_ENTRIES for od in (False, True)]
 
 
 def _fits_and_covers(kernel, dtype, np_cam, want_od, label):
@@ -113,6 +117,39 @@ def test_tt_lin_geometry_fits_and_covers(dtype, np_cam):
     assert (geo.warps, geo.groups, geo.chunks) == ((12, 1, 1) if itemsize == 4 else (6, 1, 2))
 
 
+@pytest.mark.parametrize("dtype,np_cam,want_od", CONTRIB_ENTRIES)
+def test_contrib_geometry_fits_and_covers(dtype, np_cam, want_od):
+    """B8: the warps' (32, kTile + 1) row tiles and their meta, no per-point
+    parts; with od B1's factors and rows of the chunk's slots and the one
+    before it.  B1's thread limits (512 in float32, 256 in float64)."""
+    _fits_and_covers("contrib", dtype, np_cam, want_od, "contrib")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    geo = slot_geometry("contrib", 2, 67584, np_cam, itemsize, want_od)
+    assert (geo.warps, geo.groups, geo.chunks) == (2, 4, 1)
+    od_vals = 4 * 3 * 3 * np_cam * 32 if want_od else 0
+    od_ints = 4 * 3 * 32 if want_od else 0
+    assert geo.smem == (8 * 32 * 33 + od_vals) * itemsize + (8 * 96 + od_ints) * 4
+    # The BAL sequential problem's longest bucket and a track of three chunks.
+    geo = slot_geometry("contrib", 4, 68096, np_cam, itemsize, want_od)
+    assert (geo.warps, geo.chunks) == (4, 1)
+    geo = slot_geometry("contrib", 40, 300, np_cam, itemsize, want_od)
+    assert geo.chunks == (3 if itemsize == 4 else 5)
+
+
+@pytest.mark.parametrize("dtype,np_cam", TT_W_ENTRIES)
+def test_tt_coupling_geometry_fits_and_covers(dtype, np_cam):
+    """B13: the warps' (32, kTile + 1) row tiles and their meta, nothing
+    else: no per-point sum, nothing shared back."""
+    _fits_and_covers("tt_coupling", dtype, np_cam, False, "tt")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    geo = slot_geometry("tt_coupling", 2, 67584, np_cam, itemsize)
+    assert (geo.warps, geo.groups, geo.chunks) == (2, 4, 1)
+    assert geo.smem == 8 * 32 * 33 * itemsize + 8 * 96 * 4
+    geo = slot_geometry("tt_coupling", 12, 512, np_cam, itemsize)
+    assert (geo.warps, geo.groups, geo.chunks) == ((12, 1, 1) if itemsize == 4 else (6, 1, 2))
+    assert geo.smem == slot_smem("tt_lin", geo.warps, geo.groups, np_cam, itemsize)
+
+
 @pytest.mark.parametrize("dtype,np_cam", TT_W_ENTRIES)
 def test_tt_wt_geometry_fits_and_covers(dtype, np_cam):
     """B14: the per-slot W^T x parts alone, no row tile and no meta."""
@@ -154,7 +191,9 @@ def test_onehot_vector_bytes_refuses_a_misaligned_one_hot():
 
 @pytest.mark.parametrize("kernel,itemsize", [("lin", 4), ("lin", 8), ("coupling", 4),
                                              ("coupling", 8), ("onehot", 4), ("tt_w", 8),
-                                             ("tt_lin", 4), ("tt_lin", 8), ("tt_wt", 8)])
+                                             ("tt_lin", 4), ("tt_lin", 8), ("tt_wt", 8),
+                                             ("contrib", 4), ("contrib", 8),
+                                             ("tt_coupling", 4), ("tt_coupling", 8)])
 def test_geometry_one_chunk_up_to_the_thread_limit(kernel, itemsize):
     """A track of up to max_threads / 32 slots runs in one chunk (each slot
     stays in registers from phase 1 to phase 2); a short track shares its
@@ -168,13 +207,14 @@ def test_geometry_one_chunk_up_to_the_thread_limit(kernel, itemsize):
     assert geo.chunks == 2 and geo.warps == -(-(max_warps + 1) // 2)
 
 
-def test_geometry_shrinks_to_the_shared_limit():
+@pytest.mark.parametrize("kernel", ["lin", "contrib"])
+def test_geometry_shrinks_to_the_shared_limit(kernel):
     """Under a small per-block limit the groups, then the warps per group,
-    shrink until the bytes fit (B1 f64 np 12 with od has the widest
-    layout)."""
-    full = slot_geometry("lin", 8, 67584, 12, 8, True)
-    limit = slot_smem("lin", 4, 1, 12, 8, True)
-    small = slot_geometry("lin", 8, 67584, 12, 8, True, limit=limit)
+    shrink until the bytes fit (B1 and B8 f64 np 12 with od have the widest
+    layouts)."""
+    full = slot_geometry(kernel, 8, 67584, 12, 8, True)
+    limit = slot_smem(kernel, 4, 1, 12, 8, True)
+    small = slot_geometry(kernel, 8, 67584, 12, 8, True, limit=limit)
     assert full.smem > limit >= small.smem
     assert (small.warps, small.groups, small.chunks) == (4, 1, 2)
     with pytest.raises(ValueError, match="kernel"):

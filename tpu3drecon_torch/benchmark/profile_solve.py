@@ -14,15 +14,17 @@ and its one-hot route (``wtt_onehot``: ``linearize_kernel=False``,
 ``matvec_kernel="fused"``, on the packing with its dense int8 one-hot), on
 the medium problem with ``BENCH_CONFIG``; for ``bal_seq_ssor``, the
 BAL-scale sequential problem (``benchmark/balscale.py``) solved fully
-indexed under the block-SSOR preconditioner, and ``bal_hub``, the BAL hub
-problem (``bal_hub_wtt``, global camera tiles, windows up to W = 1664)
-solved fully indexed under Schur-Jacobi, each for 3 LM iterations
-(``BAL_CONFIG``); and for ``tt_seq1024_ssor``, a 1024-camera sequential
-track table (256 points per camera, seed 7, as ``chip_smoke.py`` builds
-it) on the tt engine's default route (``kernels=False``, PyTorch products
-through ``cam_ids``) under block SSOR for 3 LM iterations: two warm-up
-solves, then ``torch.profiler`` (CPU and CUDA activities) over one
-solve.  The Chrome trace it exports is read
+indexed under the block-SSOR preconditioner, ``bal_seq_tridiag_unfused``,
+the same problem with its dense int8 one-hot on the unfused route (B7, B8
+with its od rows, B5, B2, B3) under the block-tridiagonal preconditioner,
+and ``bal_hub``, the BAL hub problem (``bal_hub_wtt``, global camera
+tiles, windows up to W = 1664) solved fully indexed under Schur-Jacobi,
+each for 3 LM iterations (``BAL_CONFIG``); and for ``tt_seq1024_ssor``,
+a 1024-camera sequential track table (256 points per camera, seed 7, as
+``chip_smoke.py`` builds it) on the tt engine's default route
+(``kernels=False``, PyTorch products through ``cam_ids``) under block SSOR
+for 3 LM iterations: two warm-up solves, then ``torch.profiler`` (CPU and
+CUDA activities) over one solve.  The Chrome trace it exports is read
 back, and one JSON line per engine or route gives
 
   - ``wall_s``: host clock around the profiled solve (synchronized);
@@ -177,7 +179,7 @@ def main() -> int:
         build_problem,
         build_tt_problem,
     )
-    from tpu3drecon_torch.problems.wtt import wtt_from_flat
+    from tpu3drecon_torch.problems.wtt import expand_onehots, wtt_from_flat
     from tpu3drecon_torch.solvers.ba_pallas import ba_solve_pallas
     from tpu3drecon_torch.solvers.ba_tt import ba_solve_tt
     from tpu3drecon_torch.solvers.ba_wtt import ba_solve_wtt
@@ -198,6 +200,9 @@ def main() -> int:
          lambda: wtt_from_flat(build_problem(), defer_onehot=False)),
         ("bal_seq_ssor", lambda p: ba_solve_wtt(p, cfg_bal),
          lambda: bal_sequential_wtt(verbose=False)),
+        ("bal_seq_tridiag_unfused",
+         lambda p: ba_solve_wtt(p, cfg_bal._replace(linearize_kernel=False, precond="tridiag")),
+         lambda: expand_onehots(bal_sequential_wtt(verbose=False))),
         ("bal_hub", lambda p: ba_solve_wtt(p, cfg_bal._replace(precond="schur_jacobi")),
          lambda: bal_hub_wtt(verbose=False)),
         ("tt_seq1024_ssor", lambda p: ba_solve_tt(p, BAL_CONFIG._replace(precond="ssor")),

@@ -1,6 +1,7 @@
 """Per-bucket device times of the slot-major kernels on the CUDA card, B1
 (``wtt_linearize_fused_idx``), B2 (``wtt_coupling_rows_idx``), B6
-(``wtt_coupling_rows_fused``), B12 (``tt_cam_normal_fused``), B14
+(``wtt_coupling_rows_fused``), B8 (``wtt_contrib_rows_idx``), B12
+(``tt_cam_normal_fused``), B13 (``tt_coupling_fused``), B14
 (``tt_wt_times_fused``) and B15 (``tt_w_times_fused``), and the registers,
 shared memory and spills that ``nvcc -Xptxas -v`` reports for their
 instantiations.
@@ -10,12 +11,14 @@ instantiations.
 ``chip_smoke.py`` sums each kernel over the buckets of a pass; this script
 prints every bucket, each time a ``device_ms`` (median of 20 cold-L2 calls
 by CUDA events) at f32, at the initial parameters and lam = 1e-4, as
-``chip_smoke.py`` forms its kernel inputs: B1 and B2 on the medium problem
-(100 cameras, 100k points), B1, B1 od and B2 on the BAL sequential problem
-(1712 cameras) and B1 and B2 on the BAL hub problem; B6 on the medium
-problem with its int8 and its float32 one-hot; B12, B14 and B15 on the
-medium problem in track-table layout and on ``tt_seq1024`` (1024 cameras,
-256 points each); with ``--tt`` only the last three.  A wrapper that takes
+``chip_smoke.py`` forms its kernel inputs: B1, B2 and B8 (without and
+with the Schur-Jacobi columns, ``sj=0`` / ``sj=1``, on B1's jc/jp/V^-1 and
+random residuals) on the medium problem (100 cameras, 100k points), on the
+BAL sequential problem (1712 cameras, with B1 od and B8 od) and on the BAL
+hub problem; B6 on the medium problem with its int8 and its float32
+one-hot; B12-B15 on the medium problem in track-table layout and on
+``tt_seq1024`` (1024 cameras, 256 points each; B13 on random V^-1 planes);
+with ``--tt`` only those four.  A wrapper that takes
 a private ``_mode`` (a memory mode to force, as B12 and B15 do) is also
 timed with each mode forced.  First comes the per-launch floor: the same
 cold-L2 ``device_ms`` of one empty kernel launch (``torch.cuda._sleep(0)``).
@@ -37,16 +40,18 @@ import torch
 from tpu3drecon_torch.benchmark.timing import card_line, device_ms
 
 # B1, B2 and B6 (coupling_kernel in wtt_route_kernels.cu; an older tree's
-# onehot_coupling_kernel), B12, B14 and B15; matched with their length
-# prefix in the mangled names, so that tt_coupling_kernel (B13) is not.
-_PTXAS_KERNELS = ("lin_kernel", "coupling_kernel", "onehot_coupling_kernel",
-                  "tt_cam_normal_kernel", "tt_wt_times_kernel", "tt_w_times_kernel")
+# onehot_coupling_kernel), B8, B12, B13, B14 and B15; matched with their
+# length prefix in the mangled names, so that "coupling_kernel" (B2, B6)
+# does not also match tt_coupling_kernel (B13).
+_PTXAS_KERNELS = ("lin_kernel", "coupling_kernel", "onehot_coupling_kernel", "contrib_kernel",
+                  "tt_cam_normal_kernel", "tt_coupling_kernel", "tt_wt_times_kernel",
+                  "tt_w_times_kernel")
 _PTXAS_SOURCES = ("_wtt_kernels_cu", "_wtt_terms_kernels_cu", "_wtt_route_kernels_cu",
                   "_tt_kernels_cu")
 
 
 def ptxas_lines(compiler_out: str) -> list[str]:
-    """The ``-Xptxas -v`` lines of B1's, B2's, B6's, B12's, B14's and B15's
+    """The ``-Xptxas -v`` lines of B1's, B2's, B6's, B8's and B12-B15's
     instantiations: each entry function's line with the lines that follow
     it up to the next entry."""
     out, keep = [], False
@@ -123,24 +128,31 @@ def _print_rows(label: str, rows: list[dict]) -> None:
 
 
 def time_buckets(label: str, problem, od: bool) -> list[dict]:
-    """B1 (and with ``od`` B1 od) and B2 per bucket of ``problem``."""
+    """B1, B2 and B8 (``sj`` 0 and 1; with ``od`` also B1 od and B8 od) per
+    bucket of ``problem``."""
     from tpu3drecon_torch.ops import wtt_linearize as lin
     from tpu3drecon_torch.ops import wtt_matvec as mv
     from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
 
     cfg = BAConfig()
+    gen = torch.Generator(device="cpu").manual_seed(1)
     rows = []
     for bi, d in enumerate(bucket_inputs(problem)):
         g, tb, pc, w = d["shape"]
         args = (d["wcam"], d["tw"], d["pts"], d["uv"], d["mask"], d["lam"], d["inv_w"],
                 cfg, 8, True)
         _, jc, jp, v_inv, _, _ = lin.wtt_linearize_fused_idx(*args)
+        r = torch.randn(2, g, tb, pc, generator=gen).to(jc.device)
         b2 = (d["xw_t"], d["wcam"], jc, jp, v_inv)
+        b8 = (d["wcam"], jc, jp, r, v_inv, 8, w)
         row = {"problem": label, "bucket": bi, "shape": f"G={g} Tb={tb} Pc={pc} W={w}",
                "B1": device_ms(lambda: lin.wtt_linearize_fused_idx(*args)),
-               "B2": device_ms(lambda: mv.wtt_coupling_rows_idx(*b2))}
+               "B2": device_ms(lambda: mv.wtt_coupling_rows_idx(*b2)),
+               "B8 sj=0": device_ms(lambda: lin.wtt_contrib_rows_idx(*b8, False)),
+               "B8 sj=1": device_ms(lambda: lin.wtt_contrib_rows_idx(*b8, True))}
         if od:
             row["B1 od"] = device_ms(lambda: lin.wtt_linearize_fused_idx(*args, True))
+            row["B8 od"] = device_ms(lambda: lin.wtt_contrib_rows_idx(*b8, True, True))
         rows.append(row)
     _print_rows(label, rows)
     return rows
@@ -170,8 +182,8 @@ def time_onehot_buckets(label: str, problem) -> list[dict]:
 
 
 def time_tt_buckets(label: str, problem) -> list[dict]:
-    """B12, B14 and B15 per bucket of a track-table ``problem``: B12 at the
-    initial parameters, B14 and B15 on its jc/jp, x and y random."""
+    """B12-B15 per bucket of a track-table ``problem``: B12 at the initial
+    parameters, B13, B14 and B15 on its jc/jp, V^-1, x and y random."""
     from tpu3drecon_torch.ops import tt_linearize as tt
     from tpu3drecon_torch.solvers.ba_tt import _cam_table, _inv_w
     from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
@@ -190,11 +202,15 @@ def time_tt_buckets(label: str, problem) -> list[dict]:
                                         _inv_w(problem, torch.float32), BAConfig(), 8)[:2]
         y = torch.randn(3, pb, generator=gen).to(mask.device)
         x = torch.randn(problem.n_cameras, 8, generator=gen).to(mask.device)
+        v_inv = torch.randn(6, pb, generator=gen).to(mask.device)
         b12 = (table, bucket.cam_ids, pts, bucket.uv.to(torch.float32), mask,
                _inv_w(problem, torch.float32), BAConfig(), 8)
         row = {"problem": label, "bucket": bi, "shape": f"C={problem.n_cameras} Tb={tb} Pb={pb}"}
         _time_modes(row, "B12", tt.tt_cam_normal_fused,
                     lambda **kw: tt.tt_cam_normal_fused(*b12, **kw))
+        _time_modes(row, "B13", tt.tt_coupling_fused,
+                    lambda **kw: tt.tt_coupling_fused(bucket.cam_ids, mask, jc, jp, v_inv,
+                                                      problem.n_cameras, **kw))
         _time_modes(row, "B14", tt.tt_wt_times_fused,
                     lambda **kw: tt.tt_wt_times_fused(x, bucket.cam_ids, mask, jc, jp, **kw))
         _time_modes(row, "B15", tt.tt_w_times_fused,

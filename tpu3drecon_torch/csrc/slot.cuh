@@ -1,14 +1,16 @@
 // Device code shared by the track-table kernels (wtt_kernels.cu,
 // wtt_route_kernels.cu and tt_kernels.cu): the per-slot residual/Jacobian
 // formulas, camera-row and x reads with their all-zero padding, the
-// per-slot contribution columns, band pair rows and coupling-product
-// halves, the warp-aggregated row reduction, the slot-major grid and row
-// tiles (B1, B2, B6, B12, B14 and B15), and the host-side launch helpers.
+// coupling-product halves, the warp-aggregated row reduction of the kernels
+// that walk a track in one thread (B5), the slot-major grid and row tiles
+// (B1, B2, B6, B8 and B12-B15), the contribution columns that the
+// slot-major B1, B8, B12 and B13 put into their row tiles, and the
+// host-side launch helpers.
 //
-// The track-table layouts keep one point's whole track in one thread (the
-// slot-major kernels instead one slot per lane): a slot (t, p) reads its
-// camera's row of a (rows, 19) table.  A padded slot reads an all-zero row,
-// exactly as the TPU kernels' empty one-hot column gives it: z = 0 ->
+// B3, B4, B5, B7 and B16 keep one point's whole track in one thread; the
+// slot-major kernels run one slot per lane.  Either way a slot (t, p) reads
+// its camera's row of a (rows, 19) table.  A padded slot reads an all-zero
+// row, exactly as the TPU kernels' empty one-hot column gives it: z = 0 ->
 // z_safe = 1, so every output of the slot is exactly 0.
 //
 // Memory.  The kernels read camera rows and x straight from device memory
@@ -197,77 +199,6 @@ __device__ __forceinline__ const T* cam_row(const T* table, int w, T (&buf)[kD])
   return buf;
 }
 
-// Contribution columns u (NT) | g (NP) [| Schur-Jacobi coupling (NT)] of one
-// slot (kernel B1's pass 2 and kernel B8), added into a (rows, K) tile at
-// element offsets `self` / `lead` (rows w / w0).  `j0`, `j1` are the two
-// camera-Jacobian rows, `q` the point-Jacobian planes, `vi` the point's
-// V^-1 (sym3 packing).  With `use_sj` the slot's W factor and W V^-1 are
-// left in `wl` / `wv` (the band pair rows reuse them).  Every column value
-// passes split_round<TERMS> before it is reduced.  Returns the next free
-// column.
-template <typename T, int NP, int TERMS = 3>
-__device__ __forceinline__ int add_contribs(T* acc, const WarpRow& wr, int self,
-                                            int lead, const T* j0, const T* j1,
-                                            const T* q, T r0, T r1, const T* vi,
-                                            bool use_sj, T (&wl)[3][NP],
-                                            T (&wv)[3][NP]) {
-  int col = 0;
-#pragma unroll
-  for (int dd = 0; dd < NP; ++dd)
-#pragma unroll
-    for (int i = 0; i < NP - dd; ++i, ++col)
-      row_add(acc, wr, self + col, lead + col,
-              split_round<TERMS>(j0[i] * j0[i + dd] + j1[i] * j1[i + dd]));
-#pragma unroll
-  for (int i = 0; i < NP; ++i, ++col)
-    row_add(acc, wr, self + col, lead + col, split_round<TERMS>(j0[i] * r0 + j1[i] * r1));
-  if (use_sj) {
-    // W factor w_l[i] = jc0[i] jp0[l] + jc1[i] jp1[l]; WV = W sym3(V^-1).
-#pragma unroll
-    for (int l = 0; l < 3; ++l)
-#pragma unroll
-      for (int i = 0; i < NP; ++i) wl[l][i] = j0[i] * q[l] + j1[i] * q[3 + l];
-#pragma unroll
-    for (int l = 0; l < 3; ++l)
-#pragma unroll
-      for (int i = 0; i < NP; ++i)
-        wv[l][i] = wl[0][i] * vi[sym_idx(0, l)] + wl[1][i] * vi[sym_idx(1, l)] +
-                   wl[2][i] * vi[sym_idx(2, l)];
-#pragma unroll
-    for (int dd = 0; dd < NP; ++dd)
-#pragma unroll
-      for (int i = 0; i < NP - dd; ++i, ++col)
-        row_add(acc, wr, self + col, lead + col,
-                split_round<TERMS>(wv[0][i] * wl[0][i + dd] + wv[1][i] * wl[1][i + dd] +
-                                   wv[2][i] * wl[2][i + dd]));
-  }
-  return col;
-}
-
-// Band pair rows S_{c,c+1} of one slot (kernels B1 and B8 with want_od):
-// where this lane's previous track slot sits on window row `w_prev` and this
-// slot on row w_prev + 1, od[i * NP + j] = sum_l wv_prev[l][i] wl[l][j] is
-// added into row w_prev at columns col0 + i * NP + j of the (rows, K) tile.
-// Padded slots (-1) never form a pair; values pass split_round<TERMS>.  The
-// whole warp calls it.
-template <typename T, int NP, int TERMS = 3>
-__device__ __forceinline__ void add_pair_rows(T* acc, int K, int col0, int w_prev,
-                                              int w, const T (&wv_prev)[3][NP],
-                                              const T (&wl)[3][NP]) {
-  const int pw = (w_prev >= 0 && w == w_prev + 1) ? w_prev : -1;
-  const WarpRow pr = warp_row(pw);
-  if (!pr.any) return;  // warp-uniform
-  const int self = (pw >= 0 ? pw : 0) * K + col0;
-  const int lead = pr.w0 * K + col0;
-#pragma unroll
-  for (int i = 0; i < NP; ++i)
-#pragma unroll
-    for (int j = 0; j < NP; ++j)
-      row_add(acc, pr, self + i * NP + j, lead + i * NP + j,
-              split_round<TERMS>(wv_prev[0][i] * wl[0][j] + wv_prev[1][i] * wl[1][j] +
-                                 wv_prev[2][i] * wl[2][j]));
-}
-
 // (W^T x) of one slot on window row w (-1 = padding) added to wtx[3]: x
 // read from the group's window rows xw_t (NP, W) in device memory (0 for
 // padding) and passed through split_round<TERMS>; `ts` is the slot's
@@ -307,9 +238,9 @@ __device__ __forceinline__ void w_slot(T* acc, int w, int W, const T* jc, const 
 }
 
 // ------------------------------------------------ slot-major grid ------
-// The slot-major kernels (B1, B2 and B6 in wtt_kernels.cuh, B12, B14 and
-// B15 in tt_kernels.cu) run one lane per track slot: a warp holds slot t of 32
-// consecutive point columns, a block holds `ng` such 32-point groups as `tc`
+// The slot-major kernels (B1, B2 and B6 in wtt_kernels.cuh, B8 in
+// wtt_route_kernels.cu, B12-B15 in tt_kernels.cu) run one lane per track
+// slot: a warp holds slot t of 32 consecutive point columns, a block holds `ng` such 32-point groups as `tc`
 // warps each (warp ti of a group holds slot c * tc + ti in chunk c), and a
 // track longer than tc slots is walked in ceil(Tb / tc) chunks.  The
 // wrappers compute tc, ng and the shared bytes (ops/_wtt_common.py
@@ -366,7 +297,8 @@ __device__ __forceinline__ void put_point_parts(T* part, const Slot<T, NP>& o) {
 }
 
 // ------------------------------------------------ slot-major row tiles --
-// The row reduction of the slot-major kernels (B1, B2, B6, B12 and B15),
+// The row reduction of the slot-major kernels (B1, B2, B6, B8, B12, B13 and
+// B15),
 // where a warp holds one track slot of 32 point columns: its lanes' column
 // values go to window rows that are mostly one row.  Each lane writes its
 // values into the warp's shared (32, KT + 1) tile (a row per lane, padded
@@ -377,7 +309,7 @@ __device__ __forceinline__ void put_point_parts(T* part, const Slot<T, NP>& o) {
 // Lanes on no row (-1: padding, past the track) are left out.  Columns are
 // put one at a time in the order of the output's columns; the tile flushes
 // every KT columns and at the segment's end.
-constexpr int kTile = 32;  // tile columns of B1 and B12 (B2's, B6's and B15's are np wide)
+constexpr int kTile = 32;  // tile columns of B1, B8, B12 and B13 (B2's, B6's and B15's: np)
 
 template <typename T, int KT>
 struct RowTile {
@@ -436,6 +368,63 @@ template <int NCOL, typename T, int KT>
 __device__ __forceinline__ void tile_put(const RowTile<T, KT>& rt, int col, T val, int col0) {
   rt.v[(threadIdx.x & 31) * (KT + 1) + col % KT] = val;
   if (col % KT == KT - 1 || col == NCOL - 1) tile_flush(rt, col % KT + 1, col0 + col - col % KT);
+}
+
+// ------------------------------------------------ contribution columns --
+// The per-slot camera columns of B1's pass 2, B8, B12 and B13, put into the
+// warp's row tile in the output's diagonal-major _triu_pairs order from
+// column `col` of an NCOL-column segment that starts at output column 0;
+// each value passes split_round<TERMS> (B1's reduced-fidelity mode; exact
+// at TERMS = 3).  The callers' loops unroll fully, so every column index is
+// a constant.  Each returns the next free column.
+
+// u (NT) | g (NP): j0, j1 are the slot's two camera-Jacobian rows, r0, r1
+// its whitened residual (ba_tt._u_g_contribs).
+template <int NCOL, int NP, int TERMS, typename T, int KT>
+__device__ __forceinline__ int put_ug(const RowTile<T, KT>& rt, int col, const T* j0,
+                                      const T* j1, T r0, T r1) {
+#pragma unroll
+  for (int dd = 0; dd < NP; ++dd)
+#pragma unroll
+    for (int i = 0; i < NP - dd; ++i, ++col)
+      tile_put<NCOL>(rt, col, split_round<TERMS>(j0[i] * j0[i + dd] + j1[i] * j1[i + dd]), 0);
+#pragma unroll
+  for (int i = 0; i < NP; ++i, ++col)
+    tile_put<NCOL>(rt, col, split_round<TERMS>(j0[i] * r0 + j1[i] * r1), 0);
+  return col;
+}
+
+// The slot's W factor wl[l][i] = j0[i] q[l] + j1[i] q[3 + l] and W V^-1,
+// wv = W sym3(vi), where q are its point-Jacobian planes and vi the point's
+// V^-1 (sym3 packing) (ba_tt._coupling_contribs).
+template <typename T, int NP>
+__device__ __forceinline__ void w_factors(const T* j0, const T* j1, const T* q, const T* vi,
+                                          T (&wl)[3][NP], T (&wv)[3][NP]) {
+#pragma unroll
+  for (int l = 0; l < 3; ++l)
+#pragma unroll
+    for (int i = 0; i < NP; ++i) wl[l][i] = j0[i] * q[l] + j1[i] * q[3 + l];
+#pragma unroll
+  for (int l = 0; l < 3; ++l)
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+      wv[l][i] = wl[0][i] * vi[sym_idx(0, l)] + wl[1][i] * vi[sym_idx(1, l)] +
+                 wl[2][i] * vi[sym_idx(2, l)];
+}
+
+// The Schur-Jacobi coupling W V^-1 W^T (NT): sum_l wv[l][i] wl[l][i + dd].
+template <int NCOL, int NP, int TERMS, typename T, int KT>
+__device__ __forceinline__ int put_coupling(const RowTile<T, KT>& rt, int col,
+                                            const T (&wl)[3][NP], const T (&wv)[3][NP]) {
+#pragma unroll
+  for (int dd = 0; dd < NP; ++dd)
+#pragma unroll
+    for (int i = 0; i < NP - dd; ++i, ++col)
+      tile_put<NCOL>(rt, col,
+                     split_round<TERMS>(wv[0][i] * wl[0][i + dd] + wv[1][i] * wl[1][i + dd] +
+                                        wv[2][i] * wl[2][i + dd]),
+                     0);
+  return col;
 }
 
 // ---------------------------------------------------------------- host --

@@ -17,23 +17,24 @@
 // MXU dots against a dense {0,1} one-hot tile, because gathers are slow
 // there.  Here a slot reads its camera index directly.
 //
-// B12, B14 and B15 are slot-major (slot.cuh slot_lane): a warp holds slot t
+// B12-B15 are slot-major (slot.cuh slot_lane): a warp holds slot t
 // of 32 consecutive point columns, one lane per slot, a block holds `ng`
 // such groups as `tc` warps each, and a track longer than tc slots is
 // walked in chunks, so a bucket runs on Tb * Pb threads and every slot's
 // chain of dependent loads (cam_ids -> mask -> camera row or x row ->
 // arithmetic) runs beside the others instead of Tb times in a row.  The
 // wrappers compute tc, ng and the shared bytes (ops/_wtt_common.py
-// slot_geometry "tt_lin", "tt_wt", "tt_w") and the C entries check them
-// against tt_lin_smem, tt_wt_smem and tt_w_smem.  Per-point sums (B12's V
+// slot_geometry "tt_lin", "tt_coupling", "tt_wt", "tt_w") and the C entries
+// check them against tt_lin_smem, tt_coupling_smem, tt_wt_smem and
+// tt_w_smem.  Per-point sums (B12's V
 // and g_pt, B14's W^T x) cross the warps through shared memory: each lane
 // writes its slot's part, and lane p of the group's warp 0 adds the Tb
 // parts in slot order t = 0 .. Tb - 1, the order of the plain versions'
 // track sums, so they keep their last bits.  Per-camera columns (B12's U|g,
-// B15's W y) go through the warp's row tile (slot.cuh tile_put): the lanes
-// are grouped by camera and each (distinct camera, column) leaves as one
-// atomic, all lanes at once.  B13 and B16 still run one thread per point
-// column, which walks its track.
+// B13's coupling, B15's W y) go through the warp's row tile (slot.cuh
+// tile_put): the lanes are grouped by camera and each (distinct camera,
+// column) leaves as one atomic, all lanes at once.  B16 still runs one
+// thread per point column, which walks its track.
 //
 // Padded slots (mask 0) carry cam_ids 0.  They take an all-zero camera row
 // (and x row) without reading one, never camera 0's row: the masked
@@ -43,8 +44,7 @@
 //
 // Camera rows and x are read from device memory into registers, so any
 // camera count runs.  Per-camera reductions go to the zeroed outputs with
-// atomics (B13 with shuffles first when all live lanes of a warp share a
-// camera, slot.cuh row_add); their summation order varies from run to run.
+// atomics; their summation order varies from run to run.
 // B15 alone keeps a second memory mode, a block-shared (C, NP) tile
 // flushed once per block: it measured faster at 100 cameras on the largest
 // medium bucket and slower at 1024 (PERF.md), and its wrapper picks it
@@ -58,9 +58,10 @@
 // writes its jc/jp (10.14 us per medium pass) and was bound by the atomics
 // of its 44 camera columns per slot (np = 8), sent lane by lane from warps
 // of mixed cameras; its row tile sends one atomic per (camera, column) and
-// warp-slot.  B13's 36 columns per slot are still atomics of that kind, and
-// B15 (8 columns per slot) is bound by launch and latency, its pass 9x its
-// bytes' bound on the medium buckets.
+// warp-slot.  B13 (36 columns per slot, no Jacobian arithmetic) was bound
+// the same way, and by one thread per point on the long-track buckets; it
+// takes B12's row tile and grid.  B15 (8 columns per slot) is bound by
+// launch and latency, its pass 9x its bytes' bound on the medium buckets.
 //
 // Built with --fmad=false (ops/_build.py): each kernel's per-element
 // outputs match its plain version (ops/tt_linearize.py) to the last bits.
@@ -154,18 +155,7 @@ tt_cam_normal_kernel(const T* __restrict__ table, const int* __restrict__ cam_id
 
     // Camera-side columns (ba_tt._u_g_contribs) into the camera's row.
     tile_rows(rt, cam);
-    if (rt.nd > 0) {  // warp-uniform
-      const T* j0 = o.jc;
-      const T* j1 = o.jc + NP;
-      int col = 0;
-#pragma unroll
-      for (int dd = 0; dd < NP; ++dd)
-#pragma unroll
-        for (int i = 0; i < NP - dd; ++i, ++col)
-          tile_put<K>(rt, col, j0[i] * j0[i + dd] + j1[i] * j1[i + dd], 0);
-#pragma unroll
-      for (int i = 0; i < NP; ++i, ++col) tile_put<K>(rt, col, j0[i] * o.r0 + j1[i] * o.r1, 0);
-    }
+    if (rt.nd > 0) put_ug<K, NP, 3>(rt, 0, o.jc, o.jc + NP, o.r0, o.r1);  // warp-uniform
     __syncthreads();  // every row tile is flushed: the parts may overwrite it
 
     // Point-side parts V | g_pt, summed over t in order.
@@ -183,53 +173,63 @@ tt_cam_normal_kernel(const T* __restrict__ table, const int* __restrict__ cam_id
 }
 
 // ---------------------------------------------------------------- B13 ---
+// Slot-major, B12's camera columns without tt_blocks and without a
+// per-point sum (V^-1 is an input): each lane reads its slot's jc/jp (read
+// before the camera is known, dropped for padding, whose planes may hold
+// NaN), cam_ids / mask and its point's V^-1 (every warp of a group reads
+// the same six values, which L1 serves), forms its W and W V^-1 factors
+// (slot.cuh w_factors) and puts its n_triu coupling columns into the warp's
+// row tile of its camera (36 / 55 / 78 columns at np 8 / 10 / 12 flush 2 / 2
+// / 3 times).  The warps never meet at a barrier.  Shared memory: the warps'
+// (32, kTile + 1) row tiles and their meta; one memory mode (a block-shared
+// (C, n_triu) tile would hold 36,864 entries at C = 1024, and B12's (C, K)
+// tile measured slower, PERF.md).
+template <typename T>
+constexpr size_t tt_coupling_smem(int tc, int ng) {
+  const size_t nw = size_t(tc) * ng;
+  return nw * 32 * (kTile + 1) * sizeof(T) + nw * 96 * sizeof(int);
+}
+
 template <typename T, int NP>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(sizeof(T) == 4 ? 512 : 256)  // tt_lin_threads<T>()
 tt_coupling_kernel(const int* __restrict__ cam_ids, const T* __restrict__ mask,
                    const T* __restrict__ jc, const T* __restrict__ jp,
-                   const T* __restrict__ vinv, T* __restrict__ out, int C, int Tb,
-                   int Pb) {
+                   const T* __restrict__ vinv, T* __restrict__ out, int C, int Tb, int Pb,
+                   int tc, int ng) {
   constexpr int NT = NP * (NP + 1) / 2;  // out is (C, NT)
-  const int p = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = p < Pb;
-
+  extern __shared__ __align__(16) unsigned char smem[];
+  const SlotLane sl = slot_lane(tc, ng, Tb, Pb);
+  const int nw = tc * ng;
+  T* s_v = reinterpret_cast<T*>(smem);  // (nw, 32, kTile + 1) row tiles
+  int* s_meta = reinterpret_cast<int*>(s_v + size_t(nw) * 32 * (kTile + 1));  // (nw, 96)
+  const int p = sl.p;
   const size_t TP = (size_t)Tb * Pb;
   T vi[6];
 #pragma unroll
-  for (int k = 0; k < 6; ++k) vi[k] = live ? vinv[(size_t)k * Pb + p] : T(0);
-  for (int t = 0; t < Tb; ++t) {
+  for (int k = 0; k < 6; ++k) vi[k] = sl.live ? vinv[(size_t)k * Pb + p] : T(0);
+  RowTile<T, kTile> rt{s_v + (size_t)sl.warp * 32 * (kTile + 1), s_meta + sl.warp * 96, out,
+                       size_t(NT), 1, 0};
+  for (int c = 0; c < sl.nchunk; ++c) {
+    const int t = c * tc + sl.ti;
+    if (t >= Tb) break;  // warp-uniform
     const size_t ts = (size_t)t * Pb + p;
-    const int c = slot_cam(cam_ids, mask, ts, live);
-    const WarpRow wr = warp_row(c);
-    if (!wr.any) continue;  // warp-uniform
-    T q[6], j[2 * NP];
+    T j[2 * NP], q[6];
 #pragma unroll
-    for (int k = 0; k < 6; ++k) q[k] = c >= 0 ? jp[k * TP + ts] : T(0);
+    for (int k = 0; k < 2 * NP; ++k) j[k] = sl.live ? jc[k * TP + ts] : T(0);
 #pragma unroll
-    for (int k = 0; k < 2 * NP; ++k) j[k] = c >= 0 ? jc[k * TP + ts] : T(0);
-    // W factor wl[l][i] = jc0[i] jp0[l] + jc1[i] jp1[l]; WV = W sym3(V^-1)
-    // (ba_tt._coupling_contribs).
+    for (int k = 0; k < 6; ++k) q[k] = sl.live ? jp[k * TP + ts] : T(0);
+    const int cam = slot_cam(cam_ids, mask, ts, sl.live);
+    tile_rows(rt, cam);
+    if (rt.nd == 0) continue;  // warp-uniform
+    if (cam < 0) {
+#pragma unroll
+      for (int k = 0; k < 2 * NP; ++k) j[k] = T(0);
+#pragma unroll
+      for (int k = 0; k < 6; ++k) q[k] = T(0);
+    }
     T wl[3][NP], wv[3][NP];
-#pragma unroll
-    for (int l = 0; l < 3; ++l)
-#pragma unroll
-      for (int i = 0; i < NP; ++i) wl[l][i] = j[i] * q[l] + j[NP + i] * q[3 + l];
-#pragma unroll
-    for (int l = 0; l < 3; ++l)
-#pragma unroll
-      for (int i = 0; i < NP; ++i)
-        wv[l][i] = wl[0][i] * vi[sym_idx(0, l)] + wl[1][i] * vi[sym_idx(1, l)] +
-                   wl[2][i] * vi[sym_idx(2, l)];
-    const int self = (c >= 0 ? c : 0) * NT;
-    const int lead = wr.w0 * NT;
-    int col = 0;
-#pragma unroll
-    for (int dd = 0; dd < NP; ++dd)
-#pragma unroll
-      for (int i = 0; i < NP - dd; ++i, ++col)
-        row_add(out, wr, self + col, lead + col,
-                wv[0][i] * wl[0][i + dd] + wv[1][i] * wl[1][i + dd] +
-                    wv[2][i] * wl[2][i + dd]);
+    w_factors(j, j + NP, q, vi, wl, wv);
+    put_coupling<NT, NP, 3>(rt, 0, wl, wv);
   }
 }
 
@@ -409,13 +409,19 @@ int cam_normal_launch(const void* table, const void* cam_ids, const void* pts,
   return (int)cudaGetLastError();
 }
 
+// B13 at the wrapper's geometry.
 template <typename T, int NP>
 int coupling_launch(const void* cam_ids, const void* mask, const void* jc,
                     const void* jp, const void* vinv, void* out, int C, int Tb,
-                    int Pb, cudaStream_t stream) {
-  tt_coupling_kernel<T, NP><<<grid_of(Pb, 1), kBlock, 0, stream>>>(
-      (const int*)cam_ids, (const T*)mask, (const T*)jc, (const T*)jp,
-      (const T*)vinv, (T*)out, C, Tb, Pb);
+                    int Pb, int tc, int ng, int smem, cudaStream_t stream) {
+  auto kernel = tt_coupling_kernel<T, NP>;
+  dim3 grid, block;
+  const int e = slot_launch(kernel, tt_lin_threads<T>(), tt_coupling_smem<T>(tc, ng), tc, ng,
+                            smem, 1, Pb, grid, block);
+  if (e) return e;
+  kernel<<<grid, block, smem, stream>>>((const int*)cam_ids, (const T*)mask, (const T*)jc,
+                                        (const T*)jp, (const T*)vinv, (T*)out, C, Tb, Pb, tc,
+                                        ng);
   return (int)cudaGetLastError();
 }
 
@@ -481,12 +487,14 @@ int tt_cam_normal(int dtype, int np, const void* table, const void* cam_ids,
                                                    (cudaStream_t)stream)));
 }
 
+// tc, ng, smem: the slot-major geometry (ops/_wtt_common.py slot_geometry
+// "tt_coupling").
 int tt_coupling(int dtype, int np, const void* cam_ids, const void* mask,
                 const void* jc, const void* jp, const void* vinv, void* out,
-                int C, int Tb, int Pb, void* stream) {
+                int C, int Tb, int Pb, int tc, int ng, int smem, void* stream) {
   if (Pb == 0 || Tb == 0) return 0;
   NP_DISPATCH(dtype, np, (coupling_launch<T, NP>(cam_ids, mask, jc, jp, vinv, out, C, Tb,
-                                                 Pb, (cudaStream_t)stream)));
+                                                 Pb, tc, ng, smem, (cudaStream_t)stream)));
 }
 
 // tc, ng, smem: the slot-major geometry (ops/_wtt_common.py slot_geometry

@@ -80,7 +80,9 @@ constexpr size_t lin_smem(int tc, int ng) {
 // od[i * np + j] of window row w sums wv(slot t-1)[i] w(slot t)[j] over the
 // adjacent track slots on rows w and w + 1 (wtt_linearize.py:515-538); slot
 // t reads slot t-1's W V^-1 factor from the shared copy that warp t-1 wrote
-// (the slot before a chunk: from jc/jp, which pass 1 wrote).
+// (the slot before a chunk: from jc/jp, which pass 1 wrote).  The u | g |
+// coupling columns are B8's (slot.cuh put_ug, put_coupling); B8
+// (wtt_route_kernels.cu) keeps a copy of the od step.
 //
 // TERMS < 3 (float only) is the TPU kernel's reduced-fidelity linearization
 // (linearize_kernel "index2", wtt_linearize.py:502-531): the u | g |
@@ -196,26 +198,13 @@ lin_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ tw,
   // the last chunk first (its slots are still in registers).
   RowTile<T, kTile> rt{s_a + (size_t)sl.warp * 32 * (kTile + 1), s_meta + sl.warp * 96,
                        rows + (size_t)g * W * K, size_t(K), 1, 0};
-  // W factor w_l[i] = jc0[i] jp0[l] + jc1[i] jp1[l]; WV = W sym3(V^-1).
-  auto factors = [&](const T* j0, const T* j1, const T* q, T (&wl)[3][NP], T (&wv)[3][NP]) {
-#pragma unroll
-    for (int l = 0; l < 3; ++l)
-#pragma unroll
-      for (int i = 0; i < NP; ++i) wl[l][i] = j0[i] * q[l] + j1[i] * q[3 + l];
-#pragma unroll
-    for (int l = 0; l < 3; ++l)
-#pragma unroll
-      for (int i = 0; i < NP; ++i)
-        wv[l][i] = wl[0][i] * vi[sym_idx(0, l)] + wl[1][i] * vi[sym_idx(1, l)] +
-                   wl[2][i] * vi[sym_idx(2, l)];
-  };
   for (int c = sl.nchunk - 1; c >= 0; --c) {
     if (c != sl.nchunk - 1) compute(c * tc + ti);
     const T* j0 = o.jc;
     const T* j1 = o.jc + NP;
     const T* q = o.jp;
     T wl[3][NP], wv[3][NP];
-    if constexpr (SJ) factors(j0, j1, q, wl, wv);
+    if constexpr (SJ) w_factors(j0, j1, q, vi, wl, wv);
     if constexpr (OD) {
       const size_t base = (size_t)gi * (tc + 1);
 #pragma unroll
@@ -234,7 +223,7 @@ lin_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ tw,
           for (int k = 0; k < 2 * NP; ++k) jcp[k] = jc_out[k * GTP + tsp];
 #pragma unroll
           for (int k = 0; k < 6; ++k) jpp[k] = jp_out[k * GTP + tsp];
-          factors(jcp, jcp + NP, jpp, wlp, wvp);
+          w_factors(jcp, jcp + NP, jpp, vi, wlp, wvp);
 #pragma unroll
           for (int l = 0; l < 3; ++l)
 #pragma unroll
@@ -246,25 +235,8 @@ lin_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ tw,
     }
     tile_rows(rt, w);
     if (rt.nd > 0) {  // warp-uniform
-      int col = 0;
-#pragma unroll
-      for (int dd = 0; dd < NP; ++dd)
-#pragma unroll
-        for (int i = 0; i < NP - dd; ++i, ++col)
-          tile_put<K0>(rt, col, split_round<TERMS>(j0[i] * j0[i + dd] + j1[i] * j1[i + dd]), 0);
-#pragma unroll
-      for (int i = 0; i < NP; ++i, ++col)
-        tile_put<K0>(rt, col, split_round<TERMS>(j0[i] * o.r0 + j1[i] * o.r1), 0);
-      if constexpr (SJ) {
-#pragma unroll
-        for (int dd = 0; dd < NP; ++dd)
-#pragma unroll
-          for (int i = 0; i < NP - dd; ++i, ++col)
-            tile_put<K0>(rt, col,
-                         split_round<TERMS>(wv[0][i] * wl[0][i + dd] + wv[1][i] * wl[1][i + dd] +
-                                            wv[2][i] * wl[2][i + dd]),
-                         0);
-      }
+      int col = put_ug<K0, NP, TERMS>(rt, 0, j0, j1, o.r0, o.r1);
+      if constexpr (SJ) col = put_coupling<K0, NP, TERMS>(rt, col, wl, wv);
       const T s0r = q[0] * vw0 + q[1] * vw1 + q[2] * vw2;
       const T s1r = q[3] * vw0 + q[4] * vw1 + q[5] * vw2;
 #pragma unroll

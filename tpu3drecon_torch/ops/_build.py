@@ -75,8 +75,9 @@ _SIGNATURES = {
     # dtype, np, table, cam_ids, pts, uv, mask, inv_w, jc, jp, v6, gpt, ug,
     # C, Tb, Pb, loss, focal, points, dist, pp, tc, ng, smem, stream
     "tt_cam_normal": [_I, _I] + [_P] * 11 + [_I] * 11 + [_P],
-    # dtype, np, cam_ids, mask, jc, jp, vinv, out, C, Tb, Pb, stream
-    "tt_coupling": [_I, _I] + [_P] * 6 + [_I] * 3 + [_P],
+    # dtype, np, cam_ids, mask, jc, jp, vinv, out, C, Tb, Pb, tc, ng, smem,
+    # stream
+    "tt_coupling": [_I, _I] + [_P] * 6 + [_I] * 6 + [_P],
     # dtype, np, x, cam_ids, mask, jc, jp, out, C, Tb, Pb, tc, ng, smem,
     # stream
     "tt_wt_times": [_I, _I] + [_P] * 6 + [_I] * 6 + [_P],
@@ -88,8 +89,8 @@ _SIGNATURES = {
     # dtype, wcam, tw, out, G, N, W, stream
     "wtt_cam_planes": [_I] + [_P] * 3 + [_I] * 3 + [_P],
     # dtype, np, wcam, jc, jp, r, vinv, rows, G, Tb, Pc, W, use_sj, want_od,
-    # stream
-    "wtt_contrib": [_I, _I] + [_P] * 6 + [_I] * 6 + [_P],
+    # tc, ng, smem, stream
+    "wtt_contrib": [_I, _I] + [_P] * 6 + [_I] * 9 + [_P],
     # dtype, np, y, wcam, jc, jp, out, G, Tb, Pc, W, stream
     "wtt_w_rows": [_I, _I] + [_P] * 5 + [_I] * 4 + [_P],
     # dtype, np, onehot_float, xw_t, onehot, jc, jp, vinv, out, G, Tb, Pc, W,

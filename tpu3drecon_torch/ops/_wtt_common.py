@@ -2,7 +2,7 @@
 dispatch rule (all wrappers), the window-row gather and scatter of the
 wtt plain versions, the bfloat16 split rounding of their
 reduced-fidelity modes, the launch geometry of the slot-major kernels
-(B1, B2, B6, B12, B14 and B15) and B6's one-hot vector width.
+(B1, B2, B6, B8 and B12-B15) and B6's one-hot vector width.
 
 Dispatch rule of every public kernel function: a CPU tensor goes to the
 plain PyTorch version; a CUDA tensor launches the CUDA kernel or raises.
@@ -99,15 +99,17 @@ def split_round(x: torch.Tensor, terms: int) -> torch.Tensor:
 # as `warps` warps each, and a track longer than `warps` slots is walked in
 # `chunks` chunks.  B1 ("lin") and B2 ("coupling") are csrc/wtt_kernels.cuh's
 # templates; B6 ("onehot") is B2's kernel with each slot's row decoded from
-# the one-hot; B12 ("tt_lin"), B14 ("tt_wt") and B15 ("tt_w") are
+# the one-hot; B8 ("contrib") is B1's pass 2 alone (csrc/wtt_route_kernels.cu);
+# B12 ("tt_lin"), B13 ("tt_coupling"), B14 ("tt_wt") and B15 ("tt_w") are
 # csrc/tt_kernels.cu's.  The C entries check the shared bytes against their
-# own count (lin_smem, coupling_smem, tt_lin_smem, tt_wt_smem, tt_w_smem),
-# so these formulas are the kernels' layout.
+# own count (lin_smem, coupling_smem, contrib_smem, tt_lin_smem,
+# tt_coupling_smem, tt_wt_smem, tt_w_smem), so these formulas are the
+# kernels' layout.
 SMEM_PER_BLOCK = 232_448  # the H100's opt-in shared memory per block
-TILE_COLS = 32  # B1's row-tile columns (csrc/slot.cuh kTile)
+TILE_COLS = 32  # B1's, B8's, B12's and B13's row-tile columns (csrc/slot.cuh kTile)
 TARGET_WARPS = 8  # warps per block the geometry aims at (256 threads)
 INT_BYTES = 4
-KERNELS = ("lin", "coupling", "onehot", "tt_lin", "tt_wt", "tt_w")
+KERNELS = ("lin", "coupling", "onehot", "contrib", "tt_lin", "tt_coupling", "tt_wt", "tt_w")
 
 
 def max_threads(kernel: str, itemsize: int) -> int:
@@ -115,7 +117,7 @@ def max_threads(kernel: str, itemsize: int) -> int:
     ``__launch_bounds__``, which bound the registers per thread."""
     if kernel not in KERNELS:
         raise ValueError(f"kernel must be one of {KERNELS}, not {kernel!r}")
-    if kernel in ("lin", "tt_lin"):
+    if kernel in ("lin", "contrib", "tt_lin", "tt_coupling"):
         return 512 if itemsize == 4 else 256
     return 512
 
@@ -125,18 +127,23 @@ def slot_smem(kernel: str, warps: int, groups: int, np_cam: int, itemsize: int,
     """Shared bytes of one block: the per-slot parts of the per-point sums
     (9 values for B1 and B12, 3 for B2, B6 and B14) aliased by the warps'
     (32, cols + 1) row tiles, the per-point values shared back (9, 3), B1's
-    od factors and rows of the chunk's slots and the one before it, each
-    warp's (3, 32) int tile meta, and B6's (32,) int row table per warp.
-    B12 shares nothing back; B14 has no row tile; B15 has no per-point sum:
-    its warps' (32, np + 1) row tiles and their meta."""
+    and B8's od factors and rows of the chunk's slots and the one before it,
+    each warp's (3, 32) int tile meta, and B6's (32,) int row table per warp.
+    B12 shares nothing back; B14 has no row tile; B8, B13 and B15 have no
+    per-point sum: their warps' (32, cols + 1) row tiles and their meta (and
+    B8's od values)."""
     max_threads(kernel, itemsize)  # raises on an unknown kernel
     nw = warps * groups
     ints = nw * 96
-    if kernel == "lin":
-        vals = max(nw * 9 * 32, nw * 32 * (TILE_COLS + 1)) + groups * 9 * 32
+    if kernel in ("lin", "contrib"):
+        vals = nw * 32 * (TILE_COLS + 1)
+        if kernel == "lin":
+            vals = max(nw * 9 * 32, vals) + groups * 9 * 32
         if want_od:
             vals += groups * (warps + 1) * 3 * np_cam * 32
             ints += groups * (warps + 1) * 32
+    elif kernel == "tt_coupling":
+        vals = nw * 32 * (TILE_COLS + 1)
     elif kernel == "tt_lin":
         vals = max(nw * 9 * 32, nw * 32 * (TILE_COLS + 1))
     elif kernel == "tt_wt":
@@ -163,8 +170,9 @@ class SlotGeometry(NamedTuple):
 def slot_geometry(kernel: str, tb: int, pc: int, np_cam: int, itemsize: int,
                   want_od: bool = False, limit: int = SMEM_PER_BLOCK,
                   tile: int = 0) -> SlotGeometry:
-    """The geometry of B1 ("lin"), B2 ("coupling"), B6 ("onehot"), B12
-    ("tt_lin"), B14 ("tt_wt") or B15 ("tt_w") on a bucket of ``tb`` slots
+    """The geometry of B1 ("lin"), B2 ("coupling"), B6 ("onehot"), B8
+    ("contrib"), B12 ("tt_lin"), B13 ("tt_coupling"), B14 ("tt_wt") or B15
+    ("tt_w") on a bucket of ``tb`` slots
     per track and ``pc`` point columns: as many warps per group as the
     track has slots, up to the kernel's thread limit (a longer track is cut
     into balanced chunks);

@@ -20,25 +20,25 @@ The JAX functions select camera rows and reduce into them through the dense
 an all-zero camera row and adds to no camera, as its all-zero one-hot
 column does.  Outputs have the JAX functions' shapes and order.
 
-CUDA kernels (``csrc/tt_kernels.cu``): B12, B14 and B15 are slot-major,
-one lane per track slot (a warp holds slot t of 32 consecutive point
-columns; ``_wtt_common.slot_geometry("tt_lin" | "tt_wt" | "tt_w")``), so a
-bucket runs on Tb * Pb threads.  Their per-point sums (B12's V and g_pt,
-B14's W^T x) cross the warps through shared memory and are added in slot
-order by one lane per point, the track order of the plain versions' sums;
-their per-camera columns (B12's U | g, B15's W y) go through the warp's
-row tile, which groups the lanes by camera and sends one atomic per
-(distinct camera, column).  B13 and B16 run one thread per point column,
-which walks its track, reads its slots' camera rows from device memory and
-(B13) sends its columns straight to the zeroed output with atomics.  So
-B12's ug, B13 and B15 vary in the last bits from run to run; every other
-output matches the plain version to the last bit.  Any camera count runs.
+CUDA kernels (``csrc/tt_kernels.cu``): B12-B15 are slot-major, one lane
+per track slot (a warp holds slot t of 32 consecutive point columns;
+``_wtt_common.slot_geometry("tt_lin" | "tt_coupling" | "tt_wt" |
+"tt_w")``), so a bucket runs on Tb * Pb threads.  Their per-point sums
+(B12's V and g_pt, B14's W^T x) cross the warps through shared memory and
+are added in slot order by one lane per point, the track order of the
+plain versions' sums; their per-camera columns (B12's U | g, B13's
+coupling, B15's W y) go through the warp's row tile, which groups the
+lanes by camera and sends one atomic per (distinct camera, column).  B16
+runs one thread per point column, which walks its track and reads its
+slots' camera rows from device memory.  So B12's ug, B13 and B15 vary in
+the last bits from run to run; every other output matches the plain
+version to the last bit.  Any camera count runs.
 B15 keeps two memory modes (``memory_mode``): its atomics go to a
 block-shared (C, np) tile, flushed once per block, where the tile has at
 most ``TILE_ENTRIES`` entries, and straight to the output above (PERF.md:
 at C = 100 the tile measured faster on the largest medium bucket, at C =
 1024 slower).  B12 has one mode: the same tile measured slower on every
-medium bucket and at C = 1024.
+medium bucket and at C = 1024, and so does B13.
 
 Each public function runs its plain PyTorch version on CPU tensors and its
 CUDA kernel on CUDA tensors; there is no fallback from one to the other.
@@ -207,11 +207,12 @@ def tt_coupling_fused(cam_ids, mask, jc, jp, v_inv, n_cams: int):
     np_cam, tb, pb = _check_slots(name, jc, cam_ids, mask, jc, jp, v_inv=v_inv)
     check_shape(name, "v_inv", v_inv, (6, pb))
     out = torch.zeros((n_cams, np_cam * (np_cam + 1) // 2), dtype=jc.dtype, device=jc.device)
+    geo = slot_geometry("tt_coupling", tb, pb, np_cam, jc.element_size())
     lib = _build.library()
     code = lib.tt_coupling(
         _build.dtype_code(jc.dtype), np_cam, cam_ids.data_ptr(), mask.data_ptr(),
         jc.data_ptr(), jp.data_ptr(), v_inv.data_ptr(), out.data_ptr(), n_cams, tb, pb,
-        _build.stream_ptr(jc.device),
+        geo.warps, geo.groups, geo.smem, _build.stream_ptr(jc.device),
     )
     _build.check(lib, name, code)
     COUPLING_COUNTS.launched(_build.GLOBAL)

@@ -34,8 +34,11 @@ each warp's row tile; one lane per (row, column) sends the atomic.  The od
 pairs read slot t-1's W V^-1 factor from the copy its warp left in shared
 memory.  ``_wtt_common.slot_geometry`` gives the launch geometry.  On the
 H100 it is bound by latency at the occupancy its registers allow.  B8
-(``csrc/wtt_route_kernels.cu:contrib_kernel``) is B1's pass 2 alone and B7
-(``cam_planes_kernel``) a per-slot copy bound by the 19 planes it writes.
+(``csrc/wtt_route_kernels.cu:contrib_kernel``) is B1's pass 2 alone on
+the same grid (``slot_geometry("contrib")``): one lane per slot reads its
+jc/jp/r and puts its columns, in B1's order and with B1's od pairs, into
+the warp's row tile.  B7 (``cam_planes_kernel``) is a per-slot copy bound
+by the 19 planes it writes.
 Row sums are atomic, so f32 rows vary in the last bits from run to run.
 Camera rows are read from device memory and nothing is staged per block,
 so any window width runs (``csrc/slot.cuh``).
@@ -347,11 +350,13 @@ def wtt_contrib_rows_idx(wcam, jc, jp, r, v_inv, np_cam: int, window: int,
     check_shape(name, "v_inv", v_inv, (6, g, pc))
     k = n_contrib_cols(np_cam, use_sj, want_od)
     rows = torch.zeros((g, window, k), dtype=jc.dtype, device=jc.device)
+    geo = slot_geometry("contrib", tb, pc, np_cam, jc.element_size(), want_od)
     lib = _build.library()
     code = lib.wtt_contrib(
         _build.dtype_code(jc.dtype), np_cam, wcam.data_ptr(), jc.data_ptr(),
         jp.data_ptr(), r.data_ptr(), v_inv.data_ptr(), rows.data_ptr(), g, tb, pc,
-        window, int(use_sj), int(want_od), _build.stream_ptr(jc.device),
+        window, int(use_sj), int(want_od), geo.warps, geo.groups, geo.smem,
+        _build.stream_ptr(jc.device),
     )
     _build.check(lib, name, code)
     (CONTRIB_OD_COUNTS if want_od else CONTRIB_COUNTS).launched(_build.GLOBAL)
