@@ -39,7 +39,8 @@ Phases (any failure exits non-zero and prints no result line):
 8. The dense track-table kernels B12-B16 against their plain versions on
    the card, on the five buckets of the medium problem in track-table
    layout (``build_tt_problem``; initial parameters, lam = 1e-4), in
-   float32 and float64, B12 and B16 under all three losses.
+   float32 and float64, B12 and B16 under all three losses, B16's
+   per-point partials bit for bit.
 9. The tt path: ``ba_solve_tt(kernels="full")`` (kernels B12-B16) on the
    same problem with the same config: one warm-up solve and 3 timed solves.
 10. Padded slots and the global-memory mode: every kernel that reads
@@ -47,16 +48,17 @@ Phases (any failure exits non-zero and prints no result line):
     B8 od, B12-B16) against its plain version on the medium wtt and tt
     buckets, in float32 and float64, with the padded slots poisoned (window
     row 0 NaN and only padded slots on it, NaN jc/jp/r on padded slots for
-    B5 and B8, an extra NaN camera carried only by padded tt slots); B15,
-    which keeps a block-shared tile at small camera counts, also with the
-    global-memory mode forced (``_mode``), whose f32 time is its
-    ``global_ms``.
+    B5 and B8, an extra NaN camera carried only by padded tt slots); B15
+    and B5, which keep a block-shared tile at small camera counts and
+    narrow windows, also with the global-memory mode forced (``_mode``),
+    whose f32 time is their ``global_ms``.
 11. The BAL-scale sequential problem: ``bal_sequential_wtt`` (1712
     cameras, 999,808 points, 3,808,166 observations, f32) built on the
     card, its build time and buckets logged.
-12. B1 and B8 with ``want_od`` against their plain versions on the BAL
-    buckets: f32, where they are timed beside B1 and B8 without od, and f64
-    with window row 0 and the padded slots' planes NaN.  Then the
+12. B1 and B8 with ``want_od``, and B5, against their plain versions on
+    the BAL buckets: f32, where they are timed (B1 od and B8 od beside B1
+    and B8 without od, B5 as ``B5 [BAL]``), and f64 with window row 0 and
+    the padded slots' planes NaN.  Then the
     reduced-fidelity kernels against their plain versions at the same
     terms, f32, with window row 0 of the camera rows and of x NaN: B2 at
     terms 1 and 2 and B1 at terms 2 on the medium buckets (timed there
@@ -100,7 +102,8 @@ Phases (any failure exits non-zero and prints no result line):
 16. ``tt_seq1024``: a sequential scene of 1024 cameras and 256 points per
     camera (seed 7, perturbed with seed 8 and 0.5 px noise) packed by
     ``tt_from_flat`` (f32), its counts logged; B12-B16 checked on its
-    buckets, each mode printed; solved with the BAL config at 3 LM
+    buckets, each mode printed, B16's per-point partials bit for bit and
+    its kernel alone timed; solved with the BAL config at 3 LM
     iterations on ``kernels="full"`` (Schur-Jacobi) and on JAX's default
     route ``kernels=False`` under block SSOR (``tt_seq1024_ssor``, no port
     kernel), one warm-up and 2 timed solves each.
@@ -120,15 +123,18 @@ and g and B11's blocks are block reductions in another order than the
 plain version's); B7 (a selection) exactly.  Each row of the kernel table
 gives its ``mode``: the memory mode its wrapper counted during the timed
 calls of its ``ms`` (``global``; ``shared`` for B15 on the medium buckets,
-whose (C, np) tile has at most 2,048 entries; none for B7, B9-B11 and E4,
-which have no mode), which must match the row's label; B15's row adds
-``global_ms``, the same inputs' time with the global-memory mode forced.
+whose (C, np) tile has at most 2,048 entries; ``global+shared`` for B5
+there, whose (np, W) tile of 1,024 entries serves every medium bucket but
+the last, of 6 slots per entry; none for B7, B9-B11 and E4, which have no
+mode), which must match the row's label; B15's and B5's rows add
+``global_ms``, the time of the same (poisoned) inputs with the
+global-memory mode forced.
 The rows ``B1 [hub]`` (the hub buckets), ``B1 od [np=10]`` (the BAL buckets
-with ``optimize_dist``), ``B12 [C=1024]``, ``B13 [C=1024]``, ``B14
-[C=1024]`` and ``B15 [C=1024]`` (tt_seq1024, B15 there in its global mode)
-time those kernels
-at the widths that a shared tile could not hold or does not serve, and
-count their launches on those paths.  The
+with ``optimize_dist``), ``B5 [BAL]`` (the BAL buckets), ``B12 [C=1024]``,
+``B13 [C=1024]``, ``B14 [C=1024]``, ``B15 [C=1024]`` (tt_seq1024, B15
+there in its global mode) and ``B16 [C=1024]`` time those kernels
+at the widths that a shared tile could not hold or does not serve (B5 and
+B16 on their second path), and count their launches on those paths.  The
 rows ``B2 [terms 1]``, ``B2 [terms 2]`` and ``B1 [terms 2]`` (medium
 buckets) and ``B1 od [terms 2]`` (BAL buckets) time the reduced-fidelity
 kernels and count their launches on the split paths that run them; ``E4
@@ -140,7 +146,9 @@ of 20 calls, each with a cold L2 and timed by a CUDA-event pair that sees
 none of the call's host time, summed over one pass of the solve (the five
 buckets, or one linearization).  ``ms`` covers all the device work of the
 wrapper: the kernel, and for B9 the packing of the camera rows (as in the
-JAX function), for B16 the sum of its per-point partials.  B7's
+JAX function), for B16 the sum of its per-point partials and the product
+by 0.5 (two PyTorch launches per bucket; a log line gives B16's kernel
+alone beside it, on the medium buckets and on tt_seq1024).  B7's
 ``library_ms`` is the same device time of the one ``torch.gather`` that
 computes its function; no other kernel has such a call.  Every count is
 set to 0 just before each path's solves (each of its iteration counts)
@@ -156,7 +164,8 @@ larger of the bytes the function must move (each input read once, each
 output written once, f32, from this run's tensors) over 3.35 TB/s and its
 operations (counted per slot or lane from the kernel source, ``FLOPS``;
 for the od rows also per adjacent slot pair of this run's data) over 67
-TFLOP/s of float32.
+TFLOP/s of float32.  B5 reads no planes of a padded slot, so its jc/jp
+bytes and operations count the slots that have a window row only.
 """
 
 from __future__ import annotations
@@ -203,8 +212,9 @@ SHARED, GLOBAL = "shared", "global"  # tpu3drecon_torch.ops._build's modes
 # (module under tpu3drecon_torch, counter attribute, kernel name, source,
 # replaced TPU kernel, paths, the memory mode of its ms: the kernels read
 # camera rows from device memory and reduce into the output rows directly,
-# B15 into a block-shared tile at small camera counts, B7, B9-B11 and E4
-# have no mode)
+# B15 and B5 into a block-shared tile at small camera counts and narrow
+# windows (B5 on buckets of many slots: both modes in one pass), B7, B9-B11
+# and E4 have no mode)
 ALL_SPLIT = {SPLIT, SPLIT2, SPLIT1, SPLIT2_SSOR, HUB_SPLIT}
 KERNELS = (
     ("ops.wtt_linearize", "COUNTS", "wtt_linearize_fused_idx", WTT_SRC, f"{LIN_PY}:554",
@@ -217,7 +227,7 @@ KERNELS = (
      "tpu3drecon/ops/pallas/wtt_cost.py:94", {WTT, BAL, BAL_SSOR, HUB, NP10} | ALL_SPLIT,
      GLOBAL),
     ("ops.wtt_matvec", "W_ROWS_COUNTS", "wtt_w_rows_idx", ROUTE_SRC, f"{MV_PY}:468",
-     {UNFUSED, BAL_TRI}, GLOBAL),
+     {UNFUSED, BAL_TRI}, f"{GLOBAL}+{SHARED}"),
     ("ops.wtt_matvec", "FUSED_COUNTS", "wtt_coupling_rows_fused", ROUTE_SRC, f"{MV_PY}:526",
      {ONEHOT}, GLOBAL),
     ("ops.wtt_linearize", "CAM_PLANES_COUNTS", "wtt_cam_planes_idx", ROUTE_SRC,
@@ -259,6 +269,12 @@ KERNELS = (
      GLOBAL),
     ("ops.tt_linearize", "W_COUNTS", "B15 [C=1024]", TT_SRC, f"{TT_PY}:475", {TT1024},
      GLOBAL),
+    # B5 on the BAL buckets (its bal_seq_tridiag_unfused path) and B16 on the
+    # 1024-camera track table.
+    ("ops.wtt_matvec", "W_ROWS_COUNTS", "B5 [BAL]", ROUTE_SRC, f"{MV_PY}:468", {BAL_TRI},
+     GLOBAL),
+    ("ops.tt_linearize", "COST_COUNTS", "B16 [C=1024]", TT_SRC, f"{TT_PY}:512", {TT1024},
+     GLOBAL),
     # The reduced-fidelity branches: B2 at terms 1 and 2, B1 (and B1 od) at
     # terms 2, on the split BAL paths that run them.
     ("ops.wtt_matvec", "COUPLING1_COUNTS", "B2 [terms 1]", TERMS_SRC, f"{MV_PY}:215",
@@ -275,9 +291,9 @@ KERNELS = (
     ("experiments.bits_expand", "LAYOUT_B_COUNTS", "E4 B", PROBE_SRC,
      "experiments/tpu_bits_expand_probe.py:51", {E4}, None),
 )
-# The kernel that keeps a shared-memory mode beside the global one: its row
-# adds global_ms, the time of the same inputs with the global mode forced.
-TWO_MODES = ("tt_w_times_fused",)
+# The kernels that keep a shared-memory mode beside the global one: their
+# rows add global_ms, the time of the same inputs with the global mode forced.
+TWO_MODES = ("tt_w_times_fused", "wtt_w_rows_idx")
 TOL = {  # (per-element, summed) bounds relative to max|plain|
     torch.float32: (1e-5, 1e-4),
     torch.float64: (1e-12, 1e-10),
@@ -348,8 +364,8 @@ def timed(kernel: str, fn) -> float:
 
 
 def time_global_ms(kernel: str, fn) -> None:
-    """Adds the device time of ``fn(_mode=GLOBAL)`` (B15 forced into its
-    global-memory mode) to the row's ``global_ms``."""
+    """Adds the device time of ``fn(_mode=GLOBAL)`` (B15 or B5 forced into
+    its global-memory mode) to the row's ``global_ms``."""
     counter = counters()[kernel]
     before = dict(counter.modes)
     RESULTS[kernel]["global_ms"] += device_ms(lambda: fn(_mode=GLOBAL))
@@ -384,6 +400,15 @@ def account(kernel: str, fn, plain, n_bytes: int, flops: int, library=None) -> N
     r["flops"] += flops
     if library is not None:
         r["library_ms"] = (r["library_ms"] or 0.0) + device_ms(library)
+
+
+def w_rows_work(y, wcam, jc, jp, out) -> tuple[int, int]:
+    """B5's bytes and float operations on this bucket's data: y, wcam and
+    the output, and the jc/jp planes and work of the slots that have a
+    window row only (the kernel reads no planes of a padded slot)."""
+    live = int((wcam >= 0).sum())
+    plane_bytes = (jc.shape[0] + jp.shape[0]) * jc.element_size()
+    return nbytes(y, wcam, out) + live * plane_bytes, FLOPS["wtt_w_rows_idx"] * live
 
 
 def wtt_kernel_inputs(problem, dtype, lam_value=1e-4, np_cam=8):
@@ -584,8 +609,7 @@ def check_route_kernels(problem) -> None:
                     lambda: lin.wtt_contrib_rows_idx_plain(*b8_sj),
                     nbytes(*b8_sj[:5], rows_sj), FLOPS["wtt_contrib_rows_idx"] * slots)
             account("wtt_w_rows_idx", lambda: mv.wtt_w_rows_idx(*b5),
-                    lambda: mv.wtt_w_rows_idx_plain(*b5),
-                    nbytes(*b5[:4], rows_b5), FLOPS["wtt_w_rows_idx"] * slots)
+                    lambda: mv.wtt_w_rows_idx_plain(*b5), *w_rows_work(*b5[:4], rows_b5))
             account("wtt_coupling_rows_fused", lambda: mv.wtt_coupling_rows_fused(*b6),
                     lambda: mv.wtt_coupling_rows_fused_plain(*b6),
                     nbytes(*b6, out_b6), FLOPS["wtt_coupling_rows_fused"] * slots)
@@ -622,11 +646,15 @@ def adjacent_pairs(wcam, g: int, tb: int, pc: int) -> int:
 
 
 def check_od_kernels(bal) -> None:
-    """Phase 12: B1 and B8 with want_od against their plain versions on the
-    BAL buckets: f32 (timed there, beside B1 and B8 without od), and f64
-    with NaN where only padded slots read (rows of 350,360 and 294,912
-    bytes per group, which no shared tile of the card could hold)."""
+    """Phase 12: B1 and B8 with want_od, and B5 (the W y rows of the same
+    tridiag path), against their plain versions on the BAL buckets: f32
+    (timed there, B1 od and B8 od beside B1 and B8 without od, B5 as the
+    ``B5 [BAL]`` row), and f64 with NaN where only padded slots read (rows
+    of 350,360 and 294,912 bytes per group, which no shared tile of the card
+    could hold)."""
     from tpu3drecon_torch.ops import wtt_linearize as lin
+    from tpu3drecon_torch.ops import wtt_matvec as mv
+    from tpu3drecon_torch.solvers.ba_tt import _sym3_matvec
     from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
 
     cfg = BAConfig()
@@ -641,14 +669,17 @@ def check_od_kernels(bal) -> None:
         err_b1 = max(compare("B1 od", "f32", k, a, b, summed if k == "rows" else elem)
                      for k, a, b in zip(lin_outs, got,
                                         lin.wtt_linearize_fused_idx_plain(*lin_args)))
-        jc, jp, r, v_inv, _ = route_planes(d, lin.wtt_cam_planes_idx(d["wcam"], d["tw"], tb),
-                                           cfg)
+        jc, jp, r, v_inv, g_pt = route_planes(
+            d, lin.wtt_cam_planes_idx(d["wcam"], d["tw"], tb), cfg)
         b8 = (d["wcam"], jc, jp, r, v_inv, 8, w, True, True)
         rows = lin.wtt_contrib_rows_idx(*b8)
         err_b8 = compare("B8 od", "f32", "", rows, lin.wtt_contrib_rows_idx_plain(*b8), summed)
+        b5 = (_sym3_matvec(v_inv, g_pt).contiguous(), d["wcam"], jc, jp, w)
+        rows_b5 = mv.wtt_w_rows_idx(*b5)
+        err_b5 = compare("B5 [BAL]", "f32", "", rows_b5, mv.wtt_w_rows_idx_plain(*b5), summed)
         pairs = adjacent_pairs(d["wcam"], g, tb, pc)
         log(f"check f32 od BAL bucket {bi} (G={g} Tb={tb} Pc={pc} W={w}, {pairs} pairs): "
-            f"B1 od {err_b1:.3e} B8 od {err_b8:.3e}")
+            f"B1 od {err_b1:.3e} B8 od {err_b8:.3e} B5 {err_b5:.3e}")
         slots = g * tb * pc
         account("B1 od", lambda: lin.wtt_linearize_fused_idx(*lin_args),
                 lambda: lin.wtt_linearize_fused_idx_plain(*lin_args),
@@ -657,6 +688,8 @@ def check_od_kernels(bal) -> None:
         account("B8 od", lambda: lin.wtt_contrib_rows_idx(*b8),
                 lambda: lin.wtt_contrib_rows_idx_plain(*b8), nbytes(*b8[:5], rows),
                 FLOPS["wtt_contrib_rows_idx"] * slots + FLOPS["od_pair"] * pairs)
+        account("B5 [BAL]", lambda: mv.wtt_w_rows_idx(*b5),
+                lambda: mv.wtt_w_rows_idx_plain(*b5), *w_rows_work(*b5[:4], rows_b5))
         plain_od["B1"] += device_ms(lambda: lin.wtt_linearize_fused_idx(*lin_args[:-1]))
         plain_od["B8"] += device_ms(lambda: lin.wtt_contrib_rows_idx(*b8[:-1]))
     log(f"od rows on the BAL buckets, device ms per pass (f32, cold L2): "
@@ -675,17 +708,21 @@ def check_od_kernels(bal) -> None:
                      for k, a, b in zip(lin_outs, got,
                                         lin.wtt_linearize_fused_idx_plain(*lin_args)))
         planes = lin.wtt_cam_planes_idx(wcam, d["tw"], tb)
-        jc, jp, r, v_inv, _ = route_planes(d, planes, cfg)
+        jc, jp, r, v_inv, g_pt = route_planes(d, planes, cfg)
         jc, jp, r = nan_on(pad, jc, jp, r)
         b8 = (wcam, jc, jp, r, v_inv, 8, w, True, True)
         rows = lin.wtt_contrib_rows_idx(*b8)
         err_b8 = compare("B8 od", "f64", "poisoned", rows,
                          lin.wtt_contrib_rows_idx_plain(*b8), summed)
-        if not (torch.isfinite(got[0]).all() and torch.isfinite(rows).all()):
+        b5 = (_sym3_matvec(v_inv, g_pt).contiguous(), wcam, jc, jp, w)
+        rows_b5 = mv.wtt_w_rows_idx(*b5)
+        err_b5 = compare("B5 [BAL]", "f64", "poisoned", rows_b5, mv.wtt_w_rows_idx_plain(*b5),
+                         summed)
+        if not all(torch.isfinite(x).all() for x in (got[0], rows, rows_b5)):
             raise AssertionError("f64 od: a poisoned padded slot reached an output")
         log(f"check f64 od BAL bucket {bi} (G={g} Tb={tb} Pc={pc} W={w}, "
             f"{adjacent_pairs(wcam, g, tb, pc)} pairs, {int(pad.sum())} padded slots, "
-            f"window row 0 NaN): B1 od {err_b1:.3e} B8 od {err_b8:.3e}")
+            f"window row 0 NaN): B1 od {err_b1:.3e} B8 od {err_b8:.3e} B5 {err_b5:.3e}")
 
 
 def check_grid_kernels(grid) -> None:
@@ -816,12 +853,15 @@ def check_tt_followers(tag: str, output: str, b13, b14, b15, errs: dict):
 
 
 def check_tt_kernels(problem) -> None:
-    """Phase 8: B12-B16 against their plain versions, f32 and f64."""
+    """Phase 8: B12-B16 against their plain versions, f32 and f64, B16's
+    per-point partials bit for bit; B16's kernel alone (its partials,
+    without the wrapper's sum and product) timed beside its function."""
     from tpu3drecon_torch.geometry.losses import RobustLoss
     from tpu3drecon_torch.ops import tt_linearize as tt
     from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
 
     c = problem.n_cameras
+    alone = 0.0
     for dtype in (torch.float32, torch.float64):
         elem, summed = TOL[dtype]
         tag = "f32" if dtype == torch.float32 else "f64"
@@ -843,6 +883,8 @@ def check_tt_kernels(problem) -> None:
                 cost = tt.tt_cost_fused(*b16_args)
                 errs[f"B16 {loss.value}"] = compare(
                     "tt_cost_fused", tag, "", cost, tt.tt_cost_fused_plain(*b16_args), elem)
+                compare("tt_cost_fused", tag, "partials", tt._cost_lanes(*b16_args),
+                        tt._cost_lanes_plain(*b16_args), 0.0)
                 if loss == RobustLoss.TRIVIAL:
                     b12_cfg, out_b12, want, cost_b16 = b12_args, got, plain, cost
             b13_args, b14_args, b15_args = tt_follower_args(d, want, c)
@@ -873,12 +915,15 @@ def check_tt_kernels(problem) -> None:
                     lambda: tt.tt_cost_fused(*b16_args),
                     lambda: tt.tt_cost_fused_plain(*b16_args),
                     nbytes(*b16_args[:6], cost_b16), FLOPS["tt_cost_fused"] * slots)
+            alone += device_ms(lambda: tt._cost_lanes(*b16_args))
+    log(f"B16 per medium pass (f32, cold L2): tt_cost_fused {RESULTS['tt_cost_fused']['ms']:.6f}"
+        f" ms, its kernel alone {alone:.6f} ms")
 
 
 def check_poisoned(kernel: str, tag: str, output: str, fn, plain, rel,
                    time_global: bool = False) -> float:
     """``fn()`` against ``plain()`` on inputs with poisoned padded slots:
-    outputs finite and within ``rel``.  For B15 also
+    outputs finite and within ``rel``.  For B15 and B5 also
     ``fn(_mode=GLOBAL)``, and with ``time_global`` that call's device time
     is added to the kernel's ``global_ms``.  Returns the largest
     max|diff|."""
@@ -906,9 +951,9 @@ def check_padded_slots(wtt, tt) -> None:
     reduces into rows against its plain version on the medium buckets, f32
     and f64, with the padded slots poisoned (window row 0 NaN and only
     padded slots on it; NaN jc/jp/r on padded slots for B5 and B8; for the
-    tt kernels an extra NaN camera that only padded slots carry); B15 also
-    in its forced global-memory mode, whose f32 device time per pass is its
-    ``global_ms``."""
+    tt kernels an extra NaN camera that only padded slots carry); B15 and
+    B5 also in their forced global-memory mode, whose f32 device time per
+    pass is their ``global_ms``."""
     from tpu3drecon_torch.geometry.losses import RobustLoss
     from tpu3drecon_torch.ops import _build
     from tpu3drecon_torch.ops import tt_linearize as tt_ops
@@ -959,8 +1004,8 @@ def check_padded_slots(wtt, tt) -> None:
             jc_n, jp_n, r_n = nan_on(pad, jc, jp, r)
             b5 = (_sym3_matvec(v_inv, g_pt).contiguous(), wcam, jc_n, jp_n, w)
             errs["B5"] = check_poisoned(
-                "wtt_w_rows_idx", tag, "rows", lambda: mv.wtt_w_rows_idx(*b5),
-                lambda: mv.wtt_w_rows_idx_plain(*b5), summed)
+                "wtt_w_rows_idx", tag, "rows", lambda **kw: mv.wtt_w_rows_idx(*b5, **kw),
+                lambda: mv.wtt_w_rows_idx_plain(*b5), summed, time_global=t)
             for od, name in ((False, "wtt_contrib_rows_idx"), (True, "B8 od")):
                 b8 = (wcam, jc_n, jp_n, r_n, v_inv, 8, w, True, od)
                 errs[name] = check_poisoned(
@@ -1003,7 +1048,7 @@ def check_padded_slots(wtt, tt) -> None:
                 f"Pb={mask.shape[1]}, {int((mask == 0).sum())} padded slots on a NaN "
                 "camera; B15 also global): "
                 + " ".join(f"{k} {v:.3e}" for k, v in errs.items()))
-    log("B15, device ms per pass (f32, cold L2), shared -> global mode forced: "
+    log("B15 and B5, device ms per pass (f32, cold L2), picked mode -> global mode forced: "
         + ", ".join(f"{k} {RESULTS[k]['ms']:.6f} -> {RESULTS[k]['global_ms']:.6f}"
                     for k in TWO_MODES))
 
@@ -1193,14 +1238,16 @@ def check_tt1024_kernels(tt) -> None:
     B12 and B13 timed as the ``B12 [C=1024]`` and ``B13 [C=1024]`` rows
     (camera columns that no shared tile of the card could hold), B14 as
     ``B14 [C=1024]``, B15 as ``B15 [C=1024]`` (its global mode: a (C, np)
-    tile of 8,192 entries measured slower)."""
+    tile of 8,192 entries measured slower), B16 as ``B16 [C=1024]`` (its
+    partials bit for bit, its kernel alone also timed)."""
     from tpu3drecon_torch.ops import tt_linearize as tt_ops
     from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
 
     elem, summed = TOL[torch.float32]
     row, row13 = "B12 [C=1024]", "B13 [C=1024]"
-    row14, row15 = "B14 [C=1024]", "B15 [C=1024]"
+    row14, row15, row16 = "B14 [C=1024]", "B15 [C=1024]", "B16 [C=1024]"
     c = tt.n_cameras
+    alone = 0.0
     for bi, d in enumerate(tt_kernel_inputs(tt, torch.float32)):
         tb, pb = d["mask"].shape
         args = (d["table"], d["cam_ids"], d["pts"], d["uv"], d["mask"], d["inv_w"],
@@ -1215,15 +1262,17 @@ def check_tt1024_kernels(tt) -> None:
         compare(row13, "f32", "", coup, tt_ops.tt_coupling_fused_plain(*b13), summed)
         compare(row14, "f32", "", wtx, tt_ops.tt_wt_times_fused_plain(*b14), elem)
         compare(row15, "f32", "", wy, tt_ops.tt_w_times_fused_plain(*b15), summed)
-        errs["B16"] = compare("tt_cost_fused", "f32 C=1024", "",
-                              tt_ops.tt_cost_fused(*args[:7]),
-                              tt_ops.tt_cost_fused_plain(*args[:7]), elem)
+        b16 = args[:7]
+        cost = tt_ops.tt_cost_fused(*b16)
+        errs["B16"] = compare(row16, "f32", "", cost, tt_ops.tt_cost_fused_plain(*b16), elem)
+        compare(row16, "f32", "partials", tt_ops._cost_lanes(*b16),
+                tt_ops._cost_lanes_plain(*b16), 0.0)
         modes = {k: mode_of(counters()[n], before[n]) for k, n in (
             ("B12", "tt_cam_normal_fused"), ("B13", "tt_coupling_fused"),
             ("B14", "tt_wt_times_fused"), ("B15", "tt_w_times_fused"),
             ("B16", "tt_cost_fused"))}
         ms = timed(row, lambda: tt_ops.tt_cam_normal_fused(*args))
-        ms13, ms14, ms15 = (RESULTS[r]["ms"] for r in (row13, row14, row15))
+        ms13, ms14, ms15, ms16 = (RESULTS[r]["ms"] for r in (row13, row14, row15, row16))
         account(row13, lambda: tt_ops.tt_coupling_fused(*b13),
                 lambda: tt_ops.tt_coupling_fused_plain(*b13), nbytes(*b13[:5], coup),
                 FLOPS["tt_coupling_fused"] * tb * pb)
@@ -1233,15 +1282,22 @@ def check_tt1024_kernels(tt) -> None:
         account(row15, lambda: tt_ops.tt_w_times_fused(*b15),
                 lambda: tt_ops.tt_w_times_fused_plain(*b15), nbytes(*b15[:5], wy),
                 FLOPS["tt_w_times_fused"] * tb * pb)
+        account(row16, lambda: tt_ops.tt_cost_fused(*b16),
+                lambda: tt_ops.tt_cost_fused_plain(*b16), nbytes(*b16[:6], cost),
+                FLOPS["tt_cost_fused"] * tb * pb)
+        alone += device_ms(lambda: tt_ops._cost_lanes(*b16))
         log(f"check f32 tt_seq1024 bucket {bi} (C={c} Tb={tb} Pb={pb}): "
             + " ".join(f"{k} {v:.3e} [{modes[k]}]" for k, v in errs.items())
             + f"; B12 {ms:.6f} ms, B13 {RESULTS[row13]['ms'] - ms13:.6f} ms, "
             f"B14 {RESULTS[row14]['ms'] - ms14:.6f} ms, "
-            f"B15 {RESULTS[row15]['ms'] - ms15:.6f} ms")
+            f"B15 {RESULTS[row15]['ms'] - ms15:.6f} ms, "
+            f"B16 {RESULTS[row16]['ms'] - ms16:.6f} ms")
         RESULTS[row]["ms"] += ms
         RESULTS[row]["plain_ms"] += device_ms(lambda: tt_ops.tt_cam_normal_fused_plain(*args))
         RESULTS[row]["bytes"] += nbytes(*args[:6], *got)
         RESULTS[row]["flops"] += FLOPS["tt_cam_normal_fused"] * tb * pb
+    log(f"B16 per tt_seq1024 pass (f32, cold L2): tt_cost_fused {RESULTS[row16]['ms']:.6f} ms, "
+        f"its kernel alone {alone:.6f} ms")
 
 
 def drive(path: str, solve, problem, flat, repeats: int, maxiters=(None,),

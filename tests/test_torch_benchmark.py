@@ -43,6 +43,7 @@ def test_summarize_reads_a_chrome_trace(tmp_path):
 
 _TT = "_ZN46_GLOBAL__N__08e980a5_13_tt_kernels_cu_c6cf0c1e"
 _ROUTE = "_ZN53_GLOBAL__N__3aa39220_20_wtt_route_kernels_cu_4050bd3c"
+_WTT = "_ZN47_GLOBAL__N__bed1f45f_14_wtt_kernels_cu_d572d8fe"
 
 
 @pytest.mark.parametrize("mangled,kept", [
@@ -51,13 +52,16 @@ _ROUTE = "_ZN53_GLOBAL__N__3aa39220_20_wtt_route_kernels_cu_4050bd3c"
     (f"{_TT}17tt_w_times_kernelIfLi8ELb1EEEvPKT_PKiS3_S3_S3_PS1_iiiii", True),  # B15
     (f"{_TT}18tt_coupling_kernelIfLi8EEEvPKiPKT_S5_S5_S5_PS3_iiiii", True),  # B13
     (f"{_ROUTE}14contrib_kernelIfLi8ELb1ELb0EEEvPKsPKT_S5_S5_S5_PS3_iiiiii", True),  # B8
-    (f"{_TT}14tt_cost_kernelIfEEvPKT_PKiS3_S3_S3_S3_PS1_iiii", False),  # B16
-    (f"{_ROUTE}13w_rows_kernelIfLi8EEEvPKT_PKsS3_S3_PS1_iiii", False),  # B5
+    (f"{_TT}14tt_cost_kernelIfEEvPKT_PKiS3_S3_S3_S3_PS1_iiii", True),  # B16
+    (f"{_ROUTE}13w_rows_kernelIfLi8EEEvPKT_PKsS3_S3_PS1_iiii", True),  # B5
+    (f"{_WTT}16wt_planes_kernelIfLi8EEEvPKT_PKsS3_S3_PS1_iiii", False),  # B3
+    (f"{_WTT}11cost_kernelIfEEvPKsPKT_S5_S5_S5_PS3_iiiii", False),  # B4
 ])
 def test_ptxas_lines_keep_the_slot_major_kernels(mangled, kept):
-    """The registers and spills of the slot-major B8 and B12-B15 are kept,
-    B5's and B16's (one thread per point) dropped: the names are matched
-    with their length prefix."""
+    """The registers and spills of the slot-major B5, B8 and B12-B16 are
+    kept, B3's and B4's (one thread per point) dropped: the names are
+    matched with their length prefix, so B4's cost_kernel is not B16's
+    tt_cost_kernel."""
     out = (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
            "ptxas info    : Function properties for x\n"
            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"

@@ -4,7 +4,7 @@ one-hot routes (B5-B8), B1's and B8's band pair rows (``want_od``), B1 at
 terms 2 and B2 at terms 1 and 2 (the reduced-fidelity modes), the grid
 engine's three (B9-B11), the dense track table's five (B12-B16), and the
 probe kernels of ``tpu3drecon_torch.experiments`` (E1's copies of B2, E4's
-bit expansion); the slot-major B1, B2, B6, B8 and B12-B15 also on tracks
+bit expansion); the slot-major B1, B2, B5, B6, B8 and B12-B16 also on tracks
 longer than one block's chunk, all-padding buckets, the hub layout's width
 and warps whose lanes hit different rows; B6 at every one-hot load width.
 The kernels read camera rows from device memory and reduce into the output
@@ -490,9 +490,10 @@ GLOBAL_CASES = [  # (dtype, G, W, Tb, np)
 
 @pytest.mark.parametrize("dtype,g,w,tb,np_cam", GLOBAL_CASES)
 def test_wtt_global_mode_matches_plain(dev, dtype, g, w, tb, np_cam):
-    """B1 (with and without od), B2, B3, B4, B5, B6 and B8 (with and
-    without od) in their one mode, on tracks that walk adjacent window rows.  Window row 0 is NaN and only padded
-    slots could reach it; B5 and B8 also get NaN jc/jp/r on padded slots."""
+    """B1 (with and without od), B2, B3, B4, B6 and B8 (with and without
+    od) in their one mode, and B5 in its global mode forced, on tracks that
+    walk adjacent window rows.  Window row 0 is NaN and only padded slots
+    could reach it; B5 and B8 also get NaN jc/jp/r on padded slots."""
     d = _inputs(dev, dtype, g, w, tb, np_cam, seed=5 * g + w + tb)
     wcam = _track_wcam(dev, g, w, tb, seed=w + 2 * tb)
     pad = (wcam < 0).reshape(g, tb, PC)
@@ -543,7 +544,7 @@ def test_wtt_global_mode_matches_plain(dev, dtype, g, w, tb, np_cam):
         _close(rows, wtt_linearize.wtt_contrib_rows_idx_plain(*b8), reduced,
                f"B8 sj={use_sj} od={od}")
     b5 = (_sym3(v_inv, g_pt), wcam, jc, jp, w)
-    rows_b5 = wtt_matvec.wtt_w_rows_idx(*b5)
+    rows_b5 = wtt_matvec.wtt_w_rows_idx(*b5, _mode=GLOBAL)
     assert torch.isfinite(rows_b5).all()
     _close(rows_b5, wtt_matvec.wtt_w_rows_idx_plain(*b5), reduced, "B5")
     assert [c.modes.get(GLOBAL, 0) - b for c, b in zip(counts, before)] == [
@@ -743,15 +744,17 @@ SLOT_CASES = [  # (dtype, G, W, Tb, np, want_od, rows)
 
 @pytest.mark.parametrize("dtype,g,w,tb,np_cam,want_od,rows", SLOT_CASES)
 def test_slot_major_kernels_match_plain(dev, dtype, g, w, tb, np_cam, want_od, rows):
-    """The slot-major B1 (with ``want_od`` as given), B2 and B8 (with and
-    without the Schur-Jacobi columns, and with ``want_od`` as given) against
-    their plain versions: one-chunk tracks (Tb 1, 3, 12), tracks longer than
-    one block's chunk (Tb 40: od pairs across a chunk's edge), the hub
-    layout's W = 1664 with random rows (warps that are not row-uniform),
-    row-uniform warps, a bucket that is all padding but one slot; in float32
-    also B1 at terms 2 and B2 at terms 1 and 2.  Window row 0 of the camera
-    rows and of x is NaN and only padded slots point at it; B8 also gets NaN
-    jc/jp/r on the padded slots, which it must not read."""
+    """The slot-major B1 (with ``want_od`` as given), B2, B8 (with and
+    without the Schur-Jacobi columns, and with ``want_od`` as given) and B5
+    (in the mode it picks and in each mode forced) against their plain
+    versions: one-chunk tracks (Tb 1, 3, 12), tracks
+    longer than one block's chunk (Tb 40: od pairs across a chunk's edge),
+    the hub layout's W = 1664 with random rows (warps that are not
+    row-uniform), row-uniform warps, a bucket that is all padding but one
+    slot; in float32 also B1 at terms 2 and B2 at terms 1 and 2.  Window row
+    0 of the camera rows and of x is NaN and only padded slots point at it;
+    B8 and B5 also get NaN jc/jp(/r) on the padded slots, which they must
+    not read."""
     d = _inputs(dev, dtype, g, w, tb, np_cam, seed=7 * g + w + tb + np_cam)
     wcam = _slot_wcam(dev, rows, g, w, tb, seed=w + 3 * tb)
     pad = (wcam < 0).reshape(g, tb, PC)
@@ -794,6 +797,19 @@ def test_slot_major_kernels_match_plain(dev, dtype, g, w, tb, np_cam, want_od, r
         _close(rows8, wtt_linearize.wtt_contrib_rows_idx_plain(*b8), reduced,
                f"B8 sj={use_sj} od={od}")
     assert [c.kernel - b for c, b in zip(counts, before)] == [2, int(want_od)]
+    y = torch.as_tensor(np.random.default_rng(w + 2 * tb).normal(size=(3, g, PC)),
+                        dtype=dtype, device=dev)
+    b5 = (y, wcam, jc, jp, w)
+    want5 = wtt_matvec.wtt_w_rows_idx_plain(y, wcam, *want[1:3], w)
+    before = dict(wtt_matvec.W_ROWS_COUNTS.modes)
+    for mode in (None, SHARED, GLOBAL):
+        rows5 = wtt_matvec.wtt_w_rows_idx(*b5, _mode=mode)
+        assert torch.isfinite(rows5).all(), f"B5 {mode} read a padded slot"
+        _close(rows5, want5, reduced, f"B5 {mode}")
+    picked = wtt_matvec.w_rows_memory_mode(np_cam, w, g, tb * PC)
+    after = wtt_matvec.W_ROWS_COUNTS.modes
+    assert {m: after.get(m, 0) - before.get(m, 0) for m in (SHARED, GLOBAL)} == {
+        m: 1 + (m == picked) for m in (SHARED, GLOBAL)}
 
 
 def test_probe_kernels_match(dev):
@@ -943,17 +959,18 @@ TT_SLOT_CASES = [  # (dtype, C, Tb, Pb, np, loss, cameras)
 
 @pytest.mark.parametrize("dtype,c,tb,pb,np_cam,loss,cams", TT_SLOT_CASES)
 def test_tt_slot_major_b12_b14_match_plain(dev, dtype, c, tb, pb, np_cam, loss, cams):
-    """The slot-major B12, B13 and B14 (one lane per track slot, per-point
-    sums added in slot order by one lane per point, B12's and B13's camera
-    columns through the warp's row tile) against their plain versions: tracks of 1, 3, 12
-    and 40 slots (several chunks), a bucket that is all padding but one
-    slot, camera axes of 1024 and 7300, np 10 and 12, float64, warps whose
-    lanes carry three cameras and padding, and each loss.  jc, jp, v6, g_pt
-    and B14's W^T x must equal the plain versions bit for bit (both sum
+    """The slot-major B12, B13, B14 and B16 (one lane per track slot,
+    per-point sums added in slot order by one lane per point, B12's and
+    B13's camera columns through the warp's row tile) against their plain
+    versions: tracks of 1, 3, 12 and 40 slots (several chunks), a bucket
+    that is all padding but one slot, camera axes of 1024 and 7300, np 10
+    and 12, float64, warps whose lanes carry three cameras and padding, and
+    each loss.  jc, jp, v6, g_pt, B14's W^T x and B16's per-point partials
+    (``_cost_lanes``) must equal the plain versions bit for bit (both sum
     each point's track in slot order); ug and B13's columns are atomic
-    sums.  Camera 0's row and x row are NaN and only padded slots carry
-    camera 0; B13 and B14 also get NaN jc/jp on the padded slots, which
-    they must not read."""
+    sums, and B16's cost sums the partials in another order.  Camera 0's
+    row and x row are NaN and only padded slots carry camera 0; B13 and B14
+    also get NaN jc/jp on the padded slots, which they must not read."""
     d = _tt_inputs(dev, dtype, c, tb, pb, seed=c + 5 * tb + pb + np_cam)
     if cams == "three":
         cam_ids, mask = _three_camera_ids(c, tb, pb, seed=c + tb)
@@ -967,7 +984,8 @@ def test_tt_slot_major_b12_b14_match_plain(dev, dtype, c, tb, pb, np_cam, loss, 
     _, reduced = TOL[dtype]
     cfg = BAConfig(loss=RobustLoss(loss), optimize_dist=np_cam >= 10,
                    optimize_pp=np_cam == 12)
-    counts = (tt_linearize.CAM_COUNTS, tt_linearize.COUPLING_COUNTS, tt_linearize.WT_COUNTS)
+    counts = (tt_linearize.CAM_COUNTS, tt_linearize.COUPLING_COUNTS, tt_linearize.WT_COUNTS,
+              tt_linearize.COST_COUNTS)
     before = [c_.kernel for c_ in counts]
     b12 = (d["table"], d["cam_ids"], d["pts"], d["uv"], d["mask"], d["inv_w"], cfg, np_cam)
     got = tt_linearize.tt_cam_normal_fused(*b12)
@@ -998,4 +1016,14 @@ def test_tt_slot_major_b12_b14_match_plain(dev, dtype, c, tb, pb, np_cam, loss, 
     torch.cuda.synchronize()
     assert torch.isfinite(out).all(), "B14 read a padded slot"
     assert torch.equal(out, ref), f"B14: max|diff| {float((out - ref).abs().max()):.3e}"
-    assert [c_.kernel - b for c_, b in zip(counts, before)] == [1, 1, 1]
+
+    b16 = b12[:7]
+    lanes = tt_linearize._cost_lanes(*b16)
+    lanes_ref = tt_linearize._cost_lanes_plain(*b16)
+    torch.cuda.synchronize()
+    assert torch.isfinite(lanes).all(), "B16 read camera 0's row for a padded slot"
+    assert torch.equal(lanes, lanes_ref), (
+        f"B16 partials: max|diff| {float((lanes - lanes_ref).abs().max()):.3e}")
+    _close(tt_linearize.tt_cost_fused(*b16), tt_linearize.tt_cost_fused_plain(*b16),
+           TOL[dtype][0], f"B16 C={c} Tb={tb} {cams} {loss}")
+    assert [c_.kernel - b for c_, b in zip(counts, before)] == [1, 1, 1, 2]

@@ -1,10 +1,10 @@
-"""Launch geometry of the slot-major kernels B1, B2, B6, B8 and B12-B15
+"""Launch geometry of the slot-major kernels B1, B2, B5, B6, B8 and B12-B16
 (``tpu3drecon_torch.ops._wtt_common.slot_geometry``), on the CPU: for every
 (dtype, np, od, terms) that the C entries ``wtt_linearize`` and
 ``wtt_coupling`` take, every (dtype, np, one-hot type) of
 ``wtt_coupling_onehot``, every (dtype, np, od) of ``wtt_contrib`` and every
-(dtype, np) of ``tt_cam_normal``, ``tt_coupling``, ``tt_wt_times`` and
-``tt_w_times``, and
+(dtype, np) of ``wtt_w_rows``, ``tt_cam_normal``, ``tt_coupling``,
+``tt_wt_times``, ``tt_w_times`` and ``tt_cost``, and
 tracks of 1 to 100 slots, the shared bytes fit the card's per-block limit,
 the chunks cover each track once, the blocks cover every point column once
 and no block exceeds the kernel's thread limit.  Also pins B1's row width K
@@ -162,6 +162,49 @@ def test_tt_wt_geometry_fits_and_covers(dtype, np_cam):
     assert (geo.warps, geo.groups, geo.chunks, geo.blocks) == (14, 1, 3, 10)
 
 
+@pytest.mark.parametrize("dtype,np_cam", TT_W_ENTRIES)
+def test_w_rows_geometry_fits_and_covers(dtype, np_cam):
+    """B5: B2's phase 2 alone, on B2's thread limit: the warps' (32, np + 1)
+    row tiles and their meta (B15's layout), no per-point parts, and in its
+    shared mode the block's (np, W) tile."""
+    _fits_and_covers("w_rows", dtype, np_cam, False, "w_rows")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    geo = slot_geometry("w_rows", 2, 67584, np_cam, itemsize)
+    assert (geo.warps, geo.groups, geo.chunks) == (2, 4, 1)
+    assert geo.smem == 8 * 32 * (np_cam + 1) * itemsize + 8 * 96 * 4
+    assert max_threads("w_rows", itemsize) == max_threads("coupling", itemsize) == 512
+    # The BAL sequential problem's longest bucket and a track of three chunks.
+    geo = slot_geometry("w_rows", 4, 68096, np_cam, itemsize)
+    assert (geo.warps, geo.groups, geo.chunks) == (4, 2, 1)
+    geo = slot_geometry("w_rows", 40, 300, np_cam, itemsize)
+    assert (geo.warps, geo.groups, geo.chunks, geo.blocks) == (14, 1, 3, 10)
+    assert geo.smem == slot_smem("tt_w", 14, 1, np_cam, itemsize)
+    # Its shared mode adds the block's (np, W) tile, up to the hub's W = 1664.
+    for window in (128, 1664):
+        tile = np_cam * window * itemsize
+        geo = slot_geometry("w_rows", 8, 21504, np_cam, itemsize, tile=tile)
+        assert geo.smem == slot_smem("w_rows", geo.warps, geo.groups, np_cam, itemsize) + tile
+        assert geo.smem <= SMEM_PER_BLOCK and (geo.warps, geo.groups) == (8, 1)
+
+
+@pytest.mark.parametrize("dtype,np_cam", TT_W_ENTRIES)
+def test_tt_cost_geometry_fits_and_covers(dtype, np_cam):
+    """B16: one part per slot, (ng, tc, 32), no row tile and no meta, on
+    B12's thread limit (512 in float32, 256 in float64); np does not enter
+    (the cost takes no camera-Jacobian columns)."""
+    _fits_and_covers("tt_cost", dtype, np_cam, False, "tt")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    geo = slot_geometry("tt_cost", 2, 67584, np_cam, itemsize)
+    assert (geo.warps, geo.groups, geo.chunks) == (2, 4, 1)
+    assert geo.smem == 8 * 32 * itemsize
+    assert geo == slot_geometry("tt_cost", 2, 67584, 8, itemsize)
+    geo = slot_geometry("tt_cost", 12, 512, np_cam, itemsize)
+    assert (geo.warps, geo.groups, geo.chunks) == ((12, 1, 1) if itemsize == 4 else (6, 1, 2))
+    assert geo.smem == geo.warps * 32 * itemsize
+    geo = slot_geometry("tt_cost", 40, 300, np_cam, itemsize)
+    assert geo.chunks == (3 if itemsize == 4 else 5)
+
+
 @pytest.mark.parametrize("address,pc,itemsize,vec", [
     (0, 512, 1, 16),  # the medium buckets, int8: 16-byte loads
     (0, 300, 1, 4),  # Pc = 300 bytes per slot row: 4-byte aligned only
@@ -193,7 +236,9 @@ def test_onehot_vector_bytes_refuses_a_misaligned_one_hot():
                                              ("coupling", 8), ("onehot", 4), ("tt_w", 8),
                                              ("tt_lin", 4), ("tt_lin", 8), ("tt_wt", 8),
                                              ("contrib", 4), ("contrib", 8),
-                                             ("tt_coupling", 4), ("tt_coupling", 8)])
+                                             ("tt_coupling", 4), ("tt_coupling", 8),
+                                             ("w_rows", 4), ("w_rows", 8), ("tt_cost", 4),
+                                             ("tt_cost", 8)])
 def test_geometry_one_chunk_up_to_the_thread_limit(kernel, itemsize):
     """A track of up to max_threads / 32 slots runs in one chunk (each slot
     stays in registers from phase 1 to phase 2); a short track shares its

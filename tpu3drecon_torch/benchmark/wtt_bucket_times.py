@@ -1,30 +1,38 @@
 """Per-bucket device times of the slot-major kernels on the CUDA card, B1
-(``wtt_linearize_fused_idx``), B2 (``wtt_coupling_rows_idx``), B6
-(``wtt_coupling_rows_fused``), B8 (``wtt_contrib_rows_idx``), B12
-(``tt_cam_normal_fused``), B13 (``tt_coupling_fused``), B14
-(``tt_wt_times_fused``) and B15 (``tt_w_times_fused``), and the registers,
+(``wtt_linearize_fused_idx``), B2 (``wtt_coupling_rows_idx``), B5
+(``wtt_w_rows_idx``), B6 (``wtt_coupling_rows_fused``), B8
+(``wtt_contrib_rows_idx``), B12 (``tt_cam_normal_fused``), B13
+(``tt_coupling_fused``), B14 (``tt_wt_times_fused``), B15
+(``tt_w_times_fused``) and B16 (``tt_cost_fused``), and the registers,
 shared memory and spills that ``nvcc -Xptxas -v`` reports for their
 instantiations.
 
-    python -m tpu3drecon_torch.benchmark.wtt_bucket_times [--tt]
+    python -m tpu3drecon_torch.benchmark.wtt_bucket_times [--tt | --w-rows-sweep]
 
 ``chip_smoke.py`` sums each kernel over the buckets of a pass; this script
 prints every bucket, each time a ``device_ms`` (median of 20 cold-L2 calls
 by CUDA events) at f32, at the initial parameters and lam = 1e-4, as
-``chip_smoke.py`` forms its kernel inputs: B1, B2 and B8 (without and
-with the Schur-Jacobi columns, ``sj=0`` / ``sj=1``, on B1's jc/jp/V^-1 and
-random residuals) on the medium problem (100 cameras, 100k points), on the
-BAL sequential problem (1712 cameras, with B1 od and B8 od) and on the BAL
-hub problem; B6 on the medium problem with its int8 and its float32
-one-hot; B12-B15 on the medium problem in track-table layout and on
-``tt_seq1024`` (1024 cameras, 256 points each; B13 on random V^-1 planes);
-with ``--tt`` only those four.  A wrapper that takes
-a private ``_mode`` (a memory mode to force, as B12 and B15 do) is also
-timed with each mode forced.  First comes the per-launch floor: the same
-cold-L2 ``device_ms`` of one empty kernel launch (``torch.cuda._sleep(0)``).
-The last line is one JSON object with every time and the card's
-``nvidia-smi`` line.  Needs a CUDA card; the kernels build at first use (a cached build
-prints no ptxas lines).  To time another tree's kernels with this script,
+``chip_smoke.py`` forms its kernel inputs: B1, B2, B5 and B8 (B8 without
+and with the Schur-Jacobi columns, ``sj=0`` / ``sj=1``; B2, B5 and B8 on
+B1's jc/jp/V^-1, random residuals and random y) on the medium problem (100
+cameras, 100k points), on the BAL sequential problem (1712 cameras, with
+B1 od and B8 od), on its split-window packing (windows of 128 and 256
+rows over many groups) and on the BAL hub problem; B6 on the medium
+problem with its int8 and its float32 one-hot; B12-B16 on the medium problem in
+track-table layout and on ``tt_seq1024`` (1024 cameras, 256 points each;
+B13 on random V^-1 planes), B16 also as its kernel alone (``B16 kernel``:
+the profiler's mean time of its kernel, without the wrapper's sum and
+product); with ``--tt`` only those five.  A wrapper that takes a private
+``_mode`` (a memory mode to force, as B5 and B15 do) is also timed with
+each mode forced.  ``--w-rows-sweep`` times only B5's two memory modes, on
+single-group slices of the medium, BAL sequential and BAL hub buckets at
+4 to 128 slots per output entry (``w_rows_sweep``), the numbers that place
+``wtt_matvec.w_rows_memory_mode``.  First comes the per-launch floor: the
+same cold-L2 ``device_ms`` of one empty kernel launch
+(``torch.cuda._sleep(0)``).  The last line is
+one JSON object with every time and the card's ``nvidia-smi`` line.  Needs
+a CUDA card; the kernels build at first use (a cached build prints no
+ptxas lines).  To time another tree's kernels with this script,
 run it from there: ``PYTHONPATH=<tree> python <this file>``.
 """
 
@@ -37,23 +45,23 @@ import sys
 
 import torch
 
-from tpu3drecon_torch.benchmark.timing import card_line, device_ms
+from tpu3drecon_torch.benchmark.timing import L2_FLUSH_BYTES, card_line, device_ms
 
 # B1, B2 and B6 (coupling_kernel in wtt_route_kernels.cu; an older tree's
-# onehot_coupling_kernel), B8, B12, B13, B14 and B15; matched with their
-# length prefix in the mangled names, so that "coupling_kernel" (B2, B6)
-# does not also match tt_coupling_kernel (B13).
+# onehot_coupling_kernel), B5, B8, B12, B13, B14, B15 and B16; matched with
+# their length prefix in the mangled names, so that "coupling_kernel" (B2,
+# B6) does not also match tt_coupling_kernel (B13).
 _PTXAS_KERNELS = ("lin_kernel", "coupling_kernel", "onehot_coupling_kernel", "contrib_kernel",
-                  "tt_cam_normal_kernel", "tt_coupling_kernel", "tt_wt_times_kernel",
-                  "tt_w_times_kernel")
+                  "w_rows_kernel", "tt_cam_normal_kernel", "tt_coupling_kernel",
+                  "tt_wt_times_kernel", "tt_w_times_kernel", "tt_cost_kernel")
 _PTXAS_SOURCES = ("_wtt_kernels_cu", "_wtt_terms_kernels_cu", "_wtt_route_kernels_cu",
                   "_tt_kernels_cu")
 
 
 def ptxas_lines(compiler_out: str) -> list[str]:
-    """The ``-Xptxas -v`` lines of B1's, B2's, B6's, B8's and B12-B15's
-    instantiations: each entry function's line with the lines that follow
-    it up to the next entry."""
+    """The ``-Xptxas -v`` lines of B1's, B2's, B5's, B6's, B8's and
+    B12-B16's instantiations: each entry function's line with the lines
+    that follow it up to the next entry."""
     out, keep = [], False
     for line in compiler_out.splitlines():
         if "entry function" in line:
@@ -128,8 +136,8 @@ def _print_rows(label: str, rows: list[dict]) -> None:
 
 
 def time_buckets(label: str, problem, od: bool) -> list[dict]:
-    """B1, B2 and B8 (``sj`` 0 and 1; with ``od`` also B1 od and B8 od) per
-    bucket of ``problem``."""
+    """B1, B2, B5 and B8 (``sj`` 0 and 1; with ``od`` also B1 od and B8 od)
+    per bucket of ``problem``."""
     from tpu3drecon_torch.ops import wtt_linearize as lin
     from tpu3drecon_torch.ops import wtt_matvec as mv
     from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
@@ -143,6 +151,7 @@ def time_buckets(label: str, problem, od: bool) -> list[dict]:
                 cfg, 8, True)
         _, jc, jp, v_inv, _, _ = lin.wtt_linearize_fused_idx(*args)
         r = torch.randn(2, g, tb, pc, generator=gen).to(jc.device)
+        y = torch.randn(3, g, pc, generator=gen).to(jc.device)
         b2 = (d["xw_t"], d["wcam"], jc, jp, v_inv)
         b8 = (d["wcam"], jc, jp, r, v_inv, 8, w)
         row = {"problem": label, "bucket": bi, "shape": f"G={g} Tb={tb} Pc={pc} W={w}",
@@ -150,11 +159,68 @@ def time_buckets(label: str, problem, od: bool) -> list[dict]:
                "B2": device_ms(lambda: mv.wtt_coupling_rows_idx(*b2)),
                "B8 sj=0": device_ms(lambda: lin.wtt_contrib_rows_idx(*b8, False)),
                "B8 sj=1": device_ms(lambda: lin.wtt_contrib_rows_idx(*b8, True))}
+        _time_modes(row, "B5", mv.wtt_w_rows_idx,
+                    lambda **kw: mv.wtt_w_rows_idx(y, d["wcam"], jc, jp, w, **kw))
         if od:
             row["B1 od"] = device_ms(lambda: lin.wtt_linearize_fused_idx(*args, True))
             row["B8 od"] = device_ms(lambda: lin.wtt_contrib_rows_idx(*b8, True, True))
         rows.append(row)
     _print_rows(label, rows)
+    return rows
+
+
+# Slots per (np, W) output entry of the single-group slices that
+# ``w_rows_sweep`` times B5's two memory modes on.
+SWEEP_SLOTS_PER_ENTRY = (4, 6, 8, 12, 16, 24, 36, 64, 128)
+
+
+def w_rows_sweep(label: str, problem, np_cam: int = 8) -> list[dict]:
+    """B5 with each memory mode forced on single-group slices of
+    ``problem``: for each window width, group 0 of the bucket of that width
+    with the most slots per group, cut to about each of
+    ``SWEEP_SLOTS_PER_ENTRY`` slots per output entry by keeping every k-th
+    block of 32 point columns (so that each warp keeps its points' rows and
+    the slice spans the window); y random."""
+    from tpu3drecon_torch.ops import _build
+    from tpu3drecon_torch.ops import wtt_linearize as lin
+    from tpu3drecon_torch.ops import wtt_matvec as mv
+    from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
+
+    widest = {}
+    for bi, d in enumerate(bucket_inputs(problem)):
+        _, tb, pc, w = d["shape"]
+        if tb * pc > widest.get(w, (0, -1, None))[0]:
+            widest[w] = (tb * pc, bi, d)
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    rows = []
+    for w, (_, bi, d) in sorted(widest.items()):
+        _, tb, pc, _ = d["shape"]
+        _, jc, jp, _, _, _ = lin.wtt_linearize_fused_idx(
+            d["wcam"], d["tw"], d["pts"], d["uv"], d["mask"], d["lam"], d["inv_w"],
+            BAConfig(), np_cam, True)
+        jc, jp = jc[:, :1], jp[:, :1]
+        blocks = pc // 32
+        for spe in SWEEP_SLOTS_PER_ENTRY:
+            keep = -(-spe * np_cam * w // (tb * 32))
+            if keep > blocks:
+                break
+            step = blocks // keep
+            cols = ((torch.arange(keep) * step)[:, None] * 32 + torch.arange(32)).flatten()
+            cols = cols.to(jc.device)
+            n = cols.numel()
+            wcam = d["wcam"][:1].reshape(1, tb, pc)[..., cols].reshape(1, tb * n).contiguous()
+            jc_s, jp_s = (x[..., cols].contiguous() for x in (jc, jp))
+            y = torch.randn(3, 1, n, generator=gen).to(jc.device)
+            row = {"problem": label, "bucket": bi, "W": w, "Tb": tb, "Pc": n,
+                   "slots_per_entry": tb * n / (np_cam * w)}
+            for mode in (_build.SHARED, _build.GLOBAL):
+                row[mode] = device_ms(lambda: mv.wtt_w_rows_idx(y, wcam, jc_s, jp_s, w,
+                                                                _mode=mode))
+            print(f"{label} B5 sweep bucket {bi} (G=1 Tb={tb} Pc={n} W={w}, "
+                  f"{row['slots_per_entry']:.2f} slots per entry): "
+                  + " ".join(f"{m} {row[m]:.6f} ms" for m in (_build.SHARED, _build.GLOBAL)),
+                  flush=True)
+            rows.append(row)
     return rows
 
 
@@ -181,9 +247,39 @@ def time_onehot_buckets(label: str, problem) -> list[dict]:
     return rows
 
 
+def kernel_alone_ms(fn, kernel: str, n: int = 20) -> float:
+    """Mean device time (ms) of the port's kernel ``kernel`` in one call of
+    ``fn``: ``torch.profiler`` over ``n`` calls, each after a 128 MB write
+    that evicts the L2, its trace read as ``profile_solve`` reads it.  The
+    kernel alone, without the other launches of ``fn`` or the gaps between
+    them, and by its name, so that any tree's kernel is timed the same way."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu3drecon_torch.benchmark.profile_solve import summarize
+    from tpu3drecon_torch.ops._build import BUILD_DIR
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    path = BUILD_DIR / "profile" / "kernel_alone.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    (row,) = [r for r in summarize(str(path), 1.0, top=0)["port"]
+              if f"::{kernel}<" in r["kernel"]]
+    if row["launches"] != n:
+        raise RuntimeError(f"{kernel}: {row['launches']} launches in {n} calls")
+    return row["mean_us"] * 1e-3
+
+
 def time_tt_buckets(label: str, problem) -> list[dict]:
-    """B12-B15 per bucket of a track-table ``problem``: B12 at the initial
-    parameters, B13, B14 and B15 on its jc/jp, V^-1, x and y random."""
+    """B12-B16 per bucket of a track-table ``problem``: B12 and B16 at the
+    initial parameters (B16 also as its kernel alone), B13, B14 and B15 on
+    B12's jc/jp, V^-1, x and y random."""
     from tpu3drecon_torch.ops import tt_linearize as tt
     from tpu3drecon_torch.solvers.ba_tt import _cam_table, _inv_w
     from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
@@ -216,6 +312,9 @@ def time_tt_buckets(label: str, problem) -> list[dict]:
         _time_modes(row, "B15", tt.tt_w_times_fused,
                     lambda **kw: tt.tt_w_times_fused(y, bucket.cam_ids, mask, jc, jp,
                                                      problem.n_cameras, **kw))
+        b16 = b12[:7]
+        _time_modes(row, "B16", tt.tt_cost_fused, lambda **kw: tt.tt_cost_fused(*b16, **kw))
+        row["B16 kernel"] = kernel_alone_ms(lambda: tt.tt_cost_fused(*b16), "tt_cost_kernel")
         rows.append(row)
     _print_rows(label, rows)
     return rows
@@ -255,6 +354,13 @@ def main() -> int:
     floor = device_ms(lambda: torch.cuda._sleep(0))
     print(f"per-launch floor (one empty kernel, cold-L2 device_ms): {floor:.6f} ms", flush=True)
     dev = torch.device("cuda", 0)
+    if "--w-rows-sweep" in sys.argv[1:]:
+        sweep = w_rows_sweep("medium", wtt_from_flat(build_problem(dev), defer_onehot=True,
+                                                     device=dev))
+        sweep += w_rows_sweep("bal_seq", bal_sequential_wtt(device=dev, verbose=False))
+        sweep += w_rows_sweep("bal_hub", bal_hub_wtt(device=dev, verbose=False))
+        print(json.dumps({"card": smi, "floor_ms": floor, "w_rows_sweep": sweep}))
+        return 0
     rows = time_tt_buckets("medium tt", build_tt_problem(dev))
     rows += time_tt_buckets("tt_seq1024", tt_seq1024(dev))
     if "--tt" not in sys.argv[1:]:
@@ -265,6 +371,8 @@ def main() -> int:
                              od=False)
         rows += time_buckets("bal_seq", bal_sequential_wtt(device=dev, verbose=False),
                              od=True)
+        rows += time_buckets("bal_seq_split", bal_sequential_wtt(split_windows=True, device=dev,
+                                                                 verbose=False), od=False)
         rows += time_buckets("bal_hub", bal_hub_wtt(device=dev, verbose=False), od=False)
     print(json.dumps({"card": smi, "floor_ms": floor, "buckets": rows}))
     return 0

@@ -1,13 +1,13 @@
 // Device code shared by the track-table kernels (wtt_kernels.cu,
 // wtt_route_kernels.cu and tt_kernels.cu): the per-slot residual/Jacobian
 // formulas, camera-row and x reads with their all-zero padding, the
-// coupling-product halves, the warp-aggregated row reduction of the kernels
-// that walk a track in one thread (B5), the slot-major grid and row tiles
-// (B1, B2, B6, B8 and B12-B15), the contribution columns that the
-// slot-major B1, B8, B12 and B13 put into their row tiles, and the
-// host-side launch helpers.
+// coupling-product halves, the warp-aggregated row reduction of a track
+// walked in one thread (E1's copies of B2, probe_kernels.cu), the slot-major
+// grid and row tiles (B1, B2, B5, B6, B8 and B12-B16), the contribution
+// columns that the slot-major B1, B8, B12 and B13 put into their row tiles,
+// and the host-side launch helpers.
 //
-// B3, B4, B5, B7 and B16 keep one point's whole track in one thread; the
+// B3 and B4 keep one point's whole track in one thread, B7 one slot; the
 // slot-major kernels run one slot per lane.  Either way a slot (t, p) reads
 // its camera's row of a (rows, 19) table.  A padded slot reads an all-zero
 // row, exactly as the TPU kernels' empty one-hot column gives it: z = 0 ->
@@ -238,8 +238,8 @@ __device__ __forceinline__ void w_slot(T* acc, int w, int W, const T* jc, const 
 }
 
 // ------------------------------------------------ slot-major grid ------
-// The slot-major kernels (B1, B2 and B6 in wtt_kernels.cuh, B8 in
-// wtt_route_kernels.cu, B12-B15 in tt_kernels.cu) run one lane per track
+// The slot-major kernels (B1, B2 and B6 in wtt_kernels.cuh, B5 and B8 in
+// wtt_route_kernels.cu, B12-B16 in tt_kernels.cu) run one lane per track
 // slot: a warp holds slot t of 32 consecutive point columns, a block holds `ng` such 32-point groups as `tc`
 // warps each (warp ti of a group holds slot c * tc + ti in chunk c), and a
 // track longer than tc slots is walked in ceil(Tb / tc) chunks.  The
@@ -267,11 +267,12 @@ __device__ __forceinline__ SlotLane slot_lane(int tc, int ng, int Tb, int Pc) {
 }
 
 // The per-point sums of the slot-major kernels (B1's and B12's V | g_pt,
-// B2's and B14's W^T x).  Each lane writes the N parts of its slot at
-// parts[((gi * tc + ti) * N + k) * 32 + lane], its group's (tc, N, 32) block
-// of an (ng, tc, N, 32) array; after a barrier lane p of the group's warp 0
-// adds chunk c's parts into acc in slot order, the order of the plain
-// versions' track sums, so the sums keep their last bits.
+// B2's and B14's W^T x, B16's squared residuals).  Each lane writes the N
+// parts of its slot at parts[((gi * tc + ti) * N + k) * 32 + lane], its
+// group's (tc, N, 32) block of an (ng, tc, N, 32) array; after a barrier
+// lane p of the group's warp 0 adds chunk c's parts into acc in slot order,
+// the order of the plain versions' track sums, so the sums keep their last
+// bits.
 template <int N, typename T>
 __device__ __forceinline__ void add_parts(T (&acc)[N], const T* parts, const SlotLane& sl,
                                           int tc, int Tb, int c) {
@@ -297,8 +298,8 @@ __device__ __forceinline__ void put_point_parts(T* part, const Slot<T, NP>& o) {
 }
 
 // ------------------------------------------------ slot-major row tiles --
-// The row reduction of the slot-major kernels (B1, B2, B6, B8, B12, B13 and
-// B15),
+// The row reduction of the slot-major kernels (B1, B2, B5, B6, B8, B12, B13
+// and B15),
 // where a warp holds one track slot of 32 point columns: its lanes' column
 // values go to window rows that are mostly one row.  Each lane writes its
 // values into the warp's shared (32, KT + 1) tile (a row per lane, padded
@@ -309,7 +310,7 @@ __device__ __forceinline__ void put_point_parts(T* part, const Slot<T, NP>& o) {
 // Lanes on no row (-1: padding, past the track) are left out.  Columns are
 // put one at a time in the order of the output's columns; the tile flushes
 // every KT columns and at the segment's end.
-constexpr int kTile = 32;  // tile columns of B1, B8, B12 and B13 (B2's, B6's and B15's: np)
+constexpr int kTile = 32;  // tile columns of B1, B8, B12 and B13 (B2's, B5's, B6's, B15's: np)
 
 template <typename T, int KT>
 struct RowTile {

@@ -17,24 +17,23 @@
 // MXU dots against a dense {0,1} one-hot tile, because gathers are slow
 // there.  Here a slot reads its camera index directly.
 //
-// B12-B15 are slot-major (slot.cuh slot_lane): a warp holds slot t
-// of 32 consecutive point columns, one lane per slot, a block holds `ng`
-// such groups as `tc` warps each, and a track longer than tc slots is
-// walked in chunks, so a bucket runs on Tb * Pb threads and every slot's
-// chain of dependent loads (cam_ids -> mask -> camera row or x row ->
-// arithmetic) runs beside the others instead of Tb times in a row.  The
-// wrappers compute tc, ng and the shared bytes (ops/_wtt_common.py
-// slot_geometry "tt_lin", "tt_coupling", "tt_wt", "tt_w") and the C entries
-// check them against tt_lin_smem, tt_coupling_smem, tt_wt_smem and
-// tt_w_smem.  Per-point sums (B12's V
-// and g_pt, B14's W^T x) cross the warps through shared memory: each lane
+// All five are slot-major (slot.cuh slot_lane): a warp holds slot t of 32
+// consecutive point columns, one lane per slot, a block holds `ng` such
+// groups as `tc` warps each, and a track longer than tc slots is walked in
+// chunks, so a bucket runs on Tb * Pb threads and every slot's chain of
+// dependent loads (cam_ids -> mask -> camera row or x row -> arithmetic)
+// runs beside the others instead of Tb times in a row.  The wrappers
+// compute tc, ng and the shared bytes (ops/_wtt_common.py slot_geometry
+// "tt_lin", "tt_coupling", "tt_wt", "tt_w", "tt_cost") and the C entries
+// check them against tt_lin_smem, tt_coupling_smem, tt_wt_smem, tt_w_smem
+// and tt_cost_smem.  Per-point sums (B12's V and g_pt, B14's W^T x, B16's
+// squared residuals) cross the warps through shared memory: each lane
 // writes its slot's part, and lane p of the group's warp 0 adds the Tb
 // parts in slot order t = 0 .. Tb - 1, the order of the plain versions'
 // track sums, so they keep their last bits.  Per-camera columns (B12's U|g,
 // B13's coupling, B15's W y) go through the warp's row tile (slot.cuh
 // tile_put): the lanes are grouped by camera and each (distinct camera,
-// column) leaves as one atomic, all lanes at once.  B16 still runs one
-// thread per point column, which walks its track.
+// column) leaves as one atomic, all lanes at once.
 //
 // Padded slots (mask 0) carry cam_ids 0.  They take an all-zero camera row
 // (and x row) without reading one, never camera 0's row: the masked
@@ -62,6 +61,9 @@
 // the same way, and by one thread per point on the long-track buckets; it
 // takes B12's row tile and grid.  B15 (8 columns per slot) is bound by
 // launch and latency, its pass 9x its bytes' bound on the medium buckets.
+// B16 reads 5 values per slot and writes one per point (1.70 us per medium
+// pass) and was bound, like B14, by one thread per point on the long-track
+// buckets and their serial camera-row chains; it takes B12's grid.
 //
 // Built with --fmad=false (ops/_build.py): each kernel's per-element
 // outputs match its plain version (ops/tt_linearize.py) to the last bits.
@@ -361,32 +363,52 @@ tt_w_times_kernel(const T* __restrict__ y, const int* __restrict__ cam_ids,
 }
 
 // ---------------------------------------------------------------- B16 ---
+// Slot-major on B12's grid and thread limit, B14's per-point sum with one
+// part per slot: each lane reads its slot's camera row (zeros for padding,
+// never camera 0's), mask and uv, runs tt_blocks once (only its whitened
+// residual is used; the compiler drops the Jacobian terms) and writes
+// r0^2 + r1^2 as its part; lane p of the group's warp 0 adds the Tb parts in
+// slot order from zero, the order of the plain version's track sum, so each
+// point's partial keeps its last bits (the trust region compares two costs).
+// Shared memory: the (ng, tc, 32) parts; no row tile, no atomics.
 template <typename T>
-__global__ void __launch_bounds__(kBlock)
+constexpr size_t tt_cost_smem(int tc, int ng) {
+  return size_t(tc) * ng * 32 * sizeof(T);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(sizeof(T) == 4 ? 512 : 256)  // tt_lin_threads<T>()
 tt_cost_kernel(const T* __restrict__ table, const int* __restrict__ cam_ids,
                const T* __restrict__ pts, const T* __restrict__ uv,
                const T* __restrict__ mask, const T* __restrict__ invw_p,
-               T* __restrict__ lane, int C, int Tb, int Pb, int loss) {
-  const int p = blockIdx.x * kBlock + threadIdx.x;
-  if (p >= Pb) return;
+               T* __restrict__ lane, int C, int Tb, int Pb, int loss, int tc, int ng) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const SlotLane sl = slot_lane(tc, ng, Tb, Pb);
+  const int p = sl.p;
+  T* s_part = reinterpret_cast<T*>(smem);
+  T* part = s_part + (size_t)(sl.gi * tc + sl.ti) * 32 + sl.lane;
   const T inv_w = *invw_p;
   const size_t TP = (size_t)Tb * Pb;
-  const T X = pts[p], Y = pts[(size_t)Pb + p], Z = pts[2 * (size_t)Pb + p];
-  // Only the whitened residual of the slot formulas is used; the compiler
-  // drops the Jacobian terms.
+  const T X = sl.live ? pts[p] : T(0);
+  const T Y = sl.live ? pts[(size_t)Pb + p] : T(0);
+  const T Z = sl.live ? pts[2 * (size_t)Pb + p] : T(0);
   const LinFlags f{0, loss, 1, 1, 0, 0};
-  T total = T(0);
-  for (int t = 0; t < Tb; ++t) {
+  T total[1] = {T(0)};
+  for (int c = 0; c < sl.nchunk; ++c) {
+    const int t = c * tc + sl.ti;
+    const bool real = sl.live && t < Tb;
     const size_t ts = (size_t)t * Pb + p;
-    const int c = slot_cam(cam_ids, mask, ts, true);
+    const int cam = slot_cam(cam_ids, mask, ts, real);
     T buf[kD];
     Slot<T, 8> o;
-    tt_blocks<T, 8>(cam_row(table, c, buf), X, Y, Z, uv[ts], uv[TP + ts], mask[ts],
-                    inv_w, f, o);
-    const T part = o.r0 * o.r0 + o.r1 * o.r1;
-    total += part;
+    tt_blocks<T, 8>(cam_row(table, cam, buf), X, Y, Z, real ? uv[ts] : T(0),
+                    real ? uv[TP + ts] : T(0), real ? mask[ts] : T(0), inv_w, f, o);
+    part[0] = o.r0 * o.r0 + o.r1 * o.r1;
+    __syncthreads();
+    add_parts(total, s_part, sl, tc, Tb, c);
+    if (c + 1 < sl.nchunk) __syncthreads();  // the parts are read before the next chunk's
   }
-  lane[p] = total;
+  if (sl.ti == 0 && sl.live) lane[p] = total[0];
 }
 
 // ---------------------------------------------------------------- host --
@@ -459,13 +481,19 @@ int w_times_launch(const void* y, const void* cam_ids, const void* mask, const v
   return (int)cudaGetLastError();
 }
 
+// B16 at the wrapper's geometry.
 template <typename T>
-int cost_launch(const void* table, const void* cam_ids, const void* pts,
-                const void* uv, const void* mask, const void* inv_w, void* lane,
-                int C, int Tb, int Pb, int loss, cudaStream_t stream) {
-  tt_cost_kernel<T><<<grid_of(Pb, 1), kBlock, 0, stream>>>(
-      (const T*)table, (const int*)cam_ids, (const T*)pts, (const T*)uv,
-      (const T*)mask, (const T*)inv_w, (T*)lane, C, Tb, Pb, loss);
+int cost_launch(const void* table, const void* cam_ids, const void* pts, const void* uv,
+                const void* mask, const void* inv_w, void* lane, int C, int Tb, int Pb,
+                int loss, int tc, int ng, int smem, cudaStream_t stream) {
+  auto kernel = tt_cost_kernel<T>;
+  dim3 grid, block;
+  const int e = slot_launch(kernel, tt_lin_threads<T>(), tt_cost_smem<T>(tc, ng), tc, ng,
+                            smem, 1, Pb, grid, block);
+  if (e) return e;
+  kernel<<<grid, block, smem, stream>>>((const T*)table, (const int*)cam_ids, (const T*)pts,
+                                        (const T*)uv, (const T*)mask, (const T*)inv_w,
+                                        (T*)lane, C, Tb, Pb, loss, tc, ng);
   return (int)cudaGetLastError();
 }
 
@@ -521,16 +549,19 @@ int tt_w_times(int dtype, int np, const void* y, const void* cam_ids,
                                                    tc, ng, smem, tile, s)));
 }
 
+// tc, ng, smem: the slot-major geometry (ops/_wtt_common.py slot_geometry
+// "tt_cost").
 int tt_cost(int dtype, const void* table, const void* cam_ids, const void* pts,
             const void* uv, const void* mask, const void* inv_w, void* lane,
-            int C, int Tb, int Pb, int loss, void* stream) {
+            int C, int Tb, int Pb, int loss, int tc, int ng, int smem, void* stream) {
   if (Pb == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return cost_launch<float>(table, cam_ids, pts, uv, mask, inv_w, lane, C, Tb, Pb, loss,
-                              (cudaStream_t)stream);
+    return cost_launch<float>(table, cam_ids, pts, uv, mask, inv_w, lane, C, Tb, Pb, loss, tc,
+                              ng, smem, s);
   if (dtype == 1)
-    return cost_launch<double>(table, cam_ids, pts, uv, mask, inv_w, lane, C, Tb, Pb, loss,
-                               (cudaStream_t)stream);
+    return cost_launch<double>(table, cam_ids, pts, uv, mask, inv_w, lane, C, Tb, Pb, loss, tc,
+                               ng, smem, s);
   return kErrDtype;
 }
 

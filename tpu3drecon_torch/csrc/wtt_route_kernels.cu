@@ -20,7 +20,13 @@
 // step.  In one thread per point it was bound by the long
 // buckets' few threads, their serial load chains and per-lane atomics from
 // warps of mixed rows.  B5 is kernel B2's phase 2 on its own (W y rows, the
-// Schur rhs when the linearization is unfused), one thread per point.
+// Schur rhs when the linearization is unfused), slot-major on B2's grid and
+// thread limit: each lane reads its point's y and its slot's jc/jp (2 np + 6
+// planes, the bytes that bound it) and puts z through the warp's row tile,
+// into the output or, at narrow windows, a block-shared tile (B15's mode).
+// In one thread per point it ran the long buckets on few threads, each
+// walking its wcam -> jc/jp chain Tb times in a row, and sent one atomic per
+// lane and column from warps of mixed rows.
 //
 // B6 is B2's whole product with each slot's window row taken from the dense
 // one-hot column instead of wcam.  It is B2's slot-major kernel itself
@@ -40,10 +46,10 @@
 // product and sum as the plain versions (ops/wtt_linearize.py,
 // ops/wtt_matvec.py); only the order of the atomic window-row sums differs,
 // so B5, B6 and B8 vary in the last bits from run to run and B7 is exact.
-// Per-slot formulas and the row reduction come from slot.cuh, shared with
-// B1-B4 (wtt_kernels.cu).  B5, B6 and B8 reduce into device memory
-// directly, as B1 and B2 do.  Every C entry returns cudaGetLastError()
-// after its launch, or a negative code of common.cuh.
+// Per-slot formulas, the slot-major grid and the row tiles come from
+// slot.cuh, shared with B1-B4 (wtt_kernels.cu).  B5, B6 and B8 reduce into
+// device memory directly, as B1 and B2 do.  Every C entry returns
+// cudaGetLastError() after its launch, or a negative code of common.cuh.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,24 +81,84 @@ cam_planes_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ tw,
 
 // ---------------------------------------------------------------- B5 ----
 // W y rows (G, NP, W): z = jc (jp y) of every slot reduced into its window
-// row; y is (3, G, Pc).
+// row; y is (3, G, Pc).  Slot-major, B2's phase 2 on its own (wtt_kernels.cuh
+// coupling_kernel) with y read from device memory: each lane reads its
+// point's y (every warp of a group reads the same three values, which L1
+// serves), wcam of its slot and, where the slot has a row, its jc/jp (a
+// padded slot reads no planes, which may hold NaN, and gives exact zeros;
+// reading the planes before the row was known measured no faster), and
+// puts its NP values of z into the warp's row tile of its window row (B2's
+// output strides: one atomic per (distinct row, column)).  No per-point
+// sum, so a warp leaves its chunk loop once its slot passes the track.
+// Shared memory: the warps' (32, NP + 1) row tiles and their (3, 32) meta.
+//
+// Two memory modes, as B15 has.  Global: the row tiles' atomics go straight
+// to `out`; the warps never meet at a barrier.  ST: they go to a
+// block-shared (NP, W) tile of the group's rows, zeroed first and flushed
+// into `out` once per block, one global atomic per nonzero entry.  On the
+// medium buckets (one group, W = 128, tens of slots per output entry)
+// hundreds of blocks' atomics land on the same 1,024 entries, and the tile
+// spares them that contention; with wider windows, few slots per entry or
+// many groups (the BAL buckets, bound by their jc/jp stream) the tile's
+// zeroing and flush per block cost more than it spares (PERF.md), and the
+// wrapper picks the global mode (ops/wtt_matvec.py w_rows_memory_mode).
 template <typename T, int NP>
-__global__ void __launch_bounds__(kBlock)
+constexpr size_t w_rows_smem(int tc, int ng) {
+  const size_t nw = size_t(tc) * ng;
+  return nw * 32 * (NP + 1) * sizeof(T) + nw * 96 * sizeof(int);
+}
+
+// The global mode's float np = 8 instantiation is held to three blocks of
+// kCouplingThreads per SM (40 registers, no spill): on the BAL passes,
+// bound by their jc/jp stream, that occupancy measured 8-10 % faster than 58
+// registers; at np 10 / 12 it spills, and the tile mode spills and slows.
+template <typename T, int NP, bool ST>
+__global__ void __launch_bounds__(kCouplingThreads, sizeof(T) == 4 && NP == 8 && !ST ? 3 : 1)
 w_rows_kernel(const T* __restrict__ y, const int16_t* __restrict__ wcam,
               const T* __restrict__ jc, const T* __restrict__ jp,
-              T* __restrict__ out, int G, int Tb, int Pc, int W) {
-  const int g = blockIdx.y;
-  const int p = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = p < Pc;
-  T* out_g = out + (size_t)g * NP * W;  // (NP, W)
+              T* __restrict__ out, int G, int Tb, int Pc, int W, int tc, int ng) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const SlotLane sl = slot_lane(tc, ng, Tb, Pc);
+  const int nw = tc * ng;
+  T* s_v = reinterpret_cast<T*>(smem);                                       // row tiles
+  int* s_meta = reinterpret_cast<int*>(s_v + size_t(nw) * 32 * (NP + 1));  // (nw, 96)
+  T* s_acc = reinterpret_cast<T*>(s_meta + nw * 96);  // ST: (NP, W)
+  if constexpr (ST) {
+    for (int i = threadIdx.x; i < NP * W; i += blockDim.x) s_acc[i] = T(0);
+    __syncthreads();
+  }
+  const int g = sl.g, p = sl.p;
   const size_t GP = (size_t)G * Pc, GTP = GP * Tb;
   const size_t pp = (size_t)g * Pc + p;
-  const T y0 = live ? y[pp] : T(0);
-  const T y1 = live ? y[GP + pp] : T(0);
-  const T y2 = live ? y[2 * GP + pp] : T(0);
-  for (int t = 0; t < Tb; ++t) {
+  const T y0 = sl.live ? y[pp] : T(0);
+  const T y1 = sl.live ? y[GP + pp] : T(0);
+  const T y2 = sl.live ? y[2 * GP + pp] : T(0);
+  RowTile<T, NP> rt{s_v + (size_t)sl.warp * 32 * (NP + 1), s_meta + sl.warp * 96,
+                    ST ? s_acc : out + (size_t)g * NP * W, 1, size_t(W), 0};
+  for (int c = 0; c < sl.nchunk; ++c) {
+    const int t = c * tc + sl.ti;
+    if (t >= Tb) break;  // warp-uniform
     const size_t ts = ((size_t)g * Tb + t) * Pc + p;
-    w_slot<T, NP>(out_g, live ? int(wcam[ts]) : -1, W, jc, jp, ts, GTP, y0, y1, y2);
+    const int w = sl.live ? int(wcam[ts]) : -1;
+    T j[2 * NP], q[6];
+#pragma unroll
+    for (int k = 0; k < 2 * NP; ++k) j[k] = w >= 0 ? jc[k * GTP + ts] : T(0);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) q[k] = w >= 0 ? jp[k * GTP + ts] : T(0);
+    tile_rows(rt, w);
+    if (rt.nd == 0) continue;  // warp-uniform
+    const T s0 = q[0] * y0 + q[1] * y1 + q[2] * y2;
+    const T s1 = q[3] * y0 + q[4] * y1 + q[5] * y2;
+#pragma unroll
+    for (int i = 0; i < NP; ++i) tile_put<NP>(rt, i, j[i] * s0 + j[NP + i] * s1, 0);
+  }
+  if constexpr (ST) {
+    __syncthreads();
+    T* out_g = out + (size_t)g * NP * W;
+    for (int i = threadIdx.x; i < NP * W; i += blockDim.x) {
+      const T v = s_acc[i];
+      if (v != T(0)) atomicAdd(out_g + i, v);
+    }
   }
 }
 
@@ -270,12 +336,20 @@ int contrib_variant(const void* wcam, const void* jc, const void* jp, const void
                                              smem, stream);
 }
 
-template <typename T, int NP>
-int w_rows_launch(const void* y, const void* wcam, const void* jc, const void* jp,
-                  void* out, int G, int Tb, int Pc, int W, cudaStream_t stream) {
-  w_rows_kernel<T, NP><<<grid_of(Pc, G), kBlock, 0, stream>>>(
-      (const T*)y, (const int16_t*)wcam, (const T*)jc, (const T*)jp, (T*)out, G,
-      Tb, Pc, W);
+// B5 at the wrapper's geometry; `tile`: the bytes of the block-shared
+// (NP, W) tile (ST), 0 for atomics straight into `out`.
+template <typename T, int NP, bool ST>
+int w_rows_launch(const void* y, const void* wcam, const void* jc, const void* jp, void* out,
+                  int G, int Tb, int Pc, int W, int tc, int ng, int smem, int tile,
+                  cudaStream_t stream) {
+  auto kernel = w_rows_kernel<T, NP, ST>;
+  if (size_t(tile) != (ST ? size_t(NP) * W * sizeof(T) : 0)) return kErrGeom;
+  dim3 grid, block;
+  const int e = slot_launch(kernel, kCouplingThreads, w_rows_smem<T, NP>(tc, ng) + tile, tc,
+                            ng, smem, G, Pc, grid, block);
+  if (e) return e;
+  kernel<<<grid, block, smem, stream>>>((const T*)y, (const int16_t*)wcam, (const T*)jc,
+                                        (const T*)jp, (T*)out, G, Tb, Pc, W, tc, ng);
   return (int)cudaGetLastError();
 }
 
@@ -317,11 +391,18 @@ int wtt_contrib(int dtype, int np, const void* wcam, const void* jc, const void*
                                                  (cudaStream_t)stream)));
 }
 
+// tc, ng, smem: the slot-major geometry (ops/_wtt_common.py slot_geometry
+// "w_rows"); tile: the bytes of the block-shared (NP, W) tile, 0 for none.
 int wtt_w_rows(int dtype, int np, const void* y, const void* wcam, const void* jc,
-               const void* jp, void* out, int G, int Tb, int Pc, int W, void* stream) {
+               const void* jp, void* out, int G, int Tb, int Pc, int W, int tc, int ng,
+               int smem, int tile, void* stream) {
   if (G == 0 || Pc == 0) return 0;
-  NP_DISPATCH(dtype, np, (w_rows_launch<T, NP>(y, wcam, jc, jp, out, G, Tb, Pc, W,
-                                               (cudaStream_t)stream)));
+  const cudaStream_t s = (cudaStream_t)stream;
+  NP_DISPATCH(dtype, np,
+              (tile ? w_rows_launch<T, NP, true>(y, wcam, jc, jp, out, G, Tb, Pc, W, tc, ng,
+                                                 smem, tile, s)
+                    : w_rows_launch<T, NP, false>(y, wcam, jc, jp, out, G, Tb, Pc, W, tc, ng,
+                                                  smem, tile, s)));
 }
 
 // onehot_float: 0 = int8 one-hot, 1 = one-hot in the data's float type.

@@ -15,10 +15,12 @@ anything but 0, with the message of ``kernel_error_string``
 
 Memory modes (``csrc/slot.cuh``): the kernels read camera rows and x from
 device memory and reduce straight into the output rows (``GLOBAL``), so no
-window width or camera count is refused.  B15 alone also keeps a
-``SHARED`` mode, a block-shared tile of its camera rows that measured
-faster at small camera counts (``ops/tt_linearize.py memory_mode``); its
-C entry takes the tile's bytes (0 for ``GLOBAL``).
+window width or camera count is refused.  B15 and B5 also keep a
+``SHARED`` mode, a block-shared tile of their output rows that measured
+faster at small camera counts and narrow windows
+(``ops/tt_linearize.py memory_mode``, ``ops/wtt_matvec.py
+w_rows_memory_mode``); their C entries take the tile's bytes (0 for
+``GLOBAL``).
 """
 
 from __future__ import annotations
@@ -84,15 +86,16 @@ _SIGNATURES = {
     # dtype, np, y, cam_ids, mask, jc, jp, out, C, Tb, Pb, tc, ng, smem, tile,
     # stream
     "tt_w_times": [_I, _I] + [_P] * 6 + [_I] * 7 + [_P],
-    # dtype, table, cam_ids, pts, uv, mask, inv_w, lane, C, Tb, Pb, loss, stream
-    "tt_cost": [_I] + [_P] * 7 + [_I] * 4 + [_P],
+    # dtype, table, cam_ids, pts, uv, mask, inv_w, lane, C, Tb, Pb, loss, tc,
+    # ng, smem, stream
+    "tt_cost": [_I] + [_P] * 7 + [_I] * 7 + [_P],
     # dtype, wcam, tw, out, G, N, W, stream
     "wtt_cam_planes": [_I] + [_P] * 3 + [_I] * 3 + [_P],
     # dtype, np, wcam, jc, jp, r, vinv, rows, G, Tb, Pc, W, use_sj, want_od,
     # tc, ng, smem, stream
     "wtt_contrib": [_I, _I] + [_P] * 6 + [_I] * 9 + [_P],
-    # dtype, np, y, wcam, jc, jp, out, G, Tb, Pc, W, stream
-    "wtt_w_rows": [_I, _I] + [_P] * 5 + [_I] * 4 + [_P],
+    # dtype, np, y, wcam, jc, jp, out, G, Tb, Pc, W, tc, ng, smem, tile, stream
+    "wtt_w_rows": [_I, _I] + [_P] * 5 + [_I] * 8 + [_P],
     # dtype, np, onehot_float, xw_t, onehot, jc, jp, vinv, out, G, Tb, Pc, W,
     # tc, ng, smem, vec, stream
     "wtt_coupling_onehot": [_I, _I, _I] + [_P] * 6 + [_I] * 8 + [_P],

@@ -2,7 +2,8 @@
 dispatch rule (all wrappers), the window-row gather and scatter of the
 wtt plain versions, the bfloat16 split rounding of their
 reduced-fidelity modes, the launch geometry of the slot-major kernels
-(B1, B2, B6, B8 and B12-B15) and B6's one-hot vector width.
+(B1, B2, B5, B6, B8 and B12-B16), B6's one-hot vector width and the
+memory-mode choice of the two kernels with a block-shared tile (B5, B15).
 
 Dispatch rule of every public kernel function: a CPU tensor goes to the
 plain PyTorch version; a CUDA tensor launches the CUDA kernel or raises.
@@ -14,6 +15,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from tpu3drecon_torch.ops._build import GLOBAL, SHARED
 
 
 def is_cuda_call(t: torch.Tensor) -> bool:
@@ -74,6 +77,19 @@ def reduce_rows(planes: torch.Tensor, wcam: torch.Tensor, window: int) -> torch.
     return out[:, :window]
 
 
+def pick_memory_mode(entries: int, limit: int, forced=None) -> str:
+    """The memory mode of a kernel that keeps a block-shared tile as a
+    second mode (B5, B15): ``SHARED`` where its tile has at most ``limit``
+    entries (``entries``), ``GLOBAL`` (atomics straight into the output)
+    above.  ``forced`` (the wrapper's private ``_mode``: None, ``SHARED``
+    or ``GLOBAL``) overrides the choice; a forced ``SHARED`` past the card's
+    shared memory fails in the C entry."""
+    if forced is not None:
+        if forced not in (SHARED, GLOBAL):
+            raise ValueError(f"_mode must be None, {SHARED!r} or {GLOBAL!r}, not {forced!r}")
+        return forced
+    return SHARED if entries <= limit else GLOBAL
+
 
 def split_round(x: torch.Tensor, terms: int) -> torch.Tensor:
     """``x`` as the TPU kernels' reduced-fidelity dots see it
@@ -99,17 +115,19 @@ def split_round(x: torch.Tensor, terms: int) -> torch.Tensor:
 # as `warps` warps each, and a track longer than `warps` slots is walked in
 # `chunks` chunks.  B1 ("lin") and B2 ("coupling") are csrc/wtt_kernels.cuh's
 # templates; B6 ("onehot") is B2's kernel with each slot's row decoded from
-# the one-hot; B8 ("contrib") is B1's pass 2 alone (csrc/wtt_route_kernels.cu);
-# B12 ("tt_lin"), B13 ("tt_coupling"), B14 ("tt_wt") and B15 ("tt_w") are
+# the one-hot; B8 ("contrib") is B1's pass 2 alone and B5 ("w_rows") B2's
+# phase 2 alone (csrc/wtt_route_kernels.cu); B12 ("tt_lin"), B13
+# ("tt_coupling"), B14 ("tt_wt"), B15 ("tt_w") and B16 ("tt_cost") are
 # csrc/tt_kernels.cu's.  The C entries check the shared bytes against their
-# own count (lin_smem, coupling_smem, contrib_smem, tt_lin_smem,
-# tt_coupling_smem, tt_wt_smem, tt_w_smem), so these formulas are the
-# kernels' layout.
+# own count (lin_smem, coupling_smem, contrib_smem, w_rows_smem, tt_lin_smem,
+# tt_coupling_smem, tt_wt_smem, tt_w_smem, tt_cost_smem), so these formulas
+# are the kernels' layout.
 SMEM_PER_BLOCK = 232_448  # the H100's opt-in shared memory per block
 TILE_COLS = 32  # B1's, B8's, B12's and B13's row-tile columns (csrc/slot.cuh kTile)
 TARGET_WARPS = 8  # warps per block the geometry aims at (256 threads)
 INT_BYTES = 4
-KERNELS = ("lin", "coupling", "onehot", "contrib", "tt_lin", "tt_coupling", "tt_wt", "tt_w")
+KERNELS = ("lin", "coupling", "onehot", "contrib", "w_rows", "tt_lin", "tt_coupling", "tt_wt",
+           "tt_w", "tt_cost")
 
 
 def max_threads(kernel: str, itemsize: int) -> int:
@@ -117,7 +135,7 @@ def max_threads(kernel: str, itemsize: int) -> int:
     ``__launch_bounds__``, which bound the registers per thread."""
     if kernel not in KERNELS:
         raise ValueError(f"kernel must be one of {KERNELS}, not {kernel!r}")
-    if kernel in ("lin", "contrib", "tt_lin", "tt_coupling"):
+    if kernel in ("lin", "contrib", "tt_lin", "tt_coupling", "tt_cost"):
         return 512 if itemsize == 4 else 256
     return 512
 
@@ -125,13 +143,13 @@ def max_threads(kernel: str, itemsize: int) -> int:
 def slot_smem(kernel: str, warps: int, groups: int, np_cam: int, itemsize: int,
               want_od: bool = False) -> int:
     """Shared bytes of one block: the per-slot parts of the per-point sums
-    (9 values for B1 and B12, 3 for B2, B6 and B14) aliased by the warps'
-    (32, cols + 1) row tiles, the per-point values shared back (9, 3), B1's
-    and B8's od factors and rows of the chunk's slots and the one before it,
-    each warp's (3, 32) int tile meta, and B6's (32,) int row table per warp.
-    B12 shares nothing back; B14 has no row tile; B8, B13 and B15 have no
-    per-point sum: their warps' (32, cols + 1) row tiles and their meta (and
-    B8's od values)."""
+    (9 values for B1 and B12, 3 for B2, B6 and B14, 1 for B16) aliased by
+    the warps' (32, cols + 1) row tiles, the per-point values shared back
+    (9, 3), B1's and B8's od factors and rows of the chunk's slots and the
+    one before it, each warp's (3, 32) int tile meta, and B6's (32,) int row
+    table per warp.  B12 shares nothing back; B14 and B16 have no row tile;
+    B5, B8, B13 and B15 have no per-point sum: their warps' (32, cols + 1)
+    row tiles and their meta (and B8's od values)."""
     max_threads(kernel, itemsize)  # raises on an unknown kernel
     nw = warps * groups
     ints = nw * 96
@@ -148,7 +166,9 @@ def slot_smem(kernel: str, warps: int, groups: int, np_cam: int, itemsize: int,
         vals = max(nw * 9 * 32, nw * 32 * (TILE_COLS + 1))
     elif kernel == "tt_wt":
         vals, ints = nw * 3 * 32, 0
-    elif kernel == "tt_w":
+    elif kernel == "tt_cost":
+        vals, ints = nw * 32, 0
+    elif kernel in ("tt_w", "w_rows"):
         vals = nw * 32 * (np_cam + 1)
     else:
         vals = max(nw * 3 * 32, nw * 32 * (np_cam + 1)) + groups * 3 * 32
@@ -170,9 +190,9 @@ class SlotGeometry(NamedTuple):
 def slot_geometry(kernel: str, tb: int, pc: int, np_cam: int, itemsize: int,
                   want_od: bool = False, limit: int = SMEM_PER_BLOCK,
                   tile: int = 0) -> SlotGeometry:
-    """The geometry of B1 ("lin"), B2 ("coupling"), B6 ("onehot"), B8
-    ("contrib"), B12 ("tt_lin"), B13 ("tt_coupling"), B14 ("tt_wt") or B15
-    ("tt_w") on a bucket of ``tb`` slots
+    """The geometry of B1 ("lin"), B2 ("coupling"), B5 ("w_rows"), B6
+    ("onehot"), B8 ("contrib"), B12 ("tt_lin"), B13 ("tt_coupling"), B14
+    ("tt_wt"), B15 ("tt_w") or B16 ("tt_cost") on a bucket of ``tb`` slots
     per track and ``pc`` point columns: as many warps per group as the
     track has slots, up to the kernel's thread limit (a longer track is cut
     into balanced chunks);

@@ -20,19 +20,18 @@ The JAX functions select camera rows and reduce into them through the dense
 an all-zero camera row and adds to no camera, as its all-zero one-hot
 column does.  Outputs have the JAX functions' shapes and order.
 
-CUDA kernels (``csrc/tt_kernels.cu``): B12-B15 are slot-major, one lane
+CUDA kernels (``csrc/tt_kernels.cu``): all five are slot-major, one lane
 per track slot (a warp holds slot t of 32 consecutive point columns;
-``_wtt_common.slot_geometry("tt_lin" | "tt_coupling" | "tt_wt" |
-"tt_w")``), so a bucket runs on Tb * Pb threads.  Their per-point sums
-(B12's V and g_pt, B14's W^T x) cross the warps through shared memory and
-are added in slot order by one lane per point, the track order of the
-plain versions' sums; their per-camera columns (B12's U | g, B13's
-coupling, B15's W y) go through the warp's row tile, which groups the
-lanes by camera and sends one atomic per (distinct camera, column).  B16
-runs one thread per point column, which walks its track and reads its
-slots' camera rows from device memory.  So B12's ug, B13 and B15 vary in
-the last bits from run to run; every other output matches the plain
-version to the last bit.  Any camera count runs.
+``_wtt_common.slot_geometry("tt_lin" | "tt_coupling" | "tt_wt" | "tt_w" |
+"tt_cost")``), so a bucket runs on Tb * Pb threads.  Their per-point sums
+(B12's V and g_pt, B14's W^T x, B16's squared residuals) cross the warps
+through shared memory and are added in slot order by one lane per point,
+the track order of the plain versions' sums; their per-camera columns
+(B12's U | g, B13's coupling, B15's W y) go through the warp's row tile,
+which groups the lanes by camera and sends one atomic per (distinct
+camera, column).  So B12's ug, B13 and B15 vary in the last bits from run
+to run; every other output, B16's per-point partials included, matches the
+plain version to the last bit.  Any camera count runs.
 B15 keeps two memory modes (``memory_mode``): its atomics go to a
 block-shared (C, np) tile, flushed once per block, where the tile has at
 most ``TILE_ENTRIES`` entries, and straight to the output above (PERF.md:
@@ -54,6 +53,7 @@ from tpu3drecon_torch.ops._wtt_common import (
     check_inputs,
     check_shape,
     is_cuda_call,
+    pick_memory_mode,
     slot_geometry,
 )
 from tpu3drecon_torch.solvers.ba_tt import (
@@ -87,15 +87,8 @@ def shared_memory_bytes(n_cams: int, np_cam: int, itemsize: int) -> int:
 def memory_mode(n_cams: int, np_cam: int, forced=None) -> str:
     """B15's memory mode: ``SHARED`` (a block-shared (C, np) tile) where the
     tile has at most ``TILE_ENTRIES`` entries, ``GLOBAL`` (atomics straight
-    into the output) above.  ``forced`` (the wrapper's private ``_mode``:
-    None, ``SHARED`` or ``GLOBAL``) overrides the choice; a forced
-    ``SHARED`` past the card's shared memory fails in the C entry."""
-    if forced is not None:
-        if forced not in (_build.SHARED, _build.GLOBAL):
-            raise ValueError(f"_mode must be None, {_build.SHARED!r} or {_build.GLOBAL!r}, "
-                             f"not {forced!r}")
-        return forced
-    return _build.SHARED if n_cams * np_cam <= TILE_ENTRIES else _build.GLOBAL
+    into the output) above; ``forced`` as ``_wtt_common.pick_memory_mode``."""
+    return pick_memory_mode(n_cams * np_cam, TILE_ENTRIES, forced)
 
 
 def _check_config(config, np_cam: int) -> None:
@@ -291,23 +284,26 @@ def tt_w_times_fused(y, cam_ids, mask, jc, jp, n_cams: int, *, _mode=None):
 
 
 # ------------------------------------------------------------------ B16 ---
+def _cost_lanes_plain(table, cam_ids, pts, uv, mask, inv_w, config):
+    """The per-point partials (Pb,) of ``tt_cost_fused_plain``: each point's
+    whitened r^2 summed over its track in slot order."""
+    idx = _slot_cams(cam_ids, mask, table.shape[0])
+    r = _tt_blocks(_select(table, idx), pts[:, None, :], uv, mask, inv_w, config).r
+    return _track_sum((r[0] * r[0] + r[1] * r[1])[None])[0]
+
+
 def tt_cost_fused_plain(table, cam_ids, pts, uv, mask, inv_w, config):
     """Plain PyTorch version of ``tt_cost_fused``."""
     COST_COUNTS.plain += 1
-    idx = _slot_cams(cam_ids, mask, table.shape[0])
-    r = _tt_blocks(_select(table, idx), pts[:, None, :], uv, mask, inv_w, config).r
-    lane = _track_sum((r[0] * r[0] + r[1] * r[1])[None])[0]
-    return 0.5 * torch.sum(lane)
+    return 0.5 * torch.sum(_cost_lanes_plain(table, cam_ids, pts, uv, mask, inv_w, config))
 
 
-def tt_cost_fused(table, cam_ids, pts, uv, mask, inv_w, config):
-    """0.5 * sum(whitened r^2) of one bucket (a 0-d tensor); inputs as
-    ``tt_cam_normal_fused`` (only ``config.loss`` matters).  The kernel
-    writes one partial per point column; their sum is taken here, as the
-    JAX function sums its lane partials outside its kernel.  CPU tensors
-    run the plain version, CUDA tensors the kernel."""
+def _cost_lanes(table, cam_ids, pts, uv, mask, inv_w, config):
+    """The per-point partials (Pb,) that ``tt_cost_fused`` sums: the
+    kernel's on CUDA tensors (one launch, counted), the plain version's on
+    CPU tensors.  Tests and timing read them on their own."""
     if not is_cuda_call(table):
-        return tt_cost_fused_plain(table, cam_ids, pts, uv, mask, inv_w, config)
+        return _cost_lanes_plain(table, cam_ids, pts, uv, mask, inv_w, config)
     name = "tt_cost_fused"
     n_cams = table.shape[0]
     tb, pb = mask.shape
@@ -320,13 +316,26 @@ def tt_cost_fused(table, cam_ids, pts, uv, mask, inv_w, config):
     check_shape(name, "pts", pts, (3, pb))
     check_shape(name, "uv", uv, (2, tb, pb))
     check_shape(name, "inv_w", inv_w, ())
+    geo = slot_geometry("tt_cost", tb, pb, 8, table.element_size())
     lane = torch.empty((pb,), dtype=dtype, device=dev)
     lib = _build.library()
     code = lib.tt_cost(
         _build.dtype_code(dtype), table.data_ptr(), cam_ids.data_ptr(), pts.data_ptr(),
         uv.data_ptr(), mask.data_ptr(), inv_w.data_ptr(), lane.data_ptr(), n_cams,
-        tb, pb, LOSS_CODES[config.loss], _build.stream_ptr(dev),
+        tb, pb, LOSS_CODES[config.loss], geo.warps, geo.groups, geo.smem,
+        _build.stream_ptr(dev),
     )
     _build.check(lib, name, code)
     COST_COUNTS.launched(_build.GLOBAL)
-    return 0.5 * torch.sum(lane)
+    return lane
+
+
+def tt_cost_fused(table, cam_ids, pts, uv, mask, inv_w, config):
+    """0.5 * sum(whitened r^2) of one bucket (a 0-d tensor); inputs as
+    ``tt_cam_normal_fused`` (only ``config.loss`` matters).  The kernel
+    writes one partial per point column; their sum is taken here, as the
+    JAX function sums its lane partials outside its kernel.  CPU tensors
+    run the plain version, CUDA tensors the kernel."""
+    if not is_cuda_call(table):
+        return tt_cost_fused_plain(table, cam_ids, pts, uv, mask, inv_w, config)
+    return 0.5 * torch.sum(_cost_lanes(table, cam_ids, pts, uv, mask, inv_w, config))

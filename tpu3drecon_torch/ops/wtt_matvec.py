@@ -23,16 +23,23 @@ at once.  ``_wtt_common.slot_geometry`` gives its launch geometry.  On the
 H100 it is bound by those atomics on the medium buckets and by the jc/jp
 stream (2 np + 6 planes per slot) on the BAL ones.  B3 takes one thread
 per point column, has no cross-thread reduction and is bound by the jc/jp
-bytes it reads.  B5 (``csrc/wtt_route_kernels.cu``) reuses B2's
-phase 2 per point column.  B6 is B2's slot-major kernel itself, with each
-slot's window row decoded from the one-hot: a warp reads the one-hot
-entries of its 32 point columns, contiguous in each window row, with
-vector loads of ``_wtt_common.onehot_vector_bytes`` (16 bytes where the
-one-hot's address and Pc allow it) and keeps each column's first nonzero
-row, so it agrees with the literal product on a one-hot with at most one 1
-per column and reads the first 1 of a malformed column.  B2, B5 and B6
+bytes it reads.  B5 (``csrc/wtt_route_kernels.cu``) is B2's phase 2 alone,
+slot-major on B2's grid (``slot_geometry("w_rows")``): each lane reads its
+point's y and its slot's jc/jp and puts z through the warp's row tile; no
+per-point sum.  B5 keeps B15's second memory mode (``w_rows_memory_mode``):
+on a single group at W = 128 and np = 8 with many slots (the medium
+buckets) the row tiles reduce into a block-shared (np, W) tile flushed once
+per block, which spares the output's 1,024 entries the atomics of every
+warp; wider windows, small buckets and buckets of many groups (BAL) take
+the global mode.  B6 is B2's slot-major
+kernel itself, with each slot's window row decoded from the one-hot: a warp
+reads the one-hot entries of its 32 point columns, contiguous in each window
+row, with vector loads of ``_wtt_common.onehot_vector_bytes`` (16 bytes
+where the one-hot's address and Pc allow it) and keeps each column's first
+nonzero row, so it agrees with the literal product on a one-hot with at
+most one 1 per column and reads the first 1 of a malformed column.  B2, B5 and B6
 rows are atomic sums, so f32 rows vary in the last bits.  Any window width
-runs, in one memory mode.
+runs; B2 and B6 have one memory mode.
 
 B2 also takes the TPU kernel's ``terms`` (``matvec_kernel`` "index1" /
 "index2", ``csrc/wtt_terms_kernels.cu``): at 1 or 2 each window-row value
@@ -53,6 +60,7 @@ from tpu3drecon_torch.ops._wtt_common import (
     check_shape,
     is_cuda_call,
     onehot_vector_bytes,
+    pick_memory_mode,
     reduce_rows,
     slot_geometry,
     slot_index,
@@ -189,16 +197,43 @@ def wtt_wt_planes_idx(xw_t, wcam, jc, jp):
 
 
 # ------------------------------------------------------------------ B5 ---
+# B5's block-shared (np, W) tile pays where many blocks of one group reduce
+# into few entries (PERF.md, wtt_bucket_times --w-rows-sweep): a single
+# group (every BAL bucket, 13-28 groups, measured faster in the global
+# mode), at most W_ROWS_TILE_ENTRIES entries (W = 128 at np = 8 faster; W =
+# 256 and 512 slower at every slots per entry measured, up to 128 and 36)
+# and at least W_ROWS_SLOTS_PER_ENTRY slots per entry (the medium buckets
+# faster at 36-132, slower at 6; single-group W = 128 slices slower at
+# 4-24, faster at 64).
+W_ROWS_TILE_ENTRIES = 1024
+W_ROWS_SLOTS_PER_ENTRY = 32
+
+
+def w_rows_memory_mode(np_cam: int, window: int, groups: int, slots: int,
+                       forced=None) -> str:
+    """B5's memory mode on a bucket of ``groups`` groups of ``slots``
+    (Tb * Pc) slots: ``SHARED`` (a block-shared (np, W) tile) for a single
+    group whose tile has at most ``W_ROWS_TILE_ENTRIES`` entries and at
+    least ``W_ROWS_SLOTS_PER_ENTRY`` slots per entry, ``GLOBAL`` otherwise;
+    ``forced`` as ``_wtt_common.pick_memory_mode``."""
+    entries = np_cam * window
+    if forced is None and (groups != 1 or slots < W_ROWS_SLOTS_PER_ENTRY * entries):
+        return _build.GLOBAL
+    return pick_memory_mode(entries, W_ROWS_TILE_ENTRIES, forced)
+
+
 def wtt_w_rows_idx_plain(y, wcam, jc, jp, window: int):
     """Plain PyTorch version of ``wtt_w_rows_idx``."""
     W_ROWS_COUNTS.plain += 1
     return reduce_rows(_w_z(y, jc, jp), wcam, window).transpose(1, 2)
 
 
-def wtt_w_rows_idx(y, wcam, jc, jp, window: int):
+def wtt_w_rows_idx(y, wcam, jc, jp, window: int, *, _mode=None):
     """(W y) camera rows (G, np, W) of the point planes ``y`` (3, G, Pc)
     for one bucket (``wcam``, ``jc``, ``jp`` as ``wtt_coupling_rows_idx``).
-    CPU tensors run the plain version, CUDA tensors the kernel."""
+    CPU tensors run the plain version, CUDA tensors the kernel in the memory
+    mode of ``w_rows_memory_mode`` (``_mode`` forces one, for tests and
+    timing)."""
     if not is_cuda_call(y):
         return wtt_w_rows_idx_plain(y, wcam, jc, jp, window)
     name = "wtt_w_rows_idx"
@@ -208,15 +243,18 @@ def wtt_w_rows_idx(y, wcam, jc, jp, window: int):
     check_shape(name, "y", y, (3, g, pc))
     check_shape(name, "wcam", wcam, (g, tb * pc))
     check_shape(name, "jc", jc, (2 * np_cam, g, tb, pc))
+    mode = w_rows_memory_mode(np_cam, window, g, tb * pc, _mode)
+    tile = np_cam * window * y.element_size() if mode == _build.SHARED else 0
+    geo = slot_geometry("w_rows", tb, pc, np_cam, y.element_size(), tile=tile)
     out = torch.zeros((g, np_cam, window), dtype=y.dtype, device=y.device)
     lib = _build.library()
     code = lib.wtt_w_rows(
         _build.dtype_code(y.dtype), np_cam, y.data_ptr(), wcam.data_ptr(),
-        jc.data_ptr(), jp.data_ptr(), out.data_ptr(), g, tb, pc, window,
-        _build.stream_ptr(y.device),
+        jc.data_ptr(), jp.data_ptr(), out.data_ptr(), g, tb, pc, window, geo.warps,
+        geo.groups, geo.smem, tile, _build.stream_ptr(y.device),
     )
     _build.check(lib, name, code)
-    W_ROWS_COUNTS.launched(_build.GLOBAL)
+    W_ROWS_COUNTS.launched(mode)
     return out
 
 
