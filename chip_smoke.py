@@ -12,8 +12,10 @@ Phases (any failure exits non-zero and prints no result line):
    prints each source's compile time.
 2. The wtt kernels B1-B4 against their plain PyTorch versions on the card,
    on the actual buckets of the packed medium problem (initial parameters,
-   lam = 1e-4), in float32 and float64; B1 and B4 also with the Cauchy and
-   Huber losses on the smallest bucket.
+   lam = 1e-4), in float32 and float64, B3 and B4 also bit for bit against
+   their plain versions summed in slot order (``_wt_planes_ordered``,
+   ``_cost_cols_ordered``); B1 and B4 also with the Cauchy and Huber losses
+   on the smallest bucket.
 3. The wtt path: the medium problem (100 cameras, 100k points, 200,704
    observations, f32) packed with ``wtt_from_flat(defer_onehot=True)`` and
    solved by ``ba_solve_wtt`` (30 LM iterations, fully indexed): one
@@ -48,17 +50,21 @@ Phases (any failure exits non-zero and prints no result line):
     B8 od, B12-B16) against its plain version on the medium wtt and tt
     buckets, in float32 and float64, with the padded slots poisoned (window
     row 0 NaN and only padded slots on it, NaN jc/jp/r on padded slots for
-    B5 and B8, an extra NaN camera carried only by padded tt slots); B15
+    B3, B5 and B8 and window row 0 of x NaN for B3, which must equal its
+    ordered plain form bit for bit, as B4 must, an extra NaN camera carried
+    only by padded tt slots); B15
     and B5, which keep a block-shared tile at small camera counts and
     narrow windows, also with the global-memory mode forced (``_mode``),
     whose f32 time is their ``global_ms``.
 11. The BAL-scale sequential problem: ``bal_sequential_wtt`` (1712
     cameras, 999,808 points, 3,808,166 observations, f32) built on the
     card, its build time and buckets logged.
-12. B1 and B8 with ``want_od``, and B5, against their plain versions on
-    the BAL buckets: f32, where they are timed (B1 od and B8 od beside B1
-    and B8 without od, B5 as ``B5 [BAL]``), and f64 with window row 0 and
-    the padded slots' planes NaN.  Then the
+12. B1 and B8 with ``want_od``, and B3, B4 and B5, against their plain
+    versions on the BAL buckets (B3 and B4 also bit for bit against their
+    ordered plain forms): f32, where they are timed (B1 od and B8 od beside
+    B1 and B8 without od, B3, B4 and B5 as ``B3 [BAL]``, ``B4 [BAL]`` and
+    ``B5 [BAL]``), and f64 with window row 0 and the padded slots' planes
+    NaN.  Then the
     reduced-fidelity kernels against their plain versions at the same
     terms, f32, with window row 0 of the camera rows and of x NaN: B2 at
     terms 1 and 2 and B1 at terms 2 on the medium buckets (timed there
@@ -120,7 +126,9 @@ Tolerances, relative to max|plain|: per-element outputs 1e-5 (f32) and
 1e-12 (f64); summed outputs 1e-4 and 1e-10 (B1, B2, B5, B6 and B8 rows,
 B12's U|g columns, B13 and B15 are atomic sums whose order varies; B9's U
 and g and B11's blocks are block reductions in another order than the
-plain version's); B7 (a selection) exactly.  Each row of the kernel table
+plain version's); B7 (a selection) exactly, and B3 and B4, which sum each
+point's slots in slot order with no atomics, exactly against their ordered
+plain forms.  Each row of the kernel table
 gives its ``mode``: the memory mode its wrapper counted during the timed
 calls of its ``ms`` (``global``; ``shared`` for B15 on the medium buckets,
 whose (C, np) tile has at most 2,048 entries; ``global+shared`` for B5
@@ -130,7 +138,8 @@ mode), which must match the row's label; B15's and B5's rows add
 ``global_ms``, the time of the same (poisoned) inputs with the
 global-memory mode forced.
 The rows ``B1 [hub]`` (the hub buckets), ``B1 od [np=10]`` (the BAL buckets
-with ``optimize_dist``), ``B5 [BAL]`` (the BAL buckets), ``B12 [C=1024]``,
+with ``optimize_dist``), ``B3 [BAL]``, ``B4 [BAL]`` and ``B5 [BAL]`` (the
+BAL buckets), ``B12 [C=1024]``,
 ``B13 [C=1024]``, ``B14 [C=1024]``, ``B15 [C=1024]`` (tt_seq1024, B15
 there in its global mode) and ``B16 [C=1024]`` time those kernels
 at the widths that a shared tile could not hold or does not serve (B5 and
@@ -164,8 +173,8 @@ larger of the bytes the function must move (each input read once, each
 output written once, f32, from this run's tensors) over 3.35 TB/s and its
 operations (counted per slot or lane from the kernel source, ``FLOPS``;
 for the od rows also per adjacent slot pair of this run's data) over 67
-TFLOP/s of float32.  B5 reads no planes of a padded slot, so its jc/jp
-bytes and operations count the slots that have a window row only.
+TFLOP/s of float32.  B3 and B5 read no planes of a padded slot, so their
+jc/jp bytes and operations count the slots that have a window row only.
 """
 
 from __future__ import annotations
@@ -269,8 +278,11 @@ KERNELS = (
      GLOBAL),
     ("ops.tt_linearize", "W_COUNTS", "B15 [C=1024]", TT_SRC, f"{TT_PY}:475", {TT1024},
      GLOBAL),
-    # B5 on the BAL buckets (its bal_seq_tridiag_unfused path) and B16 on the
-    # 1024-camera track table.
+    # B3, B4 (the bal_seq path) and B5 (its bal_seq_tridiag_unfused path) on
+    # the BAL buckets, and B16 on the 1024-camera track table.
+    ("ops.wtt_matvec", "WT_COUNTS", "B3 [BAL]", WTT_SRC, f"{MV_PY}:405", {BAL}, GLOBAL),
+    ("ops.wtt_cost", "COUNTS", "B4 [BAL]", WTT_SRC, "tpu3drecon/ops/pallas/wtt_cost.py:94",
+     {BAL}, GLOBAL),
     ("ops.wtt_matvec", "W_ROWS_COUNTS", "B5 [BAL]", ROUTE_SRC, f"{MV_PY}:468", {BAL_TRI},
      GLOBAL),
     ("ops.tt_linearize", "COST_COUNTS", "B16 [C=1024]", TT_SRC, f"{TT_PY}:512", {TT1024},
@@ -402,13 +414,14 @@ def account(kernel: str, fn, plain, n_bytes: int, flops: int, library=None) -> N
         r["library_ms"] = (r["library_ms"] or 0.0) + device_ms(library)
 
 
-def w_rows_work(y, wcam, jc, jp, out) -> tuple[int, int]:
-    """B5's bytes and float operations on this bucket's data: y, wcam and
-    the output, and the jc/jp planes and work of the slots that have a
-    window row only (the kernel reads no planes of a padded slot)."""
+def live_slot_work(kernel: str, x, wcam, jc, jp, out) -> tuple[int, int]:
+    """B3's or B5's bytes and float operations on this bucket's data: x
+    (B3's window rows of x, B5's y), wcam and the output, and the jc/jp
+    planes and work of the slots that have a window row only (the kernels
+    read no planes of a padded slot)."""
     live = int((wcam >= 0).sum())
     plane_bytes = (jc.shape[0] + jp.shape[0]) * jc.element_size()
-    return nbytes(y, wcam, out) + live * plane_bytes, FLOPS["wtt_w_rows_idx"] * live
+    return nbytes(x, wcam, out) + live * plane_bytes, FLOPS[kernel] * live
 
 
 def wtt_kernel_inputs(problem, dtype, lam_value=1e-4, np_cam=8):
@@ -468,7 +481,8 @@ def nan_on(pad, *planes):
 
 
 def check_wtt_kernels(problem) -> None:
-    """Phase 2: B1-B4 against their plain versions, f32 and f64."""
+    """Phase 2: B1-B4 against their plain versions, f32 and f64; B3 and B4
+    also bit for bit against their ordered plain forms."""
     from tpu3drecon_torch.geometry.losses import RobustLoss
     from tpu3drecon_torch.ops import wtt_cost, wtt_linearize, wtt_matvec
     from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
@@ -497,10 +511,8 @@ def check_wtt_kernels(problem) -> None:
             cols_b4 = wtt_cost.wtt_cost_cols_idx(*cost_args)
             err_b2 = compare("wtt_coupling_rows_idx", tag, "", rows_b2,
                              wtt_matvec.wtt_coupling_rows_idx_plain(*mv_args), summed)
-            err_b3 = compare("wtt_wt_planes_idx", tag, "", planes_b3,
-                             wtt_matvec.wtt_wt_planes_idx_plain(*wt_args), elem)
-            err_b4 = compare("wtt_cost_cols_idx", tag, "", cols_b4,
-                             wtt_cost.wtt_cost_cols_idx_plain(*cost_args), elem)
+            err_b3, err_b4 = ordered_errs("wtt_wt_planes_idx", "wtt_cost_cols_idx", tag,
+                                          planes_b3, wt_args, cols_b4, cost_args)
             g, tb, pc, w = d["shape"]
             log(f"check {tag} wtt bucket {bi} (G={g} Tb={tb} Pc={pc} W={w}): "
                 f"B1 {err_b1:.3e} B2 {err_b2:.3e} B3 {err_b3:.3e} B4 {err_b4:.3e}")
@@ -519,7 +531,7 @@ def check_wtt_kernels(problem) -> None:
             account("wtt_wt_planes_idx",
                     lambda: wtt_matvec.wtt_wt_planes_idx(*wt_args),
                     lambda: wtt_matvec.wtt_wt_planes_idx_plain(*wt_args),
-                    nbytes(*wt_args, planes_b3), FLOPS["wtt_wt_planes_idx"] * slots)
+                    *live_slot_work("wtt_wt_planes_idx", *wt_args, planes_b3))
             account("wtt_cost_cols_idx",
                     lambda: wtt_cost.wtt_cost_cols_idx(*cost_args),
                     lambda: wtt_cost.wtt_cost_cols_idx_plain(*cost_args),
@@ -536,8 +548,11 @@ def check_wtt_kernels(problem) -> None:
                 compare("wtt_linearize_fused_idx", tag, k, a, b,
                         summed if k == "rows" else elem)
             cost_args = (d["wcam"], d["tw"], d["pts"], d["uv"], d["mask"], loss)
-            compare("wtt_cost_cols_idx", tag, "", wtt_cost.wtt_cost_cols_idx(*cost_args),
+            cols = wtt_cost.wtt_cost_cols_idx(*cost_args)
+            compare("wtt_cost_cols_idx", tag, "", cols,
                     wtt_cost.wtt_cost_cols_idx_plain(*cost_args), elem)
+            compare("wtt_cost_cols_idx", tag, "ordered", cols,
+                    wtt_cost._cost_cols_ordered(*cost_args), 0.0)
             log(f"check {tag} {loss.value}: B1 and B4 agree")
 
 
@@ -609,7 +624,8 @@ def check_route_kernels(problem) -> None:
                     lambda: lin.wtt_contrib_rows_idx_plain(*b8_sj),
                     nbytes(*b8_sj[:5], rows_sj), FLOPS["wtt_contrib_rows_idx"] * slots)
             account("wtt_w_rows_idx", lambda: mv.wtt_w_rows_idx(*b5),
-                    lambda: mv.wtt_w_rows_idx_plain(*b5), *w_rows_work(*b5[:4], rows_b5))
+                    lambda: mv.wtt_w_rows_idx_plain(*b5),
+                    *live_slot_work("wtt_w_rows_idx", *b5[:4], rows_b5))
             account("wtt_coupling_rows_fused", lambda: mv.wtt_coupling_rows_fused(*b6),
                     lambda: mv.wtt_coupling_rows_fused_plain(*b6),
                     nbytes(*b6, out_b6), FLOPS["wtt_coupling_rows_fused"] * slots)
@@ -638,6 +654,21 @@ def check_route_kernels(problem) -> None:
             f"({int(pad.sum())} padded slots, window row 0 NaN)")
 
 
+def ordered_errs(row3: str, row4: str, tag: str, planes, b3, cols, b4) -> tuple[float, float]:
+    """B3's planes ``planes`` on ``b3`` and B4's columns ``cols`` on ``b4``
+    against their plain versions (per-element tolerance) and, exactly,
+    against their ordered plain forms; returns the two plain errors."""
+    from tpu3drecon_torch.ops import wtt_cost
+    from tpu3drecon_torch.ops import wtt_matvec as mv
+
+    elem = TOL[planes.dtype][0]
+    err_b3 = compare(row3, tag, "", planes, mv.wtt_wt_planes_idx_plain(*b3), elem)
+    err_b4 = compare(row4, tag, "", cols, wtt_cost.wtt_cost_cols_idx_plain(*b4), elem)
+    compare(row3, tag, "ordered", planes, mv._wt_planes_ordered(*b3), 0.0)
+    compare(row4, tag, "ordered", cols, wtt_cost._cost_cols_ordered(*b4), 0.0)
+    return err_b3, err_b4
+
+
 def adjacent_pairs(wcam, g: int, tb: int, pc: int) -> int:
     """Slot pairs (t-1, t) of one track on window rows (w, w + 1): the od
     rows' work in this run's data."""
@@ -646,12 +677,16 @@ def adjacent_pairs(wcam, g: int, tb: int, pc: int) -> int:
 
 
 def check_od_kernels(bal) -> None:
-    """Phase 12: B1 and B8 with want_od, and B5 (the W y rows of the same
-    tridiag path), against their plain versions on the BAL buckets: f32
-    (timed there, B1 od and B8 od beside B1 and B8 without od, B5 as the
-    ``B5 [BAL]`` row), and f64 with NaN where only padded slots read (rows
-    of 350,360 and 294,912 bytes per group, which no shared tile of the card
-    could hold)."""
+    """Phase 12: B1 and B8 with want_od, B5 (the W y rows of the same
+    tridiag path), and B3 and B4 (the back-substitution and cost of the
+    bal_seq path; also bit for bit against their ordered plain forms),
+    against their plain versions on the BAL buckets: f32 (timed there, B1
+    od and B8 od beside B1 and B8 without od, B3, B4 and B5 as the ``B3
+    [BAL]``, ``B4 [BAL]`` and ``B5 [BAL]`` rows), and f64 with NaN where only
+    padded slots read (rows of 350,360 and 294,912 bytes per group, which
+    no shared tile of the card could hold)."""
+    from tpu3drecon_torch.geometry.losses import RobustLoss
+    from tpu3drecon_torch.ops import wtt_cost
     from tpu3drecon_torch.ops import wtt_linearize as lin
     from tpu3drecon_torch.ops import wtt_matvec as mv
     from tpu3drecon_torch.solvers.ba_tt import _sym3_matvec
@@ -677,9 +712,14 @@ def check_od_kernels(bal) -> None:
         b5 = (_sym3_matvec(v_inv, g_pt).contiguous(), d["wcam"], jc, jp, w)
         rows_b5 = mv.wtt_w_rows_idx(*b5)
         err_b5 = compare("B5 [BAL]", "f32", "", rows_b5, mv.wtt_w_rows_idx_plain(*b5), summed)
+        b3 = (d["xw_t"], d["wcam"], got[1], got[2])
+        b4 = (d["wcam"], d["tw"], d["pts"], d["uv"], d["mask"], RobustLoss.TRIVIAL)
+        planes_b3, cols_b4 = mv.wtt_wt_planes_idx(*b3), wtt_cost.wtt_cost_cols_idx(*b4)
+        err_b3, err_b4 = ordered_errs("B3 [BAL]", "B4 [BAL]", "f32", planes_b3, b3, cols_b4, b4)
         pairs = adjacent_pairs(d["wcam"], g, tb, pc)
         log(f"check f32 od BAL bucket {bi} (G={g} Tb={tb} Pc={pc} W={w}, {pairs} pairs): "
-            f"B1 od {err_b1:.3e} B8 od {err_b8:.3e} B5 {err_b5:.3e}")
+            f"B1 od {err_b1:.3e} B8 od {err_b8:.3e} B5 {err_b5:.3e} B3 {err_b3:.3e} "
+            f"B4 {err_b4:.3e}")
         slots = g * tb * pc
         account("B1 od", lambda: lin.wtt_linearize_fused_idx(*lin_args),
                 lambda: lin.wtt_linearize_fused_idx_plain(*lin_args),
@@ -689,7 +729,14 @@ def check_od_kernels(bal) -> None:
                 lambda: lin.wtt_contrib_rows_idx_plain(*b8), nbytes(*b8[:5], rows),
                 FLOPS["wtt_contrib_rows_idx"] * slots + FLOPS["od_pair"] * pairs)
         account("B5 [BAL]", lambda: mv.wtt_w_rows_idx(*b5),
-                lambda: mv.wtt_w_rows_idx_plain(*b5), *w_rows_work(*b5[:4], rows_b5))
+                lambda: mv.wtt_w_rows_idx_plain(*b5),
+                *live_slot_work("wtt_w_rows_idx", *b5[:4], rows_b5))
+        account("B3 [BAL]", lambda: mv.wtt_wt_planes_idx(*b3),
+                lambda: mv.wtt_wt_planes_idx_plain(*b3),
+                *live_slot_work("wtt_wt_planes_idx", *b3, planes_b3))
+        account("B4 [BAL]", lambda: wtt_cost.wtt_cost_cols_idx(*b4),
+                lambda: wtt_cost.wtt_cost_cols_idx_plain(*b4), nbytes(*b4[:5], cols_b4),
+                FLOPS["wtt_cost_cols_idx"] * slots)
         plain_od["B1"] += device_ms(lambda: lin.wtt_linearize_fused_idx(*lin_args[:-1]))
         plain_od["B8"] += device_ms(lambda: lin.wtt_contrib_rows_idx(*b8[:-1]))
     log(f"od rows on the BAL buckets, device ms per pass (f32, cold L2): "
@@ -718,11 +765,17 @@ def check_od_kernels(bal) -> None:
         rows_b5 = mv.wtt_w_rows_idx(*b5)
         err_b5 = compare("B5 [BAL]", "f64", "poisoned", rows_b5, mv.wtt_w_rows_idx_plain(*b5),
                          summed)
-        if not all(torch.isfinite(x).all() for x in (got[0], rows, rows_b5)):
+        b3 = (d["xw_t"], wcam, got[1], got[2])
+        b4 = (wcam, d["tw"], d["pts"], d["uv"], d["mask"], RobustLoss.TRIVIAL)
+        planes_b3 = mv.wtt_wt_planes_idx(d["xw_t"], wcam, *nan_on(pad, got[1], got[2]))
+        err_b3, err_b4 = ordered_errs("B3 [BAL]", "B4 [BAL]", "f64 poisoned", planes_b3, b3,
+                                      wtt_cost.wtt_cost_cols_idx(*b4), b4)
+        if not all(torch.isfinite(x).all() for x in (got[0], rows, rows_b5, planes_b3)):
             raise AssertionError("f64 od: a poisoned padded slot reached an output")
         log(f"check f64 od BAL bucket {bi} (G={g} Tb={tb} Pc={pc} W={w}, "
             f"{adjacent_pairs(wcam, g, tb, pc)} pairs, {int(pad.sum())} padded slots, "
-            f"window row 0 NaN): B1 od {err_b1:.3e} B8 od {err_b8:.3e} B5 {err_b5:.3e}")
+            f"window row 0 NaN): B1 od {err_b1:.3e} B8 od {err_b8:.3e} B5 {err_b5:.3e} "
+            f"B3 {err_b3:.3e} B4 {err_b4:.3e}")
 
 
 def check_grid_kernels(grid) -> None:
@@ -950,8 +1003,10 @@ def check_padded_slots(wtt, tt) -> None:
     """Phase 10: every kernel that reads camera rows or x by index or
     reduces into rows against its plain version on the medium buckets, f32
     and f64, with the padded slots poisoned (window row 0 NaN and only
-    padded slots on it; NaN jc/jp/r on padded slots for B5 and B8; for the
-    tt kernels an extra NaN camera that only padded slots carry); B15 and
+    padded slots on it; NaN jc/jp/r on padded slots for B3, B5 and B8, and
+    window row 0 of x NaN for B3; B3 and B4 also exactly against their
+    ordered plain forms; for the tt kernels an extra NaN camera that only
+    padded slots carry); B15 and
     B5 also in their forced global-memory mode, whose f32 device time per
     pass is their ``global_ms``."""
     from tpu3drecon_torch.geometry.losses import RobustLoss
@@ -986,22 +1041,26 @@ def check_padded_slots(wtt, tt) -> None:
             errs["B2"] = check_poisoned(
                 "wtt_coupling_rows_idx", tag, "rows", lambda: mv.wtt_coupling_rows_idx(*b2),
                 lambda: mv.wtt_coupling_rows_idx_plain(*b2), summed)
-            errs["B3"] = check_poisoned(
-                "wtt_wt_planes_idx", tag, "planes", lambda: mv.wtt_wt_planes_idx(*b2[:4]),
-                lambda: mv.wtt_wt_planes_idx_plain(*b2[:4]), elem)
+            r = torch.randn(2, g, tb, pc, generator=torch.Generator().manual_seed(bi),
+                            dtype=torch.float64).to(jc.device, dtype)
+            jc_n, jp_n, r_n = nan_on(pad, jc, jp, r)
+            # B3 with window row 0 of x NaN too; both bit for bit.
+            xw_n = d["xw_t"].clone()
+            xw_n[:, :, 0] = float("nan")
             b4 = (wcam, d["tw"], d["pts"], d["uv"], d["mask"], RobustLoss.TRIVIAL)
-            errs["B4"] = check_poisoned(
-                "wtt_cost_cols_idx", tag, "cols", lambda: wtt_cost.wtt_cost_cols_idx(*b4),
-                lambda: wtt_cost.wtt_cost_cols_idx_plain(*b4), elem)
+            planes = mv.wtt_wt_planes_idx(xw_n, wcam, jc_n, jp_n)
+            cols = wtt_cost.wtt_cost_cols_idx(*b4)
+            if not (torch.isfinite(planes).all() and torch.isfinite(cols).all()):
+                raise AssertionError(f"B3/B4 {tag}: a poisoned padded slot reached an output")
+            errs["B3"], errs["B4"] = ordered_errs(
+                "wtt_wt_planes_idx", "wtt_cost_cols_idx", f"{tag} poisoned", planes,
+                (xw_n, wcam, jc, jp), cols, b4)
             onehot = (wcam[:, None, :] == torch.arange(w, device=wcam.device)[None, :, None])
             b6 = (d["xw_t"], onehot.to(torch.int8), jc, jp, v_inv)
             errs["B6"] = check_poisoned(
                 "wtt_coupling_rows_fused", tag, "rows",
                 lambda: mv.wtt_coupling_rows_fused(*b6),
                 lambda: mv.wtt_coupling_rows_fused_plain(*b6), summed)
-            r = torch.randn(2, g, tb, pc, generator=torch.Generator().manual_seed(bi),
-                            dtype=torch.float64).to(jc.device, dtype)
-            jc_n, jp_n, r_n = nan_on(pad, jc, jp, r)
             b5 = (_sym3_matvec(v_inv, g_pt).contiguous(), wcam, jc_n, jp_n, w)
             errs["B5"] = check_poisoned(
                 "wtt_w_rows_idx", tag, "rows", lambda **kw: mv.wtt_w_rows_idx(*b5, **kw),

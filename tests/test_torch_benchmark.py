@@ -54,14 +54,16 @@ _WTT = "_ZN47_GLOBAL__N__bed1f45f_14_wtt_kernels_cu_d572d8fe"
     (f"{_ROUTE}14contrib_kernelIfLi8ELb1ELb0EEEvPKsPKT_S5_S5_S5_PS3_iiiiii", True),  # B8
     (f"{_TT}14tt_cost_kernelIfEEvPKT_PKiS3_S3_S3_S3_PS1_iiii", True),  # B16
     (f"{_ROUTE}13w_rows_kernelIfLi8EEEvPKT_PKsS3_S3_PS1_iiii", True),  # B5
-    (f"{_WTT}16wt_planes_kernelIfLi8EEEvPKT_PKsS3_S3_PS1_iiii", False),  # B3
-    (f"{_WTT}11cost_kernelIfEEvPKsPKT_S5_S5_S5_PS3_iiiii", False),  # B4
+    (f"{_WTT}16wt_planes_kernelIfLi8ELb0EEEvPKT_PKsS3_S3_PS1_iiiiii", True),  # B3
+    (f"{_WTT}11cost_kernelIfLb1EEEvPKsPKT_S5_S5_S5_PS3_iiiiiii", True),  # B4, walking
+    (f"{_ROUTE}17cam_planes_kernelIfEEvPKsPKT_PS3_iiii", False),  # B7, one thread per slot
 ])
 def test_ptxas_lines_keep_the_slot_major_kernels(mangled, kept):
-    """The registers and spills of the slot-major B5, B8 and B12-B16 are
-    kept, B3's and B4's (one thread per point) dropped: the names are
-    matched with their length prefix, so B4's cost_kernel is not B16's
-    tt_cost_kernel."""
+    """The registers and spills of the slot-major B3-B5, B8 and B12-B16 are
+    kept, B7's (one thread per slot) dropped: the names are matched with
+    their length prefix (B4's cost_kernel and B16's tt_cost_kernel each by
+    its own, B3's wt_planes_kernel not B7's cam_planes_kernel) and their
+    source."""
     out = (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
            "ptxas info    : Function properties for x\n"
            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"

@@ -4,9 +4,11 @@ one-hot routes (B5-B8), B1's and B8's band pair rows (``want_od``), B1 at
 terms 2 and B2 at terms 1 and 2 (the reduced-fidelity modes), the grid
 engine's three (B9-B11), the dense track table's five (B12-B16), and the
 probe kernels of ``tpu3drecon_torch.experiments`` (E1's copies of B2, E4's
-bit expansion); the slot-major B1, B2, B5, B6, B8 and B12-B16 also on tracks
+bit expansion); the slot-major B1-B6, B8 and B12-B16 also on tracks
 longer than one block's chunk, all-padding buckets, the hub layout's width
-and warps whose lanes hit different rows; B6 at every one-hot load width.
+and warps whose lanes hit different rows (B3, B4, B14 and B16 bit for bit
+against their plain versions summed in slot order); B6 at every one-hot
+load width.
 The kernels read camera rows from device memory and reduce into the output
 rows directly, so wide windows and camera axes run: one input per kernel
 family past the card's shared memory per block.  B15 also keeps a
@@ -42,6 +44,7 @@ from tpu3drecon_torch.ops import (
     wtt_linearize,
     wtt_matvec,
 )
+from tpu3drecon_torch.ops._wtt_common import walks_tracks
 from tpu3drecon_torch.solvers.ba_tt import _tt_blocks
 from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
 
@@ -747,14 +750,15 @@ def test_slot_major_kernels_match_plain(dev, dtype, g, w, tb, np_cam, want_od, r
     """The slot-major B1 (with ``want_od`` as given), B2, B8 (with and
     without the Schur-Jacobi columns, and with ``want_od`` as given) and B5
     (in the mode it picks and in each mode forced) against their plain
-    versions: one-chunk tracks (Tb 1, 3, 12), tracks
+    versions, B3 and B4 (each loss) bit for bit against their ordered plain
+    forms: one-chunk tracks (Tb 1, 3, 12), tracks
     longer than one block's chunk (Tb 40: od pairs across a chunk's edge),
     the hub layout's W = 1664 with random rows (warps that are not
     row-uniform), row-uniform warps, a bucket that is all padding but one
     slot; in float32 also B1 at terms 2 and B2 at terms 1 and 2.  Window row
     0 of the camera rows and of x is NaN and only padded slots point at it;
-    B8 and B5 also get NaN jc/jp(/r) on the padded slots, which they must
-    not read."""
+    B3, B8 and B5 also get NaN jc/jp(/r) on the padded slots, which they
+    must not read."""
     d = _inputs(dev, dtype, g, w, tb, np_cam, seed=7 * g + w + tb + np_cam)
     wcam = _slot_wcam(dev, rows, g, w, tb, seed=w + 3 * tb)
     pad = (wcam < 0).reshape(g, tb, PC)
@@ -787,6 +791,23 @@ def test_slot_major_kernels_match_plain(dev, dtype, g, w, tb, np_cam, want_od, r
     jc, jp = jc.clone(), jp.clone()
     for x in (jc, jp, r):
         x[:, pad] = float("nan")
+    # B3 and B4 sum each point's slots in slot order: bit for bit equal to
+    # their ordered plain forms; B3 reads no planes of a padded slot, B4
+    # reads uv and mask on every slot (also under a mask that is nonzero
+    # on the padded slots).
+    before = (wtt_matvec.WT_COUNTS.kernel, wtt_cost.COUNTS.kernel)
+    planes = wtt_matvec.wtt_wt_planes_idx(xw_t, wcam, jc, jp)
+    assert torch.equal(planes, wtt_matvec._wt_planes_ordered(xw_t, wcam, *want[1:3]))
+    masks = ((~pad).to(dtype), torch.as_tensor(
+        np.random.default_rng(tb).uniform(0.5, 1.5, size=(g, tb, PC)), dtype=dtype, device=dev))
+    for loss in RobustLoss:
+        for m in masks:
+            b4 = (wcam, tw, d["pts"], d["uv"], m, loss)
+            cols = wtt_cost.wtt_cost_cols_idx(*b4)
+            assert torch.isfinite(cols).all(), f"B4 {loss.value} read window row 0"
+            assert torch.equal(cols, wtt_cost._cost_cols_ordered(*b4)), f"B4 {loss.value}"
+    assert (wtt_matvec.WT_COUNTS.kernel - before[0], wtt_cost.COUNTS.kernel - before[1]) == (
+        1, 2 * len(RobustLoss))
     counts = (wtt_linearize.CONTRIB_COUNTS, wtt_linearize.CONTRIB_OD_COUNTS)
     before = [c.kernel for c in counts]
     variants = ((False, False), (True, False)) + (((True, True),) if want_od else ())
@@ -810,6 +831,30 @@ def test_slot_major_kernels_match_plain(dev, dtype, g, w, tb, np_cam, want_od, r
     after = wtt_matvec.W_ROWS_COUNTS.modes
     assert {m: after.get(m, 0) - before.get(m, 0) for m in (SHARED, GLOBAL)} == {
         m: 1 + (m == picked) for m in (SHARED, GLOBAL)}
+
+
+@pytest.mark.parametrize("g,walk", [(3, False), (4, True)])
+def test_wt_and_cost_large_buckets_match_ordered(dev, g, walk):
+    """B3 and B4 on buckets of more slots than the card holds threads: one
+    lane per slot (3 groups), and each track walked in one lane where the
+    points alone fill the card (4 groups, ``walks_tracks``), bit for bit
+    against their ordered plain forms (float32, the last block ragged, NaN
+    planes on the padded slots, which B3 must not read)."""
+    tb, pc, w, np_cam = 4, 67_601, 256, 8
+    assert walks_tracks(g * pc) is walk
+    d = _inputs(dev, torch.float32, g, w, tb, np_cam, seed=g, pc=pc)
+    rng = np.random.default_rng(g)
+    jc = torch.as_tensor(rng.normal(size=(2 * np_cam, g, tb, pc)), dtype=torch.float32,
+                         device=dev)
+    jp = torch.as_tensor(rng.normal(size=(6, g, tb, pc)), dtype=torch.float32, device=dev)
+    pad = (d["wcam"] < 0).reshape(g, tb, pc)
+    jc_n, jp_n = jc.clone(), jp.clone()
+    for x in (jc_n, jp_n):
+        x[:, pad] = float("nan")
+    planes = wtt_matvec.wtt_wt_planes_idx(d["xw_t"], d["wcam"], jc_n, jp_n)
+    assert torch.equal(planes, wtt_matvec._wt_planes_ordered(d["xw_t"], d["wcam"], jc, jp))
+    b4 = (d["wcam"], d["tw"], d["pts"], d["uv"], d["mask"], RobustLoss.HUBER)
+    assert torch.equal(wtt_cost.wtt_cost_cols_idx(*b4), wtt_cost._cost_cols_ordered(*b4))
 
 
 def test_probe_kernels_match(dev):

@@ -150,12 +150,13 @@ def test_ctypes_signatures_match_the_c_entries():
     ("tt_coupling", 15, "tc ng smem stream"),
     ("wtt_w_rows", 16, "tc ng smem tile stream"),
     ("tt_cost", 16, "tc ng smem stream"),
+    ("wtt_wt_planes", 15, "tc ng smem stream"),
+    ("wtt_cost", 16, "tc ng smem stream"),
 ])
 def test_slot_major_entries_take_their_geometry(name, n_args, tail):
-    """The C entries of the slot-major kernels (B1, B2, B5, B8, B12-B16) end
+    """The C entries of the slot-major kernels (B1-B5, B8, B12-B16) end
     in the launch geometry of ``slot_geometry`` (and B5's and B15's tile
-    bytes)
-    before the stream, and their ctypes lists have as many
+    bytes) before the stream, and their ctypes lists have as many
     arguments: the entries check tc, ng and smem against the kernels' own
     count."""
     args = [a.strip().rsplit(" ", 1)[-1].lstrip("*")

@@ -1,24 +1,29 @@
-"""Launch geometry of the slot-major kernels B1, B2, B5, B6, B8 and B12-B16
+"""Launch geometry of the slot-major kernels B1-B6, B8 and B12-B16
 (``tpu3drecon_torch.ops._wtt_common.slot_geometry``), on the CPU: for every
 (dtype, np, od, terms) that the C entries ``wtt_linearize`` and
 ``wtt_coupling`` take, every (dtype, np, one-hot type) of
 ``wtt_coupling_onehot``, every (dtype, np, od) of ``wtt_contrib`` and every
-(dtype, np) of ``wtt_w_rows``, ``tt_cam_normal``, ``tt_coupling``,
-``tt_wt_times``, ``tt_w_times`` and ``tt_cost``, and
-tracks of 1 to 100 slots, the shared bytes fit the card's per-block limit,
-the chunks cover each track once, the blocks cover every point column once
-and no block exceeds the kernel's thread limit.  Also pins B1's row width K
-and B6's one-hot vector width against hand-worked alignments."""
+(dtype, np) of ``wtt_wt_planes``, ``wtt_cost``, ``wtt_w_rows``,
+``tt_cam_normal``, ``tt_coupling``, ``tt_wt_times``, ``tt_w_times`` and
+``tt_cost``, and
+tracks of 1 to 100 slots (B3 and B4 also walking each track in one lane),
+the shared bytes fit the card's per-block limit, the chunks cover each
+track once, the blocks cover every point column once and no block exceeds
+the kernel's thread limit.  Also pins B1's row width K, where B3 and B4
+walk their tracks and B6's one-hot vector width against hand-worked
+values."""
 
 import pytest
 import torch
 
 from tpu3drecon_torch.ops._wtt_common import (
+    CARD_THREADS,
     SMEM_PER_BLOCK,
     max_threads,
     onehot_vector_bytes,
     slot_geometry,
     slot_smem,
+    walks_tracks,
 )
 from tpu3drecon_torch.ops.wtt_linearize import n_rows_cols
 
@@ -53,15 +58,16 @@ TT_W_ENTRIES = [(dtype, np_cam) for dtype in (torch.float32, torch.float64) for 
 CONTRIB_ENTRIES = [(dtype, np_cam, od) for dtype, np_cam in TT_W_ENTRIES for od in (False, True)]
 
 
-def _fits_and_covers(kernel, dtype, np_cam, want_od, label):
+def _fits_and_covers(kernel, dtype, np_cam, want_od, label, walk=False):
     itemsize = torch.empty((), dtype=dtype).element_size()
     for tb in TBS:
         for pc in PCS:
-            geo = slot_geometry(kernel, tb, pc, np_cam, itemsize, want_od)
-            what = f"{kernel} {dtype} np={np_cam} od={want_od} {label} Tb={tb} Pc={pc}"
+            geo = slot_geometry(kernel, tb, pc, np_cam, itemsize, want_od, walk=walk)
+            what = f"{kernel} {dtype} np={np_cam} od={want_od} {label} Tb={tb} Pc={pc} {walk=}"
             assert geo.smem <= SMEM_PER_BLOCK, what
             assert geo.smem == slot_smem(kernel, geo.warps, geo.groups, np_cam, itemsize,
                                          want_od), what
+            assert not walk or (geo.warps, geo.chunks) == (1, tb), what
             assert 32 <= 32 * geo.warps * geo.groups <= max_threads(kernel, itemsize), what
             # The chunks (warp ti of chunk c holds slot c * warps + ti) cover
             # slots 0 .. Tb - 1 once, in order, none empty.
@@ -205,6 +211,90 @@ def test_tt_cost_geometry_fits_and_covers(dtype, np_cam):
     assert geo.chunks == (3 if itemsize == 4 else 5)
 
 
+# The medium problem's five buckets (Tb, Pc), G = 1.
+MEDIUM = ((2, 67584), (3, 18432), (4, 9216), (8, 5632), (12, 512))
+
+
+@pytest.mark.parametrize("dtype,np_cam", TT_W_ENTRIES)
+def test_wt_geometry_fits_and_covers(dtype, np_cam):
+    """B3: B2's phase 1 alone on B2's thread limit (512 in both dtypes):
+    the per-slot W^T x parts (ng, tc, 3, 32) alone, no row tile and no
+    meta (B14's layout)."""
+    for walk in (False, True):
+        _fits_and_covers("wt", dtype, np_cam, False, "wt", walk)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    assert max_threads("wt", itemsize) == max_threads("coupling", itemsize) == 512
+    geo = slot_geometry("wt", 2, 67584, np_cam, itemsize)
+    assert (geo.warps, geo.groups, geo.chunks, geo.blocks) == (2, 4, 1, 528)
+    assert geo.smem == 8 * 3 * 32 * itemsize
+    # The medium buckets run on 1,152 blocks (one thread per point: 396).
+    geos = [slot_geometry("wt", tb, pc, np_cam, itemsize) for tb, pc in MEDIUM]
+    assert [g.blocks for g in geos] == [528, 288, 144, 176, 16]
+    assert (geos[-1].warps, geos[-1].groups, geos[-1].chunks) == (12, 1, 1)
+    assert geos[-1].smem == 12 * 3 * 32 * itemsize
+    geo = slot_geometry("wt", 40, 300, np_cam, itemsize)
+    assert (geo.warps, geo.groups, geo.chunks, geo.blocks) == (14, 1, 3, 10)
+    assert geo == slot_geometry("tt_wt", 40, 300, np_cam, itemsize)
+    # The BAL sequential problem's longest bucket, 14 groups of 68,096
+    # points: each lane walks its track, a block of 8 groups covers 256
+    # points (one thread per point's grid).
+    assert walks_tracks(14 * 68096)
+    geo = slot_geometry("wt", 4, 68096, np_cam, itemsize, walk=True)
+    assert (geo.warps, geo.groups, geo.chunks, geo.blocks) == (1, 8, 4, 266)
+    assert geo.smem == 8 * 3 * 32 * itemsize
+
+
+@pytest.mark.parametrize("dtype,np_cam", TT_W_ENTRIES)
+def test_cost_geometry_fits_and_covers(dtype, np_cam):
+    """B4: one part per slot, (ng, tc, 32), no row tile and no meta, on
+    B16's thread limit (512 in float32, 256 in float64): B16's layout and
+    geometry; np does not enter."""
+    for walk in (False, True):
+        _fits_and_covers("cost", dtype, np_cam, False, "cost", walk)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    assert max_threads("cost", itemsize) == max_threads("tt_cost", itemsize)
+    geo = slot_geometry("cost", 3, 18432, np_cam, itemsize)
+    assert (geo.warps, geo.groups, geo.chunks, geo.blocks) == (3, 2, 1, 288)
+    assert geo.smem == 6 * 32 * itemsize
+    assert geo == slot_geometry("cost", 3, 18432, 8, itemsize)
+    # The medium problem's longest bucket: one chunk of 12 warps in float32,
+    # two of 6 in float64.
+    geo = slot_geometry("cost", 12, 512, np_cam, itemsize)
+    assert (geo.warps, geo.groups, geo.chunks, geo.blocks) == (
+        (12, 1, 1, 16) if itemsize == 4 else (6, 1, 2, 16))
+    assert geo.smem == geo.warps * 32 * itemsize
+    assert geo == slot_geometry("tt_cost", 12, 512, np_cam, itemsize)
+    # The BAL sequential problem's longest bucket (G = 14 groups of it).
+    geo = slot_geometry("cost", 4, 68096, np_cam, itemsize)
+    assert (geo.warps, geo.groups, geo.chunks, geo.blocks) == (4, 2, 1, 1064)
+    geo = slot_geometry("cost", 8, 21504, np_cam, itemsize, walk=True)
+    assert (geo.warps, geo.groups, geo.chunks, geo.blocks) == (1, 8, 8, 84)
+    assert geo.smem == 8 * 32 * itemsize
+    geo = slot_geometry("cost", 40, 300, np_cam, itemsize)
+    assert (geo.warps, geo.chunks) == ((14, 3) if itemsize == 4 else (8, 5))
+
+
+@pytest.mark.parametrize("g,pc,walk", [
+    (1, 67584, False),  # the medium problem's largest bucket
+    (21, 2560, False), (15, 3584, False),  # BAL sequential
+    (14, 68096, True),  # its largest bucket, 953,344 points
+    (13, 21504, True), (13, 49664, True), (1, 512, False),  # BAL hub
+    (1, 132 * 2048 - 1, False), (1, 132 * 2048, True),
+])
+def test_walks_tracks(g, pc, walk):
+    """B3 and B4 walk each track in one lane where the bucket's points
+    alone fill the card's 270,336 resident threads."""
+    assert CARD_THREADS == 270_336
+    assert walks_tracks(g * pc) is walk
+
+
+def test_only_b3_and_b4_walk_tracks():
+    assert slot_geometry("wt", 4, 512, 8, 4, walk=True).warps == 1
+    for kernel in ("tt_wt", "coupling", "tt_cost"):
+        with pytest.raises(ValueError, match="walk"):
+            slot_geometry(kernel, 4, 512, 8, 4, walk=True)
+
+
 @pytest.mark.parametrize("address,pc,itemsize,vec", [
     (0, 512, 1, 16),  # the medium buckets, int8: 16-byte loads
     (0, 300, 1, 4),  # Pc = 300 bytes per slot row: 4-byte aligned only
@@ -238,7 +328,8 @@ def test_onehot_vector_bytes_refuses_a_misaligned_one_hot():
                                              ("contrib", 4), ("contrib", 8),
                                              ("tt_coupling", 4), ("tt_coupling", 8),
                                              ("w_rows", 4), ("w_rows", 8), ("tt_cost", 4),
-                                             ("tt_cost", 8)])
+                                             ("tt_cost", 8), ("wt", 4), ("wt", 8), ("cost", 4),
+                                             ("cost", 8)])
 def test_geometry_one_chunk_up_to_the_thread_limit(kernel, itemsize):
     """A track of up to max_threads / 32 slots runs in one chunk (each slot
     stays in registers from phase 1 to phase 2); a short track shares its
@@ -263,7 +354,7 @@ def test_geometry_shrinks_to_the_shared_limit(kernel):
     assert full.smem > limit >= small.smem
     assert (small.warps, small.groups, small.chunks) == (4, 1, 2)
     with pytest.raises(ValueError, match="kernel"):
-        slot_geometry("cost", 2, 10, 8, 4)
+        slot_geometry("planes", 2, 10, 8, 4)
 
 
 @pytest.mark.parametrize("np_cam,use_sj,want_od,k", [

@@ -138,6 +138,43 @@ def test_cost_matches_pallas(g, w, tb, loss):
     assert_close(got, want, RTOL, ATOL_REL)
 
 
+@pytest.mark.parametrize("loss", ["trivial", "cauchy", "huber"])
+def test_ordered_cost_matches_plain_and_pallas(loss):
+    """B4's ordered plain form (each track summed slot by slot from zero,
+    the kernel's order, to which the card holds B4 bit for bit) equals the
+    plain version to 1e-12 and JAX's kernel to this file's tolerance, at
+    f64 with 12-slot tracks; also under a mask that is nonzero on the
+    padded slots, which both read as all-zero camera rows."""
+    g, w, tb = 2, 256, 12
+    d = _inputs(g, w, tb, 8, seed=29 + len(loss))
+    noisy = np.random.default_rng(3).uniform(0.5, 1.5, size=d["mask"].shape)
+    for mask in (d["mask"], noisy):
+        args = (_t(d["wcam"]), _t(d["tw"]), _t(d["pts"]), _t(d["uv"]), _t(mask), TLoss(loss))
+        got = wtt_cost._cost_cols_ordered(*args)
+        assert got.shape == (g, 1, PC)
+        assert_close(got, wtt_cost.wtt_cost_cols_idx_plain(*args), 1e-12, 1e-12)
+        want = j_cost(_j(d["wcam"]), _j(d["tw"]), _j(d["pts"]), _j(d["uv"]), _j(mask),
+                      tb, PC, w, JLoss(loss), interpret=True)
+        assert_close(got, want, RTOL, ATOL_REL)
+
+
+@pytest.mark.parametrize("tb", [1, 12])
+def test_ordered_wt_planes_match_plain_and_pallas(tb):
+    """B3's ordered plain form (the camera block and the track summed one
+    term at a time, the kernel's order) equals the plain version to 1e-12
+    and JAX's kernel to this file's tolerance, at f64."""
+    g, w = 2, 128
+    d = _inputs(g, w, tb, 8, seed=31 + tb)
+    jc, jp, _ = _normals(d, 8)
+    args = (_t(d["xw_t"]), _t(d["wcam"]), jc, jp)
+    got = wtt_matvec._wt_planes_ordered(*args)
+    assert got.shape == (3, g, PC)
+    assert_close(got, wtt_matvec.wtt_wt_planes_idx_plain(*args), 1e-12, 1e-12)
+    want = j_wt(_j(d["xw_t"]), _j(d["wcam"]), _j(jc.numpy()), _j(jp.numpy()), 8, tb, PC, w,
+                interpret=True)
+    assert_close(got, want, RTOL, ATOL_REL)
+
+
 def test_cpu_tensors_run_the_plain_versions():
     """A CPU call runs the plain version (its counter grows) and never the
     kernel; an unsupported device raises instead of falling back."""

@@ -1,5 +1,6 @@
 """Per-bucket device times of the slot-major kernels on the CUDA card, B1
-(``wtt_linearize_fused_idx``), B2 (``wtt_coupling_rows_idx``), B5
+(``wtt_linearize_fused_idx``), B2 (``wtt_coupling_rows_idx``), B3
+(``wtt_wt_planes_idx``), B4 (``wtt_cost_cols_idx``), B5
 (``wtt_w_rows_idx``), B6 (``wtt_coupling_rows_fused``), B8
 (``wtt_contrib_rows_idx``), B12 (``tt_cam_normal_fused``), B13
 (``tt_coupling_fused``), B14 (``tt_wt_times_fused``), B15
@@ -12,11 +13,11 @@ instantiations.
 ``chip_smoke.py`` sums each kernel over the buckets of a pass; this script
 prints every bucket, each time a ``device_ms`` (median of 20 cold-L2 calls
 by CUDA events) at f32, at the initial parameters and lam = 1e-4, as
-``chip_smoke.py`` forms its kernel inputs: B1, B2, B5 and B8 (B8 without
-and with the Schur-Jacobi columns, ``sj=0`` / ``sj=1``; B2, B5 and B8 on
-B1's jc/jp/V^-1, random residuals and random y) on the medium problem (100
-cameras, 100k points), on the BAL sequential problem (1712 cameras, with
-B1 od and B8 od), on its split-window packing (windows of 128 and 256
+``chip_smoke.py`` forms its kernel inputs: B1, B2, B3, B4, B5 and B8 (B8
+without and with the Schur-Jacobi columns, ``sj=0`` / ``sj=1``; B2, B3, B5
+and B8 on B1's jc/jp/V^-1, random residuals and random y) on the medium
+problem (100 cameras, 100k points), on the BAL sequential problem (1712
+cameras, with B1 od and B8 od), on its split-window packing (windows of 128 and 256
 rows over many groups) and on the BAL hub problem; B6 on the medium
 problem with its int8 and its float32 one-hot; B12-B16 on the medium problem in
 track-table layout and on ``tt_seq1024`` (1024 cameras, 256 points each;
@@ -48,20 +49,22 @@ import torch
 from tpu3drecon_torch.benchmark.timing import L2_FLUSH_BYTES, card_line, device_ms
 
 # B1, B2 and B6 (coupling_kernel in wtt_route_kernels.cu; an older tree's
-# onehot_coupling_kernel), B5, B8, B12, B13, B14, B15 and B16; matched with
-# their length prefix in the mangled names, so that "coupling_kernel" (B2,
-# B6) does not also match tt_coupling_kernel (B13).
-_PTXAS_KERNELS = ("lin_kernel", "coupling_kernel", "onehot_coupling_kernel", "contrib_kernel",
-                  "w_rows_kernel", "tt_cam_normal_kernel", "tt_coupling_kernel",
-                  "tt_wt_times_kernel", "tt_w_times_kernel", "tt_cost_kernel")
+# onehot_coupling_kernel), B3, B4, B5, B8, B12, B13, B14, B15 and B16;
+# matched with their length prefix in the mangled names, so that
+# "coupling_kernel" (B2, B6) does not also match tt_coupling_kernel (B13),
+# nor "cost_kernel" (B4) tt_cost_kernel (B16).
+_PTXAS_KERNELS = ("lin_kernel", "coupling_kernel", "onehot_coupling_kernel", "wt_planes_kernel",
+                  "cost_kernel", "contrib_kernel", "w_rows_kernel", "tt_cam_normal_kernel",
+                  "tt_coupling_kernel", "tt_wt_times_kernel", "tt_w_times_kernel",
+                  "tt_cost_kernel")
 _PTXAS_SOURCES = ("_wtt_kernels_cu", "_wtt_terms_kernels_cu", "_wtt_route_kernels_cu",
                   "_tt_kernels_cu")
 
 
 def ptxas_lines(compiler_out: str) -> list[str]:
-    """The ``-Xptxas -v`` lines of B1's, B2's, B5's, B6's, B8's and
-    B12-B16's instantiations: each entry function's line with the lines
-    that follow it up to the next entry."""
+    """The ``-Xptxas -v`` lines of B1-B6's, B8's and B12-B16's
+    instantiations: each entry function's line with the lines that follow
+    it up to the next entry."""
     out, keep = [], False
     for line in compiler_out.splitlines():
         if "entry function" in line:
@@ -136,8 +139,10 @@ def _print_rows(label: str, rows: list[dict]) -> None:
 
 
 def time_buckets(label: str, problem, od: bool) -> list[dict]:
-    """B1, B2, B5 and B8 (``sj`` 0 and 1; with ``od`` also B1 od and B8 od)
-    per bucket of ``problem``."""
+    """B1, B2, B3, B4, B5 and B8 (``sj`` 0 and 1; with ``od`` also B1 od and
+    B8 od) per bucket of ``problem``."""
+    from tpu3drecon_torch.geometry.losses import RobustLoss
+    from tpu3drecon_torch.ops import wtt_cost
     from tpu3drecon_torch.ops import wtt_linearize as lin
     from tpu3drecon_torch.ops import wtt_matvec as mv
     from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
@@ -154,9 +159,12 @@ def time_buckets(label: str, problem, od: bool) -> list[dict]:
         y = torch.randn(3, g, pc, generator=gen).to(jc.device)
         b2 = (d["xw_t"], d["wcam"], jc, jp, v_inv)
         b8 = (d["wcam"], jc, jp, r, v_inv, 8, w)
+        b4 = (d["wcam"], d["tw"], d["pts"], d["uv"], d["mask"], RobustLoss.TRIVIAL)
         row = {"problem": label, "bucket": bi, "shape": f"G={g} Tb={tb} Pc={pc} W={w}",
                "B1": device_ms(lambda: lin.wtt_linearize_fused_idx(*args)),
                "B2": device_ms(lambda: mv.wtt_coupling_rows_idx(*b2)),
+               "B3": device_ms(lambda: mv.wtt_wt_planes_idx(*b2[:4])),
+               "B4": device_ms(lambda: wtt_cost.wtt_cost_cols_idx(*b4)),
                "B8 sj=0": device_ms(lambda: lin.wtt_contrib_rows_idx(*b8, False)),
                "B8 sj=1": device_ms(lambda: lin.wtt_contrib_rows_idx(*b8, True))}
         _time_modes(row, "B5", mv.wtt_w_rows_idx,
@@ -247,12 +255,15 @@ def time_onehot_buckets(label: str, problem) -> list[dict]:
     return rows
 
 
-def kernel_alone_ms(fn, kernel: str, n: int = 20) -> float:
+def kernel_alone_ms(fn, kernel: str, n: int = 20, attempts: int = 3) -> float:
     """Mean device time (ms) of the port's kernel ``kernel`` in one call of
     ``fn``: ``torch.profiler`` over ``n`` calls, each after a 128 MB write
     that evicts the L2, its trace read as ``profile_solve`` reads it.  The
     kernel alone, without the other launches of ``fn`` or the gaps between
-    them, and by its name, so that any tree's kernel is timed the same way."""
+    them, and by its name, so that any tree's kernel is timed the same way.
+    The profiler now and then drops a trace's kernel events (an H100 under
+    PyTorch 2.11): a trace without all ``n`` launches is taken again, up to
+    ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     from tpu3drecon_torch.benchmark.profile_solve import summarize
@@ -261,19 +272,21 @@ def kernel_alone_ms(fn, kernel: str, n: int = 20) -> float:
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
     path = BUILD_DIR / "profile" / "kernel_alone.json"
     path.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(path))
-    (row,) = [r for r in summarize(str(path), 1.0, top=0)["port"]
-              if f"::{kernel}<" in r["kernel"]]
-    if row["launches"] != n:
-        raise RuntimeError(f"{kernel}: {row['launches']} launches in {n} calls")
-    return row["mean_us"] * 1e-3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(path))
+        rows = [r for r in summarize(str(path), 1.0, top=0)["port"]
+                if f"::{kernel}<" in r["kernel"]]
+        if [r["launches"] for r in rows] == [n]:
+            return rows[0]["mean_us"] * 1e-3
+    raise RuntimeError(f"{kernel}: {[r['launches'] for r in rows]} launches in {n} calls, "
+                       f"{attempts} traces")
 
 
 def time_tt_buckets(label: str, problem) -> list[dict]:

@@ -3,15 +3,15 @@
 // formulas, camera-row and x reads with their all-zero padding, the
 // coupling-product halves, the warp-aggregated row reduction of a track
 // walked in one thread (E1's copies of B2, probe_kernels.cu), the slot-major
-// grid and row tiles (B1, B2, B5, B6, B8 and B12-B16), the contribution
+// grid and row tiles (B1-B6, B8 and B12-B16), the contribution
 // columns that the slot-major B1, B8, B12 and B13 put into their row tiles,
 // and the host-side launch helpers.
 //
-// B3 and B4 keep one point's whole track in one thread, B7 one slot; the
-// slot-major kernels run one slot per lane.  Either way a slot (t, p) reads
-// its camera's row of a (rows, 19) table.  A padded slot reads an all-zero
-// row, exactly as the TPU kernels' empty one-hot column gives it: z = 0 ->
-// z_safe = 1, so every output of the slot is exactly 0.
+// The slot-major kernels run one slot per lane, B7 one slot per thread
+// (E1's probe copies walk a point's track in one thread).  Either way a
+// slot (t, p) reads its camera's row of a (rows, 19) table.  A padded slot
+// reads an all-zero row, exactly as the TPU kernels' empty one-hot column
+// gives it: z = 0 -> z_safe = 1, so every output of the slot is exactly 0.
 //
 // Memory.  The kernels read camera rows and x straight from device memory
 // (__ldg into registers, zeros for padding) and send their atomics
@@ -31,7 +31,7 @@
 namespace tpu3drecon {
 
 constexpr int kD = 19;        // camera table width: R(9) t(3) f(2) c(3) k(2)
-constexpr int kBlock = 256;   // threads per block = point columns per block
+constexpr int kBlock = 256;   // threads per block of B7, the probes and B3/B4 walking a track
 
 struct LinFlags {
   int use_sj, loss, focal, points, dist, pp;
@@ -238,9 +238,10 @@ __device__ __forceinline__ void w_slot(T* acc, int w, int W, const T* jc, const 
 }
 
 // ------------------------------------------------ slot-major grid ------
-// The slot-major kernels (B1, B2 and B6 in wtt_kernels.cuh, B5 and B8 in
-// wtt_route_kernels.cu, B12-B16 in tt_kernels.cu) run one lane per track
-// slot: a warp holds slot t of 32 consecutive point columns, a block holds `ng` such 32-point groups as `tc`
+// The slot-major kernels (B1, B2 and B6 in wtt_kernels.cuh, B3 and B4 in
+// wtt_kernels.cu, B5 and B8 in wtt_route_kernels.cu, B12-B16 in
+// tt_kernels.cu) run one lane per track slot: a warp holds slot t of 32
+// consecutive point columns, a block holds `ng` such 32-point groups as `tc`
 // warps each (warp ti of a group holds slot c * tc + ti in chunk c), and a
 // track longer than tc slots is walked in ceil(Tb / tc) chunks.  The
 // wrappers compute tc, ng and the shared bytes (ops/_wtt_common.py
@@ -267,9 +268,9 @@ __device__ __forceinline__ SlotLane slot_lane(int tc, int ng, int Tb, int Pc) {
 }
 
 // The per-point sums of the slot-major kernels (B1's and B12's V | g_pt,
-// B2's and B14's W^T x, B16's squared residuals).  Each lane writes the N
-// parts of its slot at parts[((gi * tc + ti) * N + k) * 32 + lane], its
-// group's (tc, N, 32) block of an (ng, tc, N, 32) array; after a barrier
+// B2's, B3's and B14's W^T x, B4's and B16's cost parts).  Each lane writes
+// the N parts of its slot at parts[((gi * tc + ti) * N + k) * 32 + lane],
+// its group's (tc, N, 32) block of an (ng, tc, N, 32) array; after a barrier
 // lane p of the group's warp 0 adds chunk c's parts into acc in slot order,
 // the order of the plain versions' track sums, so the sums keep their last
 // bits.

@@ -5,8 +5,8 @@
 // kernels at TERMS = 1 and 2 in an object of their own, so the two sources
 // compile in parallel.  B2's kernel is also a template over where a slot's
 // window row comes from: wcam (B2) or the dense one-hot (B6, instantiated
-// at TERMS = 3 in wtt_route_kernels.cu).  B3's phase-1 helper wt_x lives
-// here too.
+// at TERMS = 3 in wtt_route_kernels.cu).  B3 (wtt_kernels.cu) runs on B2's
+// grid and thread limit (kCouplingThreads).
 //
 // Slot-major design of B1, B2 and B6.  A warp holds one track slot t of 32
 // consecutive point columns, one lane per slot; a block holds `ng` such
@@ -51,7 +51,7 @@ using namespace tpu3drecon;
 
 // Threads per block at most (the wrapper's geometry keeps to them; they
 // bound the registers per thread): B1 holds a slot's Jacobians and its W,
-// W V^-1 factors, B2 a slot's jc/jp.
+// W V^-1 factors, B2 (and B3) a slot's jc/jp.
 template <typename T>
 constexpr int lin_threads() { return sizeof(T) == 4 ? 512 : 256; }
 constexpr int kCouplingThreads = 512;
@@ -264,23 +264,7 @@ lin_kernel(const int16_t* __restrict__ wcam, const T* __restrict__ tw,
   }
 }
 
-// ---------------------------------------------------------------- B2/B3 --
-// Phase 1 of the coupling product in one thread per point (B3's design):
-// (W^T x) of this thread's point over its track, x read from the group's
-// window rows xw_g (NP, W) in device memory (through split_round<TERMS>).
-template <typename T, int NP, int TERMS = 3>
-__device__ __forceinline__ void wt_x(const T* xw_g, const int16_t* wcam, const T* jc,
-                                     const T* jp, int g, int p, bool live, int G,
-                                     int Tb, int Pc, int W, T wtx[3]) {
-  const size_t GTP = (size_t)G * Tb * Pc;
-  wtx[0] = wtx[1] = wtx[2] = T(0);
-  if (!live) return;
-  for (int t = 0; t < Tb; ++t) {
-    const size_t ts = ((size_t)g * Tb + t) * Pc + p;
-    wt_slot<T, NP, TERMS>(xw_g, int(wcam[ts]), W, jc, jp, ts, GTP, wtx);
-  }
-}
-
+// ---------------------------------------------------------------- B2 ----
 // Where a slot's window row comes from.  Each source is a functor that the
 // whole warp calls for slot t of its 32 point columns (t is warp-uniform;
 // `real`: this lane's slot exists, p < Pc and t < Tb) and that returns this

@@ -64,10 +64,11 @@ _SIGNATURES = {
     # dtype, np, terms, xw_t, wcam, jc, jp, vinv, out, G, Tb, Pc, W, tc, ng,
     # smem, stream
     "wtt_coupling": [_I, _I, _I] + [_P] * 6 + [_I] * 7 + [_P],
-    # dtype, np, xw_t, wcam, jc, jp, out, G, Tb, Pc, W, stream
-    "wtt_wt_planes": [_I, _I] + [_P] * 5 + [_I] * 4 + [_P],
-    # dtype, wcam, tw, pts, uv, mask, out, G, Tb, Pc, W, loss, stream
-    "wtt_cost": [_I] + [_P] * 6 + [_I] * 5 + [_P],
+    # dtype, np, xw_t, wcam, jc, jp, out, G, Tb, Pc, W, tc, ng, smem, stream
+    "wtt_wt_planes": [_I, _I] + [_P] * 5 + [_I] * 7 + [_P],
+    # dtype, wcam, tw, pts, uv, mask, out, G, Tb, Pc, W, loss, tc, ng, smem,
+    # stream
+    "wtt_cost": [_I] + [_P] * 6 + [_I] * 8 + [_P],
     # dtype, params, x_w, uv, mask, r, jp, jc, u, g, C, K, loss, stream
     "grid_cam_normal": [_I] + [_P] * 9 + [_I] * 3 + [_P],
     # dtype, jp_g, r_g, lam, v_inv, g, damp, P, T2, diag_floor, stream

@@ -2,7 +2,7 @@
 dispatch rule (all wrappers), the window-row gather and scatter of the
 wtt plain versions, the bfloat16 split rounding of their
 reduced-fidelity modes, the launch geometry of the slot-major kernels
-(B1, B2, B5, B6, B8 and B12-B16), B6's one-hot vector width and the
+(B1-B6, B8 and B12-B16), B6's one-hot vector width and the
 memory-mode choice of the two kernels with a block-shared tile (B5, B15).
 
 Dispatch rule of every public kernel function: a CPU tensor goes to the
@@ -115,19 +115,20 @@ def split_round(x: torch.Tensor, terms: int) -> torch.Tensor:
 # as `warps` warps each, and a track longer than `warps` slots is walked in
 # `chunks` chunks.  B1 ("lin") and B2 ("coupling") are csrc/wtt_kernels.cuh's
 # templates; B6 ("onehot") is B2's kernel with each slot's row decoded from
-# the one-hot; B8 ("contrib") is B1's pass 2 alone and B5 ("w_rows") B2's
-# phase 2 alone (csrc/wtt_route_kernels.cu); B12 ("tt_lin"), B13
-# ("tt_coupling"), B14 ("tt_wt"), B15 ("tt_w") and B16 ("tt_cost") are
-# csrc/tt_kernels.cu's.  The C entries check the shared bytes against their
-# own count (lin_smem, coupling_smem, contrib_smem, w_rows_smem, tt_lin_smem,
-# tt_coupling_smem, tt_wt_smem, tt_w_smem, tt_cost_smem), so these formulas
-# are the kernels' layout.
+# the one-hot; B3 ("wt") is B2's phase 1 alone and B4 ("cost") B16's cost on
+# the wtt layout (csrc/wtt_kernels.cu); B8 ("contrib") is B1's pass 2 alone
+# and B5 ("w_rows") B2's phase 2 alone (csrc/wtt_route_kernels.cu); B12
+# ("tt_lin"), B13 ("tt_coupling"), B14 ("tt_wt"), B15 ("tt_w") and B16
+# ("tt_cost") are csrc/tt_kernels.cu's.  The C entries check the shared bytes
+# against their own count (lin_smem, coupling_smem, wt_smem, cost_smem,
+# contrib_smem, w_rows_smem, tt_lin_smem, tt_coupling_smem, tt_wt_smem,
+# tt_w_smem, tt_cost_smem), so these formulas are the kernels' layout.
 SMEM_PER_BLOCK = 232_448  # the H100's opt-in shared memory per block
 TILE_COLS = 32  # B1's, B8's, B12's and B13's row-tile columns (csrc/slot.cuh kTile)
 TARGET_WARPS = 8  # warps per block the geometry aims at (256 threads)
 INT_BYTES = 4
-KERNELS = ("lin", "coupling", "onehot", "contrib", "w_rows", "tt_lin", "tt_coupling", "tt_wt",
-           "tt_w", "tt_cost")
+KERNELS = ("lin", "coupling", "onehot", "wt", "cost", "contrib", "w_rows", "tt_lin",
+           "tt_coupling", "tt_wt", "tt_w", "tt_cost")
 
 
 def max_threads(kernel: str, itemsize: int) -> int:
@@ -135,7 +136,7 @@ def max_threads(kernel: str, itemsize: int) -> int:
     ``__launch_bounds__``, which bound the registers per thread."""
     if kernel not in KERNELS:
         raise ValueError(f"kernel must be one of {KERNELS}, not {kernel!r}")
-    if kernel in ("lin", "contrib", "tt_lin", "tt_coupling", "tt_cost"):
+    if kernel in ("lin", "cost", "contrib", "tt_lin", "tt_coupling", "tt_cost"):
         return 512 if itemsize == 4 else 256
     return 512
 
@@ -143,13 +144,14 @@ def max_threads(kernel: str, itemsize: int) -> int:
 def slot_smem(kernel: str, warps: int, groups: int, np_cam: int, itemsize: int,
               want_od: bool = False) -> int:
     """Shared bytes of one block: the per-slot parts of the per-point sums
-    (9 values for B1 and B12, 3 for B2, B6 and B14, 1 for B16) aliased by
-    the warps' (32, cols + 1) row tiles, the per-point values shared back
-    (9, 3), B1's and B8's od factors and rows of the chunk's slots and the
-    one before it, each warp's (3, 32) int tile meta, and B6's (32,) int row
-    table per warp.  B12 shares nothing back; B14 and B16 have no row tile;
-    B5, B8, B13 and B15 have no per-point sum: their warps' (32, cols + 1)
-    row tiles and their meta (and B8's od values)."""
+    (9 values for B1 and B12, 3 for B2, B3, B6 and B14, 1 for B4 and B16)
+    aliased by the warps' (32, cols + 1) row tiles, the per-point values
+    shared back (9, 3), B1's and B8's od factors and rows of the chunk's
+    slots and the one before it, each warp's (3, 32) int tile meta, and
+    B6's (32,) int row table per warp.  B12 shares nothing back; B3, B4, B14
+    and B16 have no row tile; B5, B8, B13 and B15 have no per-point sum:
+    their warps' (32, cols + 1) row tiles and their meta (and B8's od
+    values)."""
     max_threads(kernel, itemsize)  # raises on an unknown kernel
     nw = warps * groups
     ints = nw * 96
@@ -164,9 +166,9 @@ def slot_smem(kernel: str, warps: int, groups: int, np_cam: int, itemsize: int,
         vals = nw * 32 * (TILE_COLS + 1)
     elif kernel == "tt_lin":
         vals = max(nw * 9 * 32, nw * 32 * (TILE_COLS + 1))
-    elif kernel == "tt_wt":
+    elif kernel in ("wt", "tt_wt"):
         vals, ints = nw * 3 * 32, 0
-    elif kernel == "tt_cost":
+    elif kernel in ("cost", "tt_cost"):
         vals, ints = nw * 32, 0
     elif kernel in ("tt_w", "w_rows"):
         vals = nw * 32 * (np_cam + 1)
@@ -187,20 +189,39 @@ class SlotGeometry(NamedTuple):
     smem: int  # shared bytes per block
 
 
+# The card's resident threads: 132 SMs of 2,048.
+CARD_THREADS = 132 * 2048
+WALK_KERNELS = ("wt", "cost")  # the kernels that can walk a track in one lane
+
+
+def walks_tracks(points: int) -> bool:
+    """Whether B3 and B4 walk each track in one lane (one warp per 32-point
+    group, ``warps`` = 1) on a bucket of ``points`` (G * Pc) point columns:
+    where the points alone fill the card's resident threads
+    (``CARD_THREADS``), as on the largest BAL buckets.  There one slot per
+    lane measured slower than one thread per point (PERF.md): each chunk's
+    warps wait at a block barrier for the slowest, where a lane that walks
+    its track needs none (csrc/wtt_kernels.cu)."""
+    return points >= CARD_THREADS
+
+
 def slot_geometry(kernel: str, tb: int, pc: int, np_cam: int, itemsize: int,
                   want_od: bool = False, limit: int = SMEM_PER_BLOCK,
-                  tile: int = 0) -> SlotGeometry:
-    """The geometry of B1 ("lin"), B2 ("coupling"), B5 ("w_rows"), B6
-    ("onehot"), B8 ("contrib"), B12 ("tt_lin"), B13 ("tt_coupling"), B14
-    ("tt_wt"), B15 ("tt_w") or B16 ("tt_cost") on a bucket of ``tb`` slots
-    per track and ``pc`` point columns: as many warps per group as the
-    track has slots, up to the kernel's thread limit (a longer track is cut
-    into balanced chunks);
-    short tracks share a block, up to ``TARGET_WARPS`` warps; groups, then
-    warps per group, shrink until the shared bytes (with ``tile`` bytes of
-    a block-wide tile) fit ``limit``."""
+                  tile: int = 0, walk: bool = False) -> SlotGeometry:
+    """The geometry of B1 ("lin"), B2 ("coupling"), B3 ("wt"), B4
+    ("cost"), B5 ("w_rows"), B6 ("onehot"), B8 ("contrib"), B12 ("tt_lin"),
+    B13 ("tt_coupling"), B14 ("tt_wt"), B15 ("tt_w") or B16 ("tt_cost") on a
+    bucket of ``tb`` slots per track and ``pc`` point columns: as many warps
+    per group as the track has slots, up to the kernel's thread limit (a
+    longer track is cut into balanced chunks); short tracks share a block,
+    up to ``TARGET_WARPS`` warps; groups, then warps per group, shrink until
+    the shared bytes (with ``tile`` bytes of a block-wide tile) fit
+    ``limit``.  With ``walk`` (B3 and B4, ``walks_tracks``) a lane walks
+    its point's whole track: one warp per group, a chunk per slot."""
+    if walk and kernel not in WALK_KERNELS:
+        raise ValueError(f"{kernel!r} does not walk a track in one lane")
     tb = max(int(tb), 1)
-    max_warps = max_threads(kernel, itemsize) // 32
+    max_warps = 1 if walk else max_threads(kernel, itemsize) // 32
     warps = -(-tb // -(-tb // max_warps))
     groups = max(1, min(TARGET_WARPS // warps, -(-pc // 32)))
 

@@ -21,9 +21,16 @@ slot order and shares y back, and z goes into the zeroed (np, W) rows
 through each warp's row tile, one atomic per (row, column) from every lane
 at once.  ``_wtt_common.slot_geometry`` gives its launch geometry.  On the
 H100 it is bound by those atomics on the medium buckets and by the jc/jp
-stream (2 np + 6 planes per slot) on the BAL ones.  B3 takes one thread
-per point column, has no cross-thread reduction and is bound by the jc/jp
-bytes it reads.  B5 (``csrc/wtt_route_kernels.cu``) is B2's phase 2 alone,
+stream (2 np + 6 planes per slot) on the BAL ones.  B3 is B2's phase 1
+alone, slot-major on B2's grid (``slot_geometry("wt")``): each lane reads
+its slot's wcam and, where the slot has a window row, its jc/jp and x, and
+one lane per point adds the W^T x parts in slot order and writes the
+point's planes once (where the bucket's points alone fill the card,
+``_wtt_common.walks_tracks``, each lane walks its point's whole track
+instead): no atomics, so its planes are deterministic and equal the
+ordered plain form's (``_wt_planes_ordered``) bit for bit; it is bound by
+the jc/jp bytes of the slots that have a row.  B5
+(``csrc/wtt_route_kernels.cu``) is B2's phase 2 alone,
 slot-major on B2's grid (``slot_geometry("w_rows")``): each lane reads its
 point's y and its slot's jc/jp and puts z through the warp's row tile; no
 per-point sum.  B5 keeps B15's second memory mode (``w_rows_memory_mode``):
@@ -65,6 +72,7 @@ from tpu3drecon_torch.ops._wtt_common import (
     slot_geometry,
     slot_index,
     split_round,
+    walks_tracks,
 )
 from tpu3drecon_torch.solvers.ba_tt import _sym3_matvec
 
@@ -135,6 +143,13 @@ def wtt_wt_planes_idx_plain(xw_t, wcam, jc, jp):
     return torch.stack(_wt_x(xw_t, wcam, jc, jp))
 
 
+def _wt_planes_ordered(xw_t, wcam, jc, jp):
+    """The plain version's planes summed in the kernel's order
+    (``_wt_x(ordered=True)``): bit-equal to the kernel's under
+    ``--fmad=false``.  Tests and ``chip_smoke.py`` hold B3 to it."""
+    return torch.stack(_wt_x(xw_t, wcam, jc, jp, ordered=True))
+
+
 def _check(name, xw_t, wcam, jc, jp, v_inv=None):
     np_cam = jc.shape[0] // 2
     _, g, tb, pc = jp.shape
@@ -178,18 +193,19 @@ def wtt_coupling_rows_idx(xw_t, wcam, jc, jp, v_inv, terms: int = 3):
 
 def wtt_wt_planes_idx(xw_t, wcam, jc, jp):
     """(W^T x) point planes (3, G, Pc) for one bucket (inputs as
-    ``wtt_coupling_rows_idx``).  CPU tensors run the plain version, CUDA
-    tensors the kernel."""
+    ``wtt_coupling_rows_idx``), each point's track summed in slot order.
+    CPU tensors run the plain version, CUDA tensors the kernel."""
     if not is_cuda_call(xw_t):
         return wtt_wt_planes_idx_plain(xw_t, wcam, jc, jp)
     name = "wtt_wt_planes_idx"
     np_cam, g, tb, pc, window = _check(name, xw_t, wcam, jc, jp)
+    geo = slot_geometry("wt", tb, pc, np_cam, xw_t.element_size(), walk=walks_tracks(g * pc))
     out = torch.empty((3, g, pc), dtype=xw_t.dtype, device=xw_t.device)
     lib = _build.library()
     code = lib.wtt_wt_planes(
         _build.dtype_code(xw_t.dtype), np_cam, xw_t.data_ptr(), wcam.data_ptr(),
-        jc.data_ptr(), jp.data_ptr(), out.data_ptr(), g, tb, pc, window,
-        _build.stream_ptr(xw_t.device),
+        jc.data_ptr(), jp.data_ptr(), out.data_ptr(), g, tb, pc, window, geo.warps,
+        geo.groups, geo.smem, _build.stream_ptr(xw_t.device),
     )
     _build.check(lib, name, code)
     WT_COUNTS.launched(_build.GLOBAL)
