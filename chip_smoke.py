@@ -35,7 +35,9 @@ Phases (any failure exits non-zero and prints no result line):
 6. The grid kernels B9-B11 against their plain versions on the card, on
    the linearization inputs of the medium problem in bucketed grid layout
    (``build_grid_problem``; initial parameters, lam = 1e-4), in float32 and
-   float64, B9 under all three losses.
+   float64, B9 under all three losses; B10 as the grid solve calls it, one
+   grouped call over the five track buckets (``point_normal_buckets``),
+   bit for bit (v_inv, g_pt and damp_pt; one log line per bucket).
 7. The grid path: ``ba_solve_pallas`` on the same problem with the same
    config: one warm-up solve and 3 timed solves.
 8. The dense track-table kernels B12-B16 against their plain versions on
@@ -59,12 +61,12 @@ Phases (any failure exits non-zero and prints no result line):
 11. The BAL-scale sequential problem: ``bal_sequential_wtt`` (1712
     cameras, 999,808 points, 3,808,166 observations, f32) built on the
     card, its build time and buckets logged.
-12. B1 and B8 with ``want_od``, and B3, B4 and B5, against their plain
-    versions on the BAL buckets (B3 and B4 also bit for bit against their
-    ordered plain forms): f32, where they are timed (B1 od and B8 od beside
-    B1 and B8 without od, B3, B4 and B5 as ``B3 [BAL]``, ``B4 [BAL]`` and
-    ``B5 [BAL]``), and f64 with window row 0 and the padded slots' planes
-    NaN.  Then the
+12. B1 and B8 with ``want_od``, and B3, B4, B5 and B7, against their
+    plain versions on the BAL buckets (B3 and B4 also bit for bit against
+    their ordered plain forms, B7 bit for bit): f32, where they are timed
+    (B1 od and B8 od beside B1 and B8 without od, B3, B4, B5 and B7 as ``B3
+    [BAL]``, ``B4 [BAL]``, ``B5 [BAL]`` and ``B7 [BAL]``), and f64 with
+    window row 0 and the padded slots' planes NaN.  Then the
     reduced-fidelity kernels against their plain versions at the same
     terms, f32, with window row 0 of the camera rows and of x NaN: B2 at
     terms 1 and 2 and B1 at terms 2 on the medium buckets (timed there
@@ -126,7 +128,8 @@ Tolerances, relative to max|plain|: per-element outputs 1e-5 (f32) and
 1e-12 (f64); summed outputs 1e-4 and 1e-10 (B1, B2, B5, B6 and B8 rows,
 B12's U|g columns, B13 and B15 are atomic sums whose order varies; B9's U
 and g and B11's blocks are block reductions in another order than the
-plain version's); B7 (a selection) exactly, and B3 and B4, which sum each
+plain version's); B7 (a selection) exactly, B10, which sums each point's
+rows in the plain version's order, exactly, and B3 and B4, which sum each
 point's slots in slot order with no atomics, exactly against their ordered
 plain forms.  Each row of the kernel table
 gives its ``mode``: the memory mode its wrapper counted during the timed
@@ -138,12 +141,13 @@ mode), which must match the row's label; B15's and B5's rows add
 ``global_ms``, the time of the same (poisoned) inputs with the
 global-memory mode forced.
 The rows ``B1 [hub]`` (the hub buckets), ``B1 od [np=10]`` (the BAL buckets
-with ``optimize_dist``), ``B3 [BAL]``, ``B4 [BAL]`` and ``B5 [BAL]`` (the
-BAL buckets), ``B12 [C=1024]``,
+with ``optimize_dist``), ``B3 [BAL]``, ``B4 [BAL]``, ``B5 [BAL]`` and ``B7
+[BAL]`` (the BAL buckets), ``B12 [C=1024]``,
 ``B13 [C=1024]``, ``B14 [C=1024]``, ``B15 [C=1024]`` (tt_seq1024, B15
 there in its global mode) and ``B16 [C=1024]`` time those kernels
-at the widths that a shared tile could not hold or does not serve (B5 and
-B16 on their second path), and count their launches on those paths.  The
+at the widths that a shared tile could not hold or does not serve (B5,
+B7 and B16 on their second path), and count their launches on those
+paths.  The
 rows ``B2 [terms 1]``, ``B2 [terms 2]`` and ``B1 [terms 2]`` (medium
 buckets) and ``B1 od [terms 2]`` (BAL buckets) time the reduced-fidelity
 kernels and count their launches on the split paths that run them; ``E4
@@ -153,8 +157,9 @@ times (``ms``, ``plain_ms``) are device times
 (``tpu3drecon_torch.benchmark.timing.device_ms``): the median
 of 20 calls, each with a cold L2 and timed by a CUDA-event pair that sees
 none of the call's host time, summed over one pass of the solve (the five
-buckets, or one linearization).  ``ms`` covers all the device work of the
-wrapper: the kernel, and for B9 the packing of the camera rows (as in the
+buckets, or one linearization; B10's pass is its one grouped call).
+``ms`` covers all the device work of the wrapper: the kernel, and for B9
+the packing of the camera rows (as in the
 JAX function), for B16 the sum of its per-point partials and the product
 by 0.5 (two PyTorch launches per bucket; a log line gives B16's kernel
 alone beside it, on the medium buckets and on tt_seq1024).  B7's
@@ -278,13 +283,15 @@ KERNELS = (
      GLOBAL),
     ("ops.tt_linearize", "W_COUNTS", "B15 [C=1024]", TT_SRC, f"{TT_PY}:475", {TT1024},
      GLOBAL),
-    # B3, B4 (the bal_seq path) and B5 (its bal_seq_tridiag_unfused path) on
-    # the BAL buckets, and B16 on the 1024-camera track table.
+    # B3, B4 (the bal_seq path), B5 and B7 (its bal_seq_tridiag_unfused
+    # path) on the BAL buckets, and B16 on the 1024-camera track table.
     ("ops.wtt_matvec", "WT_COUNTS", "B3 [BAL]", WTT_SRC, f"{MV_PY}:405", {BAL}, GLOBAL),
     ("ops.wtt_cost", "COUNTS", "B4 [BAL]", WTT_SRC, "tpu3drecon/ops/pallas/wtt_cost.py:94",
      {BAL}, GLOBAL),
     ("ops.wtt_matvec", "W_ROWS_COUNTS", "B5 [BAL]", ROUTE_SRC, f"{MV_PY}:468", {BAL_TRI},
      GLOBAL),
+    ("ops.wtt_linearize", "CAM_PLANES_COUNTS", "B7 [BAL]", ROUTE_SRC, f"{LIN_PY}:229",
+     {BAL_TRI}, None),
     ("ops.tt_linearize", "COST_COUNTS", "B16 [C=1024]", TT_SRC, f"{TT_PY}:512", {TT1024},
      GLOBAL),
     # The reduced-fidelity branches: B2 at terms 1 and 2, B1 (and B1 od) at
@@ -568,12 +575,24 @@ def route_planes(d, planes, cfg):
     return blocks.jc, blocks.jp, blocks.r, v_inv, g_pt
 
 
+def cam_planes_gather(d):
+    """B7's function as one PyTorch call on bucket ``d`` (its
+    ``library_ms``): ``torch.gather`` of the (G, 19, W + 1) window table,
+    its last row zero, by each slot's row (W for padding)."""
+    from tpu3drecon_torch.ops._wtt_common import slot_index
+
+    g, tb, pc, w = d["shape"]
+    tw_t = torch.cat([d["tw"], d["tw"].new_zeros(g, 1, 19)], dim=1)
+    tw_t = tw_t.transpose(1, 2).contiguous()
+    idx = slot_index(d["wcam"], w)[:, None, :].expand(g, 19, tb * pc)
+    return lambda: torch.gather(tw_t, 2, idx)
+
+
 def check_route_kernels(problem) -> None:
     """Phase 4: B5-B8 against their plain versions, f32 and f64, on the
     buckets with their dense one-hot; then padded slots against NaN."""
     from tpu3drecon_torch.ops import wtt_linearize as lin
     from tpu3drecon_torch.ops import wtt_matvec as mv
-    from tpu3drecon_torch.ops._wtt_common import slot_index
     from tpu3drecon_torch.solvers.ba_tt import _sym3_matvec
     from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
 
@@ -613,13 +632,9 @@ def check_route_kernels(problem) -> None:
                 continue
             slots = g * tb * pc
             b6 = (d["xw_t"], bucket.onehot, jc, jp, v_inv)
-            tw_t = torch.cat([d["tw"], d["tw"].new_zeros(g, 1, 19)], dim=1)
-            tw_t = tw_t.transpose(1, 2).contiguous()
-            idx = slot_index(d["wcam"], w)[:, None, :].expand(g, 19, tb * pc)
             account("wtt_cam_planes_idx", lambda: lin.wtt_cam_planes_idx(*b7),
                     lambda: lin.wtt_cam_planes_idx_plain(*b7),
-                    nbytes(d["wcam"], d["tw"], planes), 0,
-                    library=lambda: torch.gather(tw_t, 2, idx))
+                    nbytes(d["wcam"], d["tw"], planes), 0, library=cam_planes_gather(d))
             account("wtt_contrib_rows_idx", lambda: lin.wtt_contrib_rows_idx(*b8_sj),
                     lambda: lin.wtt_contrib_rows_idx_plain(*b8_sj),
                     nbytes(*b8_sj[:5], rows_sj), FLOPS["wtt_contrib_rows_idx"] * slots)
@@ -677,14 +692,15 @@ def adjacent_pairs(wcam, g: int, tb: int, pc: int) -> int:
 
 
 def check_od_kernels(bal) -> None:
-    """Phase 12: B1 and B8 with want_od, B5 (the W y rows of the same
-    tridiag path), and B3 and B4 (the back-substitution and cost of the
-    bal_seq path; also bit for bit against their ordered plain forms),
-    against their plain versions on the BAL buckets: f32 (timed there, B1
-    od and B8 od beside B1 and B8 without od, B3, B4 and B5 as the ``B3
-    [BAL]``, ``B4 [BAL]`` and ``B5 [BAL]`` rows), and f64 with NaN where only
-    padded slots read (rows of 350,360 and 294,912 bytes per group, which
-    no shared tile of the card could hold)."""
+    """Phase 12: B1 and B8 with want_od, B5 and B7 (the W y rows and the
+    camera planes of the same tridiag path), and B3 and B4 (the
+    back-substitution and cost of the bal_seq path; also bit for bit
+    against their ordered plain forms), against their plain versions on the
+    BAL buckets: f32 (timed there, B1 od and B8 od beside B1 and B8 without
+    od, B3, B4, B5 and B7 as the ``B3 [BAL]``, ``B4 [BAL]``, ``B5 [BAL]``
+    and ``B7 [BAL]`` rows), and f64 with NaN where only padded slots read
+    (rows of 350,360 and 294,912 bytes per group, which no shared tile of
+    the card could hold); B7 bit for bit."""
     from tpu3drecon_torch.geometry.losses import RobustLoss
     from tpu3drecon_torch.ops import wtt_cost
     from tpu3drecon_torch.ops import wtt_linearize as lin
@@ -704,8 +720,10 @@ def check_od_kernels(bal) -> None:
         err_b1 = max(compare("B1 od", "f32", k, a, b, summed if k == "rows" else elem)
                      for k, a, b in zip(lin_outs, got,
                                         lin.wtt_linearize_fused_idx_plain(*lin_args)))
-        jc, jp, r, v_inv, g_pt = route_planes(
-            d, lin.wtt_cam_planes_idx(d["wcam"], d["tw"], tb), cfg)
+        b7 = (d["wcam"], d["tw"], tb)
+        planes = lin.wtt_cam_planes_idx(*b7)
+        err_b7 = compare("B7 [BAL]", "f32", "", planes, lin.wtt_cam_planes_idx_plain(*b7), 0.0)
+        jc, jp, r, v_inv, g_pt = route_planes(d, planes, cfg)
         b8 = (d["wcam"], jc, jp, r, v_inv, 8, w, True, True)
         rows = lin.wtt_contrib_rows_idx(*b8)
         err_b8 = compare("B8 od", "f32", "", rows, lin.wtt_contrib_rows_idx_plain(*b8), summed)
@@ -719,8 +737,11 @@ def check_od_kernels(bal) -> None:
         pairs = adjacent_pairs(d["wcam"], g, tb, pc)
         log(f"check f32 od BAL bucket {bi} (G={g} Tb={tb} Pc={pc} W={w}, {pairs} pairs): "
             f"B1 od {err_b1:.3e} B8 od {err_b8:.3e} B5 {err_b5:.3e} B3 {err_b3:.3e} "
-            f"B4 {err_b4:.3e}")
+            f"B4 {err_b4:.3e} B7 {err_b7:.3e}")
         slots = g * tb * pc
+        account("B7 [BAL]", lambda: lin.wtt_cam_planes_idx(*b7),
+                lambda: lin.wtt_cam_planes_idx_plain(*b7), nbytes(d["wcam"], d["tw"], planes),
+                0, library=cam_planes_gather(d))
         account("B1 od", lambda: lin.wtt_linearize_fused_idx(*lin_args),
                 lambda: lin.wtt_linearize_fused_idx_plain(*lin_args),
                 nbytes(*lin_args[:7], *got),
@@ -755,6 +776,8 @@ def check_od_kernels(bal) -> None:
                      for k, a, b in zip(lin_outs, got,
                                         lin.wtt_linearize_fused_idx_plain(*lin_args)))
         planes = lin.wtt_cam_planes_idx(wcam, d["tw"], tb)
+        err_b7 = compare("B7 [BAL]", "f64", "poisoned", planes,
+                         lin.wtt_cam_planes_idx_plain(wcam, d["tw"], tb), 0.0)
         jc, jp, r, v_inv, g_pt = route_planes(d, planes, cfg)
         jc, jp, r = nan_on(pad, jc, jp, r)
         b8 = (wcam, jc, jp, r, v_inv, 8, w, True, True)
@@ -770,16 +793,19 @@ def check_od_kernels(bal) -> None:
         planes_b3 = mv.wtt_wt_planes_idx(d["xw_t"], wcam, *nan_on(pad, got[1], got[2]))
         err_b3, err_b4 = ordered_errs("B3 [BAL]", "B4 [BAL]", "f64 poisoned", planes_b3, b3,
                                       wtt_cost.wtt_cost_cols_idx(*b4), b4)
-        if not all(torch.isfinite(x).all() for x in (got[0], rows, rows_b5, planes_b3)):
+        if not all(torch.isfinite(x).all()
+                   for x in (got[0], rows, rows_b5, planes_b3, planes)):
             raise AssertionError("f64 od: a poisoned padded slot reached an output")
         log(f"check f64 od BAL bucket {bi} (G={g} Tb={tb} Pc={pc} W={w}, "
             f"{adjacent_pairs(wcam, g, tb, pc)} pairs, {int(pad.sum())} padded slots, "
             f"window row 0 NaN): B1 od {err_b1:.3e} B8 od {err_b8:.3e} B5 {err_b5:.3e} "
-            f"B3 {err_b3:.3e} B4 {err_b4:.3e}")
+            f"B3 {err_b3:.3e} B4 {err_b4:.3e} B7 {err_b7:.3e}")
 
 
 def check_grid_kernels(grid) -> None:
-    """Phase 6: B9-B11 against their plain versions, f32 and f64."""
+    """Phase 6: B9-B11 against their plain versions, f32 and f64; B10 as
+    the grid solve calls it, one grouped call over the track buckets, bit
+    for bit."""
     from tpu3drecon_torch.geometry.losses import RobustLoss
     from tpu3drecon_torch.ops import cam_normal, coupling, point_normal
     from tpu3drecon_torch.solvers.ba_pallas import (
@@ -818,24 +844,30 @@ def check_grid_kernels(grid) -> None:
                     FLOPS["cam_normal_fused"] * c * k)
 
         r, jp, jc, _, _ = want
-        v_parts = []
-        for bi, (jp_g, r_g) in enumerate(_track_gather(jp, r, grid)):
-            got = point_normal.point_normal_fused(jp_g, r_g, lam)
-            plain = point_normal.point_normal_fused_plain(jp_g, r_g, lam)
-            err = max(compare("point_normal_fused", tag, name, a, b, elem)
+        gathered = _track_gather(jp, r, grid)
+        jp_gs, r_gs = [x for x, _ in gathered], [y for _, y in gathered]
+        got = point_normal.point_normal_buckets(jp_gs, r_gs, lam)
+        plain = point_normal.point_normal_buckets_plain(jp_gs, r_gs, lam)
+        row = 0
+        for bi, (jp_g, r_g) in enumerate(gathered):
+            p, t2 = jp_g.shape[:2]
+            err = max(compare("point_normal_fused", tag, name, a[row:row + p], b[row:row + p],
+                              0.0)
                       for name, a, b in zip(("v_inv", "g_pt", "damp_pt"), got, plain))
-            log(f"check {tag} grid B10 bucket {bi} (P={jp_g.shape[0]} "
-                f"T2={jp_g.shape[1]}): {err:.3e}")
-            v_parts.append(plain[0])
-            if dtype == torch.float32:
-                account("point_normal_fused",
-                        lambda: point_normal.point_normal_fused(jp_g, r_g, lam),
-                        lambda: point_normal.point_normal_fused_plain(jp_g, r_g, lam),
-                        nbytes(jp_g, r_g, lam, *got),
-                        FLOPS["point_normal_row"] * r_g.numel()
-                        + FLOPS["point_normal_point"] * r_g.shape[0])
+            geo = point_normal.point_geometry(p, t2, jp_g.element_size(),
+                                              point_normal.card_sms(jp_g.device))
+            log(f"check {tag} grid B10 bucket {bi} (P={p} T2={t2}, {geo.blocks} blocks): "
+                f"{err:.3e}")
+            row += p
+        if dtype == torch.float32:
+            account("point_normal_fused",
+                    lambda: point_normal.point_normal_buckets(jp_gs, r_gs, lam),
+                    lambda: point_normal.point_normal_buckets_plain(jp_gs, r_gs, lam),
+                    nbytes(*jp_gs, *r_gs, lam, *got),
+                    sum(FLOPS["point_normal_row"] * r_g.numel()
+                        + FLOPS["point_normal_point"] * r_g.shape[0] for r_g in r_gs))
 
-        vinv6_g = _grid_planes(_vinv6(torch.cat(v_parts)[:p_num]), grid.pt_idx)
+        vinv6_g = _grid_planes(_vinv6(plain[0][:p_num]), grid.pt_idx)
         got = coupling.coupling_fused(jc, jp, vinv6_g)
         err = compare("coupling_fused", tag, "", got,
                       coupling.coupling_fused_plain(jc, jp, vinv6_g), summed)

@@ -1,12 +1,14 @@
 """The profile summary of tpu3drecon_torch.benchmark.profile_solve, checked
-on a synthetic Chrome trace, and the ``-Xptxas -v`` filter of
-tpu3drecon_torch.benchmark.wtt_bucket_times on compiler lines (neither
-needs a card)."""
+on a synthetic Chrome trace, the ``-Xptxas -v`` filter of
+tpu3drecon_torch.benchmark.wtt_bucket_times on compiler lines and the
+paired summary of tpu3drecon_torch.benchmark.paired_walls (none needs a
+card)."""
 
 import json
 
 import pytest
 
+from tpu3drecon_torch.benchmark.paired_walls import _summary
 from tpu3drecon_torch.benchmark.profile_solve import _intervals_union, summarize
 from tpu3drecon_torch.benchmark.wtt_bucket_times import ptxas_lines
 
@@ -44,6 +46,7 @@ def test_summarize_reads_a_chrome_trace(tmp_path):
 _TT = "_ZN46_GLOBAL__N__08e980a5_13_tt_kernels_cu_c6cf0c1e"
 _ROUTE = "_ZN53_GLOBAL__N__3aa39220_20_wtt_route_kernels_cu_4050bd3c"
 _WTT = "_ZN47_GLOBAL__N__bed1f45f_14_wtt_kernels_cu_d572d8fe"
+_GRID = "_ZN48_GLOBAL__N__1192525d_15_grid_kernels_cu_33655f32"
 
 
 @pytest.mark.parametrize("mangled,kept", [
@@ -57,13 +60,18 @@ _WTT = "_ZN47_GLOBAL__N__bed1f45f_14_wtt_kernels_cu_d572d8fe"
     (f"{_WTT}16wt_planes_kernelIfLi8ELb0EEEvPKT_PKsS3_S3_PS1_iiiiii", True),  # B3
     (f"{_WTT}11cost_kernelIfLb1EEEvPKsPKT_S5_S5_S5_PS3_iiiiiii", True),  # B4, walking
     (f"{_ROUTE}17cam_planes_kernelIfEEvPKsPKT_PS3_iiii", False),  # B7, one thread per slot
+    (f"{_GRID}24point_normal_rows_kernelIfEEvNS_9PnBucketsEPKT_PS3_S5_S5_S3_", True),  # B10
+    (f"{_GRID}15coupling_kernelIfEEvPKT_S3_S3_PS1_i", False),  # B11, one block per camera
+    (f"{_GRID}17cam_normal_kernelIfEEvPKT_S3_S3_S3_PS1_S4_S4_S4_S4_ii", False),  # B9
 ])
 def test_ptxas_lines_keep_the_slot_major_kernels(mangled, kept):
-    """The registers and spills of the slot-major B3-B5, B8 and B12-B16 are
-    kept, B7's (one thread per slot) dropped: the names are matched with
+    """The registers and spills of the slot-major B3-B5, B8 and B12-B16 and
+    of B10 (one launch over the track buckets) are kept, B7's (one thread
+    per slot) and the grid camera kernels' B9 and B11 (one block per camera
+    row) dropped: the names are matched with
     their length prefix (B4's cost_kernel and B16's tt_cost_kernel each by
     its own, B3's wt_planes_kernel not B7's cam_planes_kernel) and their
-    source."""
+    source (B2's coupling_kernel, not B11's of grid_kernels.cu)."""
     out = (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
            "ptxas info    : Function properties for x\n"
            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
@@ -71,3 +79,15 @@ def test_ptxas_lines_keep_the_slot_major_kernels(mangled, kept):
     lines = ptxas_lines(out)
     assert len(lines) == (3 if kept else 0)
     assert not kept or lines[-1].endswith("Used 64 registers, used 1 barriers")
+
+
+def test_paired_walls_summary():
+    """Medians, extremes and the paired differences this - base, pair by
+    pair in the order the walls were taken."""
+    out = _summary("grid", [1.0, 3.0, 2.0], [1.5, 2.0, 2.5], "card, 700.00 W")
+    assert (out["pairs"], out["base_median_s"], out["this_median_s"]) == (3, 2.0, 2.0)
+    assert (out["base_min_s"], out["base_max_s"]) == (1.0, 3.0)
+    assert (out["this_min_s"], out["this_max_s"]) == (1.5, 2.5)
+    assert out["diff_median_s"] == 0.5  # of +0.5, -1.0, +0.5
+    assert out["this_slower"] == 2
+    assert out["card"] == "card, 700.00 W"

@@ -8,7 +8,8 @@ bit expansion); the slot-major B1-B6, B8 and B12-B16 also on tracks
 longer than one block's chunk, all-padding buckets, the hub layout's width
 and warps whose lanes hit different rows (B3, B4, B14 and B16 bit for bit
 against their plain versions summed in slot order); B6 at every one-hot
-load width.
+load width; B7 on many groups and the hub's widest windows and B10's
+grouped call over many buckets, both bit for bit.
 The kernels read camera rows from device memory and reduce into the output
 rows directly, so wide windows and camera axes run: one input per kernel
 family past the card's shared memory per block.  B15 also keeps a
@@ -1072,3 +1073,98 @@ def test_tt_slot_major_b12_b14_match_plain(dev, dtype, c, tb, pb, np_cam, loss, 
     _close(tt_linearize.tt_cost_fused(*b16), tt_linearize.tt_cost_fused_plain(*b16),
            TOL[dtype][0], f"B16 C={c} Tb={tb} {cams} {loss}")
     assert [c_.kernel - b for c_, b in zip(counts, before)] == [1, 1, 1, 2]
+
+
+def _pn_buckets(dev, dtype, shapes, seed, offset=()):
+    """B10 track rows of buckets of (P, T2): 30 % of the rows zero (padded
+    track entries) and point 0 of each bucket with every row zero (a point
+    that no row observes).  Buckets whose index is in ``offset`` lie one
+    element into a larger buffer (their spans off the 16-byte vectors)."""
+    rng = np.random.default_rng(seed)
+    jps, rs = [], []
+    for b, (p, t2) in enumerate(shapes):
+        jp = rng.normal(size=(p, t2, 3))
+        r = rng.normal(size=(p, t2))
+        zero = rng.random((p, t2)) < 0.3
+        zero[0] = True
+        jp[zero] = 0.0
+        r[zero] = 0.0
+        k = int(b in offset)
+        for arr, out in ((jp, jps), (r, rs)):
+            buf = torch.empty(arr.size + k, dtype=dtype, device=dev)
+            view = buf[k:].view(arr.shape)
+            view.copy_(torch.as_tensor(arr, dtype=dtype))
+            out.append(view)
+    return jps, rs
+
+
+PN_CASES = [  # (dtype, buckets (P, T2), buckets one element off the vectors)
+    (torch.float32, [(257, 4), (1, 6), (300, 8), (130, 16), (77, 24), (40, 40)], ()),
+    (torch.float64, [(257, 4), (1, 6), (300, 8), (130, 16), (77, 24), (40, 40)], ()),
+    # Nine buckets: two launches; T2 300: one point's rows in two chunks.
+    (torch.float64, [(67, 2), (5, 3), (129, 4), (64, 6), (1, 8), (33, 12), (9, 16),
+                     (20, 24), (3, 300)], (1, 3)),
+    (torch.float32, [(1000, 2), (2, 1), (3, 257), (70, 6)], (0, 3)),
+]
+
+
+@pytest.mark.parametrize("dtype,shapes,offset", PN_CASES)
+def test_point_normal_buckets_bit_for_bit(dev, dtype, shapes, offset):
+    """B10's grouped call against the concatenated plain version, bit for
+    bit (v_inv too: the same IEEE division), on buckets of T2 1-300 with P
+    not a multiple of the points per block, a one-point bucket, a point
+    with no observed row, spans off the 16-byte vectors and more buckets
+    than one launch takes; each bucket alone through point_normal_fused
+    gives the same rows."""
+    jps, rs = _pn_buckets(dev, dtype, shapes, seed=len(shapes) + len(offset), offset=offset)
+    lam = torch.tensor(1e-4, dtype=dtype, device=dev)
+    before = point_normal.COUNTS.kernel
+    got = point_normal.point_normal_buckets(jps, rs, lam)
+    torch.cuda.synchronize()
+    assert point_normal.COUNTS.kernel - before == -(-len(shapes) // point_normal.MAX_BUCKETS)
+    want = point_normal.point_normal_buckets_plain(jps, rs, lam)
+    for name, a, b in zip(("v_inv", "g_pt", "damp_pt"), got, want):
+        assert a.shape == b.shape, name
+        assert torch.equal(a, b), f"{name}: max|diff| {float((a - b).abs().max()):.3e}"
+    row = 0
+    for jp, r in zip(jps, rs):
+        p = jp.shape[0]
+        for name, a, b in zip(("v_inv", "g_pt", "damp_pt"),
+                              point_normal.point_normal_fused(jp, r, lam), got):
+            assert torch.equal(a, b[row:row + p]), name
+        row += p
+
+
+B7_CASES = [  # (dtype, G, W, Tb, Pc)
+    (torch.float32, 1, 128, 2, 300),
+    (torch.float32, 3, 128, 3, 301),  # N = 903, not a multiple of the block
+    (torch.float64, 2, 256, 4, 513),
+    (torch.float64, 2, 256, 3, 301),
+    (torch.float32, 14, 256, 4, 4096),  # many blocks per group
+    (torch.float32, 1, 1664, 12, 512),  # the hub's widest window
+    (torch.float64, 1, 1664, 12, 512),
+]
+
+
+@pytest.mark.parametrize("dtype,g,w,tb,pc", B7_CASES)
+def test_cam_planes_bit_for_bit(dev, dtype, g, w, tb, pc):
+    """B7 bit for bit against its plain version: window row 0 is NaN and
+    only padded slots point at it, so a kernel that read it for a padded
+    slot would give NaN where the plain version gives zeros; a wcam one
+    element off its 16-byte alignment gives the same planes."""
+    d = _inputs(dev, dtype, g, w, tb, 8, seed=g + w + tb + pc, pc=pc)
+    wcam = torch.where(d["wcam"] == 0, torch.full_like(d["wcam"], -1), d["wcam"])
+    tw = d["tw"].clone()
+    tw[:, 0] = float("nan")
+    want = wtt_linearize.wtt_cam_planes_idx_plain(wcam, tw, tb)
+    pad = (wcam < 0).reshape(g, tb, pc)
+    assert (want.transpose(0, 1)[:, pad] == 0).all()
+    before = wtt_linearize.CAM_PLANES_COUNTS.kernel
+    got = wtt_linearize.wtt_cam_planes_idx(wcam, tw, tb)
+    torch.cuda.synchronize()
+    assert wtt_linearize.CAM_PLANES_COUNTS.kernel == before + 1
+    assert torch.equal(got, want)
+    buf = torch.empty(wcam.numel() + 1, dtype=torch.int16, device=dev)
+    off = buf[1:].view(wcam.shape)
+    off.copy_(wcam)
+    assert torch.equal(wtt_linearize.wtt_cam_planes_idx(off, tw, tb), want), "off the vectors"

@@ -181,3 +181,96 @@ def test_cpu_tensors_run_the_plain_versions(planes):
     meta = torch.empty((1, 16, 8), device="meta")
     with pytest.raises(ValueError, match="device"):
         coupling.coupling_fused(meta, meta, meta)
+
+
+BUCKETS = [(37, 4), (1, 6), (64, 8), (9, 24), (5, 40)]  # (P, T2) of the grouped tests
+
+
+def _buckets(seed):
+    """numpy (jp_g, r_g) of ``BUCKETS``: each observation two rows (u and
+    v), 30 % of the observations zero (padded track entries), and point 0
+    of each bucket with every row zero."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for p, t2 in BUCKETS:
+        jp, r = rng.normal(size=(p, t2, 3)), rng.normal(size=(p, t2))
+        zero = np.repeat(rng.random((p, t2 // 2)) < 0.3, 2, axis=1)
+        zero[0] = True
+        jp[zero], r[zero] = 0.0, 0.0
+        out.append((jp, r))
+    return out
+
+
+def test_point_normal_buckets_matches_plain_and_pallas():
+    """B10's grouped call (f64, CPU: its plain version) equals each bucket's
+    ``point_normal_fused_plain`` concatenated, bit for bit, and JAX's
+    ``point_normal_fused`` per bucket (interpret mode, one block of the
+    bucket's points) to rtol 1e-10 with atol 1e-12 * max|ref|."""
+    buckets = _buckets(seed=71)
+    lam = torch.tensor(LAM, dtype=torch.float64)
+    got = point_normal.point_normal_buckets([_t(jp) for jp, _ in buckets],
+                                            [_t(r) for _, r in buckets], lam)
+    assert [tuple(x.shape) for x in got] == [(116, 3, 3), (116, 3), (116, 3)]
+    row = 0
+    for jp, r in buckets:
+        p = jp.shape[0]
+        plain = point_normal.point_normal_fused_plain(_t(jp), _t(r), lam)
+        want = j_point(jnp.asarray(jp), jnp.asarray(r), jnp.asarray(LAM), block_points=p,
+                       interpret=True)
+        for name, a, b, c in zip(("v_inv", "g_pt", "damp_pt"), got, plain, want):
+            assert torch.equal(a[row:row + p], b), name
+            assert_close(a[row:row + p], c, RTOL, ATOL_REL, err_msg=name)
+        assert (got[1][row] == 0).all()  # the point no row observes
+        row += p
+
+
+def test_point_normal_buckets_cpu_runs_the_plain_version():
+    """On CPU tensors the grouped call runs the plain version once per bucket
+    and never the kernel; an empty list or unmatched lists raise."""
+    buckets = _buckets(seed=72)
+    before = (point_normal.COUNTS.kernel, point_normal.COUNTS.plain)
+    point_normal.point_normal_buckets([_t(jp) for jp, _ in buckets],
+                                      [_t(r) for _, r in buckets], torch.tensor(LAM))
+    assert (point_normal.COUNTS.kernel, point_normal.COUNTS.plain) == (
+        before[0], before[1] + len(buckets))
+    with pytest.raises(ValueError, match="at least one bucket"):
+        point_normal.point_normal_buckets([], [], torch.tensor(LAM))
+    with pytest.raises(ValueError, match="one r_g per jp_g"):
+        point_normal.point_normal_buckets([_t(buckets[0][0])], [], torch.tensor(LAM))
+
+
+@pytest.mark.parametrize("p,t2,sms,want", [
+    # The medium grid problem's five track buckets in f32 on a card of 132
+    # SMs (the H100 SXM), worked by hand:
+    # points = min(128, 512 // T2, ceil(P / SMs)), blocks = ceil(P / points),
+    # shared = (max(4 * 512 + 8, up4(9 points) + 2 up4(3 points) + 12)
+    #           + 9 points (T2 | 1)) * 4 bytes.
+    (67584, 4, 132, (128, 528, (2056 + 9 * 640) * 4)),
+    (18432, 6, 132, (85, 217, (2056 + 9 * 595) * 4)),
+    (9216, 8, 132, (64, 144, (2056 + 9 * 576) * 4)),
+    (5632, 16, 132, (32, 176, (2056 + 9 * 544) * 4)),
+    (512, 24, 132, (4, 128, (2056 + 9 * 100) * 4)),  # 21 per chunk, 4 fill 128 blocks
+    # On 114 SMs (the H100 PCIe) the last bucket takes 5 points per block.
+    (512, 24, 114, (5, 103, (2056 + 9 * 125) * 4)),
+])
+def test_point_geometry_medium_pins(p, t2, sms, want):
+    assert tuple(point_normal.point_geometry(p, t2, 4, sms)) == want
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_point_geometry_covers_every_point_once(itemsize, sms):
+    """Every point of a bucket lies in exactly one block, a block of several
+    points fits one chunk of rows, and the shared bytes stay under the
+    card's limit, for T2 from 0 to 2,000 and P from 1 to 200,000, on cards
+    of 132 and 114 SMs."""
+    from tpu3drecon_torch.ops._wtt_common import SMEM_PER_BLOCK
+
+    for t2 in list(range(0, 64)) + [100, 255, 256, 257, 511, 512, 513, 2000]:
+        for p in (1, 2, 3, 113, 114, 115, 131, 132, 133, 1000, 67584, 200_000):
+            geo = point_normal.point_geometry(p, t2, itemsize, sms)
+            assert 1 <= geo.points <= point_normal.MAX_POINTS
+            assert (geo.blocks - 1) * geo.points < p <= geo.blocks * geo.points
+            assert geo.points == 1 or geo.points * t2 <= point_normal.CHUNK
+            assert geo.smem <= SMEM_PER_BLOCK
+            assert geo.smem == point_normal.point_smem(geo.points, t2, itemsize)

@@ -61,7 +61,7 @@ SPANS = ("band_precond_factor", "band_precond_apply")
 # The port's kernels (csrc/*.cu) as named in a trace: "...::<name><...>(...)".
 PORT_KERNELS = ("lin_kernel", "coupling_kernel", "wt_planes_kernel", "cost_kernel",
                 "w_rows_kernel", "onehot_coupling_kernel", "cam_planes_kernel",
-                "contrib_kernel", "cam_normal_kernel", "point_normal_kernel",
+                "contrib_kernel", "cam_normal_kernel", "point_normal_rows_kernel",
                 "tt_cam_normal_kernel", "tt_coupling_kernel", "tt_wt_times_kernel",
                 "tt_w_times_kernel", "tt_cost_kernel")
 

@@ -1,21 +1,22 @@
-"""Per-bucket device times of the slot-major kernels on the CUDA card, B1
+"""Per-bucket device times of the redesigned kernels on the CUDA card, B1
 (``wtt_linearize_fused_idx``), B2 (``wtt_coupling_rows_idx``), B3
 (``wtt_wt_planes_idx``), B4 (``wtt_cost_cols_idx``), B5
-(``wtt_w_rows_idx``), B6 (``wtt_coupling_rows_fused``), B8
-(``wtt_contrib_rows_idx``), B12 (``tt_cam_normal_fused``), B13
-(``tt_coupling_fused``), B14 (``tt_wt_times_fused``), B15
-(``tt_w_times_fused``) and B16 (``tt_cost_fused``), and the registers,
-shared memory and spills that ``nvcc -Xptxas -v`` reports for their
-instantiations.
+(``wtt_w_rows_idx``), B6 (``wtt_coupling_rows_fused``), B7
+(``wtt_cam_planes_idx``), B8 (``wtt_contrib_rows_idx``), B10
+(``point_normal_fused`` per grid track bucket, ``point_normal_buckets``
+per pass), B12 (``tt_cam_normal_fused``), B13 (``tt_coupling_fused``), B14
+(``tt_wt_times_fused``), B15 (``tt_w_times_fused``) and B16
+(``tt_cost_fused``), and the registers, shared memory and spills that
+``nvcc -Xptxas -v`` reports for their instantiations.
 
     python -m tpu3drecon_torch.benchmark.wtt_bucket_times [--tt | --w-rows-sweep]
 
 ``chip_smoke.py`` sums each kernel over the buckets of a pass; this script
 prints every bucket, each time a ``device_ms`` (median of 20 cold-L2 calls
 by CUDA events) at f32, at the initial parameters and lam = 1e-4, as
-``chip_smoke.py`` forms its kernel inputs: B1, B2, B3, B4, B5 and B8 (B8
-without and with the Schur-Jacobi columns, ``sj=0`` / ``sj=1``; B2, B3, B5
-and B8 on B1's jc/jp/V^-1, random residuals and random y) on the medium
+``chip_smoke.py`` forms its kernel inputs: B1, B2, B3, B4, B5, B7 and B8
+(B8 without and with the Schur-Jacobi columns, ``sj=0`` / ``sj=1``; B2, B3,
+B5 and B8 on B1's jc/jp/V^-1, random residuals and random y) on the medium
 problem (100 cameras, 100k points), on the BAL sequential problem (1712
 cameras, with B1 od and B8 od), on its split-window packing (windows of 128 and 256
 rows over many groups) and on the BAL hub problem; B6 on the medium
@@ -23,7 +24,10 @@ problem with its int8 and its float32 one-hot; B12-B16 on the medium problem in
 track-table layout and on ``tt_seq1024`` (1024 cameras, 256 points each;
 B13 on random V^-1 planes), B16 also as its kernel alone (``B16 kernel``:
 the profiler's mean time of its kernel, without the wrapper's sum and
-product); with ``--tt`` only those five.  A wrapper that takes a private
+product); with ``--tt`` only those five; B10 on the medium problem's five
+grid track buckets (B9's r/jp planes gathered as the grid solve gathers
+them), each alone and as one pass, the grouped ``point_normal_buckets``.
+A wrapper that takes a private
 ``_mode`` (a memory mode to force, as B5 and B15 do) is also timed with
 each mode forced.  ``--w-rows-sweep`` times only B5's two memory modes, on
 single-group slices of the medium, BAL sequential and BAL hub buckets at
@@ -49,28 +53,34 @@ import torch
 from tpu3drecon_torch.benchmark.timing import L2_FLUSH_BYTES, card_line, device_ms
 
 # B1, B2 and B6 (coupling_kernel in wtt_route_kernels.cu; an older tree's
-# onehot_coupling_kernel), B3, B4, B5, B8, B12, B13, B14, B15 and B16;
-# matched with their length prefix in the mangled names, so that
-# "coupling_kernel" (B2, B6) does not also match tt_coupling_kernel (B13),
-# nor "cost_kernel" (B4) tt_cost_kernel (B16).
-_PTXAS_KERNELS = ("lin_kernel", "coupling_kernel", "onehot_coupling_kernel", "wt_planes_kernel",
-                  "cost_kernel", "contrib_kernel", "w_rows_kernel", "tt_cam_normal_kernel",
-                  "tt_coupling_kernel", "tt_wt_times_kernel", "tt_w_times_kernel",
-                  "tt_cost_kernel")
-_PTXAS_SOURCES = ("_wtt_kernels_cu", "_wtt_terms_kernels_cu", "_wtt_route_kernels_cu",
-                  "_tt_kernels_cu")
+# onehot_coupling_kernel), B3, B4, B5, B8, B10, B12, B13, B14, B15 and B16,
+# each with the sources it is compiled in; matched with their length
+# prefix in the mangled names, so that "coupling_kernel" (B2, B6) does not
+# also match tt_coupling_kernel (B13), nor "cost_kernel" (B4) tt_cost_kernel
+# (B16), and with their source, so that B11's coupling_kernel of
+# grid_kernels.cu is not kept.
+_WTT_SOURCES = ("_wtt_kernels_cu", "_wtt_terms_kernels_cu", "_wtt_route_kernels_cu")
+_PTXAS_KERNELS = {
+    **dict.fromkeys(("lin_kernel", "coupling_kernel", "onehot_coupling_kernel",
+                     "wt_planes_kernel", "cost_kernel", "contrib_kernel", "w_rows_kernel"),
+                    _WTT_SOURCES),
+    **dict.fromkeys(("tt_cam_normal_kernel", "tt_coupling_kernel", "tt_wt_times_kernel",
+                     "tt_w_times_kernel", "tt_cost_kernel"), ("_tt_kernels_cu",)),
+    "point_normal_rows_kernel": ("_grid_kernels_cu",),
+}
 
 
 def ptxas_lines(compiler_out: str) -> list[str]:
-    """The ``-Xptxas -v`` lines of B1-B6's, B8's and B12-B16's
+    """The ``-Xptxas -v`` lines of B1-B6's, B8's, B10's and B12-B16's
     instantiations: each entry function's line with the lines that follow
     it up to the next entry."""
     out, keep = [], False
     for line in compiler_out.splitlines():
         if "entry function" in line:
             name = re.search(r"'([^']*)'", line)
-            keep = (bool(name) and any(f"{len(k)}{k}" in name.group(1) for k in _PTXAS_KERNELS)
-                    and any(s in name.group(1) for s in _PTXAS_SOURCES))
+            keep = bool(name) and any(
+                f"{len(k)}{k}" in name.group(1) and any(s in name.group(1) for s in sources)
+                for k, sources in _PTXAS_KERNELS.items())
         if keep and ("entry function" in line or "registers" in line or "spill" in line
                      or "smem" in line):
             out.append(line.strip())
@@ -139,8 +149,8 @@ def _print_rows(label: str, rows: list[dict]) -> None:
 
 
 def time_buckets(label: str, problem, od: bool) -> list[dict]:
-    """B1, B2, B3, B4, B5 and B8 (``sj`` 0 and 1; with ``od`` also B1 od and
-    B8 od) per bucket of ``problem``."""
+    """B1, B2, B3, B4, B5, B7 and B8 (``sj`` 0 and 1; with ``od`` also B1 od
+    and B8 od) per bucket of ``problem``."""
     from tpu3drecon_torch.geometry.losses import RobustLoss
     from tpu3drecon_torch.ops import wtt_cost
     from tpu3drecon_torch.ops import wtt_linearize as lin
@@ -169,11 +179,49 @@ def time_buckets(label: str, problem, od: bool) -> list[dict]:
                "B8 sj=1": device_ms(lambda: lin.wtt_contrib_rows_idx(*b8, True))}
         _time_modes(row, "B5", mv.wtt_w_rows_idx,
                     lambda **kw: mv.wtt_w_rows_idx(y, d["wcam"], jc, jp, w, **kw))
+        row["B7"] = device_ms(lambda: lin.wtt_cam_planes_idx(d["wcam"], d["tw"], tb))
         if od:
             row["B1 od"] = device_ms(lambda: lin.wtt_linearize_fused_idx(*args, True))
             row["B8 od"] = device_ms(lambda: lin.wtt_contrib_rows_idx(*b8, True, True))
         rows.append(row)
     _print_rows(label, rows)
+    return rows
+
+
+CAM_FIELDS = ("rmats", "tvecs", "fx_fy", "cx_cy_skew", "dist")
+
+
+def time_grid_buckets(label: str, grid, lam_value=1e-4) -> list[dict]:
+    """B10 on the track buckets of a grid ``problem`` (f32, initial
+    parameters): ``point_normal_fused`` per bucket, and one pass over all
+    of them, the grouped ``point_normal_buckets`` (the last row, bucket
+    "pass")."""
+    from tpu3drecon_torch.ops import cam_normal, point_normal
+    from tpu3drecon_torch.solvers.ba_pallas import (
+        _grid_planes,
+        _inv_w,
+        _track_gather,
+        _uv_planes,
+    )
+
+    dtype = torch.float32
+    cams = grid.cameras
+    r, jp, _, _, _ = cam_normal.cam_normal_fused(
+        *(getattr(cams, f).to(dtype) for f in CAM_FIELDS),
+        _grid_planes(grid.points3d.to(dtype), grid.pt_idx), _uv_planes(grid).to(dtype),
+        grid.mask.to(dtype), _inv_w(grid, dtype))
+    gathered = _track_gather(jp, r, grid)
+    lam = torch.tensor(lam_value, dtype=dtype, device=jp.device)
+    rows = []
+    for bi, (jp_g, r_g) in enumerate(gathered):
+        rows.append({"problem": label, "bucket": bi,
+                     "shape": f"P={jp_g.shape[0]} T2={jp_g.shape[1]}",
+                     "B10": device_ms(lambda: point_normal.point_normal_fused(jp_g, r_g, lam))})
+    _print_rows(label, rows)
+    jp_gs, r_gs = [x for x, _ in gathered], [y for _, y in gathered]
+    ms = device_ms(lambda: point_normal.point_normal_buckets(jp_gs, r_gs, lam))
+    print(f"{label} B10 pass (one grouped call): {ms:.6f} ms", flush=True)
+    rows.append({"problem": label, "bucket": "pass", "shape": "one grouped call", "B10": ms})
     return rows
 
 
@@ -354,7 +402,11 @@ def main() -> int:
         print("wtt_bucket_times: no CUDA device", file=sys.stderr)
         return 2
     from tpu3drecon_torch.benchmark.balscale import bal_hub_wtt, bal_sequential_wtt
-    from tpu3drecon_torch.benchmark.medium_config import build_problem, build_tt_problem
+    from tpu3drecon_torch.benchmark.medium_config import (
+        build_grid_problem,
+        build_problem,
+        build_tt_problem,
+    )
     from tpu3drecon_torch.ops import _build
     from tpu3drecon_torch.problems.wtt import wtt_from_flat
 
@@ -377,6 +429,7 @@ def main() -> int:
     rows = time_tt_buckets("medium tt", build_tt_problem(dev))
     rows += time_tt_buckets("tt_seq1024", tt_seq1024(dev))
     if "--tt" not in sys.argv[1:]:
+        rows += time_grid_buckets("medium grid", build_grid_problem(dev, torch.float32))
         flat = build_problem(dev)
         rows += time_onehot_buckets("medium one-hot", wtt_from_flat(flat, defer_onehot=False,
                                                                     device=dev))

@@ -10,33 +10,40 @@
 //
 // Layouts are the JAX package's: component-major (C, comp, K) planes with
 // the observation axis K contiguous, so a warp's 32 lanes read and write 32
-// neighbouring addresses of one plane.
+// neighbouring addresses of one plane; point_normal's track rows are
+// row-major per point, (P, T2, 3) and (P, T2).
 //
 // What bounds them on the H100: all three move far more bytes than they
 // compute on.  At the medium shapes (C = 100, K = 2048, f32) cam_normal
 // reads 6 planes and writes 24 (~24.6 MB, ~7.3 us at 3.35 TB/s against
 // ~1.2 us of float32 arithmetic at 67 TFLOP/s); coupling reads 28 planes
-// (~22.9 MB, ~6.8 us); point_normal reads 16 B per track entry and writes
+// (~22.9 MB, ~6.8 us); point_normal reads 16 B per track row and writes
 // 60 B per point (~15 MB over the five track buckets, ~4.5 us).  What the
-// design does about it: every per-lane intermediate (the camera Jacobian
-// rows, W = jc^T jp, T = W V^-1) stays in registers, each input byte is
-// read once, and the per-camera reductions (36 U + 8 g sums, 36 coupling
-// sums) are register partials reduced once per block with warp shuffles
-// and shared memory — no atomics, so every sum is deterministic.  The
-// camera kernels run one block per camera row: 100 blocks on 132 SMs is
-// under one wave, so at the medium size they cannot reach the byte bound;
-// splitting K across blocks is later work.
+// design does about it: the camera kernels keep every per-lane
+// intermediate (the camera Jacobian rows, W = jc^T jp, T = W V^-1) in
+// registers, read each input byte once, and reduce the per-camera sums (36
+// U + 8 g sums, 36 coupling sums) as register partials once per block with
+// warp shuffles and shared memory — no atomics, so every sum is
+// deterministic.  They run one block per camera row: 100 blocks on 132 SMs
+// is under one wave, so at the medium size they cannot reach the byte
+// bound; splitting K across blocks is later work.  point_normal runs one
+// launch over all the track buckets of a linearization (each block finds
+// its bucket in a by-value table), stages each block's contiguous row
+// spans through shared memory with 16-byte loads and stores, gives every
+// track row a lane and sums each point's rows in one lane in row order.
 //
 // Built with --fmad=false (ops/_build.py): every product and sum rounds on
 // its own, as PyTorch's elementwise ops round them, so the per-element
-// outputs match the plain versions to the last bits and only the reduced
-// outputs (U, g, coupling) differ by summation order.
+// outputs match the plain versions to the last bits (point_normal's too,
+// whose sums run in the plain version's order) and only the per-camera
+// reduced outputs (U, g, coupling) differ by summation order.
 //
-// Every C entry returns cudaGetLastError() after its launch, or kErrDtype
-// (common.cuh).  The kernels allocate nothing; lam is read from device
-// memory, so no launch needs a host sync.
+// Every C entry returns cudaGetLastError() after its launches, or a
+// negative code of common.cuh.  The kernels allocate nothing; lam is read
+// from device memory, so no launch needs a host sync.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "common.cuh"
 
@@ -196,65 +203,165 @@ cam_normal_kernel(const T* __restrict__ params, const T* __restrict__ xw,
 }
 
 // ---------------------------------------------------------------- B10 ---
-// One thread per point, its T2 track rows read in order.  No sum crosses
-// threads: a point's V, g and inverse never leave its registers.
+// One launch over up to kPnBuckets track buckets, whose pointers, sizes and
+// output rows travel by value in PnBuckets.  A block owns `ppb` consecutive
+// points of one bucket (ops/point_normal.py point_geometry), i.e. one
+// contiguous span of jp_g (P, T2, 3) and of r_g (P, T2), and per chunk of
+// kPnChunk track rows:
+//   1. stages the chunk's two spans into shared memory with 16-byte
+//      cp.async copies, all in flight at once;
+//   2. lane j forms the 9 products (6 of V, 3 of g) of rows j and j +
+//      kPnThreads into shared memory, row (p, t) at slot p * T2s + t (T2s =
+//      T2 | 1, an odd stride: the per-point reads of step 3 fall on
+//      distinct banks);
+//   3. one lane per point adds its rows' products from zero in row order
+//      (point_normal_fused_plain's order: the sums are bit-equal).
+// Two rows per lane let the medium problem's 557,056 rows run in about one
+// wave of resident blocks.  A point with more than kPnChunk rows is a block
+// of its own (ppb = 1) and its rows come in several chunks, still added in
+// order.  Then the
+// point's lane forms the damping and the adjugate inverse in registers,
+// stages its 15 outputs, and the block writes its three output spans
+// (v_inv, g, damp) with 16-byte stores.
+constexpr int kPnThreads = 256;   // lanes per block
+constexpr int kPnChunk = 2 * kPnThreads;  // track rows per chunk: two per lane
+constexpr int kPnMaxPoints = 128;  // points per block at most
+constexpr int kPnBuckets = 8;     // buckets per launch
+
+struct PnBuckets {
+  const void* jp[kPnBuckets];
+  const void* r[kPnBuckets];
+  int P[kPnBuckets];
+  int T2[kPnBuckets];
+  int ppb[kPnBuckets];               // points per block
+  int row0[kPnBuckets];              // the bucket's first output row
+  int block0[kPnBuckets + 1];        // the bucket's first block; block0[n] = grid
+  int n;
+};
+
+// The shared layout of one block (elements of T): the staged inputs of a
+// chunk, later the staged outputs (io), then the (9, RS) products.
+__host__ __device__ constexpr bool pn_chunked(int ppb, int T2) { return ppb * T2 > kPnChunk; }
+__host__ __device__ constexpr int pn_rs(int ppb, int T2) {
+  return pn_chunked(ppb, T2) ? kPnChunk : ppb * (T2 | 1);
+}
 template <typename T>
-__global__ void __launch_bounds__(kBlock)
-point_normal_kernel(const T* __restrict__ jp_g, const T* __restrict__ r_g,
-                    const T* __restrict__ lam_p, T* __restrict__ vinv_out,
-                    T* __restrict__ g_out, T* __restrict__ damp_out, int P,
-                    int T2, T diag_floor) {
-  const int pt = blockIdx.x * kBlock + threadIdx.x;
-  if (pt >= P) return;  // the ragged edge: no padding to a block multiple
-  const T* jp = jp_g + (size_t)pt * T2 * 3;
-  const T* r = r_g + (size_t)pt * T2;
-  T v00 = T(0), v01 = T(0), v02 = T(0), v11 = T(0), v12 = T(0), v22 = T(0);
-  T g0 = T(0), g1 = T(0), g2 = T(0);
-  for (int t = 0; t < T2; ++t) {
-    const T c0 = jp[3 * t], c1 = jp[3 * t + 1], c2 = jp[3 * t + 2];
-    const T rt = r[t];
-    v00 += c0 * c0;
-    v01 += c0 * c1;
-    v02 += c0 * c2;
-    v11 += c1 * c1;
-    v12 += c1 * c2;
-    v22 += c2 * c2;
-    g0 += c0 * rt;
-    g1 += c1 * rt;
-    g2 += c2 * rt;
+__host__ __device__ constexpr int pn_io(int ppb) {
+  constexpr int ve = 16 / sizeof(T);
+  const int in = 4 * kPnChunk + 2 * ve;
+  const int out = vec_up<T>(9 * ppb) + 2 * vec_up<T>(3 * ppb) + 3 * ve;
+  return in > out ? in : out;
+}
+template <typename T>
+__host__ __device__ constexpr size_t pn_smem(int ppb, int T2) {
+  return size_t(pn_io<T>(ppb) + 9 * pn_rs(ppb, T2)) * sizeof(T);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kPnThreads)
+point_normal_rows_kernel(const PnBuckets bk, const T* __restrict__ lam_p,
+                         T* __restrict__ vinv_out, T* __restrict__ g_out,
+                         T* __restrict__ damp_out, T diag_floor) {
+  extern __shared__ __align__(16) unsigned char pn_raw[];
+  T* s_io = reinterpret_cast<T*>(pn_raw);
+  constexpr int ve = 16 / sizeof(T);
+  int b = 0;
+  while (b + 1 < bk.n && int(blockIdx.x) >= bk.block0[b + 1]) ++b;  // block-uniform
+  const int T2 = bk.T2[b], ppb = bk.ppb[b];
+  const int p0 = (int(blockIdx.x) - bk.block0[b]) * ppb;
+  const int np = min(ppb, bk.P[b] - p0);
+  const int rows = np * T2;
+  const bool chunked = pn_chunked(ppb, T2);
+  const int T2s = T2 | 1, RS = pn_rs(ppb, T2);
+  T* s_prod = s_io + pn_io<T>(ppb);
+  const T* jp = static_cast<const T*>(bk.jp[b]) + size_t(p0) * T2 * 3;
+  const T* r = static_cast<const T*>(bk.r[b]) + size_t(p0) * T2;
+  const int tid = threadIdx.x;
+
+  T acc[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) acc[k] = T(0);
+  for (int c0 = 0; c0 < rows; c0 += kPnChunk) {
+    const int cn = min(kPnChunk, rows - c0);
+    T* s_jp = s_io + vec_shift(jp + 3 * c0);
+    T* s_r = s_io + 3 * kPnChunk + ve + vec_shift(r + c0);
+    copy_async(s_jp, jp + 3 * c0, 3 * cn);
+    copy_async(s_r, r + c0, cn);
+    copy_async_wait();
+    __syncthreads();
+#pragma unroll 1
+    for (int j = tid; j < cn; j += kPnThreads) {
+      const T c0v = s_jp[3 * j], c1 = s_jp[3 * j + 1], c2 = s_jp[3 * j + 2];
+      const T rt = s_r[j];
+      const int row = c0 + j;
+      T* pp = s_prod + (chunked ? j : (row / T2) * T2s + row % T2);
+      pp[0] = c0v * c0v;
+      pp[RS] = c0v * c1;
+      pp[2 * RS] = c0v * c2;
+      pp[3 * RS] = c1 * c1;
+      pp[4 * RS] = c1 * c2;
+      pp[5 * RS] = c2 * c2;
+      pp[6 * RS] = c0v * rt;
+      pp[7 * RS] = c1 * rt;
+      pp[8 * RS] = c2 * rt;
+    }
+    __syncthreads();
+    if (tid < np) {
+      const T* pp = s_prod + (chunked ? 0 : tid * T2s);
+      const int nt = chunked ? cn : T2;
+#pragma unroll 4
+      for (int t = 0; t < nt; ++t)
+#pragma unroll
+        for (int k = 0; k < 9; ++k) acc[k] += pp[k * RS + t];
+    }
+    if (c0 + kPnChunk < rows) __syncthreads();  // the next chunk reuses the staging
   }
-  // Damping lam * max(diag, floor), then the closed-form adjugate inverse
-  // in the JAX kernel's cofactor layout and operation order.
-  const T lam = *lam_p;
-  const T d0 = lam * (v00 < diag_floor ? diag_floor : v00);
-  const T d1 = lam * (v11 < diag_floor ? diag_floor : v11);
-  const T d2 = lam * (v22 < diag_floor ? diag_floor : v22);
-  const T a = v00 + d0, b = v01, c = v02;
-  const T d = v01, e = v11 + d1, f = v12;
-  const T gg = v02, h = v12, i = v22 + d2;
-  const T co_a = e * i - f * h;
-  const T co_b = c * h - b * i;
-  const T co_c = b * f - c * e;
-  const T det = a * co_a + d * co_b + gg * co_c;
-  const T inv_det = T(1) / (fabs(det) < T(1e-32) ? T(1) : det);
-  T* vi = vinv_out + (size_t)pt * 9;
-  vi[0] = co_a * inv_det;
-  vi[1] = co_b * inv_det;
-  vi[2] = co_c * inv_det;
-  vi[3] = (f * gg - d * i) * inv_det;
-  vi[4] = (a * i - c * gg) * inv_det;
-  vi[5] = (c * d - a * f) * inv_det;
-  vi[6] = (d * h - e * gg) * inv_det;
-  vi[7] = (b * gg - a * h) * inv_det;
-  vi[8] = (a * e - b * d) * inv_det;
-  T* go = g_out + (size_t)pt * 3;
-  go[0] = g0;
-  go[1] = g1;
-  go[2] = g2;
-  T* dp = damp_out + (size_t)pt * 3;
-  dp[0] = d0;
-  dp[1] = d1;
-  dp[2] = d2;
+
+  const size_t row0 = size_t(bk.row0[b]) + p0;
+  T* vo = vinv_out + row0 * 9;
+  T* go = g_out + row0 * 3;
+  T* dout = damp_out + row0 * 3;
+  T* s_v = s_io + vec_shift(vo);
+  T* s_g = s_io + vec_up<T>(9 * ppb) + ve + vec_shift(go);
+  T* s_d = s_io + vec_up<T>(9 * ppb) + vec_up<T>(3 * ppb) + 2 * ve + vec_shift(dout);
+  if (tid < np) {
+    const T v00 = acc[0], v01 = acc[1], v02 = acc[2];
+    const T v11 = acc[3], v12 = acc[4], v22 = acc[5];
+    // Damping lam * max(diag, floor), then the closed-form adjugate inverse
+    // in the JAX kernel's cofactor layout and operation order.
+    const T lam = *lam_p;
+    const T d0 = lam * (v00 < diag_floor ? diag_floor : v00);
+    const T d1 = lam * (v11 < diag_floor ? diag_floor : v11);
+    const T d2 = lam * (v22 < diag_floor ? diag_floor : v22);
+    const T a = v00 + d0, bb = v01, c = v02;
+    const T d = v01, e = v11 + d1, f = v12;
+    const T gg = v02, h = v12, i = v22 + d2;
+    const T co_a = e * i - f * h;
+    const T co_b = c * h - bb * i;
+    const T co_c = bb * f - c * e;
+    const T det = a * co_a + d * co_b + gg * co_c;
+    const T inv_det = T(1) / (fabs(det) < T(1e-32) ? T(1) : det);
+    T* vi = s_v + 9 * tid;
+    vi[0] = co_a * inv_det;
+    vi[1] = co_b * inv_det;
+    vi[2] = co_c * inv_det;
+    vi[3] = (f * gg - d * i) * inv_det;
+    vi[4] = (a * i - c * gg) * inv_det;
+    vi[5] = (c * d - a * f) * inv_det;
+    vi[6] = (d * h - e * gg) * inv_det;
+    vi[7] = (bb * gg - a * h) * inv_det;
+    vi[8] = (a * e - bb * d) * inv_det;
+    s_g[3 * tid] = acc[6];
+    s_g[3 * tid + 1] = acc[7];
+    s_g[3 * tid + 2] = acc[8];
+    s_d[3 * tid] = d0;
+    s_d[3 * tid + 1] = d1;
+    s_d[3 * tid + 2] = d2;
+  }
+  __syncthreads();
+  copy_span(vo, s_v, 9 * np);
+  copy_span(go, s_g, 3 * np);
+  copy_span(dout, s_d, 3 * np);
 }
 
 // ---------------------------------------------------------------- B11 ---
@@ -328,14 +435,52 @@ int cam_normal_launch(const void* params, const void* xw, const void* uv,
   return (int)cudaGetLastError();
 }
 
+// B10 over n buckets: one launch per kPnBuckets of them.  jp_g and r_g are
+// host arrays of the buckets' device pointers, P, T2 and ppb host arrays of
+// their points, rows per point and points per block (ops/point_normal.py
+// point_geometry: kErrGeom for a block of more than kPnMaxPoints points or
+// of several points over more than kPnChunk rows, kErrSmem past the card's
+// shared memory per block; above 48 KB the kernel is opted in first).
 template <typename T>
-int point_normal_launch(const void* jp_g, const void* r_g, const void* lam,
-                        void* vinv, void* g, void* damp, int P, int T2,
-                        double diag_floor, cudaStream_t stream) {
-  point_normal_kernel<T><<<(P + kBlock - 1) / kBlock, kBlock, 0, stream>>>(
-      (const T*)jp_g, (const T*)r_g, (const T*)lam, (T*)vinv, (T*)g, (T*)damp,
-      P, T2, (T)diag_floor);
-  return (int)cudaGetLastError();
+int point_normal_buckets_launch(int n, const uint64_t* jp_g, const uint64_t* r_g,
+                                const int* P, const int* T2, const int* ppb, const void* lam,
+                                void* vinv, void* g, void* damp, double diag_floor,
+                                cudaStream_t stream) {
+  int row0 = 0;
+  for (int first = 0; first < n; first += kPnBuckets) {
+    PnBuckets bk{};
+    bk.n = n - first < kPnBuckets ? n - first : kPnBuckets;
+    size_t smem = 0;
+    int blocks = 0;
+    for (int i = 0; i < bk.n; ++i) {
+      const int j = first + i;
+      if (P[j] < 0 || T2[j] < 0 || ppb[j] < 1 || ppb[j] > kPnMaxPoints ||
+          (ppb[j] > 1 && pn_chunked(ppb[j], T2[j])))
+        return kErrGeom;
+      const size_t need = pn_smem<T>(ppb[j], T2[j]);
+      if (need > smem) smem = need;
+      bk.jp[i] = reinterpret_cast<const void*>(jp_g[j]);
+      bk.r[i] = reinterpret_cast<const void*>(r_g[j]);
+      bk.P[i] = P[j];
+      bk.T2[i] = T2[j];
+      bk.ppb[i] = ppb[j];
+      bk.row0[i] = row0;
+      bk.block0[i] = blocks;
+      row0 += P[j];
+      blocks += (P[j] + ppb[j] - 1) / ppb[j];
+    }
+    bk.block0[bk.n] = blocks;
+    if (blocks == 0) continue;
+    if (smem > 48 * 1024) {
+      const int e = prepare(point_normal_rows_kernel<T>, smem);
+      if (e) return e;
+    }
+    point_normal_rows_kernel<T><<<blocks, kPnThreads, smem, stream>>>(
+        bk, (const T*)lam, (T*)vinv, (T*)g, (T*)damp, (T)diag_floor);
+    const int e = (int)cudaGetLastError();
+    if (e) return e;
+  }
+  return 0;
 }
 
 template <typename T>
@@ -359,13 +504,14 @@ int grid_cam_normal(int dtype, const void* params, const void* xw, const void* u
                                              (cudaStream_t)stream)));
 }
 
-int grid_point_normal(int dtype, const void* jp_g, const void* r_g,
-                      const void* lam, void* vinv, void* g, void* damp, int P,
-                      int T2, double diag_floor, void* stream) {
-  if (P == 0) return 0;
-  GRID_DISPATCH(dtype, (point_normal_launch<T>(jp_g, r_g, lam, vinv, g, damp,
-                                               P, T2, diag_floor,
-                                               (cudaStream_t)stream)));
+int grid_point_normal(int dtype, int n, const void* jp_g, const void* r_g, const void* P,
+                      const void* T2, const void* ppb, const void* lam, void* vinv,
+                      void* g, void* damp, double diag_floor, void* stream) {
+  if (n <= 0) return 0;
+  GRID_DISPATCH(dtype, (point_normal_buckets_launch<T>(
+                           n, (const uint64_t*)jp_g, (const uint64_t*)r_g, (const int*)P,
+                           (const int*)T2, (const int*)ppb, lam, vinv, g, damp, diag_floor,
+                           (cudaStream_t)stream)));
 }
 
 int grid_coupling(int dtype, const void* jc, const void* jp,

@@ -430,27 +430,6 @@ __device__ __forceinline__ int put_coupling(const RowTile<T, KT>& rt, int col,
 }
 
 // ---------------------------------------------------------------- host --
-inline int smem_limit() {
-  int dev = 0, limit = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return limit;
-}
-
-// Opt the kernel in to `smem` bytes of dynamic shared memory (kErrSmem
-// above the card's per-block limit: the wrapper asked for the shared mode
-// where its tile does not fit).
-template <typename K>
-int prepare(K kernel, size_t smem) {
-  if (smem > (size_t)smem_limit()) return kErrSmem;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  return 0;
-}
-
 // The launch of a slot-major kernel at the wrapper's geometry: tc warps per 32-point
 // group, ng groups per block, `smem` bytes, which must be the kernel's own
 // count (kErrGeom otherwise); above 48 KB the kernel is opted in first.

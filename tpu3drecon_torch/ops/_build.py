@@ -71,8 +71,9 @@ _SIGNATURES = {
     "wtt_cost": [_I] + [_P] * 6 + [_I] * 8 + [_P],
     # dtype, params, x_w, uv, mask, r, jp, jc, u, g, C, K, loss, stream
     "grid_cam_normal": [_I] + [_P] * 9 + [_I] * 3 + [_P],
-    # dtype, jp_g, r_g, lam, v_inv, g, damp, P, T2, diag_floor, stream
-    "grid_point_normal": [_I] + [_P] * 6 + [_I, _I, _D, _P],
+    # dtype, n, jp_g, r_g, P, T2, ppb (host arrays of n), lam, v_inv, g, damp,
+    # diag_floor, stream
+    "grid_point_normal": [_I, _I] + [_P] * 9 + [_D, _P],
     # dtype, jc, jp, vinv6, out, C, K, stream
     "grid_coupling": [_I] + [_P] * 4 + [_I] * 2 + [_P],
     # dtype, np, table, cam_ids, pts, uv, mask, inv_w, jc, jp, v6, gpt, ug,

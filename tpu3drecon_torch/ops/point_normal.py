@@ -9,15 +9,28 @@ gathered through a track bucket it forms, per point,
   - v_inv_p = (V_p + diag damp_p)^-1   closed-form adjugate
   - g_p     = sum_t Jp_t^T r_t
 
-CUDA kernel (``csrc/grid_kernels.cu:point_normal_kernel``): one thread per
-point, its T2 rows read in order, every sum and the inverse in registers;
-the ragged edge of P is masked, so P needs no padding.  On the H100 it is
-bound by the bytes of jp_g/r_g (16 B per row in f32).  The TPU kernel's
-split of jp_g into three column planes only avoided Mosaic's lane padding
-and is not kept.
+CUDA kernel (``csrc/grid_kernels.cu:point_normal_rows_kernel``): one launch
+over all the track buckets of a linearization (``point_normal_buckets``;
+up to 8 buckets per launch, their pointers and sizes passed by value).  A
+block owns a run of consecutive points of one bucket (``point_geometry``),
+stages their contiguous jp_g/r_g spans into shared memory with 16-byte
+copies, gives each track row a lane (two rows per lane) for its 9
+products, and lets one lane
+per point add them from zero in row order (this module's plain order, so
+the sums are bit-equal) and form the damping and inverse; the block's
+outputs leave as three contiguous spans of 16-byte stores.  On the H100
+it is bound by the bytes of jp_g/r_g (16 B per row in f32) and the 60 B
+per point it writes.  ``point_normal_fused`` keeps JAX's per-bucket
+signature: the same kernel on a group of one.  The TPU kernel's split of
+jp_g into three column planes only avoided Mosaic's lane padding and is
+not kept.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -25,6 +38,55 @@ from tpu3drecon_torch.ops import _build
 from tpu3drecon_torch.ops._wtt_common import check_inputs, check_shape, is_cuda_call
 
 COUNTS = _build.LaunchCounter()
+
+THREADS = 256  # lanes per block (csrc kPnThreads)
+CHUNK = 2 * THREADS  # track rows per chunk, two per lane (kPnChunk)
+MAX_POINTS = 128  # points per block at most (kPnMaxPoints)
+MAX_BUCKETS = 8  # buckets per launch (kPnBuckets)
+
+
+class PointGeometry(NamedTuple):
+    """Launch geometry of B10 on one bucket."""
+
+    points: int  # points per block
+    blocks: int  # ceil(P / points)
+    smem: int  # shared bytes per block
+
+
+def _vec_up(n: int, ve: int) -> int:
+    return -(-n // ve) * ve
+
+
+def point_smem(points: int, t2: int, itemsize: int) -> int:
+    """Shared bytes of a block of ``points`` points of ``t2`` rows: a
+    chunk's staged jp/r spans (later the 15 staged outputs per point), then
+    the 9 products of each row at an odd per-point stride (t2 | 1), or of
+    each chunk row where one point's rows come in chunks of ``CHUNK``.
+    The C entry's count (``csrc/grid_kernels.cu pn_smem``)."""
+    ve = 16 // itemsize
+    rs = CHUNK if points * t2 > CHUNK else points * (t2 | 1)
+    io = max(4 * CHUNK + 2 * ve,
+             _vec_up(9 * points, ve) + 2 * _vec_up(3 * points, ve) + 3 * ve)
+    return (io + 9 * rs) * itemsize
+
+
+@functools.lru_cache(maxsize=256)
+def point_geometry(p: int, t2: int, itemsize: int, sms: int) -> PointGeometry:
+    """Points per block on a bucket of ``p`` points of ``t2`` rows, on a
+    card of ``sms`` multiprocessors: as many as fill one chunk of ``CHUNK``
+    rows (at most ``MAX_POINTS``), fewer where the bucket would otherwise
+    run on under ``sms`` blocks (its long tracks, few points); a point of
+    more than ``CHUNK`` rows is a block of its own.  The shared bytes stay
+    under ``SMEM_PER_BLOCK`` (at most 62.5 KB, in f64)."""
+    per = max(1, min(MAX_POINTS, CHUNK // max(int(t2), 1)))
+    points = max(1, min(per, -(-int(p) // int(sms))))
+    return PointGeometry(points, -(-int(p) // points), point_smem(points, int(t2), itemsize))
+
+
+@functools.lru_cache(maxsize=None)
+def card_sms(device: torch.device) -> int:
+    """The multiprocessors of the CUDA card ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def point_normal_fused_plain(jp_g, r_g, lam, diag_floor: float = 1e-8):
@@ -70,31 +132,73 @@ def point_normal_fused_plain(jp_g, r_g, lam, diag_floor: float = 1e-8):
     )
 
 
+def point_normal_buckets_plain(jp_gs, r_gs, lam, diag_floor: float = 1e-8):
+    """Plain PyTorch version of ``point_normal_buckets``: each bucket's
+    ``point_normal_fused_plain``, concatenated."""
+    parts = [point_normal_fused_plain(jp_g, r_g, lam, diag_floor)
+             for jp_g, r_g in zip(jp_gs, r_gs)]
+    return tuple(torch.cat(out) for out in zip(*parts))
+
+
+def point_normal_buckets(jp_gs, r_gs, lam, diag_floor: float = 1e-8):
+    """(v_inv (sum P, 3, 3), g_pt (sum P, 3), damp_pt (sum P, 3)) of a list
+    of track buckets, the buckets' points in order.
+
+    ``jp_gs[b]`` (P_b, T2_b, 3) track-gathered whitened point Jacobians,
+    ``r_gs[b]`` (P_b, T2_b) residuals, ``lam`` a 0-d tensor.  CPU tensors
+    run the plain version, CUDA tensors one kernel launch per
+    ``MAX_BUCKETS`` buckets."""
+    if len(jp_gs) != len(r_gs) or not jp_gs:
+        raise ValueError("point_normal_buckets: one r_g per jp_g, at least one bucket")
+    if not is_cuda_call(jp_gs[0]):
+        return point_normal_buckets_plain(jp_gs, r_gs, lam, diag_floor)
+    name = "point_normal_buckets"
+    dtype, dev = jp_gs[0].dtype, jp_gs[0].device
+    lam = torch.as_tensor(lam, dtype=dtype, device=dev)
+    check_inputs(name, dev, dtype, lam=lam)
+    check_shape(name, "lam", lam, ())
+    n = len(jp_gs)
+    sms = card_sms(dev)
+    sizes, geoms = [], []
+    for jp_g, r_g in zip(jp_gs, r_gs):
+        check_inputs(name, dev, dtype, jp_g=jp_g, r_g=r_g)
+        if jp_g.dim() != 3:
+            raise ValueError(f"{name}: jp_g has shape {tuple(jp_g.shape)}, expected (P, T2, 3)")
+        p, t2, _ = jp_g.shape
+        check_shape(name, "jp_g", jp_g, (p, t2, 3))
+        check_shape(name, "r_g", r_g, (p, t2))
+        sizes.append((p, t2))
+        geoms.append(point_geometry(p, t2, jp_g.element_size(), sms))
+    total = sum(p for p, _ in sizes)
+    v_inv = torch.empty((total, 3, 3), dtype=dtype, device=dev)
+    g = torch.empty((total, 3), dtype=dtype, device=dev)
+    damp = torch.empty((total, 3), dtype=dtype, device=dev)
+    jp_ptrs = (ctypes.c_uint64 * n)(*(t.data_ptr() for t in jp_gs))
+    r_ptrs = (ctypes.c_uint64 * n)(*(t.data_ptr() for t in r_gs))
+    ps = (ctypes.c_int * n)(*(p for p, _ in sizes))
+    t2s = (ctypes.c_int * n)(*(t2 for _, t2 in sizes))
+    ppbs = (ctypes.c_int * n)(*(geo.points for geo in geoms))
+    lib = _build.library()
+    code = lib.grid_point_normal(
+        _build.dtype_code(dtype), n, ctypes.addressof(jp_ptrs), ctypes.addressof(r_ptrs),
+        ctypes.addressof(ps), ctypes.addressof(t2s), ctypes.addressof(ppbs), lam.data_ptr(),
+        v_inv.data_ptr(), g.data_ptr(), damp.data_ptr(), float(diag_floor),
+        _build.stream_ptr(dev),
+    )
+    _build.check(lib, name, code)
+    for first in range(0, n, MAX_BUCKETS):  # the C entry skips a launch of no blocks
+        if any(geo.blocks for geo in geoms[first:first + MAX_BUCKETS]):
+            COUNTS.kernel += 1
+    return v_inv, g, damp
+
+
 def point_normal_fused(jp_g, r_g, lam, diag_floor: float = 1e-8):
     """(v_inv (P,3,3), g_pt (P,3), damp_pt (P,3)).
 
     ``jp_g`` (P, T2, 3) track-gathered whitened point Jacobians, ``r_g``
     (P, T2) residuals, ``lam`` a 0-d tensor.  CPU tensors run the plain
-    version, CUDA tensors the kernel."""
+    version, CUDA tensors the kernel of ``point_normal_buckets`` on this
+    one bucket."""
     if not is_cuda_call(jp_g):
         return point_normal_fused_plain(jp_g, r_g, lam, diag_floor)
-    name = "point_normal_fused"
-    p, t2, _ = jp_g.shape
-    dtype, dev = jp_g.dtype, jp_g.device
-    lam = torch.as_tensor(lam, dtype=dtype, device=dev)
-    check_inputs(name, dev, dtype, jp_g=jp_g, r_g=r_g, lam=lam)
-    check_shape(name, "jp_g", jp_g, (p, t2, 3))
-    check_shape(name, "r_g", r_g, (p, t2))
-    check_shape(name, "lam", lam, ())
-    v_inv = torch.empty((p, 3, 3), dtype=dtype, device=dev)
-    g = torch.empty((p, 3), dtype=dtype, device=dev)
-    damp = torch.empty((p, 3), dtype=dtype, device=dev)
-    lib = _build.library()
-    code = lib.grid_point_normal(
-        _build.dtype_code(dtype), jp_g.data_ptr(), r_g.data_ptr(), lam.data_ptr(),
-        v_inv.data_ptr(), g.data_ptr(), damp.data_ptr(), p, t2, float(diag_floor),
-        _build.stream_ptr(dev),
-    )
-    _build.check(lib, name, code)
-    COUNTS.kernel += 1
-    return v_inv, g, damp
+    return point_normal_buckets([jp_g], [r_g], lam, diag_floor)

@@ -9,7 +9,7 @@ Counterpart of ``tpu3drecon/solvers/ba_pallas.py`` (the JAX package's
   2. one index gather moves the jp/r rows to the point side, per track
      bucket;
   3. kernel B10 (ops/point_normal.py) forms each point's damped V^-1, g_pt
-     and damping;
+     and damping, in one launch over all the track buckets;
   4. kernel B11 (ops/coupling.py) forms the Schur-Jacobi blocks
      sum W V^-1 W^T, and the preconditioner gets a guarded Cholesky;
   5. the Schur-CG matvecs, the back-substitution and the cost run in plain
@@ -34,7 +34,7 @@ from tpu3drecon_torch.geometry.losses import robust_weight
 from tpu3drecon_torch.ops.cam_normal import cam_normal_fused
 from tpu3drecon_torch.ops.coupling import coupling_fused
 from tpu3drecon_torch.ops.jacobians import apply_se3_retraction
-from tpu3drecon_torch.ops.point_normal import point_normal_fused
+from tpu3drecon_torch.ops.point_normal import point_normal_buckets
 from tpu3drecon_torch.problems.grid import (
     BAGridBucketedProblem,
     TrackBucket,
@@ -140,16 +140,11 @@ def _linearize(params, lam, problem, config: BAConfig) -> PlaneNormal:
         # coupling in every matvec, vanish.
         jp = jp * 0.0
 
-    jp_g_buckets, v_inv_parts, g_pt_parts, damp_pt_parts = [], [], [], []
-    for jp_gb, r_gb in _track_gather(jp, r, problem):
-        vb, gb, db = point_normal_fused(jp_gb, r_gb, lam)
-        jp_g_buckets.append(jp_gb)
-        v_inv_parts.append(vb)
-        g_pt_parts.append(gb)
-        damp_pt_parts.append(db)
-    v_inv = torch.cat(v_inv_parts)[:p_num]
-    g_pt = torch.cat(g_pt_parts)[:p_num]
-    damp_pt = torch.cat(damp_pt_parts)[:p_num]
+    gathered = _track_gather(jp, r, problem)
+    jp_g_buckets = [jp_gb for jp_gb, _ in gathered]
+    v_inv, g_pt, damp_pt = point_normal_buckets(jp_g_buckets, [r_gb for _, r_gb in gathered],
+                                                lam)
+    v_inv, g_pt, damp_pt = v_inv[:p_num], g_pt[:p_num], damp_pt[:p_num]
     if not config.optimize_points:
         g_pt = g_pt * 0.0
 
