@@ -35,9 +35,13 @@ Phases (any failure exits non-zero and prints no result line):
 6. The grid kernels B9-B11 against their plain versions on the card, on
    the linearization inputs of the medium problem in bucketed grid layout
    (``build_grid_problem``; initial parameters, lam = 1e-4), in float32 and
-   float64, B9 under all three losses; B10 as the grid solve calls it, one
-   grouped call over the five track buckets (``point_normal_buckets``),
-   bit for bit (v_inv, g_pt and damp_pt; one log line per bucket).
+   float64: B9 under all three losses and B11, each in both forms (the
+   indexed ``cam_normal_idx`` / ``coupling_idx`` the grid solve calls, and
+   the plane forms of JAX's signature), B9's r, jp and jc bit for bit, the
+   indexed forms bit-equal to the plane forms and two calls bit-equal; B10
+   as the grid solve calls it, one grouped call over the five track
+   buckets (``point_normal_buckets``), bit for bit (v_inv, g_pt and
+   damp_pt; one log line per bucket).
 7. The grid path: ``ba_solve_pallas`` on the same problem with the same
    config: one warm-up solve and 3 timed solves.
 8. The dense track-table kernels B12-B16 against their plain versions on
@@ -114,9 +118,14 @@ Phases (any failure exits non-zero and prints no result line):
     its kernel alone timed; solved with the BAL config at 3 LM
     iterations on ``kernels="full"`` (Schur-Jacobi) and on JAX's default
     route ``kernels=False`` under block SSOR (``tt_seq1024_ssor``, no port
-    kernel), one warm-up and 2 timed solves each.
-    Each BAL, hub and tt_seq1024 solve must end finite and below its
-    initial loss with at least one accepted step.
+    kernel), one warm-up and 2 timed solves each.  The same scene in
+    bucketed grid layout (``grid_bucketed_from_flat``, (C, K) = (1024,
+    1024)): B9 and B11 checked in both forms as in phase 6 (f32) and timed
+    as the ``B9 [C=1024]`` and ``B11 [C=1024]`` rows (one lane a thread at
+    K = 1024, the first port's lane order); ``grid_seq1024``, ``ba_solve_pallas`` with the BAL
+    config at 3 LM iterations, one warm-up and 2 timed solves.
+    Each BAL, hub, tt_seq1024 and grid_seq1024 solve must end finite and
+    below its initial loss with at least one accepted step.
 17. The probes E3 (``experiments.term_stack``: B2 against its plain
     version at terms 3 and 1 on E3's random inputs) and E4
     (``experiments.bits_expand``: both unpack layouts against numpy; its
@@ -128,7 +137,8 @@ Tolerances, relative to max|plain|: per-element outputs 1e-5 (f32) and
 1e-12 (f64); summed outputs 1e-4 and 1e-10 (B1, B2, B5, B6 and B8 rows,
 B12's U|g columns, B13 and B15 are atomic sums whose order varies; B9's U
 and g and B11's blocks are block reductions in another order than the
-plain version's); B7 (a selection) exactly, B10, which sums each point's
+plain version's); B7 (a selection) and B9's r, jp and jc (the
+same operations, each rounded alone) exactly, B10, which sums each point's
 rows in the plain version's order, exactly, and B3 and B4, which sum each
 point's slots in slot order with no atomics, exactly against their ordered
 plain forms.  Each row of the kernel table
@@ -144,7 +154,8 @@ The rows ``B1 [hub]`` (the hub buckets), ``B1 od [np=10]`` (the BAL buckets
 with ``optimize_dist``), ``B3 [BAL]``, ``B4 [BAL]``, ``B5 [BAL]`` and ``B7
 [BAL]`` (the BAL buckets), ``B12 [C=1024]``,
 ``B13 [C=1024]``, ``B14 [C=1024]``, ``B15 [C=1024]`` (tt_seq1024, B15
-there in its global mode) and ``B16 [C=1024]`` time those kernels
+there in its global mode), ``B16 [C=1024]``, ``B9 [C=1024]`` and ``B11
+[C=1024]`` (grid_seq1024) time those kernels
 at the widths that a shared tile could not hold or does not serve (B5,
 B7 and B16 on their second path), and count their launches on those
 paths.  The
@@ -158,11 +169,13 @@ times (``ms``, ``plain_ms``) are device times
 of 20 calls, each with a cold L2 and timed by a CUDA-event pair that sees
 none of the call's host time, summed over one pass of the solve (the five
 buckets, or one linearization; B10's pass is its one grouped call).
-``ms`` covers all the device work of the wrapper: the kernel, and for B9
-the packing of the camera rows (as in the
-JAX function), for B16 the sum of its per-point partials and the product
-by 0.5 (two PyTorch launches per bucket; a log line gives B16's kernel
-alone beside it, on the medium buckets and on tt_seq1024).  B7's
+``ms`` covers all the device work of the wrapper: the kernel, and for B16
+the sum of its per-point partials and the product by 0.5 (two PyTorch
+launches per bucket; a log line gives B16's kernel alone beside it, on the
+medium buckets and on tt_seq1024).  The rows of B9 and B11 time what the
+grid solve calls, the indexed forms; a log line per grid gives their
+kernels alone (the profiler's mean), the plane forms' times and both
+forms' bounds.  B7's
 ``library_ms`` is the same device time of the one ``torch.gather`` that
 computes its function; no other kernel has such a call.  Every count is
 set to 0 just before each path's solves (each of its iteration counts)
@@ -175,8 +188,10 @@ perturbation of the whole scene) only the latter, and its RMSE is printed.
 
 ``bound_ms`` is the least time the card could take for the same work: the
 larger of the bytes the function must move (each input read once, each
-output written once, f32, from this run's tensors) over 3.35 TB/s and its
-operations (counted per slot or lane from the kernel source, ``FLOPS``;
+output written once, f32, from this run's tensors; B9's and B11's indexed
+forms read points3d or V^-1 once per point and pt_idx once per lane) over
+3.35 TB/s and its operations (counted per slot or lane from the kernel
+source, ``FLOPS``;
 for the od rows also per adjacent slot pair of this run's data) over 67
 TFLOP/s of float32.  B3 and B5 read no planes of a padded slot, so their
 jc/jp bytes and operations count the slots that have a window row only.
@@ -215,6 +230,7 @@ BAL, BAL_SSOR, BAL_TRI = "bal_seq", "bal_seq_ssor", "bal_seq_tridiag_unfused"
 # both tt routes (fully fused, and JAX's default XLA route under block SSOR).
 HUB, NP10 = "bal_hub", "bal_seq_ssor_np10"
 TT1024, TT1024_SSOR = "tt_seq1024", "tt_seq1024_ssor"
+GRID1024 = "grid_seq1024"  # the same 1024-camera scene in grid layout
 # The split-window BAL packings (the JAX suite's TPU BAL cell packs this
 # way): fully indexed, the reduced-fidelity modes (matvec index2 with
 # linearize index2, matvec index1 with linearize index, and index2/index2
@@ -248,11 +264,11 @@ KERNELS = (
      f"{LIN_PY}:229", {UNFUSED, ONEHOT, BAL_TRI}, None),
     ("ops.wtt_linearize", "CONTRIB_COUNTS", "wtt_contrib_rows_idx", ROUTE_SRC,
      f"{LIN_PY}:286", {UNFUSED, ONEHOT}, GLOBAL),
-    ("ops.cam_normal", "COUNTS", "cam_normal_fused", GRID_SRC,
+    ("ops.cam_normal", "COUNTS", "cam_normal_idx", GRID_SRC,
      "tpu3drecon/ops/pallas/cam_normal.py:205", {"grid"}, None),
     ("ops.point_normal", "COUNTS", "point_normal_fused", GRID_SRC,
      "tpu3drecon/ops/pallas/point_normal.py:80", {"grid"}, None),
-    ("ops.coupling", "COUNTS", "coupling_fused", GRID_SRC,
+    ("ops.coupling", "COUNTS", "coupling_idx", GRID_SRC,
      "tpu3drecon/ops/pallas/coupling.py:65", {"grid"}, None),
     ("ops.tt_linearize", "CAM_COUNTS", "tt_cam_normal_fused", TT_SRC, f"{TT_PY}:221",
      {"tt", TT1024}, GLOBAL),
@@ -294,6 +310,12 @@ KERNELS = (
      {BAL_TRI}, None),
     ("ops.tt_linearize", "COST_COUNTS", "B16 [C=1024]", TT_SRC, f"{TT_PY}:512", {TT1024},
      GLOBAL),
+    # B9 and B11 on the grid packing of the same 1024-camera scene, K =
+    # 1024: one lane a thread.
+    ("ops.cam_normal", "COUNTS", "B9 [C=1024]", GRID_SRC,
+     "tpu3drecon/ops/pallas/cam_normal.py:205", {GRID1024}, None),
+    ("ops.coupling", "COUNTS", "B11 [C=1024]", GRID_SRC,
+     "tpu3drecon/ops/pallas/coupling.py:65", {GRID1024}, None),
     # The reduced-fidelity branches: B2 at terms 1 and 2, B1 (and B1 od) at
     # terms 2, on the split BAL paths that run them.
     ("ops.wtt_matvec", "COUPLING1_COUNTS", "B2 [terms 1]", TERMS_SRC, f"{MV_PY}:215",
@@ -802,48 +824,108 @@ def check_od_kernels(bal) -> None:
             f"B3 {err_b3:.3e} B4 {err_b4:.3e} B7 {err_b7:.3e}")
 
 
-def check_grid_kernels(grid) -> None:
-    """Phase 6: B9-B11 against their plain versions, f32 and f64; B10 as
-    the grid solve calls it, one grouped call over the track buckets, bit
-    for bit."""
-    from tpu3drecon_torch.geometry.losses import RobustLoss
-    from tpu3drecon_torch.ops import cam_normal, coupling, point_normal
-    from tpu3drecon_torch.solvers.ba_pallas import (
-        _grid_planes,
-        _inv_w,
-        _track_gather,
-        _uv_planes,
-        _vinv6,
-    )
+def grid_camera_inputs(grid, dtype):
+    """B9's arguments on a grid problem at its initial parameters, cast to
+    dtype: the plane form's (x_w gathered onto the grid) and the indexed
+    form's (points3d and pt_idx), which the grid solve passes."""
+    from tpu3drecon_torch.solvers.ba_pallas import _grid_planes, _inv_w, _uv_planes
 
-    cams = grid.cameras
-    c, k = grid.mask.shape
+    cam = tuple(getattr(grid.cameras, f).to(dtype) for f in CAM_FIELDS)
+    pts = grid.points3d.to(dtype)
+    tail = (_uv_planes(grid).to(dtype), grid.mask.to(dtype), _inv_w(grid, dtype))
+    return (*cam, _grid_planes(pts, grid.pt_idx), *tail), (*cam, pts, grid.pt_idx, *tail)
+
+
+def bit_equal(what: str, got, want) -> None:
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: output {i} differs")
+
+
+def check_grid_cameras(row9: str, row11: str, tag: str, planes, idx, v_inv, losses):
+    """B9 and B11 in both forms against their plain versions (B9's r, jp
+    and jc bit for bit, U and g and B11's blocks to the summed tolerance),
+    the indexed forms bit-equal to the plane forms and two calls bit-equal.
+    Returns B9's trivial-loss kernel and plain outputs and B11's indexed
+    arguments."""
+    from tpu3drecon_torch.ops import cam_normal, coupling
+    from tpu3drecon_torch.solvers.ba_pallas import _grid_planes, _vinv6
+
+    summed = TOL[planes[0].dtype][1]
+    pt_idx = idx[6]
+    for loss in losses:
+        got = cam_normal.cam_normal_idx(*idx, loss=loss)
+        plain = cam_normal.cam_normal_idx_plain(*idx, loss=loss)
+        err = max(compare(row9, tag, name, a, b, summed if name in ("u", "g") else 0.0)
+                  for name, a, b in zip(("r", "jp", "jc", "u", "g"), got, plain))
+        bit_equal(f"{row9} {tag} {loss.value} planes", got,
+                  cam_normal.cam_normal_fused(*planes, loss=loss))
+        bit_equal(f"{row9} {tag} {loss.value} again", got,
+                  cam_normal.cam_normal_idx(*idx, loss=loss))
+        log(f"check {tag} {row9} {loss.value}: {err:.3e} (planes and indexed bit-equal)")
+        if loss == losses[0]:
+            out_b9, plain_b9 = got, plain
+    _, jp, jc, _, _ = plain_b9
+    b11 = (jc, jp, v_inv, pt_idx)
+    got = coupling.coupling_idx(*b11)
+    err = compare(row11, tag, "", got, coupling.coupling_idx_plain(*b11), summed)
+    bit_equal(f"{row11} {tag} planes", [got],
+              [coupling.coupling_fused(jc, jp, _grid_planes(_vinv6(v_inv), pt_idx))])
+    bit_equal(f"{row11} {tag} again", [got], [coupling.coupling_idx(*b11)])
+    log(f"check {tag} {row11}: {err:.3e} (planes and indexed bit-equal)")
+    return out_b9, plain_b9, b11, got
+
+
+def account_grid_cameras(row9: str, row11: str, label: str, planes, idx, out_b9, b11,
+                         out_b11) -> None:
+    """Times the rows of B9 and B11 (f32, the indexed forms, what the grid
+    solve calls) and logs beside them their lanes per thread, B9's and
+    B11's kernels alone, the plane forms' times and both forms' bounds."""
+    from tpu3drecon_torch.benchmark.wtt_bucket_times import kernel_alone_ms
+    from tpu3drecon_torch.ops import cam_normal, coupling
+    from tpu3drecon_torch.solvers.ba_pallas import _grid_planes, _vinv6
+
+    c, k = idx[8].shape
+    log(f"{label} grid (C, K) = ({c}, {k}): {c} blocks, "
+        f"LPT = {cam_normal.grid_lanes(k, idx[8].element_size())}")
+    flops9, flops11 = FLOPS["cam_normal_fused"] * c * k, FLOPS["coupling_fused"] * c * k
+    account(row9, lambda: cam_normal.cam_normal_idx(*idx),
+            lambda: cam_normal.cam_normal_idx_plain(*idx), nbytes(*idx, *out_b9), flops9)
+    account(row11, lambda: coupling.coupling_idx(*b11),
+            lambda: coupling.coupling_idx_plain(*b11), nbytes(*b11, out_b11), flops11)
+    jc, jp, v_inv, pt_idx = b11
+    vinv6_g = _grid_planes(_vinv6(v_inv), pt_idx)
+    ms9 = device_ms(lambda: cam_normal.cam_normal_fused(*planes))
+    ms11 = device_ms(lambda: coupling.coupling_fused(jc, jp, vinv6_g))
+    alone9 = kernel_alone_ms(lambda: cam_normal.cam_normal_idx(*idx), "grid_cam_normal_kernel")
+    alone11 = kernel_alone_ms(lambda: coupling.coupling_idx(*b11), "grid_coupling_kernel")
+    bound9 = nbytes(*planes, *out_b9) / HBM_BYTES_PER_S * 1e3
+    bound11 = nbytes(jc, jp, vinv6_g, out_b11) / HBM_BYTES_PER_S * 1e3
+    log(f"B9 per {label} pass (f32, cold L2): cam_normal_idx {RESULTS[row9]['ms']:.6f} ms, "
+        f"its kernel alone (profiler) {alone9:.6f} ms; plane form cam_normal_fused "
+        f"{ms9:.6f} ms, bound {bound9:.6f} ms")
+    log(f"B11 per {label} pass (f32, cold L2): coupling_idx {RESULTS[row11]['ms']:.6f} ms, "
+        f"its kernel alone (profiler) {alone11:.6f} ms; plane form coupling_fused "
+        f"{ms11:.6f} ms, bound {bound11:.6f} ms")
+
+
+def check_grid_kernels(grid) -> None:
+    """Phase 6: B9 and B11 in both forms against their plain versions, f32
+    and f64 (``check_grid_cameras``), B9 under all three losses; B10 as the
+    grid solve calls it, one grouped call over the track buckets, bit for
+    bit; the f32 rows timed."""
+    from tpu3drecon_torch.geometry.losses import RobustLoss
+    from tpu3drecon_torch.ops import cam_normal, point_normal
+    from tpu3drecon_torch.solvers.ba_pallas import _track_gather
+
     p_num = grid.points3d.shape[0]
+    losses = (RobustLoss.TRIVIAL, RobustLoss.CAUCHY, RobustLoss.HUBER)
     for dtype in (torch.float32, torch.float64):
-        elem, summed = TOL[dtype]
         tag = "f32" if dtype == torch.float32 else "f64"
         lam = torch.tensor(1e-4, dtype=dtype, device=grid.points3d.device)
-        cam_args = (*(getattr(cams, f).to(dtype) for f in CAM_FIELDS),
-                    _grid_planes(grid.points3d.to(dtype), grid.pt_idx),
-                    _uv_planes(grid).to(dtype), grid.mask.to(dtype), _inv_w(grid, dtype))
-        for loss in (RobustLoss.TRIVIAL, RobustLoss.CAUCHY, RobustLoss.HUBER):
-            got = cam_normal.cam_normal_fused(*cam_args, loss=loss)
-            plain = cam_normal.cam_normal_fused_plain(*cam_args, loss=loss)
-            err = max(compare("cam_normal_fused", tag, name, a, b,
-                              summed if name in ("u", "g") else elem)
-                      for name, a, b in zip(("r", "jp", "jc", "u", "g"), got, plain))
-            log(f"check {tag} grid B9 {loss.value}: {err:.3e}")
-            if loss == RobustLoss.TRIVIAL:
-                want, out_b9 = plain, got
-        if dtype == torch.float32:
-            account("cam_normal_fused",
-                    lambda: cam_normal.cam_normal_fused(*cam_args),
-                    lambda: cam_normal.cam_normal_fused_plain(*cam_args),
-                    nbytes(*cam_args[5:], *out_b9)
-                    + c * cam_normal.PARAM_WIDTH * cam_args[0].element_size(),
-                    FLOPS["cam_normal_fused"] * c * k)
-
-        r, jp, jc, _, _ = want
+        planes, idx = grid_camera_inputs(grid, dtype)
+        r, jp, _, _, _ = cam_normal.cam_normal_idx_plain(*idx)
         gathered = _track_gather(jp, r, grid)
         jp_gs, r_gs = [x for x, _ in gathered], [y for _, y in gathered]
         got = point_normal.point_normal_buckets(jp_gs, r_gs, lam)
@@ -867,16 +949,34 @@ def check_grid_kernels(grid) -> None:
                     sum(FLOPS["point_normal_row"] * r_g.numel()
                         + FLOPS["point_normal_point"] * r_g.shape[0] for r_g in r_gs))
 
-        vinv6_g = _grid_planes(_vinv6(plain[0][:p_num]), grid.pt_idx)
-        got = coupling.coupling_fused(jc, jp, vinv6_g)
-        err = compare("coupling_fused", tag, "", got,
-                      coupling.coupling_fused_plain(jc, jp, vinv6_g), summed)
-        log(f"check {tag} grid B11: {err:.3e}")
+        out_b9, _, b11, out_b11 = check_grid_cameras(
+            "cam_normal_idx", "coupling_idx", tag, planes, idx, plain[0][:p_num], losses)
         if dtype == torch.float32:
-            account("coupling_fused",
-                    lambda: coupling.coupling_fused(jc, jp, vinv6_g),
-                    lambda: coupling.coupling_fused_plain(jc, jp, vinv6_g),
-                    nbytes(jc, jp, vinv6_g, got), FLOPS["coupling_fused"] * c * k)
+            account_grid_cameras("cam_normal_idx", "coupling_idx", "medium", planes, idx,
+                                 out_b9, b11, out_b11)
+
+
+def check_grid1024_kernels(grid) -> None:
+    """B9 and B11 on the grid packing of tt_seq1024 (f32), (C, K) = (1024,
+    1024), one lane a thread: both forms checked as in phase 6, with V^-1 of
+    B10's plain version, and timed as the ``B9 [C=1024]`` and ``B11
+    [C=1024]`` rows."""
+    from tpu3drecon_torch.geometry.losses import RobustLoss
+    from tpu3drecon_torch.ops import point_normal
+    from tpu3drecon_torch.ops.cam_normal import cam_normal_idx_plain
+    from tpu3drecon_torch.solvers.ba_pallas import _track_gather
+
+    row9, row11 = "B9 [C=1024]", "B11 [C=1024]"
+    planes, idx = grid_camera_inputs(grid, torch.float32)
+    r, jp, _, _, _ = cam_normal_idx_plain(*idx)
+    gathered = _track_gather(jp, r, grid)
+    v_inv = point_normal.point_normal_buckets_plain(
+        [x for x, _ in gathered], [y for _, y in gathered],
+        torch.tensor(1e-4, device=jp.device))[0][:grid.points3d.shape[0]]
+    out_b9, _, b11, out_b11 = check_grid_cameras(
+        row9, row11, "f32", planes, idx, v_inv,
+        (RobustLoss.TRIVIAL, RobustLoss.CAUCHY, RobustLoss.HUBER))
+    account_grid_cameras(row9, row11, "C=1024", planes, idx, out_b9, b11, out_b11)
 
 
 def tt_kernel_inputs(problem, dtype, lam_value=1e-4):
@@ -1672,6 +1772,7 @@ def main() -> int:
         perturb_scene,
         scene_to_ba_problem,
     )
+    from tpu3drecon_torch.problems.grid import grid_bucketed_from_flat
     from tpu3drecon_torch.problems.tt import tt_from_flat
 
     t0 = time.perf_counter()
@@ -1695,7 +1796,20 @@ def main() -> int:
     cfg = BAL_CONFIG._replace(precond="ssor")
     drive(TT1024_SSOR, lambda p, **kw: ba_solve_tt(p, cfg._replace(**kw)),
           tt1024, seq_flat, 2, rmse_limit=None)
-    del tt1024, seq_flat
+    del tt1024
+
+    t0 = time.perf_counter()
+    grid1024 = grid_bucketed_from_flat(seq_flat)
+    torch.cuda.synchronize()
+    log(f"grid_seq1024 problem: (C, K) = {tuple(grid1024.mask.shape)}, "
+        f"P_pad = {grid1024.points3d.shape[0]}, packed in {time.perf_counter() - t0:.1f} s; "
+        "track buckets (Pb, Tb): " + str([tuple(b.track_idx.shape) for b in grid1024.buckets]))
+    check_grid1024_kernels(grid1024)
+    first_path(drive(
+        GRID1024, lambda p, **kw: ba_solve_pallas(p, BAL_CONFIG._replace(**kw)),
+        grid1024, seq_flat, 2, maxiters=(3,), rmse_limit=None,
+    ))
+    del grid1024, seq_flat
 
     from tpu3drecon_torch.experiments import term_stack
 

@@ -61,17 +61,25 @@ _GRID = "_ZN48_GLOBAL__N__1192525d_15_grid_kernels_cu_33655f32"
     (f"{_WTT}11cost_kernelIfLb1EEEvPKsPKT_S5_S5_S5_PS3_iiiiiii", True),  # B4, walking
     (f"{_ROUTE}17cam_planes_kernelIfEEvPKsPKT_PS3_iiii", False),  # B7, one thread per slot
     (f"{_GRID}24point_normal_rows_kernelIfEEvNS_9PnBucketsEPKT_PS3_S5_S5_S3_", True),  # B10
-    (f"{_GRID}15coupling_kernelIfEEvPKT_S3_S3_PS1_i", False),  # B11, one block per camera
-    (f"{_GRID}17cam_normal_kernelIfEEvPKT_S3_S3_S3_PS1_S4_S4_S4_S4_ii", False),  # B9
+    # B11 and B9 of an older tree (one block per camera row), kept for the
+    # registers of a parent tree timed in the same call, and B11 and B9 with
+    # their lanes per thread and row source; B11's grid_coupling_kernel not
+    # taken for B2's.
+    (f"{_GRID}15coupling_kernelIfEEvPKT_S3_S3_PS1_i", True),  # B11, older tree
+    (f"{_GRID}17cam_normal_kernelIfEEvPKT_S3_S3_S3_PS1_S4_S4_S4_S4_ii", True),  # B9, older
+    (f"{_GRID}20grid_coupling_kernelIfLi1ELb1EEEvPKT_S3_S3_S3_PKiiPS1_ii", True),  # B11
+    (f"{_GRID}22grid_cam_normal_kernelIfLi4ELb1EEEvNS_7CamRowsIT_EEPKS2_S5_PKiiS5_S5_PS2_"
+     "S8_S8_S8_S8_iii", True),  # B9
+    (f"{_TT}20grid_coupling_kernelIfLi1ELb1EEEvPKT_S3_S3_S3_PKiiPS1_ii", False),  # no source
 ])
 def test_ptxas_lines_keep_the_slot_major_kernels(mangled, kept):
-    """The registers and spills of the slot-major B3-B5, B8 and B12-B16 and
-    of B10 (one launch over the track buckets) are kept, B7's (one thread
-    per slot) and the grid camera kernels' B9 and B11 (one block per camera
-    row) dropped: the names are matched with
-    their length prefix (B4's cost_kernel and B16's tt_cost_kernel each by
-    its own, B3's wt_planes_kernel not B7's cam_planes_kernel) and their
-    source (B2's coupling_kernel, not B11's of grid_kernels.cu)."""
+    """The registers and spills of the slot-major B3-B5, B8 and B12-B16, of
+    B10 (one launch over the track buckets) and of the grid camera kernels
+    B9 and B11 (an older tree's too) are kept, B7's (one thread per slot)
+    dropped: the names are matched with their length prefix (B4's
+    cost_kernel and B16's tt_cost_kernel each by its own, B3's
+    wt_planes_kernel not B7's cam_planes_kernel, B2's coupling_kernel not
+    B11's grid_coupling_kernel) and their source."""
     out = (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
            "ptxas info    : Function properties for x\n"
            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"

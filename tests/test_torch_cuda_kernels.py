@@ -9,7 +9,11 @@ longer than one block's chunk, all-padding buckets, the hub layout's width
 and warps whose lanes hit different rows (B3, B4, B14 and B16 bit for bit
 against their plain versions summed in slot order); B6 at every one-hot
 load width; B7 on many groups and the hub's widest windows and B10's
-grouped call over many buckets, both bit for bit.
+grouped call over many buckets, both bit for bit; B9 and B11 in both forms
+(the planes of JAX's signature and the indexed forms the grid solve calls)
+at every lanes per thread grid_lanes picks and the C entries take, the
+indexed forms bit-equal to the plane forms and two calls bit-equal, lanes
+the C entries refuse, and the trap on a pt_idx outside the points.
 The kernels read camera rows from device memory and reduce into the output
 rows directly, so wide windows and camera axes run: one input per kernel
 family past the card's shared memory per block.  B15 also keeps a
@@ -307,8 +311,10 @@ def test_route_kernels_refuse_bad_inputs(dev):
 
 def _grid_inputs(dev, dtype, c, k, p, t2, seed):
     """B9 inputs for C cameras near a pinhole looking down +z from z ~ 6
-    with 15 % masked lanes, and B10 track rows for P points (some rows
-    zero, as padded track entries are)."""
+    with 15 % masked lanes, the lanes' points drawn from P points through a
+    random int32 pt_idx (x_w the gathered planes), a symmetric V^-1 per
+    point (vinv6 its gathered planes), and B10 track rows for P points (some
+    rows zero, as padded track entries are)."""
     rng = np.random.default_rng(seed)
     rmats = np.eye(3) + rng.normal(scale=0.05, size=(c, 3, 3))
     tvecs = np.concatenate([rng.normal(scale=0.3, size=(c, 2)),
@@ -316,46 +322,88 @@ def _grid_inputs(dev, dtype, c, k, p, t2, seed):
     mask = (rng.random((c, k)) > 0.15).astype(np.float64)
     jp_g = rng.normal(size=(p, t2, 3))
     jp_g[rng.random((p, t2)) < 0.3] = 0.0
+    points = rng.normal(size=(p, 3))
+    pt_idx = rng.integers(0, p, size=(c, k)).astype(np.int32)
+    vinv = rng.normal(size=(p, 3, 3))
+    vinv = vinv + vinv.transpose(0, 2, 1)
+    vinv6 = vinv[:, [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]]
 
-    def t(x):
-        return torch.as_tensor(np.array(x), dtype=dtype, device=dev)
+    def t(x, dt=dtype):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dt, device=dev)
 
     return dict(
         cams=(t(rmats), t(tvecs), t(rng.uniform(1000, 1100, size=(c, 2))),
               t(np.concatenate([rng.uniform(600, 680, size=(c, 2)),
                                 np.zeros((c, 1))], axis=1)),
               t(np.stack([rng.uniform(-0.05, 0.0, c), rng.uniform(0.0, 0.01, c)], 1))),
-        x_w=t(rng.normal(size=(c, 3, k))),
+        x_w=t(points[pt_idx].transpose(0, 2, 1)),
+        points=t(points),
+        pt_idx=t(pt_idx, torch.int32),
         uv=t(rng.uniform(300, 1000, size=(c, 2, k))),
         mask=t(mask),
         inv_w=torch.tensor(1.0 / 1280.0, dtype=dtype, device=dev),
         jp_g=t(jp_g),
         r_g=t(rng.normal(size=(p, t2))),
         lam=torch.tensor(1e-4, dtype=dtype, device=dev),
-        vinv6=t(rng.normal(size=(c, 6, k))),
+        vinv=t(vinv),
+        vinv6=t(vinv6[pt_idx].transpose(0, 2, 1)),
     )
 
 
-GRID_CASES = [  # (dtype, loss, K, P, T2); K and P not multiples of 256
-    (torch.float32, "trivial", 300, 257, 4),
-    (torch.float64, "trivial", 2048, 600, 24),
-    (torch.float32, "cauchy", 1000, 513, 6),
-    (torch.float64, "huber", 300, 100, 16),
+GRID_CASES = [  # (dtype, loss, K, P, T2, C); K and P not multiples of 256
+    (torch.float32, "trivial", 300, 257, 4, 5),
+    (torch.float64, "trivial", 2048, 600, 24, 5),
+    (torch.float32, "cauchy", 1000, 513, 6, 5),
+    (torch.float64, "huber", 300, 100, 16, 5),
+    # grid_lanes takes four float32 lanes a thread from K 2048 on (K 2048
+    # in whole vectors, K 2050 with a tail of two lanes); C 1 is one block;
+    # K 999 takes no vectors, K 100 is below one block's lanes.
+    (torch.float32, "huber", 2048, 300, 4, 40),
+    (torch.float32, "cauchy", 2050, 300, 4, 7),
+    (torch.float64, "cauchy", 300, 300, 4, 70),
+    (torch.float64, "huber", 1000, 300, 4, 1),
+    (torch.float32, "cauchy", 999, 300, 4, 70),
+    (torch.float64, "trivial", 100, 60, 4, 3),
+    (torch.float32, "trivial", 100, 60, 4, 1),
 ]
 
 
-@pytest.mark.parametrize("dtype,loss,k,p,t2", GRID_CASES)
-def test_grid_kernels_match_plain(dev, dtype, loss, k, p, t2):
-    d = _grid_inputs(dev, dtype, 5, k, p, t2, seed=k + p + t2)
+def test_grid_cases_cover_every_lanes():
+    """The cases above reach every LPT that grid_lanes picks."""
+    picked = {cam_normal.grid_lanes(k, torch.finfo(dt).bits // 8)
+              for dt, _, k, _, _, _ in GRID_CASES}
+    assert picked == set(cam_normal.LANES)
+
+
+def _cam_args(d):
+    return (*d["cams"], d["x_w"], d["uv"], d["mask"], d["inv_w"])
+
+
+def _idx_args(d):
+    return (*d["cams"], d["points"], d["pt_idx"], d["uv"], d["mask"], d["inv_w"])
+
+
+@pytest.mark.parametrize("dtype,loss,k,p,t2,c", GRID_CASES)
+def test_grid_kernels_match_plain(dev, dtype, loss, k, p, t2, c):
+    """B9 and B11 in both forms against their plain versions (TOL), two
+    calls bit-equal, the indexed forms bit-equal to the plane forms, masked
+    lanes exact zeros; B10 against its plain version."""
+    d = _grid_inputs(dev, dtype, c, k, p, t2, seed=k + p + t2 + c)
     elem, reduced = TOL[dtype]
     counts = (cam_normal.COUNTS, point_normal.COUNTS, coupling.COUNTS)
-    before = [c.kernel for c in counts]
+    before = [cnt.kernel for cnt in counts]
+    rl = RobustLoss(loss)
 
-    cam_args = (*d["cams"], d["x_w"], d["uv"], d["mask"], d["inv_w"])
-    got = cam_normal.cam_normal_fused(*cam_args, loss=RobustLoss(loss))
-    want = cam_normal.cam_normal_fused_plain(*cam_args, loss=RobustLoss(loss))
+    got = cam_normal.cam_normal_fused(*_cam_args(d), loss=rl)
+    want = cam_normal.cam_normal_fused_plain(*_cam_args(d), loss=rl)
     for name, a, b in zip(("r", "jp", "jc", "u", "g"), got, want):
         _close(a, b, reduced if name in ("u", "g") else elem, name)
+    again = cam_normal.cam_normal_fused(*_cam_args(d), loss=rl)
+    idx = cam_normal.cam_normal_idx(*_idx_args(d), loss=rl)
+    torch.cuda.synchronize()
+    for name, a, b, i in zip(("r", "jp", "jc", "u", "g"), got, again, idx):
+        assert torch.equal(a, b), f"{name}: two calls differ"
+        assert torch.equal(a, i), f"{name}: indexed form differs from the planes"
     pad = (d["mask"] == 0)[:, None, :]
     for plane in got[:3]:
         assert (plane.masked_select(pad.expand_as(plane)) == 0).all()
@@ -368,9 +416,104 @@ def test_grid_kernels_match_plain(dev, dtype, loss, k, p, t2):
         _close(a, b, elem, name)
 
     _, jp, jc, _, _ = want
-    _close(coupling.coupling_fused(jc, jp, d["vinv6"]),
-           coupling.coupling_fused_plain(jc, jp, d["vinv6"]), reduced, "coupling")
-    assert [c.kernel - b for c, b in zip(counts, before)] == [1, 1, 1]
+    coup = coupling.coupling_fused(jc, jp, d["vinv6"])
+    _close(coup, coupling.coupling_fused_plain(jc, jp, d["vinv6"]), reduced, "coupling")
+    coup_idx = coupling.coupling_idx(jc, jp, d["vinv"], d["pt_idx"])
+    torch.cuda.synchronize()
+    assert torch.equal(coup, coupling.coupling_fused(jc, jp, d["vinv6"]))
+    assert torch.equal(coup, coup_idx)
+    assert [cnt.kernel - b for cnt, b in zip(counts, before)] == [3, 1, 3]
+
+
+@pytest.mark.parametrize("dtype,k", [(torch.float32, 1000), (torch.float32, 999),
+                                     (torch.float64, 999)])
+def test_grid_every_lanes(dev, dtype, k):
+    """Every LPT the C entries take for the dtype: the per-element outputs
+    equal the default's bit for bit, U, g and the coupling blocks match the
+    plain versions (TOL), the indexed forms equal the plane forms."""
+    d = _grid_inputs(dev, dtype, 3, k, 200, 4, seed=k)
+    elem, reduced = TOL[dtype]
+    base = cam_normal.cam_normal_fused(*_cam_args(d), loss=RobustLoss.HUBER)
+    want = cam_normal.cam_normal_fused_plain(*_cam_args(d), loss=RobustLoss.HUBER)
+    _, jp, jc, _, _ = want
+    coup_want = coupling.coupling_fused_plain(jc, jp, d["vinv6"])
+    for lanes in cam_normal.LANES if dtype == torch.float32 else (1,):
+        kw = dict(_lanes=lanes)
+        tag = f"LPT={lanes}"
+        got = cam_normal.cam_normal_fused(*_cam_args(d), loss=RobustLoss.HUBER, **kw)
+        idx = cam_normal.cam_normal_idx(*_idx_args(d), loss=RobustLoss.HUBER, **kw)
+        torch.cuda.synchronize()
+        for name, a, b, i in zip(("r", "jp", "jc", "u", "g"), got, base, idx):
+            assert torch.equal(a, i), f"{tag} {name}: indexed differs"
+            if name in ("u", "g"):
+                _close(a, want[("r", "jp", "jc", "u", "g").index(name)], reduced,
+                       f"{tag} {name}")
+            else:
+                assert torch.equal(a, b), f"{tag} {name}"
+        coup = coupling.coupling_fused(jc, jp, d["vinv6"], **kw)
+        _close(coup, coup_want, reduced, f"{tag} coupling")
+        assert torch.equal(coup, coupling.coupling_idx(jc, jp, d["vinv"], d["pt_idx"], **kw)), tag
+
+
+@pytest.mark.parametrize("dtype,bad", [(torch.float32, (0, 2, 3, 8)), (torch.float64, (2, 4))])
+def test_grid_refused_lanes_raise(dev, dtype, bad):
+    """A forced LPT that the C entries do not take for the dtype raises
+    from the C entry; nothing runs a plain version instead."""
+    d = _grid_inputs(dev, dtype, 3, 256, 64, 4, seed=6)
+    plain = (cam_normal.COUNTS.plain, coupling.COUNTS.plain)
+    jc = torch.zeros((3, 16, 256), dtype=dtype, device=dev)
+    jp = torch.zeros((3, 6, 256), dtype=dtype, device=dev)
+    for lanes in bad:
+        with pytest.raises(RuntimeError, match="launch geometry"):
+            cam_normal.cam_normal_idx(*_idx_args(d), _lanes=lanes)
+        with pytest.raises(RuntimeError, match="launch geometry"):
+            coupling.coupling_fused(jc, jp, d["vinv6"], _lanes=lanes)
+    assert (cam_normal.COUNTS.plain, coupling.COUNTS.plain) == plain
+
+
+_OUT_OF_RANGE = """
+import sys, torch
+from tpu3drecon_torch.ops import cam_normal, coupling
+dev = torch.device("cuda", 0)
+c, k, p = 2, 300, 50
+pt_idx = torch.zeros((c, k), dtype=torch.int32, device=dev)
+pt_idx[1, 7] = int(sys.argv[2])
+if sys.argv[1] == "b9":
+    cams = (torch.eye(3, device=dev).expand(c, 3, 3).contiguous(), torch.ones((c, 3), device=dev),
+            torch.ones((c, 2), device=dev), torch.zeros((c, 3), device=dev),
+            torch.zeros((c, 2), device=dev))
+    cam_normal.cam_normal_idx(*cams, torch.ones((p, 3), device=dev), pt_idx,
+                              torch.zeros((c, 2, k), device=dev), torch.ones((c, k), device=dev),
+                              torch.tensor(1.0, device=dev))
+else:
+    coupling.coupling_idx(torch.zeros((c, 16, k), device=dev), torch.zeros((c, 6, k), device=dev),
+                          torch.zeros((p, 3, 3), device=dev), pt_idx)
+torch.cuda.synchronize()
+print("no fault")
+"""
+
+
+@pytest.mark.parametrize("kernel", ["b9", "b11"])
+def test_grid_idx_out_of_range_traps(dev, kernel):
+    """An index of pt_idx outside [0, P) (past P, or negative) stops the
+    indexed kernels instead of reading outside points3d or v_inv: the
+    kernel traps and the process's next synchronisation raises.  Each call
+    runs in a process of its own, whose CUDA context the trap ends."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    for bad, faults in (("49", False), ("50", True), ("-1", True)):
+        run = subprocess.run([sys.executable, "-c", _OUT_OF_RANGE, kernel, bad], env=env,
+                             capture_output=True, text=True, timeout=600, cwd=root)
+        if faults:
+            assert run.returncode != 0 and "no fault" not in run.stdout, (bad, run.stdout)
+            assert "RuntimeError" in run.stderr or "AcceleratorError" in run.stderr, run.stderr
+        else:
+            assert run.returncode == 0 and "no fault" in run.stdout, (bad, run.stderr)
 
 
 def test_grid_bad_inputs_raise(dev):
@@ -386,6 +529,15 @@ def test_grid_bad_inputs_raise(dev):
         coupling.coupling_fused(jc, d["vinv6"], d["vinv6"][:, :, :128].contiguous())
     with pytest.raises(ValueError, match="float32 or float64"):
         coupling.coupling_fused(jc.half(), d["vinv6"].half(), d["vinv6"].half())
+    cams = list(d["cams"])
+    cams[0] = cams[0].transpose(1, 2)  # rmats not contiguous
+    with pytest.raises(ValueError, match="rmats must be contiguous"):
+        cam_normal.cam_normal_idx(*cams, *_idx_args(d)[5:])
+    with pytest.raises(ValueError, match="pt_idx has dtype"):
+        cam_normal.cam_normal_idx(*_idx_args(d)[:6], d["pt_idx"].long(),
+                                  *_idx_args(d)[7:])
+    with pytest.raises(ValueError, match="v_inv has shape"):
+        coupling.coupling_idx(jc, jc[:, :6].contiguous(), d["vinv6"], d["pt_idx"])
 
 
 def _tt_inputs(dev, dtype, c, tb, pb, seed):

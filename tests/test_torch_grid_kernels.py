@@ -47,6 +47,7 @@ def planes(request):
     return dict(
         cams={k: np.asarray(getattr(grid.cameras, k)) for k in CAM_FIELDS},
         x_w=np.ascontiguousarray(pts[pt_idx].transpose(0, 2, 1)),
+        points=pts,
         uv=np.ascontiguousarray(np.asarray(grid.uv).transpose(0, 2, 1)),
         mask=np.asarray(grid.mask),
         inv_w=1.0 / float(grid.avg_cam_width),
@@ -164,6 +165,78 @@ def test_coupling_matches_pallas(planes):
     assert got.shape == (jc.shape[0], 8, 8)
     assert_close(got, want, RTOL, ATOL_REL)
     np.testing.assert_array_equal(got.numpy(), got.numpy().transpose(0, 2, 1))
+
+
+@pytest.mark.parametrize("loss", ["trivial", "cauchy", "huber"])
+def test_cam_normal_idx_matches_pallas(planes, loss):
+    """B9's indexed form (the grid solve's call: the points read through
+    pt_idx) against JAX's ``cam_normal_fused`` on the planes gathered by
+    numpy, and bit for bit against the port's plane form."""
+    c = planes["cams"]
+    got = cam_normal.cam_normal_idx(
+        *(_t(c[k]) for k in CAM_FIELDS), _t(planes["points"]), _t(planes["pt_idx"]),
+        _t(planes["uv"]), _t(planes["mask"]),
+        torch.tensor(planes["inv_w"], dtype=torch.float64), loss=TLoss(loss))
+    assert planes["pt_idx"].dtype == np.int32
+    for name, a, b, p in zip(("r", "jp", "jc", "u", "g"), got, _jax_cam(planes, loss),
+                             _port_cam(planes, loss)):
+        assert a.shape == b.shape, name
+        assert_close(a, b, RTOL, ATOL_REL, err_msg=name)
+        assert torch.equal(a, p), name
+    pad = planes["mask"] == 0
+    for plane in got[:3]:
+        assert (plane.numpy().transpose(0, 2, 1)[pad] == 0).all()
+
+
+def test_coupling_idx_matches_pallas(planes):
+    """B11's indexed form (V^-1 (P, 3, 3) read through pt_idx) against
+    JAX's ``coupling_fused`` on the unique entries gathered by numpy."""
+    jp_g, r_g, (_, jp, jc) = _track_rows(planes)
+    p = planes["track_idx"].shape[0]
+    v_inv, _, _ = j_point(jnp.asarray(jp_g), jnp.asarray(r_g), jnp.asarray(LAM),
+                          block_points=jp_g.shape[0], interpret=True)
+    v = np.ascontiguousarray(np.asarray(v_inv)[:p])
+    vinv6 = np.stack([v[:, 0, 0], v[:, 0, 1], v[:, 0, 2],
+                      v[:, 1, 1], v[:, 1, 2], v[:, 2, 2]], axis=1)
+    vinv6_g = np.ascontiguousarray(vinv6[planes["pt_idx"]].transpose(0, 2, 1))
+    want = j_coupling(jnp.asarray(jc), jnp.asarray(jp), jnp.asarray(vinv6_g),
+                      interpret=True)
+    got = coupling.coupling_idx(_t(jc), _t(jp), _t(v), _t(planes["pt_idx"]))
+    assert got.shape == (jc.shape[0], 8, 8)
+    assert_close(got, want, RTOL, ATOL_REL)
+    assert torch.equal(got, coupling.coupling_fused(_t(jc), _t(jp), _t(vinv6_g)))
+
+
+def test_cpu_idx_calls_run_the_plain_versions(planes):
+    """On CPU tensors the indexed forms run their plain versions (one
+    plain call each, no kernel)."""
+    c = planes["cams"]
+    before = [(cnt.kernel, cnt.plain) for cnt in (cam_normal.COUNTS, coupling.COUNTS)]
+    _, jp, jc, _, _ = cam_normal.cam_normal_idx(
+        *(_t(c[k]) for k in CAM_FIELDS), _t(planes["points"]), _t(planes["pt_idx"]),
+        _t(planes["uv"]), _t(planes["mask"]), torch.tensor(planes["inv_w"]))
+    v = torch.eye(3, dtype=torch.float64).expand(planes["points"].shape[0], 3, 3)
+    coupling.coupling_idx(jc, jp, v.contiguous(), _t(planes["pt_idx"]))
+    after = [(cnt.kernel, cnt.plain) for cnt in (cam_normal.COUNTS, coupling.COUNTS)]
+    assert [(a[0] - b[0], a[1] - b[1]) for a, b in zip(after, before)] == [(0, 1), (0, 1)]
+
+
+def test_cpu_idx_out_of_range_raises(planes):
+    """A pt_idx entry past the points raises on the CPU, from the plain
+    versions' gather (the kernels trap on it instead)."""
+    c = planes["cams"]
+    p = planes["points"].shape[0]
+    bad = planes["pt_idx"].copy()
+    bad[-1, -1] = p
+    with pytest.raises(IndexError):
+        cam_normal.cam_normal_idx(
+            *(_t(c[k]) for k in CAM_FIELDS), _t(planes["points"]), _t(bad),
+            _t(planes["uv"]), _t(planes["mask"]), torch.tensor(planes["inv_w"]))
+    n_cams, k = bad.shape
+    with pytest.raises(IndexError):
+        coupling.coupling_idx(torch.zeros((n_cams, 16, k), dtype=torch.float64),
+                              torch.zeros((n_cams, 6, k), dtype=torch.float64),
+                              torch.zeros((p, 3, 3), dtype=torch.float64), _t(bad))
 
 
 def test_cpu_tensors_run_the_plain_versions(planes):

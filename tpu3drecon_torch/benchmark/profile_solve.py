@@ -1,10 +1,14 @@
 """Where the time of one solve goes on the card.
 
     python -m tpu3drecon_torch.benchmark.profile_solve [--trace-dir DIR] [--engines A,B]
+        [--grid-lanes N]
 
 The Chrome traces are kept in ``--trace-dir`` (default: the ignored
 ``tpu3drecon_torch/_build/profile/``), one ``<engine>.json`` each;
-``--engines`` profiles only the engines or routes named (default: all).
+``--engines`` profiles only the engines or routes named (default: all);
+``--grid-lanes`` pins the lanes per thread of the grid engine's B9 and B11
+(``ops/cam_normal.grid_lanes``; 1 sums in the first port's order, so a
+grid solve then takes the first port's CG iterations).
 
 For each engine (the windowed track table ``ba_solve_wtt``, fully indexed,
 the fused-kernel grid engine ``ba_solve_pallas`` and the dense track table
@@ -58,10 +62,13 @@ from tpu3drecon_torch.ops._build import BUILD_DIR
 
 # The solvers' record_function spans.
 SPANS = ("band_precond_factor", "band_precond_apply")
-# The port's kernels (csrc/*.cu) as named in a trace: "...::<name><...>(...)".
+# The port's kernels (csrc/*.cu) as named in a trace: "...::<name><...>(...)"
+# (B9 and B11 are grid_cam_normal_kernel and grid_coupling_kernel; an older
+# tree's were cam_normal_kernel and a coupling_kernel of grid_kernels.cu).
 PORT_KERNELS = ("lin_kernel", "coupling_kernel", "wt_planes_kernel", "cost_kernel",
                 "w_rows_kernel", "onehot_coupling_kernel", "cam_planes_kernel",
-                "contrib_kernel", "cam_normal_kernel", "point_normal_rows_kernel",
+                "contrib_kernel", "cam_normal_kernel", "grid_cam_normal_kernel",
+                "point_normal_rows_kernel", "grid_coupling_kernel",
                 "tt_cam_normal_kernel", "tt_coupling_kernel", "tt_wt_times_kernel",
                 "tt_w_times_kernel", "tt_cost_kernel")
 
@@ -164,6 +171,8 @@ def main() -> int:
                     help="where the Chrome traces are written")
     ap.add_argument("--engines", default="",
                     help="comma-separated engines or routes to profile (default: all)")
+    ap.add_argument("--grid-lanes", type=int, default=None,
+                    help="pin B9's and B11's lanes per thread (default: grid_lanes' pick)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_solve measures on a CUDA device; none is available")
@@ -179,6 +188,7 @@ def main() -> int:
         build_problem,
         build_tt_problem,
     )
+    from tpu3drecon_torch.ops import cam_normal
     from tpu3drecon_torch.problems.wtt import expand_onehots, wtt_from_flat
     from tpu3drecon_torch.solvers.ba_pallas import ba_solve_pallas
     from tpu3drecon_torch.solvers.ba_tt import ba_solve_tt
@@ -208,6 +218,9 @@ def main() -> int:
         ("tt_seq1024_ssor", lambda p: ba_solve_tt(p, BAL_CONFIG._replace(precond="ssor")),
          tt_seq1024),
     )
+    if args.grid_lanes is not None:
+        pinned = args.grid_lanes
+        cam_normal.grid_lanes = lambda k, itemsize: pinned
     out_dir = Path(args.trace_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     wanted = set(filter(None, args.engines.split(",")))
@@ -219,7 +232,7 @@ def main() -> int:
             continue
         report = profile(solve, build(), str(out_dir / f"{engine}.json"))
         print(json.dumps(dict(engine=engine, device=torch.cuda.get_device_name(0),
-                              **report)), flush=True)
+                              grid_lanes=args.grid_lanes, **report)), flush=True)
     return 0
 
 

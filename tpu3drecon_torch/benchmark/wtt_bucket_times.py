@@ -2,14 +2,16 @@
 (``wtt_linearize_fused_idx``), B2 (``wtt_coupling_rows_idx``), B3
 (``wtt_wt_planes_idx``), B4 (``wtt_cost_cols_idx``), B5
 (``wtt_w_rows_idx``), B6 (``wtt_coupling_rows_fused``), B7
-(``wtt_cam_planes_idx``), B8 (``wtt_contrib_rows_idx``), B10
+(``wtt_cam_planes_idx``), B8 (``wtt_contrib_rows_idx``), B9 and B11
+(``cam_normal_idx`` and ``coupling_idx`` per grid pass, with their plane
+forms, kernels alone and a sweep over the lanes per thread), B10
 (``point_normal_fused`` per grid track bucket, ``point_normal_buckets``
 per pass), B12 (``tt_cam_normal_fused``), B13 (``tt_coupling_fused``), B14
 (``tt_wt_times_fused``), B15 (``tt_w_times_fused``) and B16
 (``tt_cost_fused``), and the registers, shared memory and spills that
 ``nvcc -Xptxas -v`` reports for their instantiations.
 
-    python -m tpu3drecon_torch.benchmark.wtt_bucket_times [--tt | --w-rows-sweep]
+    python -m tpu3drecon_torch.benchmark.wtt_bucket_times [--tt | --grid | --w-rows-sweep]
 
 ``chip_smoke.py`` sums each kernel over the buckets of a pass; this script
 prints every bucket, each time a ``device_ms`` (median of 20 cold-L2 calls
@@ -26,7 +28,10 @@ B13 on random V^-1 planes), B16 also as its kernel alone (``B16 kernel``:
 the profiler's mean time of its kernel, without the wrapper's sum and
 product); with ``--tt`` only those five; B10 on the medium problem's five
 grid track buckets (B9's r/jp planes gathered as the grid solve gathers
-them), each alone and as one pass, the grouped ``point_normal_buckets``.
+them), each alone and as one pass, the grouped ``point_normal_buckets``;
+B9 and B11 on the medium grid and on the grid packing of tt_seq1024's
+scene (``time_grid_cameras``), with ``--grid`` only B9-B11, first the
+launches of one grid linearization (``linearize_launches``).
 A wrapper that takes a private
 ``_mode`` (a memory mode to force, as B5 and B15 do) is also timed with
 each mode forced.  ``--w-rows-sweep`` times only B5's two memory modes, on
@@ -53,25 +58,27 @@ import torch
 from tpu3drecon_torch.benchmark.timing import L2_FLUSH_BYTES, card_line, device_ms
 
 # B1, B2 and B6 (coupling_kernel in wtt_route_kernels.cu; an older tree's
-# onehot_coupling_kernel), B3, B4, B5, B8, B10, B12, B13, B14, B15 and B16,
-# each with the sources it is compiled in; matched with their length
-# prefix in the mangled names, so that "coupling_kernel" (B2, B6) does not
-# also match tt_coupling_kernel (B13), nor "cost_kernel" (B4) tt_cost_kernel
-# (B16), and with their source, so that B11's coupling_kernel of
-# grid_kernels.cu is not kept.
+# onehot_coupling_kernel), B3, B4, B5, B8, B9, B10, B11, B12, B13, B14, B15
+# and B16, each with the sources it is compiled in; matched with their
+# length prefix in the mangled names, so that "coupling_kernel" (B2, B6)
+# does not also match tt_coupling_kernel (B13) or grid_coupling_kernel
+# (B11), nor "cost_kernel" (B4) tt_cost_kernel (B16).  B9 and B11 are
+# grid_cam_normal_kernel and grid_coupling_kernel; an older tree's were
+# cam_normal_kernel and coupling_kernel in grid_kernels.cu.
 _WTT_SOURCES = ("_wtt_kernels_cu", "_wtt_terms_kernels_cu", "_wtt_route_kernels_cu")
 _PTXAS_KERNELS = {
-    **dict.fromkeys(("lin_kernel", "coupling_kernel", "onehot_coupling_kernel",
-                     "wt_planes_kernel", "cost_kernel", "contrib_kernel", "w_rows_kernel"),
-                    _WTT_SOURCES),
+    **dict.fromkeys(("lin_kernel", "onehot_coupling_kernel", "wt_planes_kernel",
+                     "cost_kernel", "contrib_kernel", "w_rows_kernel"), _WTT_SOURCES),
+    "coupling_kernel": _WTT_SOURCES + ("_grid_kernels_cu",),
     **dict.fromkeys(("tt_cam_normal_kernel", "tt_coupling_kernel", "tt_wt_times_kernel",
                      "tt_w_times_kernel", "tt_cost_kernel"), ("_tt_kernels_cu",)),
-    "point_normal_rows_kernel": ("_grid_kernels_cu",),
+    **dict.fromkeys(("point_normal_rows_kernel", "grid_cam_normal_kernel",
+                     "grid_coupling_kernel", "cam_normal_kernel"), ("_grid_kernels_cu",)),
 }
 
 
 def ptxas_lines(compiler_out: str) -> list[str]:
-    """The ``-Xptxas -v`` lines of B1-B6's, B8's, B10's and B12-B16's
+    """The ``-Xptxas -v`` lines of B1-B6's, B8-B11's and B12-B16's
     instantiations: each entry function's line with the lines that follow
     it up to the next entry."""
     out, keep = [], False
@@ -225,6 +232,125 @@ def time_grid_buckets(label: str, grid, lam_value=1e-4) -> list[dict]:
     return rows
 
 
+def linearize_launches(label: str, grid) -> dict:
+    """Host kernel launches (``cudaLaunchKernel*`` calls) and device
+    operations of one grid linearization, ``ba_pallas._linearize`` at the
+    initial parameters with lam = 1e-4 and the medium config, any tree's
+    alike: ``torch.profiler`` over one call after a warm-up, its trace read
+    by ``profile_solve.summarize``.  A solve's own count moves with its
+    CG iterations, which its f32 sums may change."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu3drecon_torch.benchmark.medium_config import BENCH_CONFIG
+    from tpu3drecon_torch.benchmark.profile_solve import summarize
+    from tpu3drecon_torch.ops._build import BUILD_DIR
+    from tpu3drecon_torch.solvers.ba_pallas import _linearize
+
+    cams = grid.cameras
+    params = (cams.rmats, cams.tvecs, cams.fx_fy, grid.points3d)
+    lam = torch.tensor(1e-4, dtype=grid.points3d.dtype, device=grid.points3d.device)
+    _linearize(params, lam, grid, BENCH_CONFIG)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _linearize(params, lam, grid, BENCH_CONFIG)
+        torch.cuda.synchronize()
+    path = BUILD_DIR / "profile" / "linearize.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    out = summarize(str(path), 1.0, top=0)
+    row = {"problem": label, "bucket": "linearize", "launch_calls": out["launch_calls"],
+           "device_ops": out["device_ops"]}
+    print(f"{label} one linearization: {row['launch_calls']} launch calls, "
+          f"{row['device_ops']} device operations", flush=True)
+    return row
+
+
+def time_grid_cameras(label: str, grid, sweep: bool) -> list[dict]:
+    """B9 and B11 on a grid ``problem`` (f32, initial parameters, V^-1 of
+    B10 at lam = 1e-4), one pass each: the plane forms (``B9``, ``B11``:
+    ``cam_normal_fused`` on the x_w planes, ``coupling_fused`` on the
+    gathered V^-1 planes), their kernels alone (``B9 kernel``, ``B11
+    kernel``: the profiler's mean, by the kernel's name in this tree), and
+    what the grid solve calls (``B9 solve``, ``B11 solve``: the indexed
+    forms, or in a tree without them the gathers and the plane forms).
+    With ``sweep``, the indexed and plane forms at each LPT the C entries
+    take (rows of bucket "sweep")."""
+    from tpu3drecon_torch.ops import cam_normal, coupling, point_normal
+    from tpu3drecon_torch.solvers.ba_pallas import (
+        _grid_planes,
+        _inv_w,
+        _track_gather,
+        _uv_planes,
+        _vinv6,
+    )
+
+    dtype = torch.float32
+    cam = tuple(getattr(grid.cameras, f).to(dtype) for f in CAM_FIELDS)
+    pts, pt_idx = grid.points3d.to(dtype), grid.pt_idx
+    tail = (_uv_planes(grid).to(dtype), grid.mask.to(dtype), _inv_w(grid, dtype))
+    planes = (*cam, _grid_planes(pts, pt_idx), *tail)
+    _, jp, jc, _, _ = out = cam_normal.cam_normal_fused(*planes)
+    gathered = _track_gather(jp, out[0], grid)
+    lam = torch.tensor(1e-4, dtype=dtype, device=jp.device)
+    v_inv = point_normal.point_normal_buckets([x for x, _ in gathered],
+                                              [y for _, y in gathered], lam)[0]
+    v_inv = v_inv[:pts.shape[0]]
+    vinv6_g = _grid_planes(_vinv6(v_inv), pt_idx)
+    new = hasattr(cam_normal, "cam_normal_idx")
+    names = ("grid_cam_normal_kernel", "grid_coupling_kernel") if new else (
+        "cam_normal_kernel", "coupling_kernel")
+    if new:
+        idx = (*cam, pts, pt_idx, *tail)
+
+        def b9_solve(**kw):
+            return cam_normal.cam_normal_idx(*idx, **kw)
+
+        def b11_solve(**kw):
+            return coupling.coupling_idx(jc, jp, v_inv, pt_idx, **kw)
+    else:
+        def b9_solve():
+            return cam_normal.cam_normal_fused(*cam, _grid_planes(pts, pt_idx), *tail)
+
+        def b11_solve():
+            return coupling.coupling_fused(jc, jp, _grid_planes(_vinv6(v_inv), pt_idx))
+
+    c, k = pt_idx.shape
+    row = {"problem": label, "bucket": "pass", "shape": f"C={c} K={k}",
+           "B9": device_ms(lambda: cam_normal.cam_normal_fused(*planes)),
+           "B9 kernel": kernel_alone_ms(lambda: cam_normal.cam_normal_fused(*planes),
+                                        names[0]),
+           "B9 solve": device_ms(b9_solve),
+           "B11": device_ms(lambda: coupling.coupling_fused(jc, jp, vinv6_g)),
+           "B11 kernel": kernel_alone_ms(lambda: coupling.coupling_fused(jc, jp, vinv6_g),
+                                         names[1]),
+           "B11 solve": device_ms(b11_solve)}
+    if new:
+        row["LPT"] = cam_normal.grid_lanes(k, 4)
+    print(f"{label} B9/B11 pass ({row['shape']}"
+          + (f", LPT={row['LPT']}" if new else "") + "): "
+          + " ".join(f"{key} {v:.6f} ms" for key, v in row.items() if key.startswith("B")),
+          flush=True)
+    rows = [row]
+    if not (sweep and new):
+        return rows
+    for lanes in cam_normal.LANES:
+        kw = dict(_lanes=lanes)
+        sw = {"problem": label, "bucket": "sweep", "LPT": lanes,
+              "B9": device_ms(lambda: cam_normal.cam_normal_fused(*planes, **kw)),
+              "B9 kernel": kernel_alone_ms(
+                  lambda: cam_normal.cam_normal_fused(*planes, **kw), names[0]),
+              "B9 idx": device_ms(lambda: b9_solve(**kw)),
+              "B11": device_ms(lambda: coupling.coupling_fused(jc, jp, vinv6_g, **kw)),
+              "B11 kernel": kernel_alone_ms(
+                  lambda: coupling.coupling_fused(jc, jp, vinv6_g, **kw), names[1]),
+              "B11 idx": device_ms(lambda: b11_solve(**kw))}
+        print(f"{label} sweep LPT={lanes}: "
+              + " ".join(f"{key} {v:.6f} ms" for key, v in sw.items() if key.startswith("B")),
+              flush=True)
+        rows.append(sw)
+    return rows
+
+
 # Slots per (np, W) output entry of the single-group slices that
 # ``w_rows_sweep`` times B5's two memory modes on.
 SWEEP_SLOTS_PER_ENTRY = (4, 6, 8, 12, 16, 24, 36, 64, 128)
@@ -303,15 +429,18 @@ def time_onehot_buckets(label: str, problem) -> list[dict]:
     return rows
 
 
-def kernel_alone_ms(fn, kernel: str, n: int = 20, attempts: int = 3) -> float:
+def kernel_alone_ms(fn, kernel: str, n: int = 20, attempts: int = 5) -> float:
     """Mean device time (ms) of the port's kernel ``kernel`` in one call of
     ``fn``: ``torch.profiler`` over ``n`` calls, each after a 128 MB write
     that evicts the L2, its trace read as ``profile_solve`` reads it.  The
     kernel alone, without the other launches of ``fn`` or the gaps between
     them, and by its name, so that any tree's kernel is timed the same way.
-    The profiler now and then drops a trace's kernel events (an H100 under
-    PyTorch 2.11): a trace without all ``n`` launches is taken again, up to
-    ``attempts`` times."""
+    The profiler now and then drops some of a trace's kernel events (an H100
+    under PyTorch 2.11): a trace without all ``n`` launches is taken again,
+    up to ``attempts`` times, and if none has them all, the mean is that of
+    the fullest trace's launches, provided it holds at least half of them.
+    A trace with more than ``n`` means ``fn`` launches the kernel more than
+    once, and raises."""
     from torch.profiler import ProfilerActivity, profile
 
     from tpu3drecon_torch.benchmark.profile_solve import summarize
@@ -322,6 +451,7 @@ def kernel_alone_ms(fn, kernel: str, n: int = 20, attempts: int = 3) -> float:
     torch.cuda.synchronize()
     path = BUILD_DIR / "profile" / "kernel_alone.json"
     path.parent.mkdir(parents=True, exist_ok=True)
+    seen, best = [], None
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
@@ -331,10 +461,19 @@ def kernel_alone_ms(fn, kernel: str, n: int = 20, attempts: int = 3) -> float:
         prof.export_chrome_trace(str(path))
         rows = [r for r in summarize(str(path), 1.0, top=0)["port"]
                 if f"::{kernel}<" in r["kernel"]]
-        if [r["launches"] for r in rows] == [n]:
+        launches = [r["launches"] for r in rows]
+        seen.append(launches)
+        if len(rows) > 1 or sum(launches) > n:
+            raise RuntimeError(f"{kernel}: {launches} launches in {n} calls")
+        if launches == [n]:
             return rows[0]["mean_us"] * 1e-3
-    raise RuntimeError(f"{kernel}: {[r['launches'] for r in rows]} launches in {n} calls, "
-                       f"{attempts} traces")
+        if rows and (best is None or rows[0]["launches"] > best["launches"]):
+            best = rows[0]
+    if best is not None and 2 * best["launches"] >= n:
+        print(f"{kernel}: the profiler kept {seen} of {n} launches in {attempts} traces; "
+              f"the mean of the {best['launches']} of the fullest", flush=True)
+        return best["mean_us"] * 1e-3
+    raise RuntimeError(f"{kernel}: {seen} launches in {n} calls, {attempts} traces")
 
 
 def time_tt_buckets(label: str, problem) -> list[dict]:
@@ -381,20 +520,26 @@ def time_tt_buckets(label: str, problem) -> list[dict]:
     return rows
 
 
-def tt_seq1024(dev):
-    """``chip_smoke.py``'s tt_seq1024 track table (f32)."""
+def seq1024_flat(dev):
+    """``chip_smoke.py``'s 1024-camera sequential scene (f32), flat."""
     from tpu3drecon_torch.dataset.synthetic import (
         make_sequential_scene,
         perturb_scene,
         scene_to_ba_problem,
     )
-    from tpu3drecon_torch.problems.tt import tt_from_flat
 
     scene = make_sequential_scene(n_cameras=1024, points_per_camera=256, track_span=4,
                                   seed=7)
     flat, _ = scene_to_ba_problem(perturb_scene(scene, seed=8, point2d_noise=0.5),
                                   observed=scene, dtype=torch.float32, device=dev)
-    return tt_from_flat(flat, device=dev)
+    return flat
+
+
+def tt_seq1024(dev):
+    """``chip_smoke.py``'s tt_seq1024 track table (f32)."""
+    from tpu3drecon_torch.problems.tt import tt_from_flat
+
+    return tt_from_flat(seq1024_flat(dev), device=dev)
 
 
 def main() -> int:
@@ -426,10 +571,23 @@ def main() -> int:
         sweep += w_rows_sweep("bal_hub", bal_hub_wtt(device=dev, verbose=False))
         print(json.dumps({"card": smi, "floor_ms": floor, "w_rows_sweep": sweep}))
         return 0
+    if "--grid" in sys.argv[1:]:
+        from tpu3drecon_torch.problems.grid import grid_bucketed_from_flat
+
+        grid = build_grid_problem(dev, torch.float32)
+        rows = [linearize_launches("medium grid", grid)]
+        rows += time_grid_buckets("medium grid", grid)
+        rows += time_grid_cameras("medium grid", grid, sweep=True)
+        rows += time_grid_cameras("grid_seq1024", grid_bucketed_from_flat(seq1024_flat(dev)),
+                                  sweep=True)
+        print(json.dumps({"card": smi, "floor_ms": floor, "buckets": rows}))
+        return 0
     rows = time_tt_buckets("medium tt", build_tt_problem(dev))
     rows += time_tt_buckets("tt_seq1024", tt_seq1024(dev))
     if "--tt" not in sys.argv[1:]:
-        rows += time_grid_buckets("medium grid", build_grid_problem(dev, torch.float32))
+        grid = build_grid_problem(dev, torch.float32)
+        rows += time_grid_buckets("medium grid", grid)
+        rows += time_grid_cameras("medium grid", grid, sweep=False)
         flat = build_problem(dev)
         rows += time_onehot_buckets("medium one-hot", wtt_from_flat(flat, defer_onehot=False,
                                                                     device=dev))

@@ -17,6 +17,6 @@ extern "C" const char* kernel_error_string(int code) {
   if (code == kErrProbe) return "unsupported probe variant, block size or layout";
   if (code == kErrGeom)
     return "launch geometry (warps per point group, groups per block, shared bytes, "
-           "one-hot vector width) does not match the kernel";
+           "one-hot vector width, lanes per thread) does not match the kernel";
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -69,13 +69,14 @@ _SIGNATURES = {
     # dtype, wcam, tw, pts, uv, mask, out, G, Tb, Pc, W, loss, tc, ng, smem,
     # stream
     "wtt_cost": [_I] + [_P] * 6 + [_I] * 8 + [_P],
-    # dtype, params, x_w, uv, mask, r, jp, jc, u, g, C, K, loss, stream
-    "grid_cam_normal": [_I] + [_P] * 9 + [_I] * 3 + [_P],
+    # dtype, indexed, rmats, tvecs, fx_fy, cx_cy_skew, dist, inv_w, x_w, points,
+    # pt_idx, uv, mask, r, jp, jc, u, g, C, K, P, loss, lanes, stream
+    "grid_cam_normal": [_I, _I] + [_P] * 16 + [_I] * 5 + [_P],
     # dtype, n, jp_g, r_g, P, T2, ppb (host arrays of n), lam, v_inv, g, damp,
     # diag_floor, stream
     "grid_point_normal": [_I, _I] + [_P] * 9 + [_D, _P],
-    # dtype, jc, jp, vinv6, out, C, K, stream
-    "grid_coupling": [_I] + [_P] * 4 + [_I] * 2 + [_P],
+    # dtype, indexed, jc, jp, vinv6, v_inv, pt_idx, out, C, K, P, lanes, stream
+    "grid_coupling": [_I, _I] + [_P] * 6 + [_I] * 4 + [_P],
     # dtype, np, table, cam_ids, pts, uv, mask, inv_w, jc, jp, v6, gpt, ug,
     # C, Tb, Pb, loss, focal, points, dist, pp, tc, ng, smem, stream
     "tt_cam_normal": [_I, _I] + [_P] * 11 + [_I] * 11 + [_P],

@@ -2,17 +2,26 @@
 
 Replaces ``tpu3drecon/ops/pallas/cam_normal.py:cam_normal_fused`` (body
 ``_cam_normal_kernel``).  Per camera row of the (C, K) observation grid it
-projects the grid-gathered world points (radial distortion, IRLS weight of
-the robust loss) and returns the whitened planes r (C, 2, K), jp (C, 6, K)
-and jc (C, 16, K) with the camera block U = sum_k jc^T jc (C, 8, 8) and
-gradient g = sum_k jc^T r (C, 8).  Camera parameters ride as (C, 24) rows
-(``pack_camera_params``).  Masked lanes give exact zeros.
+projects the world points (radial distortion, IRLS weight of the robust
+loss) and returns the whitened planes r (C, 2, K), jp (C, 6, K) and jc
+(C, 16, K) with the camera block U = sum_k jc^T jc (C, 8, 8) and gradient
+g = sum_k jc^T r (C, 8).  Masked lanes give exact zeros.
 
-CUDA kernel (``csrc/grid_kernels.cu:cam_normal_kernel``): one block per
-camera row, threads striding over K; the Jacobian rows stay in registers
-and U/g are 44 register partials per thread, reduced once per block.  On
-the H100 it is bound by the bytes of its planes (6 read, 24 written); 100
-camera rows fill under one wave of the 132 SMs.
+Two entry points, one kernel: ``cam_normal_fused`` keeps JAX's signature
+(the points gathered onto the grid as x_w planes (C, 3, K)), and
+``cam_normal_idx``, what the grid solve calls, reads each lane's point
+``points3d[pt_idx[c, k]]`` itself, so no gathered planes are written.
+
+CUDA kernel (``csrc/grid_kernels.cu:grid_cam_normal_kernel``): one block
+per camera row, each thread taking ``grid_lanes``' LPT consecutive lanes
+per step (one vector per plane where K and the addresses allow it); the
+Jacobian rows stay in registers and U/g are 44 register partials per
+thread, reduced per block by a halving reduce-scatter: no atomics, two
+calls are bit-equal, and at LPT 1 the sums are the first port's bit for
+bit.  The camera tensors are read where they live (20 values per block),
+so the TPU kernel's packed parameter rows (``pack_camera_params``, a
+scalar table for Mosaic) serve only the plain version.  On the H100 it is
+bound by the bytes of its planes (6 read, 24 written).
 """
 
 from __future__ import annotations
@@ -29,10 +38,34 @@ COUNTS = _build.LaunchCounter()
 # [R row-major 9 | t 3 | fx fy 2 | cx cy skew 3 | inv_width 1 | k1 k2 2 | pad].
 PARAM_WIDTH = 24
 
+THREADS = 256  # threads per block (csrc kBlock)
+LANES = (1, 4)  # consecutive lanes per thread per step the C entries take; 4 in float32 only
+
+
+def grid_lanes(k: int, itemsize: int) -> int:
+    """LPT, the consecutive lanes each thread of B9 and B11 takes per step
+    on camera rows of ``k`` lanes of ``itemsize``-byte values: 4 (one
+    16-byte vector per plane) in float32 where each of a block's 256
+    threads still takes two steps or more (K >= 2048), else 1, the first
+    port's lanes x, x + 256, ..., whose sums it repeats bit for bit.
+    From ``benchmark/wtt_bucket_times.py --grid`` on the H100: at the
+    medium grid's K = 2048 four lanes ran both kernels' indexed forms (the
+    grid solve's calls) faster than one; at tt_seq1024's K = 1024, one
+    step of four lanes a thread, one lane was as fast or faster; a float64
+    thread of four lanes spills."""
+    return 4 if int(itemsize) == 4 and int(k) >= 2 * 4 * THREADS else 1
+
+
+def launch_lanes(k: int, t: torch.Tensor, forced=None) -> int:
+    """``grid_lanes`` for ``t``'s dtype, or the forced LPT (tests and timing
+    only: the C entry checks it and refuses a value it does not take)."""
+    return grid_lanes(k, t.element_size()) if forced is None else int(forced)
+
 
 def pack_camera_params(rmats, tvecs, fx_fy, cx_cy_skew, inv_width, dist) -> torch.Tensor:
-    """(C, 24) parameter rows for the kernel; ``inv_width`` is a 0-d
-    tensor (or a float), broadcast without a host sync."""
+    """(C, 24) parameter rows of the JAX kernel's scalar table, whose
+    columns the plain version reads; ``inv_width`` is a 0-d tensor (or a
+    float), broadcast without a host sync."""
     c = rmats.shape[0]
     dtype = rmats.dtype
     inv = torch.as_tensor(inv_width, dtype=dtype, device=rmats.device)
@@ -129,29 +162,46 @@ def cam_normal_fused_plain(
     return torch.stack([rw0, rw1], dim=1), jp, torch.cat([jc0, jc1], dim=1), u, g
 
 
-def cam_normal_fused(
-    rmats, tvecs, fx_fy, cx_cy_skew, dist, x_w, uv, mask, inv_width,
+def cam_normal_idx_plain(
+    rmats, tvecs, fx_fy, cx_cy_skew, dist, points3d, pt_idx, uv, mask, inv_width,
     loss: RobustLoss = RobustLoss.TRIVIAL,
 ):
-    """(r (C,2,K), jp (C,6,K), jc (C,16,K), U (C,8,8), g (C,8)).
+    """Plain PyTorch version of ``cam_normal_idx``: the points gathered
+    onto the grid, then ``cam_normal_fused_plain``."""
+    x_w = points3d[pt_idx].permute(0, 2, 1).contiguous()
+    return cam_normal_fused_plain(
+        rmats, tvecs, fx_fy, cx_cy_skew, dist, x_w, uv, mask, inv_width, loss
+    )
 
-    ``rmats`` (C,3,3), ``tvecs`` (C,3), ``fx_fy`` (C,2), ``cx_cy_skew``
-    (C,3), ``dist`` (C,2) radial (k1, k2); ``x_w`` (C,3,K) grid-gathered
-    world points, ``uv`` (C,2,K) observations, ``mask`` (C,K); ``inv_width``
-    a 0-d tensor.  CPU tensors run the plain version, CUDA tensors the
-    kernel."""
-    if not is_cuda_call(x_w):
-        return cam_normal_fused_plain(
-            rmats, tvecs, fx_fy, cx_cy_skew, dist, x_w, uv, mask, inv_width, loss
-        )
-    name = "cam_normal_fused"
-    c, _, k = x_w.shape
-    dtype, dev = x_w.dtype, x_w.device
-    params = pack_camera_params(rmats, tvecs, fx_fy, cx_cy_skew, inv_width, dist)
-    check_inputs(name, dev, dtype, params=params, x_w=x_w, uv=uv, mask=mask)
-    check_shape(name, "params", params, (c, PARAM_WIDTH))
-    check_shape(name, "uv", uv, (c, 2, k))
-    check_shape(name, "mask", mask, (c, k))
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _launch(name, cams, inv_width, uv, mask, loss, lanes, x_w=None, points3d=None,
+            pt_idx=None):
+    """One launch of B9: on the x_w planes, or (``pt_idx`` given) indexed."""
+    rmats, tvecs, fx_fy, cx_cy_skew, dist = cams
+    c, k = mask.shape
+    dtype, dev = mask.dtype, mask.device
+    dist = dist.to(dtype)  # the only cast pack_camera_params makes besides inv_width
+    inv_w = torch.as_tensor(inv_width, dtype=dtype, device=dev)
+    check_inputs(name, dev, dtype, rmats=rmats, tvecs=tvecs, fx_fy=fx_fy,
+                 cx_cy_skew=cx_cy_skew, dist=dist, inv_width=inv_w, uv=uv, mask=mask)
+    for key, t, shape in (("rmats", rmats, (c, 3, 3)), ("tvecs", tvecs, (c, 3)),
+                          ("fx_fy", fx_fy, (c, 2)), ("cx_cy_skew", cx_cy_skew, (c, 3)),
+                          ("dist", dist, (c, 2)), ("inv_width", inv_w, ()),
+                          ("uv", uv, (c, 2, k))):
+        check_shape(name, key, t, shape)
+    indexed = pt_idx is not None
+    if indexed:
+        check_inputs(name, dev, dtype, points3d=points3d)
+        check_inputs(name, dev, torch.int32, pt_idx=pt_idx)
+        check_shape(name, "points3d", points3d, (points3d.shape[0], 3))
+        check_shape(name, "pt_idx", pt_idx, (c, k))
+    else:
+        check_inputs(name, dev, dtype, x_w=x_w)
+        check_shape(name, "x_w", x_w, (c, 3, k))
     r = torch.empty((c, 2, k), dtype=dtype, device=dev)
     jp = torch.empty((c, 6, k), dtype=dtype, device=dev)
     jc = torch.empty((c, 16, k), dtype=dtype, device=dev)
@@ -159,11 +209,52 @@ def cam_normal_fused(
     g = torch.empty((c, 8), dtype=dtype, device=dev)
     lib = _build.library()
     code = lib.grid_cam_normal(
-        _build.dtype_code(dtype), params.data_ptr(), x_w.data_ptr(),
-        uv.data_ptr(), mask.data_ptr(), r.data_ptr(), jp.data_ptr(),
-        jc.data_ptr(), u.data_ptr(), g.data_ptr(), c, k, LOSS_CODES[loss],
+        _build.dtype_code(dtype), int(indexed), rmats.data_ptr(), tvecs.data_ptr(),
+        fx_fy.data_ptr(), cx_cy_skew.data_ptr(), dist.data_ptr(), inv_w.data_ptr(),
+        _ptr(x_w), _ptr(points3d), _ptr(pt_idx), uv.data_ptr(), mask.data_ptr(),
+        r.data_ptr(), jp.data_ptr(), jc.data_ptr(), u.data_ptr(), g.data_ptr(), c, k,
+        points3d.shape[0] if indexed else 0, LOSS_CODES[loss], launch_lanes(k, mask, lanes),
         _build.stream_ptr(dev),
     )
     _build.check(lib, name, code)
     COUNTS.kernel += 1
     return r, jp, jc, u, g
+
+
+def cam_normal_fused(
+    rmats, tvecs, fx_fy, cx_cy_skew, dist, x_w, uv, mask, inv_width,
+    loss: RobustLoss = RobustLoss.TRIVIAL, _lanes=None,
+):
+    """(r (C,2,K), jp (C,6,K), jc (C,16,K), U (C,8,8), g (C,8)).
+
+    ``rmats`` (C,3,3), ``tvecs`` (C,3), ``fx_fy`` (C,2), ``cx_cy_skew``
+    (C,3), ``dist`` (C,2) radial (k1, k2); ``x_w`` (C,3,K) grid-gathered
+    world points, ``uv`` (C,2,K) observations, ``mask`` (C,K); ``inv_width``
+    a 0-d tensor.  CPU tensors run the plain version, CUDA tensors the
+    kernel.  ``_lanes`` forces LPT (tests and timing only)."""
+    if not is_cuda_call(x_w):
+        return cam_normal_fused_plain(
+            rmats, tvecs, fx_fy, cx_cy_skew, dist, x_w, uv, mask, inv_width, loss
+        )
+    return _launch("cam_normal_fused", (rmats, tvecs, fx_fy, cx_cy_skew, dist), inv_width,
+                   uv, mask, loss, _lanes, x_w=x_w)
+
+
+def cam_normal_idx(
+    rmats, tvecs, fx_fy, cx_cy_skew, dist, points3d, pt_idx, uv, mask, inv_width,
+    loss: RobustLoss = RobustLoss.TRIVIAL, _lanes=None,
+):
+    """``cam_normal_fused`` with lane (c, k)'s world point read as
+    ``points3d[pt_idx[c, k]]``: ``points3d`` (P, 3), ``pt_idx`` (C, K)
+    int32 in [0, P) (the grid problem's; the kernel traps on another
+    index, the plain version's gather raises on one past P).  The outputs
+    equal ``cam_normal_fused`` on the gathered planes bit for bit.  CPU
+    tensors run the plain version (the gather, then
+    ``cam_normal_fused_plain``), CUDA tensors the kernel."""
+    if not is_cuda_call(points3d):
+        return cam_normal_idx_plain(
+            rmats, tvecs, fx_fy, cx_cy_skew, dist, points3d, pt_idx, uv, mask, inv_width,
+            loss,
+        )
+    return _launch("cam_normal_idx", (rmats, tvecs, fx_fy, cx_cy_skew, dist), inv_width,
+                   uv, mask, loss, _lanes, points3d=points3d, pt_idx=pt_idx)

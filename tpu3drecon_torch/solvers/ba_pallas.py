@@ -4,14 +4,16 @@ kernels, plane-layout matvecs, the shared trust-region loop.
 Counterpart of ``tpu3drecon/solvers/ba_pallas.py`` (the JAX package's
 "pallas" engine).  Per LM iteration:
 
-  1. kernel B9 (ops/cam_normal.py) computes the r/jp/jc planes, U and g_cam
-     per camera row of the (C, K) grid;
+  1. kernel B9 (ops/cam_normal.py ``cam_normal_idx``) computes the r/jp/jc
+     planes, U and g_cam per camera row of the (C, K) grid, reading each
+     lane's point through ``pt_idx``;
   2. one index gather moves the jp/r rows to the point side, per track
      bucket;
   3. kernel B10 (ops/point_normal.py) forms each point's damped V^-1, g_pt
      and damping, in one launch over all the track buckets;
-  4. kernel B11 (ops/coupling.py) forms the Schur-Jacobi blocks
-     sum W V^-1 W^T, and the preconditioner gets a guarded Cholesky;
+  4. kernel B11 (ops/coupling.py ``coupling_idx``) forms the Schur-Jacobi
+     blocks sum W V^-1 W^T, reading V^-1 through ``pt_idx``, and the
+     preconditioner gets a guarded Cholesky;
   5. the Schur-CG matvecs, the back-substitution and the cost run in plain
      PyTorch over the (C, comp, K) plane layout (index gathers and
      contractions, as the JAX engine leaves them to XLA), and the shared
@@ -31,8 +33,8 @@ from typing import NamedTuple, Tuple
 import torch
 
 from tpu3drecon_torch.geometry.losses import robust_weight
-from tpu3drecon_torch.ops.cam_normal import cam_normal_fused
-from tpu3drecon_torch.ops.coupling import coupling_fused
+from tpu3drecon_torch.ops.cam_normal import cam_normal_idx
+from tpu3drecon_torch.ops.coupling import coupling_idx
 from tpu3drecon_torch.ops.jacobians import apply_se3_retraction
 from tpu3drecon_torch.ops.point_normal import point_normal_buckets
 from tpu3drecon_torch.problems.grid import (
@@ -109,7 +111,8 @@ def _track_gather(jp: torch.Tensor, r: torch.Tensor, problem) -> list:
 
 
 def _vinv6(v_inv: torch.Tensor) -> torch.Tensor:
-    """(P, 6) unique entries (00 01 02 11 12 22) of the symmetric V^-1."""
+    """(P, 6) unique entries (00 01 02 11 12 22) of the symmetric V^-1 (the
+    plane form of B11's input, for the checks of ``coupling_fused``)."""
     return torch.stack(
         [v_inv[:, 0, 0], v_inv[:, 0, 1], v_inv[:, 0, 2],
          v_inv[:, 1, 1], v_inv[:, 1, 2], v_inv[:, 2, 2]],
@@ -123,10 +126,9 @@ def _linearize(params, lam, problem, config: BAConfig) -> PlaneNormal:
     dtype = points3d.dtype
     cams = problem.cameras
 
-    r, jp, jc, u0, g_cam = cam_normal_fused(
-        rmats, tvecs, fx_fy, cams.cx_cy_skew, cams.dist,
-        _grid_planes(points3d, problem.pt_idx), _uv_planes(problem),
-        problem.mask, _inv_w(problem, dtype), loss=config.loss,
+    r, jp, jc, u0, g_cam = cam_normal_idx(
+        rmats, tvecs, fx_fy, cams.cx_cy_skew, cams.dist, points3d, problem.pt_idx,
+        _uv_planes(problem), problem.mask, _inv_w(problem, dtype), loss=config.loss,
     )
     if not config.optimize_focal:
         # Zero the focal planes and the matching U/g rows.
@@ -154,7 +156,7 @@ def _linearize(params, lam, problem, config: BAConfig) -> PlaneNormal:
     u_d = u0 + damp_cam[..., None] * eye8
 
     if config.precond == "schur_jacobi":
-        coupling = coupling_fused(jc, jp, _grid_planes(_vinv6(v_inv), problem.pt_idx))
+        coupling = coupling_idx(jc, jp, v_inv, problem.pt_idx)
         u_chol = guarded_block_cholesky(u_d - coupling, u_d)
     else:
         u_chol = torch.linalg.cholesky_ex(u_d).L
