@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's medium and BAL-scale bundle-adjustment solves once on
-one CUDA GPU.
+"""Run the PyTorch port's medium and BAL-scale bundle-adjustment solves and its
+dense-LM solvers once on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -62,10 +62,26 @@ Phases (any failure exits non-zero and prints no result line):
     and B5, which keep a block-shared tile at small camera counts and
     narrow windows, also with the global-memory mode forced (``_mode``),
     whose f32 time is their ``global_ms``.
-11. The BAL-scale sequential problem: ``bal_sequential_wtt`` (1712
+11. The solvers that reach no kernel (in JAX they are plain XLA): the
+    flat ``ba_solve`` on the medium problem with the same config (f32,
+    reprojection RMSE below 1e-3 px); batched PnP, the JAX suite's config
+    #1 (8 cameras of 2300 matches, seed 5, ``refine_poses`` TRIVIAL with
+    ``PNP_CONFIG``, f32), held against the in-run scipy ``least_squares``
+    oracle (rotation below 1e-4 rad, tvec below 2e-3); tracking, config
+    #4 (500 frames of 1000 observations, seed 81, ``TRACKING_CONFIG``, f32;
+    median |tvec - truth| below 1e-3, ms per frame printed); intrinsics,
+    ``refine_intrinsics`` on the tracking scene with distortion (-0.15,
+    0.03), focal perturbed by up to 2 % and distortion zeroed (f64; fx/fy
+    to rtol 1e-6, dist to atol 1e-6); and calib,
+    ``ba_with_intrinsics_calibration(rounds=8)`` on the calibration scene
+    of tests/test_intrinsics_refine.py (f64; every k1 in (-0.14, -0.06),
+    RMSE below 0.06 px).  Each: one warm-up and 3 timed solves, a ``solve
+    <path>`` line, and no port kernel or plain version counted
+    (``benchmark/solver_cells.py`` builds them).
+12. The BAL-scale sequential problem: ``bal_sequential_wtt`` (1712
     cameras, 999,808 points, 3,808,166 observations, f32) built on the
     card, its build time and buckets logged.
-12. B1 and B8 with ``want_od``, and B3, B4, B5 and B7, against their
+13. B1 and B8 with ``want_od``, and B3, B4, B5 and B7, against their
     plain versions on the BAL buckets (B3 and B4 also bit for bit against
     their ordered plain forms, B7 bit for bit): f32, where they are timed
     (B1 od and B8 od beside B1 and B8 without od, B3, B4, B5 and B7 as ``B3
@@ -76,7 +92,7 @@ Phases (any failure exits non-zero and prints no result line):
     terms 1 and 2 and B1 at terms 2 on the medium buckets (timed there
     beside the exact B2 and B1), B2 at terms 1 and 2 and B1 at terms 2 with
     and without od on the BAL buckets (B1 od timed there).
-13. The BAL paths, with the JAX suite's BAL solver config (8 CG
+14. The BAL paths, with the JAX suite's BAL solver config (8 CG
     iterations, ``cg_rtol`` 0, f32): ``bal_seq`` (fully indexed,
     Schur-Jacobi) and ``bal_seq_ssor`` (fully indexed, block SSOR, B1 od)
     at 3 and 12 LM iterations, one warm-up solve and 3 timed solves each,
@@ -92,7 +108,7 @@ Phases (any failure exits non-zero and prints no result line):
     matvec) and E1 (``experiments.index_matvec2``: B2's copy at 128, 256
     and 512 threads per block, without the gather, without the atomics)
     run on these buckets.
-14. The split-window packing of the same problem
+15. The split-window packing of the same problem
     (``bal_sequential_wtt(split_windows=True)``, the JAX suite's TPU BAL
     cell), its build time and buckets (G, Tb, Pc, W, global tiles,
     global_tile0) logged: ``bal_seq_split`` (fully indexed),
@@ -101,7 +117,7 @@ Phases (any failure exits non-zero and prints no result line):
     and 12 LM iterations, one warm-up and 3 timed solves each, with their
     marginals; ``bal_seq_split_index2_ssor`` (``index2``/``index2`` under
     block SSOR: B1 od at 2 terms) at 3 iterations, one warm-up and 1 timed.
-15. The BAL hub problem: ``bal_hub_wtt`` (1712 cameras, 5 % hubs of 4000
+16. The BAL hub problem: ``bal_hub_wtt`` (1712 cameras, 5 % hubs of 4000
     observations, packed with global camera tiles) built on the card, its
     buckets (G, Tb, Pc, W, global tiles) logged; the band preconditioners
     must raise JAX's hub ``ValueError``; B1 and B4 checked on its buckets
@@ -111,7 +127,7 @@ Phases (any failure exits non-zero and prints no result line):
     Then its split packing (``bal_hub_wtt(split_windows=True)``), buckets
     and build time logged, the band preconditioners must raise there too,
     and ``bal_hub_split`` (fully indexed) at 3 and 12 iterations, 1 + 3.
-16. ``tt_seq1024``: a sequential scene of 1024 cameras and 256 points per
+17. ``tt_seq1024``: a sequential scene of 1024 cameras and 256 points per
     camera (seed 7, perturbed with seed 8 and 0.5 px noise) packed by
     ``tt_from_flat`` (f32), its counts logged; B12-B16 checked on its
     buckets, each mode printed, B16's per-point partials bit for bit and
@@ -126,11 +142,11 @@ Phases (any failure exits non-zero and prints no result line):
     config at 3 LM iterations, one warm-up and 2 timed solves.
     Each BAL, hub, tt_seq1024 and grid_seq1024 solve must end finite and
     below its initial loss with at least one accepted step.
-17. The probes E3 (``experiments.term_stack``: B2 against its plain
+18. The probes E3 (``experiments.term_stack``: B2 against its plain
     version at terms 3 and 1 on E3's random inputs) and E4
     (``experiments.bits_expand``: both unpack layouts against numpy; its
     counts set to 0 before and read after, as a path's).
-18. Prints the kernel table as one JSON line, the ``nvidia-smi`` line, then
+19. Prints the kernel table as one JSON line, the ``nvidia-smi`` line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Tolerances, relative to max|plain|: per-element outputs 1e-5 (f32) and
@@ -1549,6 +1565,122 @@ def drive(path: str, solve, problem, flat, repeats: int, maxiters=(None,),
     return launches
 
 
+def solve_line(path: str, warm_s: float, times, report: dict) -> None:
+    log(f"solve {path} " + json.dumps(dict(
+        median_s=statistics.median(times), min_s=min(times), max_s=max(times),
+        warmup_s=warm_s, **report)))
+
+
+def no_port_kernel(path: str, counts: dict) -> None:
+    """These solvers reach no Pallas kernel in JAX and no CUDA kernel
+    here: nothing counted since ``counts`` were set to 0."""
+    ran = {n: (c.kernel, c.plain) for n, c in counts.items() if c.kernel or c.plain}
+    if ran:
+        raise AssertionError(f"{path}: port kernels or plain versions ran: {ran}")
+
+
+def run_solvers(flat) -> None:
+    """Phase 11: the flat engine on the medium problem, batched PnP,
+    tracking, intrinsics refinement and the calibration alternation, each
+    one warm-up and 3 timed solves, each held to its check."""
+    import numpy as np
+
+    from tpu3drecon_torch.benchmark import solver_cells as cells
+    from tpu3drecon_torch.benchmark.medium_config import BENCH_CONFIG, timed_solve_stats
+    from tpu3drecon_torch.geometry.losses import RobustLoss
+    from tpu3drecon_torch.solvers.bundle_adjust import ba_solve, reprojection_rmse
+    from tpu3drecon_torch.solvers.intrinsics_refine import (
+        ba_with_intrinsics_calibration,
+        refine_intrinsics,
+    )
+    from tpu3drecon_torch.solvers.pose_refine import refine_poses
+
+    counts = counters()
+
+    def reset():
+        for cnt in counts.values():
+            cnt.reset()
+
+    def lanes(state) -> dict:
+        return dict(iter_num=state.iter_num.tolist(), accepted=state.accepted.tolist())
+
+    reset()
+    _, _, init = ba_solve(flat, BENCH_CONFIG._replace(maxiter=0))
+    warm_s, times, (cams, pts, state) = timed_solve_stats(
+        lambda p: ba_solve(p, BENCH_CONFIG), flat, 3)
+    rmse = float(reprojection_rmse(flat, cams, pts))
+    no_port_kernel("flat", counts)
+    ok = rmse < 1e-3 and float(state.loss) < float(init.loss) and int(state.accepted) > 0
+    solve_line("flat", warm_s, times, dict(
+        reproj_rmse_px=rmse, initial_loss=float(init.loss), final_loss=float(state.loss),
+        lm_iters=int(state.iter_num), accepted_steps=int(state.accepted),
+        cg_iters_last=int(state.cg_iters), check="rmse < 1e-3 px", ok=ok))
+    if not ok:
+        raise AssertionError(f"flat: RMSE {rmse:.3e} px, or the loss did not fall")
+
+    problem, noisy = cells.pnp_problem()
+    reset()
+    warm_s, times, (cams, state) = timed_solve_stats(
+        lambda p: refine_poses(p, loss=RobustLoss.TRIVIAL, config=cells.PNP_CONFIG), problem, 3)
+    no_port_kernel("pnp", counts)
+    oracle = cells.pnp_scipy_oracle(problem, noisy)
+    parity = cells.pnp_parity(cams, oracle)
+    ok = parity["max_rot_geodesic_err_rad"] < 1e-4 and parity["max_tvec_err"] < 2e-3
+    solve_line("pnp", warm_s, times, dict(
+        cameras=problem.batch, padded_points=problem.max_points, scipy_oracle_s=oracle[3],
+        **parity, **lanes(state),
+        check="rotation < 1e-4 rad and tvec < 2e-3 against scipy", ok=ok))
+    if not ok:
+        raise AssertionError(f"pnp: parity against scipy {parity}")
+
+    problem, scene = cells.tracking_problem()
+    reset()
+    warm_s, times, (cams, state) = timed_solve_stats(
+        lambda p: refine_poses(p, config=cells.TRACKING_CONFIG), problem, 3)
+    no_port_kernel("tracking", counts)
+    t_err = float(np.median(np.abs(cams.tvecs.double().cpu().numpy() - scene.tvecs)))
+    ok = t_err < 1e-3
+    solve_line("tracking", warm_s, times, dict(
+        frames=problem.batch, padded_points=problem.max_points,
+        ms_per_frame=statistics.median(times) / problem.batch * 1e3,
+        median_tvec_err=t_err, max_iter_num=int(state.iter_num.max()),
+        min_iter_num=int(state.iter_num.min()), accepted_total=int(state.accepted.sum()),
+        check="median |tvec - truth| < 1e-3", ok=ok))
+    if not ok:
+        raise AssertionError(f"tracking: median tvec error {t_err:.3e}")
+
+    problem, scene = cells.intrinsics_problem()
+    reset()
+    warm_s, times, (cams, state) = timed_solve_stats(
+        lambda p: refine_intrinsics(p, config=cells.INTRINSICS_CONFIG), problem, 3)
+    no_port_kernel("intrinsics", counts)
+    f_rel = float(np.max(np.abs(cams.fx_fy.cpu().numpy() / scene.fx_fy - 1.0)))
+    d_abs = float(np.max(np.abs(cams.dist.cpu().numpy() - scene.dist)))
+    ok = f_rel <= 1e-6 and d_abs <= 1e-6
+    solve_line("intrinsics", warm_s, times, dict(
+        cameras=problem.batch, dtype="float64", max_focal_rel_err=f_rel,
+        max_dist_abs_err=d_abs, max_iter_num=int(state.iter_num.max()),
+        accepted_total=int(state.accepted.sum()),
+        check="fx/fy rtol 1e-6, dist atol 1e-6", ok=ok))
+    if not ok:
+        raise AssertionError(f"intrinsics: focal rel err {f_rel:.3e}, dist err {d_abs:.3e}")
+
+    problem = cells.calib_problem()
+    reset()
+    warm_s, times, (cams, pts, state) = timed_solve_stats(
+        lambda p: ba_with_intrinsics_calibration(p, rounds=8), problem, 3)
+    no_port_kernel("calib", counts)
+    k1 = cams.dist[:, 0].cpu().numpy()
+    rmse = float(reprojection_rmse(problem, cams, pts))
+    ok = bool(np.all(k1 < -0.06) and np.all(k1 > -0.14)) and rmse < 0.06
+    solve_line("calib", warm_s, times, dict(
+        rounds=8, dtype="float64", k1=k1.tolist(), reproj_rmse_px=rmse,
+        lm_iters_last=int(state.iter_num), accepted_last=int(state.accepted),
+        check="k1 in (-0.14, -0.06), rmse < 0.06 px", ok=ok))
+    if not ok:
+        raise AssertionError(f"calib: k1 {k1}, RMSE {rmse:.3e} px")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1645,6 +1777,7 @@ def main() -> int:
     ))
     check_padded_slots(wtt, tt)
     del tt, grid
+    run_solvers(flat)
 
     t0 = time.perf_counter()
     bal = bal_sequential_wtt(device=dev, verbose=False)

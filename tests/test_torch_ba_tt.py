@@ -124,7 +124,7 @@ def test_unsupported_packing_raises(flat):
         t_tt_from_flat(t_flat, point_block=64, max_onehot_bytes=16)
     with pytest.raises(ValueError, match="one-hot"):
         j_tt_from_flat(flat, point_block=64, max_onehot_bytes=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
         t_tt_from_flat(t_flat, point_block=64, onehot_dtype="bits")
 
 
@@ -173,7 +173,7 @@ def test_slice_matches_jax_xla_path(packed, jax_solves):
 ])
 def test_unsupported_options_raise(packed, kernels, change, error):
     """JAX's own ValueErrors, which JAX raises too; matvec_bf16 on the XLA
-    route, a measured negative on the TPU, is not ported (ROADMAP A.9)."""
+    route, a measured negative on the TPU, is not ported (ROADMAP A.8)."""
     jt, port = packed
     cfg = TConfig(**{**SOLVE, **change})
     with pytest.raises(error):

@@ -1,12 +1,15 @@
 """The profile summary of tpu3drecon_torch.benchmark.profile_solve, checked
 on a synthetic Chrome trace, the ``-Xptxas -v`` filter of
-tpu3drecon_torch.benchmark.wtt_bucket_times on compiler lines and the
-paired summary of tpu3drecon_torch.benchmark.paired_walls (none needs a
-card)."""
+tpu3drecon_torch.benchmark.wtt_bucket_times on compiler lines, the
+paired summary of tpu3drecon_torch.benchmark.paired_walls, and the
+dense-LM cells of tpu3drecon_torch.benchmark.solver_cells at a small size
+with the checks of ``chip_smoke.py`` phase 11 (none needs a card)."""
 
 import json
 
+import numpy as np
 import pytest
+import torch
 
 from tpu3drecon_torch.benchmark.paired_walls import _summary
 from tpu3drecon_torch.benchmark.profile_solve import _intervals_union, summarize
@@ -99,3 +102,40 @@ def test_paired_walls_summary():
     assert out["diff_median_s"] == 0.5  # of +0.5, -1.0, +0.5
     assert out["this_slower"] == 2
     assert out["card"] == "card, 700.00 W"
+
+
+def test_solver_cells_small():
+    """The PnP, tracking, intrinsics and calibration cells, cut to a few
+    cameras, solved on the CPU and held to phase 11's checks."""
+    from tpu3drecon_torch.benchmark import solver_cells as cells
+    from tpu3drecon_torch.geometry.losses import RobustLoss
+    from tpu3drecon_torch.solvers.bundle_adjust import reprojection_rmse
+    from tpu3drecon_torch.solvers.intrinsics_refine import (
+        ba_with_intrinsics_calibration,
+        refine_intrinsics,
+    )
+    from tpu3drecon_torch.solvers.pose_refine import refine_poses
+
+    problem, noisy = cells.pnp_problem(device="cpu", n_cameras=2)
+    cams, state = refine_poses(problem, loss=RobustLoss.TRIVIAL, config=cells.PNP_CONFIG,
+                               device="cpu")
+    oracle = cells.pnp_scipy_oracle(problem, noisy)
+    parity = cells.pnp_parity(cams, oracle)
+    assert parity["max_rot_geodesic_err_rad"] < 1e-4 and parity["max_tvec_err"] < 2e-3
+    assert problem.max_points == 2304 and cams.rmats.dtype == torch.float32
+
+    problem, scene = cells.tracking_problem(device="cpu", n_frames=4, n_obs=200)
+    cams, state = refine_poses(problem, config=cells.TRACKING_CONFIG, device="cpu")
+    assert np.median(np.abs(cams.tvecs.double().numpy() - scene.tvecs)) < 1e-3
+
+    problem, scene = cells.intrinsics_problem(device="cpu", n_frames=3, n_obs=300)
+    cams, _ = refine_intrinsics(problem, config=cells.INTRINSICS_CONFIG, device="cpu")
+    np.testing.assert_allclose(cams.fx_fy.numpy(), scene.fx_fy, rtol=1e-6)
+    np.testing.assert_allclose(cams.dist.numpy(), scene.dist, atol=1e-6)
+
+    problem = cells.calib_problem(device="cpu")
+    cams, pts, _ = ba_with_intrinsics_calibration(problem, rounds=2, device="cpu")
+    k1 = cams.dist[:, 0].numpy()
+    assert np.all(k1 < -0.01) and np.all(k1 > -0.14), k1
+    assert float(reprojection_rmse(problem, cams, pts)) < float(
+        reprojection_rmse(problem, problem.cameras, problem.points3d))

@@ -27,8 +27,13 @@ each for 3 LM iterations (``BAL_CONFIG``); and for ``tt_seq1024_ssor``,
 a 1024-camera sequential track table (256 points per camera, seed 7, as
 ``chip_smoke.py`` builds it) on the tt engine's default route
 (``kernels=False``, PyTorch products through ``cam_ids``) under block SSOR
-for 3 LM iterations: two warm-up solves, then ``torch.profiler`` (CPU and
-CUDA activities) over one solve.  The Chrome trace it exports is read
+for 3 LM iterations; for ``flat``, the flat engine ``ba_solve`` on the
+medium problem with ``BENCH_CONFIG``; for ``pnp`` and ``tracking``, the
+JAX suite's batched PnP (8 cameras of 2300 matches, ``refine_poses``
+TRIVIAL with ``PNP_CONFIG``) and tracking (500 frames of 1000
+observations, ``TRACKING_CONFIG``) cells on the dense LM
+(``benchmark/solver_cells.py``): two warm-up solves, then
+``torch.profiler`` (CPU and CUDA activities) over one solve.  The Chrome trace it exports is read
 back, and one JSON line per engine or route gives
 
   - ``wall_s``: host clock around the profiled solve (synchronized);
@@ -188,11 +193,15 @@ def main() -> int:
         build_problem,
         build_tt_problem,
     )
+    from tpu3drecon_torch.benchmark import solver_cells as cells
+    from tpu3drecon_torch.geometry.losses import RobustLoss
     from tpu3drecon_torch.ops import cam_normal
     from tpu3drecon_torch.problems.wtt import expand_onehots, wtt_from_flat
     from tpu3drecon_torch.solvers.ba_pallas import ba_solve_pallas
     from tpu3drecon_torch.solvers.ba_tt import ba_solve_tt
     from tpu3drecon_torch.solvers.ba_wtt import ba_solve_wtt
+    from tpu3drecon_torch.solvers.bundle_adjust import ba_solve
+    from tpu3drecon_torch.solvers.pose_refine import refine_poses
 
     cfg = BENCH_CONFIG._replace(matvec_kernel="index", linearize_kernel="index")
     cfg_a = BENCH_CONFIG._replace(matvec_kernel="index", linearize_kernel=False)
@@ -217,6 +226,11 @@ def main() -> int:
          lambda: bal_hub_wtt(verbose=False)),
         ("tt_seq1024_ssor", lambda p: ba_solve_tt(p, BAL_CONFIG._replace(precond="ssor")),
          tt_seq1024),
+        ("flat", lambda p: ba_solve(p, BENCH_CONFIG), build_problem),
+        ("pnp", lambda p: refine_poses(p, loss=RobustLoss.TRIVIAL, config=cells.PNP_CONFIG),
+         lambda: cells.pnp_problem()[0]),
+        ("tracking", lambda p: refine_poses(p, config=cells.TRACKING_CONFIG),
+         lambda: cells.tracking_problem()[0]),
     )
     if args.grid_lanes is not None:
         pinned = args.grid_lanes

@@ -1,9 +1,9 @@
 """Synthetic scenes with known ground truth.
 
-Counterpart of ``tpu3drecon/dataset/synthetic.py:42-427``.  Every
+Counterpart of ``tpu3drecon/dataset/synthetic.py:42-472``.  Every
 scene is drawn from numpy RNGs with the same draws in the same order as
 the JAX package, so both packages build identical arrays from a seed; only
-``scene_to_ba_problem`` produces tensors.
+``scene_to_ba_problem`` and ``scene_to_pose_problem`` produce tensors.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from tpu3drecon_torch.device import resolve_device
 from tpu3drecon_torch.problems.packing import (
     BAProblem,
     CameraParams,
+    PoseProblem,
     ProblemMeta,
     bucket_size,
 )
@@ -352,5 +353,59 @@ def scene_to_ba_problem(
         point_ids=np.arange(1, scene.n_points + 1),
         widths=np.full(scene.n_cameras, scene.width),
         n_real_obs=n_obs,
+    )
+    return problem, meta
+
+
+def scene_to_pose_problem(
+    scene: SyntheticScene,
+    observed: Optional[SyntheticScene] = None,
+    dtype: torch.dtype = torch.float32,
+    pad_multiple: int = 256,
+    device=None,
+) -> Tuple[PoseProblem, ProblemMeta]:
+    """Per-camera PnP problems on ``device`` (default: the CUDA card): 3D
+    points fixed at ``scene`` values, observations from ``observed``
+    (clean), initial poses from ``scene``."""
+    device = resolve_device(device)
+    obs = observed if observed is not None else scene
+    counts = np.bincount(obs.cam_idx, minlength=scene.n_cameras)
+    max_n = bucket_size(int(counts.max()), pad_multiple)
+    B = scene.n_cameras
+    pts3 = np.zeros((B, max_n, 3))
+    pts2 = np.zeros((B, max_n, 2))
+    mask = np.zeros((B, max_n))
+    # Each camera's observations in their list order (a stable sort by
+    # camera), as the JAX package's per-camera boolean selection.
+    order = np.argsort(obs.cam_idx, kind="stable")
+    cams = obs.cam_idx[order]
+    starts = np.zeros(B + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    local = np.arange(len(order)) - starts[cams]
+    pts3[cams, local] = scene.points3d[obs.pt_idx[order]]
+    pts2[cams, local] = obs.uv[order]
+    mask[cams, local] = 1.0
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    problem = PoseProblem(
+        cameras=CameraParams(
+            rmats=t(scene.rmats),
+            tvecs=t(scene.tvecs),
+            fx_fy=t(scene.fx_fy),
+            cx_cy_skew=t(scene.cx_cy_skew),
+            dist=t(scene.dist_or_zeros),
+        ),
+        points3d=t(pts3),
+        points2d=t(pts2),
+        mask=t(mask),
+        avg_cam_width=t(float(scene.width)),
+    )
+    meta = ProblemMeta(
+        camera_ids=np.arange(1, B + 1),
+        point_ids=np.zeros(0, np.int64),
+        widths=np.full(B, scene.width),
+        n_real_obs=int(counts.sum()),
     )
     return problem, meta

@@ -4,7 +4,8 @@ Counterpart of ``tpu3drecon/geometry/losses.py``: the LM engines apply a
 robust kernel as IRLS whitening, scaling residuals and Jacobian rows by
 sqrt(rho'(s)) with s = ||r||^2 (the scheme Ceres uses for its robust
 kernels).  The CUDA kernels (``csrc/wtt_kernels.cu``) take the loss as the
-integer ``LOSS_CODES[loss]``.
+integer ``LOSS_CODES[loss]``.  ``l2_loss`` and ``cauchy_loss`` are the
+per-coordinate losses of the scalar (reference-parity) pose residual.
 """
 
 from __future__ import annotations
@@ -13,6 +14,16 @@ import enum
 from typing import Callable
 
 import torch
+
+
+def l2_loss(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Per-coordinate squared error."""
+    return (y - x) ** 2
+
+
+def cauchy_loss(y: torch.Tensor, x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """Per-coordinate log(1 + e^2) error."""
+    return torch.log1p(l2_loss(y, x) ** scale)
 
 
 def trivial_rho(s: torch.Tensor) -> torch.Tensor:

@@ -89,6 +89,29 @@ def card_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def inv3x3(m: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of a batch of 3x3 SPD matrices (adjugate form,
+    the JAX kernel's cofactor layout; a |det| below 1e-32 counts as 1)."""
+    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    co_a = e * i - f * h
+    co_b = c * h - b * i
+    co_c = b * f - c * e
+    det = a * co_a + d * co_b + g * co_c
+    det_safe = torch.where(torch.abs(det) < 1e-32, torch.ones_like(det), det)
+    inv_det = 1.0 / det_safe
+    adj = torch.stack(
+        [
+            torch.stack([co_a, co_b, co_c], dim=-1),
+            torch.stack([f * g - d * i, a * i - c * g, c * d - a * f], dim=-1),
+            torch.stack([d * h - e * g, b * g - a * h, a * e - b * d], dim=-1),
+        ],
+        dim=-2,
+    )
+    return adj * inv_det[..., None, None]
+
+
 def point_normal_fused_plain(jp_g, r_g, lam, diag_floor: float = 1e-8):
     """Plain PyTorch version of ``point_normal_fused``; sums the track rows
     in order (the kernel's order) and inverts with the JAX kernel's
@@ -111,22 +134,13 @@ def point_normal_fused_plain(jp_g, r_g, lam, diag_floor: float = 1e-8):
     d0 = lam * torch.clamp(v00, min=diag_floor)
     d1 = lam * torch.clamp(v11, min=diag_floor)
     d2 = lam * torch.clamp(v22, min=diag_floor)
-    a, b, c = v00 + d0, v01, v02
-    d, e, f = v01, v11 + d1, v12
-    gg, h, i = v02, v12, v22 + d2
-    co_a = e * i - f * h
-    co_b = c * h - b * i
-    co_c = b * f - c * e
-    det = a * co_a + d * co_b + gg * co_c
-    det_safe = torch.where(torch.abs(det) < 1e-32, torch.ones_like(det), det)
-    inv_det = 1.0 / det_safe
-    v_inv = torch.stack([
-        co_a, co_b, co_c,
-        f * gg - d * i, a * i - c * gg, c * d - a * f,
-        d * h - e * gg, b * gg - a * h, a * e - b * d,
-    ], dim=-1) * inv_det[:, None]
+    v_d = torch.stack([
+        torch.stack([v00 + d0, v01, v02], dim=-1),
+        torch.stack([v01, v11 + d1, v12], dim=-1),
+        torch.stack([v02, v12, v22 + d2], dim=-1),
+    ], dim=-2)
     return (
-        v_inv.reshape(-1, 3, 3),
+        inv3x3(v_d),
         torch.stack([g0, g1, g2], dim=-1),
         torch.stack([d0, d1, d2], dim=-1),
     )

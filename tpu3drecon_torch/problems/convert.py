@@ -2,7 +2,7 @@
 
 The "weights" of a bundle-adjustment system are the packed problem and its
 camera/point parameters.  These functions take the fields of the JAX
-package's ``CameraParams`` / ``BAProblem`` / ``BAGridProblem`` /
+package's ``CameraParams`` / ``PoseProblem`` / ``BAProblem`` / ``BAGridProblem`` /
 ``BAGridBucketedProblem`` / ``BAWTTProblem`` / ``BATTProblem`` as numpy
 arrays and static ints (a dict per dataclass, nested for ``cameras`` and
 ``buckets``) and build the port's objects on ``device`` (default: the CUDA card, see
@@ -21,7 +21,7 @@ from tpu3drecon_torch.problems.grid import (
     BAGridProblem,
     TrackBucket,
 )
-from tpu3drecon_torch.problems.packing import BAProblem, CameraParams
+from tpu3drecon_torch.problems.packing import BAProblem, CameraParams, PoseProblem
 from tpu3drecon_torch.problems.tt import BATTProblem, TTBucket
 from tpu3drecon_torch.problems.wtt import BAWTTProblem, WTTBucket
 
@@ -40,6 +40,16 @@ def camera_params_from_numpy(d: dict, device=None) -> CameraParams:
     device = resolve_device(device)
     return CameraParams(
         **_arrays(d, ("rmats", "tvecs", "fx_fy", "cx_cy_skew", "dist"), device)
+    )
+
+
+def pose_problem_from_numpy(d: dict, device=None) -> PoseProblem:
+    """``PoseProblem`` from ``cameras`` (a dict) and the arrays ``points3d``,
+    ``points2d``, ``mask``, ``avg_cam_width``."""
+    device = resolve_device(device)
+    return PoseProblem(
+        cameras=camera_params_from_numpy(d["cameras"], device),
+        **_arrays(d, ("points3d", "points2d", "mask", "avg_cam_width"), device),
     )
 
 

@@ -1,8 +1,9 @@
 """Packed, static-shape problem containers.
 
 Counterpart of ``tpu3drecon/problems/packing.py:36-118``: the camera
-parameter block and the flat-observation (BAL) bundle-adjustment problem,
-as dataclasses of tensors.  ``.to(device)`` moves every tensor.
+parameter block, the batched single-camera pose problem and the
+flat-observation (BAL) bundle-adjustment problem, as dataclasses of
+tensors.  ``.to(device)`` moves every tensor.
 """
 
 from __future__ import annotations
@@ -54,6 +55,34 @@ class CameraParams:
         return self.rmats.shape[0]
 
     def to(self, device) -> "CameraParams":
+        return _to(self, device)
+
+
+def zero_distortion(n: int, dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    """(n, 2) zero radial-distortion rows for pinhole cameras."""
+    return torch.zeros((n, 2), dtype=dtype, device=device)
+
+
+@dataclass(frozen=True)
+class PoseProblem:
+    """B independent single-camera pose-refinement problems, padded to a
+    common (bucketed) point count with 0/1 masks."""
+
+    cameras: CameraParams
+    points3d: torch.Tensor  # (B, N, 3) fixed 3D points per camera
+    points2d: torch.Tensor  # (B, N, 2) observations
+    mask: torch.Tensor  # (B, N) 1.0 = real observation
+    avg_cam_width: torch.Tensor  # () residual normalizer
+
+    @property
+    def batch(self) -> int:
+        return self.points3d.shape[0]
+
+    @property
+    def max_points(self) -> int:
+        return self.points3d.shape[1]
+
+    def to(self, device) -> "PoseProblem":
         return _to(self, device)
 
 

@@ -88,7 +88,7 @@ def tt_from_flat(
         raise NotImplementedError(
             f"onehot_dtype={onehot_dtype!r}: the port stores no one-hot (the "
             "kernels read cam_ids), so the int8/bit-packed encodings are not "
-            "ported (ROADMAP A.9)"
+            "ported (ROADMAP A.8)"
         )
     if device is None:
         device = problem.points3d.device

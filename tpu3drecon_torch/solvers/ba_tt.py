@@ -21,7 +21,7 @@ other engines.  One LM iteration, per track-length bucket:
   5. SE(3) retraction and trust-region accept/reject.
 
 The JAX engine selects and reduces by products with the dense (C, Tb*Pb)
-one-hot; the port keeps ``cam_ids`` and builds no one-hot (ROADMAP A.9), so
+one-hot; the port keeps ``cam_ids`` and builds no one-hot (ROADMAP A.8), so
 its XLA route gathers and scatter-adds where JAX multiplies.
 
 Also the helpers the windowed engine (solvers/ba_wtt.py) and the kernels'
@@ -515,7 +515,7 @@ def _check_config(config: BAConfig, kernels) -> None:
     if config.matvec_bf16:
         raise NotImplementedError(
             "matvec_bf16 (bf16 jc/jp on the XLA matvec path, a measured "
-            "negative on the TPU) is not ported (ROADMAP A.9)"
+            "negative on the TPU) is not ported (ROADMAP A.8)"
         )
 
 

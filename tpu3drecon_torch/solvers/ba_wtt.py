@@ -358,7 +358,7 @@ def _check_config(config: BAConfig, problem: BAWTTProblem = None) -> None:
     if config.matvec_bf16:
         raise NotImplementedError(
             "matvec_bf16 (bf16 jc/jp on the XLA matvec path, a measured "
-            "negative on the TPU) is not ported (ROADMAP A.9)"
+            "negative on the TPU) is not ported (ROADMAP A.8)"
         )
 
 
@@ -490,7 +490,7 @@ def make_wtt_ba_solver(config: BAConfig = BAConfig(), aot: bool = False):
     if aot:
         raise NotImplementedError(
             "aot=True (the persistent executable cache) is TPU-specific and "
-            "not ported (ROADMAP A.9)"
+            "not ported (ROADMAP A.8)"
         )
     _check_config(config)
     if config not in _SOLVER_CACHE:

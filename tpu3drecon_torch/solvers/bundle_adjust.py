@@ -1,22 +1,36 @@
-"""Bundle-adjustment configuration, state and evaluation metric.
+"""Bundle adjustment: configuration, state, the flat engine and the
+evaluation metric.
 
-Counterpart of ``tpu3drecon/solvers/bundle_adjust.py:35-228, 469-487``:
-``BAConfig`` has the same fields and defaults (the option documentation
-lives with the JAX reference), ``BAState`` the same fields.  The flat
-engine itself is not ported yet; the windowed track-table engine
-(solvers/ba_wtt.py) and the grid engine (solvers/ba_pallas.py) return
-these types.
+Counterpart of ``tpu3drecon/solvers/bundle_adjust.py``: ``BAConfig`` has
+the same fields and defaults (the option documentation lives with the JAX
+reference), ``BAState`` the same fields.  ``ba_solve`` is the flat
+(BAL-layout) engine: per LM iteration
+
+  1. analytic per-observation blocks (``ops/jacobians.py``);
+  2. segment-sum accumulation of damped U/V blocks and gradients
+     (``solvers/schur.py``, ``index_add_``);
+  3. matrix-free PCG on the reduced camera system;
+  4. point back-substitution, SE(3) retraction and the shared
+     trust-region accept/reject (``solvers/trust_region.py``, whose
+     decisions are those of JAX's flat ``_ba_solve_impl``).
+
+It runs no port kernel: the JAX engine reaches no Pallas kernel either.
+The track-table engines (``solvers/ba_wtt.py``, ``solvers/ba_tt.py``) and
+the grid engine (``solvers/ba_pallas.py``) return the same types.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
+from tpu3drecon_torch.device import resolve_device
 from tpu3drecon_torch.geometry.losses import RobustLoss
-from tpu3drecon_torch.ops.jacobians import gather_obs_blocks
+from tpu3drecon_torch.ops.jacobians import apply_se3_retraction, gather_obs_blocks
 from tpu3drecon_torch.problems.packing import BAProblem, CameraParams
+from tpu3drecon_torch.solvers import schur
 
 
 class BAConfig(NamedTuple):
@@ -62,6 +76,120 @@ class BAState(NamedTuple):
     converged: torch.Tensor
     cg_iters: int  # last inner-CG iteration count
     gain: torch.Tensor
+
+
+def _blocks_for(rmats, tvecs, fx_fy, cx_cy_skew, dist, points3d, problem: BAProblem,
+                config: BAConfig):
+    blocks = gather_obs_blocks(
+        rmats, tvecs, fx_fy, cx_cy_skew, dist, points3d, problem.cam_idx,
+        problem.pt_idx, problem.uv, problem.mask, 1.0 / problem.avg_cam_width,
+        config.loss,
+    )
+    r, jc, jp = blocks.residual, blocks.j_cam, blocks.j_pt
+    if not config.optimize_focal:
+        jc = torch.cat([jc[:, :, :6], torch.zeros_like(jc[:, :, 6:8])], dim=2)
+    if not config.optimize_points:
+        jp = jp * 0.0
+    return r, jc, jp
+
+
+def _check_flat_config(config: BAConfig) -> None:
+    if config.optimize_pp:
+        raise ValueError(
+            "optimize_pp is supported by the track-table engines "
+            "(ba_solve_tt / ba_solve_wtt) only"
+        )
+    if config.precond in ("tridiag", "ssor"):
+        raise ValueError(
+            f"precond={config.precond!r} is supported by the tt/wtt "
+            "engines only"
+        )
+
+
+def ba_solve(
+    problem: BAProblem, config: BAConfig = BAConfig(), device=None
+) -> Tuple[CameraParams, torch.Tensor, BAState]:
+    """Flat-layout BA solve on ``device`` (default: the CUDA card); returns
+    (cameras, points3d, state) with the trust-region trajectory of the JAX
+    ``ba_solve``."""
+    from tpu3drecon_torch.solvers.trust_region import trust_region_solve
+
+    _check_flat_config(config)
+    torch.set_float32_matmul_precision("highest")
+    dev = resolve_device(device)
+    problem = problem.to(dev)
+    cams = problem.cameras
+    n_cameras, n_points = problem.n_cameras, problem.n_points
+    cam_idx, pt_idx = problem.cam_idx, problem.pt_idx
+    dtype = problem.points3d.dtype
+
+    def blocks(params):
+        rmats, tvecs, fx_fy, points3d = params
+        return _blocks_for(rmats, tvecs, fx_fy, cams.cx_cy_skew, cams.dist, points3d,
+                           problem, config)
+
+    def cost(params):
+        r, _, _ = blocks(params)
+        return 0.5 * torch.sum(r * r)
+
+    def propose(params, lam):
+        r, jc, jp = blocks(params)
+        nb = schur.build_normal_blocks(r, jc, jp, cam_idx, pt_idx, n_cameras, n_points,
+                                       lam, precond=config.precond)
+        grad_norm = torch.max(torch.abs(nb.g_cam))
+        if config.optimize_points:
+            grad_norm = torch.maximum(grad_norm, torch.max(torch.abs(nb.g_pt)))
+        else:
+            grad_norm = torch.clamp(grad_norm, min=0.0)
+        # Reduced camera system rhs: b = -g_c + W V^{-1} g_p.
+        vinv_gp = torch.sum(nb.v_inv * nb.g_pt[:, None, :], dim=-1)
+        b = -nb.g_cam + schur.w_times(nb, vinv_gp, cam_idx, pt_idx, n_cameras)
+        out = schur.schur_pcg(nb, b, cam_idx, pt_idx, maxiter=config.cg_maxiter,
+                              rtol=config.cg_rtol)
+        dc = out.x
+        dp = schur.back_substitute_points(nb, dc, cam_idx, pt_idx)
+        if not config.optimize_points:
+            dp = dp * 0.0
+        pred = 0.5 * (
+            torch.sum(dc * (nb.damp_cam * dc))
+            + torch.sum(dp * (nb.damp_pt * dp))
+            - torch.sum(dc * nb.g_cam)
+            - torch.sum(dp * nb.g_pt)
+        )
+        return (dc, dp), grad_norm, pred, out.iters
+
+    def apply_step(params, delta):
+        rmats, tvecs, fx_fy, points3d = params
+        dc, dp = delta
+        new_r, new_t, new_f = apply_se3_retraction(rmats, tvecs, fx_fy, dc)
+        return (new_r, new_t, new_f, points3d + dp)
+
+    params0 = (cams.rmats, cams.tvecs, cams.fx_fy, problem.points3d)
+    final = trust_region_solve(propose, apply_step, cost, params0, config, dtype, dev)
+    rmats, tvecs, fx_fy, points3d = final.params
+    cameras_out = CameraParams(rmats=rmats, tvecs=tvecs, fx_fy=fx_fy,
+                               cx_cy_skew=cams.cx_cy_skew, dist=cams.dist)
+    state = BAState(
+        rmats=rmats, tvecs=tvecs, fx_fy=fx_fy, points3d=points3d, loss=final.loss,
+        lam=final.lam, nu=final.nu, iter_num=final.iter_num, accepted=final.accepted,
+        grad_norm=final.grad_norm, converged=final.converged,
+        cg_iters=final.cg_iters, gain=final.gain,
+    )
+    return cameras_out, points3d, state
+
+
+_SOLVER_CACHE: dict = {}
+
+
+def make_ba_solver(config: BAConfig = BAConfig()):
+    """``problem -> ba_solve(problem, config)``, one closure per config
+    (cached).  The JAX package's jit and its dynamic-operand plumbing
+    (``DynamicBAParams``, ``static_config``, ...) only key XLA's compile
+    cache and have no counterpart (ROADMAP A.8)."""
+    _check_flat_config(config)
+    if config not in _SOLVER_CACHE:
+        _SOLVER_CACHE[config] = functools.partial(ba_solve, config=config)
+    return _SOLVER_CACHE[config]
 
 
 def reprojection_rmse(

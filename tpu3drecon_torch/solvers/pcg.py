@@ -71,11 +71,15 @@ def guarded_block_cholesky(precond_mat: torch.Tensor, u_d: torch.Tensor) -> torc
     damping.  jnp's cholesky returns NaN there; ``torch.linalg.cholesky``
     raises, so this uses ``cholesky_ex`` and treats ``info != 0`` or a NaN
     factor as a failed block.  Failed blocks fall back to the cholesky of
-    the damped U block (SPD by construction).
+    the damped U block (SPD by construction for lam >= 0).
     """
     chol, info = torch.linalg.cholesky_ex(precond_mat)
     bad = (info != 0) | torch.isnan(chol).any(dim=-1).any(dim=-1)
-    fallback = torch.linalg.cholesky_ex(u_d).L
+    fallback, fb_info = torch.linalg.cholesky_ex(u_d)
+    # A damped U that is not SPD either (lam < 0 only) gets JAX's failed
+    # factor: NaN on and below the diagonal.
+    fallback = torch.where((fb_info != 0)[:, None, None],
+                           torch.full_like(fallback, float("nan")).tril(), fallback)
     return torch.where(bad[:, None, None], fallback, chol)
 
 

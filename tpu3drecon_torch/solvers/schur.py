@@ -1,0 +1,188 @@
+"""Block operations for the camera/point Schur complement (matrix-free).
+
+Counterpart of ``tpu3drecon/solvers/schur.py``.  The normal equations of
+bundle adjustment have the arrow structure
+
+    [ U   W ] [dc]   [ -g_c ]
+    [ W^T V ] [dp] = [ -g_p ]
+
+with U = blkdiag over cameras (8x8), V = blkdiag over points (3x3) and W
+one 8x3 coupling block per observation.  On the flat-observation layout
+U, V and the gradients are segment sums (``index_add_``) over ``cam_idx``
+/ ``pt_idx``, and the reduced camera system
+
+    S dc = b,   S = U - W V^{-1} W^T,   b = -g_c + W V^{-1} g_p
+
+is solved by preconditioned CG whose matvec is two segment sums and two
+gathers; J, JtJ and S are never formed.  The JAX functions' ``axis_name``
+(a ``psum`` over an observation-sharded mesh) waits for the port's
+sharding (ROADMAP A.6).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from tpu3drecon_torch.ops.point_normal import inv3x3  # noqa: F401 (schur.inv3x3)
+from tpu3drecon_torch.solvers.pcg import cho_block_precond, guarded_block_cholesky, pcg
+
+
+def _segment_sum(per_obs: torch.Tensor, idx: torch.Tensor, num: int) -> torch.Tensor:
+    out = per_obs.new_zeros((num,) + per_obs.shape[1:])
+    return out.index_add_(0, idx.long(), per_obs)
+
+
+def segment_outer(a: torch.Tensor, b: torch.Tensor, idx: torch.Tensor, num: int) -> torch.Tensor:
+    """sum_k a[k]^T b[k] accumulated per segment: (N,2,m),(N,2,n) -> (num,m,n)."""
+    per_obs = a[:, 0, :, None] * b[:, 0, None, :] + a[:, 1, :, None] * b[:, 1, None, :]
+    return _segment_sum(per_obs, idx, num)
+
+
+def segment_jt_r(j: torch.Tensor, r: torch.Tensor, idx: torch.Tensor, num: int) -> torch.Tensor:
+    """sum_k J[k]^T r[k] per segment: (N,2,m),(N,2) -> (num,m)."""
+    per_obs = j[:, 0] * r[:, 0, None] + j[:, 1] * r[:, 1, None]
+    return _segment_sum(per_obs, idx, num)
+
+
+class NormalBlocks(NamedTuple):
+    """Damped normal-equation blocks for one linearization."""
+
+    u: torch.Tensor  # (C, 8, 8) damped camera blocks
+    v: torch.Tensor  # (P, 3, 3) damped point blocks
+    w: torch.Tensor  # (N, 8, 3) per-observation coupling blocks
+    g_cam: torch.Tensor  # (C, 8) gradient J_c^T r
+    g_pt: torch.Tensor  # (P, 3) gradient J_p^T r
+    v_inv: torch.Tensor  # (P, 3, 3) inverse of damped V
+    u_chol: torch.Tensor  # (C, 8, 8) cholesky of the preconditioner blocks
+    damp_cam: torch.Tensor  # (C, 8) diagonal damping actually added to U
+    damp_pt: torch.Tensor  # (P, 3) diagonal damping actually added to V
+
+
+def build_normal_blocks(
+    blocks_r: torch.Tensor,  # (N, 2)
+    blocks_jc: torch.Tensor,  # (N, 2, 8)
+    blocks_jp: torch.Tensor,  # (N, 2, 3)
+    cam_idx: torch.Tensor,
+    pt_idx: torch.Tensor,
+    n_cameras: int,
+    n_points: int,
+    lam: torch.Tensor,
+    diag_floor: float = 1e-8,
+    precond: str = "schur_jacobi",
+) -> NormalBlocks:
+    """Accumulate damped U, V, W and the gradients from per-observation
+    blocks, with Marquardt damping lam * clamp(diag).
+
+    ``precond="schur_jacobi"`` factors the exact diagonal blocks of
+    S = U - W V^-1 W^T (a guarded Cholesky, falling back to damped U where
+    a block is not SPD); ``"jacobi_u"`` factors damped U, and a block that
+    fails gives a NaN factor (on and below the diagonal), as JAX's Cholesky
+    does.
+    """
+    u = segment_outer(blocks_jc, blocks_jc, cam_idx, n_cameras)
+    v = segment_outer(blocks_jp, blocks_jp, pt_idx, n_points)
+    w = (
+        blocks_jc[:, 0, :, None] * blocks_jp[:, 0, None, :]
+        + blocks_jc[:, 1, :, None] * blocks_jp[:, 1, None, :]
+    )  # (N, 8, 3)
+    g_cam = segment_jt_r(blocks_jc, blocks_r, cam_idx, n_cameras)
+    g_pt = segment_jt_r(blocks_jp, blocks_r, pt_idx, n_points)
+
+    du = torch.clamp(torch.diagonal(u, dim1=-2, dim2=-1), min=diag_floor)
+    dv = torch.clamp(torch.diagonal(v, dim1=-2, dim2=-1), min=diag_floor)
+    damp_cam = lam * du
+    damp_pt = lam * dv
+    u_d = u + torch.diag_embed(damp_cam)
+    v_d = v + torch.diag_embed(damp_pt)
+
+    v_inv = inv3x3(v_d)
+    if precond == "schur_jacobi":
+        vg = v_inv[pt_idx.long()]
+        wv = (
+            w[..., 0, None] * vg[:, None, 0, :]
+            + w[..., 1, None] * vg[:, None, 1, :]
+            + w[..., 2, None] * vg[:, None, 2, :]
+        )  # (N, 8, 3)
+        g_obs = (
+            wv[..., :, None, 0] * w[..., None, :, 0]
+            + wv[..., :, None, 1] * w[..., None, :, 1]
+            + wv[..., :, None, 2] * w[..., None, :, 2]
+        )  # (N, 8, 8)
+        coupling = _segment_sum(g_obs, cam_idx, n_cameras)
+        u_chol = guarded_block_cholesky(u_d - coupling, u_d)
+    else:
+        chol, info = torch.linalg.cholesky_ex(u_d)
+        u_chol = torch.where((info != 0)[:, None, None],
+                             torch.full_like(chol, float("nan")).tril(), chol)
+    return NormalBlocks(
+        u=u_d, v=v_d, w=w, g_cam=g_cam, g_pt=g_pt, v_inv=v_inv, u_chol=u_chol,
+        damp_cam=damp_cam, damp_pt=damp_pt,
+    )
+
+
+def w_times(nb: NormalBlocks, y_pt: torch.Tensor, cam_idx: torch.Tensor,
+            pt_idx: torch.Tensor, n_cameras: int) -> torch.Tensor:
+    """(W y)_c: gather y by pt_idx, per-obs 8x3 @ 3, segment-sum by camera."""
+    per_obs = torch.sum(nb.w * y_pt[pt_idx.long()][:, None, :], dim=-1)
+    return _segment_sum(per_obs, cam_idx, n_cameras)
+
+
+def wt_times(nb: NormalBlocks, x_cam: torch.Tensor, cam_idx: torch.Tensor,
+             pt_idx: torch.Tensor, n_points: int) -> torch.Tensor:
+    """(W^T x)_p: gather x by cam_idx, per-obs 3x8 @ 8, segment-sum by point."""
+    per_obs = torch.sum(nb.w * x_cam[cam_idx.long()][:, :, None], dim=1)
+    return _segment_sum(per_obs, pt_idx, n_points)
+
+
+def schur_matvec(nb: NormalBlocks, x_cam: torch.Tensor, cam_idx: torch.Tensor,
+                 pt_idx: torch.Tensor) -> torch.Tensor:
+    """S x = U x - W V^{-1} W^T x, matrix-free."""
+    n_cameras = nb.u.shape[0]
+    n_points = nb.v.shape[0]
+    ux = torch.sum(nb.u * x_cam[:, None, :], dim=-1)
+    wtx = wt_times(nb, x_cam, cam_idx, pt_idx, n_points)
+    vinv_wtx = torch.sum(nb.v_inv * wtx[:, None, :], dim=-1)
+    return ux - w_times(nb, vinv_wtx, cam_idx, pt_idx, n_cameras)
+
+
+def precond_apply(nb: NormalBlocks, r_cam: torch.Tensor) -> torch.Tensor:
+    """Block-Jacobi preconditioner: per-camera solve with ``u_chol``."""
+    return cho_block_precond(nb.u_chol)(r_cam)
+
+
+class PCGResult(NamedTuple):
+    x: torch.Tensor  # (C, 8)
+    iters: int
+    rel_residual: torch.Tensor
+
+
+def schur_pcg(
+    nb: NormalBlocks,
+    b_cam: torch.Tensor,  # (C, 8)
+    cam_idx: torch.Tensor,
+    pt_idx: torch.Tensor,
+    maxiter: int = 100,
+    rtol: float = 1e-6,
+) -> PCGResult:
+    """Preconditioned CG on the reduced camera system S x = b."""
+    out = pcg(
+        lambda p: schur_matvec(nb, p, cam_idx, pt_idx),
+        lambda r: precond_apply(nb, r),
+        b_cam, maxiter, rtol,
+    )
+    rel = torch.sqrt(torch.sum(out.r * out.r) / out.b_norm2)
+    return PCGResult(x=out.x, iters=out.iters, rel_residual=rel)
+
+
+def back_substitute_points(
+    nb: NormalBlocks,
+    dc: torch.Tensor,  # (C, 8) camera step
+    cam_idx: torch.Tensor,
+    pt_idx: torch.Tensor,
+) -> torch.Tensor:
+    """dp = V^{-1} (-g_p - W^T dc)."""
+    n_points = nb.v.shape[0]
+    wt_dc = wt_times(nb, dc, cam_idx, pt_idx, n_points)
+    return torch.sum(nb.v_inv * (-nb.g_pt - wt_dc)[:, None, :], dim=-1)
