@@ -78,10 +78,39 @@ Phases (any failure exits non-zero and prints no result line):
     RMSE below 0.06 px).  Each: one warm-up and 3 timed solves, a ``solve
     <path>`` line, and no port kernel or plain version counted
     (``benchmark/solver_cells.py`` builds them).
-12. The BAL-scale sequential problem: ``bal_sequential_wtt`` (1712
+12. Files: the grid engine and the paths from file to solve to file
+    (the JAX CLI's ``solve-colmap`` and ``solve-bal``, plain PyTorch, no
+    port kernel), each solve 1 warm-up and 3 timed, its read, pack, solve
+    and write seconds logged beside the card's name and power limit, every
+    count set to 0 just before its solves and read just after (no port
+    kernel and no plain version may run).  (a) ``ba_grid``:
+    ``ba_solve_grid`` (the CLI's ``--engine grid``) on the medium problem
+    packed by ``grid_from_flat``, ``BENCH_CONFIG``: RMSE below 1e-3 px,
+    loss below the initial loss, at least one accepted step.  (b) The
+    medium scene's perturbed cameras and points with its clean
+    observations (as ``build_problem`` pairs them) as a PINHOLE COLMAP
+    model (``scene_to_colmap_model``), written binary and read back: the
+    native reader must have parsed both files and equal the numpy reader
+    bit for bit; then ``ba_problem_from_colmap`` -> ``ba_solve_grid`` ->
+    ``colmap_model_with_solution`` -> ``write_model`` -> ``read_model`` ->
+    repack: RMSE below 1e-3 px, the re-read model's within 1e-3 px of the
+    solve's.  (c) A BAL file of Ladybug problem-49's shape (49 cameras,
+    7,776 points, BAL's camera model with k1/k2, seed 49,
+    ``benchmark/file_cells.py``): ``ba_problem_from_bal`` (the native
+    tokenizer must have run) -> ``ba_solve_grid`` with
+    ``examples/bal_pipeline.py``'s config (50 LM, ``gtol`` 1e-10, 30 CG,
+    ``cg_rtol`` 1e-6, fixed focal) -> ``export_bal`` -> reload: the RMSE
+    must fall, the reloaded RMSE within 1e-3 px of the solve's.  (d) The
+    dataset path: ``load_colmap_dataset`` of (b)'s model ->
+    ``ba_problem_from_dataset`` (the same observations as (b)'s problem,
+    compared sorted) -> ``ba_solve_grid``: RMSE below 1e-3 px, and the
+    solved camera centres, aligned to the scene's true centres by
+    ``umeyama_alignment`` (float64), within a median of 1e-6 of the true
+    centres' extent (their bounding-box diagonal).
+13. The BAL-scale sequential problem: ``bal_sequential_wtt`` (1712
     cameras, 999,808 points, 3,808,166 observations, f32) built on the
     card, its build time and buckets logged.
-13. B1 and B8 with ``want_od``, and B3, B4, B5 and B7, against their
+14. B1 and B8 with ``want_od``, and B3, B4, B5 and B7, against their
     plain versions on the BAL buckets (B3 and B4 also bit for bit against
     their ordered plain forms, B7 bit for bit): f32, where they are timed
     (B1 od and B8 od beside B1 and B8 without od, B3, B4, B5 and B7 as ``B3
@@ -92,7 +121,7 @@ Phases (any failure exits non-zero and prints no result line):
     terms 1 and 2 and B1 at terms 2 on the medium buckets (timed there
     beside the exact B2 and B1), B2 at terms 1 and 2 and B1 at terms 2 with
     and without od on the BAL buckets (B1 od timed there).
-14. The BAL paths, with the JAX suite's BAL solver config (8 CG
+15. The BAL paths, with the JAX suite's BAL solver config (8 CG
     iterations, ``cg_rtol`` 0, f32): ``bal_seq`` (fully indexed,
     Schur-Jacobi) and ``bal_seq_ssor`` (fully indexed, block SSOR, B1 od)
     at 3 and 12 LM iterations, one warm-up solve and 3 timed solves each,
@@ -108,7 +137,7 @@ Phases (any failure exits non-zero and prints no result line):
     matvec) and E1 (``experiments.index_matvec2``: B2's copy at 128, 256
     and 512 threads per block, without the gather, without the atomics)
     run on these buckets.
-15. The split-window packing of the same problem
+16. The split-window packing of the same problem
     (``bal_sequential_wtt(split_windows=True)``, the JAX suite's TPU BAL
     cell), its build time and buckets (G, Tb, Pc, W, global tiles,
     global_tile0) logged: ``bal_seq_split`` (fully indexed),
@@ -117,7 +146,7 @@ Phases (any failure exits non-zero and prints no result line):
     and 12 LM iterations, one warm-up and 3 timed solves each, with their
     marginals; ``bal_seq_split_index2_ssor`` (``index2``/``index2`` under
     block SSOR: B1 od at 2 terms) at 3 iterations, one warm-up and 1 timed.
-16. The BAL hub problem: ``bal_hub_wtt`` (1712 cameras, 5 % hubs of 4000
+17. The BAL hub problem: ``bal_hub_wtt`` (1712 cameras, 5 % hubs of 4000
     observations, packed with global camera tiles) built on the card, its
     buckets (G, Tb, Pc, W, global tiles) logged; the band preconditioners
     must raise JAX's hub ``ValueError``; B1 and B4 checked on its buckets
@@ -127,7 +156,7 @@ Phases (any failure exits non-zero and prints no result line):
     Then its split packing (``bal_hub_wtt(split_windows=True)``), buckets
     and build time logged, the band preconditioners must raise there too,
     and ``bal_hub_split`` (fully indexed) at 3 and 12 iterations, 1 + 3.
-17. ``tt_seq1024``: a sequential scene of 1024 cameras and 256 points per
+18. ``tt_seq1024``: a sequential scene of 1024 cameras and 256 points per
     camera (seed 7, perturbed with seed 8 and 0.5 px noise) packed by
     ``tt_from_flat`` (f32), its counts logged; B12-B16 checked on its
     buckets, each mode printed, B16's per-point partials bit for bit and
@@ -142,11 +171,11 @@ Phases (any failure exits non-zero and prints no result line):
     config at 3 LM iterations, one warm-up and 2 timed solves.
     Each BAL, hub, tt_seq1024 and grid_seq1024 solve must end finite and
     below its initial loss with at least one accepted step.
-18. The probes E3 (``experiments.term_stack``: B2 against its plain
+19. The probes E3 (``experiments.term_stack``: B2 against its plain
     version at terms 3 and 1 on E3's random inputs) and E4
     (``experiments.bits_expand``: both unpack layouts against numpy; its
     counts set to 0 before and read after, as a path's).
-19. Prints the kernel table as one JSON line, the ``nvidia-smi`` line, then
+20. Prints the kernel table as one JSON line, the ``nvidia-smi`` line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Tolerances, relative to max|plain|: per-element outputs 1e-5 (f32) and
@@ -730,7 +759,7 @@ def adjacent_pairs(wcam, g: int, tb: int, pc: int) -> int:
 
 
 def check_od_kernels(bal) -> None:
-    """Phase 12: B1 and B8 with want_od, B5 and B7 (the W y rows and the
+    """Phase 14: B1 and B8 with want_od, B5 and B7 (the W y rows and the
     camera planes of the same tridiag path), and B3 and B4 (the
     back-substitution and cost of the bal_seq path; also bit for bit
     against their ordered plain forms), against their plain versions on the
@@ -1681,6 +1710,208 @@ def run_solvers(flat) -> None:
         raise AssertionError(f"calib: k1 {k1}, RMSE {rmse:.3e} px")
 
 
+def same_records(what: str, got, want) -> None:
+    """Two packed COLMAP record groups equal field for field, bit for bit."""
+    import dataclasses
+
+    import numpy as np
+
+    for f in dataclasses.fields(want):
+        g, w = getattr(got, f.name), getattr(want, f.name)
+        same = g == w if isinstance(w, list) else (
+            g.dtype == w.dtype and g.shape == w.shape and np.array_equal(g, w))
+        if not same:
+            raise AssertionError(f"{what}: the native and numpy readers differ in {f.name}")
+
+
+def run_files(flat, smi: str) -> None:
+    """Phase 12: the grid engine on the medium problem, then the paths from
+    file to solve to file (COLMAP binary, BAL, the Dataset objects), each
+    solve 1 warm-up and 3 timed, each part held to its checks."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from tpu3drecon_torch.benchmark.file_cells import write_ladybug49_like
+    from tpu3drecon_torch.benchmark.medium_config import (
+        BENCH_CONFIG,
+        N_CAMERAS,
+        N_POINTS,
+        OBS_PER_CAMERA,
+        SEED,
+        timed_solve_stats,
+    )
+    from tpu3drecon_torch.dataset import (
+        load_colmap_dataset,
+        make_scene,
+        perturb_scene,
+        scene_to_colmap_model,
+    )
+    from tpu3drecon_torch.geometry.alignment import alignment_errors, umeyama_alignment
+    from tpu3drecon_torch.geometry.pose import camera_center
+    from tpu3drecon_torch.io import colmap as cio
+    from tpu3drecon_torch.io.bal import ba_problem_from_bal, export_bal, read_bal
+    from tpu3drecon_torch.io.colmap import binary, native
+    from tpu3drecon_torch.problems.from_dataset import ba_problem_from_dataset
+    from tpu3drecon_torch.problems.grid import grid_from_flat
+    from tpu3drecon_torch.problems.packing import (
+        ba_problem_from_colmap,
+        colmap_model_with_solution,
+    )
+    from tpu3drecon_torch.solvers.ba_grid import ba_solve_grid
+    from tpu3drecon_torch.solvers.bundle_adjust import BAConfig, reprojection_rmse
+
+    dev = flat.points3d.device
+    counts = counters()
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def grid_solve(path: str, problem, config) -> tuple:
+        """grid_from_flat, then 1 warm-up + 3 timed ba_solve_grid with every
+        count at 0; the loss must fall with an accepted step."""
+        grid, pack_s = clock(lambda: grid_from_flat(problem))
+        _, _, init = ba_solve_grid(grid, config._replace(maxiter=0))
+        for cnt in counts.values():
+            cnt.reset()
+        warm_s, times, (cams, pts, state) = timed_solve_stats(
+            lambda g: ba_solve_grid(g, config), grid, 3)
+        no_port_kernel(path, counts)
+        report = dict(
+            grid_pack_s=pack_s, median_s=statistics.median(times), min_s=min(times),
+            max_s=max(times), warmup_s=warm_s,
+            reproj_rmse_px=float(reprojection_rmse(problem, cams, pts)),
+            initial_loss=float(init.loss), final_loss=float(state.loss),
+            lm_iters=int(state.iter_num), accepted_steps=int(state.accepted),
+            cg_iters_last=int(state.cg_iters), grid_ck=list(grid.mask.shape),
+            track_slots=list(grid.track_idx.shape),
+        )
+        if not float(state.loss) < float(init.loss):
+            raise AssertionError(f"{path}: the final loss is not finite and below the initial")
+        if int(state.accepted) < 1:
+            raise AssertionError(f"{path}: no step was accepted")
+        return report, cams, pts
+
+    def line(path: str, report: dict, check: str) -> None:
+        log(f"solve {path} " + json.dumps(dict(card=smi, **report, check=check)))
+
+    # (a) ba_grid: the JAX CLI's --engine grid on the medium problem.
+    report, _, _ = grid_solve("ba_grid", flat, BENCH_CONFIG)
+    line("ba_grid", report, "rmse < 1e-3 px")
+    if not report["reproj_rmse_px"] < 1e-3:
+        raise AssertionError(f"ba_grid: RMSE {report['reproj_rmse_px']:.3e} px")
+
+    f32 = torch.float32
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) solve-colmap: the medium scene's perturbed parameters with its
+        # clean observations, as build_problem pairs them.
+        def medium_scene():
+            sc = make_scene(n_cameras=N_CAMERAS, n_points=N_POINTS,
+                            obs_per_camera=OBS_PER_CAMERA, seed=SEED)
+            return sc, perturb_scene(sc, seed=SEED + 1, point2d_noise=0.5)
+
+        (scene, noisy), scene_s = clock(medium_scene)
+        model = scene_to_colmap_model(dataclasses.replace(noisy, uv=scene.uv))
+        _, write_in_s = clock(lambda: cio.write_model(model, f"{tmp}/in", binary=True))
+        lib, build_s = clock(native.load_library)  # g++ at first use
+        if lib is None:
+            raise AssertionError("files colmap: the native reader did not build")
+        native.COUNTS.reset()
+        m, read_s = clock(lambda: cio.read_model(f"{tmp}/in"))
+        if native.COUNTS.native != {"images": 1, "points3d": 1} or native.COUNTS.numpy:
+            raise AssertionError(f"files colmap: the native reader did not parse both files: "
+                                 f"native {native.COUNTS.native}, numpy {native.COUNTS.numpy}")
+        (images, points), numpy_read_s = clock(lambda: (
+            binary.read_images_bin(f"{tmp}/in/images.bin", use_native=False),
+            binary.read_points3d_bin(f"{tmp}/in/points3D.bin", use_native=False)))
+        same_records("images.bin", m.images, images)
+        same_records("points3D.bin", m.points, points)
+        (problem, meta), pack_s = clock(
+            lambda: ba_problem_from_colmap(m, dtype=f32, device=dev))
+        report, cams, pts = grid_solve("files colmap", problem, BENCH_CONFIG)
+        _, write_s = clock(lambda: cio.write_model(
+            colmap_model_with_solution(m, cams, pts, meta), f"{tmp}/out", binary=True))
+        (back, _), reread_s = clock(lambda: ba_problem_from_colmap(
+            cio.read_model(f"{tmp}/out"), dtype=f32, device=dev))
+        rmse = report["reproj_rmse_px"]
+        rmse_re = float(reprojection_rmse(back, back.cameras, back.points3d))
+        line("files colmap", dict(
+            images=len(m.images), points=len(m.points), observations=meta.n_real_obs,
+            scene_s=scene_s, write_input_s=write_in_s, native_build_s=build_s,
+            read_native_s=read_s,
+            read_numpy_s=numpy_read_s, pack_s=pack_s, **report, write_s=write_s,
+            reread_pack_s=reread_s, reread_rmse_px=rmse_re,
+            native_reads=dict(native.COUNTS.native)),
+            "native == numpy records bit for bit, rmse < 1e-3 px, |reread - rmse| < 1e-3 px")
+        if not (rmse < 1e-3 and abs(rmse_re - rmse) < 1e-3):
+            raise AssertionError(f"files colmap: RMSE {rmse:.3e} px, re-read {rmse_re:.3e} px")
+
+        # (c) solve-bal on a file of Ladybug problem-49's shape.
+        bal_path = f"{tmp}/ladybug49.txt"
+        info, gen_s = clock(lambda: write_ladybug49_like(bal_path, seed=49))
+        native.COUNTS.reset()
+        _, read_s = clock(lambda: read_bal(bal_path))
+        (bal, _), load_s = clock(lambda: ba_problem_from_bal(bal_path, dtype=f32, device=dev))
+        if native.COUNTS.native != {"bal": 2} or native.COUNTS.numpy:
+            raise AssertionError(f"files bal: the native tokenizer did not parse the file: "
+                                 f"native {native.COUNTS.native}, numpy {native.COUNTS.numpy}")
+        rmse0 = float(reprojection_rmse(bal, bal.cameras, bal.points3d))
+        config = BAConfig(maxiter=50, gtol=1e-10, cg_maxiter=30, cg_rtol=1e-6,
+                          optimize_focal=False)
+        report, cams, pts = grid_solve("files bal", bal, config)
+        _, write_s = clock(lambda: export_bal(f"{tmp}/ladybug49_solved.txt", bal, cams, pts))
+        (back, _), reload_s = clock(lambda: ba_problem_from_bal(
+            f"{tmp}/ladybug49_solved.txt", dtype=f32, device=dev))
+        rmse = report["reproj_rmse_px"]
+        rmse_re = float(reprojection_rmse(back, back.cameras, back.points3d))
+        line("files bal", dict(
+            **info, generate_s=gen_s, read_native_s=read_s, read_pack_s=load_s,
+            initial_rmse_px=rmse0, **report, write_s=write_s, reload_s=reload_s,
+            reload_rmse_px=rmse_re),
+            "rmse falls, |reload - rmse| < 1e-3 px")
+        if not (rmse < rmse0 and abs(rmse_re - rmse) < 1e-3):
+            raise AssertionError(f"files bal: RMSE {rmse0:.4f} -> {rmse:.4f} px, reloaded "
+                                 f"{rmse_re:.4f} px")
+
+        # (d) the dataset path on (b)'s model.
+        ds, load_s = clock(lambda: load_colmap_dataset(f"{tmp}/in", binary=True))
+        (dproblem, dmeta), dpack_s = clock(
+            lambda: ba_problem_from_dataset(ds, dtype=f32, device=dev))
+
+        def obs_rows(p, pm):
+            keep = p.mask.cpu().numpy() > 0
+            uv = p.uv.cpu().numpy()[keep].astype(np.float64)
+            rows = np.stack([p.cam_idx.cpu().numpy()[keep].astype(np.float64),
+                             pm.point_ids[p.pt_idx.cpu().numpy()[keep]].astype(np.float64),
+                             uv[:, 0], uv[:, 1]], axis=1)
+            return rows[np.lexsort(rows.T[::-1])]
+
+        if not np.array_equal(obs_rows(dproblem, dmeta), obs_rows(problem, meta)):
+            raise AssertionError("files dataset: its observations differ from the colmap path's")
+        report, cams, pts = grid_solve("files dataset", dproblem, BENCH_CONFIG)
+        solved = camera_center(cams.rmats.double().cpu(), cams.tvecs.double().cpu())
+        truth = camera_center(torch.from_numpy(scene.rmats), torch.from_numpy(scene.tvecs))
+        sim = umeyama_alignment(solved, truth)
+        err = float(torch.median(alignment_errors(sim, solved, truth)))
+        extent = float(torch.linalg.vector_norm(truth.max(0).values - truth.min(0).values))
+        rmse = report["reproj_rmse_px"]
+        line("files dataset", dict(
+            entries=len(ds.datasetEntries), points3d=len(ds.points3D),
+            points2d=sum(e.num_2d_points for e in ds.datasetEntries),
+            observations=dmeta.n_real_obs, load_s=load_s, pack_s=dpack_s, **report,
+            median_centre_err=err, extent=extent, rel_centre_err=err / extent),
+            "same observations as files colmap, rmse < 1e-3 px, median centre error "
+            "< 1e-6 of the extent")
+        if not (rmse < 1e-3 and err < 1e-6 * extent):
+            raise AssertionError(f"files dataset: RMSE {rmse:.3e} px, median centre error "
+                                 f"{err:.3e} of extent {extent:.3e}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1778,6 +2009,7 @@ def main() -> int:
     check_padded_slots(wtt, tt)
     del tt, grid
     run_solvers(flat)
+    run_files(flat, smi)
 
     t0 = time.perf_counter()
     bal = bal_sequential_wtt(device=dev, verbose=False)

@@ -28,7 +28,9 @@ a 1024-camera sequential track table (256 points per camera, seed 7, as
 ``chip_smoke.py`` builds it) on the tt engine's default route
 (``kernels=False``, PyTorch products through ``cam_ids``) under block SSOR
 for 3 LM iterations; for ``flat``, the flat engine ``ba_solve`` on the
-medium problem with ``BENCH_CONFIG``; for ``pnp`` and ``tracking``, the
+medium problem with ``BENCH_CONFIG``; for ``ba_grid``, the grid engine
+``ba_solve_grid`` (plain PyTorch, the JAX CLI's ``--engine grid``) on the
+medium problem packed by ``grid_from_flat``, with ``BENCH_CONFIG``; for ``pnp`` and ``tracking``, the
 JAX suite's batched PnP (8 cameras of 2300 matches, ``refine_poses``
 TRIVIAL with ``PNP_CONFIG``) and tracking (500 frames of 1000
 observations, ``TRACKING_CONFIG``) cells on the dense LM
@@ -196,7 +198,9 @@ def main() -> int:
     from tpu3drecon_torch.benchmark import solver_cells as cells
     from tpu3drecon_torch.geometry.losses import RobustLoss
     from tpu3drecon_torch.ops import cam_normal
+    from tpu3drecon_torch.problems.grid import grid_from_flat
     from tpu3drecon_torch.problems.wtt import expand_onehots, wtt_from_flat
+    from tpu3drecon_torch.solvers.ba_grid import ba_solve_grid
     from tpu3drecon_torch.solvers.ba_pallas import ba_solve_pallas
     from tpu3drecon_torch.solvers.ba_tt import ba_solve_tt
     from tpu3drecon_torch.solvers.ba_wtt import ba_solve_wtt
@@ -227,6 +231,8 @@ def main() -> int:
         ("tt_seq1024_ssor", lambda p: ba_solve_tt(p, BAL_CONFIG._replace(precond="ssor")),
          tt_seq1024),
         ("flat", lambda p: ba_solve(p, BENCH_CONFIG), build_problem),
+        ("ba_grid", lambda p: ba_solve_grid(p, BENCH_CONFIG),
+         lambda: grid_from_flat(build_problem())),
         ("pnp", lambda p: refine_poses(p, loss=RobustLoss.TRIVIAL, config=cells.PNP_CONFIG),
          lambda: cells.pnp_problem()[0]),
         ("tracking", lambda p: refine_poses(p, config=cells.TRACKING_CONFIG),

@@ -1,9 +1,11 @@
 """Synthetic scenes with known ground truth.
 
-Counterpart of ``tpu3drecon/dataset/synthetic.py:42-472``.  Every
-scene is drawn from numpy RNGs with the same draws in the same order as
-the JAX package, so both packages build identical arrays from a seed; only
+Counterpart of ``tpu3drecon/dataset/synthetic.py``.  Every scene is
+drawn from numpy RNGs with the same draws in the same order as the JAX
+package, so both packages build identical arrays from a seed; only
 ``scene_to_ba_problem`` and ``scene_to_pose_problem`` produce tensors.
+``scene_to_colmap_model`` exports a scene as COLMAP records (float64 on
+the host).
 """
 
 from __future__ import annotations
@@ -15,6 +17,14 @@ import numpy as np
 import torch
 
 from tpu3drecon_torch.device import resolve_device
+from tpu3drecon_torch.geometry.rotations import matrix_to_quat_batch
+from tpu3drecon_torch.io.colmap.records import (
+    CameraModelType,
+    ColmapCamera,
+    ColmapImages,
+    ColmapModel,
+    ColmapPoints,
+)
 from tpu3drecon_torch.problems.packing import (
     BAProblem,
     CameraParams,
@@ -409,3 +419,69 @@ def scene_to_pose_problem(
         n_real_obs=int(counts.sum()),
     )
     return problem, meta
+
+
+def scene_to_colmap_model(scene: SyntheticScene) -> ColmapModel:
+    """A synthetic scene as a COLMAP model of PINHOLE cameras (image and
+    camera ids 1..C, point ids 1..P); quaternions in float64 on the
+    CPU."""
+    cameras = {
+        c + 1: ColmapCamera(
+            camera_id=c + 1,
+            model=CameraModelType.PINHOLE,
+            width=scene.width,
+            height=scene.height,
+            params=np.array(
+                [
+                    scene.fx_fy[c, 0],
+                    scene.fx_fy[c, 1],
+                    scene.cx_cy_skew[c, 0],
+                    scene.cx_cy_skew[c, 1],
+                ]
+            ),
+        )
+        for c in range(scene.n_cameras)
+    }
+
+    qvecs = matrix_to_quat_batch(
+        torch.as_tensor(np.asarray(scene.rmats, np.float64))).numpy()
+
+    order = np.argsort(scene.cam_idx, kind="stable")
+    cam_sorted = scene.cam_idx[order]
+    pt_sorted = scene.pt_idx[order]
+    uv_sorted = scene.uv[order]
+    counts = np.bincount(cam_sorted, minlength=scene.n_cameras)
+    offsets = np.zeros(scene.n_cameras + 1, np.int64)
+    np.cumsum(counts, out=offsets[1:])
+
+    images = ColmapImages(
+        image_ids=np.arange(1, scene.n_cameras + 1, dtype=np.int32),
+        qvecs=qvecs,
+        tvecs=scene.tvecs.astype(np.float64),
+        camera_ids=np.arange(1, scene.n_cameras + 1, dtype=np.int32),
+        names=[f"synthetic_{c:04d}.jpg" for c in range(scene.n_cameras)],
+        p2d_offsets=offsets,
+        p2d_xy=uv_sorted.astype(np.float64),
+        p2d_point3d_ids=(pt_sorted + 1).astype(np.int64),
+    )
+
+    # Tracks: for each point, the (image_id, p2d_idx) pairs that observe it.
+    local_idx = np.arange(len(cam_sorted), dtype=np.int64) - offsets[cam_sorted]
+    porder = np.argsort(pt_sorted, kind="stable")
+    p_of = pt_sorted[porder]
+    img_of = cam_sorted[porder] + 1
+    loc_of = local_idx[porder]
+    pcounts = np.bincount(p_of, minlength=scene.n_points)
+    poffsets = np.zeros(scene.n_points + 1, np.int64)
+    np.cumsum(pcounts, out=poffsets[1:])
+
+    points = ColmapPoints(
+        ids=np.arange(1, scene.n_points + 1, dtype=np.int64),
+        xyz=scene.points3d.astype(np.float64),
+        rgb=np.full((scene.n_points, 3), 128, np.uint8),
+        error=np.zeros(scene.n_points),
+        track_offsets=poffsets,
+        track_image_ids=img_of.astype(np.int32),
+        track_p2d_idxs=loc_of.astype(np.int32),
+    )
+    return ColmapModel(cameras=cameras, images=images, points=points)

@@ -7,7 +7,9 @@ package's ``CameraParams`` / ``PoseProblem`` / ``BAProblem`` / ``BAGridProblem``
 arrays and static ints (a dict per dataclass, nested for ``cameras`` and
 ``buckets``) and build the port's objects on ``device`` (default: the CUDA card, see
 ``tpu3drecon_torch.device``), so the same problem can be handed to both
-packages.  Nothing here imports jax.
+packages.  ``colmap_model_from_numpy`` builds the port's ``ColmapModel``
+(numpy records, no device) from the fields of the JAX package's.  Nothing
+here imports jax.
 """
 
 from __future__ import annotations
@@ -16,6 +18,13 @@ import numpy as np
 import torch
 
 from tpu3drecon_torch.device import resolve_device
+from tpu3drecon_torch.io.colmap.records import (
+    CameraModelType,
+    ColmapCamera,
+    ColmapImages,
+    ColmapModel,
+    ColmapPoints,
+)
 from tpu3drecon_torch.problems.grid import (
     BAGridBucketedProblem,
     BAGridProblem,
@@ -162,3 +171,30 @@ def tt_problem_from_numpy(d: dict, device=None) -> BATTProblem:
         n_real_points=int(d["n_real_points"]),
         bucket_offsets=tuple(int(o) for o in d["bucket_offsets"]),
     )
+
+
+def colmap_model_from_numpy(d: dict) -> ColmapModel:
+    """``ColmapModel`` from ``cameras`` (camera id -> dict of ``camera_id``,
+    ``model`` (its int id), ``width``, ``height``, ``params``), ``images``
+    (the arrays of ``ColmapImages`` and its list ``names``) and ``points``
+    (the arrays of ``ColmapPoints``).  Arrays are copied."""
+    cameras = {
+        int(cid): ColmapCamera(
+            camera_id=int(c["camera_id"]),
+            model=CameraModelType(int(c["model"])),
+            width=int(c["width"]),
+            height=int(c["height"]),
+            params=np.array(c["params"], np.float64),
+        )
+        for cid, c in d["cameras"].items()
+    }
+    im = d["images"]
+    images = ColmapImages(
+        names=[str(n) for n in im["names"]],
+        **{k: np.array(im[k]) for k in (
+            "image_ids", "qvecs", "tvecs", "camera_ids", "p2d_offsets", "p2d_xy",
+            "p2d_point3d_ids")},
+    )
+    points = ColmapPoints(**{k: np.array(d["points"][k]) for k in (
+        "ids", "xyz", "rgb", "error", "track_offsets", "track_image_ids", "track_p2d_idxs")})
+    return ColmapModel(cameras=cameras, images=images, points=points)

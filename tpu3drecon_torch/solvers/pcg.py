@@ -64,6 +64,15 @@ def pcg(
     return PCGOut(x=x_good, iters=i, r=r, b_norm2=b_norm2)
 
 
+def cholesky_or_nan(m: torch.Tensor) -> torch.Tensor:
+    """Per-block Cholesky factors of (C, n, n) blocks, with JAX's failed
+    factor (NaN on and below the diagonal) where ``cholesky_ex`` reports
+    ``info != 0``; ``torch.linalg.cholesky`` would raise there."""
+    chol, info = torch.linalg.cholesky_ex(m)
+    return torch.where((info != 0)[:, None, None],
+                       torch.full_like(chol, float("nan")).tril(), chol)
+
+
 def guarded_block_cholesky(precond_mat: torch.Tensor, u_d: torch.Tensor) -> torch.Tensor:
     """Per-camera cholesky of the preconditioner blocks with an SPD fallback.
 
@@ -75,12 +84,9 @@ def guarded_block_cholesky(precond_mat: torch.Tensor, u_d: torch.Tensor) -> torc
     """
     chol, info = torch.linalg.cholesky_ex(precond_mat)
     bad = (info != 0) | torch.isnan(chol).any(dim=-1).any(dim=-1)
-    fallback, fb_info = torch.linalg.cholesky_ex(u_d)
     # A damped U that is not SPD either (lam < 0 only) gets JAX's failed
     # factor: NaN on and below the diagonal.
-    fallback = torch.where((fb_info != 0)[:, None, None],
-                           torch.full_like(fallback, float("nan")).tril(), fallback)
-    return torch.where(bad[:, None, None], fallback, chol)
+    return torch.where(bad[:, None, None], cholesky_or_nan(u_d), chol)
 
 
 def cho_block_precond(u_chol: torch.Tensor) -> Callable[[torch.Tensor], torch.Tensor]:

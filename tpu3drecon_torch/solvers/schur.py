@@ -26,7 +26,12 @@ from typing import NamedTuple
 import torch
 
 from tpu3drecon_torch.ops.point_normal import inv3x3  # noqa: F401 (schur.inv3x3)
-from tpu3drecon_torch.solvers.pcg import cho_block_precond, guarded_block_cholesky, pcg
+from tpu3drecon_torch.solvers.pcg import (
+    cho_block_precond,
+    cholesky_or_nan,
+    guarded_block_cholesky,
+    pcg,
+)
 
 
 def _segment_sum(per_obs: torch.Tensor, idx: torch.Tensor, num: int) -> torch.Tensor:
@@ -113,9 +118,7 @@ def build_normal_blocks(
         coupling = _segment_sum(g_obs, cam_idx, n_cameras)
         u_chol = guarded_block_cholesky(u_d - coupling, u_d)
     else:
-        chol, info = torch.linalg.cholesky_ex(u_d)
-        u_chol = torch.where((info != 0)[:, None, None],
-                             torch.full_like(chol, float("nan")).tril(), chol)
+        u_chol = cholesky_or_nan(u_d)
     return NormalBlocks(
         u=u_d, v=v_d, w=w, g_cam=g_cam, g_pt=g_pt, v_inv=v_inv, u_chol=u_chol,
         damp_cam=damp_cam, damp_pt=damp_pt,
