@@ -107,6 +107,37 @@ Phases (any failure exits non-zero and prints no result line):
     solved camera centres, aligned to the scene's true centres by
     ``umeyama_alignment`` (float64), within a median of 1e-6 of the true
     centres' extent (their bounding-box diagonal).
+12b. The command line (``tpu3drecon_torch/cli.py``) on phase 12's files,
+    on the card: ``main([...])`` in process for ``solve-colmap`` on the
+    medium COLMAP model with each engine (flat, grid, pallas, tt, wtt;
+    ``--maxiter 30 --cg-maxiter 8``; the pallas run must launch B9-B11, the
+    wtt run, fully indexed on split windows by the card's auto rules,
+    B1-B4, and no run a plain version), ``solve-bal`` on the
+    Ladybug-shaped BAL file (50 LM, fixed focal), a checkpointed
+    ``solve-bal`` (``--checkpoint-every 10``) run twice, the second
+    resuming complete; then ``python -m tpu3drecon_torch info`` (the card,
+    the native reader) and ``solve-bal`` as subprocesses.  Every written
+    file is read back: its RMSE within 1e-3 px of the solve's.
+12c. The parallel layer (``tpu3drecon_torch/parallel/``): an NCCL process
+    group of world size 1 (the machine has one card), then on the medium
+    problem, each beside its single-device engine in this call (1 warm-up
+    + 3 timed each, the walls and the all_reduce / all_gather calls per
+    solve logged): sharded wtt (fully indexed: B1-B4), sharded grid (the
+    kernel route: B9 and B11 in their plane forms), sharded tt (JAX's
+    sharded route, ``kernels=False``: no kernel) and sharded flat; sharded
+    pose on the tracking cell (500 frames).  wtt and tt: the same
+    ``accepted``, ``iter_num`` and ``cg_iters`` and the same loss bits as
+    the single-device solve where that solve repeats its own bits; where
+    its float atomics (B1/B2, ``index_add_``) make it vary from run to
+    run, both at the float32 rounding floor (below) or, together, the
+    same most common step counts, the median sharded loss within 50 % of
+    the median single-device loss (``bal_hub_split`` at 3 LM iterations
+    varies by ~35 % between identical float32 solves: 1 + 5 solves each
+    there) and the median RMSE of the returned cameras and points within
+    10 % of the single-device solves'; grid, flat and pose: the loss
+    within 1e-3 relative; any of them also passes with both solves at the
+    float32 rounding floor (RMSE below 1e-4 px); RMSE below 1e-3 px.  At the end of phase 17, ``bal_hub_split`` at 3 LM iterations on
+    sharded wtt on the same packing, held as wtt is.
 13. The BAL-scale sequential problem: ``bal_sequential_wtt`` (1712
     cameras, 999,808 points, 3,808,166 observations, f32) built on the
     card, its build time and buckets logged.
@@ -246,9 +277,12 @@ from __future__ import annotations
 
 import importlib
 import json
+import shutil
 import statistics
 import sys
+import tempfile
 import time
+import types
 
 import torch
 
@@ -283,6 +317,12 @@ GRID1024 = "grid_seq1024"  # the same 1024-camera scene in grid layout
 SPLIT, SPLIT2, SPLIT1 = "bal_seq_split", "bal_seq_split_index2", "bal_seq_split_index1"
 SPLIT2_SSOR, HUB_SPLIT = "bal_seq_split_index2_ssor", "bal_hub_split"
 E4 = "E4 probe"
+# The parallel layer at world size 1 over NCCL: sharded wtt (fully indexed)
+# on the medium problem and on the BAL hub split, sharded grid on its kernel
+# route; and the command line's wtt (fully indexed, split windows) and
+# pallas engines on the medium COLMAP model.
+SHARDED_WTT, SHARDED_HUB, SHARDED_GRID = "sharded_wtt", "sharded_bal_hub_split", "sharded_grid"
+CLI_WTT, CLI_PALLAS = "cli wtt", "cli pallas"
 SHARED, GLOBAL = "shared", "global"  # tpu3drecon_torch.ops._build's modes
 # (module under tpu3drecon_torch, counter attribute, kernel name, source,
 # replaced TPU kernel, paths, the memory mode of its ms: the kernels read
@@ -291,16 +331,17 @@ SHARED, GLOBAL = "shared", "global"  # tpu3drecon_torch.ops._build's modes
 # windows (B5 on buckets of many slots: both modes in one pass), B7, B9-B11
 # and E4 have no mode)
 ALL_SPLIT = {SPLIT, SPLIT2, SPLIT1, SPLIT2_SSOR, HUB_SPLIT}
+INDEXED = {SHARDED_WTT, SHARDED_HUB, CLI_WTT}  # B1-B4: fully indexed wtt paths
 KERNELS = (
     ("ops.wtt_linearize", "COUNTS", "wtt_linearize_fused_idx", WTT_SRC, f"{LIN_PY}:554",
-     {WTT, BAL, HUB, SPLIT, SPLIT1, HUB_SPLIT}, GLOBAL),
+     {WTT, BAL, HUB, SPLIT, SPLIT1, HUB_SPLIT} | INDEXED, GLOBAL),
     ("ops.wtt_matvec", "COUPLING_COUNTS", "wtt_coupling_rows_idx", WTT_SRC, f"{MV_PY}:215",
-     {WTT, UNFUSED, BAL, BAL_SSOR, BAL_TRI, HUB, NP10, SPLIT, HUB_SPLIT}, GLOBAL),
+     {WTT, UNFUSED, BAL, BAL_SSOR, BAL_TRI, HUB, NP10, SPLIT, HUB_SPLIT} | INDEXED, GLOBAL),
     ("ops.wtt_matvec", "WT_COUNTS", "wtt_wt_planes_idx", WTT_SRC, f"{MV_PY}:405",
-     {WTT, UNFUSED, BAL, BAL_SSOR, BAL_TRI, HUB, NP10} | ALL_SPLIT, GLOBAL),
+     {WTT, UNFUSED, BAL, BAL_SSOR, BAL_TRI, HUB, NP10} | ALL_SPLIT | INDEXED, GLOBAL),
     ("ops.wtt_cost", "COUNTS", "wtt_cost_cols_idx", WTT_SRC,
-     "tpu3drecon/ops/pallas/wtt_cost.py:94", {WTT, BAL, BAL_SSOR, HUB, NP10} | ALL_SPLIT,
-     GLOBAL),
+     "tpu3drecon/ops/pallas/wtt_cost.py:94",
+     {WTT, BAL, BAL_SSOR, HUB, NP10} | ALL_SPLIT | INDEXED, GLOBAL),
     ("ops.wtt_matvec", "W_ROWS_COUNTS", "wtt_w_rows_idx", ROUTE_SRC, f"{MV_PY}:468",
      {UNFUSED, BAL_TRI}, f"{GLOBAL}+{SHARED}"),
     ("ops.wtt_matvec", "FUSED_COUNTS", "wtt_coupling_rows_fused", ROUTE_SRC, f"{MV_PY}:526",
@@ -310,11 +351,11 @@ KERNELS = (
     ("ops.wtt_linearize", "CONTRIB_COUNTS", "wtt_contrib_rows_idx", ROUTE_SRC,
      f"{LIN_PY}:286", {UNFUSED, ONEHOT}, GLOBAL),
     ("ops.cam_normal", "COUNTS", "cam_normal_idx", GRID_SRC,
-     "tpu3drecon/ops/pallas/cam_normal.py:205", {"grid"}, None),
+     "tpu3drecon/ops/pallas/cam_normal.py:205", {"grid", SHARDED_GRID, CLI_PALLAS}, None),
     ("ops.point_normal", "COUNTS", "point_normal_fused", GRID_SRC,
-     "tpu3drecon/ops/pallas/point_normal.py:80", {"grid"}, None),
+     "tpu3drecon/ops/pallas/point_normal.py:80", {"grid", CLI_PALLAS}, None),
     ("ops.coupling", "COUNTS", "coupling_idx", GRID_SRC,
-     "tpu3drecon/ops/pallas/coupling.py:65", {"grid"}, None),
+     "tpu3drecon/ops/pallas/coupling.py:65", {"grid", SHARDED_GRID, CLI_PALLAS}, None),
     ("ops.tt_linearize", "CAM_COUNTS", "tt_cam_normal_fused", TT_SRC, f"{TT_PY}:221",
      {"tt", TT1024}, GLOBAL),
     ("ops.tt_linearize", "COUPLING_COUNTS", "tt_coupling_fused", TT_SRC, f"{TT_PY}:297",
@@ -1911,6 +1952,330 @@ def run_files(flat, smi: str) -> None:
             raise AssertionError(f"files dataset: RMSE {rmse:.3e} px, median centre error "
                                  f"{err:.3e} of extent {extent:.3e}")
 
+        run_cli(tmp, smi, dev)  # phase 12b, on this phase's files
+
+
+def path_launches(path: str, counts: dict) -> dict:
+    """The launch counts of ``path``'s kernels since the counts were set to
+    0; raises if one of them did not launch or a plain version ran."""
+    mine = {name for _, _, name, _, _, paths, *_ in KERNELS if path in paths}
+    got = {n: counts[n].kernel for n in mine}
+    plain = {n: c.plain for n, c in counts.items() if c.plain}
+    if not mine:
+        no_port_kernel(path, counts)
+    missing = [n for n, v in got.items() if v == 0]
+    if missing:
+        raise AssertionError(f"{path}: kernels not launched: {missing}")
+    if plain:
+        raise AssertionError(f"{path}: plain versions ran: {plain}")
+    return got
+
+
+def open_nccl_mesh(store_dir: str):
+    """Phase 12c's group: NCCL, one rank on card 0 (the machine has one card,
+    and NCCL takes one rank per device).  No fallback: a failed NCCL start
+    fails the run."""
+    import torch.distributed as dist
+
+    from tpu3drecon_torch.parallel.distributed import global_obs_mesh, initialize_distributed
+
+    torch.cuda.set_device(0)
+    initialize_distributed(f"file://{store_dir}/nccl_store", world_size=1, rank=0,
+                           backend="nccl", timeout_s=600)
+    mesh = global_obs_mesh(device="cuda:0")
+    if dist.get_backend() != "nccl" or mesh.size != 1:
+        raise AssertionError(f"expected NCCL at world size 1, got {dist.get_backend()} "
+                             f"at {mesh.size}")
+    log(f"sharded: NCCL group (torch.distributed), world size {mesh.size}, rank "
+        f"{mesh.rank}, device {mesh.device}")
+    return mesh
+
+
+def sharded_pair(path: str, mesh, sharded, single, problem, rmse_fn, exact: bool,
+                 repeats: int = 3, rmse_limit=1e-3) -> tuple:
+    """One sharded path beside its single-device engine in this call: the
+    single-device solve once, then 1 warm-up + ``repeats`` timed of each,
+    every count set to 0 just before the sharded solves and read just
+    after; ``rmse_fn(cameras, points)`` gives the reprojection RMSE in
+    pixels.  ``exact`` (wtt, tt): where the single-device solve repeats its
+    own loss bits, the same ``accepted``, ``iter_num`` and ``cg_iters`` and
+    the same loss bits (JAX's single-device-mesh test); where its float
+    atomics make it vary from run to run, both at the float32 rounding
+    floor (RMSE below 1e-4 px, where the loss is rounding noise), or all
+    of: the most common (``iter_num``, ``accepted``, ``cg_iters``) of the
+    sharded solves equal to that of the single-device solves, the median
+    sharded loss within 50 % of the median single-device loss (the
+    3-iteration BAL hub split varies ~35 % between identical float32
+    solves), and the median reprojection RMSE of the returned cameras and
+    points within 10 % of the single-device solves' (the last solves'
+    RMSEs differed by 0.7-2.0 % in three runs, ``PERF.md`` PR 18; a fault
+    in how the sharded wrapper gathers or unpermutes its outputs moves the
+    RMSE by far more).  Otherwise (grid, flat, pose): the loss within 1e-3
+    relative, or the rounding floor.  Every RMSE below ``rmse_limit``
+    (None: no limit).  Returns (the report, the sharded cameras)."""
+    from tpu3drecon_torch.benchmark.medium_config import timed_solve_stats
+
+    def recorded(fn, solves):
+        def run(p):
+            out = fn(p)
+            solves.append(out)
+            return out
+        return run
+
+    def steps(st) -> tuple:
+        return int(st.iter_num), int(st.accepted), int(st.cg_iters)
+
+    counts = counters()
+    single_solves, sharded_solves = [], []
+    recorded(single, single_solves)(problem)
+    warm_1, times_1, (cams1, pts1, st1) = timed_solve_stats(
+        recorded(single, single_solves), problem, repeats)
+    single_losses = [float(o[2].loss) for o in single_solves]
+    repeat_bits = len(set(single_losses)) == 1
+    for cnt in counts.values():
+        cnt.reset()
+    mesh.counts.reset()
+    warm_s, times_s, (cams, pts, st) = timed_solve_stats(
+        recorded(sharded, sharded_solves), problem, repeats)
+    sharded_losses = [float(o[2].loss) for o in sharded_solves]
+    n = repeats + 1
+    collectives = dict(all_reduce=mesh.counts.all_reduce / n,
+                       all_gather=mesh.counts.all_gather / n)
+    launches = path_launches(path, counts)
+    loss, loss1 = float(st.loss), float(st1.loss)
+    rel = abs(loss - loss1) / max(abs(loss1), 1e-300)
+    rmse, rmse1 = float(rmse_fn(cams, pts)), float(rmse_fn(cams1, pts1))
+    med, med1 = statistics.median(sharded_losses), statistics.median(single_losses)
+    rmses = [float(rmse_fn(o[0], o[1])) for o in sharded_solves]
+    rmses1 = [float(rmse_fn(o[0], o[1])) for o in single_solves]
+    rmse_med, rmse_med1 = statistics.median(rmses), statistics.median(rmses1)
+    step_mode = statistics.mode(steps(o[2]) for o in sharded_solves)
+    step_mode1 = statistics.mode(steps(o[2]) for o in single_solves)
+    within_variation = (abs(med - med1) <= 0.5 * abs(med1) and step_mode == step_mode1
+                        and abs(rmse_med - rmse_med1) <= 0.1 * rmse_med1)
+    del single_solves, sharded_solves
+    report = dict(
+        median_s=statistics.median(times_s), min_s=min(times_s), max_s=max(times_s),
+        warmup_s=warm_s, single_median_s=statistics.median(times_1),
+        single_min_s=min(times_1), single_max_s=max(times_1), single_warmup_s=warm_1,
+        collectives_per_solve=collectives,
+        launches_per_solve={k: v / n for k, v in launches.items()},
+        reproj_rmse_px=rmse, single_reproj_rmse_px=rmse1,
+        loss=loss, single_loss=loss1, loss_rel_diff=rel, loss_bits_equal=loss == loss1,
+        sharded_losses=sharded_losses, single_losses=single_losses,
+        sharded_rmses_px=rmses, single_rmses_px=rmses1,
+        steps_mode=(step_mode, step_mode1),
+        single_repeats_its_bits=repeat_bits,
+        points_bits_equal=bool(torch.equal(pts, pts1)),
+        lm_iters=(int(st.iter_num), int(st1.iter_num)),
+        accepted=(int(st.accepted), int(st1.accepted)),
+        cg_iters_last=(int(st.cg_iters), int(st1.cg_iters)),
+    )
+    floor = max(rmse, rmse1) < 1e-4
+    if exact and repeat_bits:
+        report["held_by"] = "bits"
+        same = loss == loss1 and all(a == b for a, b in (
+            report["lm_iters"], report["accepted"], report["cg_iters_last"]))
+    elif exact:
+        report["held_by"] = "rounding floor" if floor else "run-to-run variation"
+        same = floor or within_variation
+    else:
+        report["held_by"] = "loss" if rel <= 1e-3 else "rounding floor"
+        same = rel <= 1e-3 or floor
+    ok = same and (rmse_limit is None or max(rmse, rmse1) < rmse_limit)
+    log(f"solve {path} " + json.dumps(report))
+    if not ok:
+        raise AssertionError(f"{path}: the sharded solve does not match the single-device "
+                             f"one: {report}")
+    return report, cams
+
+
+def run_sharded(mesh, flat, wtt, smi: str) -> None:
+    """Phase 12c: the parallel layer at world size 1 over NCCL, each sharded
+    engine beside its single-device engine on the medium problem, and
+    sharded pose refinement on the tracking cell."""
+    from tpu3drecon_torch.benchmark import solver_cells as cells
+    from tpu3drecon_torch.benchmark.medium_config import (
+        BENCH_CONFIG,
+        build_grid_problem,
+        build_tt_problem,
+    )
+    from tpu3drecon_torch.geometry.projection import project_points_batched
+    from tpu3drecon_torch.parallel.sharded_ba import ba_solve_sharded
+    from tpu3drecon_torch.parallel.sharded_grid import ba_solve_grid_sharded
+    from tpu3drecon_torch.parallel.sharded_pose import refine_poses_sharded
+    from tpu3drecon_torch.parallel.sharded_tt import ba_solve_tt_sharded
+    from tpu3drecon_torch.parallel.sharded_wtt import ba_solve_wtt_sharded
+    from tpu3drecon_torch.solvers.ba_pallas import ba_solve_pallas
+    from tpu3drecon_torch.solvers.ba_tt import ba_solve_tt
+    from tpu3drecon_torch.solvers.ba_wtt import ba_solve_wtt
+    from tpu3drecon_torch.solvers.bundle_adjust import ba_solve, reprojection_rmse
+    from tpu3drecon_torch.solvers.pose_refine import refine_poses
+
+    log(f"sharded phase on {smi}")
+
+    def rmse(cams, pts):
+        return reprojection_rmse(flat, cams, pts)
+
+    cfg = BENCH_CONFIG._replace(matvec_kernel="index", linearize_kernel="index")
+    sharded_pair(SHARDED_WTT, mesh, lambda p: ba_solve_wtt_sharded(p, cfg, mesh=mesh),
+                 lambda p: ba_solve_wtt(p, cfg), wtt, rmse, exact=True)
+    grid = build_grid_problem(flat.points3d.device, torch.float32)
+    sharded_pair(SHARDED_GRID, mesh,
+                 lambda p: ba_solve_grid_sharded(p, BENCH_CONFIG, mesh=mesh, kernels="auto"),
+                 lambda p: ba_solve_pallas(p, BENCH_CONFIG), grid, rmse, exact=False)
+    del grid
+    tt = build_tt_problem(flat.points3d.device, torch.float32)
+    sharded_pair("sharded_tt", mesh, lambda p: ba_solve_tt_sharded(p, BENCH_CONFIG, mesh=mesh),
+                 lambda p: ba_solve_tt(p, BENCH_CONFIG, kernels=False), tt, rmse, exact=True)
+    del tt
+    sharded_pair("sharded_flat", mesh, lambda p: ba_solve_sharded(p, BENCH_CONFIG, mesh=mesh),
+                 lambda p: ba_solve(p, BENCH_CONFIG, device=p.points3d.device), flat, rmse,
+                 exact=False)
+
+    problem, scene = cells.tracking_problem(device=flat.points3d.device)
+
+    def pose_out(fn):
+        """(cameras, tvecs, totals of the per-frame state) as the solve
+        drivers take a solve's output."""
+        def run(p):
+            cams, state = fn(p)
+            return cams, cams.tvecs, types.SimpleNamespace(
+                loss=state.loss.sum(), iter_num=state.iter_num.max(),
+                accepted=state.accepted.sum(), cg_iters=0)
+        return run
+
+    def pose_rmse(cams, _):
+        proj = project_points_batched(cams.rmats, cams.tvecs, cams.fx_fy, cams.cx_cy_skew,
+                                      cams.dist, problem.points3d)
+        res = (proj - problem.points2d) * problem.mask[..., None]
+        return torch.sqrt(torch.sum(res * res) / (2.0 * torch.sum(problem.mask)))
+
+    report, cams = sharded_pair(
+        "sharded_pose", mesh,
+        pose_out(lambda p: refine_poses_sharded(p, mesh=mesh, config=cells.TRACKING_CONFIG)),
+        pose_out(lambda p: refine_poses(p, config=cells.TRACKING_CONFIG,
+                                        device=p.points3d.device)),
+        problem, pose_rmse, exact=False)
+    rmse = report["reproj_rmse_px"]
+    t_err = float(torch.median(torch.abs(cams.tvecs.double().cpu()
+                                         - torch.from_numpy(scene.tvecs))))
+    log("solve sharded_pose check " + json.dumps(dict(
+        frames=problem.batch, reproj_rmse_px=rmse, median_tvec_err=t_err,
+        ms_per_frame=report["median_s"] / problem.batch * 1e3,
+        single_ms_per_frame=report["single_median_s"] / problem.batch * 1e3)))
+    if not (rmse < 1e-3 and t_err < 1e-3):
+        raise AssertionError(f"sharded_pose: RMSE {rmse:.3e} px, median tvec error {t_err:.3e}")
+
+
+def run_cli(tmp: str, smi: str, dev) -> None:
+    """Phase 12b: the command line on phase 12's files (``dev``, the card): ``main([...])`` in
+    process for solve-colmap on the medium COLMAP model with each engine,
+    solve-bal on the Ladybug-shaped BAL file, a checkpointed solve-bal run
+    twice (the second resumes complete); ``python -m tpu3drecon_torch info``
+    and ``solve-bal`` as subprocesses.  Every written file is read back: its
+    RMSE within 1e-3 px of the solve's."""
+    import contextlib
+    import io
+    import os
+    import re
+    import subprocess
+
+    from tpu3drecon_torch.cli import main as cli_main
+    from tpu3drecon_torch.io import colmap as cio
+    from tpu3drecon_torch.io.bal import ba_problem_from_bal
+    from tpu3drecon_torch.problems.packing import ba_problem_from_colmap
+    from tpu3drecon_torch.solvers.bundle_adjust import reprojection_rmse
+
+    counts = counters()
+    rmse_re = re.compile(r"RMSE ([0-9.]+) -> ([0-9.]+) px")
+
+    def run(path: str, argv: list) -> tuple:
+        for cnt in counts.values():
+            cnt.reset()
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli_main(argv)
+        wall = time.perf_counter() - t0
+        text = err.getvalue()
+        if rc != 0:
+            raise AssertionError(f"{path}: exit code {rc}\n{text}")
+        launches = path_launches(path, counts)
+        found = rmse_re.findall(text)
+        if not found:
+            raise AssertionError(f"{path}: no RMSE line in\n{text}")
+        rmse0, rmse1 = map(float, found[-1])
+        return wall, rmse0, rmse1, launches, text.strip().splitlines()[-2:]
+
+    def reread_rmse(kind: str, out: str) -> float:
+        if kind == "colmap":
+            p, _ = ba_problem_from_colmap(cio.read_model(out), device=dev)
+        else:
+            p, _ = ba_problem_from_bal(out, device=dev)
+        return float(reprojection_rmse(p, p.cameras, p.points3d))
+
+    def check(path: str, kind: str, out: str, rmse: float, report: dict) -> None:
+        back = reread_rmse(kind, out)
+        report.update(reread_rmse_px=back, solve_rmse_px=rmse)
+        log(f"solve {path} " + json.dumps(dict(card=smi, **report)))
+        if not abs(back - rmse) < 1e-3:
+            raise AssertionError(f"{path}: re-read RMSE {back} px, solve {rmse} px")
+
+    short = ["--maxiter", "30", "--cg-maxiter", "8"]
+    for engine in ("flat", "grid", "pallas", "tt", "wtt"):
+        out = f"{tmp}/cli_colmap_{engine}"
+        wall, r0, r1, launches, lines = run(
+            f"cli {engine}", ["solve-colmap", f"{tmp}/in", "-o", out, "--binary",
+                              "--engine", engine, *short])
+        check(f"cli {engine}", "colmap", out, r1, dict(
+            command="solve-colmap", wall_s=wall, initial_rmse_px=r0,
+            launches=launches, stderr=lines))
+        if not r1 < 1e-3:
+            raise AssertionError(f"cli {engine}: RMSE {r1} px")
+
+    bal = f"{tmp}/ladybug49.txt"
+    flags = ["--maxiter", "50", "--no-focal"]
+    out = f"{tmp}/cli_bal.txt"
+    wall, r0, r1, launches, lines = run("cli bal", ["solve-bal", bal, "-o", out, *flags])
+    check("cli bal", "bal", out, r1, dict(command="solve-bal", wall_s=wall,
+                                          initial_rmse_px=r0, stderr=lines))
+    ck = [*flags, "--checkpoint-dir", f"{tmp}/ck", "--checkpoint-every", "10"]
+    for attempt in ("first", "resumed"):
+        out = f"{tmp}/cli_bal_ck_{attempt}.txt"
+        wall, r0, r1, launches, lines = run(f"cli bal checkpointed {attempt}",
+                                            ["solve-bal", bal, "-o", out, *ck])
+        if attempt == "resumed" and "resumed complete" not in " ".join(lines):
+            raise AssertionError(f"the re-run did not resume complete: {lines}")
+        check(f"cli bal checkpointed {attempt}", "bal", out, r1, dict(
+            command="solve-bal --checkpoint-dir", wall_s=wall, initial_rmse_px=r0,
+            stderr=lines))
+        if not r1 < r0:
+            raise AssertionError(f"cli bal checkpointed {attempt}: RMSE {r0} -> {r1} px")
+
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    info = subprocess.run([sys.executable, "-m", "tpu3drecon_torch", "info"], env=env,
+                          capture_output=True, text=True, timeout=300, check=True)
+    payload = json.loads(info.stdout)
+    log("cli info (subprocess, " + f"{time.perf_counter() - t0:.1f} s): "
+        + json.dumps(payload))
+    if payload["device"] != "cuda" or not payload["devices"] or not payload["native_io"]:
+        raise AssertionError(f"cli info: {payload}")
+    out = f"{tmp}/cli_bal_subprocess.txt"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tpu3drecon_torch", "solve-bal", bal, "-o",
+                           out, *flags], env=env, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cli solve-bal subprocess: exit {proc.returncode}\n"
+                             f"{proc.stderr}")
+    r0, r1 = map(float, rmse_re.findall(proc.stderr)[-1])
+    check("cli bal subprocess", "bal", out, r1, dict(
+        command="python -m tpu3drecon_torch solve-bal", wall_s=wall, initial_rmse_px=r0,
+        stderr=proc.stderr.strip().splitlines()[-2:]))
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2010,6 +2375,9 @@ def main() -> int:
     del tt, grid
     run_solvers(flat)
     run_files(flat, smi)
+    store_dir = tempfile.mkdtemp(prefix="nccl_store_")
+    mesh = open_nccl_mesh(store_dir)
+    run_sharded(mesh, flat, wtt, smi)
 
     t0 = time.perf_counter()
     bal = bal_sequential_wtt(device=dev, verbose=False)
@@ -2126,6 +2494,14 @@ def main() -> int:
         HUB_SPLIT, lambda p, **kw: ba_solve_wtt(p, cfg._replace(**kw)), hub_split, hub_flat,
         3, maxiters=(3, 12), rmse_limit=None,
     ))
+    from tpu3drecon_torch.parallel.sharded_wtt import ba_solve_wtt_sharded
+    from tpu3drecon_torch.solvers.bundle_adjust import reprojection_rmse
+
+    hub3 = cfg._replace(maxiter=3)
+    sharded_pair(SHARDED_HUB, mesh, lambda p: ba_solve_wtt_sharded(p, hub3, mesh=mesh),
+                 lambda p: ba_solve_wtt(p, hub3), hub_split,
+                 lambda c, p: reprojection_rmse(hub_flat, c, p), exact=True, repeats=5,
+                 rmse_limit=None)
     del hub_split, hub_flat
 
     # C2 and C3: a 1024-camera track table (more camera columns than a
@@ -2180,6 +2556,10 @@ def main() -> int:
 
     term_stack.run(log=log)
     run_probe_e4(launches)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    shutil.rmtree(store_dir, ignore_errors=True)
     log("worst max|diff| / max|plain|: "
         + ", ".join(f"{k} {v:.2e}" for k, v in sorted(WORST.items())))
 

@@ -44,7 +44,12 @@ from tpu3drecon_torch.problems.grid import (
 )
 from tpu3drecon_torch.problems.packing import CameraParams
 from tpu3drecon_torch.solvers.bundle_adjust import BAConfig, BAState
-from tpu3drecon_torch.solvers.pcg import cho_block_precond, guarded_block_cholesky, pcg
+from tpu3drecon_torch.solvers.pcg import (
+    cho_block_precond,
+    cholesky_or_nan,
+    guarded_block_cholesky,
+    pcg,
+)
 from tpu3drecon_torch.solvers.trust_region import trust_region_solve
 
 _FOCAL_ROWS = (6, 7, 14, 15)  # jc planes of fx (row 0) and fy (row 1)
@@ -159,7 +164,7 @@ def _linearize(params, lam, problem, config: BAConfig) -> PlaneNormal:
         coupling = coupling_idx(jc, jp, v_inv, problem.pt_idx)
         u_chol = guarded_block_cholesky(u_d - coupling, u_d)
     else:
-        u_chol = torch.linalg.cholesky_ex(u_d).L
+        u_chol = cholesky_or_nan(u_d)
 
     return PlaneNormal(
         u_chol=u_chol, u=u_d, g_cam=g_cam, g_pt=g_pt, v_inv=v_inv,

@@ -40,10 +40,16 @@ import torch
 
 from tpu3drecon_torch.geometry.losses import robust_weight
 from tpu3drecon_torch.ops.jacobians import apply_se3_retraction
+from tpu3drecon_torch.parallel.mesh import pmax, psum
 from tpu3drecon_torch.problems.grid import unpermute_points
 from tpu3drecon_torch.problems.packing import CameraParams
 from tpu3drecon_torch.solvers.bundle_adjust import BAConfig, BAState, n_cam_params
-from tpu3drecon_torch.solvers.pcg import cho_block_precond, guarded_block_cholesky, pcg
+from tpu3drecon_torch.solvers.pcg import (
+    cho_block_precond,
+    cholesky_or_nan,
+    guarded_block_cholesky,
+    pcg,
+)
 from tpu3drecon_torch.solvers.tridiag import band_factor, band_preconditioner
 from tpu3drecon_torch.solvers.trust_region import trust_region_solve
 
@@ -359,9 +365,9 @@ def _damped_inverse(v6, lam):
     return _sym3_inv_planes(v6_d), damp_pt
 
 
-def _linearize(params, lam, problem, config: BAConfig, kernels, slots) -> TTNormal:
+def _linearize(params, lam, problem, config: BAConfig, kernels, slots, comm=None) -> TTNormal:
     """The damped normal of one LM iteration; ``slots`` are the buckets'
-    ``_slot_cams``."""
+    ``_slot_cams``; the camera columns are summed over ``comm``'s ranks."""
     from tpu3drecon_torch.ops.tt_linearize import tt_cam_normal_fused, tt_coupling_fused
 
     rmats, tvecs, fx_fy, dist, ccs, pts_list = params
@@ -415,6 +421,10 @@ def _linearize(params, lam, problem, config: BAConfig, kernels, slots) -> TTNorm
                                          n_cams)
         bucket_normals.append(TTBucketNormal(jc, jp, v_inv, g_pt, damp_pt))
 
+    u_cols = psum(u_cols, comm)
+    g_cols = psum(g_cols, comm)
+    if use_sj:
+        coup_cols = psum(coup_cols, comm)
     u0 = _unpack_sym(u_cols, np_cam)
     eye = torch.eye(np_cam, dtype=dtype, device=u0.device)
     du = torch.clamp(torch.diagonal(u0, dim1=-2, dim2=-1), min=1e-8)
@@ -424,11 +434,11 @@ def _linearize(params, lam, problem, config: BAConfig, kernels, slots) -> TTNorm
         precond_mat = u_d - _unpack_sym(coup_cols, np_cam)
         u_chol = guarded_block_cholesky(precond_mat, u_d)
     else:
-        u_chol = torch.linalg.cholesky_ex(u_d).L
+        u_chol = cholesky_or_nan(u_d)
     band = None
     if want_od:
         band = band_factor(config.precond, precond_mat,
-                           -e_cols.reshape(n_cams, np_cam, np_cam))
+                           -psum(e_cols, comm).reshape(n_cams, np_cam, np_cam))
     return TTNormal(u=u_d, u_chol=u_chol, g_cam=g_cols, damp_cam=damp_cam,
                     buckets=tuple(bucket_normals), tridiag=band)
 
@@ -463,15 +473,16 @@ def _w_times(bn: TTBucketNormal, y, bucket, idx, n_cams: int, full: bool) -> tor
     return _reduce(z, idx, n_cams)
 
 
-def _schur_matvec(nb: TTNormal, x: torch.Tensor, problem, slots, full: bool) -> torch.Tensor:
+def _schur_matvec(nb: TTNormal, x: torch.Tensor, problem, slots, full: bool,
+                  comm=None) -> torch.Tensor:
     coup = torch.zeros_like(x)
     for bn, bucket, idx in zip(nb.buckets, problem.buckets, slots):
         y = _sym3_matvec(bn.v_inv, _wt_times(bn, x, bucket, idx, full))
         coup = coup + _w_times(bn, y, bucket, idx, problem.n_cameras, full)
-    return torch.einsum("cij,cj->ci", nb.u, x) - coup
+    return torch.einsum("cij,cj->ci", nb.u, x) - psum(coup, comm)
 
 
-def _cost(params, problem, config: BAConfig, slots, full: bool) -> torch.Tensor:
+def _cost(params, problem, config: BAConfig, slots, full: bool, comm=None) -> torch.Tensor:
     from tpu3drecon_torch.ops.tt_linearize import tt_cost_fused
 
     rmats, tvecs, fx_fy, dist, ccs, pts_list = params
@@ -500,7 +511,7 @@ def _cost(params, problem, config: BAConfig, slots, full: bool) -> torch.Tensor:
         s = r0 * r0 + r1 * r1
         w = robust_weight(config.loss, s)
         total = total + 0.5 * torch.sum(s * w * (bucket.mask * inv_w) ** 2)
-    return total
+    return psum(total, comm)
 
 
 def _check_config(config: BAConfig, kernels) -> None:
@@ -540,7 +551,10 @@ def ba_solve_tt(
     return cams, pts, _tt_state(cams, pts, final)
 
 
-def _ba_solve_tt_core(problem, pts_list, config: BAConfig, kernels):
+def _ba_solve_tt_core(problem, pts_list, config: BAConfig, kernels, comm=None):
+    """The solve body: one device (``comm`` None), or one rank's point
+    shard of every bucket (``parallel/sharded_tt.py``), the camera sums,
+    the cost and the predicted reduction all-reduced over ``comm``."""
     cams = problem.cameras
     dtype = pts_list[0].dtype
     dev = pts_list[0].device
@@ -552,23 +566,23 @@ def _ba_solve_tt_core(problem, pts_list, config: BAConfig, kernels):
     )
 
     def propose(params, lam):
-        nb = _linearize(params, lam, problem, config, kernels, slots)
+        nb = _linearize(params, lam, problem, config, kernels, slots, comm)
         gp_max = torch.zeros((), dtype=dtype, device=dev)
         for bn in nb.buckets:
             gp_max = torch.maximum(gp_max, torch.max(torch.abs(bn.g_pt)))
         grad_norm = torch.max(torch.abs(nb.g_cam))
         if config.optimize_points:
-            grad_norm = torch.maximum(grad_norm, gp_max)
+            grad_norm = torch.maximum(grad_norm, pmax(gp_max, comm))
         else:
             grad_norm = torch.clamp(grad_norm, min=0.0)
 
         b = torch.zeros_like(nb.g_cam)
         for bn, bucket, idx in zip(nb.buckets, problem.buckets, slots):
             b = b + _w_times(bn, _sym3_matvec(bn.v_inv, bn.g_pt), bucket, idx, n_cams, full)
-        b = b - nb.g_cam
+        b = psum(b, comm) - nb.g_cam
         precond = (cho_block_precond(nb.u_chol) if nb.tridiag is None
                    else band_preconditioner(nb.tridiag))
-        out = pcg(lambda p: _schur_matvec(nb, p, problem, slots, full), precond,
+        out = pcg(lambda p: _schur_matvec(nb, p, problem, slots, full, comm), precond,
                   b, config.cg_maxiter, config.cg_rtol)
         dc = out.x
 
@@ -585,7 +599,7 @@ def _ba_solve_tt_core(problem, pts_list, config: BAConfig, kernels):
             dps.append(dp)
         pred = (
             0.5 * (torch.sum(dc * (nb.damp_cam * dc)) - torch.sum(dc * nb.g_cam))
-            + pred_pt
+            + psum(pred_pt, comm)
         )
         return (dc, tuple(dps)), grad_norm, pred, out.iters
 
@@ -605,7 +619,7 @@ def _ba_solve_tt_core(problem, pts_list, config: BAConfig, kernels):
         return (new_r, new_t, new_f, new_d, new_c, new_pts)
 
     final = trust_region_solve(
-        propose, apply_step, lambda p: _cost(p, problem, config, slots, full), params0,
+        propose, apply_step, lambda p: _cost(p, problem, config, slots, full, comm), params0,
         config, dtype, dev,
     )
     rmats, tvecs, fx_fy, dist, ccs, pts_out = final.params

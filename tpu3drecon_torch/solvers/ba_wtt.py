@@ -68,6 +68,7 @@ from tpu3drecon_torch.ops.wtt_matvec import (
     wtt_w_rows_idx,
     wtt_wt_planes_idx,
 )
+from tpu3drecon_torch.parallel.mesh import pmax, psum
 from tpu3drecon_torch.problems.grid import unpermute_points
 from tpu3drecon_torch.problems.packing import CameraParams
 from tpu3drecon_torch.problems.wtt import BAWTTProblem, CAM_TILE, WTTBucket, unpermute_cameras
@@ -80,7 +81,12 @@ from tpu3drecon_torch.solvers.ba_tt import (
     _unpack_sym,
 )
 from tpu3drecon_torch.solvers.bundle_adjust import BAConfig, BAState, n_cam_params
-from tpu3drecon_torch.solvers.pcg import cho_block_precond, guarded_block_cholesky, pcg
+from tpu3drecon_torch.solvers.pcg import (
+    cho_block_precond,
+    cholesky_or_nan,
+    guarded_block_cholesky,
+    pcg,
+)
 from tpu3drecon_torch.solvers.tridiag import band_factor, band_preconditioner
 from tpu3drecon_torch.solvers.trust_region import trust_region_solve
 
@@ -147,7 +153,7 @@ def _inv_w(problem: BAWTTProblem, dtype) -> torch.Tensor:
     return (1.0 / problem.avg_cam_width).to(dtype)
 
 
-def _linearize(params, lam, problem: BAWTTProblem, config: BAConfig) -> WTTNormal:
+def _linearize(params, lam, problem: BAWTTProblem, config: BAConfig, comm=None) -> WTTNormal:
     pts_list = params[5]
     c_pad = problem.c_pad
     table_pad = _padded_table(params, c_pad)
@@ -198,6 +204,10 @@ def _linearize(params, lam, problem: BAWTTProblem, config: BAConfig) -> WTTNorma
             e_cols = e_cols + reduced[:, off:]
         bucket_normals.append(WTTBucketNormal(jc, jp, v_inv, g_pt, damp_pt))
 
+    u_cols = psum(u_cols, comm)
+    g_cols = psum(g_cols, comm)
+    if use_sj:
+        coup_cols = psum(coup_cols, comm)
     u0 = _unpack_sym(u_cols, np_cam)
     eye = torch.eye(np_cam, dtype=dtype, device=u0.device)
     du = torch.clamp(torch.diagonal(u0, dim1=-2, dim2=-1), min=1e-8)
@@ -208,14 +218,15 @@ def _linearize(params, lam, problem: BAWTTProblem, config: BAConfig) -> WTTNorma
         u_chol = guarded_block_cholesky(precond_mat, u_d)
     else:
         # Padding cameras have u0 = 0 and damp = lam*1e-8: SPD, inert.
-        u_chol = torch.linalg.cholesky_ex(u_d).L
+        u_chol = cholesky_or_nan(u_d)
     band = None
     if want_od:
         band = band_factor(config.precond, precond_mat,
-                           -e_cols.reshape(c_pad, np_cam, np_cam))
+                           -psum(e_cols, comm).reshape(c_pad, np_cam, np_cam))
     return WTTNormal(
         u=u_d, u_chol=u_chol, g_cam=g_cols, damp_cam=damp_cam,
-        buckets=tuple(bucket_normals), tridiag=band, b_cam=b_cols if fused else None,
+        buckets=tuple(bucket_normals), tridiag=band,
+        b_cam=psum(b_cols, comm) if fused else None,
     )
 
 
@@ -248,7 +259,7 @@ def _w_times_plane(bn: WTTBucketNormal, y_pt: torch.Tensor, bucket: WTTBucket,
 
 
 def _schur_matvec(nb: WTTNormal, x_pad: torch.Tensor, problem: BAWTTProblem,
-                  use_kernel=False):
+                  use_kernel=False, comm=None):
     coup = torch.zeros_like(x_pad)
     for bn, bucket in zip(nb.buckets, problem.buckets):
         if use_kernel in _INDEX_TERMS:
@@ -267,10 +278,10 @@ def _schur_matvec(nb: WTTNormal, x_pad: torch.Tensor, problem: BAWTTProblem,
         coup = coup + _scatter_rows(
             rows.transpose(1, 2), _window_idx(bucket), problem.c_pad
         )
-    return torch.matmul(nb.u, x_pad[..., None])[..., 0] - coup
+    return torch.matmul(nb.u, x_pad[..., None])[..., 0] - psum(coup, comm)
 
 
-def _cost(params, problem: BAWTTProblem, config: BAConfig) -> torch.Tensor:
+def _cost(params, problem: BAWTTProblem, config: BAConfig, comm=None) -> torch.Tensor:
     pts_list = params[5]
     table_pad = _padded_table(params, problem.c_pad)
     inv_w = _inv_w(problem, table_pad.dtype)
@@ -300,7 +311,7 @@ def _cost(params, problem: BAWTTProblem, config: BAConfig) -> torch.Tensor:
         s = r0 * r0 + r1 * r1
         w = robust_weight(config.loss, s)
         total = total + 0.5 * torch.sum(s * w * (bucket.mask * inv_w) ** 2)
-    return total
+    return psum(total, comm)
 
 
 _MATVEC_KERNELS = (False, True, "fused", "index", "index1", "index2")
@@ -387,7 +398,10 @@ def ba_solve_wtt(
     return cams, pts, _tt_state(cams, pts, final)
 
 
-def _ba_solve_wtt_core(problem: BAWTTProblem, pts_list, config: BAConfig, dev):
+def _ba_solve_wtt_core(problem: BAWTTProblem, pts_list, config: BAConfig, dev, comm=None):
+    """The solve body: one device (``comm`` None), or one rank's chunk
+    shard of every bucket (``parallel/sharded_wtt.py``), the camera sums,
+    the cost and the predicted reduction all-reduced over ``comm``."""
     cams = problem.cameras
     dtype = pts_list[0].dtype
     n_cams = cams.rmats.shape[0]
@@ -410,13 +424,13 @@ def _ba_solve_wtt_core(problem: BAWTTProblem, pts_list, config: BAConfig, dev):
         return wtt_wt_planes_idx(_xw_t(dc, bucket), bucket.wcam, bn.jc, bn.jp)
 
     def propose(params, lam):
-        nb = _linearize(params, lam, problem, config)
+        nb = _linearize(params, lam, problem, config, comm)
         gp_max = torch.zeros((), dtype=dtype, device=dev)
         for bn in nb.buckets:
             gp_max = torch.maximum(gp_max, torch.max(torch.abs(bn.g_pt)))
         grad_norm = torch.max(torch.abs(nb.g_cam))
         if config.optimize_points:
-            grad_norm = torch.maximum(grad_norm, gp_max)
+            grad_norm = torch.maximum(grad_norm, pmax(gp_max, comm))
         else:
             grad_norm = torch.clamp(grad_norm, min=0.0)
 
@@ -427,9 +441,9 @@ def _ba_solve_wtt_core(problem: BAWTTProblem, pts_list, config: BAConfig, dev):
             for bn, bucket in zip(nb.buckets, problem.buckets):
                 vw = _sym3_matvec(bn.v_inv, bn.g_pt)
                 b = b + w_times(bn, vw, bucket)
-            b = b - nb.g_cam
+            b = psum(b, comm) - nb.g_cam
         out = pcg(
-            lambda p: _schur_matvec(nb, p, problem, config.matvec_kernel),
+            lambda p: _schur_matvec(nb, p, problem, config.matvec_kernel, comm),
             _preconditioner(nb),
             b, config.cg_maxiter, config.cg_rtol,
         )
@@ -448,7 +462,7 @@ def _ba_solve_wtt_core(problem: BAWTTProblem, pts_list, config: BAConfig, dev):
             dps.append(dp)
         pred = (
             0.5 * (torch.sum(dc * (nb.damp_cam * dc)) - torch.sum(dc * nb.g_cam))
-            + pred_pt
+            + psum(pred_pt, comm)
         )
         return (dc, tuple(dps)), grad_norm, pred, out.iters
 
@@ -469,7 +483,7 @@ def _ba_solve_wtt_core(problem: BAWTTProblem, pts_list, config: BAConfig, dev):
         return (new_r, new_t, new_f, new_d, new_c, new_pts)
 
     final = trust_region_solve(
-        propose, apply_step, lambda p: _cost(p, problem, config), params0,
+        propose, apply_step, lambda p: _cost(p, problem, config, comm), params0,
         config, dtype, dev,
     )
     rmats, tvecs, fx_fy, dist, ccs, pts_out = final.params

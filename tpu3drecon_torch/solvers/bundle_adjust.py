@@ -15,6 +15,9 @@ reference), ``BAState`` the same fields.  ``ba_solve`` is the flat
      decisions are those of JAX's flat ``_ba_solve_impl``).
 
 It runs no port kernel: the JAX engine reaches no Pallas kernel either.
+With ``comm`` (a ``parallel.mesh.Mesh``) it runs on one rank's block of an
+observation-sharded problem (``parallel/sharded_ba.py``): the segment sums
+and the loss are all-reduced, so every rank takes the same steps.
 The track-table engines (``solvers/ba_wtt.py``, ``solvers/ba_tt.py``) and
 the grid engine (``solvers/ba_pallas.py``) return the same types.
 """
@@ -29,6 +32,7 @@ import torch
 from tpu3drecon_torch.device import resolve_device
 from tpu3drecon_torch.geometry.losses import RobustLoss
 from tpu3drecon_torch.ops.jacobians import apply_se3_retraction, gather_obs_blocks
+from tpu3drecon_torch.parallel.mesh import psum
 from tpu3drecon_torch.problems.packing import BAProblem, CameraParams
 from tpu3drecon_torch.solvers import schur
 
@@ -107,11 +111,12 @@ def _check_flat_config(config: BAConfig) -> None:
 
 
 def ba_solve(
-    problem: BAProblem, config: BAConfig = BAConfig(), device=None
+    problem: BAProblem, config: BAConfig = BAConfig(), device=None, comm=None
 ) -> Tuple[CameraParams, torch.Tensor, BAState]:
     """Flat-layout BA solve on ``device`` (default: the CUDA card); returns
     (cameras, points3d, state) with the trust-region trajectory of the JAX
-    ``ba_solve``."""
+    ``ba_solve``.  ``comm``: the mesh of an observation-sharded problem
+    (``problem`` is then this rank's part), as JAX's ``axis_name``."""
     from tpu3drecon_torch.solvers.trust_region import trust_region_solve
 
     _check_flat_config(config)
@@ -130,12 +135,12 @@ def ba_solve(
 
     def cost(params):
         r, _, _ = blocks(params)
-        return 0.5 * torch.sum(r * r)
+        return psum(0.5 * torch.sum(r * r), comm)
 
     def propose(params, lam):
         r, jc, jp = blocks(params)
         nb = schur.build_normal_blocks(r, jc, jp, cam_idx, pt_idx, n_cameras, n_points,
-                                       lam, precond=config.precond)
+                                       lam, precond=config.precond, comm=comm)
         grad_norm = torch.max(torch.abs(nb.g_cam))
         if config.optimize_points:
             grad_norm = torch.maximum(grad_norm, torch.max(torch.abs(nb.g_pt)))
@@ -143,11 +148,11 @@ def ba_solve(
             grad_norm = torch.clamp(grad_norm, min=0.0)
         # Reduced camera system rhs: b = -g_c + W V^{-1} g_p.
         vinv_gp = torch.sum(nb.v_inv * nb.g_pt[:, None, :], dim=-1)
-        b = -nb.g_cam + schur.w_times(nb, vinv_gp, cam_idx, pt_idx, n_cameras)
+        b = -nb.g_cam + schur.w_times(nb, vinv_gp, cam_idx, pt_idx, n_cameras, comm)
         out = schur.schur_pcg(nb, b, cam_idx, pt_idx, maxiter=config.cg_maxiter,
-                              rtol=config.cg_rtol)
+                              rtol=config.cg_rtol, comm=comm)
         dc = out.x
-        dp = schur.back_substitute_points(nb, dc, cam_idx, pt_idx)
+        dp = schur.back_substitute_points(nb, dc, cam_idx, pt_idx, comm)
         if not config.optimize_points:
             dp = dp * 0.0
         pred = 0.5 * (

@@ -14,9 +14,9 @@ U, V and the gradients are segment sums (``index_add_``) over ``cam_idx``
     S dc = b,   S = U - W V^{-1} W^T,   b = -g_c + W V^{-1} g_p
 
 is solved by preconditioned CG whose matvec is two segment sums and two
-gathers; J, JtJ and S are never formed.  The JAX functions' ``axis_name``
-(a ``psum`` over an observation-sharded mesh) waits for the port's
-sharding (ROADMAP A.6).
+gathers; J, JtJ and S are never formed.  ``comm`` (a ``parallel.mesh.Mesh``,
+the JAX functions' ``axis_name``) sums the segment sums of an
+observation-sharded problem over the ranks; None is one device.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from tpu3drecon_torch.ops.point_normal import inv3x3  # noqa: F401 (schur.inv3x3)
+from tpu3drecon_torch.parallel.mesh import psum
 from tpu3drecon_torch.solvers.pcg import (
     cho_block_precond,
     cholesky_or_nan,
@@ -76,6 +77,7 @@ def build_normal_blocks(
     lam: torch.Tensor,
     diag_floor: float = 1e-8,
     precond: str = "schur_jacobi",
+    comm=None,
 ) -> NormalBlocks:
     """Accumulate damped U, V, W and the gradients from per-observation
     blocks, with Marquardt damping lam * clamp(diag).
@@ -86,14 +88,14 @@ def build_normal_blocks(
     fails gives a NaN factor (on and below the diagonal), as JAX's Cholesky
     does.
     """
-    u = segment_outer(blocks_jc, blocks_jc, cam_idx, n_cameras)
-    v = segment_outer(blocks_jp, blocks_jp, pt_idx, n_points)
+    u = psum(segment_outer(blocks_jc, blocks_jc, cam_idx, n_cameras), comm)
+    v = psum(segment_outer(blocks_jp, blocks_jp, pt_idx, n_points), comm)
     w = (
         blocks_jc[:, 0, :, None] * blocks_jp[:, 0, None, :]
         + blocks_jc[:, 1, :, None] * blocks_jp[:, 1, None, :]
     )  # (N, 8, 3)
-    g_cam = segment_jt_r(blocks_jc, blocks_r, cam_idx, n_cameras)
-    g_pt = segment_jt_r(blocks_jp, blocks_r, pt_idx, n_points)
+    g_cam = psum(segment_jt_r(blocks_jc, blocks_r, cam_idx, n_cameras), comm)
+    g_pt = psum(segment_jt_r(blocks_jp, blocks_r, pt_idx, n_points), comm)
 
     du = torch.clamp(torch.diagonal(u, dim1=-2, dim2=-1), min=diag_floor)
     dv = torch.clamp(torch.diagonal(v, dim1=-2, dim2=-1), min=diag_floor)
@@ -115,7 +117,7 @@ def build_normal_blocks(
             + wv[..., :, None, 1] * w[..., None, :, 1]
             + wv[..., :, None, 2] * w[..., None, :, 2]
         )  # (N, 8, 8)
-        coupling = _segment_sum(g_obs, cam_idx, n_cameras)
+        coupling = psum(_segment_sum(g_obs, cam_idx, n_cameras), comm)
         u_chol = guarded_block_cholesky(u_d - coupling, u_d)
     else:
         u_chol = cholesky_or_nan(u_d)
@@ -126,28 +128,29 @@ def build_normal_blocks(
 
 
 def w_times(nb: NormalBlocks, y_pt: torch.Tensor, cam_idx: torch.Tensor,
-            pt_idx: torch.Tensor, n_cameras: int) -> torch.Tensor:
+            pt_idx: torch.Tensor, n_cameras: int, comm=None) -> torch.Tensor:
     """(W y)_c: gather y by pt_idx, per-obs 8x3 @ 3, segment-sum by camera."""
     per_obs = torch.sum(nb.w * y_pt[pt_idx.long()][:, None, :], dim=-1)
-    return _segment_sum(per_obs, cam_idx, n_cameras)
+    return psum(_segment_sum(per_obs, cam_idx, n_cameras), comm)
 
 
 def wt_times(nb: NormalBlocks, x_cam: torch.Tensor, cam_idx: torch.Tensor,
-             pt_idx: torch.Tensor, n_points: int) -> torch.Tensor:
+             pt_idx: torch.Tensor, n_points: int, comm=None) -> torch.Tensor:
     """(W^T x)_p: gather x by cam_idx, per-obs 3x8 @ 8, segment-sum by point."""
     per_obs = torch.sum(nb.w * x_cam[cam_idx.long()][:, :, None], dim=1)
-    return _segment_sum(per_obs, pt_idx, n_points)
+    return psum(_segment_sum(per_obs, pt_idx, n_points), comm)
 
 
 def schur_matvec(nb: NormalBlocks, x_cam: torch.Tensor, cam_idx: torch.Tensor,
-                 pt_idx: torch.Tensor) -> torch.Tensor:
-    """S x = U x - W V^{-1} W^T x, matrix-free."""
+                 pt_idx: torch.Tensor, comm=None) -> torch.Tensor:
+    """S x = U x - W V^{-1} W^T x, matrix-free (one all-reduce per product
+    when sharded)."""
     n_cameras = nb.u.shape[0]
     n_points = nb.v.shape[0]
     ux = torch.sum(nb.u * x_cam[:, None, :], dim=-1)
-    wtx = wt_times(nb, x_cam, cam_idx, pt_idx, n_points)
+    wtx = wt_times(nb, x_cam, cam_idx, pt_idx, n_points, comm)
     vinv_wtx = torch.sum(nb.v_inv * wtx[:, None, :], dim=-1)
-    return ux - w_times(nb, vinv_wtx, cam_idx, pt_idx, n_cameras)
+    return ux - w_times(nb, vinv_wtx, cam_idx, pt_idx, n_cameras, comm)
 
 
 def precond_apply(nb: NormalBlocks, r_cam: torch.Tensor) -> torch.Tensor:
@@ -168,10 +171,11 @@ def schur_pcg(
     pt_idx: torch.Tensor,
     maxiter: int = 100,
     rtol: float = 1e-6,
+    comm=None,
 ) -> PCGResult:
     """Preconditioned CG on the reduced camera system S x = b."""
     out = pcg(
-        lambda p: schur_matvec(nb, p, cam_idx, pt_idx),
+        lambda p: schur_matvec(nb, p, cam_idx, pt_idx, comm),
         lambda r: precond_apply(nb, r),
         b_cam, maxiter, rtol,
     )
@@ -184,8 +188,9 @@ def back_substitute_points(
     dc: torch.Tensor,  # (C, 8) camera step
     cam_idx: torch.Tensor,
     pt_idx: torch.Tensor,
+    comm=None,
 ) -> torch.Tensor:
     """dp = V^{-1} (-g_p - W^T dc)."""
     n_points = nb.v.shape[0]
-    wt_dc = wt_times(nb, dc, cam_idx, pt_idx, n_points)
+    wt_dc = wt_times(nb, dc, cam_idx, pt_idx, n_points, comm)
     return torch.sum(nb.v_inv * (-nb.g_pt - wt_dc)[:, None, :], dim=-1)
