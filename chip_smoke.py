@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's medium and BAL-scale bundle-adjustment solves and its
-dense-LM solvers once on one CUDA GPU.
+"""Run the PyTorch port's medium and BAL-scale bundle-adjustment solves, its
+dense-LM solvers and its tool surface (suite, harness, compat, CLI) once on
+one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -206,7 +207,31 @@ Phases (any failure exits non-zero and prints no result line):
     version at terms 3 and 1 on E3's random inputs) and E4
     (``experiments.bits_expand``: both unpack layouts against numpy; its
     counts set to 0 before and read after, as a path's).
-20. Prints the kernel table as one JSON line, the ``nvidia-smi`` line, then
+20. The tool surface (``run_tools``).  The problem cache: every BAL build
+    above went through it in a directory of this run's own, so the split
+    build of step 16 was a miss; the same build again must be a hit, bit for
+    bit the miss's problem (miss and hit seconds logged).  The suite
+    (``benchmark/suite.py run_suite``) at its defaults, one ``suite`` JSON
+    line per config, each checked as it comes, its counts set to 0 before
+    it: PnP (8 x 2300) within the parity bounds against scipy (rotation
+    below 1e-4 rad, tvec below 2e-3), small BA (10 x 5000, the tt engine's
+    PyTorch route) and medium (the wtt engine, B1-B4) RMSE below 1e-3 px,
+    tracking (500 x 1000) median tvec error below 1e-3, BAL (1712 cameras,
+    split windows, B1-B4, its problem a cache hit) finite, below its
+    initial loss, with an accepted step; B1-B4 must launch on the medium and
+    BAL lines and no port kernel elsewhere, no plain version anywhere.  The
+    harness (``run_harness``): ``benchmark_bundle_adjustment`` and
+    ``benchmark_single_pose`` on the registry's synthetic_medium_noised (30
+    cameras, 3000 points) with scipy, the gated COLMAP and GTSAM baselines
+    skipped, saved and loaded back; the torch adapter must lower the mean
+    reprojection error and both BA adapters end below 1.0 px^2; one
+    ``subprocess_benchmark(device="cuda")``, its mean squared error within
+    1e-4 (relative) of the in-process one's.  ``compat`` (``run_compat``, f64): ``JaxPoseOptimizer``
+    and ``JaxBundleAdjustment`` on the card.  ``export_scene`` of the medium
+    scene (seconds, bytes).  ``bench`` in process (B1-B4 counted, path ``cli
+    bench``) and ``python -m tpu3drecon_torch bench`` as a subprocess, each
+    line's RMSE below 1e-3 px.  The phase's seconds are logged.
+21. Prints the kernel table as one JSON line, the ``nvidia-smi`` line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Tolerances, relative to max|plain|: per-element outputs 1e-5 (f32) and
@@ -277,6 +302,8 @@ from __future__ import annotations
 
 import importlib
 import json
+import math
+import os
 import shutil
 import statistics
 import sys
@@ -323,6 +350,9 @@ E4 = "E4 probe"
 # pallas engines on the medium COLMAP model.
 SHARDED_WTT, SHARDED_HUB, SHARDED_GRID = "sharded_wtt", "sharded_bal_hub_split", "sharded_grid"
 CLI_WTT, CLI_PALLAS = "cli wtt", "cli pallas"
+# The tool surface: the suite's medium and BAL lines (the wtt engine fully
+# indexed) and the command line's bench, in process.
+SUITE_MEDIUM, SUITE_BAL, CLI_BENCH = "suite ba_medium", "suite bal_lm_iter", "cli bench"
 SHARED, GLOBAL = "shared", "global"  # tpu3drecon_torch.ops._build's modes
 # (module under tpu3drecon_torch, counter attribute, kernel name, source,
 # replaced TPU kernel, paths, the memory mode of its ms: the kernels read
@@ -331,7 +361,8 @@ SHARED, GLOBAL = "shared", "global"  # tpu3drecon_torch.ops._build's modes
 # windows (B5 on buckets of many slots: both modes in one pass), B7, B9-B11
 # and E4 have no mode)
 ALL_SPLIT = {SPLIT, SPLIT2, SPLIT1, SPLIT2_SSOR, HUB_SPLIT}
-INDEXED = {SHARDED_WTT, SHARDED_HUB, CLI_WTT}  # B1-B4: fully indexed wtt paths
+# B1-B4: the fully indexed wtt paths
+INDEXED = {SHARDED_WTT, SHARDED_HUB, CLI_WTT, SUITE_MEDIUM, SUITE_BAL, CLI_BENCH}
 KERNELS = (
     ("ops.wtt_linearize", "COUNTS", "wtt_linearize_fused_idx", WTT_SRC, f"{LIN_PY}:554",
      {WTT, BAL, HUB, SPLIT, SPLIT1, HUB_SPLIT} | INDEXED, GLOBAL),
@@ -2277,6 +2308,349 @@ def run_cli(tmp: str, smi: str, dev) -> None:
         stderr=proc.stderr.strip().splitlines()[-2:]))
 
 
+def same_problem(what: str, got, want) -> None:
+    """Two packed problems equal field for field: tensors bit for bit, static
+    fields by value."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(want):
+        for f in dataclasses.fields(want):
+            same_problem(f"{what}.{f.name}", getattr(got, f.name), getattr(want, f.name))
+    elif isinstance(want, (tuple, list)):
+        if len(got) != len(want):
+            raise AssertionError(f"{what}: {len(got)} != {len(want)} entries")
+        for i, (g, w) in enumerate(zip(got, want)):
+            same_problem(f"{what}[{i}]", g, w)
+    elif isinstance(want, torch.Tensor):
+        if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"{what}: the tensors differ")
+    elif got != want:
+        raise AssertionError(f"{what}: {got} != {want}")
+
+
+SUITE_CHECKS = {  # metric -> (path, check of the line's extra, what the check holds)
+    "pnp_parity_batched_refine": (
+        "suite pnp", lambda e: e["max_rot_geodesic_err_vs_scipy_rad"] < 1e-4
+        and e["max_tvec_err_vs_scipy"] < 2e-3, "rotation < 1e-4 rad, tvec < 2e-3 vs scipy"),
+    "ba_small_10cam_5kpt_rmse": (
+        "suite ba_small", lambda e: e["rmse_px"] < 1e-3, "RMSE < 1e-3 px"),
+    "ba_medium_100cam_100kpt_30lm_iters": (
+        SUITE_MEDIUM, lambda e: e["reproj_rmse_px"] < 1e-3, "RMSE < 1e-3 px"),
+    "tracking_500frame_ms_per_frame": (
+        "suite tracking", lambda e: e["median_tvec_err"] < 1e-3, "median tvec error < 1e-3"),
+    "bal_wtt_s_per_lm_iter": (
+        SUITE_BAL, lambda e: math.isfinite(e["loss"]) and e["loss"] < e["initial_loss"]
+        and e["accepted_steps"] >= 1 and e["full_scale"] and e["split_windows"],
+        "full scale, split windows, finite loss below the initial one, >= 1 accepted step"),
+}
+
+
+def run_suite_lines(smi: str) -> list:
+    """The suite at its defaults, each line checked as it comes: its check,
+    and the kernels its path must launch (B1-B4 on the medium and BAL lines,
+    none elsewhere; no plain version), every count set to 0 before each
+    line; the BAL line must load its problem from the cache."""
+    from tpu3drecon_torch.benchmark import suite
+    from tpu3drecon_torch.utils import problem_cache
+
+    counts = counters()
+    lines = []
+
+    def reset():
+        for cnt in counts.values():
+            cnt.reset()
+
+    def emit(res: dict) -> None:
+        path, check, holds = SUITE_CHECKS[res["metric"]]
+        launches = path_launches(path, counts)
+        ok = math.isfinite(res["value"]) and bool(check({**res["extra"], "rmse_px": res["value"]}))
+        if path == SUITE_BAL:
+            ok = ok and problem_cache.COUNTS["hit"] > hits
+        log("suite " + json.dumps({**res, "card": smi, "launches": launches,
+                                   "check": holds, "ok": ok}))
+        if not ok:
+            raise AssertionError(f"{path}: {holds} does not hold: {res}")
+        lines.append(res)
+        reset()
+
+    hits = problem_cache.COUNTS["hit"]
+    reset()
+    suite.run_suite(emit=emit)
+    return lines
+
+
+def run_harness(smi: str, dev) -> None:
+    """The benchmark drivers on the registry's synthetic_medium_noised (30
+    cameras, 3000 points): the torch adapter and scipy, the gated COLMAP
+    and GTSAM baselines skipped, saved and loaded back; the torch adapter
+    must lower the mean reprojection error and both must end below 1.0
+    px^2 (tests/test_benchmark_harness.py's bound); then the BA adapter in a
+    spawned child on the card, its mean squared error within 1e-4 of the
+    in-process one's (the parameters' largest differences are logged).  No
+    port kernel and no plain version may run."""
+    import numpy as np
+
+    from tpu3drecon_torch.benchmark import drivers
+    from tpu3drecon_torch.benchmark.adapters.torch_adapters import (
+        TorchBundleAdjustmentBenchmark,
+    )
+    from tpu3drecon_torch.benchmark.datasets import get_dataset
+    from tpu3drecon_torch.benchmark.harness import load_benchmarks
+
+    counts = counters()
+    for cnt in counts.values():
+        cnt.reset()
+
+    def overall(errors: dict) -> float:
+        return float(np.nanmean([np.mean(v) if len(v) else np.nan for v in errors.values()]))
+
+    t0 = time.perf_counter()
+    ds = get_dataset("synthetic_medium_noised")
+    load_s = time.perf_counter() - t0
+    before = overall(ds.compute_reprojection_errors_alt(lambda x: x))
+    root = tempfile.mkdtemp(prefix="harness_")
+    try:
+        report = {"card": smi, "dataset": "synthetic_medium_noised",
+                  "cameras": len(ds.datasetEntries), "points": len(ds.points3D),
+                  "load_s": load_s, "mean_sq_err_before_px2": before}
+        for kind, run in (
+                ("ba", lambda: drivers.benchmark_bundle_adjustment(
+                    ds, results_root=f"{root}/ba")),
+                ("pose", lambda: drivers.benchmark_single_pose(
+                    ds, results_root=f"{root}/pose"))):
+            t0 = time.perf_counter()
+            benchmarks = run()
+            wall = time.perf_counter() - t0
+            loaded = load_benchmarks(f"{root}/{kind}/latest")
+            means = {b.FRAMEWORK: overall(b.reprojection_errors()) for b in benchmarks}
+            report[kind] = dict(
+                wall_s=wall, frameworks=[b.FRAMEWORK for b in benchmarks],
+                times_s={b.FRAMEWORK: b.time for b in benchmarks},
+                iterations={b.FRAMEWORK: (b.iterations or [None])[:3] for b in benchmarks},
+                mean_sq_err_px2=means, loaded=sorted(type(b).__name__ for b in loaded))
+            if [b.FRAMEWORK for b in benchmarks] != ["tpu3drecon_torch", "scipy"] or \
+                    len(loaded) != 2 or not means["tpu3drecon_torch"] < before:
+                raise AssertionError(f"harness {kind}: {report[kind]}")
+            if kind == "ba":
+                in_process = benchmarks[0]
+                if not max(means.values()) < 1.0:
+                    raise AssertionError(f"harness ba: mean errors {means} not below 1.0")
+        no_port_kernel("harness", counts)
+
+        child = TorchBundleAdjustmentBenchmark(ds)
+        t0 = time.perf_counter()
+        child.subprocess_benchmark(timeout_s=600, device="cuda")
+        child_s = time.perf_counter() - t0
+        mine = overall(in_process.reprojection_errors())
+        theirs = overall(child.reprojection_errors())
+        cam = lambda b: np.stack([np.r_[c.camera_pose.rotation.ravel(),  # noqa: E731
+                                        c.camera_pose.translation]
+                                  for _, c in sorted(b.results.camera_mapping.items())])
+        pts = lambda b: np.stack([p.xyz for _, p in sorted(b.results.point_mapping.items())])  # noqa: E731
+        report["subprocess"] = dict(
+            wall_s=child_s, mean_sq_err_px2=theirs, in_process_px2=mine,
+            iterations=child.iterations, in_process_iterations=in_process.iterations,
+            max_cam_diff=float(np.max(np.abs(cam(child) - cam(in_process)))),
+            max_point_diff=float(np.max(np.abs(pts(child) - pts(in_process)))))
+        log("harness " + json.dumps(report))
+        # The child's solve is the same float32 solve: its mean error (free of
+        # the gauge, along which the float atomics move the parameters) agrees.
+        if not abs(theirs - mine) <= 1e-4 * mine:
+            raise AssertionError(f"harness subprocess: {report['subprocess']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def pixel_rmse(rvecs, tvecs, fx_fy, ccs, points, uv, mask) -> float:
+    """Pinhole reprojection RMSE (px) of per-camera point sets (B, N, 3)
+    against (B, N, 2) observations under a (B, N) mask."""
+    from tpu3drecon_torch.geometry.projection import project_points_batched
+    from tpu3drecon_torch.geometry.rotations import rodrigues_to_matrix
+
+    proj = project_points_batched(rodrigues_to_matrix(rvecs), tvecs, fx_fy, ccs,
+                                  torch.zeros_like(fx_fy), points)
+    sq = ((proj - uv) ** 2).sum(-1) * mask
+    return float(torch.sqrt(sq.sum() / (2 * mask.sum())))
+
+
+def run_compat(smi: str, dev) -> None:
+    """The reference-API classes on the card at f64, on clean observations
+    of a scene of 8 cameras and 2000 points (seed 51, perturbed with seed
+    52): ``JaxPoseOptimizer`` with the points held at the truth (the
+    reference's scalar Cauchy form, which stops at its gradient tolerance
+    short of the exact fit): RMSE below a tenth of the initial one and the
+    focals within 5e-2 of the truth (tests/test_compat.py's bound);
+    ``JaxBundleAdjustment`` from the perturbed points: RMSE below 1e-3 px."""
+    import numpy as np
+
+    from tpu3drecon_torch import compat
+    from tpu3drecon_torch.dataset.synthetic import make_scene, perturb_scene
+
+    counts = counters()
+    for cnt in counts.values():
+        cnt.reset()
+    scene = make_scene(n_cameras=8, n_points=2000, seed=51)
+    noisy = perturb_scene(scene, point3d_noise=2e-2, camera_rotation_noise=1e-2,
+                          camera_translation_noise=3e-2, camera_intrinsics_noise=5.0,
+                          point2d_noise=0.0, seed=52)
+    B = scene.n_cameras
+    n = int(np.bincount(scene.cam_idx, minlength=B).max())
+    pts, uv = np.zeros((B, n, 3)), np.zeros((B, n, 2))
+    pidx, mask = np.zeros((B, n), np.int32), np.zeros((B, n))
+    for c in range(B):
+        sel = scene.cam_idx == c
+        k = int(sel.sum())
+        pts[c, :k], uv[c, :k] = scene.points3d[scene.pt_idx[sel]], scene.uv[sel]
+        pidx[c, :k], mask[c, :k] = scene.pt_idx[sel], 1.0
+    poses0 = np.concatenate([noisy.rmats, noisy.tvecs[:, :, None]], axis=2)
+    intr0 = np.concatenate([noisy.fx_fy, scene.cx_cy_skew], axis=1)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    report = {"card": smi, "cameras": B, "points": scene.n_points, "dtype": "float64"}
+
+    opt = compat.JaxPoseOptimizer(avg_cam_width=scene.width)
+    params0, ccs = opt.prepare_params(poses0, intr0)
+    t0 = time.perf_counter()
+    params, state = opt.optimize(params0, pts, uv, ccs, mask)
+    torch.cuda.synchronize()
+    focal_err = float(np.max(np.abs(params[:, 6:8].cpu().numpy() / scene.fx_fy - 1.0)))
+    report["pose"] = dict(
+        wall_s=time.perf_counter() - t0, max_focal_rel_err=focal_err,
+        initial_rmse_px=pixel_rmse(params0[:, :3], params0[:, 3:6], params0[:, 6:8], ccs,
+                                   t(pts), t(uv), t(mask)),
+        rmse_px=pixel_rmse(params[:, :3], params[:, 3:6], params[:, 6:8], ccs, t(pts), t(uv),
+                           t(mask)),
+        max_iter_num=int(state.iter_num.max()), device=str(params.device))
+
+    ba = compat.JaxBundleAdjustment(cam_num=B, avg_cam_width=scene.width)
+    flat0, ccs = ba.prepare_params(poses0, intr0, noisy.points3d)
+    t0 = time.perf_counter()
+    out, state = ba.optimize(flat0, uv, pidx, ccs, mask)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    def ba_rmse(vec) -> float:
+        cams = vec[: B * 6].reshape(B, 6)
+        points = vec[B * 8:].reshape(-1, 3)[t(pidx).long()]
+        return pixel_rmse(cams[:, :3], cams[:, 3:6], vec[B * 6: B * 8].reshape(B, 2), ccs,
+                          points, t(uv), t(mask))
+
+    report["ba"] = dict(wall_s=wall, initial_rmse_px=ba_rmse(flat0), rmse_px=ba_rmse(out),
+                        lm_iters=int(state.iter_num), accepted=int(state.accepted),
+                        loss=float(state.loss), device=str(out.device))
+    no_port_kernel("compat", counts)
+    log("compat " + json.dumps(report))
+    pose, bundle = report["pose"], report["ba"]
+    on_card = {pose["device"], bundle["device"]} == {str(dev)}
+    if not (on_card and pose["rmse_px"] < 0.1 * pose["initial_rmse_px"]
+            and focal_err < 5e-2 and bundle["rmse_px"] < 1e-3):
+        raise AssertionError(f"compat: {report}")
+
+
+def run_export(smi: str) -> None:
+    """``export_scene`` of the medium scene (100 cameras, 100k points):
+    seconds and file sizes."""
+    import os
+
+    import numpy as np
+
+    from tpu3drecon_torch.benchmark import medium_config as mc
+    from tpu3drecon_torch.dataset.synthetic import make_scene
+    from tpu3drecon_torch.utils.visualization import export_scene
+
+    scene = make_scene(n_cameras=mc.N_CAMERAS, n_points=mc.N_POINTS,
+                       obs_per_camera=mc.OBS_PER_CAMERA, seed=mc.SEED)
+    ks = np.zeros((scene.n_cameras, 3, 3))
+    ks[:, 0, 0], ks[:, 1, 1] = scene.fx_fy[:, 0], scene.fx_fy[:, 1]
+    ks[:, 0, 1], ks[:, 0, 2], ks[:, 1, 2] = (scene.cx_cy_skew[:, 2], scene.cx_cy_skew[:, 0],
+                                             scene.cx_cy_skew[:, 1])
+    ks[:, 2, 2] = 1.0
+    out = tempfile.mkdtemp(prefix="export_")
+    try:
+        t0 = time.perf_counter()
+        ply, obj = export_scene(out, scene.points3d, scene.rmats, scene.tvecs, ks,
+                                [scene.width] * scene.n_cameras,
+                                [scene.height] * scene.n_cameras)
+        wall = time.perf_counter() - t0
+        sizes = {os.path.basename(p): os.path.getsize(p) for p in (ply, obj)}
+        log("export " + json.dumps({"card": smi, "points": scene.n_points,
+                                    "cameras": scene.n_cameras, "wall_s": wall,
+                                    "bytes": sizes}))
+        if not all(sizes.values()):
+            raise AssertionError(f"export: empty file in {sizes}")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def run_bench_cli(smi: str) -> None:
+    """``bench``: ``main(["bench"])`` in process (B1-B4 counted, path ``cli
+    bench``), then ``python -m tpu3drecon_torch bench`` as a subprocess;
+    each line's RMSE below 1e-3 px."""
+    import contextlib
+    import io
+    import subprocess
+
+    from tpu3drecon_torch.cli import main as cli_main
+
+    counts = counters()
+    for cnt in counts.values():
+        cnt.reset()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(["bench"])
+    wall = time.perf_counter() - t0
+    launches = path_launches(CLI_BENCH, counts)
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    log("cli bench " + json.dumps({"card": smi, "wall_s": wall, "launches": launches,
+                                   "line": line}))
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tpu3drecon_torch", "bench"], env=env,
+                          capture_output=True, text=True, timeout=600)
+    sub_wall = time.perf_counter() - t0
+    if proc.returncode != 0 or rc != 0:
+        raise AssertionError(f"cli bench: exit {rc} / {proc.returncode}\n{proc.stderr}")
+    sub_line = json.loads(proc.stdout.strip().splitlines()[-1])
+    log("cli bench subprocess " + json.dumps({"card": smi, "wall_s": sub_wall,
+                                              "line": sub_line}))
+    for got in (line, sub_line):
+        if not (got["extra"]["reproj_rmse_px"] < 1e-3 and got["extra"]["backend"] == "cuda"):
+            raise AssertionError(f"cli bench: {got}")
+
+
+def run_tools(split_miss, miss_s: float, smi: str, dev) -> None:
+    """Phase 13, the tool surface: the problem cache (a hit of the split
+    BAL build beside its miss, the same problem bit for bit), the suite at
+    its defaults, the benchmark harness, the reference-API classes, the
+    scene export and ``bench``."""
+    from tpu3drecon_torch.benchmark.balscale import bal_sequential_wtt
+    from tpu3drecon_torch.utils import problem_cache
+
+    t_phase = time.perf_counter()
+    log(f"tool surface phase on {smi}")
+    hits = problem_cache.COUNTS["hit"]
+    t0 = time.perf_counter()
+    split_hit = bal_sequential_wtt(split_windows=True, device=dev, verbose=False)
+    torch.cuda.synchronize()
+    hit_s = time.perf_counter() - t0
+    if problem_cache.COUNTS["hit"] != hits + 1:
+        raise AssertionError("the second split BAL build was not a problem-cache hit")
+    same_problem("split BAL hit", split_hit, split_miss)
+    entry = max(problem_cache._cache_dir().glob("*.torch.pickle"), key=os.path.getmtime)
+    log("problem cache " + json.dumps({
+        "card": smi, "problem": "bal_sequential_wtt(split_windows=True)",
+        "miss_s": miss_s, "hit_s": hit_s, "entry_bytes": entry.stat().st_size,
+        "buckets": len(split_hit.buckets), "same_as_miss": True}))
+    del split_hit
+
+    run_suite_lines(smi)
+    run_harness(smi, dev)
+    run_compat(smi, dev)
+    run_export(smi)
+    run_bench_cli(smi)
+    log(f"tool surface phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2300,6 +2674,12 @@ def main() -> int:
     from tpu3drecon_torch.solvers.ba_pallas import ba_solve_pallas
     from tpu3drecon_torch.solvers.ba_tt import ba_solve_tt
     from tpu3drecon_torch.solvers.ba_wtt import ba_solve_wtt
+
+    # The problem cache in a directory of this run's own: the first build of
+    # each BAL packing is a miss, and the tool-surface phase's are hits.
+    cache_dir = tempfile.mkdtemp(prefix="problem_cache_")
+    os.environ["TPU3DRECON_PROBLEM_CACHE_DIR"] = cache_dir
+    from tpu3drecon_torch.utils import problem_cache
 
     smi = card_line()
     log(f"nvidia-smi: {smi}")
@@ -2428,11 +2808,15 @@ def main() -> int:
     # The split-window packing of the same problem (the JAX suite's TPU BAL
     # cell), fully indexed and in the reduced-fidelity modes.
     t0 = time.perf_counter()
+    misses = problem_cache.COUNTS["miss"]
     split = bal_sequential_wtt(split_windows=True, device=dev, verbose=False)
     torch.cuda.synchronize()
+    split_miss_s = time.perf_counter() - t0
+    if problem_cache.COUNTS["miss"] != misses + 1:
+        raise AssertionError("the split BAL build was not a problem-cache miss")
     log(f"BAL split packing: bal_sequential_wtt(split_windows=True) built in "
-        f"{time.perf_counter() - t0:.1f} s; buckets (G, Tb, Pc, W, global tiles, "
-        f"global_tile0): {buckets_line(split)}")
+        f"{split_miss_s:.1f} s (a problem-cache miss); buckets (G, Tb, Pc, W, global "
+        f"tiles, global_tile0): {buckets_line(split)}")
     for path, matvec, linearize, precond, maxiters, repeats in (
             (SPLIT, "index", "index", "schur_jacobi", (3, 12), 3),
             (SPLIT2, "index2", "index2", "schur_jacobi", (3, 12), 3),
@@ -2444,7 +2828,7 @@ def main() -> int:
             path, lambda p, cfg=cfg, **kw: ba_solve_wtt(p, cfg._replace(**kw)), split,
             bal_flat, repeats, maxiters=maxiters, rmse_limit=None,
         ))
-    del split, bal_flat
+    del bal_flat  # split stays: the tool-surface phase compares a cache hit with it
 
     # The hub-structured BAL problem: global camera tiles widen the windows.
     t0 = time.perf_counter()
@@ -2560,6 +2944,9 @@ def main() -> int:
 
     dist.destroy_process_group()
     shutil.rmtree(store_dir, ignore_errors=True)
+    run_tools(split, split_miss_s, smi, dev)
+    del split
+    shutil.rmtree(cache_dir, ignore_errors=True)
     log("worst max|diff| / max|plain|: "
         + ", ".join(f"{k} {v:.2e}" for k, v in sorted(WORST.items())))
 

@@ -125,6 +125,7 @@ _NO_JAX = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any import of jax now raises ImportError
 sys.modules["tpu3drecon"] = None   # and so does the JAX package
+sys.modules["matplotlib"] = None   # the card's machine has no matplotlib
 import torch
 import tpu3drecon_torch
 for m in pkgutil.walk_packages(tpu3drecon_torch.__path__, "tpu3drecon_torch."):

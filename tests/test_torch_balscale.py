@@ -23,6 +23,14 @@ from tpu3drecon.problems.wtt import wtt_from_flat as j_wtt
 from tpu3drecon_torch.benchmark import balscale
 
 
+@pytest.fixture(autouse=True)
+def _own_problem_cache(tmp_path, monkeypatch):
+    """The builders memoize through the port's problem cache: each test gets
+    an empty cache directory, so every problem here is built by this tree
+    (a miss, returned from its stored arrays)."""
+    monkeypatch.setenv("TPU3DRECON_PROBLEM_CACHE_DIR", str(tmp_path))
+
+
 def _jax_build(shuffled, points_per_camera=8, track_span=4, split_windows=False):
     """The body of the JAX ``bal_sequential_wtt`` build, without its cache."""
     scene = j_syn.make_sequential_scene(n_cameras=1712, points_per_camera=points_per_camera,

@@ -6,8 +6,9 @@ preconditioner and kernel-flag validation and the auto rules (read "on
 the card" where JAX reads "on the TPU"), the wtt -> grid fallback, the
 solve-colmap write-back (against JAX's too), ``info``, and a checkpointed
 solve killed with SIGKILL and resumed (a subprocess with a deadline).
-Also what the port does not take (``bench``, ``--aot``, no card without
-``--cpu``), and the small tools: ``config``, ``utils.timing``,
+Also ``bench --cpu`` (the medium configuration's line, at a small size),
+what the port does not take (``--aot``, no card without ``--cpu``), and
+the small tools: ``config``, ``utils.timing``,
 ``utils.checkpoint``.
 """
 
@@ -193,15 +194,40 @@ def test_info_runs(capsys):
 
 
 def test_what_the_port_does_not_take(bal_file, tmp_path, capsys):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.1"):
-        main(["bench"])
     with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
         main(["solve-bal", bal_file, *SOLVE, "--aot"])
     if not torch.cuda.is_available():  # no card and no --cpu: an error
-        with pytest.raises(SystemExit) as exc:
-            main(["solve-bal", bal_file, "--f64"])
-        assert exc.value.code == 2
-        assert "no CUDA device" in capsys.readouterr().err
+        for argv in (["solve-bal", bal_file, "--f64"], ["bench"]):
+            with pytest.raises(SystemExit) as exc:
+                main(argv)
+            assert exc.value.code == 2
+            assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_bench_prints_the_medium_line(monkeypatch, capsys):
+    """``bench --cpu`` prints ``run_medium``'s JSON line (2 timed solves on
+    the CPU), here at a small size: the wtt engine's plain versions bring the
+    reprojection RMSE below 1e-2 px (the 1e-3 px target is the full size's,
+    held on the card)."""
+    import functools
+
+    from tpu3drecon_torch.benchmark import suite
+
+    calls = []
+
+    def small(**kw):
+        calls.append(kw)
+        return run_medium(n_cameras=6, n_points=300, obs_per_camera=120, **kw)
+
+    run_medium = suite.run_medium
+    monkeypatch.setattr(suite, "run_medium", functools.wraps(run_medium)(small))
+    assert main(["bench", "--cpu"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert calls == [{"reps": 2, "device": torch.device("cpu")}]
+    assert line["metric"] == "ba_medium_100cam_100kpt_30lm_iters"
+    assert line["extra"]["engine"] == "wtt" and line["extra"]["backend"] == "cpu"
+    assert line["extra"]["reps"] == 2 and line["vs_baseline"] is None
+    assert line["extra"]["reproj_rmse_px"] < 1e-2
 
 
 def test_checkpoint_kill_and_resume(bal_file, tmp_path):

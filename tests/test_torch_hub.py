@@ -41,6 +41,14 @@ from tpu3drecon_torch.problems.wtt import wtt_from_flat as t_wtt
 from tpu3drecon_torch.solvers.ba_wtt import ba_solve_wtt as t_solve
 from tpu3drecon_torch.solvers.bundle_adjust import BAConfig as TConfig
 
+
+@pytest.fixture(autouse=True)
+def _own_problem_cache(tmp_path, monkeypatch):
+    """The builders memoize through the port's problem cache: each test gets
+    an empty cache directory, so every problem here is built by this tree
+    (a miss, returned from its stored arrays)."""
+    monkeypatch.setenv("TPU3DRECON_PROBLEM_CACHE_DIR", str(tmp_path))
+
 HUB = dict(n_cameras=700, points_per_camera=3, track_span=3, hub_fraction=0.1,
            hub_obs=60, seed=23)
 SOLVE = dict(maxiter=4, gtol=0.0, ftol=0.0, cg_maxiter=8, cg_rtol=1e-4,

@@ -1,1 +1,3 @@
-"""Benchmark configurations."""
+"""Benchmark configurations, the BASELINE.md suite (``suite``), and the
+cross-framework harness (``harness``, ``drivers``, ``datasets``,
+``reporting`` and ``adapters``)."""

@@ -10,11 +10,11 @@ deferred one-hots.  ``BAL_CONFIG`` is the JAX benchmark suite's fixed-work
 solver configuration at this scale (8 CG iterations, ``cg_rtol`` 0,
 Schur-Jacobi); the CLI picks ``precond="ssor"`` at 1000 cameras or more.
 
-The JAX builder memoizes its output on disk because its host-side build
-takes 250-420 s.  This one keeps no cache: the port's builders are numpy on
-the host, and ``bal_sequential_wtt`` built the problem onto the card in
-6.3 s on the H100 machine (``chip_smoke.py``), so a cache would cost more
-in invalidation rules than it saves.
+Both wtt builders memoize their output on disk through
+``utils/problem_cache.cached_problem``, as the JAX builders do: the
+problem is built and packed on the host, stored as numpy, and a hit places
+it on ``device``.  The keys name every build parameter and carry the
+builder's version (``_VERSION``), which is bumped when its semantics change.
 
 ``bal_hub_wtt`` is the JAX function of the same name: ``make_hub_scene``
 with 5 % interleaved overview hubs of 4000 observations each, packed in
@@ -37,6 +37,7 @@ from tpu3drecon_torch.device import resolve_device
 from tpu3drecon_torch.solvers.bundle_adjust import BAConfig
 
 N_CAMERAS = 1712
+_VERSION = "v1"
 BAL_CONFIG = BAConfig(
     maxiter=3, gtol=0.0, ftol=0.0, cg_maxiter=8, cg_rtol=0.0, precond="schur_jacobi",
 )
@@ -91,17 +92,29 @@ def bal_sequential_wtt(
     ``problems.wtt.expand_onehots`` builds the dense one-hot for the routes
     that read it."""
     device = resolve_device(device)
-    from tpu3drecon_torch.problems.wtt import wtt_from_flat
+    from tpu3drecon_torch.problems.wtt import _split_class_cap, wtt_from_flat
+    from tpu3drecon_torch.utils.problem_cache import cached_problem
 
-    t0 = time.perf_counter()
-    flat = bal_sequential_flat(shuffled, track_span, points_per_camera, device="cpu")
-    kwargs = {} if chunk_multiple is None else {"chunk_multiple": chunk_multiple}
+    def build():
+        flat = bal_sequential_flat(shuffled, track_span, points_per_camera, device="cpu")
+        kwargs = {} if chunk_multiple is None else {"chunk_multiple": chunk_multiple}
+        if split_windows:
+            kwargs["split_windows"] = split_windows
+        return wtt_from_flat(flat, point_chunk=512, defer_onehot=True, device="cpu",
+                             **kwargs)
+
+    key = (f"balseq_{N_CAMERAS}x{points_per_camera}_span{track_span}_s7_n0.5_pc512"
+           f"_deferred_{_VERSION}")
+    if shuffled:
+        key += "_shuffled99"
+    if chunk_multiple is not None:
+        key += f"_cm{chunk_multiple}"
     if split_windows:
-        kwargs["split_windows"] = split_windows
-    problem = wtt_from_flat(flat, point_chunk=512, defer_onehot=True, device=device,
-                            **kwargs)
+        key += f"_split_c{_split_class_cap(split_windows)}"
+    t0 = time.perf_counter()
+    problem = cached_problem(key, build, device=device)
     if verbose:
-        print(f"bal_sequential_wtt: built in {time.perf_counter() - t0:.1f} s "
+        print(f"bal_sequential_wtt: ready in {time.perf_counter() - t0:.1f} s "
               f"(c_pad {problem.c_pad}, {len(problem.buckets)} buckets)", flush=True)
     return problem
 
@@ -146,13 +159,22 @@ def bal_hub_wtt(
     packed by ``wtt_from_flat``'s auto mode with 512-point chunks
     (``split_windows`` as ``bal_sequential_wtt``'s)."""
     device = resolve_device(device)
-    from tpu3drecon_torch.problems.wtt import wtt_from_flat
+    from tpu3drecon_torch.problems.wtt import _split_class_cap, wtt_from_flat
+    from tpu3drecon_torch.utils.problem_cache import cached_problem
 
+    def build():
+        flat = bal_hub_flat(hub_fraction, hub_obs, points_per_camera, track_span,
+                            device="cpu")
+        return wtt_from_flat(flat, point_chunk=512, defer_onehot=True,
+                             split_windows=split_windows, device="cpu")
+
+    key = (f"balhub_{N_CAMERAS}x{points_per_camera}_span{track_span}"
+           f"_h{hub_fraction}x{hub_obs}_s7_n0.5_pc512_deferred_{_VERSION}")
+    if split_windows:
+        key += f"_split_c{_split_class_cap(split_windows)}"
     t0 = time.perf_counter()
-    flat = bal_hub_flat(hub_fraction, hub_obs, points_per_camera, track_span, device="cpu")
-    problem = wtt_from_flat(flat, point_chunk=512, defer_onehot=True,
-                            split_windows=split_windows, device=device)
+    problem = cached_problem(key, build, device=device)
     if verbose:
-        print(f"bal_hub_wtt: built in {time.perf_counter() - t0:.1f} s "
+        print(f"bal_hub_wtt: ready in {time.perf_counter() - t0:.1f} s "
               f"(c_pad {problem.c_pad}, {len(problem.buckets)} buckets)", flush=True)
     return problem

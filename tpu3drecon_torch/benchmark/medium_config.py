@@ -33,10 +33,13 @@ BENCH_CONFIG = BAConfig(
 )
 
 
-def build_problem(device=None, dtype: torch.dtype = torch.float32):
+def build_problem(device=None, dtype: torch.dtype = torch.float32,
+                  n_cameras: int = N_CAMERAS, n_points: int = N_POINTS,
+                  obs_per_camera: int = OBS_PER_CAMERA):
     """The medium flat BAProblem on ``device`` (default: the CUDA card):
     perturbed parameters, clean observations with 0.5 px noise on the
-    perturbed copy."""
+    perturbed copy.  The sizes are parameters only so that tests can
+    shrink them."""
     device = resolve_device(device)
     from tpu3drecon_torch.dataset.synthetic import (
         make_scene,
@@ -45,8 +48,8 @@ def build_problem(device=None, dtype: torch.dtype = torch.float32):
     )
 
     scene = make_scene(
-        n_cameras=N_CAMERAS, n_points=N_POINTS,
-        obs_per_camera=OBS_PER_CAMERA, seed=SEED,
+        n_cameras=n_cameras, n_points=n_points,
+        obs_per_camera=obs_per_camera, seed=SEED,
     )
     noisy = perturb_scene(scene, seed=SEED + 1, point2d_noise=0.5)
     problem, _ = scene_to_ba_problem(noisy, observed=scene, dtype=dtype, device=device)

@@ -6,6 +6,7 @@ defaults:
     python -m tpu3drecon_torch info
     python -m tpu3drecon_torch solve-bal problem.txt [-o solved.txt] [--engine wtt]
     python -m tpu3drecon_torch solve-colmap sparse/ -o sparse_opt/ [--binary]
+    python -m tpu3drecon_torch bench [--cpu]
 
 Solves run on the CUDA card; ``--cpu`` is the only way to the CPU, and
 without a card (and without ``--cpu``) the command fails.  ``--f64``
@@ -19,9 +20,11 @@ Whether SSOR and the split windows pay on the card is an open question of
 ROADMAP.md.  Where the windowed layout cannot be built, ``--engine wtt``
 falls back to the fused grid engine on the card and the grid engine
 elsewhere.  ``--checkpoint-dir`` runs the solve as resumable chunks
-(``utils/checkpoint.py``).  ``bench`` (the port's benchmark file, ROADMAP
-A.1) and ``--aot`` (a TPU compile cache, ROADMAP A.8) are not ported and
-raise ``NotImplementedError``.
+(``utils/checkpoint.py``).  ``bench`` prints the medium configuration's
+JSON line (``benchmark/suite.py run_medium``: the wtt engine with both
+index kernels, B1-B4), as JAX's ``bench`` prints its headline.  ``--aot``
+(a TPU compile cache, ROADMAP A.8) is not ported and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -355,9 +358,15 @@ def cmd_solve_colmap(args):
 
 
 def cmd_bench(args):
-    raise NotImplementedError(
-        "bench: the port's benchmark file is not written yet (ROADMAP A.1); the JAX "
-        "package's bench.py is not run by the port")
+    """The medium configuration's line (``benchmark.suite.run_medium``), as
+    JAX's ``bench`` prints its headline: 5 timed solves on the card, 2 on
+    the CPU."""
+    from tpu3drecon_torch.benchmark import suite
+
+    device = _device(args)
+    print(json.dumps(suite.run_medium(reps=2 if device.type == "cpu" else 5,
+                                      device=device)))
+    return 0
 
 
 def cmd_info(args):
@@ -400,8 +409,9 @@ def main(argv=None) -> int:
     _add_common(p)
     p.set_defaults(fn=cmd_solve_colmap)
 
-    p = sub.add_parser("bench", help="the port's benchmark (not ported yet: raises)")
-    p.add_argument("--cpu", action="store_true")
+    p = sub.add_parser("bench", help="the medium BA configuration: one JSON line")
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU (default: the CUDA card)")
     p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser("info", help="torch, device and capability report")

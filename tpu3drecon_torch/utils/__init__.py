@@ -1,2 +1,3 @@
-"""Tool helpers: timing (``timing``) and solve checkpoints
-(``checkpoint``)."""
+"""Tool helpers: timing (``timing``), solve checkpoints (``checkpoint``),
+the host process pool (``multiprocess``), the disk cache of built
+problems (``problem_cache``) and the scene exports (``visualization``)."""
