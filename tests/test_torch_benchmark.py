@@ -24,15 +24,23 @@ def test_intervals_union_merges_overlaps():
 def test_summarize_reads_a_chrome_trace(tmp_path):
     events = [
         {"cat": "kernel", "name": "void (anonymous namespace)::cam_normal_kernel<float>(float)",
-         "ts": 0.0, "dur": 10.0},
+         "ts": 0.0, "dur": 10.0, "args": {"correlation": 1}},
         {"cat": "kernel", "name": "void (anonymous namespace)::cam_normal_kernel<float>(float)",
-         "ts": 20.0, "dur": 10.0},
-        {"cat": "kernel", "name": "elementwise", "ts": 25.0, "dur": 10.0},
+         "ts": 20.0, "dur": 10.0, "args": {"correlation": 7}},
+        {"cat": "kernel", "name": "elementwise", "ts": 25.0, "dur": 10.0,
+         "args": {"correlation": 2}},
         {"cat": "gpu_memcpy", "name": "Memcpy DtoH", "ts": 50.0, "dur": 5.0},
-        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 0.0, "dur": 3.0},
-        {"cat": "cuda_runtime", "name": "cudaLaunchKernelExC", "ts": 1.0, "dur": 3.0},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 0.0, "dur": 3.0,
+         "args": {"correlation": 1}},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernelExC", "ts": 1.0, "dur": 3.0,
+         "args": {"correlation": 2}},
         {"cat": "cuda_runtime", "name": "cudaStreamSynchronize", "ts": 9.0, "dur": 1.0},
         {"cat": "cpu_op", "name": "aten::add", "ts": 0.0, "dur": 4.0},
+        # Program spans: lm.iter [0, 60) holding pcg [0, 12) and lm.cost
+        # [40, 48); the device is idle in [10, 20), [35, 50) and [55, 60).
+        {"cat": "user_annotation", "name": "lm.iter", "ts": 0.0, "dur": 60.0},
+        {"cat": "user_annotation", "name": "pcg", "ts": 0.0, "dur": 12.0},
+        {"cat": "user_annotation", "name": "lm.cost", "ts": 40.0, "dur": 8.0},
     ]
     path = tmp_path / "trace.json"
     path.write_text(json.dumps({"traceEvents": events}))
@@ -44,6 +52,20 @@ def test_summarize_reads_a_chrome_trace(tmp_path):
                launches=2, total_ms=pytest.approx(0.02), mean_us=10.0)
     assert out["top"][0] == cam
     assert out["port"] == [cam]  # the PyTorch kernel is not the port's
+    # Every span, its launches and syncs (its children's included) and the
+    # device time of the kernels they started (correlations 1 and 2).
+    assert set(out["spans"]) == {"lm.iter", "pcg", "lm.cost"}
+    pcg = out["spans"]["pcg"]
+    assert (pcg["calls"], pcg["launch_calls"], pcg["sync_calls"]) == (1, 2, 1)
+    assert pcg["host_s"] == pytest.approx(12e-6) and pcg["host_share"] == pytest.approx(0.12)
+    assert pcg["device_ms"] == pytest.approx(0.02)
+    assert out["spans"]["lm.iter"]["launch_calls"] == 2
+    assert out["spans"]["lm.iter"]["device_ms"] == pytest.approx(0.02)
+    assert out["spans"]["lm.cost"]["launch_calls"] == 0
+    # Idle time by the innermost span open on the host.
+    idle = {k: v * 1e6 for k, v in out["idle_s"].items()}
+    assert idle == {"lm.iter": pytest.approx(8 + 5 + 2 + 5), "pcg": pytest.approx(2),
+                    "lm.cost": pytest.approx(8)}
 
 
 _TT = "_ZN46_GLOBAL__N__08e980a5_13_tt_kernels_cu_c6cf0c1e"

@@ -48,10 +48,15 @@ back, and one JSON line per engine or route gives
     launch count, total and mean time;
   - ``port``: the same figures for each of the port's own CUDA kernels
     (``csrc/*.cu``) that ran;
-  - ``spans``: for each ``torch.profiler.record_function`` span of the
-    solvers (the band preconditioner's ``band_precond_factor`` and
-    ``band_precond_apply``), its calls, host time and share of ``wall_s``,
-    and the ``cudaLaunchKernel`` calls made inside it.
+  - ``spans``: for each program span in the trace (``utils/timing.span``,
+    a ``user_annotation`` event; PERF.md lists the names), its calls, host
+    seconds and share of ``wall_s``, and the ``cudaLaunchKernel`` and
+    ``cudaStreamSynchronize`` calls made inside it, its children's
+    included, with the device time of what those calls started (linked
+    through the runtime events' correlation ids);
+  - ``idle_s``: the device's idle seconds by the innermost program span
+    open on the host at that moment, on the profiler's clock (``no_span``
+    where none is open).
 
 Needs a CUDA device; measures nothing elsewhere.
 """
@@ -67,8 +72,6 @@ import torch
 
 from tpu3drecon_torch.ops._build import BUILD_DIR
 
-# The solvers' record_function spans.
-SPANS = ("band_precond_factor", "band_precond_apply")
 # The port's kernels (csrc/*.cu) as named in a trace: "...::<name><...>(...)"
 # (B9 and B11 are grid_cam_normal_kernel and grid_coupling_kernel; an older
 # tree's were cam_normal_kernel and a coupling_kernel of grid_kernels.cu).
@@ -78,64 +81,153 @@ PORT_KERNELS = ("lin_kernel", "coupling_kernel", "wt_planes_kernel", "cost_kerne
                 "point_normal_rows_kernel", "grid_coupling_kernel",
                 "tt_cam_normal_kernel", "tt_coupling_kernel", "tt_wt_times_kernel",
                 "tt_w_times_kernel", "tt_cost_kernel")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# Device idle time while no program span is open on the host.
+NO_SPAN = "no_span"
+
+
+def _merge(intervals) -> list[tuple[float, float]]:
+    """The union of (start, end) intervals as sorted disjoint intervals."""
+    out: list[list[float]] = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return [(s, e) for s, e in out]
 
 
 def _intervals_union(spans) -> float:
     """Total length of the union of (start, end) spans."""
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted(spans):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total
+    return sum(e - s for s, e in _merge(spans))
+
+
+def _open_chains(spans, times):
+    """For each of the sorted ``times``, the (start, end, name) spans of
+    ``spans`` (one thread's, nested, sorted by start and outer first) open
+    at it, outermost first."""
+    chains, stack, i = [], [], 0
+    for t in times:
+        while i < len(spans) and spans[i][0] <= t:
+            while stack and stack[-1][1] < spans[i][0]:
+                stack.pop()
+            stack.append(spans[i])
+            i += 1
+        while stack and stack[-1][1] < t:
+            stack.pop()
+        chains.append(tuple(stack))
+    return chains
+
+
+def _innermost(spans) -> list[tuple[float, float, str]]:
+    """(start, end, name) pieces of the time ``spans`` cover, each named
+    after the innermost span open in it."""
+    bounds = sorted({t for s, e, _ in spans for t in (s, e)})
+    mids = [(a + b) / 2 for a, b in zip(bounds, bounds[1:])]
+    return [(a, b, chain[-1][2]) for a, b, chain in
+            zip(bounds, bounds[1:], _open_chains(spans, mids)) if chain]
+
+
+def _idle_by_span(busy, pieces, t0: float, t1: float) -> dict[str, float]:
+    """Microseconds of device idle time in [t0, t1] by the innermost program
+    span open on the host (``NO_SPAN`` where none is)."""
+    gaps, cur = [], t0
+    for s, e in busy:
+        if s > cur:
+            gaps.append((cur, s))
+        cur = max(cur, e)
+    if cur < t1:
+        gaps.append((cur, t1))
+    out: dict[str, float] = {}
+    i = 0
+    for gs, ge in gaps:
+        covered = 0.0
+        while i < len(pieces) and pieces[i][1] <= gs:
+            i += 1
+        j = i
+        while j < len(pieces) and pieces[j][0] < ge:
+            s, e, name = pieces[j]
+            overlap = min(e, ge) - max(s, gs)
+            if overlap > 0:
+                out[name] = out.get(name, 0.0) + overlap
+                covered += overlap
+            j += 1
+        if ge - gs - covered > 0:
+            out[NO_SPAN] = out.get(NO_SPAN, 0.0) + ge - gs - covered
+    return out
 
 
 def summarize(trace_path: str, wall_s: float, top: int = 12) -> dict:
-    """Busy time, counts and the top kernels from an exported Chrome trace
-    (times in the trace are microseconds)."""
+    """Busy time, counts, the top kernels, every program span and the device
+    idle time by innermost span from an exported Chrome trace (times in the
+    trace are microseconds).  A span's launches, syncs and device time are
+    those of the runtime calls made inside it on its thread (its children's
+    included), the device time linked through their correlation ids."""
     with open(trace_path) as fh:
         events = json.load(fh)["traceEvents"]
-    device, kernels, launch_ts = [], {}, []
-    spans = {name: [] for name in SPANS}
-    syncs = 0
+    busy_spans, kernels, device_us = [], {}, {}
+    runtime = {}  # thread -> [(ts, is launch, is sync, correlation)]
+    annotations = {}  # thread -> [(start, end, name)]
+    t0, t1 = float("inf"), float("-inf")
     for ev in events:
+        if "ts" not in ev or "dur" not in ev:
+            continue
         cat, name = ev.get("cat", ""), ev.get("name", "")
-        if cat in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in ev:
-            device.append((ev["ts"], ev["ts"] + ev["dur"]))
+        start, end = float(ev["ts"]), float(ev["ts"]) + float(ev["dur"])
+        t0, t1 = min(t0, start), max(t1, end)
+        corr = ev.get("args", {}).get("correlation")
+        thread = (ev.get("pid"), ev.get("tid"))
+        if cat in DEVICE_CATS:
+            busy_spans.append((start, end))
+            if corr is not None:
+                device_us[corr] = device_us.get(corr, 0.0) + end - start
             if cat == "kernel":
                 k = kernels.setdefault(name, [0, 0.0])
                 k[0] += 1
-                k[1] += ev["dur"]
+                k[1] += end - start
         elif cat == "cuda_runtime":
-            if name.startswith("cudaLaunchKernel"):
-                launch_ts.append(ev["ts"])
-            syncs += name == "cudaStreamSynchronize"
-        elif cat == "user_annotation" and name in spans and "dur" in ev:
-            spans[name].append((ev["ts"], ev["ts"] + ev["dur"]))
-    busy_s = _intervals_union(device) * 1e-6
+            runtime.setdefault(thread, []).append(
+                (start, name.startswith("cudaLaunchKernel"),
+                 name == "cudaStreamSynchronize", corr))
+        elif cat == "user_annotation":
+            annotations.setdefault(thread, []).append((start, end, name))
+    busy = _merge(busy_spans)
+    busy_s = _intervals_union(busy) * 1e-6
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])
 
     def row(name, n, t):
         return dict(kernel=name[:90], launches=n, total_ms=t * 1e-3, mean_us=t / n)
 
-    def span_row(intervals):
-        host_s = sum(e - s for s, e in intervals) * 1e-6
-        inside = sum(any(s <= t <= e for s, e in intervals) for t in launch_ts)
-        return dict(calls=len(intervals), host_s=host_s, host_share=host_s / wall_s,
-                    launch_calls=inside)
-
+    spans: dict[str, dict] = {}
+    for thread, anns in annotations.items():
+        anns.sort(key=lambda x: (x[0], -x[1]))
+        for s, e, name in anns:
+            r = spans.setdefault(name, dict(calls=0, host_s=0.0, launch_calls=0,
+                                            sync_calls=0, device_ms=0.0))
+            r["calls"] += 1
+            r["host_s"] += (e - s) * 1e-6
+        calls = sorted(runtime.get(thread, []))
+        for (_, launch, sync, corr), chain in zip(
+                calls, _open_chains(anns, [c[0] for c in calls])):
+            for name in {n for _, _, n in chain}:
+                r = spans[name]
+                r["launch_calls"] += launch
+                r["sync_calls"] += sync
+                r["device_ms"] += device_us.get(corr, 0.0) * 1e-3
+    for r in spans.values():
+        r["host_share"] = r["host_s"] / wall_s
+    # The idle gaps by the spans of the thread that holds most of them.
+    host = max(annotations.values(), key=len, default=[])
+    idle = _idle_by_span(busy, _innermost(host), t0, t1) if busy else {}
     return dict(
         wall_s=wall_s, busy_s=busy_s, busy_share=busy_s / wall_s,
-        device_ops=len(device), launch_calls=len(launch_ts), sync_calls=syncs,
+        device_ops=len(busy_spans), launch_calls=sum(c[1] for v in runtime.values() for c in v),
+        sync_calls=sum(c[2] for v in runtime.values() for c in v),
         top=[row(name, n, t) for name, (n, t) in ranked[:top]],
         port=[row(name, n, t) for name, (n, t) in ranked
               if any(f"::{k}<" in name for k in PORT_KERNELS)],
-        spans={name: span_row(iv) for name, iv in spans.items() if iv},
+        spans=spans,
+        idle_s={name: t * 1e-6 for name, t in sorted(idle.items(), key=lambda kv: -kv[1])},
     )
 
 

@@ -24,7 +24,10 @@ elsewhere.  ``--checkpoint-dir`` runs the solve as resumable chunks
 JSON line (``benchmark/suite.py run_medium``: the wtt engine with both
 index kernels, B1-B4), as JAX's ``bench`` prints its headline.  ``--aot``
 (a TPU compile cache, ROADMAP A.8) is not ported and raises
-``NotImplementedError``.
+``NotImplementedError``.  After a solve's report line, one more line
+gives the packing and kernel-build seconds and the timed solve's host
+milliseconds per LM phase and in each host wait, from the program's
+spans (``utils/timing.py``).
 """
 
 from __future__ import annotations
@@ -230,18 +233,10 @@ def _pack_wtt(problem, args, config):
     return packed, config
 
 
-def _solve(problem, args, device):
-    """Pack for ``args.engine``, solve (twice, the second timed, or as
-    checkpointed chunks) and report; returns (cameras, points, state)."""
-    from tpu3drecon_torch.solvers.bundle_adjust import ba_solve, reprojection_rmse
-    from tpu3drecon_torch.utils.timing import device_sync
+def _pack(problem, args, config, device):
+    """(packed problem, config, config -> solver) for ``args.engine``."""
+    from tpu3drecon_torch.solvers.bundle_adjust import ba_solve
 
-    if args.aot:
-        raise NotImplementedError(
-            "--aot (the persistent AOT executable cache) is TPU-specific and not "
-            "ported (ROADMAP A.8)")
-    config = _config(args, n_cameras=int(problem.n_cameras))
-    rmse0 = float(reprojection_rmse(problem, problem.cameras, problem.points3d))
     packed = None
     if args.engine == "wtt":
         from tpu3drecon_torch.solvers.ba_wtt import make_wtt_ba_solver
@@ -272,16 +267,68 @@ def _solve(problem, args, device):
         def make_solver(c):
             return functools.partial(ba_solve, config=c, device=device)
 
+    return packed, config, make_solver
+
+
+# The phases of an LM iteration, as utils/timing.py's spans name them.
+PHASES = ("lm.linearize", "lm.rhs", "pcg", "lm.backsub", "lm.apply", "lm.cost",
+          "lm.update")
+
+
+def _phases_line(setup: dict, timed: dict) -> str:
+    """The packing and kernel-build seconds of ``setup`` (the tally of the
+    packing and the first solve), then the host ms of ``timed`` (the timed
+    solve's tally) per LM phase and in each ``sync.*`` wait."""
+
+    def secs(t, name):
+        return t["spans"].get(name, {}).get("s", 0.0)
+
+    pack = sum(v["s"] for k, v in setup["spans"].items()
+               if k.startswith("pack.") and not (v["parent"] or "").startswith("pack."))
+    build = secs(setup, "build.nvcc") + secs(timed, "build.nvcc")
+    compiles = setup["counts"].get("build.compiles", 0) + timed["counts"].get(
+        "build.compiles", 0)
+    phases = ", ".join(f"{name} {1e3 * secs(timed, name):.1f}" for name in PHASES
+                       if name in timed["spans"])
+    waits = ", ".join(f"{name[5:]} {v['calls']}x {1e3 * v['s']:.1f}"
+                      for name, v in sorted(timed["spans"].items())
+                      if name.startswith("sync."))
+    return (f"{PREFIX} phases: pack {pack:.3f}s, build {build:.2f}s ({compiles} compiles); "
+            f"solve host ms over {timed['counts'].get('lm.iters', 0)} LM iterations: "
+            f"{phases}; sync waits: {waits or 'none'}")
+
+
+def _solve(problem, args, device):
+    """Pack for ``args.engine``, solve (twice, the second timed, or as
+    checkpointed chunks) and report; returns (cameras, points, state).
+    The packing and the first solve are recorded in one tally, the timed
+    solve in another (``utils/timing.py``), for the phases line."""
+    from tpu3drecon_torch.solvers.bundle_adjust import reprojection_rmse
+    from tpu3drecon_torch.utils import timing
+
+    if args.aot:
+        raise NotImplementedError(
+            "--aot (the persistent AOT executable cache) is TPU-specific and not "
+            "ported (ROADMAP A.8)")
+    config = _config(args, n_cameras=int(problem.n_cameras))
+    rmse0 = float(reprojection_rmse(problem, problem.cameras, problem.points3d))
+    timing.reset()
+    with timing.recording():
+        packed, config, make_solver = _pack(problem, args, config, device)
+
     where = _device_name(device)
     if args.checkpoint_dir:
         from tpu3drecon_torch.utils.checkpoint import ba_solve_checkpointed
 
+        setup = timing.tally()
+        timing.reset()
         t0 = time.perf_counter()
-        cams, pts, state = ba_solve_checkpointed(
-            packed, config, args.checkpoint_dir, chunk_iters=args.checkpoint_every,
-            solver_fn=lambda p, c: make_solver(c)(p),
-        )
-        device_sync(pts)
+        with timing.recording():
+            cams, pts, state = ba_solve_checkpointed(
+                packed, config, args.checkpoint_dir, chunk_iters=args.checkpoint_every,
+                solver_fn=lambda p, c: make_solver(c)(p),
+            )
+            timing.device_sync(pts)
         solve_s, first_s = time.perf_counter() - t0, 0.0
         if state is None:
             print(f"{PREFIX} checkpoint at {args.checkpoint_dir} already covers "
@@ -294,17 +341,23 @@ def _solve(problem, args, device):
     else:
         solver = make_solver(config)
         t0 = time.perf_counter()
-        cams, pts, state = solver(packed)
-        device_sync(pts)
+        with timing.recording():
+            cams, pts, state = solver(packed)
+            timing.device_sync(pts)
         first_s = time.perf_counter() - t0
+        setup = timing.tally()
+        timing.reset()
         t0 = time.perf_counter()
-        cams, pts, state = solver(packed)
-        device_sync(pts)
+        with timing.recording():
+            cams, pts, state = solver(packed)
+            timing.device_sync(pts)
         solve_s = time.perf_counter() - t0
+    timed = timing.tally()
     rmse1 = float(reprojection_rmse(problem, cams, pts))
     print(f"{PREFIX} {args.engine} engine on {where}: RMSE {rmse0:.4f} -> {rmse1:.5f} px, "
           f"{int(state.accepted)}/{int(state.iter_num)} iters accepted, solve "
           f"{solve_s:.2f}s (first call {first_s:.1f}s)", file=sys.stderr)
+    print(_phases_line(setup, timed), file=sys.stderr)
     return cams, pts, state
 
 

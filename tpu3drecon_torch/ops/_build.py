@@ -37,6 +37,8 @@ from pathlib import Path
 
 import torch
 
+from tpu3drecon_torch.utils.timing import count, span
+
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -170,32 +172,35 @@ def _compile(nv: str, src: Path, obj: Path) -> tuple[subprocess.CompletedProcess
 
 def build() -> tuple[Path, str]:
     """Compile ``csrc/*.cu`` unless a library with the current digest
-    exists: one nvcc per source, all started together, then one link.
+    exists: one nvcc per source, all started together, then one link,
+    inside the span ``build.nvcc`` with one count of ``build.compiles``.
     Returns (library path, compiler output, each source's headed by
     ``nvcc <source>: <seconds> s``; empty when cached)."""
     digest = source_digest()
     out = BUILD_DIR / f"kernels_{digest}.so"
     if out.exists():
         return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nv = nvcc()
-    srcs = [p for p in _sources() if p.suffix == ".cu"]
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [Path(tmp) / f"{src.stem}.o" for src in srcs]
-        with ThreadPoolExecutor(len(srcs)) as pool:
-            done = list(pool.map(_compile, [nv] * len(srcs), srcs, objs))
-        log = "".join(f"nvcc {src.name}: {secs:.1f} s\n{proc.stdout}{proc.stderr}"
-                      for src, (proc, secs) in zip(srcs, done))
-        if any(proc.returncode for proc, _ in done):
-            raise RuntimeError(f"nvcc failed:\n{log}")
-        so = Path(tmp) / "kernels.so"
-        link = subprocess.run([nv, "-shared", "-o", str(so), *map(str, objs)],
-                              capture_output=True, text=True)
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
-                               f"{link.stdout}{link.stderr}")
-        os.replace(so, out)  # atomic: a concurrent build never sees half a file
-    return out, log + link.stdout + link.stderr
+    with span("build.nvcc"):
+        count("build.compiles")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nv = nvcc()
+        srcs = [p for p in _sources() if p.suffix == ".cu"]
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [Path(tmp) / f"{src.stem}.o" for src in srcs]
+            with ThreadPoolExecutor(len(srcs)) as pool:
+                done = list(pool.map(_compile, [nv] * len(srcs), srcs, objs))
+            log = "".join(f"nvcc {src.name}: {secs:.1f} s\n{proc.stdout}{proc.stderr}"
+                          for src, (proc, secs) in zip(srcs, done))
+            if any(proc.returncode for proc, _ in done):
+                raise RuntimeError(f"nvcc failed:\n{log}")
+            so = Path(tmp) / "kernels.so"
+            link = subprocess.run([nv, "-shared", "-o", str(so), *map(str, objs)],
+                                  capture_output=True, text=True)
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                                   f"{link.stdout}{link.stderr}")
+            os.replace(so, out)  # atomic: a concurrent build never sees half a file
+        return out, log + link.stdout + link.stderr
 
 
 def library() -> ctypes.CDLL:

@@ -26,6 +26,7 @@ import torch
 
 from tpu3drecon_torch.problems.grid import grid_bucketed_from_flat
 from tpu3drecon_torch.problems.packing import BAProblem, CameraParams, _to
+from tpu3drecon_torch.utils.timing import span, spanned
 
 CAM_TILE = 128
 
@@ -401,6 +402,7 @@ def _plan_camera_order(problem: BAProblem, reorder_cameras: str, bounds,
     return perm, n_local
 
 
+@spanned("pack.wtt_from_flat")
 def wtt_from_flat(
     problem: BAProblem,
     bounds: Tuple[int, ...] = (2, 3, 4, 8),
@@ -435,7 +437,9 @@ def wtt_from_flat(
     classes per bucket at ``_SPLIT_MAX_CLASSES`` by merging them into exact
     covering bins; an int N > 0 caps them at N (``ValueError`` for N <= 0).
     Values are step-equivalent to the unsplit packing.  ``device`` defaults
-    to the problem's device.
+    to the problem's device.  The span ``pack.wtt_from_flat`` has one child
+    per pass: ``pack.camera_order``, ``pack.grid``, ``pack.windows`` (pass
+    1), ``pack.fill`` (pass 2) and ``pack.to_device``.
     """
     oh_dtype = torch.int8 if onehot_dtype is None else onehot_dtype
     itemsize = torch.empty((), dtype=oh_dtype).element_size()
@@ -448,18 +452,20 @@ def wtt_from_flat(
     if reorder_cameras != "never":
         from tpu3drecon_torch.problems.reorder import permute_cameras_flat
 
-        perm, n_local = _plan_camera_order(
-            problem, reorder_cameras, bounds, point_chunk, max_onehot_bytes,
-            itemsize,
-        )
-        if perm is not None:
-            problem = permute_cameras_flat(problem, perm)
-            cam_rows = perm
+        with span("pack.camera_order"):
+            perm, n_local = _plan_camera_order(
+                problem, reorder_cameras, bounds, point_chunk, max_onehot_bytes,
+                itemsize,
+            )
+            if perm is not None:
+                problem = permute_cameras_flat(problem, perm)
+                cam_rows = perm
 
-    g = grid_bucketed_from_flat(
-        problem, bounds=bounds, point_block=point_chunk,
-        order_points_by_cam=True, device="cpu",
-    )
+    with span("pack.grid"):
+        g = grid_bucketed_from_flat(
+            problem, bounds=bounds, point_block=point_chunk,
+            order_points_by_cam=True, device="cpu",
+        )
     guv = g.uv.numpy()
     C, K = guv.shape[:2]
     uv_flat = guv.reshape(C * K, 2)
@@ -475,105 +481,106 @@ def wtt_from_flat(
 
     # Pass 1: per-bucket window, clamped micro-chunk bases, grouping plan;
     # with split_windows per micro-chunk window classes, each its own bucket.
-    plans = []  # (ti, tc, tm, window, groups, cap, grange, porder, row_off)
-    onehot_bytes = 0
-    row_off = 0
-    g_rows_all = g.point_rows.numpy()
-    for b in g.buckets:
-        ti = b.track_idx.numpy()
-        tc = b.track_cam.numpy()
-        tm = b.track_mask.numpy()
-        Pb, Tb = ti.shape
-        n_chunks = Pb // Pc
-        if split_windows:
-            porder = None
-            rows_b = g_rows_all[row_off : row_off + Pb]
-            if n_gt > 0:
-                # Cluster hub-observing points by their global-tile hull, so
-                # most chunks skip the global tiles or carry one of them.
-                porder = _hub_point_order(tc, tm, glob_start, n_gt)
-                ti, tc, tm, rows_b = ti[porder], tc[porder], tm[porder], rows_b[porder]
-            runs_by_class = _split_runs(tc, tm, rows_b, n_chunks, Pc, glob_start, c_pad)
-            max_cls = _split_class_cap(split_windows)
-            if max_cls and len(runs_by_class) > max_cls:
-                runs_by_class = _coalesce_window_classes(
-                    runs_by_class, max_cls, n_gt, c_pad
-                )
-            for (wcls, grange) in sorted(
-                runs_by_class,
-                key=lambda k: (k[0], (-1, -1) if k[1] is None else k[1]),
-            ):
-                runs = runs_by_class[(wcls, grange)]
-                cap = _choose_cap(
-                    [len(ids) for _, ids in runs], min_groups=max(chunk_multiple, 1)
-                )
-                groups = []
-                for base, ids in runs:
-                    for lo in range(0, len(ids), cap):
-                        groups.append((base, ids[lo : lo + cap]))
-                while len(groups) % max(chunk_multiple, 1):
-                    groups.append((0, []))
-                n_gt_eff = (grange[1] - grange[0] + 1) if grange else 0
-                plans.append((ti, tc, tm, wcls, groups, cap, grange, porder, row_off))
-                onehot_bytes += (
-                    (wcls + n_gt_eff * CAM_TILE) * len(groups) * Tb * cap * Pc * itemsize
-                )
-            row_off += Pb
-            continue
-
-        window = CAM_TILE
-        raw_bases = np.zeros(n_chunks, np.int64)
-        has_obs = np.zeros(n_chunks, bool)
-        for gi in range(n_chunks):
-            sl = slice(gi * Pc, (gi + 1) * Pc)
-            cams = tc[sl][tm[sl] > 0]
-            cams = cams[cams < glob_start]  # globals ride the shared tiles
-            if cams.size == 0:
+    with span("pack.windows"):
+        plans = []  # (ti, tc, tm, window, groups, cap, grange, porder, row_off)
+        onehot_bytes = 0
+        row_off = 0
+        g_rows_all = g.point_rows.numpy()
+        for b in g.buckets:
+            ti = b.track_idx.numpy()
+            tc = b.track_cam.numpy()
+            tm = b.track_mask.numpy()
+            Pb, Tb = ti.shape
+            n_chunks = Pb // Pc
+            if split_windows:
+                porder = None
+                rows_b = g_rows_all[row_off : row_off + Pb]
+                if n_gt > 0:
+                    # Cluster hub-observing points by their global-tile hull, so
+                    # most chunks skip the global tiles or carry one of them.
+                    porder = _hub_point_order(tc, tm, glob_start, n_gt)
+                    ti, tc, tm, rows_b = ti[porder], tc[porder], tm[porder], rows_b[porder]
+                runs_by_class = _split_runs(tc, tm, rows_b, n_chunks, Pc, glob_start, c_pad)
+                max_cls = _split_class_cap(split_windows)
+                if max_cls and len(runs_by_class) > max_cls:
+                    runs_by_class = _coalesce_window_classes(
+                        runs_by_class, max_cls, n_gt, c_pad
+                    )
+                for (wcls, grange) in sorted(
+                    runs_by_class,
+                    key=lambda k: (k[0], (-1, -1) if k[1] is None else k[1]),
+                ):
+                    runs = runs_by_class[(wcls, grange)]
+                    cap = _choose_cap(
+                        [len(ids) for _, ids in runs], min_groups=max(chunk_multiple, 1)
+                    )
+                    groups = []
+                    for base, ids in runs:
+                        for lo in range(0, len(ids), cap):
+                            groups.append((base, ids[lo : lo + cap]))
+                    while len(groups) % max(chunk_multiple, 1):
+                        groups.append((0, []))
+                    n_gt_eff = (grange[1] - grange[0] + 1) if grange else 0
+                    plans.append((ti, tc, tm, wcls, groups, cap, grange, porder, row_off))
+                    onehot_bytes += (
+                        (wcls + n_gt_eff * CAM_TILE) * len(groups) * Tb * cap * Pc * itemsize
+                    )
+                row_off += Pb
                 continue
-            has_obs[gi] = True
-            base = (int(cams.min()) // CAM_TILE) * CAM_TILE
-            span = int(cams.max()) - base + 1
-            raw_bases[gi] = base
-            window = max(window, _pad_up(span, CAM_TILE))
-        window = min(window, c_pad)
 
-        # Clamp bases inside c_pad; empty (padding) micro-chunks take the
-        # previous chunk's base so they merge into its group.
-        bases = np.minimum(raw_bases, c_pad - window)
-        prev = 0
-        for gi in range(n_chunks):
-            if has_obs[gi]:
-                prev = int(bases[gi])
-            else:
-                bases[gi] = prev
+            window = CAM_TILE
+            raw_bases = np.zeros(n_chunks, np.int64)
+            has_obs = np.zeros(n_chunks, bool)
+            for gi in range(n_chunks):
+                sl = slice(gi * Pc, (gi + 1) * Pc)
+                cams = tc[sl][tm[sl] > 0]
+                cams = cams[cams < glob_start]  # globals ride the shared tiles
+                if cams.size == 0:
+                    continue
+                has_obs[gi] = True
+                base = (int(cams.min()) // CAM_TILE) * CAM_TILE
+                cam_span = int(cams.max()) - base + 1
+                raw_bases[gi] = base
+                window = max(window, _pad_up(cam_span, CAM_TILE))
+            window = min(window, c_pad)
 
-        runs = []
-        for gi in range(n_chunks):
-            if runs and bases[gi] == runs[-1][0]:
-                runs[-1][1] += 1
-            else:
-                runs.append([int(bases[gi]), 1])
-        cap = _choose_cap(
-            [r for _, r in runs], min_groups=max(chunk_multiple, 1)
-        )
-        groups = []  # (base, [micro-chunk indices])
-        gi = 0
-        for base, r in runs:
-            for lo in range(0, r, cap):
-                groups.append((base, list(range(gi + lo, gi + min(lo + cap, r)))))
-            gi += r
-        while len(groups) % max(chunk_multiple, 1):
-            groups.append((0, []))
+            # Clamp bases inside c_pad; empty (padding) micro-chunks take the
+            # previous chunk's base so they merge into its group.
+            bases = np.minimum(raw_bases, c_pad - window)
+            prev = 0
+            for gi in range(n_chunks):
+                if has_obs[gi]:
+                    prev = int(bases[gi])
+                else:
+                    bases[gi] = prev
 
-        plans.append((
-            ti, tc, tm, window, groups, cap,
-            (0, n_gt - 1) if n_gt else None, None, row_off,
-        ))
-        row_off += Pb
-        onehot_bytes += (
-            (window + n_gt * CAM_TILE)
-            * len(groups) * Tb * cap * Pc * itemsize
-        )
+            runs = []
+            for gi in range(n_chunks):
+                if runs and bases[gi] == runs[-1][0]:
+                    runs[-1][1] += 1
+                else:
+                    runs.append([int(bases[gi]), 1])
+            cap = _choose_cap(
+                [r for _, r in runs], min_groups=max(chunk_multiple, 1)
+            )
+            groups = []  # (base, [micro-chunk indices])
+            gi = 0
+            for base, r in runs:
+                for lo in range(0, r, cap):
+                    groups.append((base, list(range(gi + lo, gi + min(lo + cap, r)))))
+                gi += r
+            while len(groups) % max(chunk_multiple, 1):
+                groups.append((0, []))
+
+            plans.append((
+                ti, tc, tm, window, groups, cap,
+                (0, n_gt - 1) if n_gt else None, None, row_off,
+            ))
+            row_off += Pb
+            onehot_bytes += (
+                (window + n_gt * CAM_TILE)
+                * len(groups) * Tb * cap * Pc * itemsize
+            )
 
     if onehot_bytes > max_onehot_bytes:
         raise ValueError(
@@ -594,77 +601,80 @@ def wtt_from_flat(
     rows_chunks = []
     off = 0
     for ti, tc, tm, window, groups, cap, grange, porder, g_off in plans:
-        g_lo = grange[0] if grange else 0
-        n_gt_eff = (grange[1] - grange[0] + 1) if grange else 0
-        g_base = glob_start + g_lo * CAM_TILE
-        Pb, Tb = ti.shape
-        B = len(groups)
-        Pc_eff = cap * Pc
-        n = Tb * Pc_eff
-        uv_b = np.zeros((B, 2, Tb, Pc_eff), np_dtype)
-        mask_b = np.zeros((B, Tb, Pc_eff), np_dtype)
-        wcam_b = np.full((B, n), -1, np.int16)
-        cam_base = np.zeros((B,), np.int32)
-        sel = np.full((B, Pc_eff), -1, np.int64)  # g.points3d row per column
-        for bi, (base, chunk_ids) in enumerate(groups):
-            cam_base[bi] = base
-            for j, gi in enumerate(chunk_ids):
-                sl = slice(gi * Pc, (gi + 1) * Pc)
-                ti_g = ti[sl].T  # (Tb, Pc)
-                tc_g = tc[sl].T
-                tm_g = tm[sl].T
-                col0 = j * Pc
-                uv_b[bi, :, :, col0 : col0 + Pc] = np.transpose(
-                    uv_flat[ti_g], (2, 0, 1)
+        with span("pack.fill"):
+            g_lo = grange[0] if grange else 0
+            n_gt_eff = (grange[1] - grange[0] + 1) if grange else 0
+            g_base = glob_start + g_lo * CAM_TILE
+            Pb, Tb = ti.shape
+            B = len(groups)
+            Pc_eff = cap * Pc
+            n = Tb * Pc_eff
+            uv_b = np.zeros((B, 2, Tb, Pc_eff), np_dtype)
+            mask_b = np.zeros((B, Tb, Pc_eff), np_dtype)
+            wcam_b = np.full((B, n), -1, np.int16)
+            cam_base = np.zeros((B,), np.int32)
+            sel = np.full((B, Pc_eff), -1, np.int64)  # g.points3d row per column
+            for bi, (base, chunk_ids) in enumerate(groups):
+                cam_base[bi] = base
+                for j, gi in enumerate(chunk_ids):
+                    sl = slice(gi * Pc, (gi + 1) * Pc)
+                    ti_g = ti[sl].T  # (Tb, Pc)
+                    tc_g = tc[sl].T
+                    tm_g = tm[sl].T
+                    col0 = j * Pc
+                    uv_b[bi, :, :, col0 : col0 + Pc] = np.transpose(
+                        uv_flat[ti_g], (2, 0, 1)
+                    )
+                    mask_b[bi, :, col0 : col0 + Pc] = tm_g
+                    tt_i, pp = np.nonzero(tm_g > 0)
+                    cols = tt_i * Pc_eff + col0 + pp
+                    tcv = tc_g[tm_g > 0]
+                    # Local cameras index their chunk window; globals index the
+                    # shared tail rows [window, window + n_gt_eff*128).
+                    wcam_b[bi, cols] = np.where(
+                        tcv < glob_start, tcv - base, window + (tcv - g_base),
+                    )
+                    rows_g = np.arange(gi * Pc, (gi + 1) * Pc)
+                    if porder is not None:  # the bucket's points were re-sorted
+                        rows_g = porder[rows_g]
+                    sel[bi, col0 : col0 + Pc] = g_off + rows_g
+            total_rows = window + n_gt_eff * CAM_TILE
+            sel = sel.reshape(-1)
+            valid = sel >= 0
+            pts_k = np.zeros((sel.size, 3), g_pts.dtype)
+            pts_k[valid] = g_pts[sel[valid]]
+            rows_k = np.full(sel.size, -1, np.int32)
+            rows_k[valid] = g_rows[sel[valid]]
+        with span("pack.to_device"):
+            wcam = t_(wcam_b)
+            buckets.append(
+                WTTBucket(
+                    uv=t_(uv_b),
+                    mask=t_(mask_b),
+                    cam_base=t_(cam_base),
+                    wcam=wcam,
+                    onehot=None if defer_onehot else _expand_wcam(wcam, total_rows, oh_dtype),
+                    window=total_rows,
+                    global_tiles=n_gt_eff,
+                    global_tile0=g_tile0 + g_lo,
                 )
-                mask_b[bi, :, col0 : col0 + Pc] = tm_g
-                tt_i, pp = np.nonzero(tm_g > 0)
-                cols = tt_i * Pc_eff + col0 + pp
-                tcv = tc_g[tm_g > 0]
-                # Local cameras index their chunk window; globals index the
-                # shared tail rows [window, window + n_gt_eff*128).
-                wcam_b[bi, cols] = np.where(
-                    tcv < glob_start, tcv - base, window + (tcv - g_base),
-                )
-                rows_g = np.arange(gi * Pc, (gi + 1) * Pc)
-                if porder is not None:  # the bucket's points were re-sorted
-                    rows_g = porder[rows_g]
-                sel[bi, col0 : col0 + Pc] = g_off + rows_g
-        total_rows = window + n_gt_eff * CAM_TILE
-        wcam = t_(wcam_b)
-        buckets.append(
-            WTTBucket(
-                uv=t_(uv_b),
-                mask=t_(mask_b),
-                cam_base=t_(cam_base),
-                wcam=wcam,
-                onehot=None if defer_onehot else _expand_wcam(wcam, total_rows, oh_dtype),
-                window=total_rows,
-                global_tiles=n_gt_eff,
-                global_tile0=g_tile0 + g_lo,
             )
-        )
-        sel = sel.reshape(-1)
-        valid = sel >= 0
-        pts_k = np.zeros((sel.size, 3), g_pts.dtype)
-        pts_k[valid] = g_pts[sel[valid]]
-        rows_k = np.full(sel.size, -1, np.int32)
-        rows_k[valid] = g_rows[sel[valid]]
         pts_chunks.append(pts_k)
         rows_chunks.append(rows_k)
         offsets.append(off)
         off += sel.size
 
     windows = [b.window for b in buckets]
-    return BAWTTProblem(
-        cameras=g.cameras.to(device),
-        points3d=t_(np.concatenate(pts_chunks, axis=0)),
-        buckets=tuple(buckets),
-        avg_cam_width=g.avg_cam_width.to(device),
-        point_rows=t_(np.concatenate(rows_chunks, axis=0)),
-        cam_rows=t_(cam_rows.astype(np.int32)) if cam_rows is not None else None,
-        n_real_points=g.n_real_points,
-        bucket_offsets=tuple(offsets),
-        window=max(windows) if windows else CAM_TILE,
-        c_pad=c_pad,
-    )
+    with span("pack.to_device"):
+        return BAWTTProblem(
+            cameras=g.cameras.to(device),
+            points3d=t_(np.concatenate(pts_chunks, axis=0)),
+            buckets=tuple(buckets),
+            avg_cam_width=g.avg_cam_width.to(device),
+            point_rows=t_(np.concatenate(rows_chunks, axis=0)),
+            cam_rows=t_(cam_rows.astype(np.int32)) if cam_rows is not None else None,
+            n_real_points=g.n_real_points,
+            bucket_offsets=tuple(offsets),
+            window=max(windows) if windows else CAM_TILE,
+            c_pad=c_pad,
+        )

@@ -52,6 +52,7 @@ from tpu3drecon_torch.solvers.pcg import (
 )
 from tpu3drecon_torch.solvers.tridiag import band_factor, band_preconditioner
 from tpu3drecon_torch.solvers.trust_region import trust_region_solve
+from tpu3drecon_torch.utils.timing import host_wait
 
 # Column layout of the packed per-camera parameter table:
 # rmat row-major (9) | tvec (3) | fx fy | cx cy skew | k1 k2.
@@ -254,7 +255,9 @@ def _coupling_offdiag_batched(jc, jp, v_inv, np_cam: int, want_od: bool):
     jp2 = jp.reshape((2, 3) + slot)
     # w[i, l] = sum_a jc2[a, i] jp2[a, l], (np, 3, *slot)
     w = jc2[0][:, None] * jp2[0][None, :] + jc2[1][:, None] * jp2[1][None, :]
-    vi = v_inv[torch.tensor(_SYM3, device=v_inv.device)]  # (3, 3, Pb)
+    with host_wait("sym3_index"):  # a copy from pageable host memory
+        sym3 = torch.tensor(_SYM3, device=v_inv.device)
+    vi = v_inv[sym3]  # (3, 3, Pb)
     while vi.ndim - 2 < len(slot):
         vi = vi[:, :, None]
     # wv[i, l] = sum_j w[i, j] vi[j, l]
@@ -310,8 +313,11 @@ def _pair_rows(od, idx, n_cams: int) -> torch.Tensor:
 def _unpack_sym(cols: torch.Tensor, np_cam: int) -> torch.Tensor:
     """(C, np(np+1)/2) upper-triangle columns -> (C, np, np) symmetric."""
     pairs = _triu_pairs(np_cam)
-    i_idx = torch.tensor([i for i, _ in pairs], device=cols.device)
-    j_idx = torch.tensor([j for _, j in pairs], device=cols.device)
+    # Copies from pageable host memory: each waits for the card's stream.
+    with host_wait("unpack_sym"):
+        i_idx = torch.tensor([i for i, _ in pairs], device=cols.device)
+    with host_wait("unpack_sym"):
+        j_idx = torch.tensor([j for _, j in pairs], device=cols.device)
     out = torch.zeros(
         (cols.shape[0], np_cam, np_cam), dtype=cols.dtype, device=cols.device
     )

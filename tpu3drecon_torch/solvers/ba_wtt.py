@@ -38,9 +38,11 @@ a split packing may have no local tile, only global ones).  Only the CG
 operator and B1's contribution columns run at reduced fidelity; the rhs,
 back-substitution and cost stay exact.  ``matvec_bf16`` is not ported and
 raises; the band preconditioners refuse hub/global camera tiles with the
-JAX engine's ``ValueError``.  The band factor and sweeps run as
-``torch.profiler`` spans ``band_precond_factor`` / ``band_precond_apply``
-(``benchmark/profile_solve.py`` reads their host time and launches).
+JAX engine's ``ValueError``.  An LM iteration's proposal is the spans
+``lm.linearize`` (step 1), ``lm.rhs`` (the gradient norm and the reduced
+right-hand side), ``pcg`` (step 2) and ``lm.backsub`` (step 3's
+back-substitution and the predicted reduction), and a solve is the span
+``ba.solve`` (``utils/timing.py``; PERF.md lists every name).
 """
 
 from __future__ import annotations
@@ -89,6 +91,7 @@ from tpu3drecon_torch.solvers.pcg import (
 )
 from tpu3drecon_torch.solvers.tridiag import band_factor, band_preconditioner
 from tpu3drecon_torch.solvers.trust_region import trust_region_solve
+from tpu3drecon_torch.utils.timing import span, spanned
 
 _BAND = ("tridiag", "ssor")
 
@@ -373,6 +376,7 @@ def _check_config(config: BAConfig, problem: BAWTTProblem = None) -> None:
         )
 
 
+@spanned("ba.solve")
 def ba_solve_wtt(
     problem: BAWTTProblem, config: BAConfig = BAConfig(), device=None
 ) -> Tuple[CameraParams, torch.Tensor, BAState]:
@@ -424,46 +428,48 @@ def _ba_solve_wtt_core(problem: BAWTTProblem, pts_list, config: BAConfig, dev, c
         return wtt_wt_planes_idx(_xw_t(dc, bucket), bucket.wcam, bn.jc, bn.jp)
 
     def propose(params, lam):
-        nb = _linearize(params, lam, problem, config, comm)
-        gp_max = torch.zeros((), dtype=dtype, device=dev)
-        for bn in nb.buckets:
-            gp_max = torch.maximum(gp_max, torch.max(torch.abs(bn.g_pt)))
-        grad_norm = torch.max(torch.abs(nb.g_cam))
-        if config.optimize_points:
-            grad_norm = torch.maximum(grad_norm, pmax(gp_max, comm))
-        else:
-            grad_norm = torch.clamp(grad_norm, min=0.0)
+        with span("lm.linearize"):
+            nb = _linearize(params, lam, problem, config, comm)
+        with span("lm.rhs"):
+            gp_max = torch.zeros((), dtype=dtype, device=dev)
+            for bn in nb.buckets:
+                gp_max = torch.maximum(gp_max, torch.max(torch.abs(bn.g_pt)))
+            grad_norm = torch.max(torch.abs(nb.g_cam))
+            if config.optimize_points:
+                grad_norm = torch.maximum(grad_norm, pmax(gp_max, comm))
+            else:
+                grad_norm = torch.clamp(grad_norm, min=0.0)
 
-        if nb.b_cam is not None:
-            b = nb.b_cam - nb.g_cam
-        else:
-            b = torch.zeros_like(nb.g_cam)
-            for bn, bucket in zip(nb.buckets, problem.buckets):
-                vw = _sym3_matvec(bn.v_inv, bn.g_pt)
-                b = b + w_times(bn, vw, bucket)
-            b = psum(b, comm) - nb.g_cam
+            if nb.b_cam is not None:
+                b = nb.b_cam - nb.g_cam
+            else:
+                b = torch.zeros_like(nb.g_cam)
+                for bn, bucket in zip(nb.buckets, problem.buckets):
+                    vw = _sym3_matvec(bn.v_inv, bn.g_pt)
+                    b = b + w_times(bn, vw, bucket)
+                b = psum(b, comm) - nb.g_cam
         out = pcg(
             lambda p: _schur_matvec(nb, p, problem, config.matvec_kernel, comm),
             _preconditioner(nb),
             b, config.cg_maxiter, config.cg_rtol,
         )
-        dc = out.x
-
-        dps = []
-        pred_pt = torch.zeros((), dtype=dtype, device=dev)
-        for bn, bucket in zip(nb.buckets, problem.buckets):
-            wtx = wt_times(bn, dc, bucket)
-            dp = _sym3_matvec(bn.v_inv, -bn.g_pt - wtx)  # (3, G, Pc)
-            if not config.optimize_points:
-                dp = dp * 0.0
-            pred_pt = pred_pt + 0.5 * (
-                torch.sum(dp * (bn.damp_pt * dp)) - torch.sum(dp * bn.g_pt)
+        with span("lm.backsub"):
+            dc = out.x
+            dps = []
+            pred_pt = torch.zeros((), dtype=dtype, device=dev)
+            for bn, bucket in zip(nb.buckets, problem.buckets):
+                wtx = wt_times(bn, dc, bucket)
+                dp = _sym3_matvec(bn.v_inv, -bn.g_pt - wtx)  # (3, G, Pc)
+                if not config.optimize_points:
+                    dp = dp * 0.0
+                pred_pt = pred_pt + 0.5 * (
+                    torch.sum(dp * (bn.damp_pt * dp)) - torch.sum(dp * bn.g_pt)
+                )
+                dps.append(dp)
+            pred = (
+                0.5 * (torch.sum(dc * (nb.damp_cam * dc)) - torch.sum(dc * nb.g_cam))
+                + psum(pred_pt, comm)
             )
-            dps.append(dp)
-        pred = (
-            0.5 * (torch.sum(dc * (nb.damp_cam * dc)) - torch.sum(dc * nb.g_cam))
-            + psum(pred_pt, comm)
-        )
         return (dc, tuple(dps)), grad_norm, pred, out.iters
 
     def apply_step(params, delta):

@@ -35,6 +35,7 @@ from tpu3drecon_torch.ops.jacobians import apply_se3_retraction, gather_obs_bloc
 from tpu3drecon_torch.parallel.mesh import psum
 from tpu3drecon_torch.problems.packing import BAProblem, CameraParams
 from tpu3drecon_torch.solvers import schur
+from tpu3drecon_torch.utils.timing import span, spanned
 
 
 class BAConfig(NamedTuple):
@@ -110,6 +111,7 @@ def _check_flat_config(config: BAConfig) -> None:
         )
 
 
+@spanned("ba.solve")
 def ba_solve(
     problem: BAProblem, config: BAConfig = BAConfig(), device=None, comm=None
 ) -> Tuple[CameraParams, torch.Tensor, BAState]:
@@ -138,29 +140,32 @@ def ba_solve(
         return psum(0.5 * torch.sum(r * r), comm)
 
     def propose(params, lam):
-        r, jc, jp = blocks(params)
-        nb = schur.build_normal_blocks(r, jc, jp, cam_idx, pt_idx, n_cameras, n_points,
-                                       lam, precond=config.precond, comm=comm)
-        grad_norm = torch.max(torch.abs(nb.g_cam))
-        if config.optimize_points:
-            grad_norm = torch.maximum(grad_norm, torch.max(torch.abs(nb.g_pt)))
-        else:
-            grad_norm = torch.clamp(grad_norm, min=0.0)
-        # Reduced camera system rhs: b = -g_c + W V^{-1} g_p.
-        vinv_gp = torch.sum(nb.v_inv * nb.g_pt[:, None, :], dim=-1)
-        b = -nb.g_cam + schur.w_times(nb, vinv_gp, cam_idx, pt_idx, n_cameras, comm)
+        with span("lm.linearize"):
+            r, jc, jp = blocks(params)
+            nb = schur.build_normal_blocks(r, jc, jp, cam_idx, pt_idx, n_cameras, n_points,
+                                           lam, precond=config.precond, comm=comm)
+        with span("lm.rhs"):
+            grad_norm = torch.max(torch.abs(nb.g_cam))
+            if config.optimize_points:
+                grad_norm = torch.maximum(grad_norm, torch.max(torch.abs(nb.g_pt)))
+            else:
+                grad_norm = torch.clamp(grad_norm, min=0.0)
+            # Reduced camera system rhs: b = -g_c + W V^{-1} g_p.
+            vinv_gp = torch.sum(nb.v_inv * nb.g_pt[:, None, :], dim=-1)
+            b = -nb.g_cam + schur.w_times(nb, vinv_gp, cam_idx, pt_idx, n_cameras, comm)
         out = schur.schur_pcg(nb, b, cam_idx, pt_idx, maxiter=config.cg_maxiter,
                               rtol=config.cg_rtol, comm=comm)
-        dc = out.x
-        dp = schur.back_substitute_points(nb, dc, cam_idx, pt_idx, comm)
-        if not config.optimize_points:
-            dp = dp * 0.0
-        pred = 0.5 * (
-            torch.sum(dc * (nb.damp_cam * dc))
-            + torch.sum(dp * (nb.damp_pt * dp))
-            - torch.sum(dc * nb.g_cam)
-            - torch.sum(dp * nb.g_pt)
-        )
+        with span("lm.backsub"):
+            dc = out.x
+            dp = schur.back_substitute_points(nb, dc, cam_idx, pt_idx, comm)
+            if not config.optimize_points:
+                dp = dp * 0.0
+            pred = 0.5 * (
+                torch.sum(dc * (nb.damp_cam * dc))
+                + torch.sum(dp * (nb.damp_pt * dp))
+                - torch.sum(dc * nb.g_cam)
+                - torch.sum(dp * nb.g_pt)
+            )
         return (dc, dp), grad_norm, pred, out.iters
 
     def apply_step(params, delta):

@@ -3,7 +3,9 @@
 Counterpart of ``tpu3drecon/solvers/pcg.py``: the same stopping test
 (||r||^2 <= rtol^2 ||b||^2), breakdown guards and last-finite-iterate rule.
 The loop runs on the host and reads ``dot(r, r) > tol2`` back once per
-iteration.
+iteration.  A solve is the span ``pcg`` with children ``pcg.matvec`` and
+``pcg.precond``; the counter ``cg.iters`` adds its iterations
+(``utils/timing.py``).
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+
+from tpu3drecon_torch.utils.timing import count, host_wait, span
 
 
 class PCGOut(NamedTuple):
@@ -39,28 +43,38 @@ def pcg(
     def dot(a, b_):
         return torch.sum(a * b_)
 
-    z0 = precond(b)
-    rz = dot(b, z0)
-    b_norm2 = torch.clamp(dot(b, b), min=1e-32)
-    tol2 = torch.full_like(b_norm2, rtol) ** 2 * b_norm2
+    with span("pcg"):
+        with span("pcg.precond"):
+            z0 = precond(b)
+        rz = dot(b, z0)
+        b_norm2 = torch.clamp(dot(b, b), min=1e-32)
+        tol2 = torch.full_like(b_norm2, rtol) ** 2 * b_norm2
 
-    x = torch.zeros_like(b)
-    x_good = x
-    r, p = b, z0
-    i = 0
-    while i < maxiter and bool(dot(r, r) > tol2):
-        sp = matvec(p)
-        alpha = rz / _guard(dot(p, sp))
-        x = x + alpha * p
-        r = r - alpha * sp
-        z = precond(r)
-        rz_new = dot(r, z)
-        beta = rz_new / _guard(rz)
-        ok = torch.isfinite(dot(x, x) + dot(r, r))
-        x_good = torch.where(ok, x, x_good)
-        p = z + beta * p
-        rz = rz_new
-        i += 1
+        x = torch.zeros_like(b)
+        x_good = x
+        r, p = b, z0
+        i = 0
+        while i < maxiter:
+            not_done = dot(r, r) > tol2
+            with host_wait("cg_converged"):
+                go = bool(not_done)
+            if not go:
+                break
+            with span("pcg.matvec"):
+                sp = matvec(p)
+            alpha = rz / _guard(dot(p, sp))
+            x = x + alpha * p
+            r = r - alpha * sp
+            with span("pcg.precond"):
+                z = precond(r)
+            rz_new = dot(r, z)
+            beta = rz_new / _guard(rz)
+            ok = torch.isfinite(dot(x, x) + dot(r, r))
+            x_good = torch.where(ok, x, x_good)
+            p = z + beta * p
+            rz = rz_new
+            i += 1
+        count("cg.iters", i)
     return PCGOut(x=x_good, iters=i, r=r, b_norm2=b_norm2)
 
 
@@ -93,6 +107,9 @@ def cho_block_precond(u_chol: torch.Tensor) -> Callable[[torch.Tensor], torch.Te
     """Block preconditioner from per-camera cholesky factors (C, np, np)."""
 
     def apply(r: torch.Tensor) -> torch.Tensor:
-        return torch.cholesky_solve(r[..., None], u_chol)[..., 0]
+        # The card's batched solve (MAGMA) synchronizes the stream before
+        # it returns.
+        with host_wait("cho_solve"):
+            return torch.cholesky_solve(r[..., None], u_chol)[..., 0]
 
     return apply
