@@ -63,9 +63,22 @@ Phases (any failure exits non-zero and prints no result line):
     and B5, which keep a block-shared tile at small camera counts and
     narrow windows, also with the global-memory mode forced (``_mode``),
     whose f32 time is their ``global_ms``.
-11. The solvers that reach no kernel (in JAX they are plain XLA): the
-    flat ``ba_solve`` on the medium problem with the same config (f32,
-    reprojection RMSE below 1e-3 px); batched PnP, the JAX suite's config
+10b. The flat kernels (``ops/flat_linearize.py``, ``csrc/flat_kernels.cu``;
+    they replace no TPU kernel) against their plain versions on the card:
+    ``linearize`` (U, V, g_c, g_p, W) and its ``coupling`` (on the V^-1 of
+    the plain sums, damped with lam 1e-4) on the medium problem, the
+    trivial loss in f32 and f64 and the Cauchy and Huber losses in f64,
+    and at the benchmark's flat shapes (Venice-1778 and Final-13682 from
+    ``portbench/generator.py``, seed ``FLAT_SEED``, f32, trivial loss, as
+    its ``flat_fixed3`` cells run them), each f32 pass timed (the rows
+    ``flat_lin_kernel``, ``flat_coupling_kernel`` and their ``[Venice-1778]``
+    and ``[Final-13682]`` rows) with a log line of the errors and each
+    kernel alone (the profiler's mean).
+11. The solvers that reach no kernel of the TPU port (in JAX they are
+    plain XLA): the flat ``ba_solve`` on the medium problem with the same
+    config (f32, reprojection RMSE below 1e-3 px; its linearization must
+    launch the flat kernels, one of each per LM iteration, and no plain
+    version); batched PnP, the JAX suite's config
     #1 (8 cameras of 2300 matches, seed 5, ``refine_poses`` TRIVIAL with
     ``PNP_CONFIG``, f32), held against the in-run scipy ``least_squares``
     oracle (rotation below 1e-4 rad, tvec below 2e-3); tracking, config
@@ -76,9 +89,10 @@ Phases (any failure exits non-zero and prints no result line):
     to rtol 1e-6, dist to atol 1e-6); and calib,
     ``ba_with_intrinsics_calibration(rounds=8)`` on the calibration scene
     of tests/test_intrinsics_refine.py (f64; every k1 in (-0.14, -0.06),
-    RMSE below 0.06 px).  Each: one warm-up and 3 timed solves, a ``solve
-    <path>`` line, and no port kernel or plain version counted
-    (``benchmark/solver_cells.py`` builds them).
+    RMSE below 0.06 px; its flat solves must launch the flat kernels).
+    Each: one warm-up and 3 timed solves, a ``solve <path>`` line, no plain
+    version counted and no port kernel but the flat ones on the flat and
+    calib paths (``benchmark/solver_cells.py`` builds them).
 12. Files: the grid engine and the paths from file to solve to file
     (the JAX CLI's ``solve-colmap`` and ``solve-bal``, plain PyTorch, no
     port kernel), each solve 1 warm-up and 3 timed, its read, pack, solve
@@ -113,10 +127,11 @@ Phases (any failure exits non-zero and prints no result line):
     medium COLMAP model with each engine (flat, grid, pallas, tt, wtt;
     ``--maxiter 30 --cg-maxiter 8``; the pallas run must launch B9-B11, the
     wtt run, fully indexed on split windows by the card's auto rules,
-    B1-B4, and no run a plain version), ``solve-bal`` on the
-    Ladybug-shaped BAL file (50 LM, fixed focal), a checkpointed
-    ``solve-bal`` (``--checkpoint-every 10``) run twice, the second
-    resuming complete; then ``python -m tpu3drecon_torch info`` (the card,
+    B1-B4, the flat run the flat kernels, and no run a plain version),
+    ``solve-bal`` on the Ladybug-shaped BAL file (50 LM, fixed focal; the
+    flat kernels), a checkpointed ``solve-bal`` (``--checkpoint-every 10``)
+    run twice, the first launching the flat kernels, the second resuming
+    complete and launching none; then ``python -m tpu3drecon_torch info`` (the card,
     the native reader) and ``solve-bal`` as subprocesses.  Every written
     file is read back: its RMSE within 1e-3 px of the solve's.
 12c. The parallel layer (``tpu3drecon_torch/parallel/``): an NCCL process
@@ -125,7 +140,8 @@ Phases (any failure exits non-zero and prints no result line):
     + 3 timed each, the walls and the all_reduce / all_gather calls per
     solve logged): sharded wtt (fully indexed: B1-B4), sharded grid (the
     kernel route: B9 and B11 in their plane forms), sharded tt (JAX's
-    sharded route, ``kernels=False``: no kernel) and sharded flat; sharded
+    sharded route, ``kernels=False``: no kernel) and sharded flat (the flat
+    kernels); sharded
     pose on the tracking cell (500 frames).  wtt and tt: the same
     ``accepted``, ``iter_num`` and ``cg_iters`` and the same loss bits as
     the single-device solve where that solve repeats its own bits; where
@@ -226,8 +242,10 @@ Phases (any failure exits non-zero and prints no result line):
     skipped, saved and loaded back; the torch adapter must lower the mean
     reprojection error and both BA adapters end below 1.0 px^2; one
     ``subprocess_benchmark(device="cuda")``, its mean squared error within
-    1e-4 (relative) of the in-process one's.  ``compat`` (``run_compat``, f64): ``JaxPoseOptimizer``
-    and ``JaxBundleAdjustment`` on the card.  ``export_scene`` of the medium
+    1e-4 (relative) of the in-process one's; the in-process BA adapter
+    must launch the flat kernels.  ``compat`` (``run_compat``, f64):
+    ``JaxPoseOptimizer`` and ``JaxBundleAdjustment`` on the card, the
+    latter launching the flat kernels.  ``export_scene`` of the medium
     scene (seconds, bytes).  ``bench`` in process (B1-B4 counted, path ``cli
     bench``) and ``python -m tpu3drecon_torch bench`` as a subprocess, each
     line's RMSE below 1e-3 px.  The phase's seconds are logged.
@@ -263,7 +281,12 @@ paths.  The
 rows ``B2 [terms 1]``, ``B2 [terms 2]`` and ``B1 [terms 2]`` (medium
 buckets) and ``B1 od [terms 2]`` (BAL buckets) time the reduced-fidelity
 kernels and count their launches on the split paths that run them; ``E4
-A`` / ``E4 B`` count theirs in the E4 phase.
+A`` / ``E4 B`` count theirs in the E4 phase.  The rows ``flat_lin_kernel
+[Venice-1778]``, ``flat_coupling_kernel [Venice-1778]`` and their
+``[Final-13682]`` rows time the flat kernels at the benchmark's flat
+shapes and take their launches from the medium flat path.  The flat rows'
+``ms`` cover each wrapper's device work: its kernel, the zeroed output and
+the unpacking of the upper triangles into full blocks.
 Kernel and plain
 times (``ms``, ``plain_ms``) are device times
 (``tpu3drecon_torch.benchmark.timing.device_ms``): the median
@@ -291,7 +314,7 @@ perturbation of the whole scene) only the latter, and its RMSE is printed.
 larger of the bytes the function must move (each input read once, each
 output written once, f32, from this run's tensors; B9's and B11's indexed
 forms read points3d or V^-1 once per point and pt_idx once per lane) over
-3.35 TB/s and its operations (counted per slot or lane from the kernel
+3.35 TB/s and its operations (counted per slot, lane or observation from the kernel
 source, ``FLOPS``;
 for the od rows also per adjacent slot pair of this run's data) over 67
 TFLOP/s of float32.  B3 and B5 read no planes of a padded slot, so their
@@ -321,6 +344,7 @@ ROUTE_SRC = "tpu3drecon_torch/csrc/wtt_route_kernels.cu"
 GRID_SRC = "tpu3drecon_torch/csrc/grid_kernels.cu"
 TT_SRC = "tpu3drecon_torch/csrc/tt_kernels.cu"
 PROBE_SRC = "tpu3drecon_torch/csrc/probe_kernels.cu"
+FLAT_SRC = "tpu3drecon_torch/csrc/flat_kernels.cu"
 LIN_PY = "tpu3drecon/ops/pallas/wtt_linearize.py"
 MV_PY = "tpu3drecon/ops/pallas/wtt_matvec.py"
 TT_PY = "tpu3drecon/ops/pallas/tt_linearize.py"
@@ -354,6 +378,16 @@ CLI_WTT, CLI_PALLAS = "cli wtt", "cli pallas"
 # indexed) and the command line's bench, in process.
 SUITE_MEDIUM, SUITE_BAL, CLI_BENCH = "suite ba_medium", "suite bal_lm_iter", "cli bench"
 SHARED, GLOBAL = "shared", "global"  # tpu3drecon_torch.ops._build's modes
+# The flat engine (``ba_solve``, whose linearization is the flat kernels on
+# the card): the medium problem, the calibration alternation, world size 1
+# over NCCL, the command line's flat solve-colmap, solve-bal and its first
+# checkpointed run, the harness's BA adapter and the reference-API class.
+# The benchmark's flat shapes time the kernels again (portbench's generator).
+FLAT, CALIB, SHARDED_FLAT = "flat", "calib", "sharded_flat"
+FLAT_PATHS = {FLAT, CALIB, SHARDED_FLAT, "cli flat", "cli bal", "cli bal checkpointed first",
+              "harness", "compat"}
+FLAT_SHAPES = (("bal_venice1778", "Venice-1778"), ("bal_final13682", "Final-13682"))
+FLAT_SEED = 2147483711  # the inputs' seed at those shapes
 # (module under tpu3drecon_torch, counter attribute, kernel name, source,
 # replaced TPU kernel, paths, the memory mode of its ms: the kernels read
 # camera rows from device memory and reduce into the output rows directly,
@@ -448,6 +482,15 @@ KERNELS = (
      "experiments/tpu_bits_expand_probe.py:51", {E4}, None),
     ("experiments.bits_expand", "LAYOUT_B_COUNTS", "E4 B", PROBE_SRC,
      "experiments/tpu_bits_expand_probe.py:51", {E4}, None),
+    # The flat engine's linearization, which replaces no TPU kernel (XLA's
+    # in JAX), on the medium problem and at the benchmark's flat shapes.
+    ("ops.flat_linearize", "COUNTS", "flat_lin_kernel", FLAT_SRC, "none", FLAT_PATHS, None),
+    ("ops.flat_linearize", "COUPLING_COUNTS", "flat_coupling_kernel", FLAT_SRC, "none",
+     FLAT_PATHS, None),
+) + tuple(
+    ("ops.flat_linearize", attr, f"{name} [{label}]", FLAT_SRC, "none", {FLAT}, None)
+    for _, label in FLAT_SHAPES
+    for attr, name in (("COUNTS", "flat_lin_kernel"), ("COUPLING_COUNTS", "flat_coupling_kernel"))
 )
 # The kernels that keep a shared-memory mode beside the global one: their
 # rows add global_ms, the time of the same inputs with the global mode forced.
@@ -479,6 +522,13 @@ FLOPS = {
     # the 64 od values per pair for B1); at 1 term none.
     "B2 [terms 1]": 80, "B2 [terms 2]": 80 + 16 * 3, "B1 [terms 2]": 1000 + 80 * 3,
     "od_pair_terms2": 64 * 6 + 64 * 3,
+    # Per observation (flat_kernels.cu, each product and sum rounded on its
+    # own): r, J_c and J_p 153 (slot.cuh tt_blocks); flat_lin_kernel adds W
+    # 72, U 108, g_c 24, V 18, g_p 9 and the 53 columns' warp sums;
+    # flat_coupling_kernel adds W 72, W V^-1 120, the 36 entries 180 and
+    # their warp sums 36.
+    "flat_lin_kernel": 153 + 72 + 108 + 24 + 18 + 9 + 53,
+    "flat_coupling_kernel": 153 + 72 + 120 + 180 + 36,
 }
 CAM_FIELDS = ("rmats", "tvecs", "fx_fy", "cx_cy_skew", "dist")
 
@@ -1608,6 +1658,95 @@ def check_tt1024_kernels(tt) -> None:
         f"its kernel alone {alone:.6f} ms")
 
 
+def flat_pass(lin_row: str, cpl_row: str, tag: str, args, n_cameras: int, n_points: int,
+              loss, timed_pass: bool) -> dict:
+    """One linearization of the flat kernels (``linearize`` and its
+    ``coupling``) against the plain version on the same inputs: U, V, g_c,
+    g_p and the coupling as sums, W per element, the coupling on the V^-1
+    of the plain sums damped as the solver damps them (lam 1e-4).  With
+    ``timed_pass`` (f32) both rows also get their device times, bytes and
+    operations.  Returns the errors relative to max|plain|."""
+    from tpu3drecon_torch.benchmark.wtt_bucket_times import kernel_alone_ms
+    from tpu3drecon_torch.ops import flat_linearize as fl
+    from tpu3drecon_torch.solvers import schur
+
+    elem, summed = TOL[args[5].dtype]
+    lam = torch.tensor(1e-4, dtype=args[5].dtype, device=args[5].device)
+
+    def lin():
+        return fl.linearize(*args, n_cameras, n_points, loss=loss)
+
+    def plain():
+        return fl.linearize_plain(*args, n_cameras, n_points, loss=loss)
+
+    got, want = lin(), plain()
+    errs = {}
+    for k in ("u", "v", "w", "g_cam", "g_pt"):
+        a, b = getattr(got, k), getattr(want, k)
+        errs[k] = compare(lin_row, tag, k, a, b, elem if k == "w" else summed) / max(
+            float(torch.max(torch.abs(b))), 1e-300)
+    v_inv = schur.damp_normal_blocks(want, lam, precond="jacobi_u").v_inv
+    cpl, cpl_plain = got.coupling(v_inv), want.coupling(v_inv)
+    errs["coupling"] = compare(cpl_row, tag, "", cpl, cpl_plain, summed) / max(
+        float(torch.max(torch.abs(cpl_plain))), 1e-300)
+    if timed_pass:
+        n_obs = args[8].shape[0]
+        account(lin_row, lin, plain, nbytes(*args, *got[:5]),
+                FLOPS["flat_lin_kernel"] * n_obs)
+        account(cpl_row, lambda: got.coupling(v_inv), lambda: want.coupling(v_inv),
+                nbytes(*args, v_inv, cpl), FLOPS["flat_coupling_kernel"] * n_obs)
+        errs["lin_kernel_alone_ms"] = kernel_alone_ms(lin, "flat_lin_kernel")
+        errs["coupling_kernel_alone_ms"] = kernel_alone_ms(lambda: got.coupling(v_inv),
+                                                           "flat_coupling_kernel")
+    return errs
+
+
+def flat_args(cams, points3d, cam_idx, pt_idx, uv, mask, inv_width: float, dtype):
+    """``flat_linearize.linearize``'s arguments through ``inv_width``: the
+    float tensors cast to ``dtype``, all contiguous."""
+    def t(x):
+        return x.to(dtype).contiguous()
+
+    return (*(t(getattr(cams, f)) for f in CAM_FIELDS), t(points3d), cam_idx.contiguous(),
+            pt_idx.contiguous(), t(uv), t(mask),
+            torch.as_tensor(inv_width, dtype=dtype, device=points3d.device))
+
+
+def check_flat_kernels(flat) -> None:
+    """Phase 10b: the flat kernels against their plain versions, on the
+    medium problem (trivial loss in f32 and f64, the Cauchy and Huber losses
+    in f64) and at the benchmark's flat shapes (portbench's generator, the
+    trivial loss in f32, as its cells run them); the f32 passes timed."""
+    from portbench import generator
+    from tpu3drecon_torch.geometry.losses import RobustLoss
+
+    trivial = RobustLoss.TRIVIAL
+    inv_w = 1.0 / flat.avg_cam_width
+    c, p = flat.n_cameras, flat.n_points
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        args = flat_args(flat.cameras, flat.points3d, flat.cam_idx, flat.pt_idx, flat.uv,
+                         flat.mask, inv_w, dtype)
+        losses = (trivial,) if dtype == torch.float32 else (trivial, RobustLoss.CAUCHY,
+                                                          RobustLoss.HUBER)
+        for loss in losses:
+            errs = flat_pass("flat_lin_kernel", "flat_coupling_kernel", tag, args, c, p, loss,
+                             timed_pass=dtype == torch.float32)
+            log(f"check {tag} flat medium {loss.value}: " + json.dumps(errs))
+    for name, label in FLAT_SHAPES:
+        with open(f"portbench/configs/{name}.json") as fh:
+            cfg = json.load(fh)
+        inp = generator.make_inputs(cfg, FLAT_SEED, flat.points3d.device, torch.float32)
+        mask = torch.ones(inp.n_obs, dtype=torch.float32, device=inp.points3d.device)
+        args = flat_args(inp, inp.points3d, inp.cam_idx, inp.pt_idx, inp.uv, mask,
+                         1.0 / inp.width, torch.float32)
+        errs = flat_pass(f"flat_lin_kernel [{label}]", f"flat_coupling_kernel [{label}]",
+                         "f32", args, inp.n_cameras, inp.n_points, trivial, timed_pass=True)
+        log(f"check f32 flat {label} ({inp.n_cameras} cameras, {inp.n_points} points, "
+            f"{inp.n_obs} observations, seed {FLAT_SEED}): " + json.dumps(errs))
+        del inp, args
+        torch.cuda.empty_cache()
+
+
 def drive(path: str, solve, problem, flat, repeats: int, maxiters=(None,),
           rmse_limit=1e-3) -> dict:
     """One path's solves (1 warm-up + ``repeats``) at each of ``maxiters``
@@ -1673,17 +1812,19 @@ def solve_line(path: str, warm_s: float, times, report: dict) -> None:
 
 
 def no_port_kernel(path: str, counts: dict) -> None:
-    """These solvers reach no Pallas kernel in JAX and no CUDA kernel
-    here: nothing counted since ``counts`` were set to 0."""
+    """These solvers reach no Pallas kernel in JAX and no kernel of the
+    TPU port here (``KERNELS``): nothing counted since ``counts`` were set
+    to 0."""
     ran = {n: (c.kernel, c.plain) for n, c in counts.items() if c.kernel or c.plain}
     if ran:
         raise AssertionError(f"{path}: port kernels or plain versions ran: {ran}")
 
 
-def run_solvers(flat) -> None:
+def run_solvers(flat) -> dict:
     """Phase 11: the flat engine on the medium problem, batched PnP,
     tracking, intrinsics refinement and the calibration alternation, each
-    one warm-up and 3 timed solves, each held to its check."""
+    one warm-up and 3 timed solves, each held to its check.  Returns the
+    flat kernels' launch counts over the medium flat solves."""
     import numpy as np
 
     from tpu3drecon_torch.benchmark import solver_cells as cells
@@ -1705,17 +1846,19 @@ def run_solvers(flat) -> None:
     def lanes(state) -> dict:
         return dict(iter_num=state.iter_num.tolist(), accepted=state.accepted.tolist())
 
-    reset()
     _, _, init = ba_solve(flat, BENCH_CONFIG._replace(maxiter=0))
+    reset()
     warm_s, times, (cams, pts, state) = timed_solve_stats(
         lambda p: ba_solve(p, BENCH_CONFIG), flat, 3)
     rmse = float(reprojection_rmse(flat, cams, pts))
-    no_port_kernel("flat", counts)
+    launches = path_launches(FLAT, counts)
     ok = rmse < 1e-3 and float(state.loss) < float(init.loss) and int(state.accepted) > 0
-    solve_line("flat", warm_s, times, dict(
+    solve_line(FLAT, warm_s, times, dict(
         reproj_rmse_px=rmse, initial_loss=float(init.loss), final_loss=float(state.loss),
         lm_iters=int(state.iter_num), accepted_steps=int(state.accepted),
-        cg_iters_last=int(state.cg_iters), check="rmse < 1e-3 px", ok=ok))
+        cg_iters_last=int(state.cg_iters),
+        launches_per_solve={n: v / 4 for n, v in launches.items()},
+        check="rmse < 1e-3 px", ok=ok))
     if not ok:
         raise AssertionError(f"flat: RMSE {rmse:.3e} px, or the loss did not fall")
 
@@ -1723,7 +1866,7 @@ def run_solvers(flat) -> None:
     reset()
     warm_s, times, (cams, state) = timed_solve_stats(
         lambda p: refine_poses(p, loss=RobustLoss.TRIVIAL, config=cells.PNP_CONFIG), problem, 3)
-    no_port_kernel("pnp", counts)
+    path_launches("pnp", counts)
     oracle = cells.pnp_scipy_oracle(problem, noisy)
     parity = cells.pnp_parity(cams, oracle)
     ok = parity["max_rot_geodesic_err_rad"] < 1e-4 and parity["max_tvec_err"] < 2e-3
@@ -1738,7 +1881,7 @@ def run_solvers(flat) -> None:
     reset()
     warm_s, times, (cams, state) = timed_solve_stats(
         lambda p: refine_poses(p, config=cells.TRACKING_CONFIG), problem, 3)
-    no_port_kernel("tracking", counts)
+    path_launches("tracking", counts)
     t_err = float(np.median(np.abs(cams.tvecs.double().cpu().numpy() - scene.tvecs)))
     ok = t_err < 1e-3
     solve_line("tracking", warm_s, times, dict(
@@ -1754,7 +1897,7 @@ def run_solvers(flat) -> None:
     reset()
     warm_s, times, (cams, state) = timed_solve_stats(
         lambda p: refine_intrinsics(p, config=cells.INTRINSICS_CONFIG), problem, 3)
-    no_port_kernel("intrinsics", counts)
+    path_launches("intrinsics", counts)
     f_rel = float(np.max(np.abs(cams.fx_fy.cpu().numpy() / scene.fx_fy - 1.0)))
     d_abs = float(np.max(np.abs(cams.dist.cpu().numpy() - scene.dist)))
     ok = f_rel <= 1e-6 and d_abs <= 1e-6
@@ -1770,16 +1913,18 @@ def run_solvers(flat) -> None:
     reset()
     warm_s, times, (cams, pts, state) = timed_solve_stats(
         lambda p: ba_with_intrinsics_calibration(p, rounds=8), problem, 3)
-    no_port_kernel("calib", counts)
+    calib = path_launches(CALIB, counts)
     k1 = cams.dist[:, 0].cpu().numpy()
     rmse = float(reprojection_rmse(problem, cams, pts))
     ok = bool(np.all(k1 < -0.06) and np.all(k1 > -0.14)) and rmse < 0.06
-    solve_line("calib", warm_s, times, dict(
+    solve_line(CALIB, warm_s, times, dict(
         rounds=8, dtype="float64", k1=k1.tolist(), reproj_rmse_px=rmse,
         lm_iters_last=int(state.iter_num), accepted_last=int(state.accepted),
+        launches_per_solve={n: v / 4 for n, v in calib.items()},
         check="k1 in (-0.14, -0.06), rmse < 0.06 px", ok=ok))
     if not ok:
         raise AssertionError(f"calib: k1 {k1}, RMSE {rmse:.3e} px")
+    return launches
 
 
 def same_records(what: str, got, want) -> None:
@@ -2160,7 +2305,7 @@ def run_sharded(mesh, flat, wtt, smi: str) -> None:
     sharded_pair("sharded_tt", mesh, lambda p: ba_solve_tt_sharded(p, BENCH_CONFIG, mesh=mesh),
                  lambda p: ba_solve_tt(p, BENCH_CONFIG, kernels=False), tt, rmse, exact=True)
     del tt
-    sharded_pair("sharded_flat", mesh, lambda p: ba_solve_sharded(p, BENCH_CONFIG, mesh=mesh),
+    sharded_pair(SHARDED_FLAT, mesh, lambda p: ba_solve_sharded(p, BENCH_CONFIG, mesh=mesh),
                  lambda p: ba_solve(p, BENCH_CONFIG, device=p.points3d.device), flat, rmse,
                  exact=False)
 
@@ -2435,7 +2580,7 @@ def run_harness(smi: str, dev) -> None:
                 in_process = benchmarks[0]
                 if not max(means.values()) < 1.0:
                     raise AssertionError(f"harness ba: mean errors {means} not below 1.0")
-        no_port_kernel("harness", counts)
+        report["launches"] = path_launches("harness", counts)
 
         child = TorchBundleAdjustmentBenchmark(ds)
         t0 = time.perf_counter()
@@ -2537,7 +2682,7 @@ def run_compat(smi: str, dev) -> None:
     report["ba"] = dict(wall_s=wall, initial_rmse_px=ba_rmse(flat0), rmse_px=ba_rmse(out),
                         lm_iters=int(state.iter_num), accepted=int(state.accepted),
                         loss=float(state.loss), device=str(out.device))
-    no_port_kernel("compat", counts)
+    report["launches"] = path_launches("compat", counts)
     log("compat " + json.dumps(report))
     pose, bundle = report["pose"], report["ba"]
     on_card = {pose["device"], bundle["device"]} == {str(dev)}
@@ -2753,7 +2898,8 @@ def main() -> int:
     ))
     check_padded_slots(wtt, tt)
     del tt, grid
-    run_solvers(flat)
+    check_flat_kernels(flat)
+    first_path(run_solvers(flat))
     run_files(flat, smi)
     store_dir = tempfile.mkdtemp(prefix="nccl_store_")
     mesh = open_nccl_mesh(store_dir)

@@ -56,7 +56,10 @@ back, and one JSON line per engine or route gives
     through the runtime events' correlation ids);
   - ``idle_s``: the device's idle seconds by the innermost program span
     open on the host at that moment, on the profiler's clock (``no_span``
-    where none is open).
+    where none is open);
+  - ``counts``: the program's counters over the profiled solve
+    (``utils/timing.count``: ``lm.iters``, ``cg.iters``, ``sync.*``,
+    ``flat.lin_kernel``).
 
 Needs a CUDA device; measures nothing elsewhere.
 """
@@ -80,7 +83,8 @@ PORT_KERNELS = ("lin_kernel", "coupling_kernel", "wt_planes_kernel", "cost_kerne
                 "contrib_kernel", "cam_normal_kernel", "grid_cam_normal_kernel",
                 "point_normal_rows_kernel", "grid_coupling_kernel",
                 "tt_cam_normal_kernel", "tt_coupling_kernel", "tt_wt_times_kernel",
-                "tt_w_times_kernel", "tt_cost_kernel")
+                "tt_w_times_kernel", "tt_cost_kernel", "flat_lin_kernel",
+                "flat_coupling_kernel")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # Device idle time while no program span is open on the host.
 NO_SPAN = "no_span"
@@ -235,16 +239,21 @@ def profile(solve, problem, trace_path: str) -> dict:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
+    from tpu3drecon_torch.utils import timing
+
     for _ in range(2):
         solve(problem)
     torch.cuda.synchronize()
+    timing.reset()
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         solve(problem)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
+    counts = timing.tally()["counts"]
+    timing.reset()
     prof.export_chrome_trace(trace_path)
-    return summarize(trace_path, wall_s)
+    return dict(summarize(trace_path, wall_s), counts=counts)
 
 
 def tt_seq1024():

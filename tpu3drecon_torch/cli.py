@@ -278,7 +278,8 @@ PHASES = ("lm.linearize", "lm.rhs", "pcg", "lm.backsub", "lm.apply", "lm.cost",
 def _phases_line(setup: dict, timed: dict) -> str:
     """The packing and kernel-build seconds of ``setup`` (the tally of the
     packing and the first solve), then the host ms of ``timed`` (the timed
-    solve's tally) per LM phase and in each ``sync.*`` wait."""
+    solve's tally) per LM phase and in each ``sync.*`` wait, then its
+    flat linearizations on the card's kernels (``flat.lin_kernel``)."""
 
     def secs(t, name):
         return t["spans"].get(name, {}).get("s", 0.0)
@@ -293,9 +294,11 @@ def _phases_line(setup: dict, timed: dict) -> str:
     waits = ", ".join(f"{name[5:]} {v['calls']}x {1e3 * v['s']:.1f}"
                       for name, v in sorted(timed["spans"].items())
                       if name.startswith("sync."))
+    lin = timed["counts"].get("flat.lin_kernel")
+    kernels = f"; flat.lin_kernel {lin}" if lin else ""
     return (f"{PREFIX} phases: pack {pack:.3f}s, build {build:.2f}s ({compiles} compiles); "
             f"solve host ms over {timed['counts'].get('lm.iters', 0)} LM iterations: "
-            f"{phases}; sync waits: {waits or 'none'}")
+            f"{phases}; sync waits: {waits or 'none'}{kernels}")
 
 
 def _solve(problem, args, device):

@@ -104,6 +104,13 @@ _SIGNATURES = {
     # dtype, np, onehot_float, xw_t, onehot, jc, jp, vinv, out, G, Tb, Pc, W,
     # tc, ng, smem, vec, stream
     "wtt_coupling_onehot": [_I, _I, _I] + [_P] * 6 + [_I] * 8 + [_P],
+    # dtype, rmats, tvecs, fx_fy, cx_cy_skew, dist, points, cam_idx, pt_idx,
+    # uv, mask, inv_w, w, u, g_cam, v, g_pt, N, C, P, loss, focal, points_on,
+    # stream
+    "flat_linearize": [_I] + [_P] * 16 + [_I] * 6 + [_P],
+    # dtype, rmats, tvecs, fx_fy, cx_cy_skew, dist, points, cam_idx, pt_idx,
+    # uv, mask, inv_w, v_inv, out, N, C, P, loss, focal, points_on, stream
+    "flat_coupling": [_I] + [_P] * 13 + [_I] * 6 + [_P],
     # np, block, variant, xw_t, wcam, jc, jp, vinv, out, G, Tb, Pc, W, stream
     "probe_coupling": [_I] * 3 + [_P] * 6 + [_I] * 4 + [_P],
     # layout, packed, out, rows, nbytes, stream

@@ -6,15 +6,19 @@ the same fields and defaults (the option documentation lives with the JAX
 reference), ``BAState`` the same fields.  ``ba_solve`` is the flat
 (BAL-layout) engine: per LM iteration
 
-  1. analytic per-observation blocks (``ops/jacobians.py``);
-  2. segment-sum accumulation of damped U/V blocks and gradients
-     (``solvers/schur.py``, ``index_add_``);
+  1. the linearization (``ops/flat_linearize.py``): analytic
+     per-observation blocks and their segment sums U, V, g_c, g_p and W;
+     on the card two CUDA kernels, one pass over the observations and one
+     for the Schur-Jacobi coupling, on the CPU the plain version
+     (``ops/jacobians.py`` blocks, ``index_add_`` segment sums);
+  2. Marquardt damping, V^-1 and the preconditioner factor
+     (``solvers/schur.py damp_normal_blocks``);
   3. matrix-free PCG on the reduced camera system;
   4. point back-substitution, SE(3) retraction and the shared
      trust-region accept/reject (``solvers/trust_region.py``, whose
      decisions are those of JAX's flat ``_ba_solve_impl``).
 
-It runs no port kernel: the JAX engine reaches no Pallas kernel either.
+The JAX engine reaches no Pallas kernel: its linearization is XLA's.
 With ``comm`` (a ``parallel.mesh.Mesh``) it runs on one rank's block of an
 observation-sharded problem (``parallel/sharded_ba.py``): the segment sums
 and the loss are all-reduced, so every rank takes the same steps.
@@ -31,6 +35,7 @@ import torch
 
 from tpu3drecon_torch.device import resolve_device
 from tpu3drecon_torch.geometry.losses import RobustLoss
+from tpu3drecon_torch.ops import flat_linearize
 from tpu3drecon_torch.ops.jacobians import apply_se3_retraction, gather_obs_blocks
 from tpu3drecon_torch.parallel.mesh import psum
 from tpu3drecon_torch.problems.packing import BAProblem, CameraParams
@@ -83,21 +88,6 @@ class BAState(NamedTuple):
     gain: torch.Tensor
 
 
-def _blocks_for(rmats, tvecs, fx_fy, cx_cy_skew, dist, points3d, problem: BAProblem,
-                config: BAConfig):
-    blocks = gather_obs_blocks(
-        rmats, tvecs, fx_fy, cx_cy_skew, dist, points3d, problem.cam_idx,
-        problem.pt_idx, problem.uv, problem.mask, 1.0 / problem.avg_cam_width,
-        config.loss,
-    )
-    r, jc, jp = blocks.residual, blocks.j_cam, blocks.j_pt
-    if not config.optimize_focal:
-        jc = torch.cat([jc[:, :, :6], torch.zeros_like(jc[:, :, 6:8])], dim=2)
-    if not config.optimize_points:
-        jp = jp * 0.0
-    return r, jc, jp
-
-
 def _check_flat_config(config: BAConfig) -> None:
     if config.optimize_pp:
         raise ValueError(
@@ -127,23 +117,28 @@ def ba_solve(
     problem = problem.to(dev)
     cams = problem.cameras
     n_cameras, n_points = problem.n_cameras, problem.n_points
-    cam_idx, pt_idx = problem.cam_idx, problem.pt_idx
     dtype = problem.points3d.dtype
-
-    def blocks(params):
-        rmats, tvecs, fx_fy, points3d = params
-        return _blocks_for(rmats, tvecs, fx_fy, cams.cx_cy_skew, cams.dist, points3d,
-                           problem, config)
+    # A linearization's arguments besides the parameters, contiguous as the
+    # card's kernels take them (a no-op where they are).
+    cam_idx, pt_idx = problem.cam_idx.contiguous(), problem.pt_idx.contiguous()
+    intrinsics = (cams.cx_cy_skew.contiguous(), cams.dist.contiguous())
+    obs = (cam_idx, pt_idx, problem.uv.contiguous(), problem.mask.contiguous(),
+           1.0 / problem.avg_cam_width)
+    flags = dict(loss=config.loss, optimize_focal=config.optimize_focal,
+                 optimize_points=config.optimize_points)
 
     def cost(params):
-        r, _, _ = blocks(params)
+        rmats, tvecs, fx_fy, points3d = params
+        r, _, _ = flat_linearize.flat_blocks(rmats, tvecs, fx_fy, *intrinsics, points3d,
+                                             *obs, **flags)
         return psum(0.5 * torch.sum(r * r), comm)
 
     def propose(params, lam):
         with span("lm.linearize"):
-            r, jc, jp = blocks(params)
-            nb = schur.build_normal_blocks(r, jc, jp, cam_idx, pt_idx, n_cameras, n_points,
-                                           lam, precond=config.precond, comm=comm)
+            rmats, tvecs, fx_fy, points3d = params
+            sums = flat_linearize.linearize(rmats, tvecs, fx_fy, *intrinsics, points3d, *obs,
+                                            n_cameras, n_points, **flags)
+            nb = schur.damp_normal_blocks(sums, lam, precond=config.precond, comm=comm)
         with span("lm.rhs"):
             grad_norm = torch.max(torch.abs(nb.g_cam))
             if config.optimize_points:
@@ -174,7 +169,8 @@ def ba_solve(
         new_r, new_t, new_f = apply_se3_retraction(rmats, tvecs, fx_fy, dc)
         return (new_r, new_t, new_f, points3d + dp)
 
-    params0 = (cams.rmats, cams.tvecs, cams.fx_fy, problem.points3d)
+    params0 = (cams.rmats.contiguous(), cams.tvecs.contiguous(), cams.fx_fy.contiguous(),
+               problem.points3d.contiguous())
     final = trust_region_solve(propose, apply_step, cost, params0, config, dtype, dev)
     rmats, tvecs, fx_fy, points3d = final.params
     cameras_out = CameraParams(rmats=rmats, tvecs=tvecs, fx_fy=fx_fy,

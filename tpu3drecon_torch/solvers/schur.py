@@ -8,8 +8,9 @@ bundle adjustment have the arrow structure
 
 with U = blkdiag over cameras (8x8), V = blkdiag over points (3x3) and W
 one 8x3 coupling block per observation.  On the flat-observation layout
-U, V and the gradients are segment sums (``index_add_``) over ``cam_idx``
-/ ``pt_idx``, and the reduced camera system
+U, V and the gradients are segment sums over ``cam_idx`` / ``pt_idx``
+(``ops/flat_linearize.py``: CUDA kernels on the card, ``index_add_`` on
+the CPU), and the reduced camera system
 
     S dc = b,   S = U - W V^{-1} W^T,   b = -g_c + W V^{-1} g_p
 
@@ -25,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from tpu3drecon_torch.ops.flat_linearize import FlatSums, segment_sum, sums_of_blocks
 from tpu3drecon_torch.ops.point_normal import inv3x3  # noqa: F401 (schur.inv3x3)
 from tpu3drecon_torch.parallel.mesh import psum
 from tpu3drecon_torch.solvers.pcg import (
@@ -33,23 +35,6 @@ from tpu3drecon_torch.solvers.pcg import (
     guarded_block_cholesky,
     pcg,
 )
-
-
-def _segment_sum(per_obs: torch.Tensor, idx: torch.Tensor, num: int) -> torch.Tensor:
-    out = per_obs.new_zeros((num,) + per_obs.shape[1:])
-    return out.index_add_(0, idx.long(), per_obs)
-
-
-def segment_outer(a: torch.Tensor, b: torch.Tensor, idx: torch.Tensor, num: int) -> torch.Tensor:
-    """sum_k a[k]^T b[k] accumulated per segment: (N,2,m),(N,2,n) -> (num,m,n)."""
-    per_obs = a[:, 0, :, None] * b[:, 0, None, :] + a[:, 1, :, None] * b[:, 1, None, :]
-    return _segment_sum(per_obs, idx, num)
-
-
-def segment_jt_r(j: torch.Tensor, r: torch.Tensor, idx: torch.Tensor, num: int) -> torch.Tensor:
-    """sum_k J[k]^T r[k] per segment: (N,2,m),(N,2) -> (num,m)."""
-    per_obs = j[:, 0] * r[:, 0, None] + j[:, 1] * r[:, 1, None]
-    return _segment_sum(per_obs, idx, num)
 
 
 class NormalBlocks(NamedTuple):
@@ -80,22 +65,34 @@ def build_normal_blocks(
     comm=None,
 ) -> NormalBlocks:
     """Accumulate damped U, V, W and the gradients from per-observation
-    blocks, with Marquardt damping lam * clamp(diag).
+    blocks, with Marquardt damping lam * clamp(diag) (``damp_normal_blocks``
+    of the segment sums)."""
+    sums = sums_of_blocks(blocks_r, blocks_jc, blocks_jp, cam_idx, pt_idx, n_cameras, n_points)
+    return damp_normal_blocks(sums, lam, diag_floor, precond, comm)
+
+
+def damp_normal_blocks(
+    sums: FlatSums,
+    lam: torch.Tensor,
+    diag_floor: float = 1e-8,
+    precond: str = "schur_jacobi",
+    comm=None,
+) -> NormalBlocks:
+    """The damped blocks of one linearization's sums (``ops/flat_linearize``):
+    U, V and the gradients summed over the ranks, Marquardt damping lam *
+    clamp(diag), V^-1, and the preconditioner factor.
 
     ``precond="schur_jacobi"`` factors the exact diagonal blocks of
-    S = U - W V^-1 W^T (a guarded Cholesky, falling back to damped U where
-    a block is not SPD); ``"jacobi_u"`` factors damped U, and a block that
+    S = U - W V^-1 W^T, ``sums.coupling(v_inv)`` giving this rank's (C, 8,
+    8) sum W V^-1 W^T (a guarded Cholesky, falling back to damped U where a
+    block is not SPD); ``"jacobi_u"`` factors damped U, and a block that
     fails gives a NaN factor (on and below the diagonal), as JAX's Cholesky
     does.
     """
-    u = psum(segment_outer(blocks_jc, blocks_jc, cam_idx, n_cameras), comm)
-    v = psum(segment_outer(blocks_jp, blocks_jp, pt_idx, n_points), comm)
-    w = (
-        blocks_jc[:, 0, :, None] * blocks_jp[:, 0, None, :]
-        + blocks_jc[:, 1, :, None] * blocks_jp[:, 1, None, :]
-    )  # (N, 8, 3)
-    g_cam = psum(segment_jt_r(blocks_jc, blocks_r, cam_idx, n_cameras), comm)
-    g_pt = psum(segment_jt_r(blocks_jp, blocks_r, pt_idx, n_points), comm)
+    u = psum(sums.u, comm)
+    v = psum(sums.v, comm)
+    g_cam = psum(sums.g_cam, comm)
+    g_pt = psum(sums.g_pt, comm)
 
     du = torch.clamp(torch.diagonal(u, dim1=-2, dim2=-1), min=diag_floor)
     dv = torch.clamp(torch.diagonal(v, dim1=-2, dim2=-1), min=diag_floor)
@@ -106,23 +103,11 @@ def build_normal_blocks(
 
     v_inv = inv3x3(v_d)
     if precond == "schur_jacobi":
-        vg = v_inv[pt_idx.long()]
-        wv = (
-            w[..., 0, None] * vg[:, None, 0, :]
-            + w[..., 1, None] * vg[:, None, 1, :]
-            + w[..., 2, None] * vg[:, None, 2, :]
-        )  # (N, 8, 3)
-        g_obs = (
-            wv[..., :, None, 0] * w[..., None, :, 0]
-            + wv[..., :, None, 1] * w[..., None, :, 1]
-            + wv[..., :, None, 2] * w[..., None, :, 2]
-        )  # (N, 8, 8)
-        coupling = psum(_segment_sum(g_obs, cam_idx, n_cameras), comm)
-        u_chol = guarded_block_cholesky(u_d - coupling, u_d)
+        u_chol = guarded_block_cholesky(u_d - psum(sums.coupling(v_inv), comm), u_d)
     else:
         u_chol = cholesky_or_nan(u_d)
     return NormalBlocks(
-        u=u_d, v=v_d, w=w, g_cam=g_cam, g_pt=g_pt, v_inv=v_inv, u_chol=u_chol,
+        u=u_d, v=v_d, w=sums.w, g_cam=g_cam, g_pt=g_pt, v_inv=v_inv, u_chol=u_chol,
         damp_cam=damp_cam, damp_pt=damp_pt,
     )
 
@@ -131,14 +116,14 @@ def w_times(nb: NormalBlocks, y_pt: torch.Tensor, cam_idx: torch.Tensor,
             pt_idx: torch.Tensor, n_cameras: int, comm=None) -> torch.Tensor:
     """(W y)_c: gather y by pt_idx, per-obs 8x3 @ 3, segment-sum by camera."""
     per_obs = torch.sum(nb.w * y_pt[pt_idx.long()][:, None, :], dim=-1)
-    return psum(_segment_sum(per_obs, cam_idx, n_cameras), comm)
+    return psum(segment_sum(per_obs, cam_idx, n_cameras), comm)
 
 
 def wt_times(nb: NormalBlocks, x_cam: torch.Tensor, cam_idx: torch.Tensor,
              pt_idx: torch.Tensor, n_points: int, comm=None) -> torch.Tensor:
     """(W^T x)_p: gather x by cam_idx, per-obs 3x8 @ 8, segment-sum by point."""
     per_obs = torch.sum(nb.w * x_cam[cam_idx.long()][:, :, None], dim=1)
-    return psum(_segment_sum(per_obs, pt_idx, n_points), comm)
+    return psum(segment_sum(per_obs, pt_idx, n_points), comm)
 
 
 def schur_matvec(nb: NormalBlocks, x_cam: torch.Tensor, cam_idx: torch.Tensor,
