@@ -28,6 +28,17 @@ is the truth moved as ``make_hub_scene``'s callers move it
 (``perturb_scene``: points 3e-2, rotations 5e-2 rad, translations 5e-2,
 focal lengths up to +10 px).
 
+A configuration may state BAL's radial camera in a ``camera`` block
+(``_radial``): per camera a truth (k1, k2) drawn uniformly from the
+block's ranges and a start moved uniformly by up to its ``k1_noise`` and
+``k2_noise``.  The projection then scales the normalized point m = (x/z,
+y/z) by s = 1 + k1 |m|^2 + k2 |m|^4, as ``tpu3drecon_torch``'s
+``geometry/projection.py`` defines it.  Those draws come from a generator
+of their own (``_camera_seed``), so a configuration without the block makes
+the same tensors as before the block existed; a configuration whose radial
+map folds (d(r s)/dr <= 0) inside the image or at an observed radius is
+refused.
+
 Nothing here imports the program: the harness hands the same tensors to
 the program and to the plain reference.
 """
@@ -48,7 +59,7 @@ class Inputs:
     tvecs: torch.Tensor  # (C, 3)
     fx_fy: torch.Tensor  # (C, 2)
     cx_cy_skew: torch.Tensor  # (C, 3)
-    dist: torch.Tensor  # (C, 2), zero: pinhole
+    dist: torch.Tensor  # (C, 2) start k1, k2; zero without a camera block
     points3d: torch.Tensor  # (P, 3)
     cam_idx: torch.Tensor  # (N,) int32
     pt_idx: torch.Tensor  # (N,) int32
@@ -145,6 +156,38 @@ def _look_at(centers: torch.Tensor, targets: torch.Tensor) -> tuple[torch.Tensor
     return rmats, tvecs
 
 
+def _camera_seed(seed: int) -> int:
+    """The seed of the camera block's own generator, derived from ``seed``."""
+    return (int(seed) * 6364136223846793005 + 1442695040888963407) % 2**64
+
+
+def _radial(camera: dict, seed: int, n_cams: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(truth, start) (C, 2) k1, k2 in float64 of the configuration's
+    ``camera`` block (model "radial": ``k1`` and ``k2`` [low, high], the
+    start's ``k1_noise`` and ``k2_noise``, their ``source``)."""
+    if camera.get("model") != "radial":
+        raise ValueError(f"camera model {camera.get('model')!r}: the generator takes 'radial'")
+    rng = torch.Generator(device=device).manual_seed(_camera_seed(seed))
+    u = torch.rand(n_cams, 4, generator=rng, dtype=torch.float64, device=device)
+    lo = torch.tensor([camera["k1"][0], camera["k2"][0]], dtype=torch.float64, device=device)
+    hi = torch.tensor([camera["k1"][1], camera["k2"][1]], dtype=torch.float64, device=device)
+    noise = torch.tensor([camera["k1_noise"], camera["k2_noise"]], dtype=torch.float64,
+                         device=device)
+    truth = lo + (hi - lo) * u[:, :2]
+    return truth, truth + noise * (2.0 * u[:, 2:] - 1.0)
+
+
+def _refuse_folds(k: torch.Tensor, u_max: torch.Tensor) -> None:
+    """Raise where r s(r) stops growing for some r^2 = u in [0, u_max]:
+    d(r s)/dr = 1 + 3 k1 u + 5 k2 u^2, least at an end of the interval or
+    at the parabola's vertex."""
+    k1, k2 = k[:, 0], k[:, 1]
+    vertex = -3.0 * k1 / torch.where(k2 == 0, torch.ones_like(k2), 10.0 * k2)
+    for u in (u_max, torch.minimum(torch.clamp(vertex, min=0.0), u_max)):
+        if bool((1.0 + 3.0 * k1 * u + 5.0 * k2 * u * u <= 0).any()):
+            raise ValueError("the radial distortion folds inside the image")
+
+
 def _unit_rows(n: int, d: int, rng, dtype, device) -> torch.Tensor:
     v = torch.randn(n, d, generator=rng, dtype=dtype, device=device)
     return v / torch.linalg.norm(v, dim=1, keepdim=True)
@@ -219,6 +262,23 @@ def make_inputs(config: dict, seed: int, device, dtype=torch.float32) -> Inputs:
     if bool((xc[:, 2] <= geo["min_depth"]).any()):
         raise ValueError("an observed point lies behind its camera")
     mx, my = xc[:, 0] / xc[:, 2], xc[:, 1] / xc[:, 2]
+    dist = torch.zeros(n_cams, 2, dtype=f64, device=device)
+    if "camera" in config:
+        truth, dist = _radial(config["camera"], seed, n_cams, device)
+        # The largest normalized radius^2 of each camera: its image's
+        # farthest corner or its farthest observation.
+        corners = torch.stack([
+            torch.stack([(x - ccs[:, 0]) / fx_fy[:, 0], (y - ccs[:, 1]) / fx_fy[:, 1]], 1)
+            for x in (0.0, width) for y in (0.0, height)], 1)
+        r2 = mx * mx + my * my
+        u_max = torch.sum(corners * corners, dim=2).amax(dim=1).scatter_reduce(
+            0, ci, r2, "amax")
+        for k in (truth, dist):
+            _refuse_folds(k, u_max)
+        k = truth[ci]
+        s = 1.0 + k[:, 0] * r2 + k[:, 1] * r2 * r2
+        mx, my = s * mx, s * my
+        del k, s, r2
     uv = torch.stack([fx_fy[ci, 0] * mx + ccs[ci, 2] * my + ccs[ci, 0],
                       fx_fy[ci, 1] * my + ccs[ci, 1]], dim=1)
     del xc, mx, my
@@ -244,7 +304,7 @@ def make_inputs(config: dict, seed: int, device, dtype=torch.float32) -> Inputs:
     return Inputs(
         rmats=relabel(rmats).to(dtype), tvecs=relabel(tvecs).to(dtype),
         fx_fy=relabel(fx_fy).to(dtype), cx_cy_skew=relabel(ccs).to(dtype),
-        dist=torch.zeros(n_cams, 2, dtype=dtype, device=device),
+        dist=relabel(dist).to(dtype),
         points3d=points.to(dtype),
         cam_idx=cam[order].to(torch.int32), pt_idx=pt[order].to(torch.int32),
         uv=uv[order].to(dtype), width=float(width),

@@ -87,6 +87,27 @@ def load_cell(workload: str, root: Path = ROOT) -> dict:
                 end_to_end=end_to_end, per_layer=per_layer)
 
 
+def _json_file(path) -> dict:
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def unlisted_cell(config_file, traffic, limits) -> dict:
+    """A cell that ``BENCHMARK.json`` does not list, as ``load_cell`` gives
+    one, from its configuration file, its traffic (a name under
+    ``traffic/`` or a ``.json`` file) and its limits (a file or a dict).
+    It reports no metric: it is judged, not measured."""
+    if str(traffic).endswith(".json"):
+        traffic_spec = _json_file(traffic)
+    else:
+        traffic_spec = _json_file(BENCH / "traffic" / f"{traffic}.json")
+    config = _json_file(config_file)
+    cell = dict(name="unlisted", config=config["name"], traffic=traffic_spec["name"], chips=1)
+    return dict(cell=cell, config=config, traffic=traffic_spec,
+                limits=limits if isinstance(limits, dict) else _json_file(limits),
+                end_to_end=[], per_layer=[])
+
+
 def _entry(dotted: str):
     """A function of the program by its dotted path."""
     module, _, attr = dotted.rpartition(".")
@@ -223,12 +244,13 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device,
     memory_peak = torch.cuda.max_memory_allocated(device) if on_card else 0
 
     losses = [float(x) for x in torch.stack(loss_t).double().cpu()]
-    samples = [(Params(c.rmats, c.tvecs, c.fx_fy, p), float(st.loss))
+    samples = [(Params(c.rmats, c.tvecs, c.fx_fy, p, c.dist), float(st.loss))
                for c, p, st in ((first, last) if len(iters) > 1 else (first,))]
     shapes = _bucket_shapes(packed)
     del packed, problem, first, last, loss_t, solve
     if on_card:
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)  # from here: the reference's peak
 
     summary = None
     if prof is not None:
@@ -240,12 +262,11 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device,
         path.unlink()
 
     t_ref = time.perf_counter()
-    ref = Reference(inputs, "float64")
-    ref_result = ref.solve(traffic["solver"])
+    ref = Reference(inputs, traffic["solver"], "float64")
+    ref_result = ref.solve()
     sync()
     ref_solve_s = time.perf_counter() - t_ref
-    samples = [(Params(*(getattr(p, k).to(ref.dtype) for k in compare.GROUPS)), loss)
-               for p, loss in samples]
+    samples = [(p.to(ref.dtype), loss) for p, loss in samples]
     nums, per_solve = compare.numbers(losses, iters, samples, ref, ref_result, maxiter)
     checks = compare.judge(nums, spec["limits"])
     failed = sum(g > spec["limits"]["cost_gap"] or i != maxiter
@@ -280,9 +301,11 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device,
     result["diagnostics"] = dict(
         window_s=window_s, lm_iters=n_iters, gen_s=gen_s, pack_s=pack_s,
         warmup_s=warmup_s, reference_s=ref_s, reference_solve_s=ref_solve_s,
+        reference_peak_bytes=torch.cuda.max_memory_allocated(device) if on_card else 0,
         solve_s=[round(d, 6) for d in durations], buckets=shapes,
         reference_loss=ref_result.loss,
-        reference_accepted=ref_result.accepted, start_loss=ref.cost(ref.start),
+        reference_accepted=ref_result.accepted, reference_fallbacks=ref_result.fallbacks,
+        start_loss=ref.cost(ref.start),
     )
     result["checks"] = {k: dict(value=v["value"], limit=v["limit"]) for k, v in checks.items()}
     return result

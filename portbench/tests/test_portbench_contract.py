@@ -162,3 +162,31 @@ def test_small_cell_on_the_card(cuda_device, workload):
                        t_start=time.perf_counter())
     assert res["correct"], res["checks"]
     assert res["device"]["platform"] == "gpu" and res["device"]["busy_s"] > 0
+
+
+def test_an_unlisted_cell_takes_a_config_a_traffic_and_limits():
+    from _small import RADIAL_CONFIG
+
+    limits = dict(cost_gap=1.0, cost_eval_gap=1.0, param_gap=1.0, iters_off=0.0)
+    spec = run.unlisted_cell(RADIAL_CONFIG, "wtt_fixed3", limits=limits)
+    assert spec["traffic"]["name"] == "wtt_fixed3" and spec["limits"] == limits
+    assert spec["config"]["camera"]["model"] == "radial" and spec["end_to_end"] == []
+    listed = run.load_cell("venice1778.flat")
+    by_file = run.unlisted_cell(RADIAL_CONFIG, BENCH / "traffic" / "flat_fixed3.json",
+                                limits=BENCH / "limits" / "venice1778.flat.json")
+    assert by_file["traffic"] == listed["traffic"] and by_file["limits"] == listed["limits"]
+    assert by_file["per_layer"] == [] and by_file["cell"]["chips"] == 1
+    with pytest.raises(TypeError):
+        run.unlisted_cell(RADIAL_CONFIG, "wtt_fixed3")
+
+
+@pytest.mark.parametrize("argv", [["--seeds", "1"],
+                                  ["--workload", "final13682.wtt", "--config", "x.json",
+                                   "--seeds", "1"],
+                                  ["--config", "x.json", "--traffic", "wtt_fixed3",
+                                   "--seeds", "1"]])
+def test_the_control_takes_a_listed_or_a_whole_unlisted_cell(argv):
+    from portbench import control
+
+    with pytest.raises(SystemExit):
+        control.main(argv)

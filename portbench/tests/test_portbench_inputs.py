@@ -1,16 +1,20 @@
 """The configuration and traffic files, and the generator."""
 
+import copy
+import hashlib
 import json
 from pathlib import Path
 
 import pytest
 import torch
 
-from portbench import generator, run
+from portbench import generator, reference, run
 
 BENCH = Path(__file__).resolve().parents[1]
-CONFIGS = sorted((BENCH / "configs").glob("*.json"))
-TRAFFIC = sorted((BENCH / "traffic").glob("*.json"))
+FIXTURES = BENCH / "tests" / "fixtures"
+# The committed files, then the fixtures of the radial spec.
+CONFIGS = sorted((BENCH / "configs").glob("*.json")) + [FIXTURES / "bal_final13682_radial.json"]
+TRAFFIC = sorted((BENCH / "traffic").glob("*.json")) + sorted(FIXTURES.glob("*_dist.json"))
 SMALL = dict(graph_seed=7, n_locals=40, n_hubs=3, points_per_camera=25, track_span=5,
              hub_obs=120)
 
@@ -38,6 +42,7 @@ def test_traffic_names_solver_fields_and_program_entries(path):
 
     traffic = json.loads(path.read_text())
     BAConfig(**traffic["solver"])
+    reference.check_solver(traffic["solver"])  # the reference implements every setting
     for key in ("pack", "solve"):
         if traffic[key] is not None:
             assert callable(run._entry(traffic[key]))
@@ -92,3 +97,106 @@ def test_hub_draws_are_distinct_per_hub():
 def test_oversized_graph_is_refused():
     with pytest.raises(ValueError):
         generator.make_inputs(small_config(track_span=41), 1, "cpu")
+
+
+FIELDS = ("rmats", "tvecs", "fx_fy", "cx_cy_skew", "dist", "points3d", "cam_idx", "pt_idx",
+          "uv")
+# sha256 of the inputs that each committed configuration gave at
+# ``_small.SMALL_GRAPH`` before the camera block existed (torch 2.13 on an
+# x86-64 CPU): a configuration without the block makes them bit for bit.
+DIGESTS = {
+    ("bal_final13682", 2**31 + 977):
+        "9690c12a02d1bdcef5658232e4271087b88fc5991319c044fc3586a6acac93ed",
+    ("bal_final13682", 5): "cdeb4e14c0919fc4f64ad8089677d02d23116f2c80cd0a69bd6746357838d15b",
+    ("bal_venice1778", 2**31 + 977):
+        "375bb53276c941aa169c7e1f4424ba516aab5cdb3f718d9cb6828ac553575aa3",
+    ("bal_venice1778", 5): "48bc373933af20d5b9e2edf161b5afcff46d2ea1a7502df2979b6bb68daf830a",
+}
+
+
+def inputs_digest(inp) -> str:
+    h = hashlib.sha256()
+    for name in FIELDS:
+        t = getattr(inp, name).contiguous().cpu()
+        h.update(name.encode())
+        h.update(str(tuple(t.shape)).encode())
+        h.update(str(t.dtype).encode())
+        h.update(t.numpy().tobytes())
+    h.update(repr(inp.width).encode())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("name,seed", sorted(DIGESTS), ids=lambda v: str(v))
+def test_committed_configs_make_the_inputs_they_made_before(name, seed):
+    from _small import SMALL_GRAPH
+
+    config = json.loads((BENCH / "configs" / f"{name}.json").read_text())
+    assert "camera" not in config
+    config["generator"].update(SMALL_GRAPH)
+    assert inputs_digest(generator.make_inputs(config, seed, "cpu")) == DIGESTS[name, seed]
+
+
+def radial_config(**camera):
+    config = json.loads((FIXTURES / "bal_final13682_radial.json").read_text())
+    config["generator"] = dict(SMALL)
+    config["camera"].update(camera)
+    return config
+
+
+def test_the_camera_block_draws_only_k1_k2_and_moves_only_the_observations():
+    config = radial_config()
+    pinhole = copy.deepcopy(config)
+    del pinhole["camera"]
+    a = generator.make_inputs(config, 2**31 + 11, "cpu")
+    b = generator.make_inputs(config, 2**31 + 11, "cpu")
+    plain = generator.make_inputs(pinhole, 2**31 + 11, "cpu")
+    for name in FIELDS:
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+        same = name not in ("dist", "uv")
+        assert torch.equal(getattr(a, name), getattr(plain, name)) == same, name
+    k1, k2 = a.dist[:, 0], a.dist[:, 1]
+    cam = config["camera"]
+    assert float(k1.min()) >= cam["k1"][0] - cam["k1_noise"]
+    assert float(k1.max()) <= cam["k1"][1] + cam["k1_noise"]
+    assert float(k2.min()) >= cam["k2"][0] - cam["k2_noise"]
+    assert float(k2.max()) <= cam["k2"][1] + cam["k2_noise"]
+    assert float(k1.std()) > 0 and float(k2.std()) > 0
+
+
+def test_radial_observations_are_the_programs_projection_of_the_truth():
+    from tpu3drecon_torch.geometry.projection import project_point
+
+    # No noise anywhere: the start is the truth, and its projection the
+    # observations.
+    config = radial_config(k1_noise=0.0, k2_noise=0.0)
+    for key in ("obs_noise_px", "point_noise", "rotation_noise", "translation_noise",
+                "focal_noise"):
+        config["assumed"][key] = 0.0
+    inp = generator.make_inputs(config, 3, "cpu", torch.float64)
+    c, p = inp.cam_idx.long(), inp.pt_idx.long()
+    uv = project_point(inp.rmats[c], inp.tvecs[c], inp.fx_fy[c], inp.cx_cy_skew[c],
+                       inp.dist[c], inp.points3d[p])
+    assert float((uv - inp.uv).abs().max()) < 1e-9
+    m = (inp.rmats[c] @ inp.points3d[p][:, :, None])[:, :2, 0]
+    assert float(m.abs().max()) > 0 and bool((inp.dist != 0).any())
+
+
+@pytest.mark.parametrize("camera", [dict(k1=[-1.5, -1.5]), dict(k2=[-1.0, -1.0])],
+                         ids=["k1", "k2"])
+def test_a_folding_distortion_is_refused(camera):
+    with pytest.raises(ValueError, match="folds"):
+        generator.make_inputs(radial_config(**camera), 5, "cpu")
+
+
+def test_a_fold_between_the_centre_and_the_corner_is_refused():
+    # d(r s)/dr = 1 - 3 u + 2 u^2 = (1 - u)(1 - 2 u): positive at u = 0.4
+    # and at u = 1.2, negative around the vertex u = 0.75.
+    k = torch.tensor([[-1.0, 0.4]], dtype=torch.float64)
+    generator._refuse_folds(k, torch.tensor([0.4], dtype=torch.float64))
+    with pytest.raises(ValueError, match="folds"):
+        generator._refuse_folds(k, torch.tensor([1.2], dtype=torch.float64))
+
+
+def test_an_unknown_camera_model_is_refused():
+    with pytest.raises(ValueError, match="radial"):
+        generator.make_inputs(radial_config(model="fisheye"), 5, "cpu")
