@@ -68,17 +68,22 @@ Phases (any failure exits non-zero and prints no result line):
     ``linearize`` (U, V, g_c, g_p, W) and its ``coupling`` (on the V^-1 of
     the plain sums, damped with lam 1e-4) on the medium problem, the
     trivial loss in f32 and f64 and the Cauchy and Huber losses in f64,
-    and at the benchmark's flat shapes (Venice-1778 and Final-13682 from
-    ``portbench/generator.py``, seed ``FLAT_SEED``, f32, trivial loss, as
-    its ``flat_fixed3`` cells run them), each f32 pass timed (the rows
-    ``flat_lin_kernel``, ``flat_coupling_kernel`` and their ``[Venice-1778]``
-    and ``[Final-13682]`` rows) with a log line of the errors and each
-    kernel alone (the profiler's mean).
+    each at 8 camera columns and at 10 (``optimize_dist``, k1, k2 drawn
+    for every camera), and at the benchmark's flat shapes (Venice-1778,
+    Final-13682 and Final-13682 with BAL's radial camera at 10 columns,
+    from ``portbench/generator.py``, seed ``FLAT_SEED``, f32, trivial loss,
+    as its ``flat_fixed3`` and ``flat_fixed3_dist`` cells run them), each
+    8-column medium f32 pass and each shape timed (the rows
+    ``flat_lin_kernel``, ``flat_coupling_kernel`` and their
+    ``[Venice-1778]``, ``[Final-13682]`` and ``[Final-radial]`` rows) with a
+    log line of the errors and each kernel alone (the profiler's mean).
 11. The solvers that reach no kernel of the TPU port (in JAX they are
     plain XLA): the flat ``ba_solve`` on the medium problem with the same
     config (f32, reprojection RMSE below 1e-3 px; its linearization must
     launch the flat kernels, one of each per LM iteration, and no plain
-    version); batched PnP, the JAX suite's config
+    version, all at 8 camera columns by the program's counters), then
+    ``flat radial``, the same solve with ``optimize_dist`` (1 warm-up and
+    3 timed, RMSE below 1e-3 px, every flat launch at 10 columns); batched PnP, the JAX suite's config
     #1 (8 cameras of 2300 matches, seed 5, ``refine_poses`` TRIVIAL with
     ``PNP_CONFIG``, f32), held against the in-run scipy ``least_squares``
     oracle (rotation below 1e-4 rad, tvec below 2e-3); tracking, config
@@ -382,11 +387,15 @@ SHARED, GLOBAL = "shared", "global"  # tpu3drecon_torch.ops._build's modes
 # the card): the medium problem, the calibration alternation, world size 1
 # over NCCL, the command line's flat solve-colmap, solve-bal and its first
 # checkpointed run, the harness's BA adapter and the reference-API class.
-# The benchmark's flat shapes time the kernels again (portbench's generator).
-FLAT, CALIB, SHARDED_FLAT = "flat", "calib", "sharded_flat"
-FLAT_PATHS = {FLAT, CALIB, SHARDED_FLAT, "cli flat", "cli bal", "cli bal checkpointed first",
-              "harness", "compat"}
-FLAT_SHAPES = (("bal_venice1778", "Venice-1778"), ("bal_final13682", "Final-13682"))
+# The benchmark's flat shapes time the kernels again (portbench's generator),
+# the radial one at 10 camera columns (``optimize_dist``, the kernels' NP =
+# 10 instances), as ``flat radial``, the medium solve with k1, k2, runs them.
+FLAT, CALIB, SHARDED_FLAT, FLAT_DIST = "flat", "calib", "sharded_flat", "flat radial"
+FLAT_PATHS = {FLAT, CALIB, SHARDED_FLAT, FLAT_DIST, "cli flat", "cli bal",
+              "cli bal checkpointed first", "harness", "compat"}
+FLAT_SHAPES = (  # (portbench configuration, row label, optimize_dist)
+    ("bal_venice1778", "Venice-1778", False), ("bal_final13682", "Final-13682", False),
+    ("bal_final13682_radial", "Final-radial", True))
 FLAT_SEED = 2147483711  # the inputs' seed at those shapes
 # (module under tpu3drecon_torch, counter attribute, kernel name, source,
 # replaced TPU kernel, paths, the memory mode of its ms: the kernels read
@@ -489,7 +498,7 @@ KERNELS = (
      FLAT_PATHS, None),
 ) + tuple(
     ("ops.flat_linearize", attr, f"{name} [{label}]", FLAT_SRC, "none", {FLAT}, None)
-    for _, label in FLAT_SHAPES
+    for _, label, _ in FLAT_SHAPES
     for attr, name in (("COUNTS", "flat_lin_kernel"), ("COUPLING_COUNTS", "flat_coupling_kernel"))
 )
 # The kernels that keep a shared-memory mode beside the global one: their
@@ -522,13 +531,7 @@ FLOPS = {
     # the 64 od values per pair for B1); at 1 term none.
     "B2 [terms 1]": 80, "B2 [terms 2]": 80 + 16 * 3, "B1 [terms 2]": 1000 + 80 * 3,
     "od_pair_terms2": 64 * 6 + 64 * 3,
-    # Per observation (flat_kernels.cu, each product and sum rounded on its
-    # own): r, J_c and J_p 153 (slot.cuh tt_blocks); flat_lin_kernel adds W
-    # 72, U 108, g_c 24, V 18, g_p 9 and the 53 columns' warp sums;
-    # flat_coupling_kernel adds W 72, W V^-1 120, the 36 entries 180 and
-    # their warp sums 36.
-    "flat_lin_kernel": 153 + 72 + 108 + 24 + 18 + 9 + 53,
-    "flat_coupling_kernel": 153 + 72 + 120 + 180 + 36,
+    # The flat kernels' bytes and operations come from portbench/flat_roofline.py.
 }
 CAM_FIELDS = ("rmats", "tvecs", "fx_fy", "cx_cy_skew", "dist")
 
@@ -1659,13 +1662,16 @@ def check_tt1024_kernels(tt) -> None:
 
 
 def flat_pass(lin_row: str, cpl_row: str, tag: str, args, n_cameras: int, n_points: int,
-              loss, timed_pass: bool) -> dict:
+              loss, timed_pass: bool, optimize_dist: bool = False) -> dict:
     """One linearization of the flat kernels (``linearize`` and its
-    ``coupling``) against the plain version on the same inputs: U, V, g_c,
-    g_p and the coupling as sums, W per element, the coupling on the V^-1
-    of the plain sums damped as the solver damps them (lam 1e-4).  With
-    ``timed_pass`` (f32) both rows also get their device times, bytes and
-    operations.  Returns the errors relative to max|plain|."""
+    ``coupling``) against the plain version on the same inputs, 8 camera
+    columns or 10 with ``optimize_dist``: U, V, g_c, g_p and the coupling as
+    sums, W per element, the coupling on the V^-1 of the plain sums damped
+    as the solver damps them (lam 1e-4).  With ``timed_pass`` (f32) both
+    rows also get their device times, and their bytes and operations from
+    ``portbench/flat_roofline.py``.  Returns the errors relative to
+    max|plain|."""
+    from portbench import flat_roofline
     from tpu3drecon_torch.benchmark.wtt_bucket_times import kernel_alone_ms
     from tpu3drecon_torch.ops import flat_linearize as fl
     from tpu3drecon_torch.solvers import schur
@@ -1674,12 +1680,17 @@ def flat_pass(lin_row: str, cpl_row: str, tag: str, args, n_cameras: int, n_poin
     lam = torch.tensor(1e-4, dtype=args[5].dtype, device=args[5].device)
 
     def lin():
-        return fl.linearize(*args, n_cameras, n_points, loss=loss)
+        return fl.linearize(*args, n_cameras, n_points, loss=loss, optimize_dist=optimize_dist)
 
     def plain():
-        return fl.linearize_plain(*args, n_cameras, n_points, loss=loss)
+        return fl.linearize_plain(*args, n_cameras, n_points, loss=loss,
+                                  optimize_dist=optimize_dist)
 
     got, want = lin(), plain()
+    np_cam = 8 + 2 * optimize_dist
+    if got.u.shape[-1] != np_cam or want.w.shape[1:] != (np_cam, 3):
+        raise AssertionError(f"flat {tag}: U {tuple(got.u.shape)}, plain W "
+                             f"{tuple(want.w.shape)} at {np_cam} camera columns")
     errs = {}
     for k in ("u", "v", "w", "g_cam", "g_pt"):
         a, b = getattr(got, k), getattr(want, k)
@@ -1690,11 +1701,13 @@ def flat_pass(lin_row: str, cpl_row: str, tag: str, args, n_cameras: int, n_poin
     errs["coupling"] = compare(cpl_row, tag, "", cpl, cpl_plain, summed) / max(
         float(torch.max(torch.abs(cpl_plain))), 1e-300)
     if timed_pass:
-        n_obs = args[8].shape[0]
-        account(lin_row, lin, plain, nbytes(*args, *got[:5]),
-                FLOPS["flat_lin_kernel"] * n_obs)
-        account(cpl_row, lambda: got.coupling(v_inv), lambda: want.coupling(v_inv),
-                nbytes(*args, v_inv, cpl), FLOPS["flat_coupling_kernel"] * n_obs)
+        shape = (args[8].shape[0], n_cameras, n_points, np_cam, args[5].element_size())
+        for row, kernel, fn, plain_fn in (
+                (lin_row, "lin_kernel", lin, plain),
+                (cpl_row, "coupling_kernel", lambda: got.coupling(v_inv),
+                 lambda: want.coupling(v_inv))):
+            account(row, fn, plain_fn, flat_roofline.launch_bytes(kernel, *shape),
+                    flat_roofline.obs_flops(kernel, np_cam) * shape[0])
         errs["lin_kernel_alone_ms"] = kernel_alone_ms(lin, "flat_lin_kernel")
         errs["coupling_kernel_alone_ms"] = kernel_alone_ms(lambda: got.coupling(v_inv),
                                                            "flat_coupling_kernel")
@@ -1715,14 +1728,22 @@ def flat_args(cams, points3d, cam_idx, pt_idx, uv, mask, inv_width: float, dtype
 def check_flat_kernels(flat) -> None:
     """Phase 10b: the flat kernels against their plain versions, on the
     medium problem (trivial loss in f32 and f64, the Cauchy and Huber losses
-    in f64) and at the benchmark's flat shapes (portbench's generator, the
-    trivial loss in f32, as its cells run them); the f32 passes timed."""
+    in f64; at 8 camera columns, then at 10 with k1, k2 set on every
+    camera) and at the benchmark's flat shapes (portbench's generator, the
+    trivial loss in f32, at the width its cells run); the f32 passes at
+    8 columns on the medium problem and every pass at the flat shapes
+    timed."""
     from portbench import generator
     from tpu3drecon_torch.geometry.losses import RobustLoss
 
     trivial = RobustLoss.TRIVIAL
     inv_w = 1.0 / flat.avg_cam_width
     c, p = flat.n_cameras, flat.n_points
+    gen = torch.Generator(device="cpu").manual_seed(FLAT_SEED)
+    # k1, k2 of a consumer lens on normalized coordinates (the medium
+    # problem's cameras have none), so that every k term is live.
+    dist = (torch.tensor([-0.1, 0.02], dtype=torch.float64)
+            * (0.5 + torch.rand(c, 2, generator=gen, dtype=torch.float64)))
     for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
         args = flat_args(flat.cameras, flat.points3d, flat.cam_idx, flat.pt_idx, flat.uv,
                          flat.mask, inv_w, dtype)
@@ -1732,7 +1753,12 @@ def check_flat_kernels(flat) -> None:
             errs = flat_pass("flat_lin_kernel", "flat_coupling_kernel", tag, args, c, p, loss,
                              timed_pass=dtype == torch.float32)
             log(f"check {tag} flat medium {loss.value}: " + json.dumps(errs))
-    for name, label in FLAT_SHAPES:
+        args = args[:4] + (dist.to(dtype=dtype, device=flat.points3d.device),) + args[5:]
+        for loss in losses:
+            errs = flat_pass("flat_lin_kernel", "flat_coupling_kernel", f"{tag} np=10", args,
+                             c, p, loss, timed_pass=False, optimize_dist=True)
+            log(f"check {tag} flat medium np=10 {loss.value}: " + json.dumps(errs))
+    for name, label, optimize_dist in FLAT_SHAPES:
         with open(f"portbench/configs/{name}.json") as fh:
             cfg = json.load(fh)
         inp = generator.make_inputs(cfg, FLAT_SEED, flat.points3d.device, torch.float32)
@@ -1740,9 +1766,11 @@ def check_flat_kernels(flat) -> None:
         args = flat_args(inp, inp.points3d, inp.cam_idx, inp.pt_idx, inp.uv, mask,
                          1.0 / inp.width, torch.float32)
         errs = flat_pass(f"flat_lin_kernel [{label}]", f"flat_coupling_kernel [{label}]",
-                         "f32", args, inp.n_cameras, inp.n_points, trivial, timed_pass=True)
+                         "f32", args, inp.n_cameras, inp.n_points, trivial, timed_pass=True,
+                         optimize_dist=optimize_dist)
         log(f"check f32 flat {label} ({inp.n_cameras} cameras, {inp.n_points} points, "
-            f"{inp.n_obs} observations, seed {FLAT_SEED}): " + json.dumps(errs))
+            f"{inp.n_obs} observations, {8 + 2 * optimize_dist} camera columns, max|k| "
+            f"{float(inp.dist.abs().max()):.4f}, seed {FLAT_SEED}): " + json.dumps(errs))
         del inp, args
         torch.cuda.empty_cache()
 
@@ -1820,6 +1848,27 @@ def no_port_kernel(path: str, counts: dict) -> None:
         raise AssertionError(f"{path}: port kernels or plain versions ran: {ran}")
 
 
+def flat_widths(path: str, solve, np_cam: int) -> dict:
+    """One more ``solve()`` of ``path`` with the program's counters on
+    (``utils/timing.py``): every flat launch must be at ``np_cam`` camera
+    columns, a coupling launch beside each linearization.  Returns the
+    launches by width."""
+    from tpu3drecon_torch.utils import timing
+
+    timing.reset()
+    with timing.recording():
+        solve()
+    counts = timing.tally()["counts"]
+    timing.reset()
+    got = {k: v for k, v in counts.items() if k.startswith("flat.") and k.count(".") == 2}
+    n = counts.get("flat.lin_kernel", 0)
+    want = {f"flat.lin_kernel.np{np_cam}": n, f"flat.coupling_kernel.np{np_cam}": n}
+    log(f"widths {path}: " + json.dumps(got))
+    if not n or got != want:
+        raise AssertionError(f"{path}: flat launches by width {got}, expected {want}")
+    return got
+
+
 def run_solvers(flat) -> dict:
     """Phase 11: the flat engine on the medium problem, batched PnP,
     tracking, intrinsics refinement and the calibration alternation, each
@@ -1861,6 +1910,12 @@ def run_solvers(flat) -> dict:
         check="rmse < 1e-3 px", ok=ok))
     if not ok:
         raise AssertionError(f"flat: RMSE {rmse:.3e} px, or the loss did not fall")
+    flat_widths(FLAT, lambda: ba_solve(flat, BENCH_CONFIG), 8)
+    # The same solve with k1, k2 among the LM parameters: the kernels' NP =
+    # 10 instances, every flat launch at that width.
+    dist_config = BENCH_CONFIG._replace(optimize_dist=True)
+    drive(FLAT_DIST, lambda p, **kw: ba_solve(p, dist_config._replace(**kw)), flat, flat, 3)
+    flat_widths(FLAT_DIST, lambda: ba_solve(flat, dist_config), 10)
 
     problem, noisy = cells.pnp_problem()
     reset()

@@ -194,6 +194,17 @@ def test_config_errors_raise(grids, kw):
         j_grid.ba_solve_grid(grids["pinhole"][0], JConfig(**kw))
 
 
+def test_optimize_dist_raises(grids):
+    """The port's grid engine refuses ``optimize_dist`` (JAX's holds k1, k2
+    fixed), so one config never gives it a different answer than the flat
+    and track-table engines, which optimize k1, k2."""
+    _, tg = grids["pinhole"]
+    with pytest.raises(ValueError, match="optimize_dist"):
+        t_grid.ba_solve_grid(tg, TConfig(optimize_dist=True))
+    with pytest.raises(ValueError, match="optimize_dist"):
+        t_grid.make_grid_ba_solver(TConfig(optimize_dist=True))
+
+
 def test_solver_cache_is_keyed_by_config():
     a = t_grid.make_grid_ba_solver(TConfig(maxiter=3))
     assert t_grid.make_grid_ba_solver(TConfig(maxiter=3)) is a

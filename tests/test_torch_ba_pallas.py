@@ -129,6 +129,7 @@ def test_pose_only_and_fixed_focal_descend(flat):
 
 @pytest.mark.parametrize("change,error", [
     ({"optimize_pp": True}, ValueError),
+    ({"optimize_dist": True}, ValueError),
     ({"precond": "ssor"}, ValueError),
     ({"precond": "tridiag"}, ValueError),
     ({"packed_gathers": True}, NotImplementedError),

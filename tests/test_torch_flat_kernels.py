@@ -30,7 +30,10 @@ the final loss to 1e-4 relative in float32 and 1e-9 in float64.  The problem obs
 noise, so its final loss is a floor far above rounding, which the card's
 float32 rounding of four LM steps (or, in float64, the atomics' summation
 order) moves only in its last digits; a wrong block or gradient moves it
-by far more.
+by far more.  Each card case runs at the kernels' two camera widths, 8
+and 10 (k1, k2 optimized), and a traced solve at 10 columns counts each
+kernel's launches by width, as ``portbench``'s ``kernels.flat_roofline``
+reads them.
 
 Card tests need an NVIDIA GPU with nvcc (the kernels build at first use)
 and skip where ``torch.cuda.is_available()`` is false; the file imports no
@@ -38,6 +41,8 @@ jax:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_flat_kernels.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -136,9 +141,9 @@ def _blocks(args, route, flags, lam, precond):
 
 
 def _check_case(dev, order, dtype, loss=RobustLoss.TRIVIAL, focal=True, points=True,
-                precond="schur_jacobi"):
+                precond="schur_jacobi", dist=False):
     args = _problem(order, dtype, dev)
-    flags = dict(loss=loss, optimize_focal=focal, optimize_points=points)
+    flags = dict(loss=loss, optimize_focal=focal, optimize_points=points, optimize_dist=dist)
     lam = torch.tensor(1e-3, dtype=dtype, device=dev)
     before = fl.COUNTS.kernel, fl.COUPLING_COUNTS.kernel
     sums, nb = _blocks(args, "kernel", flags, lam, precond)
@@ -161,7 +166,11 @@ def _check_case(dev, order, dtype, loss=RobustLoss.TRIVIAL, focal=True, points=T
     if not points:
         assert not sums.v.any() and not sums.w.any() and not got.any()
     if not focal:
-        assert not sums.u[:, 6:].any() and not sums.g_cam[:, 6:].any()
+        assert not sums.u[:, 6:8].any() and not sums.g_cam[:, 6:8].any()
+    n = 10 if dist else 8
+    assert sums.u.shape == (N_CAMS, n, n) and sums.w.shape[1:] == (n, 3)
+    if dist:  # the k1, k2 columns carry sums of their own
+        assert sums.u[:, 8:, 8:].abs().max() > 0 and sums.g_cam[:, 8:].abs().max() > 0
 
 
 # ----------------------------------------------------------------- CPU --
@@ -183,7 +192,7 @@ def test_cpu_tensors_take_the_plain_version():
     timing.reset()
 
 
-@pytest.mark.parametrize("n", [3, 8])
+@pytest.mark.parametrize("n", [3, 8, 10])
 def test_sym_index_unpacks_the_row_major_upper_triangle(n):
     a = torch.randn(5, n, n, dtype=torch.float64)
     sym = a + a.transpose(1, 2)
@@ -262,6 +271,23 @@ def test_kernels_match_plain_jacobi_u(dev, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("order", ["point", "camera", "random"])
+def test_ten_column_kernels_match_plain_by_order(dev, order, dtype):
+    _check_case(dev, order, dtype, dist=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("loss,focal,points", [(RobustLoss.HUBER, True, True),
+                                               (RobustLoss.CAUCHY, False, True),
+                                               (RobustLoss.TRIVIAL, True, False)])
+def test_ten_column_kernels_match_plain_losses_and_frozen_blocks(dev, loss, focal, points,
+                                                                 dtype):
+    _check_case(dev, "point", dtype, loss=loss, focal=focal, points=points, dist=True)
+
+
+@pytest.mark.cuda
 def test_kernel_refuses_what_it_cannot_take(dev):
     args = list(_problem("point", torch.float32, dev))
     for k, bad in ((5, args[5].double()), (6, args[6].long()),
@@ -337,3 +363,74 @@ def test_phases_line_shows_the_kernel_counter():
     timed["counts"]["flat.lin_kernel"] = 3
     line = _phases_line(empty, timed)
     assert line.endswith("; flat.lin_kernel 3") and "lm.linearize 3.0" in line
+
+
+def _radial_problem(dtype, device) -> BAProblem:
+    """``_ba_problem`` started from k1, k2 off the truth (0.02, -0.002) by
+    up to 0.01 and 0.002 per camera."""
+    problem = _ba_problem(dtype, device)
+    rng = np.random.default_rng(14)
+    c = problem.n_cameras
+    shift = np.column_stack([rng.uniform(-0.01, 0.01, c), rng.uniform(-0.002, 0.002, c)])
+    cams = dataclasses.replace(problem.cameras, dist=problem.cameras.dist + torch.tensor(
+        shift, dtype=dtype, device=problem.cameras.dist.device))
+    return dataclasses.replace(problem, cameras=cams)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_card_radial_solve_agrees_with_cpu_float64(dev, dtype):
+    """``ba_solve`` with k1, k2 optimized on the card (both kernels at 10
+    columns) against the CPU float64 solve of the same problem: the same
+    accepted steps, the final loss and k1, k2.  The CG runs a fixed 20
+    iterations (``cg_rtol`` 0), so that the atomics' summation order cannot
+    move where it stops."""
+    config = BAConfig(maxiter=3, gtol=0.0, ftol=0.0, cg_maxiter=20, cg_rtol=0.0,
+                      optimize_dist=True)
+    start = _radial_problem(torch.float64, "cpu")
+    ref_cams, _, ref = ba_solve(start, config, device="cpu")
+    cams, _, got = ba_solve(_radial_problem(dtype, dev), config, device=dev)
+    assert int(got.accepted) == int(ref.accepted) == 3, (got, ref)
+    rel = abs(float(got.loss) - float(ref.loss)) / float(ref.loss)
+    assert rel < (1e-4 if dtype == torch.float32 else 1e-9), (rel, got.loss, ref.loss)
+    moved = (ref_cams.dist - start.cameras.dist).abs().max()
+    err = (cams.dist.double().cpu() - ref_cams.dist).abs().max()
+    assert err < (1e-2 if dtype == torch.float32 else 1e-7) * moved, (err, moved)
+
+
+@pytest.mark.cuda
+def test_traced_solve_counts_launches_by_width(dev):
+    """In a traced flat solve at 10 columns the counters ``flat.<kernel>.np10``
+    equal the launches of ``flat_lin_kernel<float, 10>`` and
+    ``flat_coupling_kernel<float, 10>`` in the trace, their ``.obs``,
+    ``.cameras`` and ``.points`` the launches times the problem's shape, and
+    no 8-column kernel runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    problem = _radial_problem(torch.float32, dev)
+    config = BAConfig(maxiter=3, gtol=0.0, ftol=0.0, cg_maxiter=8, optimize_dist=True)
+    ba_solve(problem, config, device=dev)  # builds the kernels outside the trace
+    torch.cuda.synchronize()
+    timing.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ba_solve(problem, config, device=dev)
+        torch.cuda.synchronize()
+    counts = timing.tally()["counts"]
+    timing.reset()
+    launched = {}
+    for ev in prof.events():
+        if ev.device_type.name != "CUDA":
+            continue
+        for kernel in ("lin_kernel", "coupling_kernel"):
+            for n in (8, 10):
+                if f"flat_{kernel}<float, {n}>" in ev.name:
+                    launched[(kernel, n)] = launched.get((kernel, n), 0) + 1
+    assert counts["lm.iters"] == 3 and counts["flat.lin_kernel"] == 3
+    n_obs = problem.uv.shape[0]
+    for kernel in ("lin_kernel", "coupling_kernel"):
+        key = f"flat.{kernel}.np10"
+        assert counts[key] == launched[(kernel, 10)] == 3, (counts, launched)
+        assert counts[key + ".obs"] == 3 * n_obs
+        assert counts[key + ".cameras"] == 3 * problem.n_cameras
+        assert counts[key + ".points"] == 3 * problem.n_points
+        assert f"flat.{kernel}.np8" not in counts and (kernel, 8) not in launched

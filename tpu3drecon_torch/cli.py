@@ -181,6 +181,7 @@ def _config(args, n_cameras: int = 0):
         gtol=1e-10,
         cg_rtol=1e-6,
         optimize_focal=not args.no_focal,
+        optimize_dist=getattr(args, "optimize_dist", False),
         loss=RobustLoss.CAUCHY if args.loss == "cauchy" else RobustLoss.TRIVIAL,
         precond=precond,
         matvec_kernel=False if matvec == "xla" else matvec,
@@ -221,6 +222,8 @@ def _pack_wtt(problem, args, config):
                      "the PyTorch linearization (the kernels are wtt-only)")
             config = config._replace(linearize_kernel=False)
         fallback = "pallas" if problem.points3d.is_cuda else "grid"
+        if config.optimize_dist:  # the grid engines refuse it
+            fallback = "flat"
         print(f"{PREFIX} wtt layout infeasible ({e}); falling back to the {fallback} "
               f"engine{note}", file=sys.stderr)
         args.engine = fallback  # the summary line reports what ran
@@ -318,6 +321,10 @@ def _solve(problem, args, device):
     timing.reset()
     with timing.recording():
         packed, config, make_solver = _pack(problem, args, config, device)
+    try:
+        solver = make_solver(config)
+    except ValueError as e:  # a setting this engine refuses
+        _usage_error(str(e))
 
     where = _device_name(device)
     if args.checkpoint_dir:
@@ -342,7 +349,6 @@ def _solve(problem, args, device):
                   f"{rmse1:.5f} px (resumed complete)", file=sys.stderr)
             return cams, pts, state
     else:
-        solver = make_solver(config)
         t0 = time.perf_counter()
         with timing.recording():
             cams, pts, state = solver(packed)
@@ -455,6 +461,10 @@ def main(argv=None) -> int:
     p = sub.add_parser("solve-bal", help="bundle-adjust a BAL problem file")
     p.add_argument("input")
     p.add_argument("-o", "--output", default=None, help="write solved BAL file")
+    p.add_argument("--optimize-dist", action="store_true",
+                   help="optimize each camera's radial distortion k1, k2 beside its pose "
+                   "and focal length, as BAL's 9-parameter camera (default: k1, k2 "
+                   "held as read)")
     _add_common(p)
     p.set_defaults(fn=cmd_solve_bal)
 

@@ -3,20 +3,25 @@
 // observations), in place of ops/jacobians.py's gather_obs_blocks and the
 // segment sums of solvers/schur.py build_normal_blocks.
 //
-//   flat_lin_kernel       one pass over the observations: r, J_c (2x8) and
+//   flat_lin_kernel       one pass over the observations: r, J_c (2xNP) and
 //                         J_p (2x3) in registers (slot.cuh tt_blocks, the
 //                         operation order of obs_blocks), W = J_c^T J_p
-//                         written (N, 8, 3), U (36 upper-triangle entries)
-//                         and g_c (8) reduced per camera, V (6) and g_p (3)
-//                         per point.
+//                         written (N, NP, 3), U (NP (NP + 1) / 2
+//                         upper-triangle entries) and g_c (NP) reduced per
+//                         camera, V (6) and g_p (3) per point.
 //   flat_coupling_kernel  one pass for the Schur-Jacobi preconditioner,
-//                         once V^-1 is known: sum W V^-1 W^T (36 entries)
-//                         per camera.
+//                         once V^-1 is known: sum W V^-1 W^T (NP (NP + 1) / 2
+//                         entries) per camera.
+//
+// Both are templates on the camera width NP: 8 (so3 | t | fx fy) or 10
+// (... | k1 k2, BAL's radial camera with k1 and k2 optimized), each in
+// float and double.
 //
 // They replace no TPU kernel: the JAX flat engine leaves this to XLA
 // (tpu3drecon/solvers/schur.py, tpu3drecon/ops/jacobians.py).
 //
-// Their least time on the H100.  flat_lin_kernel reads 20 B of each
+// Their least time on the H100 (at NP = 8; portbench/flat_roofline.py
+// counts both widths).  flat_lin_kernel reads 20 B of each
 // observation (two int32 indices, uv, mask), its point (12 B, mostly from
 // cache: BAL sorts the observations by point) and its camera row (76 B,
 // from L2: the whole table is ~1 MB), and writes W (96 B in float32).  At
@@ -30,17 +35,24 @@
 // taken out altogether they take 2.2 and 1.5 ms, and built with
 // --fmad=true (fewer instructions) within 3 % of their time, so neither
 // the atomics nor the operation count holds them at that distance from
-// the bound; chip_smoke.py times both at the benchmark's shapes.
+// the bound; chip_smoke.py times both at the benchmark's shapes.  At
+// NP = 10 (floors ~1.3 and ~0.32 ms there) they take 8.9 and 2.9 ms, for
+// ~1.2 times the bytes.  Why is not measured.  Untested candidates: 79 and
+// 80 registers and a 34,816-byte tile a block leave 24 warps an SM where
+// NP = 8 has 36; each camera row sends 65 atomics where it sent 44; the
+// float W rows of 120 B go out in 15 8-byte stores a lane, which scatter
+// each store instruction of a warp over 32 rows.
 //
 // The atomics.  One lane per observation, 32 consecutive observations per
 // warp.  The warp's lanes are grouped by camera (then by point) with
 // __match_any_sync; each lane puts its columns into the warp's shared
-// (32, 45) tile, and each (distinct row, column) pair is summed over its
-// lanes by one lane and leaves as one atomic.  This adapts to the order of
+// (32, TileW) tile (TileW = 45 at NP = 8, 65 at NP = 10: odd, so that the
+// 32 lanes' rows fall in distinct banks), and each (distinct row, column)
+// pair is summed over its lanes by one lane and leaves as one atomic.  This adapts to the order of
 // the observations with no flag: sorted by point (BAL files, the benchmark's
 // generator), a warp holds ~5 points and the ~6 consecutive cameras that
 // see each, so the point sums leave in ~5 x 9 atomics and the camera sums in
-// (distinct cameras) x 44; sorted by camera (the COLMAP packing), the
+// (distinct cameras) x (NP (NP + 1) / 2 + NP); sorted by camera (the COLMAP packing), the
 // camera sums leave in ~1 x 44 and the points, mostly distinct, lane by
 // lane.  In a random order it degrades to one atomic per lane and column.
 // Summation order therefore varies from run to run.
@@ -60,10 +72,21 @@ using namespace tpu3drecon;
 
 namespace {
 
-constexpr int kFlatBlock = 128;             // threads per block
-constexpr int kFlatWarps = kFlatBlock / 32;
-constexpr int kSym8 = 36;                   // upper-triangle entries of an 8x8
-constexpr int kTileW = kSym8 + 8 + 1;       // tile row: the widest segment (U | g) + 1
+constexpr int kStaticSmem = 48 * 1024;  // a block's static shared memory
+
+// The launch shape of the kernels at camera width NP: the upper-triangle
+// entries of an NP x NP block, the tile's row (the widest segment, U | g,
+// made odd), and 4 warps a block where their tiles fit the static shared
+// memory (every instance but double at NP = 10, whose 4 tiles would take
+// 66,560 B), else 2.
+template <typename T, int NP>
+struct FlatShape {
+  static constexpr int kSym = NP * (NP + 1) / 2;
+  static constexpr int kTileW = (kSym + NP) | 1;
+  static constexpr int kWarps =
+      4 * (32 * kTileW * (int)sizeof(T) + 96 * (int)sizeof(int)) <= kStaticSmem ? 4 : 2;
+  static constexpr int kBlock = 32 * kWarps;
+};
 
 // The camera tensors of the flat problem, each where it lives: rmats
 // (C, 3, 3), tvecs (C, 3), fx_fy (C, 2), cx_cy_skew (C, 3), dist (C, 2).
@@ -91,9 +114,9 @@ struct FlatObs {
 
 // Residual and Jacobian rows of observation n into o; its camera and point
 // rows in c, p (an index outside [0, C) or [0, P) traps).
-template <typename T>
+template <typename T, int NP>
 __device__ __forceinline__ void flat_obs(const FlatObs<T>& a, size_t n, const LinFlags& f,
-                                         Slot<T, 8>& o, int& c, int& p) {
+                                         Slot<T, NP>& o, int& c, int& p) {
   c = __ldg(a.cam_idx + n);
   p = __ldg(a.pt_idx + n);
   if ((unsigned)c >= (unsigned)a.C || (unsigned)p >= (unsigned)a.P) __trap();
@@ -109,25 +132,37 @@ __device__ __forceinline__ void flat_obs(const FlatObs<T>& a, size_t n, const Li
 #pragma unroll
   for (int k = 0; k < 2; ++k) cp[17 + k] = __ldg(a.cams.dist + (size_t)c * 2 + k);
   const T* x = a.points + (size_t)p * 3;
-  tt_blocks<T, 8>(cp, __ldg(x), __ldg(x + 1), __ldg(x + 2), __ldg(a.uv + 2 * n),
+  tt_blocks<T, NP>(cp, __ldg(x), __ldg(x + 1), __ldg(x + 2), __ldg(a.uv + 2 * n),
                   __ldg(a.uv + 2 * n + 1), __ldg(a.mask + n), __ldg(a.inv_w), f, o);
 }
 
 // W = J_c^T J_p of one observation: w[i][l] = jc0[i] jp0[l] + jc1[i] jp1[l],
 // the plain version's order.
-template <typename T>
-__device__ __forceinline__ void w_block(const Slot<T, 8>& o, T (&w)[8][3]) {
+template <typename T, int NP>
+__device__ __forceinline__ void w_block(const Slot<T, NP>& o, T (&w)[NP][3]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < NP; ++i)
 #pragma unroll
-    for (int l = 0; l < 3; ++l) w[i][l] = o.jc[i] * o.jp[l] + o.jc[8 + i] * o.jp[3 + l];
+    for (int l = 0; l < 3; ++l) w[i][l] = o.jc[i] * o.jp[l] + o.jc[NP + i] * o.jp[3 + l];
 }
 
+// The widest vector store that divides a W row of NP x 3 values: 16 B
+// (float at NP = 8, double at either width), else 8 B (float at NP = 10,
+// whose 120-byte rows start on 8-byte boundaries only).
+template <typename T, int Bytes>
+struct VecOf;
+template <>
+struct VecOf<float, 16> { using type = float4; };
+template <>
+struct VecOf<double, 16> { using type = double2; };
+template <>
+struct VecOf<float, 8> { using type = float2; };
+
 // ------------------------------------------------------ warp row sums ---
-// One warp's (32, kTileW) tile of column values (row = lane) and its
+// One warp's (32, TW) tile of column values (row = lane) and its
 // grouping: each lane's row (-1: none), each lane's peers (lanes of the
 // same row) and the leader lane of each distinct row.
-template <typename T>
+template <typename T, int TW>
 struct WarpSums {
   T* v;
   int* meta;  // row[32] | peers[32] | leaders[32]
@@ -135,8 +170,8 @@ struct WarpSums {
 };
 
 // Groups the warp's lanes by row `row` (-1 = none); the whole warp calls it.
-template <typename T>
-__device__ __forceinline__ void group_rows(WarpSums<T>& ws, int row) {
+template <typename T, int TW>
+__device__ __forceinline__ void group_rows(WarpSums<T, TW>& ws, int row) {
   const int lane = threadIdx.x & 31;
   const unsigned peers = __match_any_sync(kFull, row);
   const bool leader = row >= 0 && lane == __ffs(peers) - 1;
@@ -148,17 +183,17 @@ __device__ __forceinline__ void group_rows(WarpSums<T>& ws, int row) {
   ws.nd = __popc(leaders);
 }
 
-template <typename T>
-__device__ __forceinline__ void put(const WarpSums<T>& ws, int col, T val) {
-  ws.v[(threadIdx.x & 31) * kTileW + col] = val;
+template <typename T, int TW>
+__device__ __forceinline__ void put(const WarpSums<T, TW>& ws, int col, T val) {
+  ws.v[(threadIdx.x & 31) * TW + col] = val;
 }
 
 // Adds tile columns [0, NA + NB) of each distinct row: column c < NA to
 // a[row * NA + c], column NA + c to b[row * NB + c].  One lane per (row,
 // column), which sums the row's lanes in lane order and sends one atomic;
 // a sum of exactly 0 (padding rows) sends none.
-template <int NA, int NB, typename T>
-__device__ __forceinline__ void flush_rows(const WarpSums<T>& ws, T* a, T* b) {
+template <int NA, int NB, typename T, int TW>
+__device__ __forceinline__ void flush_rows(const WarpSums<T, TW>& ws, T* a, T* b) {
   constexpr int n = NA + NB;
   __syncwarp();
   for (int item = threadIdx.x & 31; item < ws.nd * n; item += 32) {
@@ -169,7 +204,7 @@ __device__ __forceinline__ void flush_rows(const WarpSums<T>& ws, T* a, T* b) {
     while (m) {
       const int l = __ffs(m) - 1;
       m &= m - 1u;
-      s += ws.v[l * kTileW + c];
+      s += ws.v[l * TW + c];
     }
     const size_t row = size_t(ws.meta[l0]);
     if (s != T(0)) atomicAdd(c < NA ? a + row * NA + c : b + row * NB + (c - NA), s);
@@ -179,34 +214,38 @@ __device__ __forceinline__ void flush_rows(const WarpSums<T>& ws, T* a, T* b) {
 // ------------------------------------------------------------ kernels ---
 template <typename T>
 struct LinOut {
-  T* w;      // (N, 8, 3)
-  T* u;      // (C, 36) row-major upper triangle of U
-  T* g_cam;  // (C, 8)
+  T* w;      // (N, NP, 3)
+  T* u;      // (C, NP (NP + 1) / 2) row-major upper triangle of U
+  T* g_cam;  // (C, NP)
   T* v;      // (P, 6) 00 01 02 11 12 22 of V
   T* g_pt;   // (P, 3)
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kFlatBlock)
+template <typename T, int NP>
+__global__ void __launch_bounds__(FlatShape<T, NP>::kBlock)
 flat_lin_kernel(const FlatObs<T> a, const LinOut<T> out, const LinFlags f) {
-  __shared__ T tile[kFlatWarps][32 * kTileW];
-  __shared__ int meta[kFlatWarps][96];
+  using S = FlatShape<T, NP>;
+  __shared__ T tile[S::kWarps][32 * S::kTileW];
+  __shared__ int meta[S::kWarps][96];
   const int warp = threadIdx.x >> 5;
-  const size_t n = (size_t)blockIdx.x * kFlatBlock + threadIdx.x;
+  const size_t n = (size_t)blockIdx.x * S::kBlock + threadIdx.x;
   const bool live = n < (size_t)a.N;
-  Slot<T, 8> o;
+  Slot<T, NP> o;
   int c = -1, p = -1;
   if (live) {
     flat_obs(a, n, f, o, c, p);
-    T w[8][3];
+    T w[NP][3];
     w_block(o, w);
-    // 96 (float) or 192 (double) bytes a row: whole 16-byte vectors.
-    using V = typename std::conditional<sizeof(T) == 4, float4, double2>::type;
-    constexpr int per = 16 / sizeof(T);
-    V* dst = reinterpret_cast<V*>(out.w + n * 24);
+    // A row of 3 NP values in whole vectors (VecOf).
+    constexpr int row_bytes = 3 * NP * (int)sizeof(T);
+    constexpr int vec_bytes = row_bytes % 16 == 0 ? 16 : 8;
+    static_assert(row_bytes % vec_bytes == 0, "a W row is whole vectors");
+    using V = typename VecOf<T, vec_bytes>::type;
+    constexpr int per = vec_bytes / sizeof(T);
+    V* dst = reinterpret_cast<V*>(out.w + n * (3 * NP));
     const T* flat = &w[0][0];
 #pragma unroll
-    for (int k = 0; k < 24 / per; ++k) {
+    for (int k = 0; k < 3 * NP / per; ++k) {
       V q;
       T* qe = reinterpret_cast<T*>(&q);
 #pragma unroll
@@ -214,22 +253,22 @@ flat_lin_kernel(const FlatObs<T> a, const LinOut<T> out, const LinFlags f) {
       dst[k] = q;
     }
   }
-  WarpSums<T> ws{tile[warp], meta[warp], 0};
+  WarpSums<T, S::kTileW> ws{tile[warp], meta[warp], 0};
 
   // Camera side: U = sum J_c^T J_c (row-major i <= j), g_c = sum J_c^T r.
   group_rows(ws, c);
   if (live) {
     const T* j0 = o.jc;
-    const T* j1 = o.jc + 8;
+    const T* j1 = o.jc + NP;
     int col = 0;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < NP; ++i)
 #pragma unroll
-      for (int j = i; j < 8; ++j, ++col) put(ws, col, j0[i] * j0[j] + j1[i] * j1[j]);
+      for (int j = i; j < NP; ++j, ++col) put(ws, col, j0[i] * j0[j] + j1[i] * j1[j]);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) put(ws, kSym8 + i, j0[i] * o.r0 + j1[i] * o.r1);
+    for (int i = 0; i < NP; ++i) put(ws, S::kSym + i, j0[i] * o.r0 + j1[i] * o.r1);
   }
-  flush_rows<kSym8, 8>(ws, out.u, out.g_cam);
+  flush_rows<S::kSym, NP>(ws, out.u, out.g_cam);
 
   // Point side: V = sum J_p^T J_p (00 01 02 11 12 22), g_p = sum J_p^T r.
   group_rows(ws, p);
@@ -249,38 +288,39 @@ flat_lin_kernel(const FlatObs<T> a, const LinOut<T> out, const LinFlags f) {
 // sum W V^-1 W^T per camera (row-major i <= j), W recomputed from the
 // observation: wv = W V^-1[p] (3x3, read whole), then wv_i . w_j, the plain
 // version's order.
-template <typename T>
-__global__ void __launch_bounds__(kFlatBlock)
+template <typename T, int NP>
+__global__ void __launch_bounds__(FlatShape<T, NP>::kBlock)
 flat_coupling_kernel(const FlatObs<T> a, const T* __restrict__ v_inv, T* __restrict__ out,
                      const LinFlags f) {
-  __shared__ T tile[kFlatWarps][32 * kTileW];
-  __shared__ int meta[kFlatWarps][96];
+  using S = FlatShape<T, NP>;
+  __shared__ T tile[S::kWarps][32 * S::kTileW];
+  __shared__ int meta[S::kWarps][96];
   const int warp = threadIdx.x >> 5;
-  const size_t n = (size_t)blockIdx.x * kFlatBlock + threadIdx.x;
+  const size_t n = (size_t)blockIdx.x * S::kBlock + threadIdx.x;
   const bool live = n < (size_t)a.N;
-  WarpSums<T> ws{tile[warp], meta[warp], 0};
-  Slot<T, 8> o;
+  WarpSums<T, S::kTileW> ws{tile[warp], meta[warp], 0};
+  Slot<T, NP> o;
   int c = -1, p = -1;
   if (live) flat_obs(a, n, f, o, c, p);
   group_rows(ws, c);
   if (live) {
-    T w[8][3], vi[9], wv[8][3];
+    T w[NP][3], vi[9], wv[NP][3];
     w_block(o, w);
 #pragma unroll
     for (int k = 0; k < 9; ++k) vi[k] = __ldg(v_inv + (size_t)p * 9 + k);
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < NP; ++i)
 #pragma unroll
       for (int l = 0; l < 3; ++l)
         wv[i][l] = w[i][0] * vi[l] + w[i][1] * vi[3 + l] + w[i][2] * vi[6 + l];
     int col = 0;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < NP; ++i)
 #pragma unroll
-      for (int j = i; j < 8; ++j, ++col)
+      for (int j = i; j < NP; ++j, ++col)
         put(ws, col, wv[i][0] * w[j][0] + wv[i][1] * w[j][1] + wv[i][2] * w[j][2]);
   }
-  flush_rows<kSym8, 0>(ws, out, out);
+  flush_rows<S::kSym, 0>(ws, out, out);
 }
 
 template <typename T>
@@ -294,20 +334,25 @@ FlatObs<T> flat_obs_args(const void* rmats, const void* tvecs, const void* fx_fy
                     (const T*)uv, (const T*)mask, (const T*)inv_w, N, C, P};
 }
 
-inline unsigned flat_grid(int N) { return unsigned((N + kFlatBlock - 1) / kFlatBlock); }
+template <typename T, int NP>
+unsigned flat_grid(int N) {
+  constexpr int b = FlatShape<T, NP>::kBlock;
+  return unsigned((N + b - 1) / b);
+}
 
-template <typename T>
+template <typename T, int NP>
 int lin_launch(const FlatObs<T>& a, const LinOut<T>& out, const LinFlags& f,
                cudaStream_t stream) {
-  flat_lin_kernel<T><<<flat_grid(a.N), kFlatBlock, 0, stream>>>(a, out, f);
+  flat_lin_kernel<T, NP><<<flat_grid<T, NP>(a.N), FlatShape<T, NP>::kBlock, 0, stream>>>(
+      a, out, f);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int NP>
 int coupling_launch(const FlatObs<T>& a, const void* v_inv, void* out, const LinFlags& f,
                     cudaStream_t stream) {
-  flat_coupling_kernel<T><<<flat_grid(a.N), kFlatBlock, 0, stream>>>(a, (const T*)v_inv,
-                                                                      (T*)out, f);
+  flat_coupling_kernel<T, NP><<<flat_grid<T, NP>(a.N), FlatShape<T, NP>::kBlock, 0,
+                                stream>>>(a, (const T*)v_inv, (T*)out, f);
   return (int)cudaGetLastError();
 }
 
@@ -315,44 +360,49 @@ int coupling_launch(const FlatObs<T>& a, const void* v_inv, void* out, const Lin
 
 extern "C" {
 
-// flat_lin_kernel into the zeroed u (C, 36), g_cam (C, 8), v (P, 6) and
-// g_pt (P, 3); w (N, 8, 3) is written whole.  focal / points_on: 0 zeroes
-// J_c's focal columns / J_p (optimize_focal / optimize_points False).
-int flat_linearize(int dtype, const void* rmats, const void* tvecs, const void* fx_fy,
-                   const void* cx_cy_skew, const void* dist, const void* points,
-                   const void* cam_idx, const void* pt_idx, const void* uv, const void* mask,
-                   const void* inv_w, void* w, void* u, void* g_cam, void* v, void* g_pt,
-                   int N, int C, int P, int loss, int focal, int points_on, void* stream) {
+// flat_lin_kernel at camera width np (8, or 10 with k1, k2) into the
+// zeroed u (C, np (np + 1) / 2), g_cam (C, np), v (P, 6) and g_pt (P, 3);
+// w (N, np, 3) is written whole.  focal / points_on: 0 zeroes J_c's focal
+// columns / J_p (optimize_focal / optimize_points False).
+int flat_linearize(int dtype, int np, const void* rmats, const void* tvecs,
+                   const void* fx_fy, const void* cx_cy_skew, const void* dist,
+                   const void* points, const void* cam_idx, const void* pt_idx, const void* uv,
+                   const void* mask, const void* inv_w, void* w, void* u, void* g_cam, void* v,
+                   void* g_pt, int N, int C, int P, int loss, int focal, int points_on,
+                   void* stream) {
   if (N < 0 || C < 0 || P < 0) return kErrGeom;
+  if (np != 8 && np != 10) return kErrGeom;
   if (N == 0) return 0;
-  const LinFlags f{0, loss, focal, points_on, 0, 0};
+  const LinFlags f{0, loss, focal, points_on, np == 10, 0};
   const cudaStream_t s = (cudaStream_t)stream;
-#define FLAT_LIN(T)                                                                          \
-  lin_launch<T>(flat_obs_args<T>(rmats, tvecs, fx_fy, cx_cy_skew, dist, points, cam_idx,     \
-                                 pt_idx, uv, mask, inv_w, N, C, P),                          \
-                LinOut<T>{(T*)w, (T*)u, (T*)g_cam, (T*)v, (T*)g_pt}, f, s)
-  if (dtype == 0) return FLAT_LIN(float);
-  if (dtype == 1) return FLAT_LIN(double);
+#define FLAT_LIN(T, NP)                                                                      \
+  lin_launch<T, NP>(flat_obs_args<T>(rmats, tvecs, fx_fy, cx_cy_skew, dist, points, cam_idx, \
+                                     pt_idx, uv, mask, inv_w, N, C, P),                      \
+                    LinOut<T>{(T*)w, (T*)u, (T*)g_cam, (T*)v, (T*)g_pt}, f, s)
+  if (dtype == 0) return np == 8 ? FLAT_LIN(float, 8) : FLAT_LIN(float, 10);
+  if (dtype == 1) return np == 8 ? FLAT_LIN(double, 8) : FLAT_LIN(double, 10);
 #undef FLAT_LIN
   return kErrDtype;
 }
 
-// flat_coupling_kernel into the zeroed out (C, 36); v_inv (P, 3, 3).
-int flat_coupling(int dtype, const void* rmats, const void* tvecs, const void* fx_fy,
+// flat_coupling_kernel at camera width np into the zeroed out (C, np (np +
+// 1) / 2); v_inv (P, 3, 3).
+int flat_coupling(int dtype, int np, const void* rmats, const void* tvecs, const void* fx_fy,
                   const void* cx_cy_skew, const void* dist, const void* points,
                   const void* cam_idx, const void* pt_idx, const void* uv, const void* mask,
                   const void* inv_w, const void* v_inv, void* out, int N, int C, int P,
                   int loss, int focal, int points_on, void* stream) {
   if (N < 0 || C < 0 || P < 0) return kErrGeom;
+  if (np != 8 && np != 10) return kErrGeom;
   if (N == 0) return 0;
-  const LinFlags f{0, loss, focal, points_on, 0, 0};
+  const LinFlags f{0, loss, focal, points_on, np == 10, 0};
   const cudaStream_t s = (cudaStream_t)stream;
-#define FLAT_COUPLING(T)                                                                     \
-  coupling_launch<T>(flat_obs_args<T>(rmats, tvecs, fx_fy, cx_cy_skew, dist, points,         \
-                                      cam_idx, pt_idx, uv, mask, inv_w, N, C, P),            \
-                     v_inv, out, f, s)
-  if (dtype == 0) return FLAT_COUPLING(float);
-  if (dtype == 1) return FLAT_COUPLING(double);
+#define FLAT_COUPLING(T, NP)                                                                 \
+  coupling_launch<T, NP>(flat_obs_args<T>(rmats, tvecs, fx_fy, cx_cy_skew, dist, points,     \
+                                          cam_idx, pt_idx, uv, mask, inv_w, N, C, P),        \
+                         v_inv, out, f, s)
+  if (dtype == 0) return np == 8 ? FLAT_COUPLING(float, 8) : FLAT_COUPLING(float, 10);
+  if (dtype == 1) return np == 8 ? FLAT_COUPLING(double, 8) : FLAT_COUPLING(double, 10);
 #undef FLAT_COUPLING
   return kErrDtype;
 }

@@ -1,6 +1,7 @@
 """The flat engine's linearization: per-observation Jacobian blocks and their
 segment sums U, V, g_c, g_p, the coupling blocks W, and the Schur-Jacobi
-coupling sum W V^-1 W^T per camera.
+coupling sum W V^-1 W^T per camera.  The camera block is 8 columns wide
+(so3 | t | fx fy), or 10 with ``optimize_dist`` (... | k1 k2).
 
 Replaces no TPU kernel: the JAX flat engine leaves this to XLA
 (``tpu3drecon/solvers/schur.py``, ``tpu3drecon/ops/jacobians.py``).  The
@@ -30,7 +31,14 @@ The kernels return the packed upper triangles; ``linearize`` returns the
 full symmetric blocks of ``solvers/schur.py``'s ``NormalBlocks`` through a
 cached index map (built on the card, no host copy), with its ``coupling``
 bound to its own inputs.  CPU tensors run the plain version; CUDA tensors
-launch the kernels or raise.
+launch the kernels or raise.  Both kernels are templates on the camera
+width, instantiated at 8 and 10 columns.
+
+Counters (``utils/timing.py``; PERF.md lists them): ``flat.lin_kernel``
+per kernel linearization, and for each kernel and width ``<kernel>.np<n>``
+its launches with ``.obs``, ``.cameras`` and ``.points``, the shape of each
+launch summed over launches (``portbench``'s ``kernels.flat_roofline``
+reads them).
 """
 
 from __future__ import annotations
@@ -52,12 +60,12 @@ COUPLING_COUNTS = _build.LaunchCounter()  # flat_coupling_kernel
 class FlatSums(NamedTuple):
     """One linearization's undamped sums over this rank's observations."""
 
-    u: torch.Tensor  # (C, 8, 8) sum J_c^T J_c
+    u: torch.Tensor  # (C, n, n) sum J_c^T J_c, n the camera width (8 or 10)
     v: torch.Tensor  # (P, 3, 3) sum J_p^T J_p
-    w: torch.Tensor  # (N, 8, 3) per-observation J_c^T J_p
-    g_cam: torch.Tensor  # (C, 8) sum J_c^T r
+    w: torch.Tensor  # (N, n, 3) per-observation J_c^T J_p
+    g_cam: torch.Tensor  # (C, n) sum J_c^T r
     g_pt: torch.Tensor  # (P, 3) sum J_p^T r
-    # v_inv (P, 3, 3) -> (C, 8, 8) sum W V^-1[pt] W^T per camera, over the
+    # v_inv (P, 3, 3) -> (C, n, n) sum W V^-1[pt] W^T per camera, over the
     # same observations: the Schur-Jacobi coupling of this linearization.
     coupling: Callable[[torch.Tensor], torch.Tensor]
 
@@ -80,15 +88,16 @@ def segment_jt_r(j: torch.Tensor, r: torch.Tensor, idx: torch.Tensor, num: int) 
 
 
 def flat_blocks(rmats, tvecs, fx_fy, cx_cy_skew, dist, points3d, cam_idx, pt_idx, uv, mask,
-                inv_width, loss: RobustLoss, optimize_focal: bool, optimize_points: bool):
-    """(r (N,2), J_c (N,2,8), J_p (N,2,3)) of the flat engine: the focal
-    columns of J_c zeroed unless ``optimize_focal``, J_p unless
-    ``optimize_points``."""
+                inv_width, loss: RobustLoss, optimize_focal: bool, optimize_points: bool,
+                optimize_dist: bool = False):
+    """(r (N,2), J_c (N,2,n), J_p (N,2,3)) of the flat engine, n = 8, or 10
+    with the k1, k2 columns under ``optimize_dist``: the focal columns of
+    J_c zeroed unless ``optimize_focal``, J_p unless ``optimize_points``."""
     blocks = gather_obs_blocks(rmats, tvecs, fx_fy, cx_cy_skew, dist, points3d, cam_idx,
-                               pt_idx, uv, mask, inv_width, loss)
+                               pt_idx, uv, mask, inv_width, loss, optimize_dist)
     r, jc, jp = blocks.residual, blocks.j_cam, blocks.j_pt
     if not optimize_focal:
-        jc = torch.cat([jc[:, :, :6], torch.zeros_like(jc[:, :, 6:8])], dim=2)
+        jc = torch.cat([jc[:, :, :6], torch.zeros_like(jc[:, :, 6:8]), jc[:, :, 8:]], dim=2)
     if not optimize_points:
         jp = jp * 0.0
     return r, jc, jp
@@ -106,32 +115,33 @@ def sums_of_blocks(r, jc, jp, cam_idx, pt_idx, n_cameras: int, n_points: int) ->
 
 
 def coupling_of_w(w, v_inv, cam_idx, pt_idx, n_cameras: int) -> torch.Tensor:
-    """(C, 8, 8) sum W V^-1[pt] W^T per camera, from the per-observation W:
-    the plain version of ``flat_coupling_kernel``."""
+    """(C, n, n) sum W V^-1[pt] W^T per camera, from the per-observation W
+    (N, n, 3): the plain version of ``flat_coupling_kernel``."""
     COUPLING_COUNTS.plain += 1
     vg = v_inv[pt_idx.long()]
     wv = (
         w[..., 0, None] * vg[:, None, 0, :]
         + w[..., 1, None] * vg[:, None, 1, :]
         + w[..., 2, None] * vg[:, None, 2, :]
-    )  # (N, 8, 3)
+    )  # (N, n, 3)
     g_obs = (
         wv[..., :, None, 0] * w[..., None, :, 0]
         + wv[..., :, None, 1] * w[..., None, :, 1]
         + wv[..., :, None, 2] * w[..., None, :, 2]
-    )  # (N, 8, 8)
+    )  # (N, n, n)
     return segment_sum(g_obs, cam_idx, n_cameras)
 
 
 def linearize_plain(rmats, tvecs, fx_fy, cx_cy_skew, dist, points3d, cam_idx, pt_idx, uv,
                     mask, inv_width, n_cameras: int, n_points: int,
                     loss: RobustLoss = RobustLoss.TRIVIAL, optimize_focal: bool = True,
-                    optimize_points: bool = True) -> FlatSums:
+                    optimize_points: bool = True, optimize_dist: bool = False) -> FlatSums:
     """Plain PyTorch version of ``linearize``: ``flat_blocks``, then
     ``sums_of_blocks``."""
     COUNTS.plain += 1
     r, jc, jp = flat_blocks(rmats, tvecs, fx_fy, cx_cy_skew, dist, points3d, cam_idx, pt_idx,
-                            uv, mask, inv_width, loss, optimize_focal, optimize_points)
+                            uv, mask, inv_width, loss, optimize_focal, optimize_points,
+                            optimize_dist)
     return sums_of_blocks(r, jc, jp, cam_idx, pt_idx, n_cameras, n_points)
 
 
@@ -180,24 +190,37 @@ def _obs_args(name, rmats, tvecs, fx_fy, cx_cy_skew, dist, points3d, cam_idx, pt
             uv.data_ptr(), mask.data_ptr(), inv_w.data_ptr()), (n_obs, n_cameras, n_points)
 
 
+def _count_launch(kernel: str, n_cam: int, n_obs: int, c: int, p: int) -> None:
+    """The counters of one launch of ``kernel`` at camera width ``n_cam``:
+    the launch, and its observations, cameras and points."""
+    key = f"flat.{kernel}.np{n_cam}"
+    count(key)
+    count(key + ".obs", n_obs)
+    count(key + ".cameras", c)
+    count(key + ".points", p)
+
+
 def linearize(rmats, tvecs, fx_fy, cx_cy_skew, dist, points3d, cam_idx, pt_idx, uv, mask,
               inv_width, n_cameras: int, n_points: int, loss: RobustLoss = RobustLoss.TRIVIAL,
-              optimize_focal: bool = True, optimize_points: bool = True) -> FlatSums:
+              optimize_focal: bool = True, optimize_points: bool = True,
+              optimize_dist: bool = False) -> FlatSums:
     """The flat engine's undamped sums of one linearization.
 
     Cameras ``rmats`` (C,3,3), ``tvecs`` (C,3), ``fx_fy`` (C,2),
     ``cx_cy_skew`` (C,3), ``dist`` (C,2); ``points3d`` (P,3); observations
     ``cam_idx``, ``pt_idx`` (N,) int32, ``uv`` (N,2), ``mask`` (N,);
-    ``inv_width`` the 0-d residual scale.  CPU tensors run the plain
-    version, whose ``coupling`` is ``coupling_of_w`` on its W; CUDA tensors
-    launch ``flat_lin_kernel`` (counted as ``flat.lin_kernel``), and their
-    ``coupling`` launches ``flat_coupling_kernel``, which recomputes W from
-    the observations.  Both raise on inputs they do not take (another
-    dtype, a non-contiguous tensor)."""
+    ``inv_width`` the 0-d residual scale.  The camera block is 8 columns
+    wide, 10 with ``optimize_dist`` (k1, k2 last).  CPU tensors run the
+    plain version, whose ``coupling`` is ``coupling_of_w`` on its W; CUDA
+    tensors launch ``flat_lin_kernel`` at that width (counted as
+    ``flat.lin_kernel``), and their ``coupling`` launches
+    ``flat_coupling_kernel``, which recomputes W from the observations.
+    Both raise on inputs they do not take (another dtype, a non-contiguous
+    tensor)."""
     if not is_cuda_call(points3d):
         return linearize_plain(rmats, tvecs, fx_fy, cx_cy_skew, dist, points3d, cam_idx,
                                pt_idx, uv, mask, inv_width, n_cameras, n_points, loss,
-                               optimize_focal, optimize_points)
+                               optimize_focal, optimize_points, optimize_dist)
     name = "flat_linearize"
     dtype, dev = points3d.dtype, points3d.device
     # Every input tensor, the scale too, stays referenced while the sums'
@@ -208,30 +231,36 @@ def linearize(rmats, tvecs, fx_fy, cx_cy_skew, dist, points3d, cam_idx, pt_idx, 
     if (c, p) != (n_cameras, n_points):
         raise ValueError(f"{name}: {c} cameras and {p} points, expected "
                          f"{n_cameras} and {n_points}")
-    sums = torch.zeros(44 * c + 9 * p, dtype=dtype, device=dev)  # one memset for all four
-    u36, g_cam = sums[: 36 * c].view(c, 36), sums[36 * c : 44 * c].view(c, 8)
-    v6, g_pt = sums[44 * c : 44 * c + 6 * p].view(p, 6), sums[44 * c + 6 * p :].view(p, 3)
-    w = torch.empty((n_obs, 8, 3), dtype=dtype, device=dev)
+    n = 8 + 2 * bool(optimize_dist)  # camera columns
+    sym = n * (n + 1) // 2  # entries of U's upper triangle
+    # One memset for all four sums: U | g_c per camera, then V | g_p per point.
+    sums = torch.zeros((sym + n) * c + 9 * p, dtype=dtype, device=dev)
+    u_sym, g_cam = sums[: sym * c].view(c, sym), sums[sym * c : (sym + n) * c].view(c, n)
+    pts = sums[(sym + n) * c :]
+    v6, g_pt = pts[: 6 * p].view(p, 6), pts[6 * p :].view(p, 3)
+    w = torch.empty((n_obs, n, 3), dtype=dtype, device=dev)
     lib = _build.library()
     flags = (n_obs, c, p, LOSS_CODES[loss], int(optimize_focal), int(optimize_points))
-    code = lib.flat_linearize(_build.dtype_code(dtype), *ptrs, w.data_ptr(), u36.data_ptr(),
-                              g_cam.data_ptr(), v6.data_ptr(), g_pt.data_ptr(), *flags,
-                              _build.stream_ptr(dev))
+    code = lib.flat_linearize(_build.dtype_code(dtype), n, *ptrs, w.data_ptr(),
+                              u_sym.data_ptr(), g_cam.data_ptr(), v6.data_ptr(),
+                              g_pt.data_ptr(), *flags, _build.stream_ptr(dev))
     _build.check(lib, name, code)
     COUNTS.kernel += 1
     count("flat.lin_kernel")
+    _count_launch("lin_kernel", n, n_obs, c, p)
 
     def coupling(v_inv: torch.Tensor) -> torch.Tensor:
         name = "flat_coupling"
         check_inputs(name, dev, dtype, v_inv=v_inv)
         check_shape(name, "v_inv", v_inv, (p, 3, 3))
-        out = torch.zeros((c, 36), dtype=dtype, device=dev)
-        code = lib.flat_coupling(_build.dtype_code(dtype), *(t.data_ptr() for t in inputs),
-                                 v_inv.data_ptr(), out.data_ptr(), *flags,
-                                 _build.stream_ptr(dev))
+        out = torch.zeros((c, sym), dtype=dtype, device=dev)
+        code = lib.flat_coupling(_build.dtype_code(dtype), n,
+                                 *(t.data_ptr() for t in inputs), v_inv.data_ptr(),
+                                 out.data_ptr(), *flags, _build.stream_ptr(dev))
         _build.check(lib, name, code)
         COUPLING_COUNTS.kernel += 1
-        return _unpack(out, 8)
+        _count_launch("coupling_kernel", n, n_obs, c, p)
+        return _unpack(out, n)
 
-    return FlatSums(u=_unpack(u36, 8), v=_unpack(v6, 3), w=w, g_cam=g_cam, g_pt=g_pt,
+    return FlatSums(u=_unpack(u_sym, n), v=_unpack(v6, 3), w=w, g_cam=g_cam, g_pt=g_pt,
                     coupling=coupling)

@@ -5,10 +5,12 @@ produces closed-form blocks
 
     r      (2,)    whitened reprojection residual
     J_cam  (2, 8)  d r / d [so3 delta(3) | dt(3) | dfx, dfy]
+           (2, 10) ... | dk1, dk2] under ``optimize_dist``
     J_pt   (2, 3)  d r / d point
 
 under the left-multiplicative SE(3) local parameterization
-X_c' = exp([delta]_x) (R X + t) + dt.  The JAX version vmaps a
+X_c' = exp([delta]_x) (R X + t) + dt, and additive steps of the focal
+lengths and of k1, k2.  The JAX version vmaps a
 single-observation function; here every function takes a batch axis.
 """
 
@@ -24,7 +26,7 @@ from tpu3drecon_torch.geometry.rotations import rodrigues_to_matrix
 
 class ObsBlocks(NamedTuple):
     residual: torch.Tensor  # (N, 2) whitened residual
-    j_cam: torch.Tensor  # (N, 2, 8) whitened camera block
+    j_cam: torch.Tensor  # (N, 2, 8) whitened camera block; (N, 2, 10) with k1, k2
     j_pt: torch.Tensor  # (N, 2, 3) whitened point block
 
 
@@ -39,13 +41,16 @@ def obs_blocks(
     mask: torch.Tensor,  # (N,) 1.0 real / 0.0 padding
     inv_width,  # () 1 / avg_cam_width residual scale
     loss: RobustLoss = RobustLoss.TRIVIAL,
+    optimize_dist: bool = False,
 ) -> ObsBlocks:
     """Residual + analytic Jacobian blocks for a batch of observations.
 
     Whitening sqrt(w(s)) * mask * inv_width multiplies the residual and the
     J rows, so masked (padding) rows contribute exact zeros.  Radial
     distortion enters as A = s I + (2 k1 + 4 k2 r^2) m m^T between K2 and
-    the perspective-divide Jacobian.
+    the perspective-divide Jacobian.  ``optimize_dist`` appends the k1, k2
+    columns K2 m r^2 and K2 m r^4 (the operation order of ``ba_tt._tt_blocks``
+    and of ``csrc/slot.cuh tt_blocks``).
     """
     xc = torch.matmul(rmat, xyz[..., None])[..., 0] + tvec
     x, y, z = xc[:, 0], xc[:, 1], xc[:, 2]
@@ -103,7 +108,16 @@ def obs_blocks(
         [torch.stack([mdx, zero], dim=-1), torch.stack([zero, mdy], dim=-1)],
         dim=-2,
     )
-    j_cam = torch.cat([j_rot, dpi, j_f], dim=-1)  # (N, 2, 8)
+    cols = [j_rot, dpi, j_f]
+    if optimize_dist:
+        du_ds = fx * mx + sk * my
+        dv_ds = fy * my
+        cols.append(torch.stack(
+            [torch.stack([du_ds * r2, du_ds * r2 * r2], dim=-1),
+             torch.stack([dv_ds * r2, dv_ds * r2 * r2], dim=-1)],
+            dim=-2,
+        ))
+    j_cam = torch.cat(cols, dim=-1)  # (N, 2, 8 + 2 * optimize_dist)
     j_pt = torch.matmul(dpi, rmat)  # (N, 2, 3)
     sc = scale[:, None]
     return ObsBlocks(
@@ -124,12 +138,13 @@ def gather_obs_blocks(
     mask: torch.Tensor,  # (N,)
     inv_width,  # ()
     loss: RobustLoss = RobustLoss.TRIVIAL,
+    optimize_dist: bool = False,
 ) -> ObsBlocks:
     """Blocks for a flat observation list (gathers by index)."""
     ci = cam_idx.long()
     return obs_blocks(
         rmats[ci], tvecs[ci], fx_fy[ci], cx_cy_skew[ci], dist[ci],
-        points3d[pt_idx.long()], uv, mask, inv_width, loss,
+        points3d[pt_idx.long()], uv, mask, inv_width, loss, optimize_dist,
     )
 
 

@@ -247,6 +247,11 @@ def _check_config(config: BAConfig) -> None:
             "optimize_pp is supported by the track-table engines "
             "(ba_solve_tt / ba_solve_wtt) only"
         )
+    if config.optimize_dist:
+        raise ValueError(
+            "optimize_dist (k1, k2 as camera columns) is supported by the flat and "
+            "track-table engines (ba_solve / ba_solve_tt / ba_solve_wtt) only"
+        )
     if config.precond in ("tridiag", "ssor"):
         raise ValueError(
             f"precond={config.precond!r} is supported by the tt/wtt engines "

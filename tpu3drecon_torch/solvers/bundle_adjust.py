@@ -18,6 +18,10 @@ reference), ``BAState`` the same fields.  ``ba_solve`` is the flat
      trust-region accept/reject (``solvers/trust_region.py``, whose
      decisions are those of JAX's flat ``_ba_solve_impl``).
 
+The camera block is pose (6) and fx, fy; ``optimize_dist`` adds k1, k2
+(10 columns ``so3 | t | fx fy | k1 k2``, k stepped additively, as the
+track-table engines step it), which the JAX flat engine holds fixed.
+
 The JAX engine reaches no Pallas kernel: its linearization is XLA's.
 With ``comm`` (a ``parallel.mesh.Mesh``) it runs on one rank's block of an
 observation-sharded problem (``parallel/sharded_ba.py``): the segment sums
@@ -89,6 +93,8 @@ class BAState(NamedTuple):
 
 
 def _check_flat_config(config: BAConfig) -> None:
+    """Refuse what the flat engine does not take: a principal-point block
+    and the band preconditioners."""
     if config.optimize_pp:
         raise ValueError(
             "optimize_pp is supported by the track-table engines "
@@ -107,8 +113,10 @@ def ba_solve(
 ) -> Tuple[CameraParams, torch.Tensor, BAState]:
     """Flat-layout BA solve on ``device`` (default: the CUDA card); returns
     (cameras, points3d, state) with the trust-region trajectory of the JAX
-    ``ba_solve``.  ``comm``: the mesh of an observation-sharded problem
-    (``problem`` is then this rank's part), as JAX's ``axis_name``."""
+    ``ba_solve`` (under ``optimize_dist``, that of ``ba_solve_wtt`` at 10
+    camera columns: JAX's flat engine holds k1, k2 fixed).  ``comm``: the
+    mesh of an observation-sharded problem (``problem`` is then this rank's
+    part), as JAX's ``axis_name``."""
     from tpu3drecon_torch.solvers.trust_region import trust_region_solve
 
     _check_flat_config(config)
@@ -121,23 +129,31 @@ def ba_solve(
     # A linearization's arguments besides the parameters, contiguous as the
     # card's kernels take them (a no-op where they are).
     cam_idx, pt_idx = problem.cam_idx.contiguous(), problem.pt_idx.contiguous()
-    intrinsics = (cams.cx_cy_skew.contiguous(), cams.dist.contiguous())
+    ccs, dist0 = cams.cx_cy_skew.contiguous(), cams.dist.contiguous()
     obs = (cam_idx, pt_idx, problem.uv.contiguous(), problem.mask.contiguous(),
            1.0 / problem.avg_cam_width)
     flags = dict(loss=config.loss, optimize_focal=config.optimize_focal,
                  optimize_points=config.optimize_points)
 
+    # The LM parameters: (rmats, tvecs, fx_fy, points3d, k), k = (dist,)
+    # under optimize_dist, else () and dist0 held fixed (no tensor of the
+    # trust region's per-step selection).
+    def unpack(params):
+        rmats, tvecs, fx_fy, points3d, k = params
+        return rmats, tvecs, fx_fy, (k[0] if k else dist0), points3d
+
     def cost(params):
-        rmats, tvecs, fx_fy, points3d = params
-        r, _, _ = flat_linearize.flat_blocks(rmats, tvecs, fx_fy, *intrinsics, points3d,
-                                             *obs, **flags)
+        rmats, tvecs, fx_fy, dist, points3d = unpack(params)
+        r, _, _ = flat_linearize.flat_blocks(rmats, tvecs, fx_fy, ccs, dist, points3d, *obs,
+                                             **flags)
         return psum(0.5 * torch.sum(r * r), comm)
 
     def propose(params, lam):
         with span("lm.linearize"):
-            rmats, tvecs, fx_fy, points3d = params
-            sums = flat_linearize.linearize(rmats, tvecs, fx_fy, *intrinsics, points3d, *obs,
-                                            n_cameras, n_points, **flags)
+            rmats, tvecs, fx_fy, dist, points3d = unpack(params)
+            sums = flat_linearize.linearize(rmats, tvecs, fx_fy, ccs, dist, points3d, *obs,
+                                            n_cameras, n_points, **flags,
+                                            optimize_dist=config.optimize_dist)
             nb = schur.damp_normal_blocks(sums, lam, precond=config.precond, comm=comm)
         with span("lm.rhs"):
             grad_norm = torch.max(torch.abs(nb.g_cam))
@@ -164,17 +180,18 @@ def ba_solve(
         return (dc, dp), grad_norm, pred, out.iters
 
     def apply_step(params, delta):
-        rmats, tvecs, fx_fy, points3d = params
+        rmats, tvecs, fx_fy, points3d, k = params
         dc, dp = delta
-        new_r, new_t, new_f = apply_se3_retraction(rmats, tvecs, fx_fy, dc)
-        return (new_r, new_t, new_f, points3d + dp)
+        new_r, new_t, new_f = apply_se3_retraction(rmats, tvecs, fx_fy, dc[:, :8])
+        new_k = (k[0] + dc[:, 8:10],) if k else ()
+        return (new_r, new_t, new_f, points3d + dp, new_k)
 
     params0 = (cams.rmats.contiguous(), cams.tvecs.contiguous(), cams.fx_fy.contiguous(),
-               problem.points3d.contiguous())
+               problem.points3d.contiguous(), (dist0,) if config.optimize_dist else ())
     final = trust_region_solve(propose, apply_step, cost, params0, config, dtype, dev)
-    rmats, tvecs, fx_fy, points3d = final.params
+    rmats, tvecs, fx_fy, dist, points3d = unpack(final.params)
     cameras_out = CameraParams(rmats=rmats, tvecs=tvecs, fx_fy=fx_fy,
-                               cx_cy_skew=cams.cx_cy_skew, dist=cams.dist)
+                               cx_cy_skew=cams.cx_cy_skew, dist=dist)
     state = BAState(
         rmats=rmats, tvecs=tvecs, fx_fy=fx_fy, points3d=points3d, loss=final.loss,
         lam=final.lam, nu=final.nu, iter_num=final.iter_num, accepted=final.accepted,

@@ -6,8 +6,9 @@ bundle adjustment have the arrow structure
     [ U   W ] [dc]   [ -g_c ]
     [ W^T V ] [dp] = [ -g_p ]
 
-with U = blkdiag over cameras (8x8), V = blkdiag over points (3x3) and W
-one 8x3 coupling block per observation.  On the flat-observation layout
+with U = blkdiag over cameras (n x n, n the camera width: 8, or 10 with
+k1, k2), V = blkdiag over points (3x3) and W one n x 3 coupling block per
+observation.  Every function here takes either width from its blocks.  On the flat-observation layout
 U, V and the gradients are segment sums over ``cam_idx`` / ``pt_idx``
 (``ops/flat_linearize.py``: CUDA kernels on the card, ``index_add_`` on
 the CPU), and the reduced camera system
@@ -40,20 +41,20 @@ from tpu3drecon_torch.solvers.pcg import (
 class NormalBlocks(NamedTuple):
     """Damped normal-equation blocks for one linearization."""
 
-    u: torch.Tensor  # (C, 8, 8) damped camera blocks
+    u: torch.Tensor  # (C, n, n) damped camera blocks
     v: torch.Tensor  # (P, 3, 3) damped point blocks
-    w: torch.Tensor  # (N, 8, 3) per-observation coupling blocks
-    g_cam: torch.Tensor  # (C, 8) gradient J_c^T r
+    w: torch.Tensor  # (N, n, 3) per-observation coupling blocks
+    g_cam: torch.Tensor  # (C, n) gradient J_c^T r
     g_pt: torch.Tensor  # (P, 3) gradient J_p^T r
     v_inv: torch.Tensor  # (P, 3, 3) inverse of damped V
-    u_chol: torch.Tensor  # (C, 8, 8) cholesky of the preconditioner blocks
-    damp_cam: torch.Tensor  # (C, 8) diagonal damping actually added to U
+    u_chol: torch.Tensor  # (C, n, n) cholesky of the preconditioner blocks
+    damp_cam: torch.Tensor  # (C, n) diagonal damping actually added to U
     damp_pt: torch.Tensor  # (P, 3) diagonal damping actually added to V
 
 
 def build_normal_blocks(
     blocks_r: torch.Tensor,  # (N, 2)
-    blocks_jc: torch.Tensor,  # (N, 2, 8)
+    blocks_jc: torch.Tensor,  # (N, 2, n)
     blocks_jp: torch.Tensor,  # (N, 2, 3)
     cam_idx: torch.Tensor,
     pt_idx: torch.Tensor,
@@ -83,8 +84,8 @@ def damp_normal_blocks(
     clamp(diag), V^-1, and the preconditioner factor.
 
     ``precond="schur_jacobi"`` factors the exact diagonal blocks of
-    S = U - W V^-1 W^T, ``sums.coupling(v_inv)`` giving this rank's (C, 8,
-    8) sum W V^-1 W^T (a guarded Cholesky, falling back to damped U where a
+    S = U - W V^-1 W^T, ``sums.coupling(v_inv)`` giving this rank's (C, n,
+    n) sum W V^-1 W^T (a guarded Cholesky, falling back to damped U where a
     block is not SPD); ``"jacobi_u"`` factors damped U, and a block that
     fails gives a NaN factor (on and below the diagonal), as JAX's Cholesky
     does.
@@ -114,14 +115,14 @@ def damp_normal_blocks(
 
 def w_times(nb: NormalBlocks, y_pt: torch.Tensor, cam_idx: torch.Tensor,
             pt_idx: torch.Tensor, n_cameras: int, comm=None) -> torch.Tensor:
-    """(W y)_c: gather y by pt_idx, per-obs 8x3 @ 3, segment-sum by camera."""
+    """(W y)_c: gather y by pt_idx, per-obs n x 3 @ 3, segment-sum by camera."""
     per_obs = torch.sum(nb.w * y_pt[pt_idx.long()][:, None, :], dim=-1)
     return psum(segment_sum(per_obs, cam_idx, n_cameras), comm)
 
 
 def wt_times(nb: NormalBlocks, x_cam: torch.Tensor, cam_idx: torch.Tensor,
              pt_idx: torch.Tensor, n_points: int, comm=None) -> torch.Tensor:
-    """(W^T x)_p: gather x by cam_idx, per-obs 3x8 @ 8, segment-sum by point."""
+    """(W^T x)_p: gather x by cam_idx, per-obs 3 x n @ n, segment-sum by point."""
     per_obs = torch.sum(nb.w * x_cam[cam_idx.long()][:, :, None], dim=1)
     return psum(segment_sum(per_obs, pt_idx, n_points), comm)
 
@@ -144,14 +145,14 @@ def precond_apply(nb: NormalBlocks, r_cam: torch.Tensor) -> torch.Tensor:
 
 
 class PCGResult(NamedTuple):
-    x: torch.Tensor  # (C, 8)
+    x: torch.Tensor  # (C, n)
     iters: int
     rel_residual: torch.Tensor
 
 
 def schur_pcg(
     nb: NormalBlocks,
-    b_cam: torch.Tensor,  # (C, 8)
+    b_cam: torch.Tensor,  # (C, n)
     cam_idx: torch.Tensor,
     pt_idx: torch.Tensor,
     maxiter: int = 100,
@@ -170,7 +171,7 @@ def schur_pcg(
 
 def back_substitute_points(
     nb: NormalBlocks,
-    dc: torch.Tensor,  # (C, 8) camera step
+    dc: torch.Tensor,  # (C, n) camera step
     cam_idx: torch.Tensor,
     pt_idx: torch.Tensor,
     comm=None,
